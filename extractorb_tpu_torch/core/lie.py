@@ -72,6 +72,26 @@ def se3_exp(xi: torch.Tensor):
     return R, t
 
 
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (w,x,y,z), w >= 0: the
+    branch-free Shepperd selection of the most stable component."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], -1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], -1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], -1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], -1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                          1.0 - m00 - m11 + m22], -1)
+    k = torch.argmax(pivots, dim=-1)
+    cand = torch.stack([qw, qx, qy, qz], -2)  # (..., 4 pivots, 4 components)
+    q = torch.gather(cand, -2, k[..., None, None].expand(*k.shape, 1, 4))[..., 0, :]
+    q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-8)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
 def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     """SO(3) re-projection of a near-orthonormal R: two Newton-Schulz
     iterations, R <- R (1.5 I - 0.5 R^T R)."""

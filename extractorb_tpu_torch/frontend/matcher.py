@@ -1,7 +1,8 @@
 """Descriptor matching (port of ``extractorb_tpu/frontend/matcher.py``, the
-tracking subset).
+tracking and local-mapping subset).
 
-All four searches reduce to one primitive, kernel K3 ``hamming_best2``:
+The four tracking searches reduce to one primitive, kernel K3
+``hamming_best2``:
 for every query row, the best and second-best 256-bit Hamming distance
 over the candidate columns that pass a per-row gate (a strict box
 |u - x| < r, |v - y| < r, a level range [lo, hi], row and column
@@ -17,6 +18,11 @@ second) reports distance 1<<20 and index 0.
 
 Constants TH_LOW=50, TH_HIGH=100, HISTO_LENGTH=30 (ORBmatcher.cc:36-38),
 including the reference's 1/HISTO_LENGTH histogram factor quirk.
+
+The triangulation search of local mapping (``search_for_triangulation``,
+and with the triangulation gates ``tri_search``) is kernel K7: the
+epipolar-gated best match per keypoint and the per-column claim, without
+the dense distance matrix.
 """
 
 from __future__ import annotations
@@ -285,3 +291,171 @@ def search_by_projection_local_map(
     accept = (r.best <= TH_HIGH) & row_ok & ~ratio_fail
     final = _first_claim(r.best_idx, accept, N)
     return torch.where(final, r.best_idx, -1)
+
+
+# ------------------------------------------------- triangulation search (K7)
+
+
+class TriGeometry(NamedTuple):
+    """The two-view geometry of a triangulation job: keyframe 1 and B
+    neighbours.  P (3,4) = K [R | t], R world->camera, O camera centres,
+    scale_factors (L,) f32 and factor = 1.5 * scale_factors[1]."""
+    P1: torch.Tensor
+    P2: torch.Tensor     # (B,3,4)
+    R1: torch.Tensor
+    t1: torch.Tensor
+    R2: torch.Tensor     # (B,3,3)
+    t2: torch.Tensor     # (B,3)
+    O1: torch.Tensor
+    O2: torch.Tensor     # (B,3)
+    K: tuple             # (fx, fy, cx, cy) floats
+    scale_factors: torch.Tensor
+    factor: float
+
+
+def _tri_search_one(desc1, xy1, oct1, free1, desc2, xy2, oct2, free2, F12, sigma2):
+    """search_for_triangulation for one pair, dense (the plain version)."""
+    N1, N2 = xy1.shape[0], xy2.shape[0]
+    dev = xy1.device
+    dist = hamming_matrix(desc1, desc2)
+    # epipolar lines in image 2, l = F12^T [x1 y1 1], summed in a fixed order
+    la = xy1[:, 0] * F12[0, 0] + xy1[:, 1] * F12[1, 0] + F12[2, 0]
+    lb = xy1[:, 0] * F12[0, 1] + xy1[:, 1] * F12[1, 1] + F12[2, 1]
+    lc = xy1[:, 0] * F12[0, 2] + xy1[:, 1] * F12[1, 2] + F12[2, 2]
+    num = la[:, None] * xy2[None, :, 0] + lb[:, None] * xy2[None, :, 1] + lc[:, None]
+    den = torch.clamp(la * la + lb * lb, min=1e-12)
+    d2 = num * num / den[:, None]
+    sig2 = sigma2[oct2.clamp(0, sigma2.shape[0] - 1).long()]
+    mask = (d2 < 3.84 * sig2[None, :]) & free1[:, None] & free2[None, :]
+    d = torch.where(mask, dist, INF)
+    cols = torch.arange(N2, device=dev)
+    key = (d.long() * N2 + cols).amin(1)
+    best, best_idx = key // N2, key % N2
+    accept = best <= TH_LOW
+    # one kp2 per kp1: min distance, then the earlier kp1
+    claim = best * N1 + torch.arange(N1, device=dev)
+    big = torch.iinfo(torch.int64).max
+    winner = torch.full((N2 + 1,), big, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, torch.where(accept, best_idx, N2), torch.where(accept, claim, big),
+                           "amin")
+    final = accept & (winner[best_idx] == claim)
+    return torch.where(final, best_idx, -1).to(torch.int32)
+
+
+def _tri_gates(m12, xy1, oct1, xy2, oct2, g: TriGeometry, b: int, sigma2):
+    """Triangulation and the acceptance gates of CreateNewMapPoints
+    (local_mapping.py:226-245 of the JAX package) for neighbour b."""
+    from ..geometry.two_view import _norm3, triangulate
+
+    N2, L = xy2.shape[0], sigma2.shape[0]
+    j = m12.clamp(0, N2 - 1).long()
+    x2, o2 = xy2[j], oct2[j]
+    X = triangulate(g.P1, g.P2[b], xy1, x2)
+    r1, r2 = X - g.O1, X - g.O2[b]
+    n1, n2 = _norm3(r1), _norm3(r2)
+    cos_par = (r1[:, 0] * r2[:, 0] + r1[:, 1] * r2[:, 1] + r1[:, 2] * r2[:, 2]) \
+        / torch.clamp(n1 * n2, min=1e-12)
+
+    def cam_point(R, t):
+        return torch.stack([X[:, 0] * R[i, 0] + X[:, 1] * R[i, 1] + X[:, 2] * R[i, 2] + t[i]
+                            for i in range(3)], -1)
+
+    pc1, pc2 = cam_point(g.R1, g.t1), cam_point(g.R2[b], g.t2[b])
+    ok = (m12 >= 0) & (pc1[:, 2] > 0) & (pc2[:, 2] > 0) & (cos_par < 0.9998)
+    fx, fy, cx, cy = g.K
+    for pc, x, octv in ((pc1, xy1, oct1), (pc2, x2, o2)):
+        z = torch.clamp(pc[:, 2], min=1e-9)
+        u = fx * pc[:, 0] / z + cx
+        v = fy * pc[:, 1] / z + cy
+        s2 = sigma2[octv.clamp(0, L - 1).long()]
+        ok = ok & ((u - x[:, 0]) ** 2 + (v - x[:, 1]) ** 2 <= 5.991 * s2)
+    ratio_dist = n2 / torch.clamp(n1, min=1e-12)
+    sf = g.scale_factors
+    ratio_oct = sf[oct1.clamp(0, L - 1).long()] / sf[o2.clamp(0, L - 1).long()]
+    ok = ok & (ratio_dist < ratio_oct * g.factor) & (ratio_dist * g.factor > ratio_oct)
+    return X, ok
+
+
+def tri_search_plain(desc1, xy1, oct1, free1, desc2B, xy2B, oct2B, free2B, F12B, sigma2,
+                     geom: Optional[TriGeometry] = None):
+    """Plain version of ``tri_search`` (same arguments)."""
+    out_m, out_X, out_ok = [], [], []
+    for b in range(desc2B.shape[0]):
+        m = _tri_search_one(desc1, xy1, oct1, free1, desc2B[b], xy2B[b], oct2B[b], free2B[b],
+                            F12B[b], sigma2)
+        out_m.append(m)
+        if geom is not None:
+            X, ok = _tri_gates(m, xy1, oct1, xy2B[b], oct2B[b], geom, b, sigma2)
+            out_X.append(X)
+            out_ok.append(ok)
+    m12 = torch.stack(out_m)
+    if geom is None:
+        return m12, None, None
+    return m12, torch.stack(out_X), torch.stack(out_ok)
+
+
+def tri_search(desc1, xy1, oct1, free1, desc2B, xy2B, oct2B, free2B, F12B, sigma2,
+               geom: Optional[TriGeometry] = None):
+    """SearchForTriangulation of keyframe 1 against B neighbours, and with
+    ``geom`` the triangulation of the matches and its acceptance gates.
+
+    Replaces ``extractorb_tpu/frontend/matcher.py:search_for_triangulation``
+    and, with ``geom``, ``slam/local_mapping.py:_triangulation_program``.
+    desc1 (N1,32) u8, xy1 (N1,2), oct1 (N1,) i32, free1 (N1,) bool;
+    desc2B (B,N2,32), xy2B (B,N2,2), oct2B (B,N2), free2B (B,N2); F12B
+    (B,3,3); sigma2 (L,) per-level sigma^2.  Returns m12 (B,N1) int32
+    (index into the neighbour or -1) and, with ``geom``, X (B,N1,3) and
+    ok (B,N1) bool (else None, None).  On CUDA tensors this launches K7;
+    on the CPU it runs ``tri_search_plain``."""
+    if not desc1.is_cuda:
+        return tri_search_plain(desc1, xy1, oct1, free1, desc2B, xy2B, oct2B, free2B, F12B,
+                                sigma2, geom)
+    N1, (B, N2) = desc1.shape[0], desc2B.shape[:2]
+    dev = desc1.device
+    f32 = lambda a: a.to(torch.float32).contiguous()
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    b8 = lambda a: a.to(torch.bool).contiguous()
+    args = [desc1.contiguous(), f32(xy1), i32(oct1), b8(free1), desc2B.contiguous(), f32(xy2B),
+            i32(oct2B), b8(free2B), f32(F12B), f32(sigma2)]
+    for k in (0, 4):   # the kernel reads descriptors as 4-byte words
+        if args[k].data_ptr() % 4:
+            args[k] = args[k].clone()
+    gf = gb = None
+    fx = fy = cx = cy = factor = 0.0
+    if geom is not None:
+        gf = torch.cat([f32(geom.P1).reshape(-1), f32(geom.R1).reshape(-1), f32(geom.t1),
+                        f32(geom.O1), f32(geom.scale_factors)])
+        gb = torch.cat([f32(geom.P2).reshape(-1), f32(geom.R2).reshape(-1),
+                        f32(geom.t2).reshape(-1), f32(geom.O2).reshape(-1)])
+        fx, fy, cx, cy = (float(v) for v in geom.K)
+        factor = float(geom.factor)
+        kernels.require_cuda("tri_search", *args, gf, gb)
+    else:
+        kernels.require_cuda("tri_search", *args)
+    ws = torch.empty(2 * B * N1 + B * N2, dtype=torch.int32, device=dev)
+    m12 = torch.empty(B, N1, dtype=torch.int32, device=dev)
+    X = torch.empty(B, N1, 3, dtype=torch.float32, device=dev)
+    ok = torch.empty(B, N1, dtype=torch.bool, device=dev)
+    p = [a.data_ptr() for a in args]
+    err = kernels.lib().tri_search_launch(
+        *p[:4], N1, *p[4:8], N2, B, p[8], p[9], sigma2.shape[0],
+        None if gf is None else gf.data_ptr(), None if gb is None else gb.data_ptr(),
+        fx, fy, cx, cy, factor, ws.data_ptr(), m12.data_ptr(), X.data_ptr(), ok.data_ptr(),
+        kernels.stream())
+    kernels.check(err, "tri_search")
+    kernels.LAUNCHES["tri_search"] += 1
+    if geom is None:
+        return m12, None, None
+    return m12, X, ok
+
+
+def search_for_triangulation(desc1, xy1, octave1, free1, desc2, xy2, octave2, free2, F12,
+                             sigma2_levels):
+    """ORBmatcher::SearchForTriangulation (reference ORBmatcher.cc:965) for
+    one keyframe pair: unassociated keypoints matched under the epipolar
+    constraint dist(kp2, F12^T kp1)^2 < 3.84 sigma2[octave2], best
+    distance <= TH_LOW, min-distance conflict resolution per kp2.
+    Returns (N1,) int32 index into keyframe 2 or -1 (K7 on the card)."""
+    m12, _, _ = tri_search(desc1, xy1, octave1, free1, desc2[None], xy2[None], octave2[None],
+                           free2[None], F12[None], sigma2_levels)
+    return m12[0]

@@ -1,7 +1,11 @@
-"""numpy <-> port conversions of the state a tracking step carries.
+"""numpy <-> port conversions of the state a tracking step carries, and
+of the map state (``SLAMMap`` / ``KeyFrame``).
 
-With these, the JAX step and the port can be fed byte-identical state:
-the caller builds numpy arrays once and hands them to both.
+With these, the JAX package and the port can be fed byte-identical state:
+the caller builds numpy arrays once and hands them to both.  The map
+conversions read any object with the map's attributes, so a JAX map
+(whose keyframe features are JAX arrays, read with ``np.asarray``) can be
+carried into the port without this module importing jax.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import numpy as np
 import torch
 
 from .frontend.extractor import Features
+from .slam.map import KeyFrame, SLAMMap
 from .slam.track_device import FusedOut, LocalBlock
 
 _FEATURE_DTYPES = {
@@ -75,3 +80,58 @@ def to_numpy(out) -> Dict[str, np.ndarray]:
         else:
             res[k] = v.cpu().numpy()
     return res
+
+
+# ------------------------------------------------------------ map state
+
+_KF_ARRAYS = ("R", "t", "xy_un", "octave", "angle", "desc", "valid", "kp_mp")
+_KF_SCALARS = ("kid", "frame_id", "timestamp", "is_bad", "parent")
+_MAP_ARRAYS = ("mp_pos", "mp_desc", "mp_normal", "mp_max_dist", "mp_valid", "mp_first_kf",
+               "mp_visible", "mp_found")
+_MAP_SCALARS = ("mid", "scale_factor", "_next_kf", "_next_mp", "version")
+
+
+def keyframe_to_numpy(kf) -> Dict:
+    """A keyframe's state as numpy arrays and Python scalars (a JAX or a
+    port ``KeyFrame``); its features under ``feats`` as a dict."""
+    d = {k: np.array(getattr(kf, k)) for k in _KF_ARRAYS}
+    d.update({k: getattr(kf, k) for k in _KF_SCALARS})
+    d["loop_edges"] = list(kf.loop_edges)
+    d["feats"] = {k: np.array(getattr(kf.feats, k)) for k in _FEATURE_DTYPES}
+    return d
+
+
+def keyframe_from_numpy(d: Mapping, device) -> KeyFrame:
+    """The port's ``KeyFrame`` from ``keyframe_to_numpy`` state (features
+    on ``device``)."""
+    kf = KeyFrame(feats=features_from_numpy(d["feats"], device),
+                  **{k: np.array(d[k]) for k in _KF_ARRAYS},
+                  **{k: d[k] for k in _KF_SCALARS})
+    kf.loop_edges = list(d["loop_edges"])
+    return kf
+
+
+def map_to_numpy(mp) -> Dict:
+    """A map's state (a JAX or a port ``SLAMMap``) as numpy arrays, Python
+    scalars and dicts; keyframes as ``keyframe_to_numpy`` dicts."""
+    d = {k: np.array(getattr(mp, k)) for k in _MAP_ARRAYS}
+    d.update({k: getattr(mp, k) for k in _MAP_SCALARS})
+    d["obs"] = {int(m): {int(k): int(kp) for k, kp in o.items()} for m, o in mp.obs.items()}
+    d["dead_kfs"] = {int(k): (int(p), np.array(R), np.array(t))
+                     for k, (p, R, t) in mp.dead_kfs.items()}
+    d["keyframes"] = {int(k): keyframe_to_numpy(kf) for k, kf in mp.keyframes.items()}
+    return d
+
+
+def map_from_numpy(d: Mapping, device) -> SLAMMap:
+    """The port's ``SLAMMap`` from ``map_to_numpy`` state."""
+    mp = SLAMMap(capacity=len(d["mp_valid"]), scale_factor=d["scale_factor"])
+    for k in _MAP_ARRAYS:
+        setattr(mp, k, np.array(d[k]))
+    for k in _MAP_SCALARS:
+        setattr(mp, k, d[k])
+    mp.obs = {m: dict(o) for m, o in d["obs"].items()}
+    mp.dead_kfs = {k: (p, np.array(R), np.array(t)) for k, (p, R, t) in d["dead_kfs"].items()}
+    mp.keyframes = {k: keyframe_from_numpy(kd, device) for k, kd in d["keyframes"].items()}
+    return mp
+

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-All kernels are compiled by one ``nvcc`` call into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library is built
+All kernels are compiled into one shared library with a plain C
+interface, loaded with ``ctypes``: one ``nvcc -c`` per source, run in
+parallel, then one link.  The library is built
 at first use into ``build/kernels/`` beside the package (listed in
 ``.gitignore``) and rebuilt when a source file or the flags change: its
 file name carries a hash of both.  Nothing here runs at import time, so
@@ -28,9 +29,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-# No --use_fast_math, and no contraction of a*b+c into FMAs: K2 must round
-# like its plain PyTorch version (K1 and K3 are integer code; K4 is bound
-# by latency, not by float throughput).
+# No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5 and K7
+# must round like their plain PyTorch versions (K1, K3 and K8 are integer
+# code or copies; K4 and K6 are bound by latency, not float throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
@@ -41,7 +42,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes of each C entry point; every one ends with the stream
+_L = ctypes.c_longlong
+# argtypes of each C entry point; every launch entry point ends with the stream
 _SIGNATURES = {
     # pyr, score, keep, tab(host ptr), n_blocks, smem_bytes, stream
     "fast_detect_launch": (_P, _P, _P, _P, _I, _I, _P),
@@ -55,7 +57,28 @@ _SIGNATURES = {
     # n_rounds, n_iters, R, t, inliers, n_inliers, stream
     "pose_lm_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                        _I, _I, _P, _P, _P, _P, _P),
+    # xn1, xn2, x1, x2, valid, sets, mats, S, N, fx, fy, cx, cy, ws,
+    # success, R21, t21, points, tri, used_h, stream
+    "two_view_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P,
+                        _P, _P, _P, _P, _P, _P, _P),
+    # R, t, pts, obs_kf, obs_mp, obs_uv, isig, valid, fixed_kf, fixed_mp, K, P, O,
+    # fx, fy, cx, cy, n_iters, cg_iters, use_huber, chi2_th, ws, inliers, cost, stream
+    "ba_pcg_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _F, _F, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P),
+    # desc1, xy1, oct1, free1, N1, desc2, xy2, oct2, free2, N2, B, F12, sigma2,
+    # n_lvl, geom_f, geom_b, fx, fy, cx, cy, factor, ws, m12, X, ok, stream
+    "tri_search_launch": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
+                          _I, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P),
+    # ptrs (host array), counts (host array), kinds (host array), n, out, stream
+    "pack_i32_launch": (_P, _P, _P, _I, _P, _P),
+    # pos, valid, cap, rows, new_pos, new_valid, b, stream
+    "mirror_scatter_launch": (_P, _P, _I, _P, _P, _P, _I, _P),
+    # workspace sizes in bytes
+    "two_view_workspace_bytes": (_I, _I),
+    "ba_workspace_bytes": (_I, _I, _I, _I),
 }
+# return types other than the launch status (an int cudaError_t)
+_RESTYPES = {"two_view_workspace_bytes": _L, "ba_workspace_bytes": _L}
 
 _lib = None
 _lock = threading.Lock()
@@ -85,20 +108,35 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it is up to date."""
+    """Compile csrc/*.cu into the shared library unless it is up to date:
+    one ``nvcc -c`` per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for src, _, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(o) for _, o, _ in procs]],
+                          capture_output=True, text=True)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, out)
     return out
 
@@ -112,7 +150,7 @@ def lib() -> ctypes.CDLL:
             for name, args in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(args)
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = handle
     return _lib
 

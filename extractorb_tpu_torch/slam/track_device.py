@@ -17,18 +17,23 @@ motion and reference pose problems share one K4 launch.
 
 Per frame, on the card: K1 x1, K2 x1, K3 x5, K4 x2.
 
-Stereo, RGB-D and inertial variants, ``MapMirror`` and
-``build_local_block`` (which need the map module) are not ported yet.
+``MapMirror`` keeps the device copy of the map's point positions and
+validity that the step reads; it updates only the rows that changed
+since its last sync, with kernel K8 ``mirror_scatter``.
+``build_local_block`` gathers the local-map point block on the host.
+
+Stereo, RGB-D and inertial variants are not ported yet (ROADMAP A.8).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import CameraConfig, ORBConfig
 from ..core.camera import Pinhole, undistort_points_pinhole
 from ..frontend import matcher as fm
@@ -67,6 +72,7 @@ class LocalBlock(NamedTuple):
     norm: torch.Tensor
     maxd: torch.Tensor
     val: torch.Tensor
+    ids_host: Optional[np.ndarray] = None  # (M,) int32 ids on the host
 
 
 def _scatter_drop(base: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -212,3 +218,132 @@ def get_track_step(cam_cfg: CameraConfig, orb_cfg: ORBConfig, img_shape, map_cap
         step = TrackStep(cam_cfg, orb_cfg, tuple(img_shape), map_cap, local_cap, device)
         _STEP_CACHE[key] = step
     return step
+
+
+# --------------------------------------------------------- device mirror
+
+
+def mirror_scatter_plain(pos, valid, rows, new_pos, new_valid) -> None:
+    """Plain version of ``mirror_scatter``."""
+    keep = (rows >= 0) & (rows < pos.shape[0])
+    r = rows[keep].long()
+    pos[r] = new_pos[keep]
+    valid[r] = new_valid[keep]
+
+
+def mirror_scatter(pos, valid, rows, new_pos, new_valid) -> None:
+    """In place: ``pos[rows[i]] = new_pos[i]``, ``valid[rows[i]] =
+    new_valid[i]``; rows outside [0, len(pos)) are dropped.  pos (cap,3)
+    f32, valid (cap,) bool, rows (b,) int32, new_pos (b,3), new_valid (b,).
+    On CUDA tensors this launches K8 ``mirror_scatter``; on the CPU it
+    runs the plain version."""
+    if not pos.is_cuda:
+        return mirror_scatter_plain(pos, valid, rows, new_pos, new_valid)
+    args = [rows.to(torch.int32).contiguous(), new_pos.to(torch.float32).contiguous(),
+            new_valid.contiguous()]
+    kernels.require_cuda("mirror_scatter", pos, valid, *args)
+    if pos.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError("mirror_scatter: the mirror is (cap,3) float32 and (cap,) bool")
+    err = kernels.lib().mirror_scatter_launch(
+        pos.data_ptr(), valid.data_ptr(), pos.shape[0], args[0].data_ptr(),
+        args[1].data_ptr(), args[2].data_ptr(), args[0].shape[0], kernels.stream())
+    kernels.check(err, "mirror_scatter")
+    kernels.LAUNCHES["mirror_scatter"] += 1
+
+
+class MapMirror:
+    """Device mirror of a map's point block (positions + validity).
+
+    Updated only when the map version changes (keyframe events), so
+    ordinary frames move no map data; updates are incremental (only the
+    rows that changed since the last sync are uploaded, through
+    ``mirror_scatter``; the JAX module pads them to a row bucket for its
+    compiled programs, which eager PyTorch does not need).  The capacity
+    is padded to a static ladder, so a tracking step is rebuilt only when
+    the map outgrows a rung.  ``n_scatter`` counts the incremental
+    updates."""
+
+    LADDER = (32768, 65536, 131072, 262144)
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._key = None
+        self.cap = 0
+        self.pos = None
+        self.valid = None
+        self._h_pos = None     # host shadow of the device state
+        self._h_valid = None
+        self.n_scatter = 0
+
+    @staticmethod
+    def _pad_cap(n: int) -> int:
+        for c in MapMirror.LADDER:
+            if n <= c:
+                return c
+        return int(np.ceil(n / MapMirror.LADDER[-1])) * MapMirror.LADDER[-1]
+
+    def _full_upload(self, mp, cap: int):
+        pos = np.zeros((cap, 3), np.float32)
+        valid = np.zeros((cap,), bool)
+        n = mp._next_mp
+        pos[: len(mp.mp_pos)] = mp.mp_pos
+        valid[:n] = mp.mp_valid[:n]
+        self.pos = torch.from_numpy(pos).to(self.device)
+        self.valid = torch.from_numpy(valid).to(self.device)
+        self._h_pos = pos
+        self._h_valid = valid
+        self.cap = cap
+
+    def sync(self, mp) -> None:
+        key = (mp.mid, mp.version)
+        if key == self._key:
+            return
+        cap = self._pad_cap(len(mp.mp_valid))
+        same_map = (
+            self._key is not None and self._key[0] == mp.mid
+            and cap == self.cap and self._h_pos is not None
+        )
+        self._key = key
+        if not same_map:
+            self._full_upload(mp, cap)
+            return
+        n = mp._next_mp
+        changed = (mp.mp_valid[:n] != self._h_valid[:n]) | np.any(
+            mp.mp_pos[:n] != self._h_pos[:n], axis=1)
+        rows = np.where(changed)[0]
+        if len(rows) > n // 3 and len(rows) > 4096:
+            self._full_upload(mp, cap)
+            return
+        if not len(rows):
+            return
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        mirror_scatter(self.pos, self.valid, to_dev(rows.astype(np.int32)),
+                       to_dev(mp.mp_pos[rows]), to_dev(mp.mp_valid[rows]))
+        self.n_scatter += 1
+        self._h_pos[rows] = mp.mp_pos[rows]
+        self._h_valid[rows] = mp.mp_valid[rows]
+
+
+def build_local_block(mp, local_kfs, M: int, device) -> Optional[LocalBlock]:
+    """Gather the local-map point block (reference UpdateLocalPoints,
+    Tracking.cc:3000) into fixed-capacity device tensors."""
+    pt_ids = mp.points_seen_by(local_kfs)
+    if len(pt_ids) == 0:
+        return None
+    pt_ids = pt_ids[:M]
+    k = len(pt_ids)
+    pos = np.zeros((M, 3), np.float32)
+    desc = np.zeros((M, 32), np.uint8)
+    norm = np.zeros((M, 3), np.float32)
+    maxd = np.ones((M,), np.float32)
+    val = np.zeros((M,), bool)
+    ids = np.zeros((M,), np.int32)
+    pos[:k] = mp.mp_pos[pt_ids]
+    desc[:k] = mp.mp_desc[pt_ids]
+    norm[:k] = mp.mp_normal[pt_ids]
+    maxd[:k] = mp.mp_max_dist[pt_ids]
+    val[:k] = mp.mp_valid[pt_ids]
+    ids[:k] = pt_ids
+    to_dev = lambda a: torch.from_numpy(a).to(device)
+    return LocalBlock(ids=to_dev(ids), pos=to_dev(pos), desc=to_dev(desc), norm=to_dev(norm),
+                      maxd=to_dev(maxd), val=to_dev(val), ids_host=ids)

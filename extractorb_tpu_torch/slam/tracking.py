@@ -1,0 +1,844 @@
+"""Monocular tracking: the per-frame hot path
+(port of ``extractorb_tpu/slam/tracking.py``, monocular subset).
+
+Replaces Tracking (reference: src/Tracking.cc:1390-1907 Track(), :2018
+MonocularInitialization, :2437 TrackWithMotionModel, :2308
+TrackReferenceKeyFrame, :2532 TrackLocalMap, :2647 NeedNewKeyFrame).
+The host runs the state machine; the dense stages run on the device:
+extraction (K1, K2), the searches (K3), pose optimisation (K4), the
+two-view initialisation (K5), bundle adjustment (K6), the triangulation
+search (K7) and the map mirror and packed fetches (K8).
+
+The steady state is the fused step (``TrackStep``): one call per frame,
+confirmed by one packed fetch.  Frames that fail its gates replay through
+the reference-exact path (``_track_existing``).
+
+Not in this slice, and raising ``NotImplementedError`` with the ROADMAP
+item: stereo/RGB-D sensors (A.8), the IMU (A.11), a vocabulary (A.9),
+the KB8 camera (A.12), ``octree="host"`` (not ported: it is the JAX
+package's oracle), ``pipeline_depth > 0`` (A.7) and relocalization
+(A.10, ``solver/pnp.py`` is B.30).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import enum
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import SLAMConfig
+from ..core.camera import Pinhole, undistort_points_pinhole
+from ..frontend import matcher as fm
+from ..frontend.extractor import Features, ORBExtractor
+from ..geometry import two_view as tv
+from ..solver import pose_opt as spo
+from ..utils.packed_fetch import pack_fetch
+from . import local_mapping
+from . import track_device as td
+from .map import INVALID, Atlas, KeyFrame, SLAMMap
+
+
+class TrackState(enum.Enum):
+    NO_IMAGES_YET = 0
+    NOT_INITIALIZED = 1
+    OK = 2
+    RECENTLY_LOST = 3
+    LOST = 4
+
+
+@dataclasses.dataclass
+class Frame:
+    frame_id: int
+    timestamp: float
+    feats: Features            # device
+    xy_un: np.ndarray          # (N,2) undistorted (host)
+    octave: np.ndarray
+    angle: np.ndarray
+    desc: np.ndarray
+    valid: np.ndarray
+    kp_mp: np.ndarray          # (N,) associated map point or -1
+    R: Optional[np.ndarray] = None
+    t: Optional[np.ndarray] = None
+    # device-resident copies for the fused step: undistorted coords and
+    # associations stay on the device between frames; host copies are
+    # fetched on demand
+    un_dev: Optional[torch.Tensor] = None
+    kp_mp_dev: Optional[torch.Tensor] = None
+    kp_mp_dirty: bool = False               # host kp_mp modified since fetch
+    host_ready: bool = True
+
+    def host_handles(self):
+        """Device tensors of the feature arrays, in ``set_host`` order."""
+        un = self.un_dev if self.un_dev is not None else self.feats.xy
+        return (un, self.feats.octave, self.feats.angle, self.feats.desc, self.feats.valid)
+
+    def set_host(self, vals):
+        """Install already-fetched host copies (host_handles order)."""
+        xy_un, octave, angle, desc, valid = vals[:5]
+        self.xy_un = np.asarray(xy_un, np.float32)
+        self.octave = np.asarray(octave)
+        self.angle = np.asarray(angle)
+        self.desc = np.asarray(desc)
+        self.valid = np.asarray(valid)
+        self.host_ready = True
+
+    def ensure_host(self):
+        """Materialise the host copies of the feature arrays (one packed
+        fetch); no-op for frames that have them."""
+        if self.host_ready:
+            return
+        fetch_kp = self.kp_mp is None and self.kp_mp_dev is not None
+        handles = self.host_handles()
+        n_base = len(handles)
+        if fetch_kp:
+            handles = handles + (self.kp_mp_dev,)
+        vals = pack_fetch(handles)
+        self.set_host(vals[:n_base])
+        if fetch_kp:
+            self.kp_mp = np.asarray(vals[n_base]).copy()
+
+
+@dataclasses.dataclass
+class _PipeEntry:
+    """One dispatched fused frame: the step's outputs plus what the
+    confirmation needs to commit it."""
+    frame: Frame
+    out: object                # track_device.FusedOut (device tensors)
+    ts: float
+    prev_frame: Frame          # chain predecessor (for the velocity)
+    blk_ids: np.ndarray        # local-block ids used at dispatch
+
+
+def _unported(cfg: SLAMConfig, vocab) -> Optional[str]:
+    if cfg.sensor != "monocular":
+        return f"sensor {cfg.sensor!r}: only 'monocular' is ported (ROADMAP A.8, A.11)"
+    if cfg.imu is not None:
+        return "the IMU is not ported (ROADMAP A.11)"
+    if vocab is not None:
+        return "place recognition / loop closing with a vocabulary is not ported (ROADMAP A.9)"
+    if cfg.camera.model == "KannalaBrandt8":
+        return "the KannalaBrandt8 camera is not ported (ROADMAP A.12)"
+    if cfg.orb.octree != "device":
+        return "octree='host' is not ported (ROADMAP: 'Not to be ported'; the JAX oracle)"
+    if cfg.tracking.pipeline_depth > 0:
+        return "tracking.pipeline_depth > 0 is not ported (ROADMAP A.7)"
+    return None
+
+
+class Tracker:
+    def __init__(self, cfg: SLAMConfig, vocab=None, device=None):
+        why = _unported(cfg, vocab)
+        if why is not None:
+            raise NotImplementedError(why)
+        self.cfg = cfg
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        cam_cfg = cfg.camera
+        self.cam = Pinhole.from_config(cam_cfg)
+        self.dist = (cam_cfg.k1, cam_cfg.k2, cam_cfg.p1, cam_cfg.p2, cam_cfg.k3)
+        self.has_dist = abs(cam_cfg.k1) > 1e-12
+        fx, fy, cx, cy = cam_cfg.fx, cam_cfg.fy, cam_cfg.cx, cam_cfg.cy
+        self.K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+        self.img_wh = (float(cam_cfg.width), float(cam_cfg.height))
+        self._init_orb = dataclasses.replace(cfg.orb, n_features=5 * cfg.orb.n_features)
+        self._extractors = {}      # (init, image shape) -> ORBExtractor
+        scales = td.scale_factors(cfg.orb)
+        self.scale_factors = tuple(float(s) for s in scales)
+        sig = [s * s for s in self.scale_factors]
+        self.inv_sigma2 = tuple(1.0 / v for v in sig)
+
+        self.state = TrackState.NO_IMAGES_YET
+        self.atlas = Atlas()
+        # counts of the device work the tracker dispatched: "two_view"
+        # (init attempts), "ba" (solves), "tri_groups" (triangulation launches)
+        self.stats: collections.Counter = collections.Counter()
+        self.local_mapper = local_mapping.LocalMapper(
+            self.cam, self.scale_factors, self.inv_sigma2, self.K, self.device, self.stats)
+        self._next_frame_id = 0
+        self.init_frame: Optional[Frame] = None
+        self.prev_matched: Optional[np.ndarray] = None
+        self.last_frame: Optional[Frame] = None
+        self.ref_kf: Optional[int] = None
+        self.velocity: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self.last_kf_frame_id = 0
+        self.trajectory: List[Tuple[float, np.ndarray, np.ndarray]] = []
+        # each frame pose relative to its reference keyframe: (ts, map mid,
+        # kf_id, R_rel, t_rel), kf_id -1 for an absolute pose
+        self.traj_rel: List[Tuple[float, int, int, np.ndarray, np.ndarray]] = []
+        self._rng = np.random.default_rng(0)
+
+        # fused device tracking step
+        self._mirror = td.MapMirror(self.device)
+        self._fused_local = None   # (key, LocalBlock) cache
+        self._ref_blk = None       # (key, device ref-KF block) cache
+        self._ref_tracked_cache = None
+        self._pipe: List[_PipeEntry] = []
+        # (last_frame_id, R, t) of the frame BEFORE last_frame
+        self._prev_pose = None
+        self._fused_local_cap = 4096
+
+    # ------------------------------------------------------------ frames
+
+    def _extractor(self, shape, init: bool) -> ORBExtractor:
+        key = (init, tuple(shape))
+        ext = self._extractors.get(key)
+        if ext is None:
+            ext = ORBExtractor(self._init_orb if init else self.cfg.orb, tuple(shape), self.device)
+            self._extractors[key] = ext
+        return ext
+
+    def _make_frame(self, img: np.ndarray, ts: float, init: bool = False,
+                    lazy: bool = False) -> Frame:
+        feats = self._extractor(img.shape, init)(torch.from_numpy(np.ascontiguousarray(img)))
+        un_dev = (undistort_points_pinhole(feats.xy, self.cam, self.dist)
+                  if self.has_dist else feats.xy)
+        f = Frame(
+            frame_id=self._next_frame_id, timestamp=ts, feats=feats,
+            xy_un=None, octave=None, angle=None, desc=None, valid=None,
+            kp_mp=np.full(feats.valid.shape[0], INVALID, np.int32),
+            un_dev=un_dev, host_ready=False,
+        )
+        self._next_frame_id += 1
+        if not lazy:
+            f.ensure_host()
+        return f
+
+    def _t(self, a, dtype=None) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(device=self.device, dtype=dtype)
+
+    # ------------------------------------------------------------- entry
+
+    def _check_timestamps(self, ts: float) -> bool:
+        """Clock-sanity guard, visual-only branch (reference
+        Tracking.cc:1415-1451): a timestamp regression starts a fresh
+        Atlas map and drops the frame; a jump is processed normally."""
+        if self.state == TrackState.NO_IMAGES_YET or self.last_frame is None:
+            return False
+        if self.last_frame.timestamp > ts:
+            self._reset_map()
+            return True
+        return False
+
+    def track(self, img: np.ndarray, ts: float):
+        """GrabImageMonocular + Track (reference Tracking.cc:1038, :1390)."""
+        if self._check_timestamps(ts):
+            return self.state
+        if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
+            self._monocular_initialization(img, ts)
+            return self.state
+        if self._fused_applicable():
+            st = self._track_fused(img, ts)
+            if st is not None:
+                return st
+        # leaving the fused fast path: settle any dispatched frames first
+        self._confirm_pipe()
+        frame = self._make_frame(img, ts)
+        return self._track_existing(frame, ts)
+
+    # --------------------------------------------------- fused fast path
+
+    def _fused_applicable(self) -> bool:
+        """The fused step covers the steady state: OK with a motion model
+        and the previous frame device-resident.  The previous frame's
+        capacity may differ (the first frame after initialisation chains
+        from the 5x init extractor's arrays)."""
+        last = self.last_frame
+        return (
+            self.cfg.tracking.use_fused
+            and self.state == TrackState.OK
+            and self.velocity is not None
+            and last is not None
+            and (last.R is not None or bool(self._pipe))
+            and last.un_dev is not None
+        )
+
+    def _track_fused(self, img: np.ndarray, ts: float):
+        """One fused step: extract -> motion-model search -> pose opt ->
+        local-map search -> pose opt, confirmed by one packed fetch.
+        Returns the new state, or None to take the legacy path before any
+        work was done."""
+        mp = self.atlas.current
+        if self.ref_kf is None:
+            return None
+        if self.ref_kf not in mp.keyframes:  # culled by local mapping
+            if not mp.keyframes:
+                return None
+            self.ref_kf = max(mp.keyframes.keys())
+        self._mirror.sync(mp)
+        key = (mp.mid, mp.version, self.ref_kf)
+        if self._fused_local is None or self._fused_local[0] != key:
+            local_kfs = [self.ref_kf] + [
+                k for k, _ in mp.covisible_keyframes(self.ref_kf, min_weight=1)[:10]]
+            blk = td.build_local_block(mp, local_kfs, self._fused_local_cap, self.device)
+            if blk is None:
+                return None
+            self._fused_local = (key, blk)
+        blk = self._fused_local[1]
+        step = td.get_track_step(self.cfg.camera, self.cfg.orb, img.shape, self._mirror.cap,
+                                 self._fused_local_cap, self.device)
+        ref_desc, ref_valid, ref_kp = self._ref_block(mp)
+        last = self.last_frame
+        R1, t1 = last.R, last.t
+        if self._prev_pose is not None and self._prev_pose[0] == last.frame_id:
+            # the actual predecessor pose: the in-step velocity
+            # R_last R_prev^T then matches the host formula exactly
+            _, Rp, tp = self._prev_pose
+        else:
+            Rv, tv_ = self.velocity
+            Rp = (Rv.T @ R1).astype(np.float32)
+            tp = (Rv.T @ (t1 - tv_)).astype(np.float32)
+        f32 = lambda a: self._t(np.asarray(a, np.float32))
+        last_kp = (last.kp_mp_dev if last.kp_mp_dev is not None and not last.kp_mp_dirty
+                   else self._t(last.kp_mp.astype(np.int32)))
+        out = step(
+            torch.from_numpy(np.ascontiguousarray(img)),
+            last.un_dev, last.feats.desc, last.feats.octave, last.feats.angle, last_kp,
+            self._mirror.pos, self._mirror.valid,
+            blk.ids, blk.pos, blk.desc, blk.norm, blk.maxd, blk.val,
+            ref_desc, ref_valid, ref_kp,
+            f32(R1), f32(t1), f32(Rp), f32(tp),
+        )
+        frame = Frame(
+            frame_id=self._next_frame_id, timestamp=ts, feats=out.feats,
+            xy_un=None, octave=None, angle=None, desc=None, valid=None,
+            kp_mp=None, un_dev=out.xy_un, kp_mp_dev=out.kp_mp, host_ready=False,
+        )
+        self._next_frame_id += 1
+        self._pipe.append(_PipeEntry(frame=frame, out=out, ts=ts, prev_frame=last,
+                                     blk_ids=blk.ids_host))
+        self.last_frame = frame
+        self.state = TrackState.OK
+        self._confirm_pipe()
+        return self.state
+
+    def _ref_block(self, mp: SLAMMap):
+        """Device block of the reference keyframe's map-point-bearing
+        keypoints (descriptors + map-point ids) for the in-step
+        TrackReferenceKeyFrame fallback; cached per (map version, ref_kf)."""
+        key = (mp.mid, mp.version, self.ref_kf)
+        if self._ref_blk is not None and self._ref_blk[0] == key:
+            return self._ref_blk[1]
+        kf = mp.keyframes[self.ref_kf]
+        N = self.cfg.orb.n_features + self.cfg.orb.n_levels * 16
+        desc = np.zeros((N, 32), np.uint8)
+        valid = np.zeros((N,), bool)
+        kp_mp_arr = np.full((N,), -1, np.int32)
+        idx = np.where(kf.valid & (kf.kp_mp >= 0))[0][:N]
+        k = len(idx)
+        if k:
+            desc[:k] = kf.desc[idx]
+            mpids = kf.kp_mp[idx]
+            live = mp.mp_valid[mpids]
+            valid[:k] = live
+            kp_mp_arr[:k] = np.where(live, mpids, -1)
+        blk = (self._t(desc), self._t(valid), self._t(kp_mp_arr))
+        self._ref_blk = (key, blk)
+        return blk
+
+    def flush(self):
+        """Settle dispatched frames and the in-flight window BA."""
+        self._confirm_pipe()
+        self.local_mapper.flush_ba(self.atlas.current)
+
+    def _confirm_pipe(self):
+        """One packed fetch confirms the dispatched frames: gates,
+        velocity/trajectory commits, keyframe decisions.  A frame that
+        fails its gates is replayed through the legacy state machine.
+        The in-flight window BA result rides the same fetch."""
+        if not self._pipe:
+            return
+        pending, self._pipe = self._pipe, []
+        # kp_mp + lm_searched ride along for every entry: the found/visible
+        # counters must tick every frame (MapPointCulling's probation)
+        payload = [
+            [e.out.R, e.out.t, e.out.n_match_motion, e.out.n_inl_motion, e.out.n_inl_final,
+             e.out.used_ref, e.out.n_pre, e.out.kp_mp, e.out.lm_searched]
+            for e in pending
+        ]
+        n_gate = len(payload)
+        ba_handles = self.local_mapper.pending_ba_handles()
+        if ba_handles:
+            payload.append(ba_handles)
+        # the cadence keyframe trigger is known from frame ids: prefetch
+        # that frame's feature host copies on the same fetch
+        spec_idx = None
+        for i, e in enumerate(pending):
+            if e.frame.frame_id >= self.last_kf_frame_id + self.cfg.tracking.max_frames:
+                spec_idx = i
+                break
+        if spec_idx is not None:
+            payload.append(pending[spec_idx].frame.host_handles())
+        fetched = pack_fetch(payload)
+        extra = n_gate
+        if ba_handles:
+            self.local_mapper.apply_ba_fetched(self.atlas.current, fetched[extra])
+            extra += 1
+        spec_vals = fetched[extra] if spec_idx is not None else None
+        kf_created = False
+        for i, (e, (R, t, n_match, n1, n2, used_ref, n_pre, kp_mp_h, lm_searched)) in enumerate(
+                zip(pending, fetched[:n_gate])):
+            frame = e.frame
+            # motion-model gates (reference Tracking.cc:2475-2528) or the
+            # in-step TrackReferenceKeyFrame fallback's (>=10 inliers,
+            # :2308); TrackLocalMap then needs >=30 final inliers (:2612)
+            ok = int(n2) >= 30 and (
+                (int(n_match) >= 20 and int(n1) >= 10) or (bool(used_ref) and int(n_pre) >= 10))
+            if not ok:
+                self._replay(pending[i:])
+                return
+            frame.R = np.asarray(R).copy()
+            frame.t = np.asarray(t).copy()
+            self.state = TrackState.OK
+            prev = e.prev_frame
+            Rv = frame.R @ prev.R.T
+            self.velocity = (Rv, frame.t - Rv @ prev.t)
+            self._prev_pose = (frame.frame_id, prev.R.copy(), prev.t.copy())
+            mp = self.atlas.current
+            # per-frame found/visible bookkeeping (IncreaseVisible/Found)
+            frame.kp_mp = np.asarray(kp_mp_h).copy()
+            ids = e.blk_ids[np.asarray(lm_searched)]
+            ids = ids[ids < len(mp.mp_visible)]
+            mp.mp_visible[ids] += 1
+            found = frame.kp_mp[frame.kp_mp >= 0]
+            found = found[found < len(mp.mp_found)]
+            mp.mp_found[found] += 1
+            # at most one keyframe per confirmation batch
+            if not kf_created and self._need_new_keyframe(frame, tracked=int(n2)):
+                kf_created = True
+                vals = spec_vals if i == spec_idx else pack_fetch(frame.host_handles())
+                frame.set_host(vals)
+                self._create_keyframe(frame)
+            self._record_traj(e.ts, frame.R, frame.t)
+            if i == len(pending) - 1:
+                self.last_frame = frame
+
+    def _replay(self, entries):
+        """Re-run dispatched frames through the legacy state machine
+        (reference falls back to TrackReferenceKeyFrame / relocalization
+        on a failed motion-model track, Tracking.cc:1549)."""
+        prev = entries[0].prev_frame
+        prev.ensure_host()
+        self.last_frame = prev
+        for e in entries:
+            f = e.frame
+            f.ensure_host()
+            f.R = f.t = None
+            f.kp_mp[:] = INVALID
+            f.kp_mp_dirty = True
+            self._track_existing(f, e.ts)
+
+    def _track_existing(self, frame: Frame, ts: float):
+        """Shared post-initialization state machine (Track(), :1390)."""
+        if self.state in (TrackState.RECENTLY_LOST, TrackState.LOST):
+            self._relocalize(frame)
+        ok = self._track_frame(frame)
+        if ok:
+            self.state = TrackState.OK
+        else:
+            self._enter_lost()
+        self.last_frame = frame
+        if frame.R is not None and ok:
+            self._record_traj(ts, frame.R, frame.t)
+        return self.state
+
+    def _enter_lost(self):
+        """Track-failure transition (reference Tracking.cc:1576-1605): a
+        mature map (>10 KFs) holds RECENTLY_LOST, else LOST.  Either state
+        needs relocalization on the next frame (not ported, ROADMAP A.10)."""
+        mp = self.atlas.current
+        self.state = TrackState.RECENTLY_LOST if len(mp.keyframes) > 10 else TrackState.LOST
+
+    def _relocalize(self, frame: Frame) -> bool:
+        raise NotImplementedError(
+            "relocalization is not ported (ROADMAP A.10: solver/pnp.py is B.30)")
+
+    # ---------------------------------------------------- initialization
+
+    def _monocular_initialization(self, img, ts):
+        """Reference MonocularInitialization (Tracking.cc:2018).  Frames
+        are extracted lazily; the window search runs on the device and
+        one packed fetch lands the match vector with both frames' host
+        copies."""
+        frame = self._make_frame(img, ts, init=True, lazy=True)
+        n_kps = int(frame.feats.valid.sum())
+        if self.init_frame is None or self.state == TrackState.NO_IMAGES_YET:
+            if n_kps >= 100:
+                self.init_frame = frame
+                self.prev_matched = None  # host copy lands on the fetch
+                self.state = TrackState.NOT_INITIALIZED
+            self.last_frame = frame
+            return
+        if n_kps <= 100:
+            self.init_frame = None
+            self.state = TrackState.NO_IMAGES_YET
+            self.last_frame = frame
+            return
+
+        f1, f2 = self.init_frame, frame
+        un1 = f1.un_dev if f1.un_dev is not None else f1.feats.xy
+        un2 = f2.un_dev if f2.un_dev is not None else f2.feats.xy
+        prev = self._t(self.prev_matched) if self.prev_matched is not None else un1
+        m12_dev = fm.search_for_initialization(
+            f1.feats.desc, un1, f1.feats.angle, f1.feats.octave, f1.feats.valid,
+            f2.feats.desc, un2, f2.feats.angle, f2.feats.octave, f2.feats.valid,
+            100, prev,
+        )
+        fetch = pack_fetch(
+            [m12_dev]
+            + [list(f1.host_handles()) if not f1.host_ready else []]
+            + [list(f2.host_handles()) if not f2.host_ready else []]
+        )
+        m12 = np.asarray(fetch[0])
+        if not f1.host_ready:
+            f1.set_host(fetch[1])
+        if not f2.host_ready:
+            f2.set_host(fetch[2])
+        if self.prev_matched is None:
+            self.prev_matched = f1.xy_un.copy()
+        if (m12 >= 0).sum() < 100:
+            self.init_frame = None
+            self.state = TrackState.NO_IMAGES_YET
+            self.last_frame = frame
+            return
+        # update prev_matched like the reference
+        idx1 = np.where(m12 >= 0)[0]
+        self.prev_matched[idx1] = f2.xy_un[m12[idx1]]
+
+        cap = 1024
+        sel = idx1[:cap]
+        x1 = np.zeros((cap, 2), np.float32)
+        x2 = np.zeros((cap, 2), np.float32)
+        vmask = np.zeros(cap, bool)
+        x1[: len(sel)] = f1.xy_un[sel]
+        x2[: len(sel)] = f2.xy_un[m12[sel]]
+        vmask[: len(sel)] = True
+        sets = tv.sample_sets(int(self._rng.integers(1 << 30)), vmask).to(self.device)
+        res = tv.reconstruct(sets, self._t(x1), self._t(x2), self._t(vmask),
+                             torch.from_numpy(self.K))
+        self.stats["two_view"] += 1
+        success, R21, t21, tri, pts = pack_fetch(
+            [res.success, res.R21, res.t21, res.is_triangulated, res.points3d])
+        if not bool(success):
+            self.last_frame = frame
+            return
+        self._create_initial_map(f1, f2, sel, m12, R21, t21, tri, pts)
+        self.last_frame = frame
+
+    def _create_initial_map(self, f1: Frame, f2: Frame, sel, m12, R21, t21, tri, pts):
+        """Reference CreateInitialMapMonocular (Tracking.cc:2099)."""
+        mp = self.atlas.current
+        f1.R, f1.t = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+        f2.R, f2.t = R21.astype(np.float32), t21.astype(np.float32)
+        kf1 = self._promote(f1, mp)
+        kf2 = self._promote(f2, mp)
+        for j, i1 in enumerate(sel):
+            if not tri[j]:
+                continue
+            i2 = int(m12[i1])
+            mid = mp.add_point(pts[j], f2.desc[i2], np.zeros(3, np.float32), 1.0, kf2.kid)
+            mp.add_observation(mid, kf1.kid, int(i1))
+            mp.add_observation(mid, kf2.kid, i2)
+
+        # global BA on the 2-KF map (the JAX package's 12 LM x 40 PCG)
+        local_mapping.run_ba(mp, [kf1.kid, kf2.kid], set(), self.cam, self.inv_sigma2,
+                             self.device, n_iters=12, cg_iters=40, stats=self.stats)
+
+        # median-depth normalisation (reference Tracking.cc:2166-2195)
+        valid_ids = np.where(mp.mp_valid[: mp._next_mp])[0]
+        if len(valid_ids) < 50:
+            self._reset_map()
+            return
+        pc1 = mp.mp_pos[valid_ids] @ kf1.R.T + kf1.t
+        median_depth = float(np.median(pc1[:, 2]))
+        if median_depth <= 0:
+            self._reset_map()
+            return
+        inv_md = 1.0 / median_depth
+        kf2.t = kf2.t * inv_md
+        mp.mp_pos[valid_ids] *= inv_md
+        mp.update_point_stats_batch(valid_ids)
+
+        f2.R, f2.t = kf2.R.copy(), kf2.t.copy()
+        f1.kp_mp = kf1.kp_mp
+        f2.kp_mp = kf2.kp_mp
+        self.ref_kf = kf2.kid
+        self.last_kf_frame_id = f2.frame_id
+        # seed the motion model from the two init frames, so the first
+        # post-init frame takes the fused step
+        Rv = (f2.R @ f1.R.T).astype(np.float32)
+        self.velocity = (Rv, (f2.t - Rv @ f1.t).astype(np.float32))
+        self._prev_pose = (f2.frame_id, f1.R.copy(), f1.t.copy())
+        self.state = TrackState.OK
+        self._record_traj(f1.timestamp, f1.R, f1.t)
+        self._record_traj(f2.timestamp, f2.R, f2.t)
+
+    def _record_traj(self, ts: float, R: np.ndarray, t: np.ndarray):
+        """Append to both trajectory forms (absolute for live reads,
+        reference-keyframe-relative for corrected saves)."""
+        self.trajectory.append((ts, R.copy(), t.copy()))
+        mp = self.atlas.current
+        k = self.ref_kf
+        if k is not None and k in mp.keyframes:
+            kf = mp.keyframes[k]
+            R_rel = (R @ kf.R.T).astype(np.float32)
+            t_rel = (t - R_rel @ kf.t).astype(np.float32)
+            self.traj_rel.append((ts, mp.mid, k, R_rel, t_rel))
+        else:
+            self.traj_rel.append((ts, mp.mid, -1, R.copy(), t.copy()))
+
+    def final_trajectory(self) -> List[Tuple[float, np.ndarray, np.ndarray]]:
+        """Frame poses with all map corrections applied (reference
+        SaveTrajectoryTUM, src/System.cc:480): each stored relative pose
+        composed with its reference keyframe's current pose, walking the
+        tombstones of culled keyframes up the spanning tree."""
+        self._confirm_pipe()
+        out = []
+        for i, (ts, mid, kf_id, R_rel, t_rel) in enumerate(self.traj_rel):
+            mp = self.atlas.map_by_mid(mid)
+            if kf_id < 0:
+                out.append((ts, R_rel, t_rel))
+                continue
+            if mp is None:
+                _, Ra, ta = self.trajectory[i]
+                out.append((ts, Ra, ta))
+                continue
+            R_acc, t_acc = R_rel, t_rel
+            k = kf_id
+            guard = 0
+            while k >= 0 and k not in mp.keyframes and k in mp.dead_kfs and guard < 1000:
+                pk, R_cp, t_cp = mp.dead_kfs[k]
+                t_acc = (R_acc @ t_cp + t_acc).astype(np.float32)
+                R_acc = (R_acc @ R_cp).astype(np.float32)
+                k = pk
+                guard += 1
+            kf = mp.keyframes.get(k)
+            if kf is None:
+                _, Ra, ta = self.trajectory[i]
+                out.append((ts, Ra, ta))
+            else:
+                out.append((ts, (R_acc @ kf.R).astype(np.float32),
+                            (R_acc @ kf.t + t_acc).astype(np.float32)))
+        return out
+
+    def _reset_map(self):
+        self._pipe = []
+        self.local_mapper.discard_ba()
+        self.atlas.create_new_map()
+        self.init_frame = None
+        self.state = TrackState.NO_IMAGES_YET
+        self.ref_kf = None
+        self.velocity = None
+
+    def _promote(self, f: Frame, mp: SLAMMap) -> KeyFrame:
+        kf = KeyFrame(
+            kid=-1, frame_id=f.frame_id, timestamp=f.timestamp,
+            R=f.R.copy(), t=f.t.copy(), feats=f.feats,
+            xy_un=f.xy_un, octave=f.octave, angle=f.angle,
+            desc=f.desc, valid=f.valid, kp_mp=f.kp_mp.copy(),
+        )
+        mp.add_keyframe(kf)
+        # share the association array so frame/keyframe stay consistent;
+        # mapping mutates it on the host, so the device copy is stale now
+        f.kp_mp = kf.kp_mp
+        f.kp_mp_dirty = True
+        return kf
+
+    # ----------------------------------------------------------- tracking
+
+    def _track_frame(self, frame: Frame) -> bool:
+        if self.last_frame is not None:
+            # the fused step leaves frames device-resident
+            self.last_frame.ensure_host()
+        ok = False
+        if self.velocity is not None and self.last_frame is not None:
+            ok = self._track_with_motion_model(frame)
+        if not ok and self.last_frame is not None:
+            ok = self._track_reference_keyframe(frame)
+        if not ok or not self._track_local_map(frame):
+            self.velocity = None
+            return False
+        # motion model (reference: mVelocity = Tcw * Twl)
+        lR, lt = self.last_frame.R, self.last_frame.t
+        if lR is not None:
+            Rv = frame.R @ lR.T
+            self.velocity = (Rv, frame.t - Rv @ lt)
+            self._prev_pose = (frame.frame_id, lR.copy(), lt.copy())
+        if self._need_new_keyframe(frame):
+            self._create_keyframe(frame)
+        return True
+
+    def _predict_pose(self):
+        Rv, tv_ = self.velocity
+        lR, lt = self.last_frame.R, self.last_frame.t
+        return (Rv @ lR).astype(np.float32), (Rv @ lt + tv_).astype(np.float32)
+
+    def _track_with_motion_model(self, frame: Frame) -> bool:
+        """Reference TrackWithMotionModel (Tracking.cc:2437)."""
+        mp = self.atlas.current
+        last = self.last_frame
+        R, t = self._predict_pose()
+        frame.R, frame.t = R, t
+        lm_idx = np.where(last.kp_mp >= 0)[0]
+        if len(lm_idx) < 10:
+            return False
+        M = 2048
+        lm_idx = lm_idx[:M]
+        mp_ids = last.kp_mp[lm_idx]
+        mp_pos = np.zeros((M, 3), np.float32)
+        mp_desc = np.zeros((M, 32), np.uint8)
+        mp_oct = np.zeros((M,), np.int32)
+        mp_ang = np.zeros((M,), np.float32)
+        mp_val = np.zeros((M,), bool)
+        k = len(lm_idx)
+        mp_pos[:k] = mp.mp_pos[mp_ids]
+        mp_desc[:k] = last.desc[lm_idx]   # reference matches vs LAST FRAME desc
+        mp_oct[:k] = last.octave[lm_idx]
+        mp_ang[:k] = last.angle[lm_idx]
+        mp_val[:k] = mp.mp_valid[mp_ids]
+        args = [self._t(a) for a in (mp_pos, mp_desc, mp_val, mp_oct, mp_ang, R, t, frame.xy_un)]
+
+        def run(th):
+            m = fm.search_by_projection_last_frame(
+                *args, frame.feats.desc, frame.feats.octave, frame.feats.angle,
+                frame.feats.valid, self.cam, self.scale_factors, self.img_wh, th)
+            return m.cpu().numpy()
+
+        matches = run(15.0)
+        if (matches >= 0).sum() < 20:
+            matches = run(30.0)  # reference widens the window
+        if (matches >= 0).sum() < 20:
+            return False
+        frame.kp_mp[:] = INVALID
+        rows = np.where(matches >= 0)[0]
+        frame.kp_mp[matches[rows]] = mp_ids[rows]
+        return self._pose_opt(frame, min_inliers=10)
+
+    def _track_reference_keyframe(self, frame: Frame) -> bool:
+        """Reference TrackReferenceKeyFrame (Tracking.cc:2308); BoW match
+        replaced by a mutual-best descriptor match, as in the JAX package."""
+        mp = self.atlas.current
+        if self.ref_kf is None or self.ref_kf not in mp.keyframes:
+            return False
+        kf = mp.keyframes[self.ref_kf]
+        m12, _ = fm.mutual_best_match(frame.feats.desc, frame.feats.valid, self._t(kf.desc),
+                                      self._t(kf.valid))
+        m12 = m12.cpu().numpy()
+        frame.kp_mp[:] = INVALID
+        for i, j in enumerate(m12):
+            if j >= 0 and kf.kp_mp[j] >= 0 and mp.mp_valid[kf.kp_mp[j]]:
+                frame.kp_mp[i] = kf.kp_mp[j]
+        if (frame.kp_mp >= 0).sum() < 15:
+            return False
+        last = self.last_frame
+        frame.R = last.R.copy() if last.R is not None else np.eye(3, dtype=np.float32)
+        frame.t = last.t.copy() if last.t is not None else np.zeros(3, np.float32)
+        return self._pose_opt(frame, min_inliers=10)
+
+    def _track_local_map(self, frame: Frame) -> bool:
+        """Reference TrackLocalMap (Tracking.cc:2532)."""
+        mp = self.atlas.current
+        if self.ref_kf is None:
+            return False
+        if self.ref_kf not in mp.keyframes:  # culled by local mapping
+            if not mp.keyframes:
+                return False
+            self.ref_kf = max(mp.keyframes.keys())
+        local_kfs = [self.ref_kf] + [
+            k for k, _ in mp.covisible_keyframes(self.ref_kf, min_weight=1)[:10]]
+        M = 4096
+        blk = td.build_local_block(mp, local_kfs, M, self.device)
+        if blk is None:
+            return False
+        n_pts = min(len(mp.points_seen_by(local_kfs)), M)
+        pt_ids = blk.ids_host[:n_pts]
+        # points already matched in the frame are not searched again
+        mp_val = np.zeros(M, bool)
+        mp_val[:n_pts] = mp.mp_valid[pt_ids] & ~np.isin(pt_ids, frame.kp_mp[frame.kp_mp >= 0])
+        kp_free = frame.valid & (frame.kp_mp < 0)
+        matches = fm.search_by_projection_local_map(
+            blk.pos, blk.desc, self._t(mp_val), blk.norm, blk.maxd,
+            self._t(frame.R), self._t(frame.t), self._t(frame.xy_un), frame.feats.desc,
+            frame.feats.octave, self._t(kp_free), self.cam, self.scale_factors, self.img_wh,
+        ).cpu().numpy()
+        rows = np.where(matches >= 0)[0]
+        frame.kp_mp[matches[rows]] = pt_ids[rows]
+        mp.mp_visible[pt_ids[mp_val[:n_pts]]] += 1
+        ok = self._pose_opt(frame, min_inliers=30)
+        if ok:
+            mp.mp_found[frame.kp_mp[frame.kp_mp >= 0]] += 1
+        return ok
+
+    def _pose_opt(self, frame: Frame, min_inliers: int) -> bool:
+        """Motion-only BA; drops outlier associations like the reference."""
+        mp = self.atlas.current
+        idx = np.where(frame.kp_mp >= 0)[0]
+        if len(idx) < min_inliers:
+            return False
+        N = 2048
+        idx = idx[:N]
+        pts = np.zeros((N, 3), np.float32)
+        uv = np.zeros((N, 2), np.float32)
+        isig = np.ones((N,), np.float32)
+        val = np.zeros((N,), bool)
+        k = len(idx)
+        pts[:k] = mp.mp_pos[frame.kp_mp[idx]]
+        uv[:k] = frame.xy_un[idx]
+        isig[:k] = np.asarray(self.inv_sigma2, np.float32)[
+            np.clip(frame.octave[idx], 0, len(self.inv_sigma2) - 1)]
+        val[:k] = True
+        f32 = lambda a: self._t(np.asarray(a, np.float32))[None]
+        res = spo.optimize_pose(f32(frame.R), f32(frame.t), f32(pts), f32(uv), f32(isig),
+                                self._t(val)[None], self.cam)
+        inl, R_new, t_new = pack_fetch([res.inliers[0], res.R[0], res.t[0]])
+        inl = inl[:k]
+        frame.R = np.asarray(R_new)
+        frame.t = np.asarray(t_new)
+        frame.kp_mp[idx[~inl]] = INVALID
+        return int(inl.sum()) >= min_inliers
+
+    # ---------------------------------------------------------- keyframes
+
+    def _need_new_keyframe(self, frame: Frame, tracked: Optional[int] = None) -> bool:
+        """Reference NeedNewKeyFrame (Tracking.cc:2647), mono subset.
+        ``tracked`` lets the fused path pass the device-counted inlier
+        total so the frame's associations need no host copy."""
+        mp = self.atlas.current
+        if tracked is None:
+            tracked = int((frame.kp_mp >= 0).sum())
+        if self.ref_kf is None or self.ref_kf not in mp.keyframes:
+            return False
+        ref = mp.keyframes[self.ref_kf]
+        rt_key = (mp.mid, mp.version, self.ref_kf)
+        if self._ref_tracked_cache is None or self._ref_tracked_cache[0] != rt_key:
+            mids = ref.kp_mp[ref.kp_mp >= 0]
+            ref_tracked = int(sum(1 for m in mids
+                                  if mp.mp_valid[m] and mp.n_observations(int(m)) >= 3))
+            self._ref_tracked_cache = (rt_key, ref_tracked)
+        ref_tracked = self._ref_tracked_cache[1]
+        c1a = frame.frame_id >= self.last_kf_frame_id + self.cfg.tracking.max_frames
+        c1b = frame.frame_id >= self.last_kf_frame_id + self.cfg.tracking.min_frames
+        c2 = tracked < ref_tracked * 0.9 and tracked > 15
+        return bool((c1a or (c1b and c2)) and tracked > 15)
+
+    def _create_keyframe(self, frame: Frame):
+        mp = self.atlas.current
+        frame.ensure_host()
+        kf = self._promote(frame, mp)
+        touched = []
+        for kp in np.where(kf.kp_mp >= 0)[0]:
+            mid = int(kf.kp_mp[kp])
+            if mp.mp_valid[mid]:
+                mp.add_observation(mid, kf.kid, int(kp))
+                touched.append(mid)
+            else:
+                kf.kp_mp[kp] = INVALID
+        mp.update_point_stats_batch(touched)
+        self.ref_kf = kf.kid
+        self.last_kf_frame_id = frame.frame_id
+        self.local_mapper.process_keyframe(mp, kf.kid)

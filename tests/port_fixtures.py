@@ -215,3 +215,33 @@ def camera_centre_error(R, t, pose) -> float:
     Rt, tt = pose
     c_est = -np.asarray(R, np.float64).T @ np.asarray(t, np.float64)
     return float(np.linalg.norm(c_est - (-Rt.T @ tt)))
+
+
+def umeyama_align(est: np.ndarray, gt: np.ndarray) -> np.ndarray:
+    """Sim3 alignment (scale, R, t) of est (n,3) onto gt (n,3); returns the
+    aligned est (the alignment of tests/test_slam_e2e.py)."""
+    mu_e, mu_g = est.mean(0), gt.mean(0)
+    xe, xg = est - mu_e, gt - mu_g
+    U, D, Vt = np.linalg.svd(xg.T @ xe / len(est))
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    s = np.trace(np.diag(D) @ S) / ((xe ** 2).sum() / len(est))
+    return (s * (R @ est.T)).T + mu_g - s * R @ mu_e
+
+
+def trajectory_ate(trajectory, poses, fps: float = 30.0):
+    """ATE (m) of a tracker trajectory [(ts, R, t)] after Sim3 alignment
+    against the true poses (frame k at ts = k / fps), and the scene scale
+    (distance between the first and last true camera centres)."""
+    est = np.array([-np.asarray(R, np.float64).T @ np.asarray(t, np.float64)
+                    for _, R, t in trajectory])
+    gt = []
+    for ts, _, _ in trajectory:
+        R, t = poses[int(round(ts * fps))]
+        gt.append(-R.T @ t)
+    gt = np.array(gt)
+    aligned = umeyama_align(est, gt)
+    ate = float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean()))
+    return ate, float(np.linalg.norm(gt[-1] - gt[0]))

@@ -152,6 +152,20 @@ def test_merged_features_bit_equal_full_size():
     assert got["valid"].sum() >= 0.95 * cfg.n_features
 
 
+def test_init_extractor_5x_bit_equal():
+    """The tracker's init extractor: 640x480 at 5x the features (5000,
+    capacity 5128, slam/tracking.py:178 of the JAX package)."""
+    cfg = ORBConfig(n_features=5000)
+    imgs, _, _ = pf.render_sequence(pf.procedural_texture(), 1, width=640, height=480)
+    jf = jext.ORBExtractor(cfg)(jnp.asarray(imgs[0]))
+    ex = ORBExtractor(cfg, (480, 640), "cpu")
+    got = interop.to_numpy(ex(torch.from_numpy(imgs[0])))
+    assert ex.capacity == 5128 and got["valid"].shape == (5128,)
+    for k in ("xy", "octave", "valid", "desc", "response", "size", "angle"):
+        np.testing.assert_array_equal(got[k], np.asarray(getattr(jf, k)), err_msg=k)
+    assert got["valid"].sum() >= 0.9 * cfg.n_features
+
+
 @pytest.mark.gpu
 def test_fast_and_describe_kernels_match_plain(frame, cuda_device):
     ex = ORBExtractor(CFG, (H, W), cuda_device)

@@ -48,7 +48,10 @@ def test_every_module_imports_without_jax_cv2_triton_or_nvcc(tmp_path):
                          capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == f"ok {len(MODULES)}"
-    assert len(MODULES) >= 15
+    assert len(MODULES) >= 20
+    for m in ("geometry.two_view", "solver.ba", "slam.map", "slam.local_mapping",
+              "slam.tracking", "slam.system", "utils.packed_fetch"):
+        assert f"extractorb_tpu_torch.{m}" in MODULES, m
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")))

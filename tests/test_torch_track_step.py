@@ -9,6 +9,8 @@ map-point ids.  chip_smoke.track_sequence then tracks the full-size 640x480,
 ``chip_smoke.py`` holds the card to.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from extractorb_tpu.config import ORBConfig as JORBConfig
 from extractorb_tpu.slam import track_device as jtd
 from extractorb_tpu_torch import interop
 from extractorb_tpu_torch.config import ORBConfig
+from extractorb_tpu_torch.frontend.extractor import ORBExtractor
 from extractorb_tpu_torch.slam.track_device import TrackStep, get_track_step
 from torch_card import cuda_device  # noqa: F401  (pytest fixture)
 
@@ -127,6 +130,41 @@ def test_reference_keyframe_fallback_matches_jax(scene):
     assert p["used_ref"] and j["used_ref"]
     assert int(p["n_pre"]) == int(j["n_pre"]) > 50
     _assert_agree(p, j)
+
+
+def test_step_chained_from_init_capacity_frame():
+    """The first fused step after initialisation chains from the init
+    extractor's frame: 5x the features, 5128 slots at 640x480
+    (slam/tracking.py:461-466 of the JAX package).  The step runs 1000
+    features (1128 slots); the reference block holds the tracker's 1128
+    rows."""
+    w, h = 640, 480
+    frames, depths, poses = pf.render_sequence(pf.procedural_texture(), 2, width=w, height=h)
+    cfg = ORBConfig(n_features=1000)
+    init_ex = ORBExtractor(dataclasses.replace(cfg, n_features=5000), (h, w), "cpu")
+    f0 = interop.to_numpy(init_ex(torch.from_numpy(frames[0])))
+    assert f0["valid"].shape == (5128,)
+    kp_mp, map_pos, map_valid, local, _ = pf.seed_map(
+        f0["xy"], f0["octave"], f0["valid"], f0["desc"], depths[0], poses[0],
+        pf.camera_matrix(w, h), init_ex.scales, MAP_CAP, 2 * LOCAL_CAP)
+    idx = np.where(f0["valid"] & (kp_mp >= 0))[0][:1128]
+    ref = dict(desc=np.zeros((1128, 32), np.uint8), valid=np.zeros(1128, bool),
+               kp_mp=np.full(1128, -1, np.int32))
+    ref["desc"][:len(idx)], ref["valid"][:len(idx)] = f0["desc"][idx], True
+    ref["kp_mp"][:len(idx)] = kp_mp[idx]
+    st = dict(last=dict(xy_un=f0["xy"], desc=f0["desc"], octave=f0["octave"], angle=f0["angle"]),
+              kp_mp=kp_mp, map_pos=map_pos, map_valid=map_valid, local=local, ref=ref)
+    cam = chip_smoke.camera_config(w, h)
+    port = TrackStep(cam, cfg, (h, w), MAP_CAP, 2 * LOCAL_CAP, "cpu")
+    jcam = JCameraConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=w, height=h)
+    jstep = jtd.get_track_step(jcam, JORBConfig(n_features=1000), (h, w), MAP_CAP,
+                               2 * LOCAL_CAP, depth_mode="none")
+    args = _inputs(frames[1], st, poses[0], pf.true_pose(-1))
+    p = interop.to_numpy(port(*args))
+    j = _jax_out(jstep(*[jnp.asarray(a.numpy()) for a in args]))
+    _assert_agree(p, j)
+    assert p["feats.valid"].shape == (1128,) and not p["used_ref"]
+    assert pf.camera_centre_error(p["R"], p["t"], poses[1]) < pf.MAX_CENTER_ERR
 
 
 def test_get_track_step_caches_per_configuration():
