@@ -1,0 +1,153 @@
+"""Frame times and device idle share of the port's System on one card.
+
+    python3 chip_profile.py [--out profile.json]
+
+Runs ``System.track_monocular``, ``track_stereo`` and ``track_rgbd``
+from a cold map over the 30 rendered 640x480 frames of ``chip_smoke.py``
+([system], [stereo], [rgbd]), each twice: first all three unprofiled
+(host clock per frame, each frame ending in a synchronise), then each
+under ``torch.profiler``, with every frame inside a ``record_function``
+range.  (A trace's hundreds of thousands of events slow the host's
+garbage collector, so no unprofiled run follows a profiled one.)
+A frame's device time is the union of the device events (kernels and
+copies) that start inside its range; a frame ends in a synchronise, so no
+device work crosses into the next.  The idle share of a frame is 1 -
+device time / the unprofiled host time of the same frame.  Prints one
+summary line per sensor and, with ``--out``, writes the per-frame times
+and the largest kernels there as JSON.  Needs a card; fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+
+import chip_smoke as cs  # noqa: E402
+import port_fixtures as pf  # noqa: E402
+from extractorb_tpu_torch.slam.system import System  # noqa: E402
+
+
+def track_all(cfg, frames, second, dev, mark=None):
+    """One cold-map run; per frame (host ms, keyframe event)."""
+    sys_ = System(cfg, device=dev)
+    out = []
+    for k, img in enumerate(frames):
+        n_kf = sys_.n_keyframes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (torch.profiler.record_function(f"frame_{k}") if mark
+              else contextlib.nullcontext()):
+            if cfg.sensor == "stereo":
+                sys_.track_stereo(img, second[k], k / 30.0)
+            elif cfg.sensor == "rgbd":
+                sys_.track_rgbd(img, second[k], k / 30.0)
+            else:
+                sys_.track_monocular(img, k / 30.0)
+            torch.cuda.synchronize()
+        out.append(((time.perf_counter() - t0) * 1e3, sys_.n_keyframes() != n_kf))
+    sys_.flush()
+    return out
+
+
+def device_ms_per_frame(prof, n_frames: int):
+    """Union of device-event time inside each frame's range, in ms."""
+    frames, dev_events = {}, []
+    for e in prof.events():
+        if e.name.startswith("frame_"):
+            # the range also appears on the device timeline as an annotation
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                frames[int(e.name[6:])] = (e.time_range.start, e.time_range.end)
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_events.append((e.time_range.start, e.time_range.end, e.name))
+    dev_events.sort()
+    out, by_kernel = [], {}
+    for k in range(n_frames):
+        a, b = frames[k]
+        busy, cur_s, cur_e = 0.0, None, None
+        for s, e, name in dev_events:
+            if s < a or s >= b:
+                continue
+            by_kernel[name] = by_kernel.get(name, 0.0) + (e - s)
+            if cur_e is None or s > cur_e:
+                if cur_e is not None:
+                    busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        if cur_e is not None:
+            busy += cur_e - cur_s
+        out.append(busy / 1e3)
+    return out, by_kernel, len(dev_events)
+
+
+def summarise(host, kf, device):
+    """Medians and idle shares of ordinary frames (after the first two:
+    initialisation and the host-path frame) and of keyframe events."""
+    ordinary = [k for k in range(len(host)) if k > 1 and not kf[k]]
+    events = [k for k in range(len(host)) if k > 0 and kf[k]]
+    med = lambda ks, a: statistics.median([a[k] for k in ks]) if ks else float("nan")
+    idle = lambda ks: 1.0 - sum(device[k] for k in ks) / sum(host[k] for k in ks) if ks \
+        else float("nan")
+    return dict(host_ms_ordinary=med(ordinary, host), host_ms_keyframe=med(events, host),
+                device_ms_ordinary=med(ordinary, device), device_ms_keyframe=med(events, device),
+                idle_ordinary=idle(ordinary), idle_keyframe=idle(events),
+                n_ordinary=len(ordinary), n_keyframe_events=len(events))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", help="JSON file for the per-frame times and kernel sums")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_profile.py runs on a card only")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    frames, rights, depths, _ = pf.render_stereo_sequence(
+        pf.procedural_texture(), cs.SYS_FRAMES, cs.SYS_SPEED, cs.WIDTH, cs.HEIGHT,
+        cs.STEREO_BASELINE)
+    runs = {"system": (cs.system_config(), None), "stereo": (cs.stereo_config("stereo"), rights),
+            "rgbd": (cs.stereo_config("rgbd"), depths)}
+    result = dict(card=smi, frames=cs.SYS_FRAMES)
+    track_all(cs.system_config(), frames[:3], None, dev)   # warm-up: build and first launches
+    plain = {name: track_all(cfg, frames, second, dev) for name, (cfg, second) in runs.items()}
+    for name, (cfg, second) in runs.items():
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            track_all(cfg, frames, second, dev, mark=True)
+        device, by_kernel, n_ev = device_ms_per_frame(prof, len(frames))
+        host = [h for h, _ in plain[name]]
+        kf = [e for _, e in plain[name]]
+        s = summarise(host, kf, device)
+        s.update(host_ms=host, device_ms=device, keyframe=kf, n_device_events=n_ev,
+                 top_kernels_ms=dict(sorted(((k, v / 1e3) for k, v in by_kernel.items()),
+                                            key=lambda kv: -kv[1])[:15]))
+        result[name] = s
+        print(f"[{name}] ordinary frames: host {s['host_ms_ordinary']:.2f} ms, device "
+              f"{s['device_ms_ordinary']:.3f} ms, idle {s['idle_ordinary']:.4f}; keyframe "
+              f"events: host {s['host_ms_keyframe']:.2f} ms, device "
+              f"{s['device_ms_keyframe']:.3f} ms, idle {s['idle_keyframe']:.4f} "
+              f"({n_ev} device events)", flush=True)
+        del prof
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,25 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K8) from
+Builds the hand-written CUDA kernels (K1-K9) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
-version at the shapes of the main path, drives the monocular tracking step
-(``TrackStep``) over a rendered 640x480 sequence with 1000 ORB features,
-then runs ``System.track_monocular`` from a cold map (two-view init, local
-mapping, window BA) over a rendered 30-frame sequence, and checks both
+version at the shapes of the main paths, drives the monocular tracking
+step (``TrackStep``) over a rendered 640x480 sequence with 1000 ORB
+features, runs ``System.track_monocular`` from a cold map (two-view init,
+local mapping, window BA) over a rendered 30-frame sequence, then
+``System.track_stereo`` and ``System.track_rgbd`` over the same frames
+seen by a rectified rig and by the renderer's depth, and checks each
 against the scene's truth and the CPU plain path.  Any failure raises:
 the script then exits non-zero and never prints its last line.  It needs
 a CUDA card and nothing outside the repository (the scenes are generated
 from a seed).
 
 Output: one line per phase, the card's name and power limit, a JSON line
-``{"kernels": [...]}`` with each kernel's launches on the main path,
-its largest deviation from the plain version and both times, then the
-last line ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` with each kernel's launches on the main paths, its
+largest deviation from the plain version, its time, the plain version's,
+its bound and a library call's time where one computes the same function,
+then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -39,7 +43,7 @@ import port_fixtures as pf  # noqa: E402
 from extractorb_tpu_torch import interop, kernels  # noqa: E402
 from extractorb_tpu_torch.config import (CameraConfig, ORBConfig, SLAMConfig,  # noqa: E402
                                          TrackingConfig)
-from extractorb_tpu_torch.frontend import brief, fast, matcher  # noqa: E402
+from extractorb_tpu_torch.frontend import brief, fast, matcher, stereo  # noqa: E402
 from extractorb_tpu_torch.frontend.extractor import ORBExtractor  # noqa: E402
 from extractorb_tpu_torch.frontend.pyramid import compute_pyramid  # noqa: E402
 from extractorb_tpu_torch.geometry import two_view  # noqa: E402
@@ -77,12 +81,24 @@ KERNELS = {
                        "extractorb_tpu/slam/track_device.py:450"),
     "pack_i32": ("extractorb_tpu_torch/csrc/map_io.cu",
                  "extractorb_tpu/utils/packed_fetch.py:37"),
+    "stereo_match": ("extractorb_tpu_torch/csrc/stereo_match.cu",
+                     "extractorb_tpu/frontend/stereo.py:35"),
 }
 # the [system] run: the rendered sequence of tests/test_slam_e2e.py's
 # planar test at 640x480 / 1000 features, 30 frames at speed 0.04
 SYS_FRAMES = 30
 SYS_SPEED = 0.04
 SYS_FEATURES = 1000
+# the [stereo] and [rgbd] runs: the rig of tests/test_slam_stereo_rgbd.py,
+# a 0.1 m baseline (bf = 50 at f = 500) and ThDepth 40 (thDepth 4 m: the
+# 3 m poster is close, the 5 m wall far)
+STEREO_BASELINE = 0.1
+STEREO_TH_DEPTH = 40.0
+# peak rates of one H100 SXM (NVIDIA's data sheet, dense rates): memory
+# bytes/s, and float32 operations/s outside the tensor cores, against which
+# the bounds also count the kernels' integer ALU work
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
 
 def camera_config(width: int, height: int) -> CameraConfig:
@@ -150,6 +166,16 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def record(err, ms, plain_ms, nbytes, ops, library_ms=None) -> dict:
+    """One kernel's parity and timing record with its bound: the larger of
+    the bytes it must move (each input read once, each output written
+    once) over the memory rate and its operations over the peak rate."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations", library_ms=library_ms,
+                bytes=int(nbytes), ops=int(ops))
+
+
 # ----------------------------------------------------------------- phases
 
 
@@ -187,8 +213,12 @@ def phase_kernel_parity(step: TrackStep, frame: np.ndarray, dev) -> dict:
               zip(keep_k + score_k, keep_p + score_p))
     if err:
         raise AssertionError(f"fast_detect: keep/score differ from the plain version by {err}")
-    stats["fast_detect"] = (err, cuda_ms(lambda: fast.fast_detect(pyr, ex.fast_plan)),
-                            cuda_ms(lambda: fast.fast_detect_plain(pyr, ex.fast_plan)))
+    # work: 16 differences, 16 arcs of 9-wide min and max and the 3x3 NMS,
+    # ~320 integer operations per inner pixel; score (int16) + keep out
+    n_inner = sum(k.numel() for k in keep_k)
+    stats["fast_detect"] = record(err, cuda_ms(lambda: fast.fast_detect(pyr, ex.fast_plan)),
+                                  cuda_ms(lambda: fast.fast_detect_plain(pyr, ex.fast_plan)),
+                                  pyr.flat.numel() + 3 * n_inner, 320 * n_inner)
     print(f"[parity] fast_detect keep+score bit-equal on {len(keep_k)} levels", flush=True)
 
     # K2: the frame's keypoints of all levels (before the merge); descriptors
@@ -200,9 +230,15 @@ def phase_kernel_parity(step: TrackStep, frame: np.ndarray, dev) -> dict:
     d_ang = float((ang_k - ang_p).abs().max())
     if n_bad or d_ang > 1e-4:
         raise AssertionError(f"orb_describe: {n_bad} descriptors differ, angle error {d_ang}")
-    stats["orb_describe"] = (
+    # work per keypoint: the moments over the 31-px disc (4 ops x 749 px),
+    # the 7x7 blur of the 37x37 centre (2 x 49 ops a pixel), 512 rotated
+    # samples (8 ops) and 256 compares; in: pyramid + keypoints, out: angle + desc
+    K = xy.shape[0]
+    stats["orb_describe"] = record(
         d_ang, cuda_ms(lambda: brief.orb_describe(pyr, ex.desc_plan, xy, level, valid)),
-        cuda_ms(lambda: brief.orb_describe_plain(pyr, ex.desc_plan, xy, level, valid)))
+        cuda_ms(lambda: brief.orb_describe_plain(pyr, ex.desc_plan, xy, level, valid)),
+        pyr.flat.numel() + K * (8 + 4 + 1) + K * (4 + 32),
+        int(valid.sum()) * (4 * 749 + 2 * 49 * 37 * 37 + 8 * 512 + 2 * 256))
     print(f"[parity] orb_describe {int(valid.sum())} keypoints: descriptors bit-equal, "
           f"max angle error {d_ang:.2e} deg", flush=True)
 
@@ -232,9 +268,13 @@ def phase_kernel_parity(step: TrackStep, frame: np.ndarray, dev) -> dict:
             err = max(err, float((a - b).abs().max()))
             if not torch.equal(a, b):
                 raise AssertionError(f"hamming_best2: {name} differs from the plain version")
-    stats["hamming_best2"] = (
+    # work: ~10 ops of gate test per pair, XOR + popcount + top-2 insert
+    # (~20 ops) per pair inside the gate
+    n_gate = int(matcher._gate_mask(gate, row_ok, col_ok).sum())
+    stats["hamming_best2"] = record(
         err, cuda_ms(lambda: matcher.hamming_best2(q, row_ok, c, col_ok, gate)),
-        cuda_ms(lambda: matcher.hamming_best2_plain(q, row_ok, c, col_ok, gate)))
+        cuda_ms(lambda: matcher.hamming_best2_plain(q, row_ok, c, col_ok, gate)),
+        M * (32 + 21) + N * (32 + 13) + 4 * M * 4, 10 * M * N + 20 * n_gate)
     print(f"[parity] hamming_best2 ({M}x{N} gated, {N}x{N} open): all outputs bit-equal",
           flush=True)
 
@@ -249,9 +289,92 @@ def phase_kernel_parity(step: TrackStep, frame: np.ndarray, dev) -> dict:
     if d > 1e-4 or not torch.equal(rk.inliers, rp.inliers):
         raise AssertionError(f"pose_lm: pose error {d}, inliers equal "
                              f"{torch.equal(rk.inliers, rp.inliers)}")
-    stats["pose_lm"] = (d, cuda_ms(lambda: pose_opt.optimize_pose(*args, step.cam)),
-                        cuda_ms(lambda: pose_opt.optimize_pose_plain(*args, step.cam)))
+    stats["pose_lm"] = record(d, cuda_ms(lambda: pose_opt.optimize_pose(*args, step.cam)),
+                              cuda_ms(lambda: pose_opt.optimize_pose_plain(*args, step.cam)),
+                              *pose_lm_work(B, N, int(val.sum()), stereo_rows=False))
     print(f"[parity] pose_lm B={B} N={N}: max |dR|,|dt| {d:.2e}, inliers equal", flush=True)
+    return stats
+
+
+def pose_lm_work(B: int, N: int, n_valid: int, stereo_rows: bool):
+    """Bytes and operations of B pose problems of N slots: inputs (poses,
+    points, pixels, inv_sigma2, valid[, ur]) and outputs once; per valid
+    observation and LM iteration (4 x 10) ~200 operations for the residual,
+    Jacobian, normal-equation sums and the trial cost (~260 with the
+    stereo row)."""
+    nbytes = B * (48 + 4 + 48) + B * N * (12 + 8 + 4 + 1 + 1 + (4 if stereo_rows else 0))
+    return nbytes, 40 * (260 if stereo_rows else 200) * n_valid
+
+
+def phase_parity_stereo(left, right, depth0, dev) -> dict:
+    """K9 and K4's stereo rows against their plain versions on the same
+    CUDA inputs: the features and pyramids of a rendered 640x480 pair
+    (1128 keypoint slots a side), and two pose problems built from them."""
+    cfg = stereo_config("stereo")
+    ext = ORBExtractor(cfg.orb, left.shape, dev)
+    fl, pl = ext.extract_with_pyramid(torch.from_numpy(left).to(dev))
+    fr, pr = ext.extract_with_pyramid(torch.from_numpy(right).to(dev))
+    sf = tuple(float(s) for s in ext.scales)
+    bf, b = cfg.camera.bf, cfg.camera.bf / cfg.camera.fx
+    args = (fl.xy, fl.octave, fl.desc, fl.valid, fr.xy, fr.octave, fr.desc, fr.valid, pl, pr,
+            ext.pyr_plan, sf, bf, b)
+    rk = stereo.compute_stereo_matches(*args)
+    rp = stereo.compute_stereo_matches_plain(*args)
+    v = rp.valid
+    same = (torch.equal(rk.valid, rp.valid) and torch.equal(rk.u_right[v], rp.u_right[v])
+            and torch.equal(rk.depth[v], rp.depth[v]))
+    if not same or int(v.sum()) < 300:
+        raise AssertionError(f"stereo_match: valid/u_right/depth equal {same}, "
+                             f"{int(v.sum())} matches")
+    # work: ~10 ops of gate test per pair, XOR + popcount + min (~20 ops)
+    # per pair in the gates, 11 shifts x 121 x 3 ops of SAD per candidate;
+    # in: both keypoint sets, and of the pyramids only what a candidate
+    # reads (its 11x11 left window and 11x21 right strip); out: u_right,
+    # depth, valid
+    NL, NR = fl.xy.shape[0], fr.xy.shape[0]
+    scales = torch.as_tensor(ext.scales, device=dev)
+    mask = stereo.candidate_mask(fl.xy, fl.octave, fl.valid, fr.xy, fr.octave, fr.valid, scales,
+                                 torch.tensor(np.float32(bf / b), device=dev))
+    best = torch.where(mask, matcher.hamming_matrix(fl.desc, fr.desc), 1 << 20).min(1).values
+    n_sad = int((best < stereo.TH_ORB).sum())
+    stats = {"stereo_match": record(
+        0.0, cuda_ms(lambda: stereo.compute_stereo_matches(*args)),
+        cuda_ms(lambda: stereo.compute_stereo_matches_plain(*args)),
+        (NL + NR) * (8 + 4 + 32 + 1) + n_sad * (11 * 11 + 11 * 21) + NL * 9,
+        10 * NL * NR + 20 * int(mask.sum()) + n_sad * 11 * 121 * 3 + 20 * NL)}
+    print(f"[parity] stereo_match {NL}x{NR}: valid, u_right and depth bit-equal "
+          f"({int(v.sum())} matches of {n_sad} candidates)", flush=True)
+
+    # K4 with the stereo rows: the pair's keypoints as observations, points
+    # from the renderer's depth (frame 0 is the world origin), right u from
+    # K9, two perturbed start poses
+    H, W = depth0.shape
+    K = pf.camera_matrix(W, H)
+    xy = fl.xy.cpu().numpy()
+    z = depth0[np.clip(np.rint(xy[:, 1]).astype(int), 0, H - 1),
+               np.clip(np.rint(xy[:, 0]).astype(int), 0, W - 1)]
+    pts = np.stack([(xy[:, 0] - K[0, 2]) * z / K[0, 0], (xy[:, 1] - K[1, 2]) * z / K[1, 1], z], -1)
+    isig = (1.0 / np.asarray(sf, np.float32) ** 2)[np.clip(fl.octave.cpu().numpy(), 0, 7)]
+    rng = np.random.default_rng(3)
+    R0 = np.stack([pf.so3_exp_np(rng.normal(0, 0.01, 3)) for _ in range(2)])
+    t0 = rng.normal(0, 0.02, (2, 3))
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), device=dev).to(dt)
+    pargs = (t(R0), t(t0), t(np.stack([pts, pts])), torch.stack([fl.xy, fl.xy]),
+             t(np.stack([isig, isig])), torch.stack([fl.valid, fl.valid]))
+    ur = torch.stack([rk.u_right, rk.u_right])
+    cam = track_device.pinhole_project(K[0, 0], K[1, 1], K[0, 2], K[1, 2])
+    gk = pose_opt.optimize_pose(*pargs, cam, obs_ur=ur, bf=bf)
+    gp = pose_opt.optimize_pose_plain(*pargs, cam, obs_ur=ur, bf=bf)
+    d = max(float((gk.R - gp.R).abs().max()), float((gk.t - gp.t).abs().max()))
+    if d > 1e-4 or not torch.equal(gk.inliers, gp.inliers):
+        raise AssertionError(f"pose_lm stereo: pose error {d:.2e}, inliers equal "
+                             f"{torch.equal(gk.inliers, gp.inliers)}")
+    stats["pose_lm_stereo"] = record(
+        d, cuda_ms(lambda: pose_opt.optimize_pose(*pargs, cam, obs_ur=ur, bf=bf)),
+        cuda_ms(lambda: pose_opt.optimize_pose_plain(*pargs, cam, obs_ur=ur, bf=bf)),
+        *pose_lm_work(2, NL, 2 * int(fl.valid.sum()), stereo_rows=True))
+    print(f"[parity] pose_lm stereo B=2 N={NL} ({int((rk.u_right >= 0).sum())} stereo "
+          f"observations): max |dR|,|dt| {d:.2e}, inliers equal", flush=True)
     return stats
 
 
@@ -442,9 +565,15 @@ def phase_parity_k5_k8(frames, poses, dev) -> dict:
     if d > 1e-4 or not same or not bool(rk.success):
         raise AssertionError(f"two_view: |dR|,|dt| {d:.2e}, success {bool(rk.success)}/"
                              f"{bool(rp.success)}, masks/flags equal {same}")
-    stats["two_view"] = (d, cuda_ms(lambda: two_view.reconstruct(*args), reps=10),
-                         cuda_ms(lambda: two_view.reconstruct_plain(*args[:4], args[4].to(dev)),
-                                 reps=3))
+    # work: each of S hypotheses x 2 models scores every valid pair (~40
+    # ops), a 9x9 Jacobi (~8000 ops) per hypothesis and model, 8 motions
+    # triangulated and checked per pair (~100 ops)
+    S, Np, nv = sets.shape[0], x1.shape[0], int(valid.sum())
+    stats["two_view"] = record(
+        d, cuda_ms(lambda: two_view.reconstruct(*args), reps=10),
+        cuda_ms(lambda: two_view.reconstruct_plain(*args[:4], args[4].to(dev)), reps=3),
+        Np * (16 + 1) + S * 8 * 4 + 48 + Np * 13 + 4,
+        2 * S * nv * 40 + 2 * S * 8000 + 8 * nv * 100)
     print(f"[parity] two_view {int(valid.sum())} pairs: success, homography flag and "
           f"triangulated mask equal ({int(rk.is_triangulated.sum())} points), "
           f"max |dR|,|dt| {d:.2e}", flush=True)
@@ -460,8 +589,14 @@ def phase_parity_k5_k8(frames, poses, dev) -> dict:
     if d > 1e-4 or not torch.equal(bk.inliers, bp.inliers):
         raise AssertionError(f"ba_pcg: max deviation {d:.2e}, inliers equal "
                              f"{torch.equal(bk.inliers, bp.inliers)}")
-    stats["ba_pcg"] = (d, cuda_ms(lambda: ba.optimize(prob, cam, 12, 40), reps=5),
-                       cuda_ms(lambda: ba.optimize_plain(prob, cam, 12, 40), reps=2))
+    # work per LM iteration (12) and valid observation: ~150 ops of
+    # residual and Jacobians, ~80 ops per PCG iteration (40)
+    Ob, Pb, Kb = prob.obs_kf.shape[0], prob.points.shape[0], prob.R.shape[0]
+    stats["ba_pcg"] = record(
+        d, cuda_ms(lambda: ba.optimize(prob, cam, 12, 40), reps=5),
+        cuda_ms(lambda: ba.optimize_plain(prob, cam, 12, 40), reps=2),
+        Ob * (4 + 4 + 8 + 4 + 1) + Pb * (12 + 1) + Kb * (48 + 1) + Kb * 48 + Pb * 12 + Ob + 4,
+        12 * int(prob.obs_valid.sum()) * (150 + 40 * 80))
     print(f"[parity] ba_pcg K={prob.R.shape[0]} P={prob.points.shape[0]} "
           f"O={prob.obs_kf.shape[0]}: poses and points within {d:.2e}, inliers equal "
           f"({int(bk.inliers.sum())})", flush=True)
@@ -477,8 +612,13 @@ def phase_parity_k5_k8(frames, poses, dev) -> dict:
         if bool(okp.any()) else 0.0
     if rel > 1e-5 or int(okp.sum()) == 0:
         raise AssertionError(f"tri_search: X relative error {rel:.2e}, {int(okp.sum())} accepted")
-    stats["tri_search"] = (rel, cuda_ms(lambda: matcher.tri_search(*targs, geom)),
-                           cuda_ms(lambda: matcher.tri_search_plain(*targs, geom), reps=5))
+    # work: epipolar gate, level test and XOR + popcount, ~30 ops per pair
+    B, N1, N2 = targs[4].shape[0], targs[0].shape[0], targs[4].shape[1]
+    stats["tri_search"] = record(
+        rel, cuda_ms(lambda: matcher.tri_search(*targs, geom)),
+        cuda_ms(lambda: matcher.tri_search_plain(*targs, geom), reps=5),
+        (N1 + B * N2) * (32 + 8 + 4 + 1) + B * (36 + 4 * 48) + B * N1 * (4 + 12 + 1),
+        30 * B * N1 * N2)
     print(f"[parity] tri_search B={targs[4].shape[0]} x {targs[0].shape[0]} x "
           f"{targs[4].shape[1]}: m12 and ok bit-equal ({int((mk >= 0).sum())} matches, "
           f"{int(okk.sum())} accepted), X max relative error {rel:.2e}", flush=True)
@@ -505,11 +645,19 @@ def phase_parity_k5_k8(frames, poses, dev) -> dict:
                         for a, b in zip(leaves, back))
     if not same:
         raise AssertionError("map_io: mirror_scatter or pack_i32 differs from the plain version")
-    stats["mirror_scatter"] = (0.0, cuda_ms(lambda: track_device.mirror_scatter(
-        pk, vk, rows, new_pos, new_val)), cuda_ms(lambda: track_device.mirror_scatter_plain(
-            pp_, vp, rows, new_pos, new_val)))
-    stats["pack_i32"] = (0.0, cuda_ms(lambda: packed_fetch.pack_i32(leaves)),
-                         cuda_ms(lambda: packed_fetch.pack_i32_plain(leaves)))
+    # the library yardstick: index_put_ of the in-range rows (the kernel
+    # also drops the out-of-range ones, which index_put_ would reject)
+    keep = rows < cap
+    kr, kp, kv = rows[keep].long(), new_pos[keep], new_val[keep]
+    stats["mirror_scatter"] = record(
+        0.0, cuda_ms(lambda: track_device.mirror_scatter(pk, vk, rows, new_pos, new_val)),
+        cuda_ms(lambda: track_device.mirror_scatter_plain(pp_, vp, rows, new_pos, new_val)),
+        rows.numel() * (4 + 12 + 1) + int(keep.sum()) * 13, 0,
+        library_ms=cuda_ms(lambda: (pk.index_put_((kr,), kp), vk.index_put_((kr,), kv))))
+    words = packed_fetch.pack_i32_plain(leaves).numel()
+    stats["pack_i32"] = record(0.0, cuda_ms(lambda: packed_fetch.pack_i32(leaves)),
+                               cuda_ms(lambda: packed_fetch.pack_i32_plain(leaves)),
+                               sum(a.numel() * a.element_size() for a in leaves) + 4 * words, 0)
     print("[parity] mirror_scatter (32768 rows, 256 updates) and pack_i32 "
           f"({sum(a.numel() for a in leaves)} words): bit-equal, exact round trip", flush=True)
     return stats
@@ -534,10 +682,23 @@ class _TwoViewRecorder:
         two_view.reconstruct = self._orig
 
 
-def run_system(frames, dev, on_frame=None, cfg=None):
-    """System.track_monocular over ``frames`` (ts = k / 30) from a cold
-    map, with ``cfg`` (default: system_config at the frames' size).
-    ``on_frame(k, state, seconds, keyframe_event)`` sees each frame."""
+def stereo_config(sensor: str, width: int = WIDTH, height: int = HEIGHT,
+                  n_features: int = SYS_FEATURES) -> SLAMConfig:
+    """The configuration of the [stereo] / [rgbd] runs: [system]'s, with
+    the rig's bf and ThDepth."""
+    cfg = system_config(width, height, n_features)
+    cam = dataclasses.replace(cfg.camera, bf=cfg.camera.fx * STEREO_BASELINE,
+                              th_depth=STEREO_TH_DEPTH)
+    return dataclasses.replace(cfg, camera=cam, sensor=sensor)
+
+
+def run_system(frames, dev, on_frame=None, cfg=None, second=None):
+    """The System over ``frames`` (ts = k / 30) from a cold map, with
+    ``cfg`` (default: system_config at the frames' size):
+    ``track_monocular``, or with cfg.sensor "stereo" / "rgbd"
+    ``track_stereo`` / ``track_rgbd`` with ``second[k]`` the right image /
+    depth map.  ``on_frame(k, state, seconds, keyframe_event, system)``
+    sees each frame."""
     if cfg is None:
         cfg = system_config(frames[0].shape[1], frames[0].shape[0])
     sys_ = System(cfg, device=dev)
@@ -547,13 +708,18 @@ def run_system(frames, dev, on_frame=None, cfg=None):
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = sys_.track_monocular(img, k / 30.0)
+        if cfg.sensor == "stereo":
+            st = sys_.track_stereo(img, second[k], k / 30.0)
+        elif cfg.sensor == "rgbd":
+            st = sys_.track_rgbd(img, second[k], k / 30.0)
+        else:
+            st = sys_.track_monocular(img, k / 30.0)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         states.append(st)
         if on_frame is not None:
-            on_frame(k, st, dt, sys_.n_keyframes() != n_kf)
+            on_frame(k, st, dt, sys_.n_keyframes() != n_kf, sys_)
     sys_.flush()
     return sys_, states
 
@@ -579,7 +745,7 @@ def check_system(sys_, states, poses):
 def phase_system(frames, poses, dev):
     host_ms, kf_frames = [], []
 
-    def on_frame(k, st, dt, kf):
+    def on_frame(k, st, dt, kf, _):
         host_ms.append(dt * 1e3)
         if kf:
             kf_frames.append(k)
@@ -597,9 +763,10 @@ def phase_system(frames, poses, dev):
         if launches.get(name, 0) != n or n == 0:
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches, the tracker "
                                  f"counted {n}")
-    missing = [n for n in KERNELS if launches.get(n, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the [system] path: {missing}")
+    missing = [n for n in KERNELS if n != "stereo_match" and launches.get(n, 0) == 0]
+    if missing or launches.get("stereo_match", 0):
+        raise AssertionError(f"kernels never launched on the [system] path: {missing}, "
+                             f"stereo_match {launches.get('stereo_match', 0)}")
     for k, (st, ms) in enumerate(zip(states, host_ms)):
         print(f"[system] frame {k:2d}: {ms:8.2f} ms host clock  {st.name:15s}"
               f"{'  keyframe event' if k in kf_frames else ''}", flush=True)
@@ -639,25 +806,122 @@ def phase_system_reference(frames, card_inits, card_sys):
               flush=True)
 
 
+def phase_depth_system(sensor: str, frames, second, poses, dev):
+    """``System.track_stereo`` / ``track_rgbd`` from a cold map: OK from
+    frame 0, >= 3 keyframes, metric camera-centre error < 0.08 m and the
+    path length within 5% (the bounds of tests/test_slam_stereo_rgbd.py),
+    every kernel of the path launched, K1/K2 once per image and K9 once
+    per stereo frame, each equal to the tracker's own count."""
+    tag = f"[{sensor}]"
+    host_ms, kf_frames = [], []
+
+    def on_frame(k, st, dt, kf, _):
+        host_ms.append(dt * 1e3)
+        if kf:
+            kf_frames.append(k)
+
+    kernels.LAUNCHES.clear()
+    sys_, states = run_system(frames, dev, on_frame, stereo_config(sensor), second)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    tr, n = sys_.tracker, len(frames)
+    bad = [k for k, st in enumerate(states) if st != TrackState.OK]
+    err, ratio = pf.metric_error(tr.trajectory, poses)
+    if bad or sys_.n_keyframes() < 3 or not err < 0.08 or abs(ratio - 1.0) >= 0.05:
+        raise AssertionError(f"{tag} frames {bad} not OK, {sys_.n_keyframes()} keyframes, "
+                             f"metric error {err:.4f} m, path ratio {ratio:.4f}")
+    images = 2 * n if sensor == "stereo" else n
+    want = {"fast_detect": images, "orb_describe": images,
+            "stereo_match": n if sensor == "stereo" else 0}
+    own = {"stereo_match": tr.stats["stereo_match"], "ba_pcg": tr.stats["ba"],
+           "tri_search": tr.stats["tri_groups"], "mirror_scatter": tr._mirror.n_scatter}
+    for name, v in list(want.items()) + list(own.items()):
+        if launches.get(name, 0) != v:
+            raise AssertionError(f"{tag} {name}: {launches.get(name, 0)} launches, expected {v}")
+    path = [k for k in KERNELS if k != "two_view" and (sensor == "stereo" or k != "stereo_match")]
+    missing = [k for k in path if launches.get(k, 0) == 0]
+    if missing or launches.get("two_view", 0) or not launches.get("pose_lm_stereo", 0):
+        raise AssertionError(f"{tag} never launched {missing}; two_view "
+                             f"{launches.get('two_view', 0)}, stereo pose solves "
+                             f"{launches.get('pose_lm_stereo', 0)}")
+    for k, (st, ms) in enumerate(zip(states, host_ms)):
+        print(f"{tag} frame {k:2d}: {ms:8.2f} ms host clock  {st.name:4s}"
+              f"{'  keyframe event' if k in kf_frames else ''}", flush=True)
+    steady = [ms for k, ms in enumerate(host_ms) if k > 1 and k not in kf_frames]
+    kf_ms = [ms for k, ms in enumerate(host_ms) if k > 0 and k in kf_frames]
+    print(f"{tag} {sys_.n_keyframes()} keyframes, {sys_.n_map_points()} map points, metric "
+          f"error {err:.4f} m, path ratio {ratio:.4f}; fused-frame median "
+          f"{statistics.median(steady):.2f} ms, keyframe-event median "
+          f"{statistics.median(kf_ms) if kf_ms else float('nan'):.2f} ms (host clock)",
+          flush=True)
+    print(f"{tag} launches {launches}; tracker counts {own}", flush=True)
+    return launches
+
+
+def phase_stereo_reference(frames, rights, dev):
+    """The first 3 frames of [stereo] on the card and through the CPU plain
+    path side by side: the init map (point count and positions) and the
+    init keyframe's ur/depth equal, poses within 1e-3."""
+    cfg = stereo_config("stereo")
+    card, cpu = System(cfg, device=dev), System(cfg, device=torch.device("cpu"))
+    for k in range(3):
+        for s in (card, cpu):
+            s.track_stereo(frames[k], rights[k], k / 30.0)
+        if k == 0:
+            mg, mc = card.tracker.atlas.current, cpu.tracker.atlas.current
+            n = mg._next_mp
+            kg, kc = mg.keyframes[0], mc.keyframes[0]
+            same = (n == mc._next_mp and np.array_equal(mg.mp_pos[:n], mc.mp_pos[:n])
+                    and np.array_equal(kg.ur, kc.ur) and np.array_equal(kg.depth, kc.depth))
+            if not same or n <= 500:
+                raise AssertionError(f"init: card {n} points vs CPU {mc._next_mp}, "
+                                     f"positions and ur/depth equal {same}")
+            print(f"[stereo-reference] init: {n} map points, positions and the keyframe's "
+                  f"ur/depth equal to the CPU plain path's", flush=True)
+    for s in (card, cpu):
+        s.flush()
+    for (ts, Rg, tg), (_, Rc, tc) in zip(card.tracker.trajectory, cpu.tracker.trajectory):
+        dp = max(float(np.abs(Rg - Rc).max()), float(np.abs(tg - tc).max()))
+        if dp > 1e-3:
+            raise AssertionError(f"frame {ts * 30:.0f}: card vs CPU pose {dp:.2e}")
+        print(f"[stereo-reference] frame {ts * 30:.0f}: card vs CPU plain path |dpose| {dp:.2e}",
+              flush=True)
+
+
 def main() -> int:
     phase_environment()
     dev = torch.device("cuda", 0)
     phase_build()
     frames, depths, poses = pf.render_sequence(pf.procedural_texture(), N_FRAMES, SPEED,
                                                WIDTH, HEIGHT)
-    sys_frames, _, sys_poses = pf.render_sequence(pf.procedural_texture(), SYS_FRAMES,
-                                                  SYS_SPEED, WIDTH, HEIGHT)
+    sys_frames, sys_rights, sys_depths, sys_poses = pf.render_stereo_sequence(
+        pf.procedural_texture(), SYS_FRAMES, SYS_SPEED, WIDTH, HEIGHT, STEREO_BASELINE)
     step = TrackStep(camera_config(WIDTH, HEIGHT), ORBConfig(n_features=N_FEATURES),
                      (HEIGHT, WIDTH), MAP_CAP, LOCAL_CAP, dev)
     stats = phase_kernel_parity(step, frames[0], dev)
+    stats.update(phase_parity_stereo(sys_frames[0], sys_rights[0], sys_depths[0], dev))
     stats.update(phase_parity_k5_k8(sys_frames, sys_poses, dev))
-    results, _ = phase_main_path(step, frames, depths, poses, dev)
+    paths = {}
+    results, paths["track"] = phase_main_path(step, frames, depths, poses, dev)
     phase_reference(step, results, frames, depths, poses)
-    launches, inits, card_sys = phase_system(sys_frames, sys_poses, dev)
+    paths["system"], inits, card_sys = phase_system(sys_frames, sys_poses, dev)
     phase_system_reference(sys_frames, inits, card_sys)
-    rows = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
-                 max_abs_err=stats[n][0], ms=stats[n][1], plain_ms=stats[n][2])
-            for n, (src, rep) in KERNELS.items()]
+    paths["stereo"] = phase_depth_system("stereo", sys_frames, sys_rights, sys_poses, dev)
+    paths["rgbd"] = phase_depth_system("rgbd", sys_frames, sys_depths, sys_poses, dev)
+    phase_stereo_reference(sys_frames, sys_rights, dev)
+    count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
+    rows = []
+    for n, (src, rep) in KERNELS.items():
+        by_path = count(n)
+        row = dict(name=n, route="cuda", source=src, replaces=rep,
+                   launches=sum(by_path.values()), launches_by_path=by_path)
+        row.update({k: v for k, v in stats[n].items() if k not in ("bytes", "ops")})
+        if n == "pose_lm":
+            st = stats["pose_lm_stereo"]
+            row.update(stereo_launches=sum(count("pose_lm_stereo").values()),
+                       stereo_ms=st["ms"], stereo_plain_ms=st["plain_ms"],
+                       stereo_bound_ms=st["bound_ms"], stereo_max_abs_err=st["max_abs_err"])
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

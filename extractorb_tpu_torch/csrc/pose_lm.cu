@@ -1,5 +1,6 @@
 // K4 pose_lm: the reference's 4 x 10 robust Levenberg-Marquardt pose
-// optimisation (mono reprojection edges), one CTA per problem.
+// optimisation (mono reprojection edges, and the stereo edge's third row),
+// one CTA per problem.
 //
 // Replaces extractorb_tpu/solver/pose_opt.py:optimize_pose, which the TPU
 // runs as a lax.scan over jacfwd Jacobians and masked MXU einsums.  Here the
@@ -13,6 +14,12 @@
 // round 3 drops the Huber kernel.  Padded slots are projected at a safe point
 // (0, 0, 1) so they stay finite.  The output rotation is re-orthonormalized
 // with two Newton-Schulz steps, as lie.orthonormalize does.
+//
+// Stereo (obs_ur not null): an observation with ur >= 0 gets the third row
+// ur - (u - bf / z) (reference EdgeStereoSE3ProjectXYZOnlyPose), Huber delta
+// sqrt(7.815) and the chi2 threshold 7.815; one with ur < 0 stays a mono edge.
+// The kernel is a template on the stereo flag, so a mono problem runs the
+// mono arithmetic unchanged.
 //
 // Bound on the H100: latency.  ~1100 observations and 40 iterations of two
 // block reductions each are a few microseconds of arithmetic per iteration;
@@ -28,6 +35,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSums = 28;  // 21 (upper H) + 6 (b) + 1 (cost)
 constexpr float kChi2 = 5.991f;
+constexpr float kChi2Stereo = 7.815f;
 
 struct Cam { float fx, fy, cx, cy; };
 
@@ -119,13 +127,37 @@ __device__ void solve6(float* A, float* rhs, float* x) {
   }
 }
 
+// residuals of observation i at pose (R, t): r0, r1 and, for a stereo edge,
+// r2; returns chi2 (times inv_sigma2) and sets the edge's Huber delta
+template <bool kStereo>
+__device__ __forceinline__ float residual(const float* R, const float* t, const float* p,
+                                          const float* o, float ur, float is, const Cam& cam,
+                                          float bf, float& x, float& y, float& z, float& r0,
+                                          float& r1, float& r2, float& delta) {
+  project(R, t, p, x, y, z);
+  const float u = cam.fx * x / z + cam.cx;
+  r0 = o[0] - u;
+  r1 = o[1] - (cam.fy * y / z + cam.cy);
+  if constexpr (kStereo) {
+    const bool has_r = ur >= 0.f;
+    r2 = has_r ? ur - (u - bf / z) : 0.f;
+    delta = has_r ? sqrtf(kChi2Stereo) : sqrtf(kChi2);
+    return (r0 * r0 + r1 * r1 + r2 * r2) * is;
+  } else {
+    r2 = 0.f;
+    delta = sqrtf(kChi2);
+    return (r0 * r0 + r1 * r1) * is;
+  }
+}
+
+template <bool kStereo>
 __global__ void __launch_bounds__(kThreads)
 pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
                const float* __restrict__ pts_w, const float* __restrict__ obs,
-               const float* __restrict__ isig, const bool* __restrict__ valid, int N,
-               const Cam cam, int n_rounds, int n_iters, float* __restrict__ R_out,
-               float* __restrict__ t_out, bool* __restrict__ inl_out,
-               int* __restrict__ n_inl_out) {
+               const float* __restrict__ obs_ur, const float* __restrict__ isig,
+               const bool* __restrict__ valid, int N, const Cam cam, float bf, int n_rounds,
+               int n_iters, float* __restrict__ R_out, float* __restrict__ t_out,
+               bool* __restrict__ inl_out, int* __restrict__ n_inl_out) {
   __shared__ float s_R[9], s_t[3], s_Rn[9], s_tn[3];
   __shared__ float s_red[(kThreads / 32) * kSums];
   extern __shared__ unsigned char s_active_raw[];
@@ -134,12 +166,12 @@ pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
   const int bi = blockIdx.x;
   const float* P = pts_w + (size_t)bi * N * 3;
   const float* O = obs + (size_t)bi * N * 2;
+  const float* UR = kStereo ? obs_ur + (size_t)bi * N : nullptr;
   const float* S = isig + (size_t)bi * N;
   const bool* Vd = valid + (size_t)bi * N;
   if (threadIdx.x < 9) s_R[threadIdx.x] = R0[bi * 9 + threadIdx.x];
   if (threadIdx.x < 3) s_t[threadIdx.x] = t0[bi * 3 + threadIdx.x];
   for (int i = threadIdx.x; i < N; i += kThreads) s_active[i] = Vd[i];
-  const float delta = sqrtf(kChi2);
   __syncthreads();
 
   for (int rnd = 0; rnd < n_rounds; ++rnd) {
@@ -158,27 +190,33 @@ pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
         if (!s_active[i]) continue;
         const bool ok = Vd[i];
         const float p[3] = {ok ? P[3 * i] : 0.f, ok ? P[3 * i + 1] : 0.f, ok ? P[3 * i + 2] : 1.f};
-        float x, y, z;
-        project(R, t, p, x, y, z);
-        const float iz = 1.f / z;
-        const float r0 = O[2 * i] - (cam.fx * x / z + cam.cx);
-        const float r1 = O[2 * i + 1] - (cam.fy * y / z + cam.cy);
+        const float ur = kStereo ? UR[i] : -1.f;
         const float is = S[i];
-        const float chi2 = (r0 * r0 + r1 * r1) * is;
+        float x, y, z, r0, r1, r2, delta;
+        const float chi2 = residual<kStereo>(R, t, p, O + 2 * i, ur, is, cam, bf, x, y, z, r0,
+                                             r1, r2, delta);
+        const float iz = 1.f / z;
         float w = huber ? fminf(1.f, delta / sqrtf(fmaxf(chi2, 1e-12f))) : 1.f;
         w *= is;
-        // A = J_pi R (2x3); J = [-A | A x p]
+        // A = J_pi R (2x3, or 3x3 for a stereo edge); J = [-A | A x p]
         const float j00 = cam.fx * iz, j02 = -cam.fx * x * iz * iz;
         const float j11 = cam.fy * iz, j12 = -cam.fy * y * iz * iz;
-        float J[2][6];
+        constexpr int kRows = kStereo ? 3 : 2;
+        float J[kRows][6];
         for (int c = 0; c < 3; ++c) {
           const float a0 = j00 * R[c] + j02 * R[6 + c];
           const float a1 = j11 * R[3 + c] + j12 * R[6 + c];
           J[0][c] = -a0;
           J[1][c] = -a1;
         }
+        if constexpr (kStereo) {
+          // d(u - bf/z)/d pc = (fx/z, 0, (bf - fx x)/z^2), zero for a mono edge
+          const bool has_r = ur >= 0.f;
+          const float j22 = (-cam.fx * x + bf) * iz * iz;
+          for (int c = 0; c < 3; ++c) J[2][c] = has_r ? -(j00 * R[c] + j22 * R[6 + c]) : 0.f;
+        }
         // A x p with A rows a = -J[.][0..2]
-        for (int rr = 0; rr < 2; ++rr) {
+        for (int rr = 0; rr < kRows; ++rr) {
           const float a0 = -J[rr][0], a1 = -J[rr][1], a2 = -J[rr][2];
           J[rr][3] = a1 * p[2] - a2 * p[1];
           J[rr][4] = a2 * p[0] - a0 * p[2];
@@ -186,8 +224,18 @@ pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
         }
         int k = 0;
         for (int a = 0; a < 6; ++a)
-          for (int b = a; b < 6; ++b) acc[k++] += w * (J[0][a] * J[0][b] + J[1][a] * J[1][b]);
-        for (int a = 0; a < 6; ++a) acc[21 + a] += w * (J[0][a] * r0 + J[1][a] * r1);
+          for (int b = a; b < 6; ++b) {
+            if constexpr (kStereo)
+              acc[k++] += w * (J[0][a] * J[0][b] + J[1][a] * J[1][b] + J[2][a] * J[2][b]);
+            else
+              acc[k++] += w * (J[0][a] * J[0][b] + J[1][a] * J[1][b]);
+          }
+        for (int a = 0; a < 6; ++a) {
+          if constexpr (kStereo)
+            acc[21 + a] += w * (J[0][a] * r0 + J[1][a] * r1 + J[2][a] * r2);
+          else
+            acc[21 + a] += w * (J[0][a] * r0 + J[1][a] * r1);
+        }
         acc[27] += rho(chi2, delta, huber);
       }
       block_sum(acc, s_red);
@@ -224,11 +272,10 @@ pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
         if (!s_active[i]) continue;
         const bool ok = Vd[i];
         const float p[3] = {ok ? P[3 * i] : 0.f, ok ? P[3 * i + 1] : 0.f, ok ? P[3 * i + 2] : 1.f};
-        float x, y, z;
-        project(Rn, tn, p, x, y, z);
-        const float r0 = O[2 * i] - (cam.fx * x / z + cam.cx);
-        const float r1 = O[2 * i + 1] - (cam.fy * y / z + cam.cy);
-        c_new[0] += rho((r0 * r0 + r1 * r1) * S[i], delta, huber);
+        float x, y, z, r0, r1, r2, delta;
+        const float chi2 = residual<kStereo>(Rn, tn, p, O + 2 * i, kStereo ? UR[i] : -1.f, S[i],
+                                             cam, bf, x, y, z, r0, r1, r2, delta);
+        c_new[0] += rho(chi2, delta, huber);
       }
       block_sum(c_new, s_red);
       const bool better = c_new[0] < acc[27];
@@ -246,11 +293,11 @@ pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
     for (int i = threadIdx.x; i < N; i += kThreads) {
       const bool ok = Vd[i];
       const float p[3] = {ok ? P[3 * i] : 0.f, ok ? P[3 * i + 1] : 0.f, ok ? P[3 * i + 2] : 1.f};
-      float x, y, z;
-      project(R, t, p, x, y, z);
-      const float r0 = O[2 * i] - (cam.fx * x / z + cam.cx);
-      const float r1 = O[2 * i + 1] - (cam.fy * y / z + cam.cy);
-      s_active[i] = ok && (r0 * r0 + r1 * r1) * S[i] <= kChi2;
+      const float ur = kStereo ? UR[i] : -1.f;
+      float x, y, z, r0, r1, r2, delta;
+      const float chi2 = residual<kStereo>(R, t, p, O + 2 * i, ur, S[i], cam, bf, x, y, z, r0,
+                                           r1, r2, delta);
+      s_active[i] = ok && chi2 <= (kStereo && ur >= 0.f ? kChi2Stereo : kChi2);
     }
     __syncthreads();
   }
@@ -283,24 +330,38 @@ pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
   }
 }
 
-}  // namespace
-
-extern "C" int pose_lm_launch(const void* R0, const void* t0, const void* pts,
-                              const void* obs, const void* isig, const void* valid, int B,
-                              int N, float fx, float fy, float cx, float cy, int n_rounds,
-                              int n_iters, void* R, void* t, void* inliers, void* n_inliers,
-                              void* stream) {
-  if (B < 0 || N < 0) return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaGetLastError();
+template <bool kStereo>
+int launch(const void* R0, const void* t0, const void* pts, const void* obs, const void* obs_ur,
+           const void* isig, const void* valid, int B, int N, Cam cam, float bf, int n_rounds,
+           int n_iters, void* R, void* t, void* inliers, void* n_inliers, cudaStream_t stream) {
   const int smem = N;  // one active flag per observation
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(pose_lm_kernel,
+    cudaError_t e = cudaFuncSetAttribute(pose_lm_kernel<kStereo>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  pose_lm_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+  pose_lm_kernel<kStereo><<<B, kThreads, smem, stream>>>(
       (const float*)R0, (const float*)t0, (const float*)pts, (const float*)obs,
-      (const float*)isig, (const bool*)valid, N, Cam{fx, fy, cx, cy}, n_rounds, n_iters,
-      (float*)R, (float*)t, (bool*)inliers, (int*)n_inliers);
+      (const float*)obs_ur, (const float*)isig, (const bool*)valid, N, cam, bf, n_rounds,
+      n_iters, (float*)R, (float*)t, (bool*)inliers, (int*)n_inliers);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// obs_ur null: mono problems; else (B, N) right-image u per observation (< 0: mono edge)
+extern "C" int pose_lm_launch(const void* R0, const void* t0, const void* pts,
+                              const void* obs, const void* obs_ur, const void* isig,
+                              const void* valid, int B, int N, float fx, float fy, float cx,
+                              float cy, float bf, int n_rounds, int n_iters, void* R, void* t,
+                              void* inliers, void* n_inliers, void* stream) {
+  if (B < 0 || N < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  const Cam cam{fx, fy, cx, cy};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (obs_ur == nullptr)
+    return launch<false>(R0, t0, pts, obs, obs_ur, isig, valid, B, N, cam, bf, n_rounds, n_iters,
+                         R, t, inliers, n_inliers, s);
+  return launch<true>(R0, t0, pts, obs, obs_ur, isig, valid, B, N, cam, bf, n_rounds, n_iters, R,
+                      t, inliers, n_inliers, s);
 }

@@ -11,6 +11,7 @@ level-0 coordinates.  Nothing in a frame synchronises with the host.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -19,7 +20,7 @@ from ..config import ORBConfig
 from . import fast as ffast
 from .brief import DescribePlan, orb_describe
 from .octree import OctreePlan, distribute_device
-from .pyramid import PyramidPlan, compute_pyramid
+from .pyramid import Pyramid, PyramidPlan, compute_pyramid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,10 +114,16 @@ class ORBExtractor:
     def __call__(self, img: torch.Tensor) -> Features:
         """Extract ORB features from a uint8 grayscale image (H, W) on
         this extractor's device, into ``self.capacity`` slots."""
+        return self.extract_with_pyramid(img)[0]
+
+    def extract_with_pyramid(self, img: torch.Tensor) -> Tuple[Features, Pyramid]:
+        """``__call__`` that also returns the bordered pyramid it built
+        (levels laid out by ``self.pyr_plan``), so that the stereo match
+        reads it instead of building it again."""
         pyr = compute_pyramid(img.to(self.device), self.pyr_plan)
         xy, resp, valid, level = self.keypoints(pyr)
         angle, desc = orb_describe(pyr, self.desc_plan, xy, level, valid)
-        return self._merge(xy, resp, valid, level, angle, desc)
+        return self._merge(xy, resp, valid, level, angle, desc), pyr
 
     def keypoints(self, pyr):
         """FAST, per-level top-K, quadtree and compaction: the keypoints of

@@ -70,14 +70,15 @@ def step_inputs_from_numpy(img, last: Mapping[str, np.ndarray], kp_mp, map_pos, 
 
 def to_numpy(out) -> Dict[str, np.ndarray]:
     """A ``FusedOut`` (or ``Features``) as a flat dict of numpy arrays;
-    the features of a FusedOut come as ``feats.<field>``."""
+    the features of a FusedOut come as ``feats.<field>``, and the stereo
+    fields of a mono step (None) are left out."""
     if isinstance(out, Features):
         return {k: getattr(out, k).cpu().numpy() for k in _FEATURE_DTYPES}
     res = {}
     for k, v in out._asdict().items():
         if isinstance(v, Features):
             res.update({f"feats.{f}": a for f, a in to_numpy(v).items()})
-        else:
+        elif v is not None:
             res[k] = v.cpu().numpy()
     return res
 
@@ -85,6 +86,7 @@ def to_numpy(out) -> Dict[str, np.ndarray]:
 # ------------------------------------------------------------ map state
 
 _KF_ARRAYS = ("R", "t", "xy_un", "octave", "angle", "desc", "valid", "kp_mp")
+_KF_OPTIONAL = ("ur", "depth")  # stereo/RGB-D keyframes only; None for mono
 _KF_SCALARS = ("kid", "frame_id", "timestamp", "is_bad", "parent")
 _MAP_ARRAYS = ("mp_pos", "mp_desc", "mp_normal", "mp_max_dist", "mp_valid", "mp_first_kf",
                "mp_visible", "mp_found")
@@ -95,6 +97,8 @@ def keyframe_to_numpy(kf) -> Dict:
     """A keyframe's state as numpy arrays and Python scalars (a JAX or a
     port ``KeyFrame``); its features under ``feats`` as a dict."""
     d = {k: np.array(getattr(kf, k)) for k in _KF_ARRAYS}
+    d.update({k: None if getattr(kf, k) is None else np.array(getattr(kf, k))
+              for k in _KF_OPTIONAL})
     d.update({k: getattr(kf, k) for k in _KF_SCALARS})
     d["loop_edges"] = list(kf.loop_edges)
     d["feats"] = {k: np.array(getattr(kf.feats, k)) for k in _FEATURE_DTYPES}
@@ -106,6 +110,7 @@ def keyframe_from_numpy(d: Mapping, device) -> KeyFrame:
     on ``device``)."""
     kf = KeyFrame(feats=features_from_numpy(d["feats"], device),
                   **{k: np.array(d[k]) for k in _KF_ARRAYS},
+                  **{k: None if d.get(k) is None else np.array(d[k]) for k in _KF_OPTIONAL},
                   **{k: d[k] for k in _KF_SCALARS})
     kf.loop_edges = list(d["loop_edges"])
     return kf

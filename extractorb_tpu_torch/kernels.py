@@ -29,8 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-# No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5 and K7
-# must round like their plain PyTorch versions (K1, K3 and K8 are integer
+# No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7 and
+# K9 must round like their plain PyTorch versions (K1, K3 and K8 are integer
 # code or copies; K4 and K6 are bound by latency, not float throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
@@ -53,9 +53,9 @@ _SIGNATURES = {
     # c_desc, c_x, c_y, c_oct, c_ok, N, best, second, best_idx, second_idx, stream
     "hamming_best2_launch": (_P, _P, _P, _P, _P, _P, _P, _I,
                              _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P),
-    # R0, t0, pts, obs, isig, valid, B, N, fx, fy, cx, cy,
+    # R0, t0, pts, obs, obs_ur (null: mono), isig, valid, B, N, fx, fy, cx, cy, bf,
     # n_rounds, n_iters, R, t, inliers, n_inliers, stream
-    "pose_lm_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
+    "pose_lm_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
                        _I, _I, _P, _P, _P, _P, _P),
     # xn1, xn2, x1, x2, valid, sets, mats, S, N, fx, fy, cx, cy, ws,
     # success, R21, t21, points, tri, used_h, stream
@@ -71,6 +71,11 @@ _SIGNATURES = {
                           _I, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P),
     # ptrs (host array), counts (host array), kinds (host array), n, out, stream
     "pack_i32_launch": (_P, _P, _P, _I, _P, _P),
+    # xy_l, oct_l, desc_l, valid_l, xy_r, oct_r, desc_r, valid_r, flat_l, flat_r,
+    # NL, NR, tab(host ptr), sc(host ptr), n_lvl, bf, max_d, th_orb,
+    # u_right, depth, valid, sad, stream
+    "stereo_match_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
+                            _F, _F, _I, _P, _P, _P, _P, _P),
     # pos, valid, cap, rows, new_pos, new_valid, b, stream
     "mirror_scatter_launch": (_P, _P, _I, _P, _P, _P, _I, _P),
     # workspace sizes in bytes

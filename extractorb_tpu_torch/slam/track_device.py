@@ -1,5 +1,5 @@
-"""The fused per-frame monocular tracking step
-(port of ``extractorb_tpu/slam/track_device.py``, mono subset).
+"""The fused per-frame tracking step, monocular, stereo and RGB-D
+(port of ``extractorb_tpu/slam/track_device.py``, visual-only subset).
 
 One call runs the chain the reference's tracking thread runs for an
 ordinary frame: motion-model prediction, ORB extraction, the motion-model
@@ -8,6 +8,14 @@ matches), pose optimisation, the reference-keyframe fallback (mutual-best
 match + pose optimisation from the last pose), the local-map search and
 the final pose optimisation.
 
+A stereo step also extracts the right image and matches the pair (K9,
+``frontend/stereo.py``, on the pyramids the extractor built); an RGB-D
+step samples the depth map at the keypoints.  Both give each keypoint a
+right-image u (``ur``) and a depth, every pose solve takes the stereo
+residual's third row, and the close-point counters of the keyframe
+decision (reference NeedNewKeyFrame's bNeedToInsertClose) stay on the
+device.
+
 The JAX program decides its two branches with ``lax.cond``.  Here both
 branches are computed and ``torch.where`` selects, so a step never waits
 on the host: no ``.item()``, nothing a later CUDA-graph capture would
@@ -15,14 +23,15 @@ trip over.  The cost is one extra K3 launch for the th-30 search and the
 reference branch's two K3 launches and pose problem on every frame; the
 motion and reference pose problems share one K4 launch.
 
-Per frame, on the card: K1 x1, K2 x1, K3 x5, K4 x2.
+Per frame, on the card: K1 x1, K2 x1, K3 x5, K4 x2 (mono and RGB-D);
+stereo adds K1 x1, K2 x1 and K9 x1.
 
 ``MapMirror`` keeps the device copy of the map's point positions and
 validity that the step reads; it updates only the rows that changed
 since its last sync, with kernel K8 ``mirror_scatter``.
 ``build_local_block`` gathers the local-map point block on the host.
 
-Stereo, RGB-D and inertial variants are not ported yet (ROADMAP A.8).
+The inertial variant is not ported yet (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from .. import kernels
 from ..config import CameraConfig, ORBConfig
 from ..core.camera import Pinhole, undistort_points_pinhole
 from ..frontend import matcher as fm
+from ..frontend import stereo as fstereo
 from ..frontend.extractor import Features, ORBExtractor, scale_factors
 from ..solver import pose_opt as spo
 
@@ -60,6 +70,12 @@ class FusedOut(NamedTuple):
     lm_searched: torch.Tensor     # (M,) bool local points actually searched
     used_ref: torch.Tensor        # () bool: ref-KF fallback taken
     n_pre: torch.Tensor           # () int32 inliers entering local search
+    # stereo channels (reference mvuRight/mvDepth) and close-point
+    # counters: None in mono steps
+    ur: Optional[torch.Tensor] = None                 # (N,) right-image u or -1
+    depth: Optional[torch.Tensor] = None              # (N,) metric depth or -1
+    n_close_tracked: Optional[torch.Tensor] = None    # () int32 close keypoints with a map point
+    n_close_untracked: Optional[torch.Tensor] = None  # () int32 close keypoints without one
 
 
 class LocalBlock(NamedTuple):
@@ -75,6 +91,24 @@ class LocalBlock(NamedTuple):
     ids_host: Optional[np.ndarray] = None  # (M,) int32 ids on the host
 
 
+def rgbd_right_coords(xy, xy_un, valid, depthmap, bf: float):
+    """The RGB-D stereo channels (reference ComputeStereoFromRGBD,
+    Frame.cc:994): depth sampled at the rounded raw keypoint coordinates,
+    and the virtual right coordinate uR = u_un - bf / d.  Returns (ur,
+    depth), -1 where the keypoint is invalid or the depth is not
+    positive."""
+    H, W = depthmap.shape
+    vv = torch.round(xy[:, 1]).clamp(0, H - 1).long()
+    uu = torch.round(xy[:, 0]).clamp(0, W - 1).long()
+    d = depthmap[vv, uu]
+    ok = valid & (d > 0)
+    depth = torch.where(ok, d, -1.0)
+    # a tensor numerator: ``float / tensor`` would multiply by a reciprocal
+    bf_t = torch.tensor(bf, dtype=torch.float32, device=d.device)
+    ur = torch.where(ok, xy_un[:, 0] - bf_t / d.clamp(min=1e-9), -1.0)
+    return ur, depth
+
+
 def _scatter_drop(base: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """``base.at[idx].set(src, mode="drop")`` for idx in [0, len(base)]:
     index len(base) is the drop slot."""
@@ -85,12 +119,28 @@ def _scatter_drop(base: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> t
 
 
 class TrackStep:
-    """The monocular tracking step for one static configuration."""
+    """The tracking step for one static configuration.
+
+    depth_mode "none" (mono), "stereo" (``img_r`` is the rectified right
+    image) or "rgbd" (``img_r`` is the (H,W) float32 metric depth map);
+    the last two need ``cam_cfg.bf`` = fx * baseline > 0, and split close
+    from far points at thDepth = bf * ThDepth / fx metres for the
+    close-point counters."""
 
     def __init__(self, cam_cfg: CameraConfig, orb_cfg: ORBConfig, img_shape: Tuple[int, int],
-                 map_cap: int, local_cap: int, device):
+                 map_cap: int, local_cap: int, device, depth_mode: str = "none"):
         if cam_cfg.model == "KannalaBrandt8":
             raise NotImplementedError("TrackStep: only the pinhole camera is ported")
+        if depth_mode not in ("none", "stereo", "rgbd"):
+            raise ValueError(f"TrackStep: depth_mode {depth_mode!r}")
+        if depth_mode != "none" and cam_cfg.bf <= 0.0:
+            raise ValueError(f"TrackStep: depth_mode {depth_mode!r} needs Camera.bf > 0")
+        self.depth_mode = depth_mode
+        self.stereo = depth_mode != "none"
+        # reference Camera.bf and mThDepth = bf * ThDepth / fx
+        self.bf = float(cam_cfg.bf)
+        self.baseline = self.bf / cam_cfg.fx
+        self.th_depth = self.bf * float(cam_cfg.th_depth) / cam_cfg.fx
         self.device = torch.device(device)
         self.cam_cfg = cam_cfg
         self.orb_cfg = orb_cfg
@@ -119,6 +169,7 @@ class TrackStep:
         ref_desc, ref_valid, ref_kp_mp,   # reference-keyframe block (fallback)
         R_last, t_last,                   # previous frame pose
         R_prev, t_prev,                   # the frame before (for the velocity)
+        img_r=None,                       # right image (stereo) or depth map (rgbd)
     ) -> FusedOut:
         N, CAP = self.capacity, self.map_cap
         cam = self.cam
@@ -129,9 +180,21 @@ class TrackStep:
         R_pred = Rv @ R_last
         t_pred = Rv @ t_last + tv
 
-        feats = self.extractor(img)
+        # ---- extraction, and the stereo channels (reference
+        # ComputeStereoMatches, Frame.cc:813, or ComputeStereoFromRGBD, :994)
+        if self.depth_mode == "stereo":
+            feats, sres = fstereo.match_pair(self.extractor, img, img_r, self.bf, self.baseline)
+            ur, depth = sres.u_right, sres.depth
+        else:
+            feats = self.extractor(img)
         xy_un = (undistort_points_pinhole(feats.xy, cam, self.dist)
                  if self.has_dist else feats.xy)
+        if self.depth_mode == "rgbd":
+            ur, depth = rgbd_right_coords(feats.xy, xy_un, feats.valid,
+                                          img_r.to(self.device, torch.float32), self.bf)
+        elif self.depth_mode == "none":
+            ur = depth = None
+        obs_ur = ur
 
         # ---- TrackWithMotionModel: search the last frame's map points
         safe_ids = last_kp_mp.clamp(0, CAP - 1).long()
@@ -167,6 +230,7 @@ class TrackStep:
                          map_pos[kp_r.clamp(0, CAP - 1).long()]]),
             torch.stack([xy_un, xy_un]), torch.stack([isig, isig]),
             torch.stack([val0, kp_r >= 0]), cam,
+            obs_ur=None if obs_ur is None else torch.stack([obs_ur, obs_ur]), bf=self.bf,
         )
         kp_mp1m = torch.where(val0 & ~res.inliers[0], -1, kp_mp0)
         kp_ref = torch.where((kp_r >= 0) & ~res.inliers[1], -1, kp_r)
@@ -195,14 +259,25 @@ class TrackStep:
         res2 = spo.optimize_pose(
             R1[None], t1[None], map_pos[kp_mp2.clamp(0, CAP - 1).long()][None],
             xy_un[None], isig[None], val2[None], cam,
+            obs_ur=None if obs_ur is None else obs_ur[None], bf=self.bf,
         )
         inl2 = res2.inliers[0]
         kp_mp3 = torch.where(val2 & ~inl2, -1, kp_mp2)
-        return FusedOut(
+        out = FusedOut(
             feats=feats, xy_un=xy_un, R=res2.R[0], t=res2.t[0], kp_mp=kp_mp3,
             n_match_motion=n_match, n_inl_motion=res.n_inliers[0],
             n_inl_final=torch.sum((val2 & inl2).to(torch.int32)), lm_searched=lm_searched,
             used_ref=~ok_motion, n_pre=n_pre,
+        )
+        if not self.stereo:
+            return out
+        close = feats.valid & (depth > 0)
+        if self.th_depth > 0:
+            close = close & (depth < self.th_depth)
+        return out._replace(
+            ur=ur, depth=depth,
+            n_close_tracked=torch.sum((close & (kp_mp3 >= 0)).to(torch.int32)),
+            n_close_untracked=torch.sum((close & (kp_mp3 < 0)).to(torch.int32)),
         )
 
 
@@ -211,11 +286,13 @@ _STEP_CACHE: dict = {}
 
 
 def get_track_step(cam_cfg: CameraConfig, orb_cfg: ORBConfig, img_shape, map_cap: int,
-                   local_cap: int, device) -> TrackStep:
-    key = (cam_cfg, orb_cfg, tuple(img_shape), map_cap, local_cap, str(torch.device(device)))
+                   local_cap: int, device, depth_mode: str = "none") -> TrackStep:
+    key = (cam_cfg, orb_cfg, tuple(img_shape), map_cap, local_cap, str(torch.device(device)),
+           depth_mode)
     step = _STEP_CACHE.get(key)
     if step is None:
-        step = TrackStep(cam_cfg, orb_cfg, tuple(img_shape), map_cap, local_cap, device)
+        step = TrackStep(cam_cfg, orb_cfg, tuple(img_shape), map_cap, local_cap, device,
+                         depth_mode=depth_mode)
         _STEP_CACHE[key] = step
     return step
 

@@ -12,7 +12,8 @@ J_pose = [-A | A hat(p)] and J_point = -A.
 
 ``optimize`` launches kernel K6 (``csrc/ba_pcg.cu``) on CUDA tensors and
 runs ``optimize_plain`` on the CPU.  The stereo residual (``obs_ur``) and
-``solver="schur_dense"`` are not ported (ROADMAP A.8 / B.21).
+``solver="schur_dense"`` are not ported (ROADMAP B.21): the window BA
+builds mono problems for every sensor.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ class BAResult(NamedTuple):
 
 def _check_problem(p: BAProblem, solver: str):
     if p.obs_ur is not None:
-        raise NotImplementedError("ba.optimize: the stereo residual is not ported (ROADMAP A.8)")
+        raise NotImplementedError("ba.optimize: the stereo residual is not ported "
+                                  "(ROADMAP B.21)")
     if solver != "cg":
         raise NotImplementedError(f"ba.optimize: solver={solver!r} is not ported, only 'cg' "
                                   "(ROADMAP B.21)")

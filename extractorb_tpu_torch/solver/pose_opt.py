@@ -11,9 +11,8 @@ r = obs - pi(pc) by -J_pi [R | -R hat(p)].
 ``optimize_pose`` takes a batch of B independent problems (the fused
 step solves its motion and reference-keyframe branches in one call).
 On CUDA tensors it launches kernel K4 (``csrc/pose_lm.cu``, one CTA per
-problem); on the CPU it runs ``optimize_pose_plain``.  The stereo
-residual (``obs_ur``) exists in the plain version only; the kernel
-raises ``NotImplementedError`` for it.
+problem), with the stereo residual's third row where ``obs_ur`` is given;
+on the CPU it runs ``optimize_pose_plain``.
 """
 
 from __future__ import annotations
@@ -136,25 +135,34 @@ def optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Pinhole,
     Replaces ``extractorb_tpu/solver/pose_opt.py:optimize_pose``.
     R0 (B,3,3), t0 (B,3), pts_w (B,N,3) world points, obs_uv (B,N,2)
     pixels, inv_sigma2 (B,N), valid (B,N) bool.  Invalid slots never
-    contribute.  On CUDA tensors this launches K4 once for the batch."""
+    contribute.  obs_ur (B,N), with bf = fx * baseline, makes an
+    observation with obs_ur >= 0 a stereo edge (3-row residual, stereo
+    Huber delta and chi2).  On CUDA tensors this launches K4 once for the
+    batch."""
     if not R0.is_cuda:
         return optimize_pose_plain(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam,
                                    n_rounds, n_iters, obs_ur, bf)
-    if obs_ur is not None:
-        raise NotImplementedError("pose_lm: the stereo residual has no CUDA kernel yet")
     B, N = pts_w.shape[0], pts_w.shape[1]
     f32 = lambda a: a.to(torch.float32).contiguous()
     args = [f32(R0), f32(t0), f32(pts_w), f32(obs_uv), f32(inv_sigma2), valid.contiguous()]
+    if obs_ur is not None:
+        if obs_ur.shape != (B, N):
+            raise ValueError(f"pose_lm: obs_ur is {tuple(obs_ur.shape)}, expected {(B, N)}")
+        args.append(f32(obs_ur))
     kernels.require_cuda("pose_lm", *args)
     R = torch.empty(B, 3, 3, dtype=torch.float32, device=R0.device)
     t = torch.empty(B, 3, dtype=torch.float32, device=R0.device)
     inl = torch.empty(B, N, dtype=torch.bool, device=R0.device)
     n_inl = torch.empty(B, dtype=torch.int32, device=R0.device)
+    p = [a.data_ptr() for a in args]
+    ur_ptr = p[6] if obs_ur is not None else None
     err = kernels.lib().pose_lm_launch(
-        *[a.data_ptr() for a in args], B, N, cam.fx, cam.fy, cam.cx, cam.cy,
-        n_rounds, n_iters, R.data_ptr(), t.data_ptr(), inl.data_ptr(), n_inl.data_ptr(),
-        kernels.stream(),
+        p[0], p[1], p[2], p[3], ur_ptr, p[4], p[5], B, N, cam.fx, cam.fy, cam.cx, cam.cy,
+        float(bf), n_rounds, n_iters, R.data_ptr(), t.data_ptr(), inl.data_ptr(),
+        n_inl.data_ptr(), kernels.stream(),
     )
     kernels.check(err, "pose_lm")
     kernels.LAUNCHES["pose_lm"] += 1
+    if obs_ur is not None:
+        kernels.LAUNCHES["pose_lm_stereo"] += 1   # of those, with the stereo rows
     return PoseOptResult(R, t, inl, n_inl)

@@ -130,6 +130,18 @@ def render_sequence(tex: np.ndarray, n_frames: int, speed: float = 0.06,
     return [o[0] for o in out], [o[1] for o in out], poses
 
 
+def render_stereo_sequence(tex: np.ndarray, n_frames: int, speed: float = 0.06,
+                           width: int = 640, height: int = 480, baseline: float = 0.1):
+    """A rectified stereo rig over the frames of ``render_sequence``: the
+    right camera sits ``baseline`` m along the left camera's x axis (the
+    rig of tests/test_slam_stereo_rgbd.py).  Returns (left images, right
+    images, left depths, poses)."""
+    left, depths, poses = render_sequence(tex, n_frames, speed, width, height)
+    right = [render_two_plane(tex, (R, t - np.array([baseline, 0.0, 0.0])), width, height)[0]
+             for R, t in poses]
+    return left, right, depths, poses
+
+
 def seed_map(xy, octave, valid, desc, depth, pose, K, scale_factors,
              map_cap: int, local_cap: int):
     """Lift one frame's keypoints to map points with the true depth.
@@ -229,6 +241,21 @@ def umeyama_align(est: np.ndarray, gt: np.ndarray) -> np.ndarray:
     R = U @ S @ Vt
     s = np.trace(np.diag(D) @ S) / ((xe ** 2).sum() / len(est))
     return (s * (R @ est.T)).T + mu_g - s * R @ mu_e
+
+
+def metric_error(trajectory, poses, fps: float = 30.0):
+    """Metric accuracy of a stereo or RGB-D trajectory [(ts, R, t)] against
+    the true poses, without alignment (frame 0 is the world origin in
+    both): the largest camera-centre error (m) and the ratio of the
+    estimated path length to the true one (the measures of
+    tests/test_slam_stereo_rgbd.py)."""
+    est = np.array([-np.asarray(R, np.float64).T @ np.asarray(t, np.float64)
+                    for _, R, t in trajectory])
+    gt = np.array([-poses[int(round(ts * fps))][0].T @ poses[int(round(ts * fps))][1]
+                   for ts, _, _ in trajectory])
+    err = float(np.linalg.norm(est - gt, axis=1).max())
+    path = lambda c: float(np.linalg.norm(np.diff(c, axis=0), axis=1).sum())
+    return err, path(est) / path(gt)
 
 
 def trajectory_ate(trajectory, poses, fps: float = 30.0):

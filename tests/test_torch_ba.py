@@ -21,7 +21,7 @@ from extractorb_tpu.solver import ba as jba
 from extractorb_tpu_torch.core.camera import Pinhole
 from extractorb_tpu_torch.solver import ba
 from test_solver import CX, CY, FX, FY, make_ba_scene, project
-from torch_card import cuda_device  # noqa: F401  (pytest fixture)
+from torch_card import cuda_device, one_torch_thread  # noqa: F401  (pytest fixtures)
 
 CAM = Pinhole(FX, FY, CX, CY)
 KP, PP, OP = 32, 2048, 8192
@@ -89,7 +89,7 @@ def test_unported_options_raise():
     prob = ba.BAProblem(**{k: torch.from_numpy(v) for k, v in arrs.items()})
     with pytest.raises(NotImplementedError, match="B.21"):
         ba.optimize(prob, CAM, solver="schur_dense")
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="stereo residual.*B.21"):
         ba.optimize(prob._replace(obs_ur=torch.zeros(OP)), CAM)
 
 

@@ -27,7 +27,7 @@ from extractorb_tpu_torch import interop
 from extractorb_tpu_torch.frontend import blur, brief, fast, octree, orientation
 from extractorb_tpu_torch.frontend.extractor import ORBExtractor, _compact
 from extractorb_tpu_torch.frontend.pyramid import compute_pyramid
-from torch_card import cuda_device  # noqa: F401  (pytest fixture)
+from torch_card import cuda_device, one_torch_thread  # noqa: F401  (pytest fixtures)
 
 W, H = 320, 240
 CFG = ORBConfig(n_features=500)

@@ -38,7 +38,7 @@ from extractorb_tpu_torch.frontend import matcher
 from extractorb_tpu_torch.slam import local_mapping as lm
 from extractorb_tpu_torch.slam import track_device as td
 from extractorb_tpu_torch.utils import packed_fetch
-from torch_card import cuda_device  # noqa: F401  (pytest fixture)
+from torch_card import cuda_device, one_torch_thread  # noqa: F401  (pytest fixtures)
 
 W, H, NF, N_FRAMES = 320, 240, 500, 9
 

@@ -19,6 +19,7 @@ from extractorb_tpu.core import camera as jcamera
 from extractorb_tpu.core import lie as jlie
 from extractorb_tpu.slam.track_device import pinhole_project as j_pinhole
 from extractorb_tpu.solver import pose_opt as jpo
+from extractorb_tpu_torch import kernels
 from extractorb_tpu_torch.config import CameraConfig
 from extractorb_tpu_torch.core import lie
 from extractorb_tpu_torch.core.camera import Pinhole, undistort_points_pinhole
@@ -58,7 +59,7 @@ def test_optimize_pose_mono_matches_jax(seed):
 
 
 def test_optimize_pose_stereo_plain_matches_jax():
-    """The stereo residual exists in the plain version only."""
+    """The stereo residual of the plain version (K4's reference)."""
     R0, t0, pts, obs, isig, valid, _ = _problems(5, B=1)
     rng = np.random.default_rng(5)
     bf = 40.0
@@ -118,13 +119,30 @@ def test_pinhole_camera_matches_jax():
     assert np.abs(got - uv).max() > 1.0  # the distortion is not negligible
 
 
+def _stereo_ur(R0, t0, pts, obs, seed, bf=40.0):
+    """Right-image u of every observation (bounded noise), -1 on 40%."""
+    rng = np.random.default_rng(seed)
+    pc = np.einsum("bij,bnj->bni", R0, pts) + t0[:, None]
+    ur = (obs[..., 0] - bf / pc[..., 2] + rng.uniform(-0.5, 0.5, obs.shape[:2])).astype(np.float32)
+    ur[rng.random(ur.shape) < 0.4] = -1.0
+    return ur
+
+
 @pytest.mark.gpu
 def test_pose_lm_kernel_matches_plain(cuda_device):
-    args = [torch.from_numpy(a).to(cuda_device) for a in _problems(0, B=4)[:6]]
+    """K4 against its plain version, mono and with the stereo rows."""
+    probs = _problems(0, B=4)
+    args = [torch.from_numpy(a).to(cuda_device) for a in probs[:6]]
     got = pose_opt.optimize_pose(*args, CAM)
     want = pose_opt.optimize_pose_plain(*args, CAM)
     assert float((got.R - want.R).abs().max()) <= 1e-4
     assert float((got.t - want.t).abs().max()) <= 1e-4
     assert torch.equal(got.inliers, want.inliers)
-    with pytest.raises(NotImplementedError):
-        pose_opt.optimize_pose(*args, CAM, obs_ur=torch.zeros_like(args[4]), bf=40.0)
+    ur = torch.from_numpy(_stereo_ur(*probs[:4], seed=7)).to(cuda_device)
+    before = kernels.LAUNCHES["pose_lm_stereo"]
+    got = pose_opt.optimize_pose(*args, CAM, obs_ur=ur, bf=40.0)
+    assert kernels.LAUNCHES["pose_lm_stereo"] == before + 1
+    want = pose_opt.optimize_pose_plain(*args, CAM, obs_ur=ur, bf=40.0)
+    assert float((got.R - want.R).abs().max()) <= 1e-4
+    assert float((got.t - want.t).abs().max()) <= 1e-4
+    assert torch.equal(got.inliers, want.inliers)

@@ -33,6 +33,7 @@ from extractorb_tpu_torch.geometry import two_view
 from extractorb_tpu_torch.slam.system import System
 from extractorb_tpu_torch.slam.tracking import TrackState
 from test_torch_two_view import jax_sets
+from torch_card import one_torch_thread  # noqa: F401  (pytest fixture)
 
 W, H, NF, N_FRAMES, SPEED = 320, 240, 500, 20, 0.04
 
@@ -114,7 +115,7 @@ def test_rot_to_quat_matches_jax():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(sensor="stereo"), "A.8"),
+    (dict(sensor="stereo", camera2=CameraConfig(model="KannalaBrandt8")), "A.12"),
     (dict(imu=IMUConfig()), "A.11"),
     (dict(camera=CameraConfig(model="KannalaBrandt8")), "A.12"),
     (dict(orb=ORBConfig(octree="host")), "Not to be ported"),
@@ -124,6 +125,15 @@ def test_unported_configurations_raise(change, item):
     cfg = dataclasses.replace(chip_smoke.system_config(W, H, NF), **change)
     with pytest.raises(NotImplementedError, match=item):
         System(cfg, device="cpu")
+
+
+def test_system_without_device_needs_a_card(monkeypatch):
+    """With no device the System runs on the card: without one it raises
+    and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        System(chip_smoke.system_config(W, H, NF))
+    assert System(chip_smoke.system_config(W, H, NF), device="cpu").tracker.device.type == "cpu"
 
 
 def test_vocabulary_and_relocalization_raise(runs):

@@ -27,7 +27,7 @@ from extractorb_tpu_torch import interop
 from extractorb_tpu_torch.config import ORBConfig
 from extractorb_tpu_torch.frontend.extractor import ORBExtractor
 from extractorb_tpu_torch.slam.track_device import TrackStep, get_track_step
-from torch_card import cuda_device  # noqa: F401  (pytest fixture)
+from torch_card import cuda_device, one_torch_thread  # noqa: F401  (pytest fixtures)
 
 W, H = 320, 240
 N_FRAMES = 4
