@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K9) from
+Builds the hand-written CUDA kernels (K1-K10) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
 version at the shapes of the main paths, drives the monocular tracking
 step (``TrackStep``) over a rendered 640x480 sequence with 1000 ORB
@@ -10,7 +10,11 @@ features, runs ``System.track_monocular`` from a cold map (two-view init,
 local mapping, window BA) over a rendered 30-frame sequence, then
 ``System.track_stereo`` and ``System.track_rgbd`` over the same frames
 seen by a rectified rig and by the renderer's depth, and checks each
-against the scene's truth and the CPU plain path.  Any failure raises:
+against the scene's truth and the CPU plain path.  Then tracking recovery:
+[reloc] and [reloc-stereo] black out frames 14-15 (LOST, relocalization
+through K10), [recovery] frames 14-21 (a new Atlas map and a second
+initialisation), and [resume] loads a session the CPU plain path saved
+after frame 15 onto the card and tracks the rest.  Any failure raises:
 the script then exits non-zero and never prints its last line.  It needs
 a CUDA card and nothing outside the repository (the scenes are generated
 from a seed).
@@ -30,6 +34,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,11 +52,11 @@ from extractorb_tpu_torch.frontend import brief, fast, matcher, stereo  # noqa: 
 from extractorb_tpu_torch.frontend.extractor import ORBExtractor  # noqa: E402
 from extractorb_tpu_torch.frontend.pyramid import compute_pyramid  # noqa: E402
 from extractorb_tpu_torch.geometry import two_view  # noqa: E402
-from extractorb_tpu_torch.slam import local_mapping, track_device  # noqa: E402
+from extractorb_tpu_torch.slam import checkpoint, local_mapping, track_device  # noqa: E402
 from extractorb_tpu_torch.slam.system import System  # noqa: E402
 from extractorb_tpu_torch.slam.track_device import TrackStep  # noqa: E402
 from extractorb_tpu_torch.slam.tracking import TrackState  # noqa: E402
-from extractorb_tpu_torch.solver import ba, pose_opt  # noqa: E402
+from extractorb_tpu_torch.solver import ba, pnp, pose_opt  # noqa: E402
 from extractorb_tpu_torch.utils import packed_fetch  # noqa: E402
 
 WIDTH, HEIGHT = 640, 480
@@ -83,6 +88,8 @@ KERNELS = {
                  "extractorb_tpu/utils/packed_fetch.py:37"),
     "stereo_match": ("extractorb_tpu_torch/csrc/stereo_match.cu",
                      "extractorb_tpu/frontend/stereo.py:35"),
+    "pnp_ransac": ("extractorb_tpu_torch/csrc/pnp_ransac.cu",
+                   "extractorb_tpu/solver/pnp.py:154"),
 }
 # the [system] run: the rendered sequence of tests/test_slam_e2e.py's
 # planar test at 640x480 / 1000 features, 30 frames at speed 0.04
@@ -94,11 +101,17 @@ SYS_FEATURES = 1000
 # 3 m poster is close, the 5 m wall far)
 STEREO_BASELINE = 0.1
 STEREO_TH_DEPTH = 40.0
+# the recovery runs: [system]'s frames with these black; [resume] saves the
+# CPU plain path's session after frames 0..RESUME_AT-1
+RELOC_BLACK = (14, 15)
+RECOVERY_BLACK = tuple(range(14, 22))
+RESUME_AT = 16
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense rates): memory
 # bytes/s, and float32 operations/s outside the tensor cores, against which
 # the bounds also count the kernels' integer ALU work
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_FP64_OPS_PER_S = 34e12   # float64 outside the tensor cores (K10's minimal solves)
 
 
 def camera_config(width: int, height: int) -> CameraConfig:
@@ -166,14 +179,16 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def record(err, ms, plain_ms, nbytes, ops, library_ms=None) -> dict:
+def record(err, ms, plain_ms, nbytes, ops, library_ms=None, ops64=0) -> dict:
     """One kernel's parity and timing record with its bound: the larger of
     the bytes it must move (each input read once, each output written
-    once) over the memory rate and its operations over the peak rate."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+    once) over the memory rate and its operations over the peak rate of
+    their type (``ops64``: float64 ones)."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = (ops / PEAK_OPS_PER_S + ops64 / PEAK_FP64_OPS_PER_S) * 1e3
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o),
                 bound_by="bytes" if t_b >= t_o else "operations", library_ms=library_ms,
-                bytes=int(nbytes), ops=int(ops))
+                bytes=int(nbytes), ops=int(ops + ops64))
 
 
 # ----------------------------------------------------------------- phases
@@ -692,21 +707,26 @@ def stereo_config(sensor: str, width: int = WIDTH, height: int = HEIGHT,
     return dataclasses.replace(cfg, camera=cam, sensor=sensor)
 
 
-def run_system(frames, dev, on_frame=None, cfg=None, second=None):
+def run_system(frames, dev, on_frame=None, cfg=None, second=None, event_ms=None):
     """The System over ``frames`` (ts = k / 30) from a cold map, with
     ``cfg`` (default: system_config at the frames' size):
     ``track_monocular``, or with cfg.sensor "stereo" / "rgbd"
     ``track_stereo`` / ``track_rgbd`` with ``second[k]`` the right image /
     depth map.  ``on_frame(k, state, seconds, keyframe_event, system)``
-    sees each frame."""
+    sees each frame; on a card, ``event_ms`` (a list) gets each frame's
+    CUDA-event time."""
     if cfg is None:
         cfg = system_config(frames[0].shape[1], frames[0].shape[0])
     sys_ = System(cfg, device=dev)
     states = []
+    timed = dev.type == "cuda" and event_ms is not None
     for k, img in enumerate(frames):
         n_kf = sys_.n_keyframes()
         if dev.type == "cuda":
             torch.cuda.synchronize()
+        if timed:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
         t0 = time.perf_counter()
         if cfg.sensor == "stereo":
             st = sys_.track_stereo(img, second[k], k / 30.0)
@@ -714,9 +734,13 @@ def run_system(frames, dev, on_frame=None, cfg=None, second=None):
             st = sys_.track_rgbd(img, second[k], k / 30.0)
         else:
             st = sys_.track_monocular(img, k / 30.0)
+        if timed:
+            ev[1].record()
         if dev.type == "cuda":
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        if timed:
+            event_ms.append(ev[0].elapsed_time(ev[1]))
         states.append(st)
         if on_frame is not None:
             on_frame(k, st, dt, sys_.n_keyframes() != n_kf, sys_)
@@ -763,7 +787,8 @@ def phase_system(frames, poses, dev):
         if launches.get(name, 0) != n or n == 0:
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches, the tracker "
                                  f"counted {n}")
-    missing = [n for n in KERNELS if n != "stereo_match" and launches.get(n, 0) == 0]
+    missing = [n for n in KERNELS if n not in ("stereo_match", "pnp_ransac")
+               and launches.get(n, 0) == 0]
     if missing or launches.get("stereo_match", 0):
         raise AssertionError(f"kernels never launched on the [system] path: {missing}, "
                              f"stereo_match {launches.get('stereo_match', 0)}")
@@ -838,7 +863,8 @@ def phase_depth_system(sensor: str, frames, second, poses, dev):
     for name, v in list(want.items()) + list(own.items()):
         if launches.get(name, 0) != v:
             raise AssertionError(f"{tag} {name}: {launches.get(name, 0)} launches, expected {v}")
-    path = [k for k in KERNELS if k != "two_view" and (sensor == "stereo" or k != "stereo_match")]
+    path = [k for k in KERNELS if k not in ("two_view", "pnp_ransac")
+            and (sensor == "stereo" or k != "stereo_match")]
     missing = [k for k in path if launches.get(k, 0) == 0]
     if missing or launches.get("two_view", 0) or not launches.get("pose_lm_stereo", 0):
         raise AssertionError(f"{tag} never launched {missing}; two_view "
@@ -888,6 +914,182 @@ def phase_stereo_reference(frames, rights, dev):
               flush=True)
 
 
+def phase_parity_pnp(dev) -> dict:
+    """K10 against its plain version on the same CUDA inputs at the
+    relocalization shape: 1128 keypoint slots (1000 features + 8 x 16), 80%
+    of them matched, 256 sets, th = 3 px / fx, 30% gross outliers and 0.001
+    of noise in normalized coordinates.  ok, n_inliers and the inlier mask
+    equal, the winner's pose within 1e-4."""
+    rng = np.random.default_rng(4)
+    N = SYS_FEATURES + 8 * 16
+    pts, xy, _, _, _ = pf.pnp_scene(rng, N, 0.3, 0.001)
+    valid = rng.random(N) < 0.8
+    args = tuple(torch.from_numpy(a).to(dev) for a in (pts, xy, valid))
+    sets = pnp.sample_pnp_sets(0, torch.from_numpy(valid)).to(dev)
+    th = 3.0 / camera_config(WIDTH, HEIGHT).fx
+    run_k = lambda: pnp.ransac_pnp(*args, sets, th=th, min_inliers=12)
+    run_p = lambda: pnp.ransac_pnp_plain(*args, sets, th=th, min_inliers=12)
+    rk, rp = run_k(), run_p()
+    d = max(float((rk.R - rp.R).abs().max()), float((rk.t - rp.t).abs().max()))
+    same = (bool(rk.ok) == bool(rp.ok) and int(rk.n_inliers) == int(rp.n_inliers)
+            and torch.equal(rk.inliers, rp.inliers))
+    if not same or not d <= 1e-4 or not bool(rk.ok):
+        raise AssertionError(f"pnp_ransac: ok {bool(rk.ok)}/{bool(rp.ok)}, n_inliers "
+                             f"{int(rk.n_inliers)}/{int(rp.n_inliers)}, masks equal "
+                             f"{torch.equal(rk.inliers, rp.inliers)}, |dR|,|dt| {d:.2e}")
+    # work: per hypothesis ~20k float64 operations of minimal solve (the
+    # 12x12 symmetric eigenproblem ~9 n^3 = 15.6k, M^T M 3.5k, the 4x4 solve,
+    # covariance, beta and Horn ~1k); ~28 float32 operations per (hypothesis,
+    # valid slot) of scoring and per valid slot of the winner's mask.
+    # In: points, coordinates, mask, sets; out: R, t, mask, count, ok
+    H, nv = sets.shape[0], int(valid.sum())
+    stats = {"pnp_ransac": record(d, cuda_ms(run_k), cuda_ms(run_p, reps=5),
+                                  N * (12 + 8 + 1) + H * 6 * 4 + 48 + N + 5,
+                                  28 * (H + 1) * nv, ops64=20000 * H)}
+    print(f"[parity] pnp_ransac N={N} H={H}: ok, n_inliers ({int(rk.n_inliers)} of {nv} matched) "
+          f"and inlier mask equal, max |dR|,|dt| {d:.2e}", flush=True)
+    return stats
+
+
+def run_recovery(tag: str, frames, dev, cfg=None, second=None):
+    """A System run for the recovery phases: per-frame states, host and
+    event ms, and which frames attempted a relocalization."""
+    host_ms, event_ms, reloc_frames = [], [], []
+    seen = {"reloc": 0}
+
+    def on_frame(k, st, dt, kf, sys_):
+        host_ms.append(dt * 1e3)
+        n = sys_.tracker.stats["reloc"]
+        if n != seen["reloc"]:
+            reloc_frames.append(k)
+        seen["reloc"] = n
+
+    kernels.LAUNCHES.clear()
+    sys_, states = run_system(frames, dev, on_frame, cfg, second, event_ms)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for k in reloc_frames:
+        ev = event_ms[k] if event_ms else float("nan")
+        print(f"{tag} frame {k:2d}: {host_ms[k]:8.2f} ms host {ev:8.2f} ms events  "
+              f"{states[k].name} (relocalization attempt)", flush=True)
+    print(f"{tag} states {[s.name for s in states]}", flush=True)
+    print(f"{tag} launches {launches}; tracker counts {dict(sys_.tracker.stats)}", flush=True)
+    return sys_, states, launches
+
+
+def check_relocalized(tag: str, states, black, sys_, launches):
+    """LOST (or RECENTLY_LOST) on the first black frame, OK again within 2
+    frames of the first real image and on every later frame, K10 launched
+    once per PnP call of the tracker."""
+    first_real = black[-1] + 1
+    back = next((k for k in range(first_real, len(states)) if states[k] == TrackState.OK), None)
+    lost = states[black[0]] in (TrackState.LOST, TrackState.RECENTLY_LOST)
+    if not lost or back is None or back > first_real + 1 or any(
+            s != TrackState.OK for s in states[back:]):
+        raise AssertionError(f"{tag} states {[s.name for s in states]}")
+    n_pnp = sys_.tracker.stats["pnp"]
+    if launches.get("pnp_ransac", 0) != n_pnp or n_pnp == 0 or not sys_.tracker.stats["reloc_ok"]:
+        raise AssertionError(f"{tag} pnp_ransac {launches.get('pnp_ransac', 0)} launches, the "
+                             f"tracker counted {n_pnp} PnP calls")
+    return back
+
+
+def phase_reloc(frames, poses, dev):
+    """[reloc]: the [system] run with frames 14-15 black: LOST, relocalized
+    (K3, K10, K4) on the first real frame or the next, then OK to the end;
+    the whole run's ATE within the [system] limit; every kernel of the mono
+    path launched."""
+    sys_, states, launches = run_recovery("[reloc]", pf.blackout(frames, RELOC_BLACK), dev)
+    back = check_relocalized("[reloc]", states, RELOC_BLACK, sys_, launches)
+    ate, scale = pf.trajectory_ate(sys_.tracker.trajectory, poses)
+    if not np.isfinite(ate) or ate > 0.05 * max(scale, 1.0):
+        raise AssertionError(f"[reloc] ATE {ate:.4f} m over a scene scale of {scale:.3f} m")
+    missing = [n for n in KERNELS if n != "stereo_match" and launches.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"[reloc] never launched {missing}")
+    print(f"[reloc] OK again at frame {back}, {sys_.n_keyframes()} keyframes, ATE {ate:.4f} m "
+          f"(scene scale {scale:.3f} m)", flush=True)
+    return launches
+
+
+def phase_reloc_stereo(frames, rights, poses, dev):
+    """[reloc-stereo]: [stereo] with frames 14-15 black in both images:
+    relocalized as [reloc], metric error < 0.08 m, K9 once per stereo
+    frame, K4 with the stereo rows."""
+    black = lambda ims: pf.blackout(ims, RELOC_BLACK)
+    cfg = stereo_config("stereo", frames[0].shape[1], frames[0].shape[0])
+    sys_, states, launches = run_recovery("[reloc-stereo]", black(frames), dev, cfg, black(rights))
+    back = check_relocalized("[reloc-stereo]", states, RELOC_BLACK, sys_, launches)
+    err, ratio = pf.metric_error(sys_.tracker.trajectory, poses)
+    if not err < 0.08 or launches.get("stereo_match", 0) != sys_.tracker.stats["stereo_match"] \
+            or not launches.get("pose_lm_stereo", 0):
+        raise AssertionError(f"[reloc-stereo] metric error {err:.4f} m, stereo_match "
+                             f"{launches.get('stereo_match', 0)} launches, stereo pose solves "
+                             f"{launches.get('pose_lm_stereo', 0)}")
+    print(f"[reloc-stereo] OK again at frame {back}, {sys_.n_keyframes()} keyframes, metric "
+          f"error {err:.4f} m, path ratio {ratio:.4f}", flush=True)
+    return launches
+
+
+def phase_recovery(frames, poses, dev):
+    """[recovery]: frames 14-21 black: LOST on 14, the sixth failed LOST
+    frame starts a new Atlas map and drops the failed one (fewer than 10
+    keyframes), the next real frames initialise it again (K5) and track OK
+    to the end; the new map's ATE within the [system] limit."""
+    sys_, states, launches = run_recovery("[recovery]", pf.blackout(frames, RECOVERY_BLACK), dev)
+    tr = sys_.tracker
+    reset = RECOVERY_BLACK[0] + 6
+    first_real = RECOVERY_BLACK[-1] + 1
+    back = next((k for k in range(first_real, len(states)) if states[k] == TrackState.OK), None)
+    ok = (all(s == TrackState.LOST for s in states[RECOVERY_BLACK[0]:reset])
+          and states[reset] == TrackState.NO_IMAGES_YET and back is not None
+          and back <= first_real + 2 and all(s == TrackState.OK for s in states[back:])
+          and len(tr.atlas.maps) == 1 and tr.atlas.current.mid == 1)
+    n_tv = tr.stats["two_view"]
+    if not ok or launches.get("two_view", 0) != n_tv or n_tv < 2:
+        raise AssertionError(f"[recovery] states {[s.name for s in states]}, "
+                             f"{len(tr.atlas.maps)} maps (current {tr.atlas.current.mid}), "
+                             f"two_view {launches.get('two_view', 0)} launches / {n_tv}")
+    ate, scale = pf.trajectory_ate(tr.trajectory[tr._map_traj_start:], poses)
+    if not np.isfinite(ate) or ate > 0.05 * max(scale, 1.0):
+        raise AssertionError(f"[recovery] new map ATE {ate:.4f} m over {scale:.3f} m")
+    print(f"[recovery] new map at frame {reset}, initialised again by frame {back}, "
+          f"{sys_.n_keyframes()} keyframes, new-map ATE {ate:.4f} m over "
+          f"{len(tr.trajectory) - tr._map_traj_start} frames", flush=True)
+    return launches
+
+
+def phase_resume(frames, poses, dev):
+    """[resume]: the CPU plain path tracks [system]'s frames 0-15 and saves
+    its session; ``load_session`` without a device puts it on the card,
+    which tracks frames 16-29 OK (the fused step from the restored last
+    frame) with the whole trajectory's ATE within the [system] limit."""
+    cfg = system_config(frames[0].shape[1], frames[0].shape[0])
+    cpu = System(cfg, device=torch.device("cpu"))
+    for k in range(RESUME_AT):
+        cpu.track_monocular(frames[k], k / 30.0)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "session.npz")
+        checkpoint.save_session(cpu.tracker, path)
+        kernels.LAUNCHES.clear()
+        tr = checkpoint.load_session(path, cfg)
+        states = [tr.track(frames[k], k / 30.0) for k in range(RESUME_AT, len(frames))]
+        tr.flush()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    ate, scale = pf.trajectory_ate(tr.trajectory, poses)
+    fused = ("fast_detect", "orb_describe", "hamming_best2", "pose_lm", "pack_i32")
+    if tr.device.type != "cuda" or any(s != TrackState.OK for s in states) or \
+            len(tr.trajectory) != len(cpu.tracker.trajectory) + len(states) or \
+            not ate <= 0.05 * max(scale, 1.0) or any(not launches.get(n, 0) for n in fused):
+        raise AssertionError(f"[resume] on {tr.device}: states {[s.name for s in states]}, "
+                             f"ATE {ate:.4f} m, launches {launches}")
+    print(f"[resume] session of frames 0-{RESUME_AT - 1} (CPU plain path) tracked on "
+          f"{tr.device} through frame {len(frames) - 1}: all OK, ATE {ate:.4f} m over "
+          f"{scale:.3f} m; launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -901,6 +1103,7 @@ def main() -> int:
     stats = phase_kernel_parity(step, frames[0], dev)
     stats.update(phase_parity_stereo(sys_frames[0], sys_rights[0], sys_depths[0], dev))
     stats.update(phase_parity_k5_k8(sys_frames, sys_poses, dev))
+    stats.update(phase_parity_pnp(dev))
     paths = {}
     results, paths["track"] = phase_main_path(step, frames, depths, poses, dev)
     phase_reference(step, results, frames, depths, poses)
@@ -909,6 +1112,10 @@ def main() -> int:
     paths["stereo"] = phase_depth_system("stereo", sys_frames, sys_rights, sys_poses, dev)
     paths["rgbd"] = phase_depth_system("rgbd", sys_frames, sys_depths, sys_poses, dev)
     phase_stereo_reference(sys_frames, sys_rights, dev)
+    paths["reloc"] = phase_reloc(sys_frames, sys_poses, dev)
+    paths["reloc_stereo"] = phase_reloc_stereo(sys_frames, sys_rights, sys_poses, dev)
+    paths["recovery"] = phase_recovery(sys_frames, sys_poses, dev)
+    paths["resume"] = phase_resume(sys_frames, sys_poses, dev)
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():

@@ -29,8 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-# No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7 and
-# K9 must round like their plain PyTorch versions (K1, K3 and K8 are integer
+# No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9
+# and K10 must round like their plain PyTorch versions (K1, K3 and K8 are integer
 # code or copies; K4 and K6 are bound by latency, not float throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
@@ -78,6 +78,10 @@ _SIGNATURES = {
                             _F, _F, _I, _P, _P, _P, _P, _P),
     # pos, valid, cap, rows, new_pos, new_valid, b, stream
     "mirror_scatter_launch": (_P, _P, _I, _P, _P, _P, _I, _P),
+    # p3d, xy, valid, sets, N, H, solver, th, min_inliers, Rs, ts, counts,
+    # R, t, inliers, n_inliers, ok, stream
+    "pnp_ransac_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P),
     # workspace sizes in bytes
     "two_view_workspace_bytes": (_I, _I),
     "ba_workspace_bytes": (_I, _I, _I, _I),

@@ -8,8 +8,8 @@ TrackWithMotionModel, :2308 TrackReferenceKeyFrame, :2532 TrackLocalMap,
 machine; the dense stages run on the device: extraction (K1, K2), the
 searches (K3), pose optimisation (K4, with the stereo residual), the
 two-view initialisation (K5), bundle adjustment (K6), the triangulation
-search (K7), the map mirror and packed fetches (K8) and the stereo match
-(K9).
+search (K7), the map mirror and packed fetches (K8), the stereo match
+(K9) and the relocalization PnP (K10).
 
 The steady state is the fused step (``TrackStep``): one call per frame,
 confirmed by one packed fetch.  Frames that fail its gates replay through
@@ -17,11 +17,18 @@ the reference-exact path (``_track_existing``).  Stereo and RGB-D maps
 start from one frame's depths (no two-view init) and create close points
 at every keyframe.
 
+Recovery (reference Tracking.cc:1549-1625, :3184): a frame that fails to
+track goes LOST, or RECENTLY_LOST on a map of more than 10 keyframes for
+``time_recently_lost`` seconds; later frames relocalize against the map's
+three most recent keyframes (K3 match, K10 RANSAC PnP, K4), and more than
+five failed LOST frames start a new Atlas map (the failed one is dropped
+below 10 keyframes).
+
 Not in this slice, and raising ``NotImplementedError`` with the ROADMAP
-item: inertial sensors (A.11), a vocabulary (A.9), the KB8 camera and the
-fisheye stereo rig (A.12), ``octree="host"`` (not ported: it is the JAX
-package's oracle), ``pipeline_depth > 0`` (A.7) and relocalization
-(A.10, ``solver/pnp.py`` is B.30).
+item: inertial sensors (A.11), a vocabulary and its relocalization
+candidates (A.9), the KB8 camera, its MLPnP relocalization and the fisheye
+stereo rig (A.12), ``octree="host"`` (not ported: it is the JAX package's
+oracle) and ``pipeline_depth > 0`` (A.7).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..frontend import matcher as fm
 from ..frontend import stereo as fstereo
 from ..frontend.extractor import Features, ORBExtractor
 from ..geometry import two_view as tv
+from ..solver import pnp
 from ..solver import pose_opt as spo
 from ..utils.packed_fetch import pack_fetch
 from . import local_mapping
@@ -192,7 +200,9 @@ class Tracker:
         self.atlas = Atlas()
         # counts of the device work the tracker dispatched: "two_view"
         # (init attempts), "ba" (solves), "tri_groups" (triangulation
-        # launches), "stereo_match" (stereo matches of a pair)
+        # launches), "stereo_match" (stereo matches of a pair), "pnp"
+        # (RANSAC PnP calls); "reloc" counts relocalization attempts and
+        # "reloc_ok" the ones that brought tracking back to OK
         self.stats: collections.Counter = collections.Counter()
         self.local_mapper = local_mapping.LocalMapper(
             self.cam, self.scale_factors, self.inv_sigma2, self.K, self.device, self.stats)
@@ -207,7 +217,11 @@ class Tracker:
         # each frame pose relative to its reference keyframe: (ts, map mid,
         # kf_id, R_rel, t_rel), kf_id -1 for an absolute pose
         self.traj_rel: List[Tuple[float, int, int, np.ndarray, np.ndarray]] = []
+        # first trajectory index in the current Atlas map's coordinates
+        self._map_traj_start = 0
         self._rng = np.random.default_rng(0)
+        self._frames_lost = 0
+        self._lost_ts = 0.0       # timestamp of the OK -> RECENTLY_LOST drop
 
         # fused device tracking step
         self._mirror = td.MapMirror(self.device)
@@ -497,6 +511,7 @@ class Tracker:
             frame.R = np.asarray(R).copy()
             frame.t = np.asarray(t).copy()
             self.state = TrackState.OK
+            self._frames_lost = 0
             prev = e.prev_frame
             Rv = frame.R @ prev.R.T
             self.velocity = (Rv, frame.t - Rv @ prev.t)
@@ -539,29 +554,111 @@ class Tracker:
             self._track_existing(f, e.ts)
 
     def _track_existing(self, frame: Frame, ts: float):
-        """Shared post-initialization state machine (Track(), :1390)."""
-        if self.state in (TrackState.RECENTLY_LOST, TrackState.LOST):
-            self._relocalize(frame)
+        """Shared post-initialization state machine (Track(), :1390): a
+        LOST frame relocalizes and then tracks the local map (no motion
+        model, no keyframe decision); more than five failed LOST frames
+        start a new Atlas map (reference Tracking.cc:1607-1625)."""
+        if self.state == TrackState.RECENTLY_LOST:
+            return self._track_recently_lost(frame, ts)
+        if self.state == TrackState.LOST:
+            if self._relocalize(frame) and self._track_local_map(frame):
+                self.state = TrackState.OK
+                self.velocity = None
+                self.stats["reloc_ok"] += 1
+            else:
+                self._frames_lost += 1
+                if self._frames_lost > 5:
+                    # a map of 10 keyframes or more is kept; a smaller one
+                    # is discarded (reference Tracking.cc:1607)
+                    failed_mid = self.atlas.current.mid
+                    small = len(self.atlas.current.keyframes) < 10
+                    self._reset_map()
+                    if small:
+                        self.atlas.remove_map(failed_mid)
+                    self._frames_lost = 0
+            self.last_frame = frame
+            if frame.R is not None and self.state == TrackState.OK:
+                self._record_traj(ts, frame.R, frame.t)
+            return self.state
         ok = self._track_frame(frame)
         if ok:
             self.state = TrackState.OK
+            self._frames_lost = 0
         else:
-            self._enter_lost()
+            self._enter_lost(ts)
         self.last_frame = frame
         if frame.R is not None and ok:
             self._record_traj(ts, frame.R, frame.t)
         return self.state
 
-    def _enter_lost(self):
+    def _enter_lost(self, ts: float):
         """Track-failure transition (reference Tracking.cc:1576-1605): a
-        mature map (>10 KFs) holds RECENTLY_LOST, else LOST.  Either state
-        needs relocalization on the next frame (not ported, ROADMAP A.10)."""
-        mp = self.atlas.current
-        self.state = TrackState.RECENTLY_LOST if len(mp.keyframes) > 10 else TrackState.LOST
+        mature map (more than 10 keyframes) holds RECENTLY_LOST from ``ts``
+        for ``time_recently_lost`` seconds, a younger one drops to LOST."""
+        if len(self.atlas.current.keyframes) > 10:
+            self.state = TrackState.RECENTLY_LOST
+            self._lost_ts = ts
+        else:
+            self.state = TrackState.LOST
+
+    def _track_recently_lost(self, frame: Frame, ts: float):
+        """RECENTLY_LOST, visual branch (reference Tracking.cc:1576-1605):
+        relocalize every frame; after ``time_recently_lost`` seconds
+        without success the state drops to LOST."""
+        if self._relocalize(frame) and self._track_local_map(frame):
+            self.state = TrackState.OK
+            self.velocity = None
+            self._frames_lost = 0
+            self.stats["reloc_ok"] += 1
+        elif ts - self._lost_ts > self.cfg.tracking.time_recently_lost:
+            self.state = TrackState.LOST
+        self.last_frame = frame
+        if frame.R is not None and self.state == TrackState.OK:
+            self._record_traj(ts, frame.R, frame.t)
+        return self.state
 
     def _relocalize(self, frame: Frame) -> bool:
-        raise NotImplementedError(
-            "relocalization is not ported (ROADMAP A.10: solver/pnp.py is B.30)")
+        """Relocalization (reference Tracking.cc:3184), pinhole branch
+        without a vocabulary: the map's three most recent keyframes are the
+        candidates.  Each goes through a mutual-best descriptor match
+        against its map-point-bearing keypoints (K3), RANSAC PnP on the
+        matched points in normalized coordinates (K10, 256 hypotheses,
+        3 px / fx), the candidate's own pose where PnP fails, and the
+        robust pose optimisation (K4, with the stereo rows for stereo and
+        RGB-D frames); the first candidate with 20 inliers becomes the
+        reference keyframe.  One packed fetch per candidate carries PnP's
+        ok, R and t."""
+        self.stats["reloc"] += 1
+        mp = self.atlas.current
+        fx, fy = self.K[0, 0], self.K[1, 1]
+        for cand in sorted(mp.keyframes.keys())[-3:]:
+            kf = mp.keyframes[cand]
+            m12, _ = fm.mutual_best_match(frame.feats.desc, frame.feats.valid,
+                                          self._t(kf.desc), self._t(kf.valid & (kf.kp_mp >= 0)))
+            m12 = m12.cpu().numpy()
+            mids = np.where(m12 >= 0, kf.kp_mp[np.maximum(m12, 0)], INVALID)
+            live = mids >= 0
+            live[live] = mp.mp_valid[mids[live]]
+            frame.kp_mp[:] = INVALID
+            frame.kp_mp[live] = mids[live]
+            if live.sum() < 15:
+                continue
+            p3d = np.zeros((len(frame.kp_mp), 3), np.float32)
+            p3d[live] = mp.mp_pos[frame.kp_mp[live]]
+            xy_n = (frame.xy_un - self.K[:2, 2]) / np.array([fx, fy], np.float32)
+            sets = pnp.sample_pnp_sets(frame.frame_id, torch.from_numpy(live)).to(self.device)
+            res = pnp.ransac_pnp(self._t(p3d), self._t(xy_n, torch.float32), self._t(live), sets,
+                                 th=float(3.0 / fx), min_inliers=12)
+            self.stats["pnp"] += 1
+            ok, R, t = pack_fetch([res.ok, res.R, res.t])
+            if bool(ok):
+                frame.R, frame.t = np.asarray(R).copy(), np.asarray(t).copy()
+            else:
+                frame.R, frame.t = kf.R.copy(), kf.t.copy()
+            if self._pose_opt(frame, min_inliers=20):
+                self.ref_kf = cand
+                return True
+        return False
 
     # ---------------------------------------------------- initialization
 
@@ -772,6 +869,7 @@ class Tracker:
         self._pipe = []
         self.local_mapper.discard_ba()
         self.atlas.create_new_map()
+        self._map_traj_start = len(self.trajectory)
         self.init_frame = None
         self.state = TrackState.NO_IMAGES_YET
         self.ref_kf = None

@@ -1,8 +1,11 @@
 """The JAX and the port's System on one rendered stereo or RGB-D sequence,
-for ``test_torch_system_stereo.py`` and ``test_torch_system_rgbd.py``."""
+for ``test_torch_system_stereo.py`` and ``test_torch_system_rgbd.py``, and
+the patch that hands the port JAX's random draws."""
 
 import dataclasses
 
+import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -13,15 +16,32 @@ from extractorb_tpu.config import SLAMConfig as JSLAMConfig
 from extractorb_tpu.config import TrackingConfig as JTrackingConfig
 from extractorb_tpu.slam.system import System as JSystem
 from extractorb_tpu_torch.config import TrackingConfig
+from extractorb_tpu_torch.geometry import two_view
+from extractorb_tpu_torch.solver import pnp
+from test_torch_pnp import jax_pnp_sets
+from test_torch_two_view import jax_sets
 
 W, H, NF, N_FRAMES, SPEED, MAX_FRAMES = 320, 240, 1000, 15, 0.04, 8
 
 
-def jax_and_port_runs(sensor: str) -> dict:
+def patch_jax_draws(m):
+    """Make the port draw its two-view and PnP minimal sets as the JAX
+    package does from the same integer seed (``m``: a MonkeyPatch)."""
+    m.setattr(two_view, "sample_sets",
+              lambda seed, valid, n_sets=200: torch.from_numpy(jax_sets(seed, valid, n_sets)
+                                                               .copy()))
+    m.setattr(pnp, "sample_pnp_sets",
+              lambda seed, valid, n_hyp=pnp.N_HYPOTHESES: torch.from_numpy(
+                  jax_pnp_sets(seed, np.asarray(valid), n_hyp).astype(np.int64)))
+
+
+def jax_and_port_runs(sensor: str, black=()) -> dict:
     """Both Systems over the same frames (right images or the renderer's
-    depth maps), from a cold map; the port on the CPU."""
+    depth maps), from a cold map; the port on the CPU.  The images at the
+    indices in ``black`` (left and right) are black."""
     left, right, depths, poses = pf.render_stereo_sequence(pf.procedural_texture(), N_FRAMES,
                                                            SPEED, W, H)
+    left, right = pf.blackout(left, black), pf.blackout(right, black)
     second = right if sensor == "stereo" else depths
     cfg = dataclasses.replace(chip_smoke.stereo_config(sensor, W, H, NF),
                               tracking=TrackingConfig(max_frames=MAX_FRAMES))
@@ -43,6 +63,8 @@ def jax_and_port_runs(sensor: str) -> dict:
         if k == 0:
             init_points.append(sys_.n_map_points())
 
-    psys, pstates = chip_smoke.run_system(left, torch.device("cpu"), on_frame, cfg, second)
+    with pytest.MonkeyPatch.context() as m:
+        patch_jax_draws(m)
+        psys, pstates = chip_smoke.run_system(left, torch.device("cpu"), on_frame, cfg, second)
     return dict(poses=poses, jsys=jsys, jstates=jstates, psys=psys, pstates=pstates,
                 init_points=init_points)

@@ -2,8 +2,9 @@
 
 numpy only (no cv2, no jax, no torch): a seeded procedural texture, a
 two-plane scene renderer with true poses and per-pixel depth (the
-geometry of ``tests/test_slam_e2e.py:render_sequence``), and the helper
-that seeds a map from one frame's keypoints and the true depth.
+geometry of ``tests/test_slam_e2e.py:render_sequence``), black frames
+that make tracking fail, and the helper that seeds a map from one frame's
+keypoints and the true depth.
 """
 
 from __future__ import annotations
@@ -142,6 +143,14 @@ def render_stereo_sequence(tex: np.ndarray, n_frames: int, speed: float = 0.06,
     return left, right, depths, poses
 
 
+def blackout(images, black) -> list:
+    """The images with those at the indices in ``black`` replaced by black
+    (all-zero) images of the same shape: a covered lens, on which tracking
+    finds no keypoint and fails."""
+    black = set(black)
+    return [np.zeros_like(img) if k in black else img for k, img in enumerate(images)]
+
+
 def seed_map(xy, octave, valid, desc, depth, pose, K, scale_factors,
              map_cap: int, local_cap: int):
     """Lift one frame's keypoints to map points with the true depth.
@@ -220,6 +229,26 @@ def synthetic_pose_problems(rng, B: int, N: int, fx: float, fy: float, cx: float
     t0 = t_true + rng.normal(0, 0.05, (B, 3))
     f = lambda a: np.asarray(a, np.float32)
     return f(R0), f(t0), f(pts), f(obs), f(isig), valid, (R_true, t_true)
+
+
+def pnp_scene(rng, n: int = 200, out_frac: float = 0.3, noise: float = 0.001):
+    """A PnP problem as ``tests/test_pnp.py:_scene``: n points 4-9 m in
+    front of the camera at a fixed pose, their normalized image
+    coordinates with Gaussian ``noise``, and a share ``out_frac`` of them
+    moved by 0.1-0.5 (gross outliers).  Returns float32 (pts (n,3),
+    xy (n,2)), the true (R, t) and the outlier indices."""
+    pts = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(4, 9, n)],
+                   -1).astype(np.float32)
+    R = so3_exp_np([0.1, -0.2, 0.05]).astype(np.float32)
+    t = np.array([0.3, -0.1, 0.5], np.float32)
+    pc = pts @ R.T + t
+    xy = pc[:, :2] / pc[:, 2:3]
+    if noise:
+        xy = xy + rng.normal(0, noise, xy.shape)
+    n_out = int(round(out_frac * n))
+    out_idx = rng.choice(n, n_out, replace=False)
+    xy[out_idx] += rng.uniform(0.1, 0.5, (n_out, 2)) * rng.choice([-1, 1], (n_out, 2))
+    return pts, xy.astype(np.float32), R, t, out_idx
 
 
 def camera_centre_error(R, t, pose) -> float:

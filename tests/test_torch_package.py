@@ -50,7 +50,8 @@ def test_every_module_imports_without_jax_cv2_triton_or_nvcc(tmp_path):
     assert res.stdout.strip() == f"ok {len(MODULES)}"
     assert len(MODULES) >= 20
     for m in ("geometry.two_view", "solver.ba", "slam.map", "slam.local_mapping",
-              "slam.tracking", "slam.system", "utils.packed_fetch", "frontend.stereo"):
+              "slam.tracking", "slam.system", "utils.packed_fetch", "frontend.stereo",
+              "solver.pnp", "slam.checkpoint"):
         assert f"extractorb_tpu_torch.{m}" in MODULES, m
 
 

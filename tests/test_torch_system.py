@@ -136,14 +136,11 @@ def test_system_without_device_needs_a_card(monkeypatch):
     assert System(chip_smoke.system_config(W, H, NF), device="cpu").tracker.device.type == "cpu"
 
 
-def test_vocabulary_and_relocalization_raise(runs):
+def test_vocabulary_raises():
+    """A vocabulary is not ported (relocalization is: its tests are in
+    test_torch_system_reloc.py)."""
     cfg = chip_smoke.system_config(W, H, NF)
     with pytest.raises(NotImplementedError, match="A.9"):
         System(cfg, vocab=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A.9"):
         System(cfg, vocab_path="voc.txt", device="cpu")
-    sys_ = System(cfg, device="cpu")
-    sys_.tracker.state = TrackState.LOST
-    sys_.tracker.last_frame = runs["psys"].tracker.last_frame
-    with pytest.raises(NotImplementedError, match="A.10"):
-        sys_.track_monocular(np.zeros((H, W), np.uint8), 1.0)

@@ -9,6 +9,10 @@ must initialise on frame 0 with the same number of map points, keep every
 frame OK and insert the same keyframes; the port's largest camera-centre
 error (metric, no alignment) must stay within 1.05 x the JAX run's + 1 mm
 (see test_torch_system_stereo.py on the window BA's free scale).
+
+With frames 9-10 black both lose track on frame 9, relocalize on frame 11
+against the same map (K3, K10 and K4 with the stereo rows) with the same
+pose within 1e-3, and stay within the same error bound.
 """
 
 import numpy as np
@@ -22,11 +26,17 @@ from extractorb_tpu_torch.slam.tracking import TrackState
 from torch_card import one_torch_thread  # noqa: F401  (pytest fixture)
 
 SENSOR = "rgbd"
+BLACK = (9, 10)
 
 
 @pytest.fixture(scope="module")
 def runs():
     return jax_and_port_runs(SENSOR)
+
+
+@pytest.fixture(scope="module")
+def occluded():
+    return jax_and_port_runs(SENSOR, black=BLACK)
 
 
 def test_same_init_states_and_keyframes(runs):
@@ -71,3 +81,19 @@ def test_jax_rgbd_map_converts_both_ways(runs):
     kf = interop.keyframe_from_numpy(kd, torch.device("cpu"))
     assert kf.ur is None and kf.depth is None
     assert interop.keyframe_to_numpy(kf)["ur"] is None
+
+
+def test_relocalizes_after_black_frames_like_jax(occluded):
+    states = [s.name for s in occluded["pstates"]]
+    assert states == [s.name for s in occluded["jstates"]]
+    assert states[9:11] == ["LOST", "LOST"] and all(s == "OK" for s in states[11:])
+    pose = lambda sys_: next((R, t) for ts, R, t in sys_.tracker.trajectory
+                             if round(ts * 30) == 11)
+    (Rp, tp), (Rj, tj) = pose(occluded["psys"]), pose(occluded["jsys"])
+    np.testing.assert_allclose(Rp, np.asarray(Rj), atol=1e-3)
+    np.testing.assert_allclose(tp, np.asarray(tj), atol=1e-3)
+    assert occluded["psys"].tracker.stats["reloc_ok"] == 1
+    assert occluded["psys"].n_keyframes() == occluded["jsys"].n_keyframes()
+    err_p, _ = pf.metric_error(occluded["psys"].tracker.trajectory, occluded["poses"])
+    err_j, _ = pf.metric_error(occluded["jsys"].tracker.trajectory, occluded["poses"])
+    assert err_p <= 1.05 * err_j + 1e-3 and err_p < 0.08, (err_p, err_j)
