@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K10) from
+Builds the hand-written CUDA kernels (K1-K14) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
 version at the shapes of the main paths, drives the monocular tracking
 step (``TrackStep``) over a rendered 640x480 sequence with 1000 ORB
@@ -14,7 +14,11 @@ against the scene's truth and the CPU plain path.  Then tracking recovery:
 [reloc] and [reloc-stereo] black out frames 14-15 (LOST, relocalization
 through K10), [recovery] frames 14-21 (a new Atlas map and a second
 initialisation), and [resume] loads a session the CPU plain path saved
-after frame 15 onto the card and tracks the rest.  Any failure raises:
+after frame 15 onto the card and tracks the rest.  Then loop closing:
+K11-K14 and K3's word gate against their plain versions, [loop] corrects
+a constructed out-and-back map through ``LoopCloser.process_keyframe``,
+[merge] welds two Atlas maps from pixels (``System(cfg, vocab)``), and
+[system-vocab] repeats [system] with a vocabulary.  Any failure raises:
 the script then exits non-zero and never prints its last line.  It needs
 a CUDA card and nothing outside the repository (the scenes are generated
 from a seed).
@@ -52,11 +56,16 @@ from extractorb_tpu_torch.frontend import brief, fast, matcher, stereo  # noqa: 
 from extractorb_tpu_torch.frontend.extractor import ORBExtractor  # noqa: E402
 from extractorb_tpu_torch.frontend.pyramid import compute_pyramid  # noqa: E402
 from extractorb_tpu_torch.geometry import two_view  # noqa: E402
-from extractorb_tpu_torch.slam import checkpoint, local_mapping, track_device  # noqa: E402
+from extractorb_tpu_torch.core.camera import Pinhole  # noqa: E402
+from extractorb_tpu_torch.dist import global_ba, sharded_ba  # noqa: E402
+from extractorb_tpu_torch.geometry import sim3 as gsim3  # noqa: E402
+from extractorb_tpu_torch.place import vocab as vocab_mod  # noqa: E402
+from extractorb_tpu_torch.slam import checkpoint, local_mapping, loop_closing, track_device  # noqa: E402,E501
+from extractorb_tpu_torch.slam.map import KeyFrame, SLAMMap  # noqa: E402
 from extractorb_tpu_torch.slam.system import System  # noqa: E402
 from extractorb_tpu_torch.slam.track_device import TrackStep  # noqa: E402
 from extractorb_tpu_torch.slam.tracking import TrackState  # noqa: E402
-from extractorb_tpu_torch.solver import ba, pnp, pose_opt  # noqa: E402
+from extractorb_tpu_torch.solver import ba, pnp, pose_graph, pose_opt  # noqa: E402
 from extractorb_tpu_torch.utils import packed_fetch  # noqa: E402
 
 WIDTH, HEIGHT = 640, 480
@@ -91,6 +100,19 @@ KERNELS = {
     "pnp_ransac": ("extractorb_tpu_torch/csrc/pnp_ransac.cu",
                    "extractorb_tpu/solver/pnp.py:154"),
 }
+# the tracking paths' kernels (K1-K10); the loop-closing path adds these
+VISUAL_KERNELS = tuple(KERNELS)
+KERNELS.update({
+    "vocab_words": ("extractorb_tpu_torch/csrc/vocab_words.cu",
+                    "extractorb_tpu/place/vocab.py:144"),
+    "hamming_best2_words": ("extractorb_tpu_torch/csrc/hamming_best2.cu",
+                            "extractorb_tpu/frontend/matcher.py:353"),
+    "sim3_ransac": ("extractorb_tpu_torch/csrc/sim3.cu", "extractorb_tpu/geometry/sim3.py:175"),
+    "sim3_optimize": ("extractorb_tpu_torch/csrc/sim3.cu", "extractorb_tpu/geometry/sim3.py:74"),
+    "pose_graph": ("extractorb_tpu_torch/csrc/pose_graph.cu",
+                   "extractorb_tpu/solver/pose_graph.py:197"),
+    "ba_schur": ("extractorb_tpu_torch/csrc/ba_schur.cu", "extractorb_tpu/dist/sharded_ba.py:258"),
+})
 # the [system] run: the rendered sequence of tests/test_slam_e2e.py's
 # planar test at 640x480 / 1000 features, 30 frames at speed 0.04
 SYS_FRAMES = 30
@@ -106,6 +128,16 @@ STEREO_TH_DEPTH = 40.0
 RELOC_BLACK = (14, 15)
 RECOVERY_BLACK = tuple(range(14, 22))
 RESUME_AT = 16
+# the [loop] map (pf.build_looped_map at full width): keyframes out and back
+# 0.15 m apart over points whose ~1000 a keyframe sees
+LOOP_KFS = 24
+LOOP_POINTS = 1400
+LOOP_STEP = 0.15
+# the [merge] run: tests/test_loop_from_pixels.py's sweep at 640x480
+MERGE_FRAMES = 40
+MERGE_BLACK = tuple(range(19, 29))
+MERGE_MAX_FRAMES = 1
+MERGE_MAX_ATE = 0.30   # the JAX test's bound (tests/test_loop_from_pixels.py:142)
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense rates): memory
 # bytes/s, and float32 operations/s outside the tensor cores, against which
 # the bounds also count the kernels' integer ALU work
@@ -787,7 +819,7 @@ def phase_system(frames, poses, dev):
         if launches.get(name, 0) != n or n == 0:
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches, the tracker "
                                  f"counted {n}")
-    missing = [n for n in KERNELS if n not in ("stereo_match", "pnp_ransac")
+    missing = [n for n in VISUAL_KERNELS if n not in ("stereo_match", "pnp_ransac")
                and launches.get(n, 0) == 0]
     if missing or launches.get("stereo_match", 0):
         raise AssertionError(f"kernels never launched on the [system] path: {missing}, "
@@ -803,7 +835,7 @@ def phase_system(frames, poses, dev):
           f"{statistics.median(kf_ms) if kf_ms else float('nan'):.2f} ms (host clock)",
           flush=True)
     print(f"[system] launches {launches}; tracker counts {own}", flush=True)
-    return launches, rec.results, sys_
+    return launches, rec.results, sys_, states, kf_ms
 
 
 def phase_system_reference(frames, card_inits, card_sys):
@@ -863,7 +895,7 @@ def phase_depth_system(sensor: str, frames, second, poses, dev):
     for name, v in list(want.items()) + list(own.items()):
         if launches.get(name, 0) != v:
             raise AssertionError(f"{tag} {name}: {launches.get(name, 0)} launches, expected {v}")
-    path = [k for k in KERNELS if k not in ("two_view", "pnp_ransac")
+    path = [k for k in VISUAL_KERNELS if k not in ("two_view", "pnp_ransac")
             and (sensor == "stereo" or k != "stereo_match")]
     missing = [k for k in path if launches.get(k, 0) == 0]
     if missing or launches.get("two_view", 0) or not launches.get("pose_lm_stereo", 0):
@@ -1004,7 +1036,7 @@ def phase_reloc(frames, poses, dev):
     ate, scale = pf.trajectory_ate(sys_.tracker.trajectory, poses)
     if not np.isfinite(ate) or ate > 0.05 * max(scale, 1.0):
         raise AssertionError(f"[reloc] ATE {ate:.4f} m over a scene scale of {scale:.3f} m")
-    missing = [n for n in KERNELS if n != "stereo_match" and launches.get(n, 0) == 0]
+    missing = [n for n in VISUAL_KERNELS if n != "stereo_match" and launches.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"[reloc] never launched {missing}")
     print(f"[reloc] OK again at frame {back}, {sys_.n_keyframes()} keyframes, ATE {ate:.4f} m "
@@ -1090,6 +1122,450 @@ def phase_resume(frames, poses, dev):
     return launches
 
 
+
+# ----------------------------------------------------------- loop closing
+
+
+def random_vocab(k: int = 10, L: int = 6, seed: int = 0) -> vocab_mod.Vocabulary:
+    """A vocabulary of ORBvoc's shape (k children, L levels, every node
+    full: k^L words, ~111k node rows at k=10, L=6) with random child
+    descriptors and unit weights."""
+    rng = np.random.default_rng(seed)
+    desc = [rng.integers(0, 256, (k ** l, k, 32), dtype=np.uint8) for l in range(L)]
+    ids = [np.arange(k ** (l + 1), dtype=np.int64).reshape(k ** l, k) for l in range(L)]
+    return vocab_mod.Vocabulary(k, L, desc, ids, np.ones(k ** L))
+
+
+def train_vocab(frames, dev, every: int = 5, n_features: int = SYS_FEATURES):
+    """The vocabulary of tests/test_loop_from_pixels.py:92-98: k=8, L=3,
+    trained (seed 0) on the descriptors the extractor finds in every
+    ``every``-th frame."""
+    h, w = frames[0].shape
+    ext = ORBExtractor(ORBConfig(n_features=n_features), (h, w), dev)
+    descs = []
+    for img in frames[::every]:
+        f = ext(torch.from_numpy(img).to(dev))
+        descs.append(f.desc.cpu().numpy()[f.valid.cpu().numpy()])
+    return vocab_mod.Vocabulary.train(np.concatenate(descs, 0), k=8, L=3, seed=0)
+
+
+def looped_map(dev, n_kf: int = LOOP_KFS, n_pts: int = LOOP_POINTS):
+    """The [loop] map: ``pf.build_looped_map`` at full width (LOOP_KFS
+    keyframes of up to 1128 keypoints, ~1000 observed each), the return
+    pass half a step off the outbound one; keyframe features on ``dev``."""
+    def feats(d, xy, v):
+        n = len(v)
+        return interop.features_from_numpy(
+            dict(xy=xy, response=np.zeros(n, np.float32), angle=np.zeros(n, np.float32),
+                 octave=np.zeros(n, np.int32), size=np.full(n, 31.0, np.float32), desc=d,
+                 valid=v), dev)
+    return pf.build_looped_map(0, SLAMMap, KeyFrame, feats, n_kf=n_kf, n_pts=n_pts,
+                               step=LOOP_STEP, n_cap=SYS_FEATURES + 8 * 16,
+                               return_shift=LOOP_STEP / 2)
+
+
+def sim3_scene(rng, N: int = 512, out_frac: float = 0.3):
+    """N Sim3 pairs: points 2-8 m in front of camera 1, p2 = s R p1 + t
+    (s 1.3), both pixels with 0.5 px noise, ``out_frac`` of the second
+    pixels moved 10-40 px, 90% valid.  float32 numpy (p1, p2, uv1, uv2,
+    valid) and the true (R, t, s)."""
+    cam = camera_config(WIDTH, HEIGHT)
+    proj = lambda p: np.stack([cam.fx * p[:, 0] / p[:, 2] + cam.cx,
+                               cam.fy * p[:, 1] / p[:, 2] + cam.cy], -1)
+    p1 = np.stack([rng.uniform(-2, 2, N), rng.uniform(-1.5, 1.5, N), rng.uniform(2, 8, N)], -1)
+    R, t, s = pf.so3_exp_np([0.05, -0.1, 0.03]), np.array([0.2, -0.05, 0.1]), 1.3
+    p2 = s * p1 @ R.T + t
+    uv1 = proj(p1) + rng.normal(0, 0.5, (N, 2))
+    uv2 = proj(p2) + rng.normal(0, 0.5, (N, 2))
+    out = rng.random(N) < out_frac
+    uv2[out] += rng.uniform(10, 40, (int(out.sum()), 2)) * rng.choice([-1, 1], (int(out.sum()), 2))
+    f = lambda a: np.asarray(a, np.float32)
+    return f(p1), f(p2), f(uv1), f(uv2), rng.random(N) < 0.9, (R, t, s)
+
+
+def pose_graph_problem(rng, dev, K: int = 200, extra: int = 4, far: int = 3):
+    """An essential graph of K keyframes on a closed loop of radius 1 m (a
+    monocular map's scale): a chain, ``extra`` edges from each keyframe to
+    random ones 2-20 later around the loop and ``far`` loop edges to random
+    keyframes anywhere (~1500 edges in all), measurements from the true
+    poses with 1 mrad / 1 mm noise and exact scale (m_s = 1, every start
+    scale 1, as ``LoopCloser._optimize_essential_graph`` builds them), the
+    start poses off by a random walk of 10 mrad / 1 cm a step, keyframe 0
+    fixed.  Its log-scale residuals end in [1e-5, 1e-3], where the float32
+    Sim3 maps' (s - 1) / sigma terms cancel (csrc/pose_graph.cu)."""
+    ang = np.linspace(0, 2 * np.pi, K, endpoint=False)
+    Rs, ts = [], []
+    for a in ang:
+        R = pf.so3_exp_np([0.0, a, 0.0])
+        Rs.append(R)
+        ts.append(-R @ np.array([np.cos(a), 0.02 * np.sin(3 * a), np.sin(a)]))
+    edges = [(i, i + 1) for i in range(K - 1)]
+    for i in range(K):
+        for j in rng.choice(np.arange(i + 2, i + 21), extra, replace=False):
+            if j % K != i:
+                edges.append((i, int(j % K)))
+        for j in rng.choice(K, far, replace=False):
+            if abs(int(j) - i) > 20:
+                edges.append((i, int(j)))
+    mR, mt = [], []
+    for i, j in edges:
+        dR = pf.so3_exp_np(rng.normal(0, 1e-3, 3))
+        Rm = dR @ Rs[j] @ Rs[i].T
+        mR.append(Rm)
+        mt.append(ts[j] - Rs[j] @ Rs[i].T @ ts[i] + rng.normal(0, 1e-3, 3))
+    R0, t0 = [Rs[0]], [ts[0]]
+    for i in range(1, K):
+        dR = pf.so3_exp_np(rng.normal(0, 1e-2, 3))
+        R0.append(dR @ Rs[i])
+        t0.append(ts[i] + rng.normal(0, 1e-2, 3) * i ** 0.5)
+    f = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), device=dev).to(dt)
+    E = len(edges)
+    return pose_graph.PoseGraphProblem(
+        R=f(R0), t=f(t0), s=f(np.ones(K)), edge_i=f([e[0] for e in edges], torch.int32),
+        edge_j=f([e[1] for e in edges], torch.int32), m_R=f(mR), m_t=f(mt), m_s=f(np.ones(E)),
+        weight=f(np.ones(E)), edge_valid=f(np.ones(E, bool), torch.bool),
+        fixed=f(np.arange(K) == 0, torch.bool))
+
+
+def phase_parity_loop(frames, voc, dev) -> dict:
+    """K11-K14 and K3's word gate against their plain versions on the same
+    CUDA inputs at the shapes of the loop-closing path."""
+    rng = np.random.default_rng(5)
+    stats = {}
+    cam = Pinhole.from_config(camera_config(WIDTH, HEIGHT))
+    h, w = frames[0].shape
+    ext = ORBExtractor(ORBConfig(n_features=SYS_FEATURES), (h, w), dev)
+    f1, f2 = ext(torch.from_numpy(frames[0]).to(dev)), ext(torch.from_numpy(frames[4]).to(dev))
+
+    # K11: 1128 keypoint slots of a frame through an ORBvoc-shaped tree
+    # (k=10, L=6) and through the trained one (k=8, L=3); words equal
+    big = random_vocab()
+    desc = f1.desc
+    for name, v in (("orbvoc-shaped k=10 L=6", big), ("trained k=8 L=3", voc)):
+        wk, wp = v.transform_words_device(desc), v.transform_words_plain(desc)
+        if not torch.equal(wk.long(), wp.long()):
+            raise AssertionError(f"vocab_words ({name}): {int((wk != wp).sum())} words differ")
+        print(f"[parity] vocab_words {name}: {desc.shape[0]} descriptors, words equal", flush=True)
+    # work: per descriptor and level k child rows (32 B descriptor, 4 B id)
+    # and ~24 operations per child (8 XOR, 8 popcount, 8 adds); in: the
+    # descriptors and the levels' rows they read, out: the words
+    N, k, L = desc.shape[0], big.k, big.L
+    stats["vocab_words"] = record(
+        0.0, cuda_ms(lambda: big.transform_words_device(desc)),
+        cuda_ms(lambda: big.transform_words_plain(desc), reps=5),
+        N * 32 + N * L * k * 36 + N * 4, N * L * k * 24)
+
+    # K3 word gate: frame 0 against frame 4, words from the trained tree
+    w1, w2 = voc.transform_words_device(f1.desc), voc.transform_words_device(f2.desc)
+    w1 = torch.where(f1.valid, w1, -1)
+    w2 = torch.where(f2.valid, w2, -1)
+    args = (f1.desc, f1.valid, f2.desc, f2.valid)
+    rk = matcher.hamming_best2(*args, words=(w1, w2))
+    rp = matcher.hamming_best2_plain(*args, words=(w1, w2))
+    for name, a, b in zip(rk._fields, rk, rp):
+        if not torch.equal(a, b):
+            raise AssertionError(f"hamming_best2_words: {name} differs from the plain version")
+    n_same = int(matcher._word_mask(w1, w2, f1.valid, f2.valid).sum())
+    M2, N2 = f1.desc.shape[0], f2.desc.shape[0]
+    # work: a word compare per pair (2 ops), XOR + popcount + top-2 (~20)
+    # per same-word pair; in: descriptors, words, flags; out: 4 rows
+    stats["hamming_best2_words"] = record(
+        0.0, cuda_ms(lambda: matcher.hamming_best2(*args, words=(w1, w2))),
+        cuda_ms(lambda: matcher.hamming_best2_plain(*args, words=(w1, w2))),
+        (M2 + N2) * 37 + 16 * M2, 2 * M2 * N2 + 20 * n_same)
+    print(f"[parity] hamming_best2 word gate {M2}x{N2} ({n_same} same-word pairs): all outputs "
+          f"bit-equal", flush=True)
+
+    # K12 RANSAC: 512 pairs, 30% outliers, the seeded sets
+    p1, p2, uv1, uv2, val, _ = sim3_scene(rng)
+    t_ = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    sargs = [t_(a) for a in (p1, p2, uv1, uv2, val)]
+    sets = gsim3.sample_sim3_sets(3, torch.from_numpy(val)).to(dev)
+    run_k = lambda: gsim3.solve_sim3_ransac(sets, *sargs, cam)
+    run_p = lambda: gsim3.solve_sim3_ransac_plain(sets, *sargs, cam)
+    rk, rp = run_k(), run_p()
+    d = max(float((rk.R12 - rp.R12).abs().max()), float((rk.t12 - rp.t12).abs().max()),
+            float((rk.s12 - rp.s12).abs()))
+    same = (bool(rk.success) == bool(rp.success) and int(rk.n_inliers) == int(rp.n_inliers)
+            and torch.equal(rk.inliers, rp.inliers))
+    if not same or not d <= 1e-5 or not bool(rk.success):
+        raise AssertionError(f"sim3_ransac: ok {bool(rk.success)}/{bool(rp.success)}, count "
+                             f"{int(rk.n_inliers)}/{int(rp.n_inliers)}, masks equal "
+                             f"{torch.equal(rk.inliers, rp.inliers)}, |dR|,|dt|,|ds| {d:.2e}")
+    H, nv = sets.shape[0], int(val.sum())
+    # work: per hypothesis Horn's 4x4 cyclic Jacobi in float64 (~6 sweeps x
+    # 6 rotations x ~100 ops) and ~60 float32 operations per (hypothesis,
+    # pair) of scoring, again for the winner's mask; in: pairs, sets; out:
+    # the winner, its mask, count, ok
+    stats["sim3_ransac"] = record(d, cuda_ms(run_k), cuda_ms(run_p, reps=5),
+                                  512 * 41 + H * 12 + 52 + 512 + 5, 60 * (H + 1) * 512,
+                                  ops64=3600 * H)
+    print(f"[parity] sim3_ransac N=512 H={H}: ok, count ({int(rk.n_inliers)} of {nv} valid) and "
+          f"mask equal, max |dR|,|dt|,|ds| {d:.2e}", flush=True)
+
+    # K12 OptimizeSim3: 1024 pairs from a start 0.02 rad / 5 cm / 3% off
+    p1, p2, uv1, uv2, val, (R, t, s) = sim3_scene(rng, 1024, out_frac=0.1)
+    # x1 = s R x2 + t of the JAX function: the inverse of the scene's Sim3
+    Ri, ti, si = R.T, -(R.T @ t) / s, 1.0 / s
+    R0 = t_((pf.so3_exp_np([0.02, 0.0, -0.01]) @ Ri).astype(np.float32))
+    t0 = t_((ti + np.array([0.05, 0.0, -0.03])).astype(np.float32))
+    s0 = torch.tensor(si * 1.03, dtype=torch.float32, device=dev)
+    oargs = (R0, t0, s0, t_(p1), t_(p2), t_(uv1), t_(uv2), t_(val))
+    for fix in (False, True):
+        ok_ = gsim3.optimize_sim3(*oargs, cam, fix)
+        op_ = gsim3.optimize_sim3_plain(*oargs, cam, fix)
+        d = max(float((ok_.R12 - op_.R12).abs().max()), float((ok_.t12 - op_.t12).abs().max()),
+                float((ok_.s12 - op_.s12).abs()))
+        if int(ok_.n_in) != int(op_.n_in) or not d <= 1e-4:
+            raise AssertionError(f"sim3_optimize fix_scale={fix}: n_in {int(ok_.n_in)}/"
+                                 f"{int(op_.n_in)}, |dR|,|dt|,|ds| {d:.2e}")
+        print(f"[parity] sim3_optimize N=1024 fix_scale={fix}: n_in {int(ok_.n_in)} equal, max "
+              f"|dR|,|dt|,|ds| {d:.2e}", flush=True)
+    # work: 15 steps x 1024 edges x (the two residuals in Dual<7>, ~7 x 250
+    # ops, and the 2 x 35 normal-equation products) + the 7x7 solves; in:
+    # pairs once, out: the Sim3, mask, count
+    stats["sim3_optimize"] = record(
+        d, cuda_ms(lambda: gsim3.optimize_sim3(*oargs, cam, True)),
+        cuda_ms(lambda: gsim3.optimize_sim3_plain(*oargs, cam, True), reps=3),
+        52 + 1024 * 41 + 52 + 1024 + 4, 15 * 1024 * (7 * 250 + 4 * 70))
+
+    # K13: an exact-scale essential graph of 200 keyframes, ~1500 edges.
+    # The kernel computes in float64, so its plain version is the plain
+    # solve of the same problem widened to float64; it must also be no
+    # farther from that solve than the float32 plain solve is.
+    prob = pose_graph_problem(rng, dev)
+    K, E = prob.R.shape[0], prob.edge_i.shape[0]
+    prob64 = pose_graph.PoseGraphProblem(*[a.double() if a.is_floating_point() else a
+                                           for a in prob])
+    dist = lambda x, y: max(float((a.double() - b.double()).abs().max()) for a, b in zip(x, y))
+    d_pg = 0.0
+    for fix in (False, True):
+        gk = pose_graph.optimize_pose_graph(prob, n_iters=15, fix_scale=fix)
+        g64 = pose_graph.optimize_pose_graph_plain(prob64, n_iters=15, fix_scale=fix)
+        g32 = pose_graph.optimize_pose_graph_plain(prob, n_iters=15, fix_scale=fix)
+        d, d32 = dist(gk[:3], g64[:3]), dist(g32[:3], g64[:3])
+        line = (f"pose_graph K={K} E={E} fix_scale={fix}: max |dR|,|dt|,|ds| {d:.2e} from the "
+                f"plain float64 solve (float32 plain solve {d32:.2e}), cost {float(gk[3]):.7g} / "
+                f"plain {float(g64[3]):.7g}")
+        if not (d <= 1e-4 and d <= d32):
+            raise AssertionError(line)
+        print(f"[parity] {line}", flush=True)
+        d_pg = max(d_pg, d)
+    # work per LM iteration, all float64: per edge two residual evaluations
+    # in Dual<7> (~7 x 900 ops) and the 2 x 7 x 7 x 14 products of g and the
+    # blocks, the 7x7 inverses, 50 PCG steps of 2 x 2 x 49 x 2 ops per edge,
+    # and the trial cost; in: the float32 poses and edges; out: poses, cost
+    stats["pose_graph"] = record(
+        d_pg, cuda_ms(lambda: pose_graph.optimize_pose_graph(prob, n_iters=15), reps=5),
+        cuda_ms(lambda: pose_graph.optimize_pose_graph_plain(prob64, n_iters=15), reps=2),
+        K * 53 + E * 72 + K + K * 52 + 4, 0,
+        ops64=15 * (E * (2 * 7 * 900 + 2 * 7 * 7 * 14) + K * 700 + 50 * (E * 392 + K * 120)))
+
+    # K14: the [loop] map's full GBA problem.  Its observations agree with
+    # its poses, so its final cost is float32 rounding (~1e-6 over 27000
+    # observations) and is printed, not compared; the cost is held to 1e-4
+    # relative on a noisy problem of the same K and O (24 keyframes, 1125
+    # points seen by each, +-0.5 px noise, 5% outliers, two fixed
+    # keyframes), where it stands far above rounding.
+    mp, _, _, _ = looped_map(dev)
+    gprob = global_ba.build_global_problem(mp, [1.0] * 8, 1, None, dev)[0]
+    Kb, Pb, Ob = gprob.R.shape[0], gprob.points.shape[0], gprob.obs_kf.shape[0]
+    noisy = ba_problem(rng, dev, n_kf=Kb, n_pts=Ob // Kb, Kp=Kb, Pp=-(-(Ob // Kb) // 128) * 128,
+                       Op=Ob)
+    d_ba = 0.0
+    for name, prob_ in (("[loop] map", gprob), ("noisy", noisy)):
+        bk = sharded_ba.optimize_schur(prob_, cam)
+        bp = sharded_ba.optimize_schur_plain(prob_, cam)
+        d = max(float((bk.R - bp.R).abs().max()), float((bk.t - bp.t).abs().max()),
+                float((bk.points - bp.points).abs().max()))
+        ck, cp = float(bk.cost), float(bp.cost)
+        dc = abs(ck - cp) / cp if name == "noisy" else 0.0
+        if not d <= 1e-3 or not dc <= 1e-4 or not torch.equal(bk.inliers, bp.inliers):
+            raise AssertionError(f"ba_schur ({name}): |dR|,|dt|,|dp| {d:.2e}, cost {ck:.6g} / "
+                                 f"{cp:.6g}, inliers equal {torch.equal(bk.inliers, bp.inliers)}")
+        cost_note = f"{dc:.2e} relative" if name == "noisy" else "rounding, not compared"
+        print(f"[parity] ba_schur {name} K={prob_.R.shape[0]} P={prob_.points.shape[0]} "
+              f"O={prob_.obs_kf.shape[0]}: max |dR|,|dt|,|dp| {d:.2e}, inliers equal, cost "
+              f"{ck:.6g} / plain {cp:.6g} ({cost_note})", flush=True)
+        d_ba = max(d_ba, d, dc)
+    # work per LM iteration: per observation the residual and Jacobian
+    # (~60 ops), the 21 + 6 block and 9 gradient products (~80), the trial
+    # cost (~30); 20 PCG steps of W^T v, W y (~2 x 2 x 2 x 9 ops an
+    # observation) and the 3x3 / 6x6 block products; in: problem, out:
+    # poses, points, mask, cost
+    stats["ba_schur"] = record(
+        d_ba, cuda_ms(lambda: sharded_ba.optimize_schur(gprob, cam), reps=5),
+        cuda_ms(lambda: sharded_ba.optimize_schur_plain(gprob, cam), reps=2),
+        Kb * 50 + Pb * 13 + Ob * 22 + Kb * 48 + Pb * 12 + Ob + 4,
+        10 * (Ob * 170 + 20 * (Ob * 72 + Pb * 18 + Kb * 72)))
+    return stats
+
+
+def run_loop(dev, n_kf: int = LOOP_KFS):
+    """The LoopCloser over the keyframes of the [loop] map on ``dev`` in
+    order until a loop closes, with the reference's thresholds; then
+    ``finish``.  Returns the
+    map, the closer, the (keyframe, matched keyframe) of each loop closed
+    and each keyframe event's host ms."""
+    mp, _, desc, centres = looped_map(dev, n_kf)
+    voc = vocab_mod.Vocabulary.train(desc, k=8, L=3, seed=0)
+    cam = Pinhole.from_config(camera_config(WIDTH, HEIGHT))
+    inv_sigma2 = [1.2 ** (-2 * i) for i in range(8)]
+    closer = loop_closing.LoopCloser(voc, cam, inv_sigma2=inv_sigma2, device=dev)
+    loops, ms = [], []
+    for kid in sorted(mp.keyframes):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = closer.process_keyframe(mp, kid)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if got:
+            loops.append((kid, mp.keyframes[kid].loop_edges[-1]))
+            break   # as tests/test_loop_closing.py: the later return keyframes would close again
+    n_gba = closer.n_gba_applied
+    closer.finish(mp)
+    return mp, closer, loops, ms, centres, closer.n_gba_applied - n_gba
+
+
+def phase_loop(dev):
+    """[loop]: the constructed out-and-back map at full width (24 keyframes,
+    ~1000 observed keypoints each, the return pass drifting) through
+    ``LoopCloser.process_keyframe`` on the card: exactly one loop, on the
+    keyframes the CPU plain path closes, the closing keyframe's centre
+    error well under its drift, and the GBA applied at ``finish``.  The
+    closer stops at the first loop, as tests/test_loop_closing.py does;
+    the return keyframes after it keep the drift they gathered since the
+    closing one, which no loop has measured yet."""
+    kernels.LAUNCHES.clear()
+    mp, closer, loops, ms, centres, n_gba = run_loop(dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    _, _, cpu_loops, _, _, _ = run_loop(torch.device("cpu"))
+    drift = looped_map(torch.device("cpu"))[0]
+    last_id = loops[0][0] if loops else max(mp.keyframes)
+    err = lambda kf: float(np.linalg.norm(-kf.R.T @ kf.t - centres[kf.kid]))
+    e_after, e_before = err(mp.keyframes[last_id]), err(drift.keyframes[last_id])
+    n_kf = len(mp.keyframes)
+    want = {"vocab_words": len(ms), "pose_graph": 1, "ba_schur": 1}
+    bad = {n: launches.get(n, 0) for n, v in want.items() if launches.get(n, 0) != v}
+    bad.update({n: 0 for n in ("sim3_ransac", "sim3_optimize", "hamming_best2_words")
+                if not launches.get(n, 0)})
+    if len(loops) != 1 or loops != cpu_loops or not e_after < 0.5 * e_before or n_gba != 1 \
+            or bad:
+        raise AssertionError(f"[loop] loops {loops} (CPU plain path {cpu_loops}), closing keyframe "
+                             f"centre error {e_after:.4f} m (drifted {e_before:.4f} m), GBA applied "
+                             f"{n_gba}, launches {launches}")
+    k = loops[0][0]
+    print(f"[loop] {n_kf} keyframes, {int(np.mean([kf.n_kps for kf in mp.keyframes.values()]))} "
+          f"keypoints each: one loop at keyframe {k} (matched {loops[0][1]}) after {len(ms)} "
+          f"keyframe events, as the CPU plain "
+          f"path; its centre error {e_after:.4f} m (drifted {e_before:.4f} m); GBA "
+          f"applied at finish", flush=True)
+    print(f"[loop] keyframe-event ms (host clock): median {statistics.median(ms):.2f}, loop "
+          f"event {ms[k]:.2f}", flush=True)
+    print(f"[loop] launches {launches}", flush=True)
+    return launches
+
+
+def merge_config(width: int = WIDTH, height: int = HEIGHT) -> SLAMConfig:
+    """[merge]'s configuration: [system]'s with the recovery timing of
+    tests/test_loop_from_pixels.py (time_recently_lost 0.05 s) and a
+    keyframe every frame (the JAX test's cadence of 2 leaves the
+    procedural scene's first map at 9 keyframes when the lens is covered,
+    below the 10 an Atlas keeps, so nothing would be left to merge into)."""
+    return dataclasses.replace(system_config(width, height),
+                               tracking=TrackingConfig(max_frames=MERGE_MAX_FRAMES,
+                                                       time_recently_lost=0.05))
+
+
+def phase_merge(dev):
+    """[merge]: ``System(cfg, vocab).track_monocular`` over the 40-frame
+    out-and-back sweep with frames 19-28 black and a vocabulary trained
+    on the sequence (k=8, L=3): a second Atlas map starts after the
+    blackout and place recognition welds it into the first one.  Final
+    state OK, one map, n_merges >= 1, ATE within the JAX test's bound."""
+    frames, poses = pf.render_loop_sequence(pf.wide_texture(), MERGE_FRAMES, WIDTH, HEIGHT)
+    voc = train_vocab(frames, dev)
+    events, kf = [], []
+
+    def on_frame(k, st, dt, kf_event, sys_):
+        lc_ = sys_.tracker.loop_closer
+        events.append((k, st.name, len(sys_.tracker.atlas.maps), lc_.n_merges, dt * 1e3))
+        if kf_event:
+            kf.append(k)
+
+    kernels.LAUNCHES.clear()
+    cfg = merge_config()
+    sys_ = System(cfg, vocab=voc, device=dev)
+    for k, img in enumerate(pf.blackout(frames, MERGE_BLACK)):
+        n_kf = sys_.n_keyframes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = sys_.track_monocular(img, k / 30.0)
+        torch.cuda.synchronize()
+        on_frame(k, st, time.perf_counter() - t0, sys_.n_keyframes() != n_kf, sys_)
+    sys_.flush()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    tr, lc_ = sys_.tracker, sys_.tracker.loop_closer
+    ate, _ = pf.trajectory_ate(tr.final_trajectory(), poses)
+    merged_at = next((k for k, _, _, n, _ in events if n), None)
+    for k, name, n_maps, n_merges, ms in events:
+        if k in MERGE_BLACK or abs(k - (merged_at or -9)) <= 1:
+            print(f"[merge] frame {k:2d}: {ms:8.2f} ms host clock  {name:15s} {n_maps} map(s)"
+                  f"{'  merged' if k == merged_at else ''}", flush=True)
+    if events[-1][1] != "OK" or len(tr.atlas.maps) != 1 or lc_.n_merges < 1 or \
+            not ate < MERGE_MAX_ATE or launches.get("ba_pcg", 0) != tr.stats["ba"] or \
+            any(not launches.get(n, 0) for n in ("vocab_words", "sim3_ransac")):
+        raise AssertionError(f"[merge] states {[e[1] for e in events]}, {len(tr.atlas.maps)} "
+                             f"maps, {lc_.n_merges} merges, ATE {ate:.4f} m, launches {launches}")
+    print(f"[merge] welded at frame {merged_at}: one map of {sys_.n_keyframes()} keyframes, "
+          f"{lc_.n_merges} merge(s), final state OK, ATE {ate:.4f} m (bound {MERGE_MAX_ATE})",
+          flush=True)
+    print(f"[merge] launches {launches}; tracker counts {dict(tr.stats)}", flush=True)
+    return launches
+
+
+def phase_system_vocab(frames, poses, dev, ref_states, ref_n_kf, ref_kf_ms):
+    """[system-vocab]: [system] with a vocabulary trained on its frames:
+    the same states and keyframes as [system] (no loop fires on a straight
+    sweep), K11 once per keyframe the closer saw."""
+    kf_ms = []
+
+    def on_frame(k, st, dt, kf, _):
+        if kf and k > 2:
+            kf_ms.append(dt * 1e3)
+
+    voc = train_vocab(frames, dev)
+    sys_ = System(system_config(frames[0].shape[1], frames[0].shape[0]), vocab=voc, device=dev)
+    kernels.LAUNCHES.clear()
+    states = []
+    for k, img in enumerate(frames):
+        n_kf = sys_.n_keyframes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states.append(sys_.track_monocular(img, k / 30.0))
+        torch.cuda.synchronize()
+        on_frame(k, states[-1], time.perf_counter() - t0, sys_.n_keyframes() != n_kf, sys_)
+    sys_.flush()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    tr, lc_ = sys_.tracker, sys_.tracker.loop_closer
+    n_seen = len(lc_._words)
+    if states != ref_states or sys_.n_keyframes() != ref_n_kf or \
+            launches.get("vocab_words", 0) != n_seen or n_seen != tr.atlas.current._next_kf - 2:
+        raise AssertionError(f"[system-vocab] states {[s.name for s in states]} vs "
+                             f"{[s.name for s in ref_states]}, {sys_.n_keyframes()} keyframes vs "
+                             f"{ref_n_kf}, vocab_words {launches.get('vocab_words', 0)} launches for "
+                             f"{n_seen} keyframes")
+    print(f"[system-vocab] states and {ref_n_kf} keyframes equal to [system]'s; vocab_words "
+          f"{launches.get('vocab_words', 0)} launches for {n_seen} keyframes; keyframe-event "
+          f"median {statistics.median(kf_ms):.2f} ms with the vocabulary, "
+          f"{statistics.median(ref_kf_ms):.2f} ms without (host clock)", flush=True)
+    return launches
+
 def main() -> int:
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -1104,10 +1580,12 @@ def main() -> int:
     stats.update(phase_parity_stereo(sys_frames[0], sys_rights[0], sys_depths[0], dev))
     stats.update(phase_parity_k5_k8(sys_frames, sys_poses, dev))
     stats.update(phase_parity_pnp(dev))
+    stats.update(phase_parity_loop(sys_frames, train_vocab(sys_frames, dev), dev))
     paths = {}
     results, paths["track"] = phase_main_path(step, frames, depths, poses, dev)
     phase_reference(step, results, frames, depths, poses)
-    paths["system"], inits, card_sys = phase_system(sys_frames, sys_poses, dev)
+    paths["system"], inits, card_sys, sys_states, sys_kf_ms = phase_system(sys_frames, sys_poses,
+                                                                           dev)
     phase_system_reference(sys_frames, inits, card_sys)
     paths["stereo"] = phase_depth_system("stereo", sys_frames, sys_rights, sys_poses, dev)
     paths["rgbd"] = phase_depth_system("rgbd", sys_frames, sys_depths, sys_poses, dev)
@@ -1116,6 +1594,10 @@ def main() -> int:
     paths["reloc_stereo"] = phase_reloc_stereo(sys_frames, sys_rights, sys_poses, dev)
     paths["recovery"] = phase_recovery(sys_frames, sys_poses, dev)
     paths["resume"] = phase_resume(sys_frames, sys_poses, dev)
+    paths["loop"] = phase_loop(dev)
+    paths["merge"] = phase_merge(dev)
+    paths["system_vocab"] = phase_system_vocab(sys_frames, sys_poses, dev, sys_states,
+                                               card_sys.n_keyframes(), sys_kf_ms)
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():

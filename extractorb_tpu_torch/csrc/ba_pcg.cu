@@ -36,18 +36,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-struct Cam { float fx, fy, cx, cy; };
-
-struct Prob {
-  const int* obs_kf;
-  const int* obs_mp;
-  const float* obs_uv;
-  const float* isig;
-  const bool* valid;
-  const bool* fixed_kf;
-  const bool* fixed_mp;
-  int K, P, O;
-};
+#include "ba_obs.cuh"
 
 struct Ws {
   float* Rn;    // (K,9) candidate poses / points
@@ -114,29 +103,6 @@ __device__ __forceinline__ double* cost_new(const Ws& w) { return w.sc + 1; }
 __device__ __forceinline__ double* rz(const Ws& w, int it) { return w.sc + 2 + it; }
 __device__ __forceinline__ double* pAp(const Ws& w, int it, int cg) { return w.sc + 3 + cg + it; }
 
-// the per-observation point and its camera-frame coordinates; invalid slots
-// get a point 1 m in front of their camera (as the plain version)
-__device__ void obs_point(const float* R, const float* t, const float* pts, const Prob& q, int o,
-                          float* pw, float* pc) {
-  if (q.valid[o]) {
-    const int m = q.obs_mp[o];
-    pw[0] = pts[3 * m];
-    pw[1] = pts[3 * m + 1];
-    pw[2] = pts[3 * m + 2];
-  } else {
-    const float d0 = 0.f - t[0], d1 = 0.f - t[1], d2 = 1.f - t[2];
-    for (int i = 0; i < 3; ++i) pw[i] = R[i] * d0 + R[3 + i] * d1 + R[6 + i] * d2;
-  }
-  for (int i = 0; i < 3; ++i)
-    pc[i] = R[3 * i] * pw[0] + R[3 * i + 1] * pw[1] + R[3 * i + 2] * pw[2] + t[i];
-}
-
-__device__ __forceinline__ float rho(float c2, bool huber, float delta) {
-  if (!huber) return c2;
-  const float d2 = delta * delta;
-  return c2 <= d2 ? c2 : 2.f * delta * sqrtf(c2) - d2;
-}
-
 // Add n values per lane into dst + kf*stride; a warp whose active lanes all
 // share one keyframe reduces first and adds once.  All 32 lanes must call.
 template <int n>
@@ -160,11 +126,6 @@ __device__ void add_pose(float* dst, int stride, int kf, bool active, float (&v)
   }
 }
 
-__device__ double warp_sum_d(double v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __global__ void __launch_bounds__(kThreads)
 build_kernel(const float* __restrict__ R, const float* __restrict__ t, const float* __restrict__ pts,
              const Prob q, const Cam cam, bool huber, Ws w) {
@@ -179,39 +140,8 @@ build_kernel(const float* __restrict__ R, const float* __restrict__ t, const flo
   for (int i = 0; i < 3; ++i) gl[i] = 0.f;
   for (int i = 0; i < 6; ++i) Hl[i] = 0.f;
   if (act) {
-    const float* Rk = R + 9 * kf;
-    float pw[3], pc[3];
-    obs_point(Rk, t + 3 * kf, pts, q, o, pw, pc);
-    const float x = pc[0], y = pc[1], zc = pc[2];
-    const float r0 = q.obs_uv[2 * o] - (cam.fx * x / zc + cam.cx);
-    const float r1 = q.obs_uv[2 * o + 1] - (cam.fy * y / zc + cam.cy);
-    const float is = q.isig[o];
-    const float chi2 = (r0 * r0 + r1 * r1) * is;
-    const float delta = sqrtf(5.991f);
-    const float wt = (huber ? fminf(delta / sqrtf(fmaxf(chi2, 1e-12f)), 1.f) : 1.f) * is;
-    cost = rho(chi2, huber, delta);
-    const float iz = 1.f / zc;
-    const float j00 = cam.fx * iz, j02 = -cam.fx * x * iz * iz;
-    const float j11 = cam.fy * iz, j12 = -cam.fy * y * iz * iz;
-    float J[2][9];  // [pose 6 | point 3]
-    for (int c = 0; c < 3; ++c) {
-      const float a0 = j00 * Rk[c] + j02 * Rk[6 + c];
-      const float a1 = j11 * Rk[3 + c] + j12 * Rk[6 + c];
-      J[0][c] = -a0;
-      J[1][c] = -a1;
-      J[0][6 + c] = -a0;
-      J[1][6 + c] = -a1;
-    }
-    for (int rr = 0; rr < 2; ++rr) {  // A x p with a = -J[rr][0..2]
-      const float a0 = -J[rr][0], a1 = -J[rr][1], a2 = -J[rr][2];
-      J[rr][3] = a1 * pw[2] - a2 * pw[1];
-      J[rr][4] = a2 * pw[0] - a0 * pw[2];
-      J[rr][5] = a0 * pw[1] - a1 * pw[0];
-    }
-    float* Jo = w.J + (size_t)18 * o;
-    for (int c = 0; c < 6; ++c) { Jo[c] = J[0][c]; Jo[6 + c] = J[1][c]; }
-    for (int c = 0; c < 3; ++c) { Jo[12 + c] = J[0][6 + c]; Jo[15 + c] = J[1][6 + c]; }
-    w.w[o] = wt;
+    float r0, r1, J[2][9], wt;  // J: [pose 6 | point 3]
+    obs_linearize(R + 9 * kf, t + 3 * kf, pts, q, cam, huber, o, w.J, w.w, r0, r1, J, wt, cost);
     int k = 0;
     for (int a = 0; a < 6; ++a) {
       gp[a] = wt * (J[0][a] * r0 + J[1][a] * r1);
@@ -251,40 +181,8 @@ invert_kernel(const Prob q, Ws w) {
   if (e < nb) {
     const float lam = (float)*w.lam;
     if (e < q.K) {
-      float A[36], I[36];
-      const float* H = w.Hpp + 21 * e;
-      int k = 0;
-      for (int a = 0; a < 6; ++a)
-        for (int b = a; b < 6; ++b) {
-          A[6 * a + b] = H[k];
-          A[6 * b + a] = H[k];
-          ++k;
-        }
-      for (int i = 0; i < 36; ++i) I[i] = (i % 7 == 0) ? 1.f : 0.f;
-      for (int a = 0; a < 6; ++a) A[7 * a] += lam;
-      // Gauss-Jordan with partial pivoting
-      for (int c = 0; c < 6; ++c) {
-        int piv = c;
-        for (int r = c + 1; r < 6; ++r)
-          if (fabsf(A[6 * r + c]) > fabsf(A[6 * piv + c])) piv = r;
-        if (piv != c)
-          for (int k2 = 0; k2 < 6; ++k2) {
-            float tmp = A[6 * c + k2]; A[6 * c + k2] = A[6 * piv + k2]; A[6 * piv + k2] = tmp;
-            tmp = I[6 * c + k2]; I[6 * c + k2] = I[6 * piv + k2]; I[6 * piv + k2] = tmp;
-          }
-        const float inv = 1.f / A[7 * c];
-        for (int k2 = 0; k2 < 6; ++k2) { A[6 * c + k2] *= inv; I[6 * c + k2] *= inv; }
-        for (int r = 0; r < 6; ++r) {
-          if (r == c) continue;
-          const float f = A[6 * r + c];
-          for (int k2 = 0; k2 < 6; ++k2) {
-            A[6 * r + k2] -= f * A[6 * c + k2];
-            I[6 * r + k2] -= f * I[6 * c + k2];
-          }
-        }
-      }
       float* M = w.Mp + 36 * e;
-      for (int i = 0; i < 36; ++i) M[i] = I[i];
+      inv6_damped(w.Hpp + 21 * e, lam, M);
       const bool fr = !q.fixed_kf[e];
       float rb[6];
       for (int a = 0; a < 6; ++a) {
@@ -295,33 +193,15 @@ invert_kernel(const Prob q, Ws w) {
       }
       for (int a = 0; a < 6; ++a) {
         float s = 0.f;
-        for (int b = 0; b < 6; ++b) s += I[6 * a + b] * rb[b];
+        for (int b = 0; b < 6; ++b) s += M[6 * a + b] * rb[b];
         s = fr ? s : 0.f;
         w.z[6 * e + a] = s;
         part += (double)(rb[a] * s);
       }
     } else {
       const int m = e - q.K;
-      const float* H = w.Hll + 6 * m;
-      const float m00 = H[0] + lam, m01 = H[1], m02 = H[2];
-      const float m11 = H[3] + lam, m12 = H[4], m22 = H[5] + lam;
-      const float m10 = m01, m20 = m02, m21 = m12;
-      const float c00 = m11 * m22 - m12 * m21;
-      const float c01 = m12 * m20 - m10 * m22;
-      const float c02 = m10 * m21 - m11 * m20;
-      const float det = m00 * c00 + m01 * c01 + m02 * c02;
-      const float inv_det = 1.f / (fabsf(det) < 1e-20f ? 1e-20f : det);
-      const float c10 = m02 * m21 - m01 * m22;
-      const float c11 = m00 * m22 - m02 * m20;
-      const float c12 = m01 * m20 - m00 * m21;
-      const float c20 = m01 * m12 - m02 * m11;
-      const float c21 = m02 * m10 - m00 * m12;
-      const float c22 = m00 * m11 - m01 * m10;
-      const float Mi[9] = {c00 * inv_det, c10 * inv_det, c20 * inv_det,
-                           c01 * inv_det, c11 * inv_det, c21 * inv_det,
-                           c02 * inv_det, c12 * inv_det, c22 * inv_det};
-      float* M = w.Ml + 9 * m;
-      for (int i = 0; i < 9; ++i) M[i] = Mi[i];
+      float* Mi = w.Ml + 9 * m;
+      inv3_damped(w.Hll + 6 * m, lam, Mi);
       const size_t base = (size_t)6 * q.K + (size_t)3 * m;
       const bool fr = !q.fixed_mp[m];
       float rb[3];
@@ -432,43 +312,14 @@ cg_b_kernel(const Prob q, Ws w, int it, int cg) {
   if ((threadIdx.x & 31) == 0 && part != 0.0) atomicAdd(rz(w, it + 1), part);
 }
 
-// Exp of se(3) in float: R = I + a W + b W^2, t = (I + b W + c W^2) rho
-__device__ void se3_exp(const float* xi, float* dR, float* dt) {
-  const float w0 = xi[3], w1 = xi[4], w2 = xi[5];
-  const float th2 = w0 * w0 + w1 * w1 + w2 * w2;
-  const bool small = th2 < 1e-8f;
-  const float th = sqrtf(small ? 1.f : th2);
-  const float a = small ? 1.f - th2 / 6.f : sinf(th) / th;
-  const float b = small ? 0.5f - th2 / 24.f : (1.f - cosf(th)) / th2;
-  const float c = small ? 1.f / 6.f - th2 / 120.f : (th - sinf(th)) / (th2 * th);
-  const float W[9] = {0.f, -w2, w1, w2, 0.f, -w0, -w1, w0, 0.f};
-  float W2[9];
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      W2[3 * i + j] = W[3 * i] * W[j] + W[3 * i + 1] * W[3 + j] + W[3 * i + 2] * W[6 + j];
-  float V[9];
-  for (int i = 0; i < 9; ++i) {
-    const float I = (i % 4 == 0) ? 1.f : 0.f;
-    dR[i] = I + a * W[i] + b * W2[i];
-    V[i] = I + b * W[i] + c * W2[i];
-  }
-  for (int i = 0; i < 3; ++i) dt[i] = V[3 * i] * xi[0] + V[3 * i + 1] * xi[1] + V[3 * i + 2] * xi[2];
-}
-
 __global__ void __launch_bounds__(kThreads)
 retract_kernel(const float* __restrict__ R, const float* __restrict__ t,
                const float* __restrict__ pts, const Prob q, Ws w) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e < q.K) {
-    float xi[6], dR[9], dt[3];
+    float xi[6];
     for (int i = 0; i < 6; ++i) xi[i] = -w.x[6 * e + i];
-    se3_exp(xi, dR, dt);
-    const float* Rk = R + 9 * e;
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j)
-        w.Rn[9 * e + 3 * i + j] = Rk[3 * i] * dR[j] + Rk[3 * i + 1] * dR[3 + j] + Rk[3 * i + 2] * dR[6 + j];
-      w.tn[3 * e + i] = Rk[3 * i] * dt[0] + Rk[3 * i + 1] * dt[1] + Rk[3 * i + 2] * dt[2] + t[3 * e + i];
-    }
+    retract_pose(R + 9 * e, t + 3 * e, xi, w.Rn + 9 * e, w.tn + 3 * e);
   } else if (e < q.K + q.P) {
     const int m = e - q.K;
     const size_t base = (size_t)6 * q.K + (size_t)3 * m;
@@ -482,11 +333,7 @@ cost_kernel(const Prob q, const Cam cam, bool huber, Ws w) {
   float cost = 0.f;
   if (o < q.O && q.valid[o]) {
     const int kf = q.obs_kf[o];
-    float pw[3], pc[3];
-    obs_point(w.Rn + 9 * kf, w.tn + 3 * kf, w.pn, q, o, pw, pc);
-    const float r0 = q.obs_uv[2 * o] - (cam.fx * pc[0] / pc[2] + cam.cx);
-    const float r1 = q.obs_uv[2 * o + 1] - (cam.fy * pc[1] / pc[2] + cam.cy);
-    cost = rho((r0 * r0 + r1 * r1) * q.isig[o], huber, sqrtf(5.991f));
+    cost = rho(obs_chi2(w.Rn + 9 * kf, w.tn + 3 * kf, w.pn, q, cam, o), huber, huber_delta());
   }
   const double c = warp_sum_d((double)cost);
   if ((threadIdx.x & 31) == 0 && c != 0.0) atomicAdd(cost_new(w), c);
@@ -497,40 +344,8 @@ __global__ void __launch_bounds__(kThreads)
 accept_kernel(float* __restrict__ R, float* __restrict__ t, float* __restrict__ pts,
               const Prob q, Ws w, float* __restrict__ cost_out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  const float cn = (float)*cost_new(w), co = (float)*cost_old(w);
-  const bool better = cn < co;
-  if (e == 0) {
-    *w.lam = better ? *w.lam * 0.5 : *w.lam * 4.0;
-    *cost_out = fminf(cn, co);
-  }
-  if (!better) return;
-  if (e < q.K) {
-    for (int i = 0; i < 9; ++i) R[9 * e + i] = w.Rn[9 * e + i];
-    for (int i = 0; i < 3; ++i) t[3 * e + i] = w.tn[3 * e + i];
-  } else if (e < q.K + q.P) {
-    const int m = e - q.K;
-    for (int i = 0; i < 3; ++i) pts[3 * m + i] = w.pn[3 * m + i];
-  }
-}
-
-// two Newton-Schulz steps R <- R (1.5 I - 0.5 R^T R)
-__global__ void orthonormalize_kernel(float* __restrict__ R, int K) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= K) return;
-  float Rm[9];
-  for (int k = 0; k < 9; ++k) Rm[k] = R[9 * e + k];
-  for (int rep = 0; rep < 2; ++rep) {
-    float RtR[9], M[9], Rn[9];
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
-        RtR[3 * i + j] = Rm[i] * Rm[j] + Rm[3 + i] * Rm[3 + j] + Rm[6 + i] * Rm[6 + j];
-    for (int k = 0; k < 9; ++k) M[k] = ((k % 4 == 0) ? 1.5f : 0.f) - 0.5f * RtR[k];
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
-        Rn[3 * i + j] = Rm[3 * i] * M[j] + Rm[3 * i + 1] * M[3 + j] + Rm[3 * i + 2] * M[6 + j];
-    for (int k = 0; k < 9; ++k) Rm[k] = Rn[k];
-  }
-  for (int k = 0; k < 9; ++k) R[9 * e + k] = Rm[k];
+  if (e == 0) *cost_out = fminf((float)*cost_new(w), (float)*cost_old(w));
+  lm_accept(w.sc, w.lam, e, q.K, q.P, w.Rn, w.tn, w.pn, R, t, pts);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -541,11 +356,7 @@ classify_kernel(const float* __restrict__ R, const float* __restrict__ t,
   if (o >= q.O) return;
   if (!q.valid[o]) { inl[o] = false; return; }
   const int kf = q.obs_kf[o];
-  float pw[3], pc[3];
-  obs_point(R + 9 * kf, t + 3 * kf, pts, q, o, pw, pc);
-  const float r0 = q.obs_uv[2 * o] - (cam.fx * pc[0] / pc[2] + cam.cx);
-  const float r1 = q.obs_uv[2 * o + 1] - (cam.fy * pc[1] / pc[2] + cam.cy);
-  inl[o] = (r0 * r0 + r1 * r1) * q.isig[o] <= chi2_th;
+  inl[o] = obs_chi2(R + 9 * kf, t + 3 * kf, pts, q, cam, o) <= chi2_th;
 }
 
 __global__ void init_kernel(Ws w, float* cost_out) {

@@ -16,6 +16,11 @@
 // second is reported as distance 1<<20 with index 0, as the JAX code's
 // all-masked rows are.
 //
+// Word gate (search_by_bow, matcher.py:353): with q_word/c_word given, a
+// column passes when word1[i] == word2[j], both >= 0 and both valid, in
+// place of the box and level gate; distances, best, second and ties are
+// unchanged.
+//
 // Bound on the H100: gate reads.  Every (row, column) pair reads 13 bytes of
 // column geometry (x, y, octave, ok) from L1/L2; descriptors are read only for
 // pairs inside the window, which in the projection searches is a few percent.
@@ -39,8 +44,10 @@ __device__ __forceinline__ void insert(unsigned key, unsigned& k1, unsigned& k2)
   }
 }
 
+template <bool kWords>
 __global__ void __launch_bounds__(kWarps * 32)
-hamming_best2_kernel(const uint4* __restrict__ q_desc, const float* __restrict__ q_u,
+hamming_best2_kernel(const int* __restrict__ q_word, const int* __restrict__ c_word,
+                     const uint4* __restrict__ q_desc, const float* __restrict__ q_u,
                      const float* __restrict__ q_v, const float* __restrict__ q_r,
                      const int* __restrict__ q_lo, const int* __restrict__ q_hi,
                      const bool* __restrict__ q_ok, int M,
@@ -53,15 +60,18 @@ hamming_best2_kernel(const uint4* __restrict__ q_desc, const float* __restrict__
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
   unsigned k1 = kNone, k2 = kNone;
-  if (q_ok[row]) {
-    const float u = q_u[row], v = q_v[row], r = q_r[row];
-    const int lo = q_lo[row], hi = q_hi[row];
+  if (q_ok[row] && (!kWords || q_word[row] >= 0)) {
     const uint4 a0 = q_desc[2 * row], a1 = q_desc[2 * row + 1];
     for (int j = lane; j < N; j += 32) {
       if (!c_ok[j]) continue;
-      const int o = c_oct[j];
-      if (o < lo || o > hi) continue;
-      if (!(fabsf(u - c_x[j]) < r) || !(fabsf(v - c_y[j]) < r)) continue;
+      if (kWords) {
+        if (c_word[j] != q_word[row]) continue;
+      } else {
+        const int o = c_oct[j];
+        if (o < q_lo[row] || o > q_hi[row]) continue;
+        const float r = q_r[row];
+        if (!(fabsf(q_u[row] - c_x[j]) < r) || !(fabsf(q_v[row] - c_y[j]) < r)) continue;
+      }
       const uint4 b0 = c_desc[2 * j], b1 = c_desc[2 * j + 1];
       const unsigned d = __popc(a0.x ^ b0.x) + __popc(a0.y ^ b0.y) + __popc(a0.z ^ b0.z) +
                          __popc(a0.w ^ b0.w) + __popc(a1.x ^ b1.x) + __popc(a1.y ^ b1.y) +
@@ -90,7 +100,10 @@ hamming_best2_kernel(const uint4* __restrict__ q_desc, const float* __restrict__
 
 }  // namespace
 
-extern "C" int hamming_best2_launch(const void* q_desc, const void* q_u, const void* q_v,
+// q_word / c_word: null for the box and level gate, else the word gate (the
+// box and level arguments are then not read and may be null).
+extern "C" int hamming_best2_launch(const void* q_word, const void* c_word, const void* q_desc,
+                                    const void* q_u, const void* q_v,
                                     const void* q_r, const void* q_lo, const void* q_hi,
                                     const void* q_ok, int M, const void* c_desc,
                                     const void* c_x, const void* c_y, const void* c_oct,
@@ -99,8 +112,12 @@ extern "C" int hamming_best2_launch(const void* q_desc, const void* q_u, const v
   if (N >= (1 << kIdxBits) || M < 0 || N < 0) return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaGetLastError();
   const int blocks = (M + kWarps - 1) / kWarps;
-  hamming_best2_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const uint4*)q_desc, (const float*)q_u, (const float*)q_v, (const float*)q_r,
+  const bool words = q_word != nullptr;
+  if (words != (c_word != nullptr)) return (int)cudaErrorInvalidValue;
+  auto kern = words ? hamming_best2_kernel<true> : hamming_best2_kernel<false>;
+  kern<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
+      (const int*)q_word, (const int*)c_word, (const uint4*)q_desc, (const float*)q_u,
+      (const float*)q_v, (const float*)q_r,
       (const int*)q_lo, (const int*)q_hi, (const bool*)q_ok, M, (const uint4*)c_desc,
       (const float*)c_x, (const float*)c_y, (const int*)c_oct, (const bool*)c_ok, N,
       (int*)best, (int*)second, (int*)best_idx, (int*)second_idx);

@@ -90,9 +90,19 @@ def _gate_mask(gate: Gate, row_ok, col_ok):
     return in_win & lvl & row_ok[:, None] & col_ok[None, :]
 
 
-def hamming_best2_plain(q_desc, row_ok, c_desc, col_ok, gate: Gate) -> Best2:
+def _word_mask(q_word, c_word, row_ok, col_ok):
+    return ((q_word[:, None] == c_word[None, :]) & (q_word >= 0)[:, None] & (c_word >= 0)[None, :]
+            & row_ok[:, None] & col_ok[None, :])
+
+
+def hamming_best2_plain(q_desc, row_ok, c_desc, col_ok, gate: Optional[Gate] = None,
+                        words=None) -> Best2:
+    """Plain version of ``hamming_best2``; ``words`` = (q_word, c_word)
+    takes the word gate in place of ``gate``."""
     M, N = q_desc.shape[0], c_desc.shape[0]
-    d = torch.where(_gate_mask(gate, row_ok, col_ok), hamming_matrix(q_desc, c_desc), INF)
+    mask = (_word_mask(words[0], words[1], row_ok, col_ok) if words is not None
+            else _gate_mask(gate, row_ok, col_ok))
+    d = torch.where(mask, hamming_matrix(q_desc, c_desc), INF)
     # unique (distance, column) keys: min = argmin with the lower index on ties
     cols = torch.arange(N, device=d.device)
     key = d.long() * N + cols
@@ -109,35 +119,49 @@ def hamming_best2_plain(q_desc, row_ok, c_desc, col_ok, gate: Gate) -> Best2:
 
 
 def hamming_best2(q_desc: torch.Tensor, row_ok: torch.Tensor, c_desc: torch.Tensor,
-                  col_ok: torch.Tensor, gate: Optional[Gate] = None) -> Best2:
+                  col_ok: torch.Tensor, gate: Optional[Gate] = None, words=None) -> Best2:
     """Gated best/second-best Hamming match of every query row.
 
-    Replaces the ``hamming_matrix`` + masked min/argmin of the four JAX
+    Replaces the ``hamming_matrix`` + masked min/argmin of the JAX
     searches.  q_desc (M,32) u8 with row_ok (M,); c_desc (N,32) u8 with
-    col_ok (N,).  On CUDA tensors this launches K3; on the CPU it runs
-    the dense plain version."""
+    col_ok (N,).  ``words`` = (q_word (M,), c_word (N,)) int32 takes the
+    word gate of ``search_by_bow`` (equal words, both >= 0) in place of
+    ``gate``.  On CUDA tensors this launches K3 (its launches are counted
+    as "hamming_best2_words" with the word gate); on the CPU it runs the
+    dense plain version."""
     M, N = q_desc.shape[0], c_desc.shape[0]
-    if gate is None:
+    if gate is None and words is None:
         gate = open_gate(M, N, q_desc.device)
     if not q_desc.is_cuda:
-        return hamming_best2_plain(q_desc, row_ok, c_desc, col_ok, gate)
+        return hamming_best2_plain(q_desc, row_ok, c_desc, col_ok, gate, words)
     f32 = lambda t: t.to(torch.float32).contiguous()
     i32 = lambda t: t.to(torch.int32).contiguous()
-    args = [q_desc.contiguous(), f32(gate.u), f32(gate.v), f32(gate.r), i32(gate.lo),
-            i32(gate.hi), row_ok.contiguous(), c_desc.contiguous(), f32(gate.x),
-            f32(gate.y), i32(gate.octave), col_ok.contiguous()]
-    kernels.require_cuda("hamming_best2", *args)
+    name = "hamming_best2"
+    if words is not None:
+        name = "hamming_best2_words"
+        wq, wc = i32(words[0]), i32(words[1])
+        kernels.require_cuda(name, q_desc, row_ok, c_desc, col_ok, wq, wc)
+        words_p = [wq.data_ptr(), wc.data_ptr()]
+        # the box and level arguments are not read under the word gate
+        args = [q_desc.contiguous(), None, None, None, None, None, row_ok.contiguous(),
+                c_desc.contiguous(), None, None, None, col_ok.contiguous()]
+    else:
+        words_p = [None, None]
+        args = [q_desc.contiguous(), f32(gate.u), f32(gate.v), f32(gate.r), i32(gate.lo),
+                i32(gate.hi), row_ok.contiguous(), c_desc.contiguous(), f32(gate.x),
+                f32(gate.y), i32(gate.octave), col_ok.contiguous()]
+        kernels.require_cuda(name, *args)
     if args[0].data_ptr() % 16 or args[7].data_ptr() % 16:
         # the kernel reads descriptors as 16-byte words: fresh allocations are aligned
         args[0], args[7] = args[0].clone(), args[7].clone()
     out = torch.empty(4, M, dtype=torch.int32, device=q_desc.device)
-    p = [a.data_ptr() for a in args]
+    p = [None if a is None else a.data_ptr() for a in args]
     err = kernels.lib().hamming_best2_launch(
-        *p[:7], M, *p[7:], N, out[0].data_ptr(), out[1].data_ptr(),
+        *words_p, *p[:7], M, *p[7:], N, out[0].data_ptr(), out[1].data_ptr(),
         out[2].data_ptr(), out[3].data_ptr(), kernels.stream(),
     )
-    kernels.check(err, "hamming_best2")
-    kernels.LAUNCHES["hamming_best2"] += 1
+    kernels.check(err, name)
+    kernels.LAUNCHES[name] += 1
     return Best2(out[0], out[1], out[2], out[3])
 
 
@@ -459,3 +483,63 @@ def search_for_triangulation(desc1, xy1, octave1, free1, desc2, xy2, octave2, fr
     m12, _, _ = tri_search(desc1, xy1, octave1, free1, desc2[None], xy2[None], octave2[None],
                            free2[None], F12[None], sigma2_levels)
     return m12[0]
+
+
+# ------------------------------------------------- loop-closing searches
+
+
+def search_by_bow(desc1, word1, angle1, valid1, desc2, word2, angle2, valid2,
+                  nn_ratio: float = 0.7, check_rotation: bool = True):
+    """ORBmatcher::SearchByBoW (reference ORBmatcher.cc:269, :823): only
+    keypoints with the same vocabulary word are candidates (K3's word
+    gate), then best <= TH_LOW and the NN ratio, one keypoint of set 2 per
+    keypoint of set 1 (the smaller distance, then the earlier row), the
+    rotation-histogram filter.  word1/word2 (N,) int32, -1 = none.
+    Returns (N1,) int32 index into set 2 or -1."""
+    N1, N2 = desc1.shape[0], desc2.shape[0]
+    dev = desc1.device
+    r = hamming_best2(desc1, valid1, desc2, valid2, words=(word1, word2))
+    best, best_idx = r.best, r.best_idx
+    accept = (best <= TH_LOW) & (best.float() < nn_ratio * r.second.float())
+    i1 = torch.arange(N1, dtype=torch.int64, device=dev)
+    claim_key = best.long() * N1 + i1
+    big = 2 ** 31 - 1
+    winner = torch.full((N2 + 1,), big, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, torch.where(accept, best_idx, N2).long(),
+                           torch.where(accept, claim_key, big), "amin")
+    final = accept & (winner[best_idx.long()] == claim_key)
+    if check_rotation:
+        final = final & rotation_consistency_mask(angle1, angle2[best_idx.long()], accept)
+    return torch.where(final, best_idx, -1)
+
+
+def search_by_projection_sim3(mp_pos, mp_desc, mp_valid, mp_normal, mp_max_dist, s, R, t,
+                              kp_xy, kp_desc, kp_octave, kp_valid_and_free,
+                              cam: Pinhole, scale_factors: Sequence[float], img_wh,
+                              th: float = 7.5):
+    """SearchByProjection through a Sim3 Scw (reference ORBmatcher.cc:473):
+    project s R p + t, distance inside the scale-invariance range, view
+    cos >= 0.5, radius th * scale[pred] over levels [pred-1, pred+1] (K3's
+    box and level gate), best <= TH_LOW, first-come claims, no rotation
+    check.  Returns (M,) int32 keypoint index per map point or -1."""
+    scales = torch.as_tensor(scale_factors, dtype=torch.float32, device=mp_pos.device)
+    n_levels = len(scale_factors)
+    pc = s * (mp_pos @ R.T) + t[None]
+    uv = cam.project(pc)
+    Ow = -(R.T @ t) / torch.clamp(torch.as_tensor(s, dtype=torch.float32), min=1e-12)
+    view = mp_pos - Ow[None]
+    dist3 = torch.linalg.vector_norm(view, dim=-1)
+    min_dist = mp_max_dist / scales[n_levels - 1]
+    dist_ok = (dist3 >= min_dist) & (dist3 <= mp_max_dist)
+    view_cos = torch.sum(view * mp_normal, -1) / torch.clamp(dist3, min=1e-9)
+    ratio = mp_max_dist / torch.clamp(dist3, min=1e-9)
+    pred = torch.ceil(torch.log(ratio) / torch.log(scales[1])).to(torch.int32).clamp(
+        0, n_levels - 1)
+    radius = th * scales[pred.long()]
+    row_ok = mp_valid & (pc[:, 2] > 0) & _in_image(uv, img_wh) & dist_ok & (view_cos >= 0.5)
+    gate = Gate(uv[:, 0], uv[:, 1], radius, pred - 1, pred + 1,
+                kp_xy[:, 0], kp_xy[:, 1], kp_octave)
+    r = hamming_best2(mp_desc, row_ok, kp_desc, kp_valid_and_free, gate)
+    accept = (r.best <= TH_LOW) & row_ok
+    final = _first_claim(r.best_idx, accept, kp_xy.shape[0])
+    return torch.where(final, r.best_idx, -1)

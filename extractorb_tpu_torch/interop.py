@@ -1,5 +1,5 @@
 """numpy <-> port conversions of the state a tracking step carries, and
-of the map state (``SLAMMap`` / ``KeyFrame``).
+of the map state (``SLAMMap`` / ``KeyFrame``) and of a vocabulary.
 
 With these, the JAX package and the port can be fed byte-identical state:
 the caller builds numpy arrays once and hands them to both.  The map
@@ -140,3 +140,20 @@ def map_from_numpy(d: Mapping, device) -> SLAMMap:
     mp.keyframes = {k: keyframe_from_numpy(kd, device) for k, kd in d["keyframes"].items()}
     return mp
 
+
+
+def vocab_to_numpy(voc) -> Dict:
+    """A vocabulary's tree and weights (a JAX or a port ``Vocabulary``) as
+    numpy arrays and Python scalars."""
+    return {"k": int(voc.k), "L": int(voc.L),
+            "children_desc": [np.array(d, np.uint8) for d in voc.children_desc],
+            "children_id": [np.array(i, np.int64) for i in voc.children_id],
+            "weights": np.array(voc.weights)}
+
+
+def vocab_from_numpy(d: Mapping):
+    """The port's ``Vocabulary`` from ``vocab_to_numpy`` state."""
+    from .place.vocab import Vocabulary
+
+    return Vocabulary(d["k"], d["L"], [np.array(a) for a in d["children_desc"]],
+                      [np.array(a) for a in d["children_id"]], np.array(d["weights"]))

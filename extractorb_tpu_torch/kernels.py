@@ -29,9 +29,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-# No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9
-# and K10 must round like their plain PyTorch versions (K1, K3 and K8 are integer
-# code or copies; K4 and K6 are bound by latency, not float throughput).
+# No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9,
+# K10 and K12 must round like their plain PyTorch versions (K1, K3, K8 and K11
+# are integer code or copies; K4, K6, K13 and K14 are bound by latency, not
+# float throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
@@ -49,9 +50,9 @@ _SIGNATURES = {
     "fast_detect_launch": (_P, _P, _P, _P, _I, _I, _P),
     # pyr, xy, level, valid, K, pattern, umax, tab(host ptr), angle, desc, stream
     "orb_describe_launch": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
-    # q_desc, q_u, q_v, q_r, q_lo, q_hi, q_ok, M,
+    # q_word, c_word (null: box gate), q_desc, q_u, q_v, q_r, q_lo, q_hi, q_ok, M,
     # c_desc, c_x, c_y, c_oct, c_ok, N, best, second, best_idx, second_idx, stream
-    "hamming_best2_launch": (_P, _P, _P, _P, _P, _P, _P, _I,
+    "hamming_best2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P),
     # R0, t0, pts, obs, obs_ur (null: mono), isig, valid, B, N, fx, fy, cx, cy, bf,
     # n_rounds, n_iters, R, t, inliers, n_inliers, stream
@@ -82,12 +83,33 @@ _SIGNATURES = {
     # R, t, inliers, n_inliers, ok, stream
     "pnp_ransac_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P),
+    # q, N, desc, ids, meta, k, L, out, stream
+    "vocab_words_launch": (_P, _I, _P, _P, _P, _I, _I, _P, _P),
+    # p1, p2, uv1, uv2, valid, sets, N, H, fix_scale, th2, fx, fy, cx, cy,
+    # hyp, counts, out, inl, n_inl, ok, stream
+    "sim3_ransac_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
+                           _P, _P, _P, _P, _P, _P, _P),
+    # state, p1, p2, obs1, obs2, valid, N, fix_scale, th2, fx, fy, cx, cy,
+    # out, inl, n_in, stream
+    "sim3_optimize_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
+                             _P, _P, _P, _P),
+    # R, t, s, ei, ej, mR, mt, ms, w, fixed, K, E, n_iters, cg_iters, fix_scale,
+    # ws, cost, stream
+    "pose_graph_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P, _P, _P),
+    # R, t, pts, obs_kf, obs_mp, obs_uv, isig, valid, fixed_kf, fixed_mp, K, P, O,
+    # fx, fy, cx, cy, n_iters, cg_iters, use_huber, chi2_th, ws, inliers, cost, stream
+    "ba_schur_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _F, _F, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P),
     # workspace sizes in bytes
     "two_view_workspace_bytes": (_I, _I),
     "ba_workspace_bytes": (_I, _I, _I, _I),
+    "pose_graph_workspace_bytes": (_I, _I, _I),
+    "ba_schur_workspace_bytes": (_I, _I, _I, _I),
 }
 # return types other than the launch status (an int cudaError_t)
-_RESTYPES = {"two_view_workspace_bytes": _L, "ba_workspace_bytes": _L}
+_RESTYPES = {"two_view_workspace_bytes": _L, "ba_workspace_bytes": _L,
+             "pose_graph_workspace_bytes": _L, "ba_schur_workspace_bytes": _L}
 
 _lib = None
 _lock = threading.Lock()

@@ -14,9 +14,10 @@ dtype: either package reads the other's files.
 
 The tracker fields of the IMU chain, which the port does not have yet, are
 written with the values a visual JAX session holds (no previous keyframe,
-no keyframe timestamps, a zero bias).  A file holding IMU state (ROADMAP
-A.11) or keyframe-database entries (A.9) raises ``NotImplementedError``
-before anything is loaded.  Loaded features and frames live on the
+no keyframe timestamps, a zero bias).  The keyframe database's entries
+(``db_keys``, ``db_lens``, ``db_words``, ``db_weights``) are saved and, for
+a tracker with a vocabulary, restored.  A file holding IMU state (ROADMAP
+A.11) raises ``NotImplementedError`` before anything is loaded.  Loaded features and frames live on the
 tracker's device (``device=None``: the card, as ``Tracker``).
 """
 
@@ -46,9 +47,6 @@ def _unported(z) -> Optional[str]:
     imu_maps = [k for k in keys if k.endswith("map_meta") and int(z[k][2])]
     if imu_maps or any("_preint_" in k or "_imu_" in k or k.startswith("imuq_") for k in keys):
         return "the checkpoint holds IMU state: the IMU is not ported (ROADMAP A.11)"
-    if any(k.startswith("db_") for k in keys):
-        return ("the checkpoint holds keyframe-database entries: place recognition with a "
-                "vocabulary is not ported (ROADMAP A.9)")
     return None
 
 
@@ -254,6 +252,14 @@ def save_session(tracker, path: str):
         _put_frame(blobs, "if", st.init_frame)
     if st.prev_matched is not None:
         blobs["prev_matched"] = st.prev_matched
+    db = st.loop_closer.db
+    if db is not None and db.entries:
+        keys = sorted(db.entries.keys())
+        words = [db.entries[k][0] for k in keys]
+        blobs["db_keys"] = np.asarray(keys, np.int64)
+        blobs["db_lens"] = np.asarray([len(w) for w in words], np.int64)
+        blobs["db_words"] = np.concatenate(words)
+        blobs["db_weights"] = np.concatenate([db.entries[k][1] for k in keys])
     np.savez_compressed(path, **blobs)
 
 
@@ -290,4 +296,12 @@ def load_session(path: str, cfg, vocab=None, device=None):
         tr.init_frame = _get_frame(z, "if", Frame, tr.device)
     if "prev_matched" in z:
         tr.prev_matched = np.asarray(z["prev_matched"]).copy()
+    db = tr.loop_closer.db
+    if db is not None and "db_keys" in z:
+        off = 0
+        for key, ln in zip(z["db_keys"], z["db_lens"]):
+            db.entries[int(key)] = (np.asarray(z["db_words"][off:off + ln]),
+                                    np.asarray(z["db_weights"][off:off + ln]))
+            off += int(ln)
+        db._dirty = True
     return tr

@@ -254,6 +254,9 @@ class LocalMapper:
         # counts of the device work dispatched: "ba" solves, "tri_groups"
         self.stats = stats if stats is not None else collections.Counter()
         self.recent_points: List[int] = []
+        # called with (map, kf_id) when KeyFrameCulling removes a keyframe
+        # (KeyFrame::SetBadFlag -> KeyFrameDatabase::erase)
+        self.on_kf_removed = None
         # in-flight window BA: applied at the next fetch that carries it
         self._pending_ba: Optional[PendingBA] = None
         self._pending_ba_mid = -1
@@ -587,6 +590,8 @@ class LocalMapper:
             mp.dead_kfs[kf_id] = (kf.parent, R_cp, t_cp)
         del mp.keyframes[kf_id]
         mp.version += 1
+        if self.on_kf_removed is not None:
+            self.on_kf_removed(mp, kf_id)
 
     def _local_ba(self, mp: SLAMMap, kf_id: int):
         """LocalBundleAdjustment window build (reference Optimizer.cc:1698):

@@ -5,10 +5,12 @@ Replaces System (reference: src/System.cc:41 ctor, :222 TrackStereo, :288
 TrackRGBD, :346 TrackMonocular, :480/:573/:748
 SaveTrajectoryTUM/EuRoC/KITTI).  The tracker runs on the card (``device``
 None: cuda:0, and no card is an error); ``device="cpu"`` runs the plain
-PyTorch path.  Local mapping runs
-synchronously after keyframe insertion, driven by the tracker.  Without a
-vocabulary the reference's loop closer has nothing to do; a vocabulary
-is not ported (ROADMAP A.9).
+PyTorch path.  Local mapping and loop closing run
+synchronously after keyframe insertion, driven by the tracker.  With a
+vocabulary (``vocab``, or ``vocab_path``: ORBvoc text through
+``load_orbvoc_text``, else ``Vocabulary.load``'s npz) the loop closer
+detects and corrects loops and welds Atlas maps; without one it has
+nothing to do.
 """
 
 from __future__ import annotations
@@ -28,8 +30,11 @@ class System:
                  vocab=None, vocab_path: Optional[str] = None, device=None):
         if cfg is None:
             cfg = load_yaml(settings_yaml) if settings_yaml else SLAMConfig()
-        if vocab_path:
-            raise NotImplementedError("vocabularies are not ported (ROADMAP A.9)")
+        if vocab is None and vocab_path:
+            from ..place.vocab import Vocabulary, load_orbvoc_text
+
+            vocab = (load_orbvoc_text(vocab_path) if vocab_path.endswith(".txt")
+                     else Vocabulary.load(vocab_path))
         self.cfg = cfg
         self.tracker = Tracker(cfg, vocab=vocab, device=device)
 
@@ -66,7 +71,8 @@ class System:
         return self.tracker.state
 
     def flush(self):
-        """Settle the dispatched frames and the in-flight window BA."""
+        """Settle the dispatched frames and the in-flight window, global
+        and welding BAs."""
         self.tracker.flush()
 
     def current_pose(self):

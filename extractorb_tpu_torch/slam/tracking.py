@@ -9,7 +9,12 @@ machine; the dense stages run on the device: extraction (K1, K2), the
 searches (K3), pose optimisation (K4, with the stereo residual), the
 two-view initialisation (K5), bundle adjustment (K6), the triangulation
 search (K7), the map mirror and packed fetches (K8), the stereo match
-(K9) and the relocalization PnP (K10).
+(K9) and the relocalization PnP (K10).  With a vocabulary every new
+keyframe goes through the loop closer (``slam/loop_closing.py``: the
+vocabulary descent K11, Sim3 K12, the essential graph K13, the global BA
+K14), which corrects a loop in the map or welds the map into an older
+Atlas map, and a lost frame takes its relocalization candidates from the
+keyframe database.
 
 The steady state is the fused step (``TrackStep``): one call per frame,
 confirmed by one packed fetch.  Frames that fail its gates replay through
@@ -20,15 +25,15 @@ at every keyframe.
 Recovery (reference Tracking.cc:1549-1625, :3184): a frame that fails to
 track goes LOST, or RECENTLY_LOST on a map of more than 10 keyframes for
 ``time_recently_lost`` seconds; later frames relocalize against the map's
-three most recent keyframes (K3 match, K10 RANSAC PnP, K4), and more than
-five failed LOST frames start a new Atlas map (the failed one is dropped
-below 10 keyframes).
+database's candidates, or without a vocabulary the map's three most recent
+keyframes (K3 match, K10 RANSAC PnP, K4), and more than five failed LOST
+frames start a new Atlas map (the failed one is dropped below 10
+keyframes).
 
 Not in this slice, and raising ``NotImplementedError`` with the ROADMAP
-item: inertial sensors (A.11), a vocabulary and its relocalization
-candidates (A.9), the KB8 camera, its MLPnP relocalization and the fisheye
-stereo rig (A.12), ``octree="host"`` (not ported: it is the JAX package's
-oracle) and ``pipeline_depth > 0`` (A.7).
+item: inertial sensors (A.11), the KB8 camera, its MLPnP relocalization and
+the fisheye stereo rig (A.12), ``octree="host"`` (not ported: it is the JAX
+package's oracle) and ``pipeline_depth > 0`` (A.7).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from ..solver import pose_opt as spo
 from ..utils.packed_fetch import pack_fetch
 from . import local_mapping
 from . import track_device as td
+from .loop_closing import LoopCloser, decode_dbid, encode_dbid
 from .map import INVALID, Atlas, KeyFrame, SLAMMap
 
 
@@ -144,7 +150,7 @@ class _PipeEntry:
     blk_ids: np.ndarray        # local-block ids used at dispatch
 
 
-def _unported(cfg: SLAMConfig, vocab) -> Optional[str]:
+def _unported(cfg: SLAMConfig) -> Optional[str]:
     if cfg.sensor not in ("monocular", "stereo", "rgbd"):
         return (f"sensor {cfg.sensor!r}: only 'monocular', 'stereo' and 'rgbd' are ported "
                 "(ROADMAP A.11)")
@@ -152,8 +158,6 @@ def _unported(cfg: SLAMConfig, vocab) -> Optional[str]:
         return "the fisheye stereo rig (camera2) is not ported (ROADMAP A.12)"
     if cfg.imu is not None:
         return "the IMU is not ported (ROADMAP A.11)"
-    if vocab is not None:
-        return "place recognition / loop closing with a vocabulary is not ported (ROADMAP A.9)"
     if cfg.camera.model == "KannalaBrandt8":
         return "the KannalaBrandt8 camera is not ported (ROADMAP A.12)"
     if cfg.orb.octree != "device":
@@ -165,7 +169,7 @@ def _unported(cfg: SLAMConfig, vocab) -> Optional[str]:
 
 class Tracker:
     def __init__(self, cfg: SLAMConfig, vocab=None, device=None):
-        why = _unported(cfg, vocab)
+        why = _unported(cfg)
         if why is not None:
             raise NotImplementedError(why)
         self.cfg = cfg
@@ -206,6 +210,15 @@ class Tracker:
         self.stats: collections.Counter = collections.Counter()
         self.local_mapper = local_mapping.LocalMapper(
             self.cam, self.scale_factors, self.inv_sigma2, self.K, self.device, self.stats)
+        # place recognition, loop closing and Atlas merging (a no-op
+        # without a vocabulary); a culled keyframe leaves the database
+        self.loop_closer = LoopCloser(
+            vocab, self.cam, scale_factors=self.scale_factors,
+            img_wh=(cam_cfg.width, cam_cfg.height), inv_sigma2=self.inv_sigma2,
+            fix_scale=cfg.sensor in ("stereo", "rgbd"), device=self.device, stats=self.stats)
+        if self.loop_closer.db is not None:
+            self.local_mapper.on_kf_removed = lambda m, k: self.loop_closer.db.erase(
+                encode_dbid(m.mid, k))
         self._next_frame_id = 0
         self.init_frame: Optional[Frame] = None
         self.prev_matched: Optional[np.ndarray] = None
@@ -455,9 +468,11 @@ class Tracker:
         return blk
 
     def flush(self):
-        """Settle dispatched frames and the in-flight window BA."""
+        """Settle dispatched frames, the in-flight window BA and the loop
+        closer's in-flight global or welding BA."""
         self._confirm_pipe()
         self.local_mapper.flush_ba(self.atlas.current)
+        self.loop_closer.finish(self.atlas.current)
 
     def _confirm_pipe(self):
         """One packed fetch confirms the dispatched frames: gates,
@@ -617,10 +632,30 @@ class Tracker:
             self._record_traj(ts, frame.R, frame.t)
         return self.state
 
+    def _reloc_candidates(self, frame: Frame) -> List[int]:
+        """DetectRelocalizationCandidates (reference KeyFrameDatabase.cc:783):
+        the database's covisibility groups within 0.75x of the best
+        accumulated score, this map's keyframes only, at most 5; without a
+        vocabulary (or no candidate) the map's three most recent keyframes."""
+        mp = self.atlas.current
+        db = self.loop_closer.db
+        candidates = []
+        if db is not None:
+            def covis_keys(key):
+                m, k = decode_dbid(key)
+                target = self.atlas.map_by_mid(m)
+                if target is None or k not in target.keyframes:
+                    return []
+                return [encode_dbid(m, nk) for nk, _ in target.covisible_keyframes(k, 1)[:10]]
+
+            candidates = [k for key, _ in db.query(frame.desc, valid=frame.valid, n_best=5,
+                                                   covis_fn=covis_keys, rel_score_ratio=0.75)
+                          for m, k in [decode_dbid(key)] if m == mp.mid][:5]
+        return candidates or sorted(mp.keyframes.keys())[-3:]
+
     def _relocalize(self, frame: Frame) -> bool:
-        """Relocalization (reference Tracking.cc:3184), pinhole branch
-        without a vocabulary: the map's three most recent keyframes are the
-        candidates.  Each goes through a mutual-best descriptor match
+        """Relocalization (reference Tracking.cc:3184), pinhole branch: the
+        candidates of ``_reloc_candidates``.  Each goes through a mutual-best descriptor match
         against its map-point-bearing keypoints (K3), RANSAC PnP on the
         matched points in normalized coordinates (K10, 256 hypotheses,
         3 px / fx), the candidate's own pose where PnP fails, and the
@@ -631,7 +666,9 @@ class Tracker:
         self.stats["reloc"] += 1
         mp = self.atlas.current
         fx, fy = self.K[0, 0], self.K[1, 1]
-        for cand in sorted(mp.keyframes.keys())[-3:]:
+        for cand in self._reloc_candidates(frame):
+            if cand not in mp.keyframes:
+                continue
             kf = mp.keyframes[cand]
             m12, _ = fm.mutual_best_match(frame.feats.desc, frame.feats.valid,
                                           self._t(kf.desc), self._t(kf.valid & (kf.kp_mp >= 0)))
@@ -1106,6 +1143,54 @@ class Tracker:
         self.ref_kf = kf.kid
         self.last_kf_frame_id = frame.frame_id
         self.local_mapper.process_keyframe(mp, kf.kid)
+        lc = self.loop_closer.process_keyframe(mp, kf.kid, atlas=self.atlas)
+        if lc:
+            # poses and points moved: drop the motion model and the stale
+            # in-flight window BA, refresh the frame from its keyframe
+            self.local_mapper.discard_ba()
+            self.velocity = None
+            if isinstance(lc, dict) and lc.get("type") == "merge":
+                self._after_map_merge(lc, frame)
+            else:
+                frame.R = mp.keyframes[kf.kid].R.copy()
+                frame.t = mp.keyframes[kf.kid].t.copy()
+
+    def _after_map_merge(self, info: dict, frame: Frame):
+        """Fix-ups after an Atlas merge (reference MergeLocal tail,
+        LoopClosing.cc:1252): the active map changed, the welded keyframes
+        have new ids, and what was recorded in the dropped map's
+        coordinates is re-expressed."""
+        remap = info["kf_remap"]
+        mp = self.atlas.current
+        if self.ref_kf is not None:
+            self.ref_kf = remap.get(self.ref_kf, info["kf_cur"])
+        kf = mp.keyframes[info["kf_cur"]]
+        frame.R = kf.R.copy()
+        frame.t = kf.t.copy()
+        frame.kp_mp = kf.kp_mp.copy()
+        frame.kp_mp_dirty = True
+        Rw, tw, sw = info["world_sim3"]
+        for i in range(self._map_traj_start, len(self.trajectory)):
+            ts, R, t = self.trajectory[i]
+            Rn = (R @ Rw.T).astype(np.float32)
+            self.trajectory[i] = (ts, Rn, (sw * t - Rn @ tw).astype(np.float32))
+        self._map_traj_start = 0
+        # relative trajectory: the dropped map's entries move onto the
+        # welded keyframe ids (the relative translation scales by sw)
+        dropped_mid = info["dropped_mid"]
+        dead_remap = info.get("dead_remap", {})
+        for i, (ts, mid, k, R_rel, t_rel) in enumerate(self.traj_rel):
+            if mid != dropped_mid:
+                continue
+            nk = remap.get(k, dead_remap.get(k, -1)) if k >= 0 else -1
+            if nk >= 0:
+                self.traj_rel[i] = (ts, mp.mid, nk, R_rel, (sw * t_rel).astype(np.float32))
+            elif k < 0:
+                Rn = (R_rel @ Rw.T).astype(np.float32)
+                self.traj_rel[i] = (ts, mp.mid, -1, Rn, (sw * t_rel - Rn @ tw).astype(np.float32))
+            else:
+                _, Ra, ta = self.trajectory[i]
+                self.traj_rel[i] = (ts, mp.mid, -1, Ra.copy(), ta.copy())
 
     def _create_close_points(self, frame: Frame, kf: KeyFrame, mp: SLAMMap):
         """Stereo/RGB-D CreateNewKeyFrame (reference Tracking.cc:2907):

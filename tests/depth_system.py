@@ -16,23 +16,27 @@ from extractorb_tpu.config import SLAMConfig as JSLAMConfig
 from extractorb_tpu.config import TrackingConfig as JTrackingConfig
 from extractorb_tpu.slam.system import System as JSystem
 from extractorb_tpu_torch.config import TrackingConfig
-from extractorb_tpu_torch.geometry import two_view
+from extractorb_tpu_torch.geometry import sim3, two_view
 from extractorb_tpu_torch.solver import pnp
 from test_torch_pnp import jax_pnp_sets
+from test_torch_sim3 import jax_sim3_sets
 from test_torch_two_view import jax_sets
 
 W, H, NF, N_FRAMES, SPEED, MAX_FRAMES = 320, 240, 1000, 15, 0.04, 8
 
 
 def patch_jax_draws(m):
-    """Make the port draw its two-view and PnP minimal sets as the JAX
-    package does from the same integer seed (``m``: a MonkeyPatch)."""
+    """Make the port draw its two-view, PnP and Sim3 minimal sets as the
+    JAX package does from the same integer seed (``m``: a MonkeyPatch)."""
     m.setattr(two_view, "sample_sets",
               lambda seed, valid, n_sets=200: torch.from_numpy(jax_sets(seed, valid, n_sets)
                                                                .copy()))
     m.setattr(pnp, "sample_pnp_sets",
               lambda seed, valid, n_hyp=pnp.N_HYPOTHESES: torch.from_numpy(
                   jax_pnp_sets(seed, np.asarray(valid), n_hyp).astype(np.int64)))
+    m.setattr(sim3, "sample_sim3_sets",
+              lambda seed, valid, n_hyp=sim3.N_HYPOTHESES: torch.from_numpy(
+                  jax_sim3_sets(seed, valid, n_hyp).astype(np.int64)))
 
 
 def jax_and_port_runs(sensor: str, black=()) -> dict:

@@ -301,3 +301,133 @@ def trajectory_ate(trajectory, poses, fps: float = 30.0):
     aligned = umeyama_align(est, gt)
     ate = float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean()))
     return ate, float(np.linalg.norm(gt[-1] - gt[0]))
+
+
+# ----------------------------------------------------------- loop closing
+
+
+def se3_exp_np(xi):
+    """se(3) -> (R, t) for xi = (rho, phi), float64 (the JAX lie.se3_exp)."""
+    rho, phi = np.asarray(xi[:3], np.float64), np.asarray(xi[3:], np.float64)
+    th = np.linalg.norm(phi)
+    W = np.array([[0, -phi[2], phi[1]], [phi[2], 0, -phi[0]], [-phi[1], phi[0], 0]])
+    if th < 1e-8:
+        V = np.eye(3) + 0.5 * W
+    else:
+        V = (np.eye(3) + (1 - np.cos(th)) / th ** 2 * W
+             + (th - np.sin(th)) / th ** 3 * (W @ W))
+    return so3_exp_np(phi), V @ rho
+
+
+def build_looped_map(seed: int, SLAMMap, KeyFrame, make_features, n_kf: int = 12,
+                     n_pts: int = 200, drift_per_kf: float = 0.02, step: float = 0.3,
+                     n_cap: int = 512, fx: float = 500.0, cx: float = 320.0,
+                     cy: float = 240.0, return_shift: float = 0.0):
+    """The constructed map of tests/test_loop_closing.py:build_looped_map,
+    for either package (its ``SLAMMap`` and ``KeyFrame`` classes, and
+    ``make_features(desc, xy, valid)`` building its ``Features``).
+
+    Keyframes on a line out (x = 0, step, ...) and back over the same
+    viewpoints; the first pass observes landmarks at their true positions,
+    the return pass (under a growing pose drift) triangulates a duplicate
+    of every landmark it sees.  Returns (map, true points, descriptors,
+    true camera centres of the keyframes).  ``return_shift`` moves the
+    return pass along x: at 0 the first return keyframe sits where the
+    last outbound one does, a pair between which the Sim3 scale is not
+    observable (no baseline)."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
+                    rng.uniform(4, 7, n_pts)], -1).astype(np.float32)
+    desc = rng.integers(0, 256, (n_pts, 32), dtype=np.uint8)
+    mp = SLAMMap()
+    first_id = {}
+    half = n_kf // 2
+    centres = []
+    for k in range(n_kf):
+        x = step * k if k < half else step * (n_kf - 1 - k) + return_shift
+        centres.append(np.array([x, 0.0, 0.0]))
+        R = np.eye(3, dtype=np.float32)
+        t = -np.array([x, 0, 0], np.float32)
+        drift = max(0, k - half + 1) * drift_per_kf
+        dR, dt = se3_exp_np([drift, drift * 0.5, 0, 0, 0, drift * 0.3])
+        R_est = (R @ dR).astype(np.float32)
+        t_est = (R @ dt + t).astype(np.float32)
+        pc = pts @ R.T + t
+        uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fx * pc[:, 1] / pc[:, 2] + cy], -1)
+        vis = (uv[:, 0] > 20) & (uv[:, 0] < 2 * cx - 20) & (uv[:, 1] > 20) & (uv[:, 1] < 2 * cy - 20)
+        obs_idx = np.where(vis)[0][:n_cap]
+        xy = np.zeros((n_cap, 2), np.float32)
+        d = np.zeros((n_cap, 32), np.uint8)
+        v = np.zeros(n_cap, bool)
+        xy[:len(obs_idx)] = uv[obs_idx]
+        d[:len(obs_idx)] = desc[obs_idx]
+        v[:len(obs_idx)] = True
+        kf = KeyFrame(kid=-1, frame_id=k, timestamp=k / 30.0, R=R_est, t=t_est,
+                      feats=make_features(d, xy, v), xy_un=xy,
+                      octave=np.zeros(n_cap, np.int32), angle=np.zeros(n_cap, np.float32),
+                      desc=d, valid=v, kp_mp=np.full(n_cap, -1, np.int32))
+        mp.add_keyframe(kf)
+        for row, p in enumerate(obs_idx):
+            if k < half:
+                if p not in first_id:
+                    first_id[p] = mp.add_point(pts[p], desc[p], np.zeros(3), 10.0, kf.kid)
+                mid = first_id[p]
+                if kf.kid not in mp.obs[mid]:
+                    mp.add_observation(mid, kf.kid, row)
+            else:
+                pos = (pts[p] @ R.T + t - t_est) @ R_est   # through the drifted pose
+                mid = mp.add_point(pos, desc[p], np.zeros(3), 10.0, kf.kid)
+                mp.add_observation(mid, kf.kid, row)
+    for p in range(mp._next_mp):
+        if mp.mp_valid[p]:
+            mp.update_point_stats(p)
+    return mp, pts, desc, np.array(centres)
+
+
+def wide_texture(height: int = 1024, tiles: int = 4, seed: int = 0) -> np.ndarray:
+    """uint8 (height, tiles x height): ``tiles`` procedural textures of
+    different seeds side by side, a wall with no repeated content."""
+    return np.concatenate([procedural_texture(height, seed + i) for i in range(tiles)], 1)
+
+
+def loop_pose(k: int, n_frames: int):
+    """World->camera (R, t) of frame k of the out-and-back sweep of
+    tests/test_loop_from_pixels.py:render_loop_sequence."""
+    half = n_frames // 2
+    j = k if k < half else (n_frames - 1 - k)
+    R = so3_exp_np([0.0, 0.008 * j, 0.0])
+    return R, -R @ np.array([0.35 * j, 0.012 * j, 0.01 * j])
+
+
+def render_loop_sequence(tex: np.ndarray, n_frames: int = 40, width: int = 640,
+                         height: int = 480):
+    """The out-and-back sweep over a wide wall (tests/test_loop_from_pixels.py
+    :26-75, without cv2): the wall z = 5 spans x in [-3.4, 10.6], y in
+    [-3, 3] with ``tex`` stretched over it, the mirrored poster z = 3 spans
+    x from -1.1 and y in [-0.8, 0.8] at 1.6 m per texture height.  The
+    turnaround view shares nothing with the start.  Returns (images,
+    poses)."""
+    K = camera_matrix(width, height)
+    h, w = tex.shape
+    A_far = np.array([[14.0 / w, 0, -3.4], [0, 6.0 / h, -3.0], [0, 0, 5.0]])
+    s_near = 1.6 / h
+    A_near = np.array([[s_near, 0, -1.1], [0, s_near, -0.8], [0, 0, 3.0]])
+    e3 = np.array([[0.0, 0.0, 1.0]])
+    vv, uu = np.mgrid[0:height, 0:width].astype(np.float64)
+    pix = np.stack([uu.ravel(), vv.ravel(), np.ones(uu.size)])
+    frames, poses = [], []
+    for k in range(n_frames):
+        R, t = loop_pose(k, n_frames)
+
+        def plane(A):
+            hh = np.linalg.solve(K @ (R @ A + t[:, None] @ e3), pix)
+            return hh[0] / hh[2], hh[1] / hh[2], hh[2]
+
+        s, tt, _ = plane(A_far)
+        img = _sample_bilinear(tex, s, tt)
+        s2, t2, z2 = plane(A_near)
+        on_near = (s2 >= 0) & (s2 <= w - 1) & (t2 >= 0) & (t2 <= h - 1) & (z2 > 0)
+        img = np.where(on_near, _sample_bilinear(tex[:, ::-1], s2, t2), img)
+        frames.append(np.clip(np.rint(img), 0, 255).astype(np.uint8).reshape(height, width))
+        poses.append((R, t))
+    return frames, poses

@@ -1,8 +1,9 @@
 """Matcher of the PyTorch port (plain path) against the JAX package.
 
 Random descriptors and geometry from a numpy seed go through each of the
-four searches of both packages on the CPU; the match index arrays must be
-identical.  Edge cases of the best/second-best primitive (ties, rows
+searches of both packages on the CPU (the tracking step's four, and the
+loop closer's word-gated ``search_by_bow`` and Sim3
+``search_by_projection_sim3``); the match index arrays must be identical.  Edge cases of the best/second-best primitive (ties, rows
 without a candidate) and of the rotation histogram (tied bins) are held
 to the JAX semantics as well.
 """
@@ -109,6 +110,48 @@ def test_mutual_best_match(seed):
     assert (jm >= 0).sum() > 20
     np.testing.assert_array_equal(pm.numpy(), jm)
     np.testing.assert_array_equal(pd.numpy(), jd)
+
+
+def _words(rng, s, n_words=12):
+    """Word ids of both sets (-1 for none), the noisy copies sharing their
+    source keypoint's word most of the time."""
+    w_kp = rng.integers(-1, n_words, len(s["kp_desc"])).astype(np.int32)
+    w_mp = rng.integers(-1, n_words, len(s["mp_desc"])).astype(np.int32)
+    src = np.array([np.argmin(np.unpackbits(s["kp_desc"] ^ d, axis=1).sum(1))
+                    for d in s["mp_desc"][:200]])
+    keep = rng.random(200) < 0.8
+    w_mp[:200][keep] = w_kp[src[keep]]
+    return w_kp, w_mp
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("nn_ratio,rotation", [(0.7, True), (0.9, True), (0.9, False)])
+def test_search_by_bow(seed, nn_ratio, rotation):
+    s = _scene(seed)
+    w_kp, w_mp = _words(np.random.default_rng(seed + 10), s)
+    args = (s["mp_desc"], w_mp, s["mp_ang"], s["mp_valid"],
+            s["kp_desc"], w_kp, s["kp_ang"], s["kp_valid"])
+    j = np.asarray(jfm.search_by_bow(*map(J, args), nn_ratio, rotation))
+    p = fm.search_by_bow(*map(T, args), nn_ratio, rotation)
+    assert (j >= 0).sum() > 20
+    np.testing.assert_array_equal(p.numpy(), j)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("scale,th", [(1.0, 7.5), (0.8, 5.0)])
+def test_search_by_projection_sim3(seed, scale, th):
+    """The Sim3 projection search: the scene's points shrunk by 1/s and
+    projected through s R p + t, the same pixels as at s = 1."""
+    s = _scene(seed)
+    free = s["kp_valid"] & (np.random.default_rng(seed).random(len(s["kp_valid"])) < 0.9)
+    args = [s["mp_pos"] / np.float32(scale), s["mp_desc"], s["mp_valid"], s["normal"],
+            s["maxd"] / np.float32(scale), np.float32(scale), s["R"], s["t"], s["kp_xy"],
+            s["kp_desc"], s["kp_oct"], free]
+    j = np.asarray(jfm.search_by_projection_sim3(
+        *map(J, args), j_pinhole(FX, FX, CX, CY), SCALES, (float(W), float(H)), th))
+    p = fm.search_by_projection_sim3(*map(T, args), CAM, SCALES, (float(W), float(H)), th)
+    assert (j >= 0).sum() > 10
+    np.testing.assert_array_equal(p.numpy(), j)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -218,5 +261,24 @@ def test_hamming_best2_kernel_matches_plain(cuda_device):
     col_ok = f(rng.random(N) < 0.9)
     got = fm.hamming_best2(q, row_ok, c, col_ok, gate)
     want = fm.hamming_best2_plain(q, row_ok, c, col_ok, gate)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_hamming_best2_word_gate_kernel_matches_plain(cuda_device):
+    """K3's word gate against the plain version: two 1128-slot keyframes
+    whose words come from 40 ids."""
+    rng = np.random.default_rng(1)
+    N = 1128
+    f = lambda a: torch.from_numpy(a).to(cuda_device)
+    q = rng.integers(0, 256, (N, 32)).astype(np.uint8)
+    c = q.copy()
+    c[N // 2:] = rng.integers(0, 256, (N - N // 2, 32))
+    wq = rng.integers(-1, 40, N).astype(np.int32)
+    wc = np.where(rng.random(N) < 0.7, wq, rng.integers(-1, 40, N)).astype(np.int32)
+    args = (f(q), f(rng.random(N) < 0.9), f(c), f(rng.random(N) < 0.9))
+    got = fm.hamming_best2(*args, words=(f(wq), f(wc)))
+    want = fm.hamming_best2_plain(*args, words=(f(wq), f(wc)))
     for g, w in zip(got, want):
         assert torch.equal(g, w)

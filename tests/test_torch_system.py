@@ -136,11 +136,22 @@ def test_system_without_device_needs_a_card(monkeypatch):
     assert System(chip_smoke.system_config(W, H, NF), device="cpu").tracker.device.type == "cpu"
 
 
-def test_vocabulary_raises():
-    """A vocabulary is not ported (relocalization is: its tests are in
-    test_torch_system_reloc.py)."""
+def test_vocabulary_raises(tmp_path):
+    """A vocabulary turns on the loop closer and its keyframe database
+    (tests/test_torch_system_loop.py); ``vocab_path`` reads the ORBvoc text
+    format or the npz of ``Vocabulary.save``, and raises on a missing
+    file.  The database's mesh-sharded scoring is not ported (B.26)."""
+    from extractorb_tpu_torch.place.vocab import Vocabulary, save_orbvoc_text
+
     cfg = chip_smoke.system_config(W, H, NF)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        System(cfg, vocab=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        System(cfg, vocab_path="voc.txt", device="cpu")
+    rng = np.random.default_rng(0)
+    voc = Vocabulary.train(rng.integers(0, 256, (300, 32), dtype=np.uint8), k=4, L=2)
+    save_orbvoc_text(voc, str(tmp_path / "voc.txt"))
+    voc.save(str(tmp_path / "voc.npz"))
+    for path in ("voc.txt", "voc.npz"):
+        db = System(cfg, vocab_path=str(tmp_path / path), device="cpu").tracker.loop_closer.db
+        assert db is not None and db.vocab.n_words == voc.n_words
+    with pytest.raises(FileNotFoundError):
+        System(cfg, vocab_path=str(tmp_path / "missing.txt"), device="cpu")
+    with pytest.raises(NotImplementedError, match="B.26"):
+        System(cfg, vocab=voc, device="cpu").tracker.loop_closer.db.enable_device_backend(None)
