@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K14) from
+Builds the hand-written CUDA kernels (K1-K18) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
-version at the shapes of the main paths, drives the monocular tracking
+version at the shapes of the main paths, counts the device kernels and
+host time of one extraction through the kernels and through the plain
+glue, drives the monocular tracking
 step (``TrackStep``) over a rendered 640x480 sequence with 1000 ORB
 features, runs ``System.track_monocular`` from a cold map (two-view init,
 local mapping, window BA) over a rendered 30-frame sequence, then
@@ -53,8 +55,10 @@ from extractorb_tpu_torch import interop, kernels  # noqa: E402
 from extractorb_tpu_torch.config import (CameraConfig, ORBConfig, SLAMConfig,  # noqa: E402
                                          TrackingConfig)
 from extractorb_tpu_torch.frontend import brief, fast, matcher, stereo  # noqa: E402
+from extractorb_tpu_torch.frontend import extractor as fext  # noqa: E402
 from extractorb_tpu_torch.frontend.extractor import ORBExtractor  # noqa: E402
-from extractorb_tpu_torch.frontend.pyramid import compute_pyramid  # noqa: E402
+from extractorb_tpu_torch.frontend.pyramid import (compute_pyramid,  # noqa: E402
+                                                   compute_pyramid_plain)
 from extractorb_tpu_torch.geometry import two_view  # noqa: E402
 from extractorb_tpu_torch.core.camera import Pinhole  # noqa: E402
 from extractorb_tpu_torch.dist import global_ba, sharded_ba  # noqa: E402
@@ -74,9 +78,12 @@ MAP_CAP = 32768      # MapMirror.LADDER[0] of the JAX package
 LOCAL_CAP = 4096     # the tracker's local-block capacity
 N_FRAMES = 13
 SPEED = 0.06
-# K1 and K2 run once per extraction (frame 0 and every step), K3 five
-# times and K4 twice per step
-PER_STEP = {"fast_detect": 1, "orb_describe": 1, "hamming_best2": 5, "pose_lm": 2}
+# the extraction kernels (K15, K1, K16, K17, K2) run once per extraction
+# (frame 0 and every step), K3 five times, K18 three times (after the two
+# last-frame searches and the local-map search) and K4 twice per step
+EXTRACT_KERNELS = ("pyramid", "fast_detect", "kp_collect", "octree_select", "orb_describe")
+PER_STEP = {**{n: 1 for n in EXTRACT_KERNELS}, "hamming_best2": 5, "match_epilogue": 3,
+            "pose_lm": 2}
 KERNELS = {
     "fast_detect": ("extractorb_tpu_torch/csrc/fast_detect.cu",
                     "extractorb_tpu/frontend/fast.py:87"),
@@ -99,6 +106,13 @@ KERNELS = {
                      "extractorb_tpu/frontend/stereo.py:35"),
     "pnp_ransac": ("extractorb_tpu_torch/csrc/pnp_ransac.cu",
                    "extractorb_tpu/solver/pnp.py:154"),
+    "pyramid": ("extractorb_tpu_torch/csrc/pyramid.cu", "extractorb_tpu/frontend/pyramid.py:118"),
+    "kp_collect": ("extractorb_tpu_torch/csrc/kp_collect.cu",
+                   "extractorb_tpu/frontend/fast.py:187"),
+    "octree_select": ("extractorb_tpu_torch/csrc/octree_select.cu",
+                      "extractorb_tpu/frontend/octree.py:202"),
+    "match_epilogue": ("extractorb_tpu_torch/csrc/match_epilogue.cu",
+                       "extractorb_tpu/frontend/matcher.py:54"),
 }
 # the tracking paths' kernels (K1-K10); the loop-closing path adds these
 VISUAL_KERNELS = tuple(KERNELS)
@@ -245,6 +259,180 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def parity_extract_glue(ex: ORBExtractor, frame: np.ndarray, dev) -> dict:
+    """K15, K16 and K17 against their plain versions at the main path's
+    shapes (640x480, 1000 features): the pyramid, every level's candidates,
+    the quadtree depths, the compacted and the packed slots, all
+    bit-equal; then the Features of the extractor on the card against the
+    CPU plain path's.  On the rendered frame, a noise frame (kept pixels far
+    above k on every level) and a black one (no kept pixel: depth 7).  Then
+    K18 on the last-frame search's shape, both claim rules with and without
+    the rotation filter."""
+    rng = np.random.default_rng(5)
+    cpu = ORBExtractor(ex.cfg, frame.shape, "cpu")
+    images = {"rendered": frame, "noise": rng.integers(0, 256, frame.shape).astype(np.uint8),
+              "black": np.zeros_like(frame)}
+    for name, im in images.items():
+        img = torch.from_numpy(im).to(dev)
+        pk, pp = compute_pyramid(img, ex.pyr_plan), compute_pyramid_plain(img, ex.pyr_plan)
+        if not torch.equal(pk.flat, pp.flat):
+            raise AssertionError(f"pyramid ({name}): differs from the plain version")
+        keeps, scores = fast.fast_detect(pk, ex.fast_plan)
+        ck = fast.collect_levels(keeps, scores, ex.collect_plan)
+        cp = fast.collect_levels_plain(keeps, scores, ex.collect_plan)
+        if not all(torch.equal(a, b) for a, b in zip(ck, cp)):
+            raise AssertionError(f"kp_collect ({name}): differs from the plain version")
+        sk, sp = fext.select_keypoints(*cp, ex), fext.select_keypoints_plain(*cp, ex)
+        bad = [f for f, a, b in zip(sk._fields, sk, sp) if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"octree_select ({name}): {bad} differ from the plain version")
+        fk, fc = ex(img), cpu(torch.from_numpy(im))
+        bad = [f.name for f in dataclasses.fields(fk)
+               if not torch.equal(getattr(fk, f.name).cpu(), getattr(fc, f.name))]
+        if bad:
+            raise AssertionError(f"extractor ({name}): {bad} differ from the CPU plain path")
+        print(f"[parity] {name} frame: pyramid, candidates ({int(cp[2].sum())} valid of "
+              f"{cp[2].numel()}), quadtree depths {sk.depth.tolist()}, compacted and packed "
+              f"slots bit-equal; Features ({int(fk.valid.sum())} valid) equal to the CPU plain "
+              f"path's", flush=True)
+
+    stats = {}
+    img = torch.from_numpy(frame).to(dev)
+    pyr = compute_pyramid(img, ex.pyr_plan)
+    keeps, scores = fast.fast_detect(pyr, ex.fast_plan)
+    cand = fast.collect_levels(keeps, scores, ex.collect_plan)
+    # K15: the image in, every bordered level out once; ~20 integer
+    # operations per output pixel (reflect, 8 table reads, 4 taps)
+    px = pyr.flat.numel()
+    stats["pyramid"] = record(0.0, cuda_ms(lambda: compute_pyramid(img, ex.pyr_plan)),
+                              cuda_ms(lambda: compute_pyramid_plain(img, ex.pyr_plan)),
+                              img.numel() + px, 20 * px)
+    # K16: keep + score planes in (3 bytes a pixel), xy/resp/valid out; three
+    # passes of ~8 operations a pixel (the order of the k taken keys is the
+    # kernel's sort, not counted).  The library yardstick: torch.topk of
+    # every level's key (built beforehand)
+    plan = ex.collect_plan
+    n_inner = sum(k.numel() for k in keeps)
+    keys = [torch.where(k, s.to(torch.int32), -1).reshape(-1) * (1 << 21)
+            + ((1 << 21) - 1 - torch.arange(k.numel(), dtype=torch.int32, device=dev))
+            for k, s in zip(keeps, scores)]
+    stats["kp_collect"] = record(
+        0.0, cuda_ms(lambda: fast.collect_levels(keeps, scores, plan)),
+        cuda_ms(lambda: fast.collect_levels_plain(keeps, scores, plan)),
+        3 * n_inner + plan.total * 13, 24 * n_inner,
+        library_ms=cuda_ms(lambda: [torch.topk(k, n) for k, n in zip(keys, plan.k_levels)]))
+    # K17: candidates in (13 bytes), the packed slots out (xy, octave,
+    # valid, xy_f, response, size: 29 bytes); ~40 operations a candidate
+    # (its cell at 8 depths, the occupied cells, the cell argmax, the top
+    # cap_l cut).  The per-level slots and depths are the kernel's own
+    # intermediates and no sort is needed, so neither is counted
+    sp = ex.select_plan
+    stats["octree_select"] = record(
+        0.0, cuda_ms(lambda: fext.select_keypoints(*cand, ex)),
+        cuda_ms(lambda: fext.select_keypoints_plain(*cand, ex)),
+        13 * sp.n_cand + 29 * sp.n_out, 40 * sp.n_cand)
+    print(f"[parity] pyramid {ex.pyr_plan.total} B, kp_collect {plan.total} slots, "
+          f"octree_select {sp.n_lvl_slots} -> {sp.n_out} slots: timed on the rendered frame",
+          flush=True)
+
+    # K18: 1128 rows x 1128 keypoints, 70% accepted, colliding columns,
+    # angles on exact bin halves and just under 360
+    M = N = sp.n_out
+    t = lambda a, dt: torch.as_tensor(np.asarray(a), device=dev).to(dt)
+    best = t(rng.integers(0, 60, M), torch.int32)
+    best_idx = t(rng.integers(0, N // 3, M), torch.int32)
+    accept = t(rng.random(M) < 0.7, torch.bool)
+    a1 = t(np.where(rng.random(M) < 0.3, rng.choice([15.0, 45.0, 359.99997, 0.0], M),
+                    rng.uniform(0, 360, M)), torch.float32)
+    a2 = t(rng.uniform(0, 360, N), torch.float32)
+    for by_distance in (False, True):
+        for rot in ((), (a1, a2)):
+            args = (best, best_idx, accept, N, by_distance, *rot)
+            if not torch.equal(matcher.match_epilogue(*args), matcher.match_epilogue_plain(*args)):
+                raise AssertionError(f"match_epilogue (by_distance {by_distance}, rotation "
+                                     f"{bool(rot)}): differs from the plain version")
+    args = (best, best_idx, accept, N, False, a1, a2)
+    stats["match_epilogue"] = record(
+        0.0, cuda_ms(lambda: matcher.match_epilogue(*args)),
+        cuda_ms(lambda: matcher.match_epilogue_plain(*args)), M * 17 + N * 4, 30 * M)
+    print(f"[parity] match_epilogue {M}x{N}: both claim rules, with and without the rotation "
+          f"filter, equal to the plain version", flush=True)
+    return stats
+
+
+def extract_plain_glue(ex: ORBExtractor, img: torch.Tensor):
+    """One extraction through the plain versions of K15-K17, composed as
+    the kernels are: the plain pyramid, K1, the plain collection,
+    quadtree, compaction and pack, then K2 on the packed slots."""
+    pyr = compute_pyramid_plain(img, ex.pyr_plan)
+    keeps, scores = fast.fast_detect(pyr, ex.fast_plan)
+    sel = fext.select_keypoints_plain(*fast.collect_levels_plain(keeps, scores, ex.collect_plan),
+                                      ex)
+    return brief.orb_describe(pyr, ex.desc_plan, sel.xy, sel.octave, sel.valid)
+
+
+def phase_extract_launches(ex: ORBExtractor, frame: np.ndarray, dev) -> dict:
+    """The device kernels of one 640x480 extraction (torch.profiler's device
+    events, copies and fills apart) and its host-clock median over 20 calls
+    ending in a synchronise: through the plain glue and through the kernels."""
+    img = torch.from_numpy(frame).to(dev)
+    runs = {"plain glue": lambda: extract_plain_glue(ex, img), "kernels": lambda: ex(img)}
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev_ev = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        n_kern = sum(1 for e in dev_ev if not e.startswith(("Memcpy", "Memset")))
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        out[name] = dict(kernels=n_kern, device_events=len(dev_ev),
+                         host_ms=statistics.median(host), events_ms=cuda_ms(fn))
+        print(f"[extract] {name}: {n_kern} device kernels ({len(dev_ev)} device events) per "
+              f"extraction, host clock median {out[name]['host_ms']:.3f} ms, CUDA events "
+              f"{out[name]['events_ms']:.3f} ms", flush=True)
+    if out["kernels"]["kernels"] >= out["plain glue"]["kernels"]:
+        raise AssertionError(f"extraction launches {out}")
+    return out
+
+
+class _EpilogueRecorder:
+    """Wraps matcher.match_epilogue (K18) to keep every call's inputs and
+    output; ``check`` then holds each against the plain version."""
+
+    def __init__(self):
+        self.calls = []
+        self._orig = matcher.match_epilogue
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            out = self._orig(*args, **kw)
+            self.calls.append((args, kw, out))
+            return out
+        matcher.match_epilogue = rec
+        return self
+
+    def __exit__(self, *exc):
+        matcher.match_epilogue = self._orig
+
+    def check(self, tag: str):
+        for args, kw, out in self.calls:
+            if not torch.equal(out, matcher.match_epilogue_plain(*args, **kw)):
+                raise AssertionError(f"{tag} match_epilogue differs from the plain version")
+        n = sum(int((out >= 0).sum()) for _, _, out in self.calls)
+        print(f"{tag} match_epilogue: all {len(self.calls)} searches equal to the plain "
+              f"version ({n} matches)", flush=True)
+
+
 def phase_kernel_parity(step: TrackStep, frame: np.ndarray, dev) -> dict:
     """Each kernel against its plain version on the same CUDA inputs, at
     the shapes of the main path.  Returns per-kernel (err, ms, plain_ms)."""
@@ -268,9 +456,10 @@ def phase_kernel_parity(step: TrackStep, frame: np.ndarray, dev) -> dict:
                                   pyr.flat.numel() + 3 * n_inner, 320 * n_inner)
     print(f"[parity] fast_detect keep+score bit-equal on {len(keep_k)} levels", flush=True)
 
-    # K2: the frame's keypoints of all levels (before the merge); descriptors
+    # K2: the frame's selected keypoints of all levels, packed; descriptors
     # bit-equal, angles within 1e-4 deg
-    xy, _, valid, level = ex.keypoints(pyr)
+    sel = ex.keypoints(pyr)
+    xy, valid, level = sel.xy, sel.valid, sel.octave
     ang_k, desc_k = brief.orb_describe(pyr, ex.desc_plan, xy, level, valid)
     ang_p, desc_p = brief.orb_describe_plain(pyr, ex.desc_plan, xy, level, valid)
     n_bad = int((desc_k != desc_p).any(1).sum())
@@ -288,6 +477,7 @@ def phase_kernel_parity(step: TrackStep, frame: np.ndarray, dev) -> dict:
         int(valid.sum()) * (4 * 749 + 2 * 49 * 37 * 37 + 8 * 512 + 2 * 256))
     print(f"[parity] orb_describe {int(valid.sum())} keypoints: descriptors bit-equal, "
           f"max angle error {d_ang:.2e} deg", flush=True)
+    stats.update(parity_extract_glue(ex, frame, dev))
 
     # K3: the local-map search shape (4096 map points x 1128 keypoints)
     # with windows and level ranges, and the open-gate mutual-match shape
@@ -448,12 +638,15 @@ def phase_main_path(step: TrackStep, frames, depths, poses, dev):
         return out
 
     kernels.LAUNCHES.clear()
-    results = track_sequence(step, frames, depths, poses, pf.true_pose(-1, SPEED), dev, timer)
+    with _EpilogueRecorder() as epi:
+        results = track_sequence(step, frames, depths, poses, pf.true_pose(-1, SPEED), dev,
+                                 timer)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    epi.check("[track]")
     n_steps = len(frames) - 1
     for name, per in PER_STEP.items():
-        want = per * n_steps + (1 if name in ("fast_detect", "orb_describe") else 0)
+        want = per * n_steps + (1 if name in EXTRACT_KERNELS else 0)
         if launches.get(name, 0) != want:
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches on the main path, "
                                  f"expected {want}")
@@ -807,10 +1000,11 @@ def phase_system(frames, poses, dev):
             kf_frames.append(k)
 
     kernels.LAUNCHES.clear()
-    with _TwoViewRecorder() as rec:
+    with _TwoViewRecorder() as rec, _EpilogueRecorder() as epi:
         sys_, states = run_system(frames, dev, on_frame)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    epi.check("[system]")
     tr = sys_.tracker
     first_ok, ate, scale = check_system(sys_, states, poses)
     own = {"two_view": tr.stats["two_view"], "ba_pcg": tr.stats["ba"],
@@ -824,6 +1018,10 @@ def phase_system(frames, poses, dev):
     if missing or launches.get("stereo_match", 0):
         raise AssertionError(f"kernels never launched on the [system] path: {missing}, "
                              f"stereo_match {launches.get('stereo_match', 0)}")
+    # every extraction runs K15, K1, K16, K17 and K2 once each
+    per_image = {n: launches.get(n, 0) for n in EXTRACT_KERNELS}
+    if len(set(per_image.values())) != 1:
+        raise AssertionError(f"[system] extraction kernels launched unevenly: {per_image}")
     for k, (st, ms) in enumerate(zip(states, host_ms)):
         print(f"[system] frame {k:2d}: {ms:8.2f} ms host clock  {st.name:15s}"
               f"{'  keyframe event' if k in kf_frames else ''}", flush=True)
@@ -888,8 +1086,7 @@ def phase_depth_system(sensor: str, frames, second, poses, dev):
         raise AssertionError(f"{tag} frames {bad} not OK, {sys_.n_keyframes()} keyframes, "
                              f"metric error {err:.4f} m, path ratio {ratio:.4f}")
     images = 2 * n if sensor == "stereo" else n
-    want = {"fast_detect": images, "orb_describe": images,
-            "stereo_match": n if sensor == "stereo" else 0}
+    want = {**{k: images for k in EXTRACT_KERNELS}, "stereo_match": n if sensor == "stereo" else 0}
     own = {"stereo_match": tr.stats["stereo_match"], "ba_pcg": tr.stats["ba"],
            "tri_search": tr.stats["tri_groups"], "mirror_scatter": tr._mirror.n_scatter}
     for name, v in list(want.items()) + list(own.items()):
@@ -1110,7 +1307,7 @@ def phase_resume(frames, poses, dev):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     ate, scale = pf.trajectory_ate(tr.trajectory, poses)
-    fused = ("fast_detect", "orb_describe", "hamming_best2", "pose_lm", "pack_i32")
+    fused = EXTRACT_KERNELS + ("hamming_best2", "match_epilogue", "pose_lm", "pack_i32")
     if tr.device.type != "cuda" or any(s != TrackState.OK for s in states) or \
             len(tr.trajectory) != len(cpu.tracker.trajectory) + len(states) or \
             not ate <= 0.05 * max(scale, 1.0) or any(not launches.get(n, 0) for n in fused):
@@ -1577,6 +1774,7 @@ def main() -> int:
     step = TrackStep(camera_config(WIDTH, HEIGHT), ORBConfig(n_features=N_FEATURES),
                      (HEIGHT, WIDTH), MAP_CAP, LOCAL_CAP, dev)
     stats = phase_kernel_parity(step, frames[0], dev)
+    phase_extract_launches(step.extractor, frames[0], dev)
     stats.update(phase_parity_stereo(sys_frames[0], sys_rights[0], sys_depths[0], dev))
     stats.update(phase_parity_k5_k8(sys_frames, sys_poses, dev))
     stats.update(phase_parity_pnp(dev))

@@ -2,7 +2,10 @@
 per-cell structure (port of ``extractorb_tpu/frontend/fast.py``).
 
 ``fast_detect`` is kernel K1 (``csrc/fast_detect.cu``): one CTA per FAST
-cell of every pyramid level, all levels in one launch.  ``detect_keypoints``
+cell of every pyramid level, all levels in one launch.  ``collect_levels``
+is kernel K16 (``csrc/kp_collect.cu``): the per-level top-K collection of
+the kept pixels, one CTA per level, all levels in one launch; its plain
+version runs ``collect_keypoints`` level by level.  ``detect_keypoints``
 is its plain PyTorch version for one level, written like the JAX
 function: a dense cornerScore<16> plane, then a 3x3 non-max suppression
 whose neighbours stop at cell boundaries, at threshold ``ini_th`` with a
@@ -226,3 +229,58 @@ def fast_detect(pyr: Pyramid, plan: FastPlan, ini_th: int = 20, min_th: int = 7
         keeps.append(keep[off:off + H * W].view(H, W))
         scores.append(score[off:off + H * W].view(H, W))
     return keeps, scores
+
+
+# ------------------------------------------------------------- kernel K16
+
+
+class CollectPlan:
+    """Static launch table of K16 for one pyramid shape: per level (int32)
+    the plane offset in K1's outputs, inner W and H, the candidate count
+    k and the level's first slot in the concatenated outputs."""
+
+    def __init__(self, fast_plan: FastPlan, k_levels):
+        self.k_levels = [int(k) for k in k_levels]
+        self.slot_offsets = np.concatenate([[0], np.cumsum(self.k_levels)[:-1]]).astype(int)
+        self.total = int(sum(self.k_levels))
+        self.plane_offsets = fast_plan.plane_offsets
+        sort_n = 1 << (max(self.k_levels) - 1).bit_length()
+        rows = [[off, W, H, k, o] for off, (H, W), k, o in
+                zip(fast_plan.plane_offsets, fast_plan.inner, self.k_levels, self.slot_offsets)]
+        self.table = np.ascontiguousarray(
+            np.concatenate([[len(rows), sort_n], np.asarray(rows).reshape(-1)]).astype(np.int32))
+
+
+def collect_levels_plain(keeps, scores, plan: CollectPlan):
+    """Plain version of ``collect_levels``: ``collect_keypoints`` per level."""
+    out = [collect_keypoints(k, s, n) for k, s, n in zip(keeps, scores, plan.k_levels)]
+    return tuple(torch.cat(a) for a in zip(*out))
+
+
+def collect_levels(keeps: List[torch.Tensor], scores: List[torch.Tensor], plan: CollectPlan):
+    """The top ``plan.k_levels[l]`` kept pixels of every level by the key
+    ``score << 21 | (2^21 - 1 - idx)``, descending, levels concatenated:
+    (xy int32 (T, 2) inner coords, response int32 (T,), valid (T,)).
+    Invalid slots hold the first unkept pixels in row-major order, with
+    response 0, as ``collect_keypoints`` returns them.
+
+    Replaces ``extractorb_tpu/frontend/fast.py:collect_keypoints`` on every
+    level.  On CUDA planes (``fast_detect``'s views of its flat outputs)
+    this launches K16 once; on the CPU it runs ``collect_levels_plain``."""
+    if not keeps[0].is_cuda:
+        return collect_levels_plain(keeps, scores, plan)
+    kernels.require_cuda("kp_collect", *keeps, *scores)
+    k0, s0 = keeps[0].data_ptr(), scores[0].data_ptr()
+    for k, s, off in zip(keeps, scores, plan.plane_offsets):
+        if k.dtype != torch.bool or s.dtype != torch.int16 or \
+                k.data_ptr() != k0 + off or s.data_ptr() != s0 + 2 * off:
+            raise ValueError("kp_collect: keep/score must be fast_detect's level views")
+    dev = keeps[0].device
+    xy = torch.empty(plan.total, 2, dtype=torch.int32, device=dev)
+    resp = torch.empty(plan.total, dtype=torch.int32, device=dev)
+    valid = torch.empty(plan.total, dtype=torch.bool, device=dev)
+    err = kernels.lib().kp_collect_launch(k0, s0, plan.table.ctypes.data, xy.data_ptr(),
+                                          resp.data_ptr(), valid.data_ptr(), kernels.stream())
+    kernels.check(err, "kp_collect")
+    kernels.LAUNCHES["kp_collect"] += 1
+    return xy, resp, valid

@@ -8,8 +8,9 @@ over the candidate columns that pass a per-row gate (a strict box
 |u - x| < r, |v - y| < r, a level range [lo, hi], row and column
 validity).  The JAX package builds the dense (N1, N2) distance matrix as
 bf16 bit-plane matmuls on the MXU; the kernel XORs and popcounts and never
-stores the matrix.  The accept logic around it (TH/ratio tests, conflict
-resolution, the rotation histogram) is plain torch.
+stores the matrix.  The accept tests around it (TH and ratio) are torch
+elementwise ops; the conflict resolution and the rotation histogram that
+turn the accepted rows into matches are kernel K18 ``match_epilogue``.
 
 Semantics kept from the JAX functions: a masked pair counts as 1<<20;
 ties go to the lower index (``jnp.argmin``); "second" is the minimum with
@@ -200,6 +201,68 @@ def _first_claim(best_idx, accept, n_kp: int):
     return accept & (winner[best_idx.long()] == mp_i)
 
 
+def _distance_claim(best, best_idx, accept, n_kp: int):
+    """Distance-major conflict resolution of the initialization and BoW
+    searches: a keypoint goes to the row with the smaller distance, then
+    the earlier row (scatter-min of best * M + row; n_kp is the drop slot)."""
+    M = best_idx.shape[0]
+    claim_key = best.long() * M + torch.arange(M, device=best.device)
+    big = torch.iinfo(torch.int64).max
+    winner = torch.full((n_kp + 1,), big, dtype=torch.int64, device=best.device)
+    winner.scatter_reduce_(0, torch.where(accept, best_idx, n_kp).long(),
+                           torch.where(accept, claim_key, big), "amin")
+    return accept & (winner[best_idx.long()] == claim_key)
+
+
+def match_epilogue_plain(best, best_idx, accept, n_kp: int, by_distance: bool,
+                         angle1=None, angle2=None):
+    """Plain version of ``match_epilogue``."""
+    claim = _distance_claim(best, best_idx, accept, n_kp) if by_distance else \
+        _first_claim(best_idx, accept, n_kp)
+    if angle1 is not None:
+        claim = claim & rotation_consistency_mask(angle1, angle2[best_idx.long()], accept)
+    return torch.where(claim, best_idx, -1)
+
+
+# ------------------------------------------------------------ kernel K18
+
+
+def match_epilogue(best, best_idx, accept, n_kp: int, by_distance: bool,
+                   angle1=None, angle2=None):
+    """A search's final matches from K3's best distance and column per
+    row and the search's accept mask: one keypoint per row by the claim
+    rule (``by_distance``: the smaller distance, then the earlier row;
+    else the earlier row), then, with ``angle1`` (M,) / ``angle2`` (N,),
+    the rotation-histogram filter over the accepted rows.
+
+    Replaces ``extractorb_tpu/frontend/matcher.py:_first_claim``,
+    ``:rotation_consistency_mask`` and the claims of
+    ``search_for_initialization`` and ``search_by_bow``.  Returns (M,)
+    int32 column or -1.  On CUDA tensors this launches K18; on the CPU it
+    runs ``match_epilogue_plain``."""
+    if not best.is_cuda:
+        return match_epilogue_plain(best, best_idx, accept, n_kp, by_distance, angle1, angle2)
+    M = best.shape[0]
+    if best_idx.shape != (M,) or accept.shape != (M,) or \
+            (angle1 is not None and (angle1.shape != (M,) or angle2.dim() != 1)):
+        raise ValueError(f"match_epilogue: expected ({M},) rows")
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    args = [i32(best), i32(best_idx), accept.to(torch.bool).contiguous()]
+    rot = [None, None]
+    if angle1 is not None:
+        rot = [angle1.to(torch.float32).contiguous(), angle2.to(torch.float32).contiguous()]
+        kernels.require_cuda("match_epilogue", *args, *rot)
+    else:
+        kernels.require_cuda("match_epilogue", *args)
+    out = torch.empty(M, dtype=torch.int32, device=best.device)
+    err = kernels.lib().match_epilogue_launch(
+        *(a.data_ptr() for a in args), M, n_kp, int(by_distance),
+        *(None if a is None else a.data_ptr() for a in rot), out.data_ptr(), kernels.stream())
+    kernels.check(err, "match_epilogue")
+    kernels.LAUNCHES["match_epilogue"] += 1
+    return out
+
+
 def search_for_initialization(desc1, xy1, angle1, octave1, valid1,
                               desc2, xy2, angle2, octave2, valid2,
                               window: int = 100, prev_matched=None,
@@ -218,18 +281,8 @@ def search_for_initialization(desc1, xy1, angle1, octave1, valid1,
                 torch.full((n1,), float(window), device=dev), zeros1, zeros1,
                 xy2[:, 0], xy2[:, 1], octave2)
     r = hamming_best2(desc1, ok1, desc2, valid2, gate)
-    best, best_idx = r.best, r.best_idx
-    accept = (best <= TH_LOW) & (best.float() < nn_ratio * r.second.float()) & ok1
-
-    i1 = torch.arange(n1, device=dev)
-    claim_key = best.long() * n1 + i1  # dist-major, earlier-i1 tiebreak
-    big = torch.iinfo(torch.int64).max
-    winner = torch.full((n2 + 1,), big, dtype=torch.int64, device=dev)
-    winner.scatter_reduce_(0, torch.where(accept, best_idx, n2).long(),
-                           torch.where(accept, claim_key, big), "amin")
-    final = accept & (winner[best_idx.long()] == claim_key)
-    rot_ok = rotation_consistency_mask(angle1, angle2[best_idx.long()], accept)
-    return torch.where(final & rot_ok, best_idx, -1)
+    accept = (r.best <= TH_LOW) & (r.best.float() < nn_ratio * r.second.float()) & ok1
+    return match_epilogue(r.best, r.best_idx, accept, n2, True, angle1, angle2)
 
 
 def mutual_best_match(desc1, valid1, desc2, valid2, max_dist: int = TH_LOW):
@@ -271,9 +324,7 @@ def search_by_projection_last_frame(
                 kp_xy[:, 0], kp_xy[:, 1], kp_octave)
     r = hamming_best2(mp_desc, row_ok, kp_desc, kp_valid_and_free, gate)
     accept = (r.best <= TH_HIGH) & row_ok
-    final = _first_claim(r.best_idx, accept, N)
-    rot_ok = rotation_consistency_mask(mp_angle, kp_angle[r.best_idx.long()], accept)
-    return torch.where(final & rot_ok, r.best_idx, -1)
+    return match_epilogue(r.best, r.best_idx, accept, N, False, mp_angle, kp_angle)
 
 
 def search_by_projection_local_map(
@@ -313,8 +364,7 @@ def search_by_projection_local_map(
         & (r.second < INF)
     )
     accept = (r.best <= TH_HIGH) & row_ok & ~ratio_fail
-    final = _first_claim(r.best_idx, accept, N)
-    return torch.where(final, r.best_idx, -1)
+    return match_epilogue(r.best, r.best_idx, accept, N, False)
 
 
 # ------------------------------------------------- triangulation search (K7)
@@ -496,21 +546,10 @@ def search_by_bow(desc1, word1, angle1, valid1, desc2, word2, angle2, valid2,
     keypoint of set 1 (the smaller distance, then the earlier row), the
     rotation-histogram filter.  word1/word2 (N,) int32, -1 = none.
     Returns (N1,) int32 index into set 2 or -1."""
-    N1, N2 = desc1.shape[0], desc2.shape[0]
-    dev = desc1.device
     r = hamming_best2(desc1, valid1, desc2, valid2, words=(word1, word2))
-    best, best_idx = r.best, r.best_idx
-    accept = (best <= TH_LOW) & (best.float() < nn_ratio * r.second.float())
-    i1 = torch.arange(N1, dtype=torch.int64, device=dev)
-    claim_key = best.long() * N1 + i1
-    big = 2 ** 31 - 1
-    winner = torch.full((N2 + 1,), big, dtype=torch.int64, device=dev)
-    winner.scatter_reduce_(0, torch.where(accept, best_idx, N2).long(),
-                           torch.where(accept, claim_key, big), "amin")
-    final = accept & (winner[best_idx.long()] == claim_key)
-    if check_rotation:
-        final = final & rotation_consistency_mask(angle1, angle2[best_idx.long()], accept)
-    return torch.where(final, best_idx, -1)
+    accept = (r.best <= TH_LOW) & (r.best.float() < nn_ratio * r.second.float())
+    rot = (angle1, angle2) if check_rotation else (None, None)
+    return match_epilogue(r.best, r.best_idx, accept, desc2.shape[0], True, *rot)
 
 
 def search_by_projection_sim3(mp_pos, mp_desc, mp_valid, mp_normal, mp_max_dist, s, R, t,
@@ -541,5 +580,4 @@ def search_by_projection_sim3(mp_pos, mp_desc, mp_valid, mp_normal, mp_max_dist,
                 kp_xy[:, 0], kp_xy[:, 1], kp_octave)
     r = hamming_best2(mp_desc, row_ok, kp_desc, kp_valid_and_free, gate)
     accept = (r.best <= TH_LOW) & row_ok
-    final = _first_claim(r.best_idx, accept, kp_xy.shape[0])
-    return torch.where(final, r.best_idx, -1)
+    return match_epilogue(r.best, r.best_idx, accept, kp_xy.shape[0], False)

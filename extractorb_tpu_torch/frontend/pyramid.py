@@ -11,6 +11,10 @@ All bordered levels live in ONE flat uint8 buffer (``Pyramid.flat``);
 ``Pyramid.levels`` are (h+38, w+38) views into it.  The FAST and
 descriptor kernels read every level of the flat buffer in one launch
 through per-level (offset, stride) tables.
+
+``compute_pyramid`` is kernel K15 (``csrc/pyramid.cu``, one launch per
+level) on a CUDA image and its plain version, ``compute_pyramid_plain``,
+on a CPU one.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from .. import kernels
 
 EDGE_THRESHOLD = 19  # reference inc/ORBExtractor.h:20
 _COEF_BITS = 11
@@ -129,11 +135,26 @@ class PyramidPlan:
                    for (_, h) in self.sizes]
         self.rx = [torch.as_tensor(_reflect101_indices(w, b), device=device)
                    for (w, _) in self.sizes]
+        # K15's tables: per level > 0 sx0|sx1|a0|a1 (w each) then sy0|sy1|b0|b1
+        # (h each) in one int32 buffer, and the host rows (b_off, stride, w, h,
+        # table offset) it launches with
+        parts, rows, pos = [], [], 0
+        for lvl, ((w, h), (_, wb), off) in enumerate(zip(self.sizes, self.shapes, self.offsets)):
+            rows.append([off, wb, w, h, pos])
+            if lvl:
+                (pw, ph) = self.sizes[lvl - 1]
+                tx, ty = _interp_tables(pw, w), _interp_tables(ph, h)
+                parts += [np.asarray(a, np.int32) for a in tx + ty]
+                pos += 4 * (w + h)
+        self.k15_table = torch.as_tensor(np.concatenate(parts) if parts else
+                                         np.zeros(1, np.int32), device=device)
+        self.k15_rows = np.ascontiguousarray(
+            np.concatenate([[n_levels, b], np.asarray(rows).reshape(-1)]).astype(np.int32))
 
 
-def compute_pyramid(img: torch.Tensor, plan: PyramidPlan) -> Pyramid:
-    """Full pyramid of BORDERED uint8 levels (h+38, w+38); the inner image
-    of a level is ``level[19:-19, 19:-19]``."""
+def compute_pyramid_plain(img: torch.Tensor, plan: PyramidPlan) -> Pyramid:
+    """Plain version of ``compute_pyramid``: ``resize_u8`` level by level
+    and the reflect-101 border through the plan's index maps."""
     flat = torch.empty(plan.total, dtype=torch.uint8, device=img.device)
     levels = []
     inner = img
@@ -145,3 +166,29 @@ def compute_pyramid(img: torch.Tensor, plan: PyramidPlan) -> Pyramid:
         view.copy_(inner[plan.ry[lvl]][:, plan.rx[lvl]])
         levels.append(view)
     return Pyramid(flat, levels)
+
+
+def compute_pyramid(img: torch.Tensor, plan: PyramidPlan) -> Pyramid:
+    """Full pyramid of BORDERED uint8 levels (h+38, w+38); the inner image
+    of a level is ``level[19:-19, 19:-19]``.
+
+    Replaces ``extractorb_tpu/frontend/pyramid.py:compute_pyramid`` (with
+    ``_resize_u8`` and ``add_border_reflect101``).  On a CUDA image this
+    launches K15 (one launch per level, counted once per call); on the CPU
+    it runs ``compute_pyramid_plain``."""
+    if not img.is_cuda:
+        return compute_pyramid_plain(img, plan)
+    img = img.contiguous()
+    kernels.require_cuda("pyramid", img, plan.k15_table)
+    h0, w0 = plan.shapes[0][0] - 2 * EDGE_THRESHOLD, plan.shapes[0][1] - 2 * EDGE_THRESHOLD
+    if img.dtype != torch.uint8 or tuple(img.shape) != (h0, w0):
+        raise ValueError(f"pyramid: expected a uint8 ({h0}, {w0}) image, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    flat = torch.empty(plan.total, dtype=torch.uint8, device=img.device)
+    err = kernels.lib().pyramid_launch(img.data_ptr(), flat.data_ptr(),
+                                       plan.k15_table.data_ptr(), plan.k15_rows.ctypes.data,
+                                       kernels.stream())
+    kernels.check(err, "pyramid")
+    kernels.LAUNCHES["pyramid"] += 1
+    return Pyramid(flat, [flat[off:off + hb * wb].view(hb, wb)
+                          for off, (hb, wb) in zip(plan.offsets, plan.shapes)])

@@ -30,9 +30,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9,
-# K10 and K12 must round like their plain PyTorch versions (K1, K3, K8 and K11
-# are integer code or copies; K4, K6, K13 and K14 are bound by latency, not
-# float throughput).
+# K10, K12, K17 and K18 must round like their plain PyTorch versions (K1, K3,
+# K8, K11, K15 and K16 are integer code or copies; K4, K6, K13 and K14 are
+# bound by latency, not float throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
@@ -101,6 +101,17 @@ _SIGNATURES = {
     # fx, fy, cx, cy, n_iters, cg_iters, use_huber, chi2_th, ws, inliers, cost, stream
     "ba_schur_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _F, _F, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P),
+    # img, flat, tables, tab(host ptr), stream
+    "pyramid_launch": (_P, _P, _P, _P, _P),
+    # keep, score, tab(host ptr), xy, resp, valid, stream
+    "kp_collect_launch": (_P, _P, _P, _P, _P, _P, _P),
+    # cand xy, resp, valid, tables, tab(host ptr), level xy, resp, valid, depth, ws,
+    # xy, octave, valid, xy_f, response, size, stream
+    "octree_select_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P),
+    # best, best_idx, accept, M, N, by_distance, angle1, angle2 (null: no
+    # rotation filter), out, stream
+    "match_epilogue_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     # workspace sizes in bytes
     "two_view_workspace_bytes": (_I, _I),
     "ba_workspace_bytes": (_I, _I, _I, _I),
