@@ -4,7 +4,9 @@
 
 Runs ``System.track_monocular``, ``track_stereo`` and ``track_rgbd``
 from a cold map over the 30 rendered 640x480 frames of ``chip_smoke.py``
-([system], [stereo], [rgbd]), each twice: first all three unprofiled
+([system], [stereo], [rgbd]), and ``track_monocular(img, ts, imu=...)``
+over [vi]'s 40 frames of the visual-inertial scene, each twice: first all
+four unprofiled
 (host clock per frame, each frame ending in a synchronise), then each
 under ``torch.profiler``, with every frame inside a ``record_function``
 range.  (A trace's hundreds of thousands of events slow the host's
@@ -12,9 +14,12 @@ garbage collector, so no unprofiled run follows a profiled one.)
 A frame's device time is the union of the device events (kernels and
 copies) that start inside its range; a frame ends in a synchronise, so no
 device work crosses into the next.  The idle share of a frame is 1 -
-device time / the unprofiled host time of the same frame.  Prints one
-summary line per sensor and, with ``--out``, writes the per-frame times
-and the largest kernels there as JSON.  Needs a card; fails without one.
+device time / the unprofiled host time of the same frame.  The inertial
+run's frames are split into pre-init frames, fused inertial frames,
+keyframe events, and the event on which the IMU initialisation fired.
+Prints one summary line per run and, with ``--out``, writes the per-frame
+times and the largest kernels there as JSON.  Needs a card; fails without
+one.
 """
 
 from __future__ import annotations
@@ -40,11 +45,14 @@ from extractorb_tpu_torch.slam.system import System  # noqa: E402
 
 
 def track_all(cfg, frames, second, dev, mark=None):
-    """One cold-map run; per frame (host ms, keyframe event)."""
+    """One cold-map run; per frame (host ms, keyframe event, fused inertial
+    frame, the IMU initialised on this frame)."""
     sys_ = System(cfg, device=dev)
+    tr = sys_.tracker
     out = []
     for k, img in enumerate(frames):
-        n_kf = sys_.n_keyframes()
+        n_kf, n_fused = sys_.n_keyframes(), tr.n_fused_frames
+        inited = tr.atlas.current.imu_initialized
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with (torch.profiler.record_function(f"frame_{k}") if mark
@@ -53,10 +61,16 @@ def track_all(cfg, frames, second, dev, mark=None):
                 sys_.track_stereo(img, second[k], k / 30.0)
             elif cfg.sensor == "rgbd":
                 sys_.track_rgbd(img, second[k], k / 30.0)
+            elif cfg.sensor == "imu-monocular":
+                ts = k / pf.VI_FPS
+                sys_.track_monocular(img, ts,
+                                     imu=pf.imu_window((k - 1) / pf.VI_FPS, ts) if k else None)
             else:
                 sys_.track_monocular(img, k / 30.0)
             torch.cuda.synchronize()
-        out.append(((time.perf_counter() - t0) * 1e3, sys_.n_keyframes() != n_kf))
+        out.append(((time.perf_counter() - t0) * 1e3, sys_.n_keyframes() != n_kf,
+                    tr.n_fused_frames != n_fused,
+                    tr.atlas.current.imu_initialized and not inited))
     sys_.flush()
     return out
 
@@ -92,6 +106,29 @@ def device_ms_per_frame(prof, n_frames: int):
     return out, by_kernel, len(dev_events)
 
 
+def summarise_vi(host, info, device):
+    """The inertial run: pre-init frames (after the first two), fused
+    inertial frames and keyframe events apart, the init-stage event alone."""
+    init = next((k for k, (_, _, _, i) in enumerate(info) if i), None)
+    inited = [init is not None and k >= init for k in range(len(host))]
+    groups = {
+        "pre_init": [k for k in range(2, len(host)) if not inited[k] and not info[k][1]],
+        "fused": [k for k in range(len(host)) if info[k][2] and not info[k][1]],
+        "keyframe": [k for k in range(1, len(host)) if info[k][1] and k != init],
+    }
+    out = {"init_frame": init}
+    for g, ks in groups.items():
+        out[f"host_ms_{g}"] = statistics.median([host[k] for k in ks]) if ks else float("nan")
+        out[f"device_ms_{g}"] = statistics.median([device[k] for k in ks]) if ks else float("nan")
+        out[f"idle_{g}"] = (1.0 - sum(device[k] for k in ks) / sum(host[k] for k in ks)
+                            if ks else float("nan"))
+        out[f"n_{g}"] = len(ks)
+    if init is not None:
+        out.update(host_ms_init=host[init], device_ms_init=device[init],
+                   idle_init=1.0 - device[init] / host[init])
+    return out
+
+
 def summarise(host, kf, device):
     """Medians and idle shares of ordinary frames (after the first two:
     initialisation and the host-path frame) and of keyframe events."""
@@ -119,28 +156,42 @@ def main() -> int:
     frames, rights, depths, _ = pf.render_stereo_sequence(
         pf.procedural_texture(), cs.SYS_FRAMES, cs.SYS_SPEED, cs.WIDTH, cs.HEIGHT,
         cs.STEREO_BASELINE)
-    runs = {"system": (cs.system_config(), None), "stereo": (cs.stereo_config("stereo"), rights),
-            "rgbd": (cs.stereo_config("rgbd"), depths)}
-    result = dict(card=smi, frames=cs.SYS_FRAMES)
+    vi_frames, _ = cs.vi_frames()
+    runs = {"system": (cs.system_config(), frames, None),
+            "stereo": (cs.stereo_config("stereo"), frames, rights),
+            "rgbd": (cs.stereo_config("rgbd"), frames, depths),
+            "vi": (cs.vi_config(), vi_frames, None)}
+    result = dict(card=smi, frames=cs.SYS_FRAMES, vi_frames=cs.VI_FRAMES)
     track_all(cs.system_config(), frames[:3], None, dev)   # warm-up: build and first launches
-    plain = {name: track_all(cfg, frames, second, dev) for name, (cfg, second) in runs.items()}
-    for name, (cfg, second) in runs.items():
+    plain = {name: track_all(cfg, fr, second, dev) for name, (cfg, fr, second) in runs.items()}
+    for name, (cfg, fr, second) in runs.items():
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            track_all(cfg, frames, second, dev, mark=True)
-        device, by_kernel, n_ev = device_ms_per_frame(prof, len(frames))
-        host = [h for h, _ in plain[name]]
-        kf = [e for _, e in plain[name]]
-        s = summarise(host, kf, device)
+            track_all(cfg, fr, second, dev, mark=True)
+        device, by_kernel, n_ev = device_ms_per_frame(prof, len(fr))
+        host = [h for h, *_ in plain[name]]
+        kf = [e[1] for e in plain[name]]
+        s = summarise_vi(host, plain[name], device) if name == "vi" \
+            else summarise(host, kf, device)
         s.update(host_ms=host, device_ms=device, keyframe=kf, n_device_events=n_ev,
                  top_kernels_ms=dict(sorted(((k, v / 1e3) for k, v in by_kernel.items()),
                                             key=lambda kv: -kv[1])[:15]))
         result[name] = s
-        print(f"[{name}] ordinary frames: host {s['host_ms_ordinary']:.2f} ms, device "
-              f"{s['device_ms_ordinary']:.3f} ms, idle {s['idle_ordinary']:.4f}; keyframe "
-              f"events: host {s['host_ms_keyframe']:.2f} ms, device "
-              f"{s['device_ms_keyframe']:.3f} ms, idle {s['idle_keyframe']:.4f} "
-              f"({n_ev} device events)", flush=True)
+        if name == "vi":
+            print("[vi] " + "; ".join(
+                f"{g}: host {s[f'host_ms_{g}']:.2f} ms, device {s[f'device_ms_{g}']:.3f} ms, "
+                f"idle {s[f'idle_{g}']:.4f} ({s[f'n_{g}']} frames)"
+                for g in ("pre_init", "fused", "keyframe"))
+                + (f"; the init event (frame {s['init_frame']}): host {s['host_ms_init']:.2f} ms, "
+                   f"device {s['device_ms_init']:.3f} ms, idle {s['idle_init']:.4f}"
+                   if s["init_frame"] is not None else "") + f" ({n_ev} device events)",
+                flush=True)
+        else:
+            print(f"[{name}] ordinary frames: host {s['host_ms_ordinary']:.2f} ms, device "
+                  f"{s['device_ms_ordinary']:.3f} ms, idle {s['idle_ordinary']:.4f}; keyframe "
+                  f"events: host {s['host_ms_keyframe']:.2f} ms, device "
+                  f"{s['device_ms_keyframe']:.3f} ms, idle {s['idle_keyframe']:.4f} "
+                  f"({n_ev} device events)", flush=True)
         del prof
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K18) from
+Builds the hand-written CUDA kernels (K1-K22) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
 version at the shapes of the main paths, counts the device kernels and
 host time of one extraction through the kernels and through the plain
@@ -20,7 +20,13 @@ after frame 15 onto the card and tracks the rest.  Then loop closing:
 K11-K14 and K3's word gate against their plain versions, [loop] corrects
 a constructed out-and-back map through ``LoopCloser.process_keyframe``,
 [merge] welds two Atlas maps from pixels (``System(cfg, vocab)``), and
-[system-vocab] repeats [system] with a vocabulary.  Any failure raises:
+[system-vocab] repeats [system] with a vocabulary.  Then the
+monocular-inertial path: [vi] runs ``System.track_monocular(img, ts,
+imu=...)`` over 40 frames of tests/test_vi_e2e.py's analytic trajectory
+with 100 Hz IMU samples (IMU initialisation, fused inertial frames, local
+inertial BAs), K19-K22 are held to their plain versions on that run's own
+inputs, and [vi-reference] repeats its frames through the IMU
+initialisation on the CPU plain path.  Any failure raises:
 the script then exits non-zero and never prints its last line.  It needs
 a CUDA card and nothing outside the repository (the scenes are generated
 from a seed).
@@ -52,8 +58,8 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import port_fixtures as pf  # noqa: E402
 from extractorb_tpu_torch import interop, kernels  # noqa: E402
-from extractorb_tpu_torch.config import (CameraConfig, ORBConfig, SLAMConfig,  # noqa: E402
-                                         TrackingConfig)
+from extractorb_tpu_torch.config import (CameraConfig, IMUConfig, ORBConfig,  # noqa: E402
+                                         SLAMConfig, TrackingConfig)
 from extractorb_tpu_torch.frontend import brief, fast, matcher, stereo  # noqa: E402
 from extractorb_tpu_torch.frontend import extractor as fext  # noqa: E402
 from extractorb_tpu_torch.frontend.extractor import ORBExtractor  # noqa: E402
@@ -69,7 +75,9 @@ from extractorb_tpu_torch.slam.map import KeyFrame, SLAMMap  # noqa: E402
 from extractorb_tpu_torch.slam.system import System  # noqa: E402
 from extractorb_tpu_torch.slam.track_device import TrackStep  # noqa: E402
 from extractorb_tpu_torch.slam.tracking import TrackState  # noqa: E402
+from extractorb_tpu_torch.imu import preintegration as preint_mod  # noqa: E402
 from extractorb_tpu_torch.solver import ba, pnp, pose_graph, pose_opt  # noqa: E402
+from extractorb_tpu_torch.solver import inertial as sin  # noqa: E402
 from extractorb_tpu_torch.utils import packed_fetch  # noqa: E402
 
 WIDTH, HEIGHT = 640, 480
@@ -127,6 +135,16 @@ KERNELS.update({
                    "extractorb_tpu/solver/pose_graph.py:197"),
     "ba_schur": ("extractorb_tpu_torch/csrc/ba_schur.cu", "extractorb_tpu/dist/sharded_ba.py:258"),
 })
+# the monocular-inertial path adds these
+INERTIAL_KERNELS = ("preint", "vi_ba", "inertial_init", "pose_inertial")
+KERNELS.update({
+    "preint": ("extractorb_tpu_torch/csrc/preint.cu", "extractorb_tpu/imu/preintegration.py:53"),
+    "vi_ba": ("extractorb_tpu_torch/csrc/vi_ba.cu", "extractorb_tpu/solver/inertial.py:231"),
+    "inertial_init": ("extractorb_tpu_torch/csrc/inertial_init.cu",
+                      "extractorb_tpu/solver/inertial.py:422"),
+    "pose_inertial": ("extractorb_tpu_torch/csrc/pose_inertial.cu",
+                      "extractorb_tpu/solver/inertial.py:532"),
+})
 # the [system] run: the rendered sequence of tests/test_slam_e2e.py's
 # planar test at 640x480 / 1000 features, 30 frames at speed 0.04
 SYS_FRAMES = 30
@@ -152,6 +170,11 @@ MERGE_FRAMES = 40
 MERGE_BLACK = tuple(range(19, 29))
 MERGE_MAX_FRAMES = 1
 MERGE_MAX_ATE = 0.30   # the JAX test's bound (tests/test_loop_from_pixels.py:142)
+# the [vi] run: tests/test_vi_e2e.py's 40 frames at 10 fps, 100 Hz IMU, and
+# its bounds on the metric scale and the ATE
+VI_FRAMES = 40
+VI_MAX_SCALE_ERR = 0.35
+VI_MAX_ATE = 0.25
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense rates): memory
 # bytes/s, and float32 operations/s outside the tensor cores, against which
 # the bounds also count the kernels' integer ALU work
@@ -689,6 +712,33 @@ def system_config(width: int = WIDTH, height: int = HEIGHT,
                       tracking=TrackingConfig(max_frames=6))
 
 
+def vi_config(width: int = WIDTH, height: int = HEIGHT,
+              n_features: int = SYS_FEATURES) -> SLAMConfig:
+    """The monocular-inertial configuration of [vi] (tests/test_vi_e2e.py's
+    _vi_cfg): 10 fps, a 100 Hz IMU with the noise of the simulator, a
+    keyframe every 3 frames at most."""
+    return SLAMConfig(orb=ORBConfig(n_features=n_features),
+                      camera=dataclasses.replace(camera_config(width, height), fps=pf.VI_FPS),
+                      imu=IMUConfig(noise_gyro=1e-4, noise_acc=1e-3, gyro_walk=1e-6,
+                                    acc_walk=1e-5, frequency=pf.VI_IMU_HZ),
+                      tracking=TrackingConfig(max_frames=3), sensor="imu-monocular")
+
+
+def run_vi(frames, dev, cfg=None, on_frame=None, sys_=None, start: int = 0):
+    """``System.track_monocular(img, ts, imu=...)`` over frames start.. of the
+    visual-inertial scene; returns (system, states)."""
+    sys_ = sys_ or System(cfg or vi_config(frames[0].shape[1], frames[0].shape[0]), device=dev)
+    states = []
+    for k in range(start, len(frames)):
+        ts = k / pf.VI_FPS
+        imu = pf.imu_window((k - 1) / pf.VI_FPS, ts) if k else None
+        t0 = time.perf_counter()
+        states.append(sys_.track_monocular(frames[k], ts, imu=imu))
+        if on_frame is not None:
+            on_frame(k, states[-1], time.perf_counter() - t0, sys_)
+    return sys_, states
+
+
 def init_pairs(frames, dev, k1: int = 0, k2: int = 2):
     """The two-view input the tracker builds from frames k1 and k2: init
     extractor (5x), search_for_initialization, the first 1024 matches.
@@ -840,6 +890,12 @@ def phase_parity_k5_k8(frames, poses, dev) -> dict:
     print(f"[parity] ba_pcg K={prob.R.shape[0]} P={prob.points.shape[0]} "
           f"O={prob.obs_kf.shape[0]}: poses and points within {d:.2e}, inliers equal "
           f"({int(bk.inliers.sum())})", flush=True)
+    n_diff = sum(not all(torch.equal(getattr(ba.optimize(prob, cam, 12, 40), f), getattr(bk, f))
+                         for f in ba.BAResult._fields) for _ in range(50))
+    if n_diff:
+        raise AssertionError(f"ba_pcg determinism: {n_diff} of 50 calls differ from the first")
+    print("[parity] ba_pcg determinism: 50 calls on one problem give bit-identical outputs",
+          flush=True)
 
     # K7: B=8 neighbours x 1128 x 1128; matches and gates bit-equal, X within 1e-5
     targs, geom = tri_inputs(frames, poses, dev)
@@ -1763,6 +1819,223 @@ def phase_system_vocab(frames, poses, dev, ref_states, ref_n_kf, ref_kf_ms):
           f"{statistics.median(ref_kf_ms):.2f} ms without (host clock)", flush=True)
     return launches
 
+# ------------------------------------------------------------ inertial path
+
+
+class _InertialRecorder:
+    """Keeps the arguments of every K19-K22 wrapper call of a run, to hold
+    the kernels to their plain versions at the main path's shapes."""
+
+    NAMES = ((preint_mod, "integrate_batch", "preint"), (sin, "optimize_vi_ba", "vi_ba"),
+             (sin, "inertial_only", "inertial_init"),
+             (sin, "optimize_pose_inertial", "pose_inertial"),
+             (sin, "optimize_pose_inertial_last_frame", "pose_inertial_joint"))
+
+    def __init__(self):
+        self.calls = {key: [] for _, _, key in self.NAMES}
+        self._orig = {}
+
+    def __enter__(self):
+        for mod, name, key in self.NAMES:
+            orig = getattr(mod, name)
+            self._orig[(mod, name)] = orig
+
+            def rec(*args, _orig=orig, _key=key, **kw):
+                self.calls[_key].append((args, kw))
+                return _orig(*args, **kw)
+            setattr(mod, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), orig in self._orig.items():
+            setattr(mod, name, orig)
+
+
+def vi_frames(width: int = WIDTH, height: int = HEIGHT, n: int = VI_FRAMES):
+    return pf.render_vi_sequence(pf.procedural_texture(), n, width, height)
+
+
+def phase_vi(frames, dev):
+    """[vi]: ``System.track_monocular(img, ts, imu=...)`` over the 40-frame
+    visual-inertial sequence at 640x480 / 1000 features from a cold map.
+    The IMU initialises, the last 4 frames are OK, the metric scale and the
+    ATE stay inside test_vi_e2e's bounds, and the K19-K22 launches equal the
+    tracker's own counts."""
+    host_ms, kf_ids, inited = [], [], []
+
+    def on_frame(k, st, dt, sys_):
+        host_ms.append(dt * 1e3)
+        kf_ids.append([kf.frame_id for kf in sys_.tracker.atlas.current.keyframes.values()])
+        inited.append(sys_.tracker.atlas.current.imu_initialized)
+
+    kernels.LAUNCHES.clear()
+    with _InertialRecorder() as rec:
+        torch.cuda.synchronize()
+        sys_, states = run_vi(frames, dev, on_frame=on_frame)
+        sys_.flush()
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    tr = sys_.tracker
+    st = tr.stats
+    ate, scale = pf.vi_ate_scale(tr.final_trajectory())
+    init_at = inited.index(True) if any(inited) else None
+    own = {"preint": st["preint"], "vi_ba": st["vi_ba"], "inertial_init": st["inertial_init"],
+           "pose_inertial": st["pose_inertial"] + st["pose_inertial_joint"] + st["fused_inertial"],
+           "pose_inertial_joint": st["pose_inertial_joint"] + st["fused_inertial"],
+           "ba_pcg": st["ba"], "two_view": st["two_view"]}
+    bad = {n: (launches.get(n, 0), c) for n, c in own.items() if launches.get(n, 0) != c}
+    missing = [n for n in VISUAL_KERNELS + INERTIAL_KERNELS
+               if n not in ("stereo_match", "pnp_ransac") and launches.get(n, 0) == 0]
+    if (init_at is None or any(s != TrackState.OK for s in states[-4:]) or bad or missing
+            or not abs(scale - 1.0) < VI_MAX_SCALE_ERR or not ate < VI_MAX_ATE
+            or st["fused_inertial"] != tr.n_fused_frames or tr.n_fused_frames < 1):
+        raise AssertionError(f"[vi] states {[s.name for s in states]}, IMU init at {init_at}, "
+                             f"scale {scale:.4f}, ATE {ate:.4f} m, fused {tr.n_fused_frames}, "
+                             f"launches vs tracker {bad}, never launched {missing}")
+    kf_set = {k for k in range(1, len(kf_ids)) if kf_ids[k] and kf_ids[k][-1] == k}
+    for k, (s_, ms) in enumerate(zip(states, host_ms)):
+        tag = ("  keyframe event" if k in kf_set else "") + ("  IMU initialised" if k == init_at
+                                                               else "")
+        print(f"[vi] frame {k:2d}: {ms:8.2f} ms host clock  {s_.name:15s}{tag}", flush=True)
+    steady = [ms for k, ms in enumerate(host_ms) if init_at is not None and k > init_at + 1
+              and k not in kf_set]
+    print(f"[vi] IMU initialised at frame {init_at}, {sys_.n_keyframes()} keyframes, "
+          f"{tr.n_fused_frames} fused inertial frames ({st['fused_prior']} with the legacy "
+          f"solve's prior), scale {scale:.4f} (|s - 1| < {VI_MAX_SCALE_ERR}), ATE {ate:.4f} m "
+          f"(< {VI_MAX_ATE}); fused-frame median "
+          f"{statistics.median(steady) if steady else float('nan'):.2f} ms host clock",
+          flush=True)
+    print(f"[vi] launches {launches}; tracker counts {own}", flush=True)
+    return launches, rec, states, init_at, kf_ids, [e for e in tr.trajectory]
+
+
+def _largest(calls, size):
+    return max(calls, key=size)
+
+
+def phase_parity_inertial(rec, dev) -> dict:
+    """K19-K22 against their plain versions on the card, on the [vi] run's
+    own inputs (its largest call of each), with their times and bounds."""
+    stats = {}
+
+    def err(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    # K19: the largest batch of windows; fields within 1e-5 and C within 1e-4
+    # of each field's largest entry
+    args, _ = _largest(rec.calls["preint"], lambda c: c[0][0].numel())
+    pk = preint_mod.integrate_batch(*args)
+    pp = preint_mod.integrate_batch_plain(*args)
+    rel = {f: float((getattr(pk, f) - getattr(pp, f)).abs().max()
+                    / getattr(pp, f).abs().max().clamp(min=1e-30))
+           for f in ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa", "dT", "C")}
+    if max(v for f, v in rel.items() if f != "C") > 1e-5 or rel["C"] > 1e-4:
+        raise AssertionError(f"preint: relative deviations {rel}")
+    B, T = args[1].shape[0], args[1].shape[1]
+    nv = int(args[3].sum())
+    stats["preint"] = record(max(rel.values()), cuda_ms(lambda: preint_mod.integrate_batch(*args)),
+                             cuda_ms(lambda: preint_mod.integrate_batch_plain(*args), reps=3),
+                             B * T * 29 + B * 24 + B * 286 * 4, nv * 4700)
+    print(f"[parity] preint B={B} T={T} ({nv} samples): fields within {max(rel.values()):.2e} "
+          f"of their largest entry (C {rel['C']:.2e})", flush=True)
+
+    # K20: the largest VI BA (states and points within 1e-4, as K6; inliers
+    # equal), and one result per input over 5 calls
+    args, kw = _largest(rec.calls["vi_ba"], lambda c: c[0][0].obs_kf.shape[0])
+    prob, cam = args[0], args[1]
+    it, cg = kw.get("n_iters", 8), kw.get("cg_iters", 50)
+    vk = sin.optimize_vi_ba(prob, cam, n_iters=it, cg_iters=cg)
+    vp = sin.optimize_vi_ba_plain(prob, cam, n_iters=it, cg_iters=cg)
+    fields = ("Rwb", "twb", "v", "bg", "ba", "points")
+    d = err([getattr(vk, f) for f in fields], [getattr(vp, f) for f in fields])
+    same = all(all(torch.equal(getattr(sin.optimize_vi_ba(prob, cam, n_iters=it, cg_iters=cg), f),
+                               getattr(vk, f)) for f in sin.VIBAResult._fields) for _ in range(4))
+    if d > 1e-4 or not torch.equal(vk.inliers, vp.inliers) or not same:
+        raise AssertionError(f"vi_ba: max deviation {d:.2e}, inliers equal "
+                             f"{torch.equal(vk.inliers, vp.inliers)}, deterministic {same}")
+    K, P, O = prob.Rwb.shape[0], prob.points.shape[0], prob.obs_kf.shape[0]
+    ov = int(prob.obs_valid.sum())
+    stats["vi_ba"] = record(
+        d, cuda_ms(lambda: sin.optimize_vi_ba(prob, cam, n_iters=it, cg_iters=cg), reps=5),
+        cuda_ms(lambda: sin.optimize_vi_ba_plain(prob, cam, n_iters=it, cg_iters=cg), reps=1),
+        K * (84 + 1168 + 3) + P * 13 + O * 21 + 48 + K * 84 + P * 12 + O + 4,
+        it * (ov * (150 + cg * 80) + K * (2 * 16 * 2500 + cg * 2 * 15 * 30 * 2) + P * cg * 30))
+    print(f"[parity] vi_ba K={K} P={P} O={O} ({it} LM x {cg} PCG): states and points within "
+          f"{d:.2e}, inliers equal ({int(vk.inliers.sum())}); 5 calls bit-identical", flush=True)
+
+    # K21: the first init solve, against the plain version with float64 normal
+    # equations (the kernel's recorded divergence); within 1e-4
+    args, kw = rec.calls["inertial_init"][0]
+    ik = sin.inertial_only(*args, **kw)
+    ip = sin.inertial_only_plain(*args, **kw, solve_dtype=torch.float64)
+    fields = ("Rwg", "v", "bg", "ba")
+    d = max(err([getattr(ik, f) for f in fields], [getattr(ip, f) for f in fields]),
+            float(abs(ik.scale - ip.scale) / ip.scale.abs().clamp(min=1.0)))
+    if d > 1e-4:
+        raise AssertionError(f"inertial_init: max deviation {d:.2e}")
+    K = args[0].shape[0]
+    n, n_it = 9 + 3 * K, kw.get("n_iters", 30)
+    stats["inertial_init"] = record(
+        d, cuda_ms(lambda: sin.inertial_only(*args, **kw), reps=5),
+        cuda_ms(lambda: sin.inertial_only_plain(*args, **kw, solve_dtype=torch.float64), reps=1),
+        K * (36 + 12 + 1168 + 1 + 12) + 24 + 36 + (17 + 3 * K) * 4,
+        n_it * K * 16 * 3000, ops64=n_it * (n ** 3 // 3 + 2 * K * 225 * 9))
+    print(f"[parity] inertial_init K={K} (n={n}): scale, gravity, velocities and biases within "
+          f"{d:.2e} (plain version with float64 normal equations)", flush=True)
+
+    # K22: the fused step's joint solve and the same problem without the
+    # prior (the legacy variant); states within 1e-4, inliers equal, the
+    # Hessian within 1e-4 and the marginalised prior within 1e-3 relative
+    args, kw = _largest(rec.calls["pose_inertial_joint"], lambda c: int(c[0][10].sum()))
+    for joint in (True, False):
+        fk = sin.optimize_pose_inertial_last_frame if joint else sin.optimize_pose_inertial
+        fp = (sin.optimize_pose_inertial_last_frame_plain if joint
+              else sin.optimize_pose_inertial_plain)
+        kwj = kw if joint else {}
+        rk, rp = fk(*args, **kwj), fp(*args, **kwj)
+        fields = ("Rwb", "twb", "v", "bg", "ba")
+        d = err([getattr(rk, f) for f in fields], [getattr(rp, f) for f in fields])
+        hrel = float((rk.H - rp.H).abs().max() / rp.H.abs().max())
+        if d > 1e-4 or not torch.equal(rk.inliers, rp.inliers) or hrel > (1e-3 if joint else 1e-4):
+            raise AssertionError(f"pose_inertial joint={joint}: max deviation {d:.2e}, H "
+                                 f"{hrel:.2e}, inliers equal {torch.equal(rk.inliers, rp.inliers)}")
+        N, nv = args[7].shape[0], int(args[10].sum())
+        n = 30 if joint else 15
+        stats["pose_inertial_joint" if joint else "pose_inertial"] = record(
+            max(d, hrel), cuda_ms(lambda: fk(*args, **kwj), reps=10),
+            cuda_ms(lambda: fp(*args, **kwj), reps=1), 592 * 4 + N * 25 + 246 * 4 + N + 4,
+            41 * (nv * 150 + (3 if joint else 1) * 16 * 2500 + n ** 3 // 3))
+        print(f"[parity] pose_inertial joint={joint} N={N} ({nv} points): states within "
+              f"{d:.2e}, H within {hrel:.2e} relative, inliers equal "
+              f"({int(rk.inliers.sum())})", flush=True)
+    return stats
+
+
+def phase_vi_reference(frames, card_states, init_at, card_kf_ids, card_traj):
+    """[vi-reference]: the same frames through the IMU initialisation and two
+    frames after it on the CPU plain path: the same states, the same init
+    frame and keyframes; the scale and pose differences are reported."""
+    n = init_at + 3
+    inited = []
+    cpu_sys, cpu_states = run_vi(frames[:n], torch.device("cpu"), on_frame=lambda k, st, dt, s:
+                                 inited.append(s.tracker.atlas.current.imu_initialized))
+    cpu_init = inited.index(True) if any(inited) else None
+    kf_c = [kf.frame_id for kf in cpu_sys.tracker.atlas.current.keyframes.values()]
+    kf_g = card_kf_ids[n - 1]
+    if cpu_states != card_states[:n] or cpu_init != init_at or kf_c != kf_g:
+        raise AssertionError(f"[vi-reference] states {[s.name for s in cpu_states]} vs card "
+                             f"{[s.name for s in card_states[:n]]}, IMU init {cpu_init} vs "
+                             f"{init_at}, keyframes {kf_c} vs {kf_g}")
+    tc = cpu_sys.tracker.trajectory
+    dp = max(max(float(np.abs(Rc - Rg).max()), float(np.abs(pc - pg).max()))
+             for (_, Rc, pc), (_, Rg, pg) in zip(tc, card_traj))
+    _, sc = pf.vi_ate_scale(tc)
+    _, sg = pf.vi_ate_scale(card_traj[: len(tc)])
+    print(f"[vi-reference] frames 0-{n - 1}: states, keyframes and the IMU init frame "
+          f"({init_at}) equal to the CPU plain path's; max |dpose| {dp:.2e}, scale "
+          f"{sc:.5f} (CPU) vs {sg:.5f} (card)", flush=True)
+
+
 def main() -> int:
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -1796,6 +2069,10 @@ def main() -> int:
     paths["merge"] = phase_merge(dev)
     paths["system_vocab"] = phase_system_vocab(sys_frames, sys_poses, dev, sys_states,
                                                card_sys.n_keyframes(), sys_kf_ms)
+    frames_vi, _ = vi_frames()
+    paths["vi"], vi_rec, vi_states, vi_init, vi_kfs, vi_traj = phase_vi(frames_vi, dev)
+    stats.update(phase_parity_inertial(vi_rec, dev))
+    phase_vi_reference(frames_vi, vi_states, vi_init, vi_kfs, vi_traj)
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():
@@ -1808,6 +2085,13 @@ def main() -> int:
             row.update(stereo_launches=sum(count("pose_lm_stereo").values()),
                        stereo_ms=st["ms"], stereo_plain_ms=st["plain_ms"],
                        stereo_bound_ms=st["bound_ms"], stereo_max_abs_err=st["max_abs_err"])
+        if n == "pose_inertial":   # the row is the legacy variant; the joint one beside it
+            st = stats["pose_inertial_joint"]
+            row.update(joint_launches=sum(count("pose_inertial_joint").values()),
+                       joint_ms=st["ms"], joint_plain_ms=st["plain_ms"],
+                       joint_bound_ms=st["bound_ms"], joint_max_abs_err=st["max_abs_err"],
+                       joint_replaces="extractorb_tpu/solver/inertial.py:683 + "
+                                      "extractorb_tpu/solver/marginal.py:23")
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

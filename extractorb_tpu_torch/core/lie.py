@@ -43,7 +43,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     W = hat(w)
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     b = torch.where(small, 0.5 - theta2 / 24.0,
-                    (1.0 - torch.cos(theta)) / torch.where(small, 1.0, theta2))
+                    (1.0 - torch.cos(theta)) / torch.where(small, torch.ones_like(theta2), theta2))
     return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * (W @ W)
 
 

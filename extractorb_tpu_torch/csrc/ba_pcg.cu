@@ -3,30 +3,35 @@
 //
 // Replaces extractorb_tpu/solver/ba.py:optimize (solver "cg"), which the TPU
 // runs as a lax.scan of LM steps, each a lax.scan of PCG sweeps over
-// jacfwd Jacobians, gathers and segment sums.  Here each LM iteration is:
-//   build:   one thread per observation computes the residual and the
-//            analytic Jacobians (2x6 for R Exp(delta), 2x3 for the point),
-//            the Huber weight, and adds the gradient and the 6x6 / 3x3
-//            diagonal blocks with atomics (a warp whose observations share a
-//            keyframe reduces its pose terms first: run_ba lists them by
-//            keyframe), plus the current cost;
+// jacfwd Jacobians, gathers and segment sums.  Once per solve the
+// observations are listed per keyframe and per point, in index order
+// (det_reduce.cuh).  Then each LM iteration is:
+//   build:   one thread per observation computes the residual, the analytic
+//            Jacobians (2x6 for R Exp(delta), 2x3 for the point) and the
+//            Huber weight, and stores them, plus the current cost;
+//   reduce:  one CTA per keyframe sums the gradient and the 6x6 diagonal
+//            block over its list, one thread per point the 3 + 3x3 over its;
 //   invert:  one thread per block inverts the damped block (6x6 Gauss-Jordan,
 //            3x3 adjugate) and starts PCG (x = 0, r = b, z = M r, p = z);
-//   cg_iters x three launches: the Hessian-vector product over the
-//            observations (p built on the fly as z + beta p), the damped and
-//            masked product with the p.Ap dot, and the alpha step with the
-//            preconditioner and the r.z dot;
+//   cg_iters x three launches: the Hessian-vector product (a CTA per
+//            keyframe and a thread per point over their lists, p built on
+//            the fly as z + beta p), the damped and masked product with the
+//            p.Ap dot, and the alpha step with the preconditioner and the
+//            r.z dot;
 //   retract, cost, accept: the candidate poses (R Exp(-x)) and points, their
 //            cost, and the accept/reject with the lambda update.
 // alpha, beta, the costs and lambda live in a small float64 block on the card:
 // nothing waits on the host.  At the end the rotations are re-orthonormalized
 // (two Newton-Schulz steps) and observations classified by chi2.
 //
+// Every sum runs in a fixed order (no float atomics), so a solve gives one
+// result per input: the blocks over the index-ordered lists, the scalars by
+// per-CTA partials summed in block order by the last CTA.
+//
 // Bound on the H100: launch latency.  An init problem (2 keyframes, ~2k
 // observations) and a window problem (~10 keyframes, ~10k observations) are
 // microseconds of arithmetic per pass; the 3 x cg_iters + 7 dependent
-// launches per LM iteration set the time.  Float atomics make the summation
-// order (and the last bits) vary from run to run.
+// launches per LM iteration set the time.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,6 +42,7 @@ namespace {
 constexpr int kThreads = 256;
 
 #include "ba_obs.cuh"
+#include "det_reduce.cuh"
 
 struct Ws {
   float* Rn;    // (K,9) candidate poses / points
@@ -44,21 +50,23 @@ struct Ws {
   float* pn;    // (P,3)
   float* J;     // (O,18): pose Jacobian 2x6, then point Jacobian 2x3
   float* w;     // (O,)
-  // zeroed at every LM iteration, in this order and contiguous:
+  float* r;     // (O,2) residuals
   float* g;     // (6K+3P) gradient b = J^T W r
   float* Hpp;   // (K,21) upper triangles
   float* Hll;   // (P,6)
-  float* h;     // (6K+3P) Hessian-vector product accumulator
+  float* h;     // (6K+3P) Hessian-vector product
   float* Mp;    // (K,36)
   float* Ml;    // (P,9)
   float* x;     // (6K+3P) CG vectors
-  float* r;
+  float* res;
   float* z;
   float* p;
   float* Ap;
   double* lam;  // (1,)
-  double* sc;   // scalars zeroed every LM iteration:
-                // [cost_old, cost_new, rz[0..cg], pAp[0..cg-1]]
+  double* sc;   // scalars: [cost_old, cost_new, rz[0..cg], pAp[0..cg-1]]
+  double* part; // per-CTA partials of the scalar being reduced
+  unsigned* ticket;
+  Lists L;
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
@@ -77,24 +85,34 @@ __host__ __device__ inline size_t carve(Ws* w, uint8_t* base, int K, int P, int 
   q = take(sizeof(float) * 3 * P);  if (w) w->pn = (float*)q;
   q = take(sizeof(float) * 18 * (size_t)O); if (w) w->J = (float*)q;
   q = take(sizeof(float) * (size_t)O); if (w) w->w = (float*)q;
-  // one contiguous zeroed region: g, Hpp, Hll, h (no padding between them)
-  const size_t zero_floats = nv + (size_t)21 * K + (size_t)6 * P + nv;
-  q = take(sizeof(float) * zero_floats);
-  if (w) {
-    w->g = (float*)q;
-    w->Hpp = w->g + nv;
-    w->Hll = w->Hpp + (size_t)21 * K;
-    w->h = w->Hll + (size_t)6 * P;
-  }
+  q = take(sizeof(float) * 2 * (size_t)O); if (w) w->r = (float*)q;
+  q = take(sizeof(float) * nv);     if (w) w->g = (float*)q;
+  q = take(sizeof(float) * 21 * K); if (w) w->Hpp = (float*)q;
+  q = take(sizeof(float) * 6 * P);  if (w) w->Hll = (float*)q;
+  q = take(sizeof(float) * nv);     if (w) w->h = (float*)q;
   q = take(sizeof(float) * 36 * K); if (w) w->Mp = (float*)q;
   q = take(sizeof(float) * 9 * P);  if (w) w->Ml = (float*)q;
   q = take(sizeof(float) * nv);     if (w) w->x = (float*)q;
-  q = take(sizeof(float) * nv);     if (w) w->r = (float*)q;
+  q = take(sizeof(float) * nv);     if (w) w->res = (float*)q;
   q = take(sizeof(float) * nv);     if (w) w->z = (float*)q;
   q = take(sizeof(float) * nv);     if (w) w->p = (float*)q;
   q = take(sizeof(float) * nv);     if (w) w->Ap = (float*)q;
   q = take(sizeof(double));         if (w) w->lam = (double*)q;
   q = take(sizeof(double) * (3 + 2 * (size_t)cg)); if (w) w->sc = (double*)q;
+  const size_t max_blocks = (size_t)n_blocks(O > (long long)nv ? O : (long long)nv) + K + 1;
+  q = take(sizeof(double) * max_blocks); if (w) w->part = (double*)q;
+  q = take(sizeof(unsigned));       if (w) w->ticket = (unsigned*)q;
+  // cnt_kf, cnt_mp, cur_mp contiguous (zeroed together)
+  q = take(sizeof(int) * ((size_t)K + 2 * (size_t)P));
+  if (w) {
+    w->L.cnt_kf = (int*)q;
+    w->L.cnt_mp = w->L.cnt_kf + K;
+    w->L.cur_mp = w->L.cnt_mp + P;
+  }
+  q = take(sizeof(int) * ((size_t)K + 1)); if (w) w->L.off_kf = (int*)q;
+  q = take(sizeof(int) * ((size_t)P + 1)); if (w) w->L.off_mp = (int*)q;
+  q = take(sizeof(int) * (size_t)O); if (w) w->L.list_kf = (int*)q;
+  q = take(sizeof(int) * (size_t)O); if (w) w->L.list_mp = (int*)q;
   return o;
 }
 
@@ -103,68 +121,66 @@ __device__ __forceinline__ double* cost_new(const Ws& w) { return w.sc + 1; }
 __device__ __forceinline__ double* rz(const Ws& w, int it) { return w.sc + 2 + it; }
 __device__ __forceinline__ double* pAp(const Ws& w, int it, int cg) { return w.sc + 3 + cg + it; }
 
-// Add n values per lane into dst + kf*stride; a warp whose active lanes all
-// share one keyframe reduces first and adds once.  All 32 lanes must call.
-template <int n>
-__device__ void add_pose(float* dst, int stride, int kf, bool active, float (&v)[n]) {
-  const unsigned full = 0xffffffffu;
-  const unsigned act = __ballot_sync(full, active);
-  if (act == 0) return;
-  const int ref = __shfl_sync(full, kf, __ffs(act) - 1);
-  const bool uniform = __all_sync(full, !active || kf == ref);
-  if (uniform) {
-#pragma unroll
-    for (int i = 0; i < n; ++i) {
-      float s = active ? v[i] : 0.f;
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(full, s, o);
-      v[i] = s;
-    }
-    if ((threadIdx.x & 31) == 0)
-      for (int i = 0; i < n; ++i) atomicAdd(dst + (size_t)ref * stride + i, v[i]);
-  } else if (active) {
-    for (int i = 0; i < n; ++i) atomicAdd(dst + (size_t)kf * stride + i, v[i]);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 build_kernel(const float* __restrict__ R, const float* __restrict__ t, const float* __restrict__ pts,
              const Prob q, const Cam cam, bool huber, Ws w) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = o < q.O;
-  const bool act = in && q.valid[o];
-  const int kf = in ? q.obs_kf[o] : 0;
-  float gp[6], Hp[21], gl[3], Hl[6];
   float cost = 0.f;
-  for (int i = 0; i < 6; ++i) gp[i] = 0.f;
-  for (int i = 0; i < 21; ++i) Hp[i] = 0.f;
-  for (int i = 0; i < 3; ++i) gl[i] = 0.f;
-  for (int i = 0; i < 6; ++i) Hl[i] = 0.f;
-  if (act) {
-    float r0, r1, J[2][9], wt;  // J: [pose 6 | point 3]
-    obs_linearize(R + 9 * kf, t + 3 * kf, pts, q, cam, huber, o, w.J, w.w, r0, r1, J, wt, cost);
-    int k = 0;
-    for (int a = 0; a < 6; ++a) {
-      gp[a] = wt * (J[0][a] * r0 + J[1][a] * r1);
-      for (int b = a; b < 6; ++b) Hp[k++] = wt * (J[0][a] * J[0][b] + J[1][a] * J[1][b]);
+  if (o < q.O) {
+    if (q.valid[o]) {
+      const int kf = q.obs_kf[o];
+      float r0, r1, J[2][9], wt;
+      obs_linearize(R + 9 * kf, t + 3 * kf, pts, q, cam, huber, o, w.J, w.w, r0, r1, J, wt, cost);
+      w.r[2 * o] = r0;
+      w.r[2 * o + 1] = r1;
+    } else {
+      w.w[o] = 0.f;
     }
-    k = 0;
+  }
+  reduce_store((double)cost, w.part, w.ticket, cost_old(w));
+}
+
+// the gradient and diagonal blocks: blocks [0, K) are one CTA per keyframe
+// over its observation list, the rest one thread per point over its list
+__global__ void __launch_bounds__(kThreads)
+reduce_kernel(const Prob q, Ws w) {
+  __shared__ float red[27 * kThreads / 32];
+  if (blockIdx.x < q.K) {
+    const int k = blockIdx.x;
+    float v[27];  // g 6, then the upper 6x6 triangle
+    for (int i = 0; i < 27; ++i) v[i] = 0.f;
+    for (int j = w.L.off_kf[k] + threadIdx.x; j < w.L.off_kf[k + 1]; j += kThreads) {
+      const int o = w.L.list_kf[j];
+      const float* J = w.J + (size_t)18 * o;
+      const float wt = w.w[o], r0 = w.r[2 * o], r1 = w.r[2 * o + 1];
+      int n = 6;
+      for (int a = 0; a < 6; ++a) {
+        v[a] += wt * (J[a] * r0 + J[6 + a] * r1);
+        for (int b2 = a; b2 < 6; ++b2) v[n++] += wt * (J[a] * J[b2] + J[6 + a] * J[6 + b2]);
+      }
+    }
+    block_sum_fixed<27>(v, red);
+    if (threadIdx.x == 0) {
+      for (int a = 0; a < 6; ++a) w.g[6 * k + a] = v[a];
+      for (int i = 0; i < 21; ++i) w.Hpp[21 * k + i] = v[6 + i];
+    }
+    return;
+  }
+  const int m = (blockIdx.x - q.K) * kThreads + threadIdx.x;
+  if (m >= q.P) return;
+  float g[3] = {0.f, 0.f, 0.f}, H[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int j = w.L.off_mp[m]; j < w.L.off_mp[m + 1]; ++j) {
+    const int o = w.L.list_mp[j];
+    const float* J = w.J + (size_t)18 * o + 12;
+    const float wt = w.w[o], r0 = w.r[2 * o], r1 = w.r[2 * o + 1];
+    int n = 0;
     for (int a = 0; a < 3; ++a) {
-      gl[a] = wt * (J[0][6 + a] * r0 + J[1][6 + a] * r1);
-      for (int b = a; b < 3; ++b) Hl[k++] = wt * (J[0][6 + a] * J[0][6 + b] + J[1][6 + a] * J[1][6 + b]);
+      g[a] += wt * (J[a] * r0 + J[3 + a] * r1);
+      for (int b2 = a; b2 < 3; ++b2) H[n++] += wt * (J[a] * J[b2] + J[3 + a] * J[3 + b2]);
     }
-  } else if (in) {
-    w.w[o] = 0.f;
   }
-  add_pose<6>(w.g, 6, kf, act, gp);
-  add_pose<21>(w.Hpp, 21, kf, act, Hp);
-  if (act) {
-    const int m = q.obs_mp[o];
-    float* gpt = w.g + (size_t)6 * q.K + (size_t)3 * m;
-    for (int i = 0; i < 3; ++i) atomicAdd(gpt + i, gl[i]);
-    for (int i = 0; i < 6; ++i) atomicAdd(w.Hll + (size_t)6 * m + i, Hl[i]);
-  }
-  const double c = warp_sum_d((double)cost);
-  if ((threadIdx.x & 31) == 0 && c != 0.0) atomicAdd(cost_old(w), c);
+  for (int a = 0; a < 3; ++a) w.g[(size_t)6 * q.K + 3 * m + a] = g[a];
+  for (int i = 0; i < 6; ++i) w.Hll[6 * m + i] = H[i];
 }
 
 __device__ __forceinline__ bool free_entry(const Prob& q, int e) {
@@ -187,7 +203,7 @@ invert_kernel(const Prob q, Ws w) {
       float rb[6];
       for (int a = 0; a < 6; ++a) {
         rb[a] = fr ? w.g[6 * e + a] : 0.f;
-        w.r[6 * e + a] = rb[a];
+        w.res[6 * e + a] = rb[a];
         w.x[6 * e + a] = 0.f;
         w.p[6 * e + a] = 0.f;
       }
@@ -207,7 +223,7 @@ invert_kernel(const Prob q, Ws w) {
       float rb[3];
       for (int a = 0; a < 3; ++a) {
         rb[a] = fr ? w.g[base + a] : 0.f;
-        w.r[base + a] = rb[a];
+        w.res[base + a] = rb[a];
         w.x[base + a] = 0.f;
         w.p[base + a] = 0.f;
       }
@@ -219,48 +235,61 @@ invert_kernel(const Prob q, Ws w) {
       }
     }
   }
-  part = warp_sum_d(part);
-  if ((threadIdx.x & 31) == 0 && part != 0.0) atomicAdd(rz(w, 0), part);
+  reduce_store(part, w.part, w.ticket, rz(w, 0));
 }
 
 __device__ __forceinline__ float beta_of(const Ws& w, int it) {
   return it == 0 ? 0.f : (float)(*rz(w, it) / fmax(*rz(w, it - 1), 1e-20));
 }
 
-// h += J^T W J p over the observations, p = z + beta p_prev built on the fly
+// u = w_o J_o (vp, vl) of observation o, p = z + beta p built on the fly
+__device__ __forceinline__ void obs_u(const Prob& q, const Ws& w, int o, float beta, float* u) {
+  const int kf = q.obs_kf[o], m = q.obs_mp[o];
+  const bool fk = !q.fixed_kf[kf], fm = !q.fixed_mp[m];
+  const size_t pb = (size_t)6 * kf, lb = (size_t)6 * q.K + (size_t)3 * m;
+  float vp[6], vl[3];
+  for (int i = 0; i < 6; ++i) vp[i] = fk ? w.z[pb + i] + beta * w.p[pb + i] : 0.f;
+  for (int i = 0; i < 3; ++i) vl[i] = fm ? w.z[lb + i] + beta * w.p[lb + i] : 0.f;
+  const float* J = w.J + (size_t)18 * o;
+  for (int rr = 0; rr < 2; ++rr) {
+    float s = 0.f;
+    for (int i = 0; i < 6; ++i) s += J[6 * rr + i] * vp[i];
+    for (int i = 0; i < 3; ++i) s += J[12 + 3 * rr + i] * vl[i];
+    u[rr] = s * w.w[o];
+  }
+}
+
+// h = J^T W J p: a CTA per keyframe and a thread per point, over their lists
 __global__ void __launch_bounds__(kThreads)
 hv_kernel(const Prob q, Ws w, int it) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool act = o < q.O && q.valid[o];
-  const int kf = o < q.O ? q.obs_kf[o] : 0;
+  __shared__ float red[6 * kThreads / 32];
   const float beta = beta_of(w, it);
-  float hp[6];
-  for (int i = 0; i < 6; ++i) hp[i] = 0.f;
-  float hl[3] = {0.f, 0.f, 0.f};
-  int m = 0;
-  if (act) {
-    m = q.obs_mp[o];
-    const bool fk = !q.fixed_kf[kf], fm = !q.fixed_mp[m];
-    const size_t pb = (size_t)6 * kf, lb = (size_t)6 * q.K + (size_t)3 * m;
-    float vp[6], vl[3];
-    for (int i = 0; i < 6; ++i) vp[i] = fk ? w.z[pb + i] + beta * w.p[pb + i] : 0.f;
-    for (int i = 0; i < 3; ++i) vl[i] = fm ? w.z[lb + i] + beta * w.p[lb + i] : 0.f;
-    const float* J = w.J + (size_t)18 * o;
-    float u[2];
-    for (int rr = 0; rr < 2; ++rr) {
-      float s = 0.f;
-      for (int i = 0; i < 6; ++i) s += J[6 * rr + i] * vp[i];
-      for (int i = 0; i < 3; ++i) s += J[12 + 3 * rr + i] * vl[i];
-      u[rr] = s * w.w[o];
+  if (blockIdx.x < q.K) {
+    const int k = blockIdx.x;
+    float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int j = w.L.off_kf[k] + threadIdx.x; j < w.L.off_kf[k + 1]; j += kThreads) {
+      const int o = w.L.list_kf[j];
+      float u[2];
+      obs_u(q, w, o, beta, u);
+      const float* J = w.J + (size_t)18 * o;
+      for (int i = 0; i < 6; ++i) v[i] += J[i] * u[0] + J[6 + i] * u[1];
     }
-    for (int i = 0; i < 6; ++i) hp[i] = J[i] * u[0] + J[6 + i] * u[1];
-    for (int i = 0; i < 3; ++i) hl[i] = J[12 + i] * u[0] + J[15 + i] * u[1];
+    block_sum_fixed<6>(v, red);
+    if (threadIdx.x == 0)
+      for (int i = 0; i < 6; ++i) w.h[6 * k + i] = v[i];
+    return;
   }
-  add_pose<6>(w.h, 6, kf, act, hp);
-  if (act) {
-    float* dst = w.h + (size_t)6 * q.K + (size_t)3 * m;
-    for (int i = 0; i < 3; ++i) atomicAdd(dst + i, hl[i]);
+  const int m = (blockIdx.x - q.K) * kThreads + threadIdx.x;
+  if (m >= q.P) return;
+  float hl[3] = {0.f, 0.f, 0.f};
+  for (int j = w.L.off_mp[m]; j < w.L.off_mp[m + 1]; ++j) {
+    const int o = w.L.list_mp[j];
+    float u[2];
+    obs_u(q, w, o, beta, u);
+    const float* J = w.J + (size_t)18 * o;
+    for (int i = 0; i < 3; ++i) hl[i] += J[12 + i] * u[0] + J[15 + i] * u[1];
   }
+  for (int i = 0; i < 3; ++i) w.h[(size_t)6 * q.K + 3 * m + i] = hl[i];
 }
 
 // per scalar: p = z + beta p, Ap = (h + lam p) masked, p.Ap partial
@@ -277,11 +306,10 @@ cg_a_kernel(const Prob q, Ws w, int it, int cg) {
     w.Ap[e] = ap;
     part = (double)(pe * ap);
   }
-  part = warp_sum_d(part);
-  if ((threadIdx.x & 31) == 0 && part != 0.0) atomicAdd(pAp(w, it, cg), part);
+  reduce_store(part, w.part, w.ticket, pAp(w, it, cg));
 }
 
-// per block: x += alpha p, r -= alpha Ap, z = M r, r.z partial; clear h
+// per block: x += alpha p, r -= alpha Ap, z = M r, r.z partial
 __global__ void __launch_bounds__(kThreads)
 cg_b_kernel(const Prob q, Ws w, int it, int cg) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -296,9 +324,8 @@ cg_b_kernel(const Prob q, Ws w, int it, int cg) {
     float rb[6];
     for (int a = 0; a < n; ++a) {
       w.x[base + a] += alpha * w.p[base + a];
-      rb[a] = w.r[base + a] - alpha * w.Ap[base + a];
-      w.r[base + a] = rb[a];
-      w.h[base + a] = 0.f;
+      rb[a] = w.res[base + a] - alpha * w.Ap[base + a];
+      w.res[base + a] = rb[a];
     }
     for (int a = 0; a < n; ++a) {
       float s = 0.f;
@@ -308,8 +335,7 @@ cg_b_kernel(const Prob q, Ws w, int it, int cg) {
       part += (double)(rb[a] * s);
     }
   }
-  part = warp_sum_d(part);
-  if ((threadIdx.x & 31) == 0 && part != 0.0) atomicAdd(rz(w, it + 1), part);
+  reduce_store(part, w.part, w.ticket, rz(w, it + 1));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -335,8 +361,7 @@ cost_kernel(const Prob q, const Cam cam, bool huber, Ws w) {
     const int kf = q.obs_kf[o];
     cost = rho(obs_chi2(w.Rn + 9 * kf, w.tn + 3 * kf, w.pn, q, cam, o), huber, huber_delta());
   }
-  const double c = warp_sum_d((double)cost);
-  if ((threadIdx.x & 31) == 0 && c != 0.0) atomicAdd(cost_new(w), c);
+  reduce_store((double)cost, w.part, w.ticket, cost_new(w));
 }
 
 // keep the candidate only if the cost fell; lambda x0.5 or x4
@@ -361,10 +386,11 @@ classify_kernel(const float* __restrict__ R, const float* __restrict__ t,
 
 __global__ void init_kernel(Ws w, float* cost_out) {
   *w.lam = 1e-4;
+  *w.ticket = 0u;
   *cost_out = INFINITY;
 }
 
-inline int blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+inline int blocks(long long n) { return n_blocks(n); }
 
 }  // namespace
 
@@ -390,18 +416,17 @@ extern "C" int ba_pcg_launch(void* R, void* t, void* pts, const void* obs_kf, co
   float* Rf = (float*)R;
   float* tf = (float*)t;
   float* pf = (float*)pts;
-  const size_t nv = (size_t)6 * K + (size_t)3 * P;
-  const size_t zero_bytes = sizeof(float) * (nv + (size_t)21 * K + (size_t)6 * P + nv);
-  const size_t sc_bytes = sizeof(double) * (3 + 2 * (size_t)cg_iters);
+  const long long nv = 6LL * K + 3LL * P;
   init_kernel<<<1, 1, 0, st>>>(w, (float*)cost_out);
-  cudaError_t e;
+  cudaError_t e = build_lists(q.obs_kf, q.obs_mp, q.valid, K, P, O, w.L, st);
+  if (e != cudaSuccess) return (int)e;
+  const int nbP = blocks(P);
   for (int it = 0; it < n_iters; ++it) {
-    if ((e = cudaMemsetAsync(w.g, 0, zero_bytes, st)) != cudaSuccess) return (int)e;
-    if ((e = cudaMemsetAsync(w.sc, 0, sc_bytes, st)) != cudaSuccess) return (int)e;
     build_kernel<<<blocks(O), kThreads, 0, st>>>(Rf, tf, pf, q, cam, huber, w);
+    reduce_kernel<<<K + nbP, kThreads, 0, st>>>(q, w);
     invert_kernel<<<blocks(K + P), kThreads, 0, st>>>(q, w);
     for (int c = 0; c < cg_iters; ++c) {
-      hv_kernel<<<blocks(O), kThreads, 0, st>>>(q, w, c);
+      hv_kernel<<<K + nbP, kThreads, 0, st>>>(q, w, c);
       cg_a_kernel<<<blocks(nv), kThreads, 0, st>>>(q, w, c, cg_iters);
       cg_b_kernel<<<blocks(K + P), kThreads, 0, st>>>(q, w, c, cg_iters);
     }

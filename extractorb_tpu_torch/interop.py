@@ -1,5 +1,7 @@
-"""numpy <-> port conversions of the state a tracking step carries, and
-of the map state (``SLAMMap`` / ``KeyFrame``) and of a vocabulary.
+"""numpy <-> port conversions of the state a tracking step carries, of
+the map state (``SLAMMap`` / ``KeyFrame``, inertial fields included), of
+the inertial solvers' inputs (``Preintegrated``, ``InertialChain``,
+``VIBAProblem``) and of a vocabulary.
 
 With these, the JAX package and the port can be fed byte-identical state:
 the caller builds numpy arrays once and hands them to both.  The map
@@ -16,7 +18,9 @@ import numpy as np
 import torch
 
 from .frontend.extractor import Features
+from .imu.preintegration import Preintegrated
 from .slam.map import KeyFrame, SLAMMap
+from .solver.inertial import InertialChain, VIBAProblem
 from .slam.track_device import FusedOut, LocalBlock
 
 _FEATURE_DTYPES = {
@@ -86,11 +90,58 @@ def to_numpy(out) -> Dict[str, np.ndarray]:
 # ------------------------------------------------------------ map state
 
 _KF_ARRAYS = ("R", "t", "xy_un", "octave", "angle", "desc", "valid", "kp_mp")
-_KF_OPTIONAL = ("ur", "depth")  # stereo/RGB-D keyframes only; None for mono
-_KF_SCALARS = ("kid", "frame_id", "timestamp", "is_bad", "parent")
+# stereo/RGB-D channels and the inertial state: None where a keyframe has none
+_KF_OPTIONAL = ("ur", "depth", "v", "bg", "ba")
+_KF_SCALARS = ("kid", "frame_id", "timestamp", "is_bad", "parent", "prev_kf")
 _MAP_ARRAYS = ("mp_pos", "mp_desc", "mp_normal", "mp_max_dist", "mp_valid", "mp_first_kf",
                "mp_visible", "mp_found")
-_MAP_SCALARS = ("mid", "scale_factor", "_next_kf", "_next_mp", "version")
+_MAP_SCALARS = ("mid", "scale_factor", "_next_kf", "_next_mp", "version", "imu_initialized",
+                "imu_ba1", "imu_ba2")
+
+
+def preint_to_numpy(p) -> Dict[str, np.ndarray]:
+    """A Preintegrated (JAX or port; tensors or numpy fields) as numpy."""
+    return {f: np.array(getattr(p, f).cpu() if torch.is_tensor(getattr(p, f))
+                        else getattr(p, f)) for f in Preintegrated._fields}
+
+
+def preint_from_numpy(d: Mapping, device=None) -> Preintegrated:
+    """The port's Preintegrated with tensor fields on ``device``, or numpy
+    fields (a keyframe's host copy) when ``device`` is None."""
+    if device is None:
+        return Preintegrated(**{f: np.array(d[f], np.float32) for f in Preintegrated._fields})
+    return Preintegrated(**{f: _t(d[f], torch.float32, device).reshape(np.shape(d[f]))
+                            for f in Preintegrated._fields})
+
+
+def chain_to_numpy(c) -> Dict[str, np.ndarray]:
+    """An InertialChain (JAX or port) as numpy."""
+    return {f: np.array(getattr(c, f).cpu() if torch.is_tensor(getattr(c, f))
+                        else getattr(c, f)) for f in InertialChain._fields}
+
+
+def chain_from_numpy(d: Mapping, device) -> InertialChain:
+    return InertialChain(**{f: _t(d[f], torch.bool if f == "valid" else torch.float32, device)
+                            for f in InertialChain._fields})
+
+
+_VIBA_DTYPES = {"obs_kf": torch.int32, "obs_mp": torch.int32, "obs_valid": torch.bool,
+                "fixed_kf": torch.bool, "fixed_mp": torch.bool}
+
+
+def viba_problem_from_numpy(p, device) -> VIBAProblem:
+    """The port's VIBAProblem from one with numpy-convertible fields (a
+    JAX ``VIBAProblem``)."""
+    fields = {}
+    for k in VIBAProblem._fields:
+        v = getattr(p, k)
+        if k == "chain":
+            fields[k] = chain_from_numpy(chain_to_numpy(v), device)
+        elif k in ("prior_g", "prior_a"):
+            fields[k] = float(v)
+        else:
+            fields[k] = _t(np.asarray(v), _VIBA_DTYPES.get(k, torch.float32), device)
+    return VIBAProblem(**fields)
 
 
 def keyframe_to_numpy(kf) -> Dict:
@@ -101,6 +152,8 @@ def keyframe_to_numpy(kf) -> Dict:
               for k in _KF_OPTIONAL})
     d.update({k: getattr(kf, k) for k in _KF_SCALARS})
     d["loop_edges"] = list(kf.loop_edges)
+    d["preint"] = None if kf.preint is None else preint_to_numpy(kf.preint)
+    d["imu_meas"] = None if kf.imu_meas is None else tuple(np.array(a) for a in kf.imu_meas)
     d["feats"] = {k: np.array(getattr(kf.feats, k)) for k in _FEATURE_DTYPES}
     return d
 
@@ -113,6 +166,8 @@ def keyframe_from_numpy(d: Mapping, device) -> KeyFrame:
                   **{k: None if d.get(k) is None else np.array(d[k]) for k in _KF_OPTIONAL},
                   **{k: d[k] for k in _KF_SCALARS})
     kf.loop_edges = list(d["loop_edges"])
+    kf.preint = None if d.get("preint") is None else preint_from_numpy(d["preint"])
+    kf.imu_meas = None if d.get("imu_meas") is None else tuple(np.array(a) for a in d["imu_meas"])
     return kf
 
 
@@ -134,12 +189,12 @@ def map_from_numpy(d: Mapping, device) -> SLAMMap:
     for k in _MAP_ARRAYS:
         setattr(mp, k, np.array(d[k]))
     for k in _MAP_SCALARS:
-        setattr(mp, k, d[k])
+        if k in d:
+            setattr(mp, k, d[k])
     mp.obs = {m: dict(o) for m, o in d["obs"].items()}
     mp.dead_kfs = {k: (p, np.array(R), np.array(t)) for k, (p, R, t) in d["dead_kfs"].items()}
     mp.keyframes = {k: keyframe_from_numpy(kd, device) for k, kd in d["keyframes"].items()}
     return mp
-
 
 
 def vocab_to_numpy(voc) -> Dict:

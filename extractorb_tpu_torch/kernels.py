@@ -17,12 +17,14 @@ launches its kernel and nowhere else.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import warnings
 from pathlib import Path
 
 import torch
@@ -31,8 +33,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9,
 # K10, K12, K17 and K18 must round like their plain PyTorch versions (K1, K3,
-# K8, K11, K15 and K16 are integer code or copies; K4, K6, K13 and K14 are
-# bound by latency, not float throughput).
+# K8, K11, K15 and K16 are integer code or copies; K4, K6, K13, K14 and
+# K19-K22 are bound by latency, not float throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
@@ -112,15 +114,32 @@ _SIGNATURES = {
     # best, best_idx, accept, M, N, by_distance, angle1, angle2 (null: no
     # rotation filter), out, stream
     "match_epilogue_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # gyro, acc, dts, valid, bias, B, T, ng2, na2, wg2, wa2, out, stream
+    "preint_launch": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P),
+    # states, pts, chain, obs_kf, obs_mp, obs_uv, isig, valid, chain_valid, fixed_kf,
+    # fixed_mp, ext, K, P, O, fx, fy, cx, cy, prior_g, prior_a, n_iters, cg_iters,
+    # use_huber, chi2_th, ws, inliers, cost, stream
+    "vi_ba_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     _F, _F, _F, _F, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P),
+    # Rwb, twb, chain, valid, v0, bias0, Rwg_seed, K, prior_g, prior_a, fix_scale,
+    # n_iters, ws, out, stream
+    "inertial_init_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _I, _P, _P, _P),
+    # state, pts, uv, isig, valid, N, fx, fy, cx, cy, joint, n_rounds, n_iters,
+    # out, inliers, n_inliers, stream
+    "pose_inertial_launch": (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P,
+                             _P),
     # workspace sizes in bytes
     "two_view_workspace_bytes": (_I, _I),
     "ba_workspace_bytes": (_I, _I, _I, _I),
     "pose_graph_workspace_bytes": (_I, _I, _I),
     "ba_schur_workspace_bytes": (_I, _I, _I, _I),
+    "vi_ba_workspace_bytes": (_I, _I, _I, _I),
+    "inertial_init_workspace_bytes": (_I,),
 }
 # return types other than the launch status (an int cudaError_t)
 _RESTYPES = {"two_view_workspace_bytes": _L, "ba_workspace_bytes": _L,
-             "pose_graph_workspace_bytes": _L, "ba_schur_workspace_bytes": _L}
+             "pose_graph_workspace_bytes": _L, "ba_schur_workspace_bytes": _L,
+             "vi_ba_workspace_bytes": _L, "inertial_init_workspace_bytes": _L}
 
 _lib = None
 _lock = threading.Lock()
@@ -214,3 +233,24 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: argument {i} is on {t.device}, expected {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: argument {i} is not contiguous")
+
+
+@contextlib.contextmanager
+def ordered_plain(on_card: bool):
+    """Run a plain version on the card in PyTorch's deterministic mode, so
+    its ``index_add_`` sums in one order and the plain solve, like the
+    kernel it is held to, gives one result per input (K6, K20).  Ops
+    without a deterministic CUDA implementation (cuBLAS) only warn, and the
+    warnings are dropped.  A no-op for CPU tensors."""
+    if not on_card:
+        yield
+        return
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])

@@ -12,24 +12,26 @@ dtype: either package reads the other's files.
   and init frames, velocity, both trajectory forms), so a session can stop
   mid-sequence, or while lost, and go on.
 
-The tracker fields of the IMU chain, which the port does not have yet, are
-written with the values a visual JAX session holds (no previous keyframe,
-no keyframe timestamps, a zero bias).  The keyframe database's entries
+Inertial sessions carry the IMU chain: each keyframe's preintegration
+(``*_preint_*``, host numpy fields) and raw measurement window
+(``*_imu_*``), the last frame's preintegration, the maps' staging flags,
+the tracker's previous keyframe, keyframe timestamps and bias, and the
+measurement queue (``imuq_*``).  The keyframe database's entries
 (``db_keys``, ``db_lens``, ``db_words``, ``db_weights``) are saved and, for
-a tracker with a vocabulary, restored.  A file holding IMU state (ROADMAP
-A.11) raises ``NotImplementedError`` before anything is loaded.  Loaded features and frames live on the
-tracker's device (``device=None``: the card, as ``Tracker``).
+a tracker with a vocabulary, restored.  Loaded features and frames live on
+the tracker's device (``device=None``: the card, as ``Tracker``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 
+from ..imu import preintegration as pre
 from ..interop import features_from_numpy
 from .map import Atlas, KeyFrame, SLAMMap
+
+_PREINT_FIELDS = ("dR", "dV", "dP", "C", "JRg", "JVg", "JVa", "JPg", "JPa", "dT", "bias")
 
 
 def _device(device) -> torch.device:
@@ -41,13 +43,20 @@ def _device(device) -> torch.device:
     return torch.device(device)
 
 
-def _unported(z) -> Optional[str]:
-    """Why a file cannot be loaded by the port, or None."""
-    keys = list(z.keys())
-    imu_maps = [k for k in keys if k.endswith("map_meta") and int(z[k][2])]
-    if imu_maps or any("_preint_" in k or "_imu_" in k or k.startswith("imuq_") for k in keys):
-        return "the checkpoint holds IMU state: the IMU is not ported (ROADMAP A.11)"
-    return None
+def _put_preint(blobs: dict, prefix: str, preint):
+    if preint is None:
+        return
+    for f in _PREINT_FIELDS:
+        v = getattr(preint, f)
+        blobs[f"{prefix}_preint_{f}"] = v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def _get_preint(z, prefix: str):
+    """A keyframe's or frame's preintegration, host numpy fields."""
+    if f"{prefix}_preint_dR" not in z:
+        return None
+    return pre.Preintegrated(**{f: np.asarray(z[f"{prefix}_preint_{f}"])
+                                for f in _PREINT_FIELDS})
 
 
 def _put_opt(blobs: dict, key: str, arr):
@@ -87,10 +96,19 @@ def _put_kf(blobs: dict, p: str, kf: KeyFrame):
     blobs[f"{p}_loop_edges"] = np.asarray(kf.loop_edges, np.int64)
     for name in ("ur", "depth", "v", "bg", "ba"):
         _put_opt(blobs, f"{p}_{name}", getattr(kf, name))
+    if kf.imu_meas is not None:
+        blobs[f"{p}_imu_gyro"] = kf.imu_meas[0]
+        blobs[f"{p}_imu_acc"] = kf.imu_meas[1]
+        blobs[f"{p}_imu_dt"] = kf.imu_meas[2]
+    _put_preint(blobs, p, kf.preint)
 
 
 def _get_kf(z, p: str, kid: int, device) -> KeyFrame:
     meta = z[f"{p}_meta"]
+    imu_meas = None
+    if f"{p}_imu_gyro" in z:
+        imu_meas = (np.asarray(z[f"{p}_imu_gyro"]), np.asarray(z[f"{p}_imu_acc"]),
+                    np.asarray(z[f"{p}_imu_dt"]))
     return KeyFrame(
         kid=kid, frame_id=int(meta[0]), timestamp=float(meta[1]),
         R=np.asarray(z[f"{p}_R"]), t=np.asarray(z[f"{p}_t"]),
@@ -102,6 +120,7 @@ def _get_kf(z, p: str, kid: int, device) -> KeyFrame:
         loop_edges=[int(e) for e in z[f"{p}_loop_edges"]] if f"{p}_loop_edges" in z else [],
         ur=_get_opt(z, f"{p}_ur"), depth=_get_opt(z, f"{p}_depth"),
         v=_get_opt(z, f"{p}_v"), bg=_get_opt(z, f"{p}_bg"), ba=_get_opt(z, f"{p}_ba"),
+        imu_meas=imu_meas, preint=_get_preint(z, p),
     )
 
 
@@ -119,8 +138,9 @@ def _put_frame(blobs: dict, p: str, f):
     blobs[f"{p}_xy"] = f.feats.xy.cpu().numpy()
     blobs[f"{p}_resp"] = f.feats.response.cpu().numpy()
     blobs[f"{p}_size"] = f.feats.size.cpu().numpy()
-    for name in ("R", "t", "ur", "depth"):
+    for name in ("R", "t", "ur", "depth", "v", "bg", "ba"):
         _put_opt(blobs, f"{p}_{name}", getattr(f, name))
+    _put_preint(blobs, p, f.preint_frame)
 
 
 def _get_frame(z, p: str, Frame, device):
@@ -135,7 +155,9 @@ def _get_frame(z, p: str, Frame, device):
         octave=np.asarray(z[f"{p}_octave"]), angle=np.asarray(z[f"{p}_angle"]),
         desc=np.asarray(z[f"{p}_desc"]), valid=np.asarray(z[f"{p}_valid"]),
         kp_mp=z[f"{p}_kp_mp"].copy(), R=_get_opt(z, f"{p}_R"), t=_get_opt(z, f"{p}_t"),
-        ur=ur, depth=depth, un_dev=to_dev(np.asarray(z[f"{p}_xy_un"], np.float32)),
+        ur=ur, depth=depth, v=_get_opt(z, f"{p}_v"), bg=_get_opt(z, f"{p}_bg"),
+        ba=_get_opt(z, f"{p}_ba"), preint_frame=_get_preint(z, p),
+        un_dev=to_dev(np.asarray(z[f"{p}_xy_un"], np.float32)),
         ur_dev=None if ur is None else to_dev(ur.astype(np.float32)),
         depth_dev=None if depth is None else to_dev(depth.astype(np.float32)),
     )
@@ -172,6 +194,7 @@ def _get_map(z, p: str, device) -> SLAMMap:
         getattr(mp, name)[:n] = z[f"{p}{name}"]
     meta = z[f"{p}map_meta"]
     mp._next_kf, mp.mid, mp.version = int(meta[0]), int(meta[1]), int(meta[5])
+    mp.imu_initialized, mp.imu_ba1, mp.imu_ba2 = bool(meta[2]), bool(meta[3]), bool(meta[4])
     if f"{p}scale_factor" in z:
         mp.scale_factor = float(z[f"{p}scale_factor"][0])
     mp.obs = {}
@@ -183,14 +206,6 @@ def _get_map(z, p: str, device) -> SLAMMap:
     for k in z[f"{p}kf_ids"]:
         mp.keyframes[int(k)] = _get_kf(z, f"{p}kf{int(k)}", int(k), device)
     return mp
-
-
-def _load(path: str):
-    z = np.load(path)
-    why = _unported(z)
-    if why is not None:
-        raise NotImplementedError(why)
-    return z
 
 
 # ------------------------------------------------------------- map API
@@ -205,7 +220,7 @@ def save_map(mp: SLAMMap, path: str):
 
 def load_map(path: str, device=None) -> SLAMMap:
     """A map saved by either package; keyframe features on ``device``."""
-    return _get_map(_load(path), "", _device(device))
+    return _get_map(np.load(path), "", _device(device))
 
 
 # --------------------------------------------------------- session API
@@ -224,14 +239,15 @@ def save_session(tracker, path: str):
     for j, m in enumerate(atlas.maps):
         _put_map(blobs, f"m{j}_", m)
     st = tracker
-    # the IMU chain's fields hold a visual session's values: no previous
-    # keyframe (-1), no keyframe timestamps (NaN), a zero bias
     blobs["trk_meta"] = np.asarray([
         st.state.value, st._next_frame_id, st.last_kf_frame_id,
-        st.ref_kf if st.ref_kf is not None else -1, -1, st._frames_lost, st._map_traj_start,
+        st.ref_kf if st.ref_kf is not None else -1, st._prev_kf_id, st._frames_lost,
+        st._map_traj_start,
     ], np.int64)
-    blobs["trk_fmeta"] = np.asarray([np.nan, np.nan, st._lost_ts], np.float64)
-    blobs["trk_bias"] = np.zeros(6, np.float32)
+    nan_if_none = lambda v: np.nan if v is None else v
+    blobs["trk_fmeta"] = np.asarray([nan_if_none(st.last_kf_ts), nan_if_none(st.first_kf_ts),
+                                     st._lost_ts], np.float64)
+    blobs["trk_bias"] = st.cur_bias
     if st.velocity is not None:
         blobs["trk_vel_R"] = st.velocity[0]
         blobs["trk_vel_t"] = st.velocity[1]
@@ -252,6 +268,8 @@ def save_session(tracker, path: str):
         _put_frame(blobs, "if", st.init_frame)
     if st.prev_matched is not None:
         blobs["prev_matched"] = st.prev_matched
+    if st.imu_queue is not None:
+        blobs["imuq_t"], blobs["imuq_gyro"], blobs["imuq_acc"] = st.imu_queue.snapshot()
     db = st.loop_closer.db
     if db is not None and db.entries:
         keys = sorted(db.entries.keys())
@@ -268,7 +286,7 @@ def load_session(path: str, cfg, vocab=None, device=None):
     match the one the session was made with; ``device`` as ``Tracker``'s."""
     from .tracking import Frame, Tracker, TrackState
 
-    z = _load(path)
+    z = np.load(path)
     tr = Tracker(cfg, vocab=vocab, device=device)
     atlas: Atlas = tr.atlas
     atlas.maps = [_get_map(z, f"m{j}_", tr.device) for j in range(int(z["n_maps"][0]))]
@@ -279,9 +297,14 @@ def load_session(path: str, cfg, vocab=None, device=None):
     tr._next_frame_id = int(meta[1])
     tr.last_kf_frame_id = int(meta[2])
     tr.ref_kf = int(meta[3]) if int(meta[3]) >= 0 else None
+    tr._prev_kf_id = int(meta[4])
     tr._frames_lost = int(meta[5])
     tr._map_traj_start = int(meta[6])
-    tr._lost_ts = float(z["trk_fmeta"][2])
+    fmeta = z["trk_fmeta"]
+    tr.last_kf_ts = None if np.isnan(fmeta[0]) else float(fmeta[0])
+    tr.first_kf_ts = None if np.isnan(fmeta[1]) else float(fmeta[1])
+    tr._lost_ts = float(fmeta[2])
+    tr.cur_bias = np.asarray(z["trk_bias"], np.float32).copy()
     if "trk_vel_R" in z:
         tr.velocity = (np.asarray(z["trk_vel_R"]), np.asarray(z["trk_vel_t"]))
     if "traj_ts" in z:
@@ -296,6 +319,9 @@ def load_session(path: str, cfg, vocab=None, device=None):
         tr.init_frame = _get_frame(z, "if", Frame, tr.device)
     if "prev_matched" in z:
         tr.prev_matched = np.asarray(z["prev_matched"]).copy()
+    if tr.imu_queue is not None and "imuq_t" in z:
+        tr.imu_queue.restore(np.asarray(z["imuq_t"]), np.asarray(z["imuq_gyro"]),
+                             np.asarray(z["imuq_acc"]))
     db = tr.loop_closer.db
     if db is not None and "db_keys" in z:
         off = 0

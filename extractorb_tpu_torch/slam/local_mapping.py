@@ -16,8 +16,16 @@ work per event:
   it (a CUDA event's ``query()``): a solve still running stays in flight,
   the reference's mbAbortBA semantics.
 
-The JAX module's deferred-fetch mode (``pipeline_depth > 0``) and its
-inertial branches are not ported (ROADMAP A.7, A.11).
+With an IMU (``imu_calib`` set by the tracker): keyframe culling keeps the
+temporal chain (nothing before the IMU is initialised, then only while the
+merged preintegration spans <= 0.5 s, or 3 s after the last refinement), a
+culled keyframe's successor inherits its predecessor and the merged
+measurement window, re-integrated by K19, and once the IMU is initialised
+the local inertial BA (K20, ``imu_frontend.local_inertial_ba``) takes the
+window BA's place.
+
+The JAX module's deferred-fetch mode (``pipeline_depth > 0``) is not ported
+(ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from ..core.camera import Pinhole
 from ..frontend import matcher as fm
 from ..solver import ba as sba
 from ..utils.packed_fetch import pack_fetch
+from . import imu_frontend
 from .map import SLAMMap
 
 
@@ -260,6 +269,8 @@ class LocalMapper:
         # in-flight window BA: applied at the next fetch that carries it
         self._pending_ba: Optional[PendingBA] = None
         self._pending_ba_mid = -1
+        # the IMU calibration of an inertial tracker (None: visual-only)
+        self.imu_calib = None
 
     def _dev(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -543,6 +554,16 @@ class LocalMapper:
             kf = mp.keyframes.get(cand)
             if kf is None or cand <= 1:  # keep the initial pair
                 continue
+            # inertial maps: culling must not starve or break the temporal
+            # chain (reference KeyFrameCulling's inertial branch, :935+)
+            if self.imu_calib is not None:
+                if not mp.imu_initialized:
+                    continue
+                prev = mp.keyframes.get(kf.prev_kf)
+                succ = next((k for k in mp.keyframes.values() if k.prev_kf == cand), None)
+                if prev is not None and succ is not None:
+                    if succ.timestamp - prev.timestamp > (3.0 if mp.imu_ba2 else 0.5):
+                        continue
             kp_rows = np.where(kf.kp_mp >= 0)[0]
             if len(kp_rows) < 10:
                 continue
@@ -577,6 +598,20 @@ class LocalMapper:
             p = int(kf.kp_mp[kp])
             if p in mp.obs and kf_id in mp.obs[p]:
                 mp.erase_observation(p, kf_id)
+        # inertial chain repair (reference KeyFrame::SetBadFlag +
+        # Preintegrated::MergePrevious, ImuTypes.cc:312): the successor
+        # inherits prev_kf and the merged measurement window
+        succ = next((k for k in mp.keyframes.values() if k.prev_kf == kf_id), None)
+        if succ is not None:
+            succ.prev_kf = kf.prev_kf
+            if self.imu_calib is not None and (kf.imu_meas is not None
+                                               or succ.imu_meas is not None):
+                succ.imu_meas = imu_frontend.merge_measurements(kf.imu_meas, succ.imu_meas)
+                bias = (np.concatenate([succ.bg, succ.ba]).astype(np.float32)
+                        if succ.bg is not None else np.zeros(6, np.float32))
+                if succ.imu_meas is not None:
+                    succ.preint = imu_frontend.integrate_raw_host(
+                        succ.imu_meas, bias, self.imu_calib, self.device, self.stats)
         # spanning-tree surgery: reparent children to this KF's parent
         for other in mp.keyframes.values():
             if other.parent == kf_id:
@@ -597,7 +632,13 @@ class LocalMapper:
         """LocalBundleAdjustment window build (reference Optimizer.cc:1698):
         local = covisibles of the new KF; fixed = other KFs observing the
         local points.  Dispatched without waiting, like the reference's
-        concurrent mapping thread."""
+        concurrent mapping thread.  An inertial map with its IMU initialised
+        runs LocalInertialBA over the temporal window instead (reference
+        LocalMapping.cc:149-154), synchronously as the JAX module does."""
+        if self.imu_calib is not None and mp.imu_initialized:
+            if imu_frontend.local_inertial_ba(mp, self.imu_calib, self.cam, kf_id, n_window=10,
+                                              device=self.device, stats=self.stats):
+                return
         local = [kf_id] + [k for k, _ in mp.covisible_keyframes(kf_id, 1)]
         local_set = set(local)
         pt_ids = mp.points_seen_by(local)

@@ -26,12 +26,19 @@ motion and reference pose problems share one K4 launch.
 Per frame, on the card: K1 x1, K2 x1, K3 x5, K4 x2 (mono and RGB-D);
 stereo adds K1 x1, K2 x1 and K9 x1.
 
+The inertial step (``inertial=True``, monocular-inertial) predicts the
+pose through the preintegrated IMU delta (PredictStateIMU, plain torch on
+the card, no host synchronisation) instead of the velocity model, and
+replaces the second pose solve by the joint last-frame solve against the
+previous frame's state and prior (K22 ``<joint=true>``), which also gives
+the frame's velocity, biases and the next prior's information; per frame
+that is K4 x1 and K22 x1, plus the K19 launch of the frame's window.
+
 ``MapMirror`` keeps the device copy of the map's point positions and
 validity that the step reads; it updates only the rows that changed
 since its last sync, with kernel K8 ``mirror_scatter``.
 ``build_local_block`` gathers the local-map point block on the host.
 
-The inertial variant is not ported yet (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -48,6 +55,8 @@ from ..core.camera import Pinhole, undistort_points_pinhole
 from ..frontend import matcher as fm
 from ..frontend import stereo as fstereo
 from ..frontend.extractor import Features, ORBExtractor, scale_factors
+from ..imu import preintegration as pre
+from ..solver import inertial as sin
 from ..solver import pose_opt as spo
 
 
@@ -76,6 +85,12 @@ class FusedOut(NamedTuple):
     depth: Optional[torch.Tensor] = None              # (N,) metric depth or -1
     n_close_tracked: Optional[torch.Tensor] = None    # () int32 close keypoints with a map point
     n_close_untracked: Optional[torch.Tensor] = None  # () int32 close keypoints without one
+    # inertial channels (body state and the next prior's information): None
+    # in visual steps
+    v: Optional[torch.Tensor] = None     # (3,) body velocity in the world
+    bg: Optional[torch.Tensor] = None    # (3,) gyro bias
+    ba: Optional[torch.Tensor] = None    # (3,) acc bias
+    H15: Optional[torch.Tensor] = None   # (15,15) marginal information for the chain
 
 
 class LocalBlock(NamedTuple):
@@ -128,13 +143,18 @@ class TrackStep:
     close-point counters."""
 
     def __init__(self, cam_cfg: CameraConfig, orb_cfg: ORBConfig, img_shape: Tuple[int, int],
-                 map_cap: int, local_cap: int, device, depth_mode: str = "none"):
+                 map_cap: int, local_cap: int, device, depth_mode: str = "none",
+                 inertial: bool = False):
         if cam_cfg.model == "KannalaBrandt8":
             raise NotImplementedError("TrackStep: only the pinhole camera is ported")
         if depth_mode not in ("none", "stereo", "rgbd"):
             raise ValueError(f"TrackStep: depth_mode {depth_mode!r}")
         if depth_mode != "none" and cam_cfg.bf <= 0.0:
             raise ValueError(f"TrackStep: depth_mode {depth_mode!r} needs Camera.bf > 0")
+        if inertial and depth_mode != "none":
+            raise NotImplementedError("TrackStep: the inertial step is ported for the "
+                                      "monocular camera only (ROADMAP A.11)")
+        self.inertial = inertial
         self.depth_mode = depth_mode
         self.stereo = depth_mode != "none"
         # reference Camera.bf and mThDepth = bf * ThDepth / fx
@@ -170,15 +190,31 @@ class TrackStep:
         R_last, t_last,                   # previous frame pose
         R_prev, t_prev,                   # the frame before (for the velocity)
         img_r=None,                       # right image (stereo) or depth map (rgbd)
+        imu=None,                         # inertial inputs (see below)
     ) -> FusedOut:
         N, CAP = self.capacity, self.map_cap
         cam = self.cam
 
-        # motion-model prediction: T_pred = (T_last T_prev^-1) T_last
-        Rv = R_last @ R_prev.T
-        tv = t_last - Rv @ t_prev
-        R_pred = Rv @ R_last
-        t_pred = Rv @ t_last + tv
+        if self.inertial:
+            # PredictStateIMU (reference Tracking.cc:1230) from the previous
+            # state through the frame's preintegration (no re-orthonormalisation)
+            preint, v_last, bg_last, ba_last, prior_H, Rcb, tcb = imu
+            g = torch.tensor([0.0, 0.0, -sin.GRAVITY], dtype=torch.float32, device=self.device)
+            Rwb1 = R_last.T @ Rcb
+            twb1 = R_last.T @ (tcb - t_last)
+            b = torch.cat([bg_last, ba_last])
+            dt = preint.dT
+            Rwb2 = Rwb1 @ pre.delta_rotation(preint, b)
+            v_pred = v_last + g * dt + Rwb1 @ pre.delta_velocity(preint, b)
+            twb2 = twb1 + v_last * dt + 0.5 * g * dt * dt + Rwb1 @ pre.delta_position(preint, b)
+            R_pred = Rcb @ Rwb2.T
+            t_pred = tcb - R_pred @ twb2
+        else:
+            # motion-model prediction: T_pred = (T_last T_prev^-1) T_last
+            Rv = R_last @ R_prev.T
+            tv = t_last - Rv @ t_prev
+            R_pred = Rv @ R_last
+            t_pred = Rv @ t_last + tv
 
         # ---- extraction, and the stereo channels (reference
         # ComputeStereoMatches, Frame.cc:813, or ComputeStereoFromRGBD, :994)
@@ -254,20 +290,32 @@ class TrackStep:
         kp_mp2 = _scatter_drop(kp_mp1, torch.where(m2 >= 0, m2, N),
                                torch.where(m2 >= 0, lm_ids, -1))
 
-        # ---- PoseOptimization #2
+        # ---- PoseOptimization #2; inertial: the joint solve against the
+        # previous state and its prior (PoseInertialOptimizationLastFrame,
+        # reference Tracking.cc:2574), which gives the next prior too
         val2 = (kp_mp2 >= 0) & map_valid[kp_mp2.clamp(0, CAP - 1).long()]
-        res2 = spo.optimize_pose(
-            R1[None], t1[None], map_pos[kp_mp2.clamp(0, CAP - 1).long()][None],
-            xy_un[None], isig[None], val2[None], cam,
-            obs_ur=None if obs_ur is None else obs_ur[None], bf=self.bf,
-        )
-        inl2 = res2.inliers[0]
+        pts2 = map_pos[kp_mp2.clamp(0, CAP - 1).long()]
+        if self.inertial:
+            prev = (Rwb1, twb1, v_last, bg_last, ba_last)
+            vres = sin.optimize_pose_inertial_last_frame(
+                R1.T @ Rcb, R1.T @ (tcb - t1), v_pred, bg_last, ba_last, prev, preint, pts2,
+                xy_un, isig, val2, Rcb, tcb, cam, prior=(prior_H, prev))
+            R2 = Rcb @ vres.Rwb.T
+            t2, inl2 = tcb - R2 @ vres.twb, vres.inliers
+            extra = dict(v=vres.v, bg=vres.bg, ba=vres.ba, H15=vres.H)
+        else:
+            res2 = spo.optimize_pose(
+                R1[None], t1[None], pts2[None], xy_un[None], isig[None], val2[None], cam,
+                obs_ur=None if obs_ur is None else obs_ur[None], bf=self.bf,
+            )
+            R2, t2, inl2 = res2.R[0], res2.t[0], res2.inliers[0]
+            extra = {}
         kp_mp3 = torch.where(val2 & ~inl2, -1, kp_mp2)
         out = FusedOut(
-            feats=feats, xy_un=xy_un, R=res2.R[0], t=res2.t[0], kp_mp=kp_mp3,
+            feats=feats, xy_un=xy_un, R=R2, t=t2, kp_mp=kp_mp3,
             n_match_motion=n_match, n_inl_motion=res.n_inliers[0],
             n_inl_final=torch.sum((val2 & inl2).to(torch.int32)), lm_searched=lm_searched,
-            used_ref=~ok_motion, n_pre=n_pre,
+            used_ref=~ok_motion, n_pre=n_pre, **extra,
         )
         if not self.stereo:
             return out
@@ -286,13 +334,14 @@ _STEP_CACHE: dict = {}
 
 
 def get_track_step(cam_cfg: CameraConfig, orb_cfg: ORBConfig, img_shape, map_cap: int,
-                   local_cap: int, device, depth_mode: str = "none") -> TrackStep:
+                   local_cap: int, device, depth_mode: str = "none",
+                   inertial: bool = False) -> TrackStep:
     key = (cam_cfg, orb_cfg, tuple(img_shape), map_cap, local_cap, str(torch.device(device)),
-           depth_mode)
+           depth_mode, inertial)
     step = _STEP_CACHE.get(key)
     if step is None:
         step = TrackStep(cam_cfg, orb_cfg, tuple(img_shape), map_cap, local_cap, device,
-                         depth_mode=depth_mode)
+                         depth_mode=depth_mode, inertial=inertial)
         _STEP_CACHE[key] = step
     return step
 

@@ -126,8 +126,15 @@ def _rho(c2, use_huber: bool):
 def optimize_plain(p: BAProblem, cam: Pinhole, n_iters: int = 10, cg_iters: int = 40,
                    use_huber: bool = True, chi2_outlier: float = CHI2_MONO,
                    solver: str = "cg") -> BAResult:
-    """Plain version of ``optimize`` (same arguments)."""
+    """Plain version of ``optimize`` (same arguments); on the card its sums
+    run in PyTorch's deterministic order (``kernels.ordered_plain``)."""
     _check_problem(p, solver)
+    with kernels.ordered_plain(p.points.is_cuda):
+        return _optimize_plain(p, cam, n_iters, cg_iters, use_huber, chi2_outlier)
+
+
+def _optimize_plain(p: BAProblem, cam: Pinhole, n_iters: int, cg_iters: int, use_huber: bool,
+                    chi2_outlier: float) -> BAResult:
     K, P = p.R.shape[0], p.points.shape[0]
     dt = p.points.dtype
     dev = p.points.device

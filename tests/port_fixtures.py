@@ -272,6 +272,16 @@ def umeyama_align(est: np.ndarray, gt: np.ndarray) -> np.ndarray:
     return (s * (R @ est.T)).T + mu_g - s * R @ mu_e
 
 
+def umeyama_scale(est: np.ndarray, gt: np.ndarray) -> float:
+    """The scale of umeyama_align's Sim3 (est onto gt)."""
+    xe, xg = est - est.mean(0), gt - gt.mean(0)
+    U, D, Vt = np.linalg.svd(xg.T @ xe / len(est))
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    return float(np.trace(np.diag(D) @ S) / ((xe ** 2).sum() / len(est)))
+
+
 def metric_error(trajectory, poses, fps: float = 30.0):
     """Metric accuracy of a stereo or RGB-D trajectory [(ts, R, t)] against
     the true poses, without alignment (frame 0 is the world origin in
@@ -431,3 +441,56 @@ def render_loop_sequence(tex: np.ndarray, n_frames: int = 40, width: int = 640,
         frames.append(np.clip(np.rint(img), 0, 255).astype(np.uint8).reshape(height, width))
         poses.append((R, t))
     return frames, poses
+
+
+# ------------------------------------------------------ visual-inertial scene
+# tests/test_vi_e2e.py's analytic trajectory (body = camera, gravity along
+# -y in the world): the camera oscillates on three axes with rich
+# acceleration while it yaws, seen at VI_FPS with IMU samples at VI_IMU_HZ.
+VI_FPS = 10.0
+VI_IMU_HZ = 100.0
+VI_G_W = np.array([0.0, -9.81, 0.0])
+_VI_AMP = np.array([0.70, 0.25, 0.12])
+_VI_OM = np.array([1.9, 1.4, 1.1])
+_VI_PH = np.array([0.0, 1.0, 0.5])
+
+
+def vi_pose(t: float):
+    """World->camera (R, t) at time t."""
+    ang = 0.10 * np.sin(0.9 * t)
+    C = _VI_AMP * np.sin(_VI_OM * t + _VI_PH) - _VI_AMP * np.sin(_VI_PH)
+    R = so3_exp_np([0.0, ang, 0.0])
+    return R, -R @ C
+
+
+def imu_window(t0: float, t1: float):
+    """(t, acc, gyro) samples in [t0, t1] at VI_IMU_HZ in the body frame;
+    the sample at t0 is included (a duplicate across windows collapses to a
+    zero-length interval in the queue)."""
+    out = []
+    n = int(round((t1 - t0) * VI_IMU_HZ))
+    for i in range(n + 1):
+        t = t0 + i / VI_IMU_HZ
+        R, _ = vi_pose(t)
+        accel = -_VI_AMP * _VI_OM ** 2 * np.sin(_VI_OM * t + _VI_PH)
+        gyro = np.array([0.0, -0.10 * 0.9 * np.cos(0.9 * t), 0.0])
+        out.append((t, (R @ (accel - VI_G_W)).astype(np.float32), gyro.astype(np.float32)))
+    return out
+
+
+def render_vi_sequence(tex: np.ndarray, n_frames: int, width: int = 640, height: int = 480):
+    """Frames 0..n_frames-1 of the trajectory at VI_FPS: (images, poses),
+    the two-plane scene of render_two_plane."""
+    poses = [vi_pose(k / VI_FPS) for k in range(n_frames)]
+    return [render_two_plane(tex, p, width, height)[0] for p in poses], poses
+
+
+def vi_ate_scale(trajectory):
+    """ATE (m) after Sim3 alignment of a trajectory [(ts, R, t)] of the
+    visual-inertial scene, and the alignment's scale (1 for a metric
+    trajectory; tests/test_vi_e2e.py:140-153)."""
+    est = np.array([-np.asarray(R, np.float64).T @ np.asarray(t, np.float64)
+                    for _, R, t in trajectory])
+    gt = np.array([-vi_pose(ts)[0].T @ vi_pose(ts)[1] for ts, _, _ in trajectory])
+    aligned = umeyama_align(est, gt)
+    return float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean())), umeyama_scale(est, gt)

@@ -7,8 +7,11 @@ the port with every array equal and the port's file loads back in JAX; its
 session taken mid-sequence, or while LOST, loads in both packages, which
 then track the rest of the frames the same way (states, trajectory, ATE
 within 1.05 x the JAX continuation's + 1 mm, the relocalization frame).
-Keyframe-database entries cross both ways.  Files with IMU state raise
-``NotImplementedError`` with their ROADMAP item.
+Keyframe-database entries cross both ways.  An inertial JAX session (the
+visual one loaded as imu-monocular, with a measurement queue, keyframe
+preintegrations and raw windows, the staging flags and the tracker's IMU
+chain filled in) loads in the port and the port's save loads back in JAX,
+each piece equal after both trips.
 """
 
 import dataclasses
@@ -150,23 +153,71 @@ def test_session_saved_while_lost_relocalizes_in_both(files):
     np.testing.assert_allclose(tp, np.asarray(tj), atol=1e-3)
 
 
-@pytest.mark.parametrize("extra,item", [
-    ({"imuq_t": np.zeros(3)}, "A.11"),
-    ({"m0_kf0_preint_dR": np.eye(3)}, "A.11"),
-    ({"m0_kf0_imu_gyro": np.zeros((2, 3))}, "A.11"),
-    ({"imu_initialized": True}, "A.11"),
-], ids=["imu-queue", "preintegration", "imu-window", "imu-initialized"])
-def test_unported_sessions_raise(files, extra, item):
-    z = dict(np.load(files["session"]))
-    extra = dict(extra)
-    if extra.pop("imu_initialized", False):
-        z["m0_map_meta"] = z["m0_map_meta"].copy()
-        z["m0_map_meta"][2] = 1
-    z.update(extra)
-    path = str(files["dir"] / f"unported_{item}.npz")
-    np.savez_compressed(path, **z)
-    with pytest.raises(NotImplementedError, match=item):
-        ckpt.load_session(path, configs()[0], device="cpu")
+@pytest.fixture(scope="module")
+def inertial_files(files):
+    """A JAX inertial session: the visual session loaded as imu-monocular,
+    its IMU state filled in, saved; then loaded in the port and saved
+    again.  Returns the JAX tracker, the port tracker and the JAX tracker
+    reloaded from the port's file."""
+    from extractorb_tpu.imu import preintegration as jpre
+    from extractorb_tpu.imu.calib import ImuCalib as JImuCalib
+    from test_torch_system_vi import jax_config
+
+    vcfg = chip_smoke.vi_config(W, H, NF)
+    jvcfg = jax_config(vcfg)
+    jtr = jckpt.load_session(files["session"], jvcfg)
+    jtr.grab_imu(pf.imu_window(0.0, 0.45))
+    calib = JImuCalib.from_config(jvcfg.imu)
+    mp = jtr.atlas.current
+    kids = sorted(mp.keyframes)
+    rng = np.random.default_rng(0)
+    for a, b in zip(kids[:-1], kids[1:]):
+        kf = mp.keyframes[b]
+        kf.prev_kf = a
+        kf.imu_meas = jtr.imu_queue.raw_window(0.05 * a, 0.05 * b + 0.03)
+        bias = rng.normal(0, 0.01, 6).astype(np.float32)
+        g, acc, dt = kf.imu_meas
+        kf.preint = jpre.integrate(g, acc, dt, np.ones(len(dt), bool), bias, calib.noise_gyro,
+                                   calib.noise_acc, calib.walk_gyro, calib.walk_acc)
+        kf.v, kf.bg, kf.ba = (rng.normal(0, 0.1, 3).astype(np.float32) for _ in range(3))
+    mp.imu_initialized, mp.imu_ba1 = True, True
+    jtr._prev_kf_id, jtr.last_kf_ts, jtr.first_kf_ts = kids[-1], 0.3, 0.0
+    jtr.cur_bias = np.arange(6, dtype=np.float32) * 1e-3
+    jpath, ppath = str(files["dir"] / "jax_vi.npz"), str(files["dir"] / "port_vi.npz")
+    jckpt.save_session(jtr, jpath)
+    ptr = ckpt.load_session(jpath, vcfg, device="cpu")
+    ckpt.save_session(ptr, ppath)
+    return jtr, ptr, jckpt.load_session(ppath, jvcfg)
+
+
+def _imu_pieces(tr, part):
+    """The piece of a tracker's IMU state ``part`` as numpy."""
+    mp = tr.atlas.current
+    kfs = [mp.keyframes[k] for k in sorted(mp.keyframes)]
+    if part == "queue":
+        return [np.asarray(a) for a in tr.imu_queue.snapshot()]
+    if part == "preint":
+        return [np.asarray(getattr(kf.preint, f)) for kf in kfs if kf.preint is not None
+                for f in ("dR", "dV", "dP", "C", "JRg", "JVg", "JVa", "JPg", "JPa", "dT", "bias")]
+    if part == "imu_meas":
+        return [np.asarray(a) for kf in kfs if kf.imu_meas is not None for a in kf.imu_meas] + \
+            [np.asarray([kf.prev_kf for kf in kfs])]
+    return [np.asarray([mp.imu_initialized, mp.imu_ba1, mp.imu_ba2]), np.asarray(tr.cur_bias),
+            np.asarray([tr._prev_kf_id, tr.last_kf_ts, tr.first_kf_ts])] + \
+        [np.asarray(a) for kf in kfs for a in (kf.v, kf.bg, kf.ba) if a is not None]
+
+
+@pytest.mark.parametrize("part", ["queue", "preint", "imu_meas", "init_flags"])
+def test_inertial_session_round_trips(inertial_files, part):
+    """Each piece of an inertial session's IMU state is equal in JAX, in the
+    port after loading the JAX file, and in JAX after loading the port's."""
+    jtr, ptr, back = inertial_files
+    ref = _imu_pieces(jtr, part)
+    assert ref and len(ref) == len(_imu_pieces(ptr, part)) == len(_imu_pieces(back, part))
+    for a, b, c in zip(ref, _imu_pieces(ptr, part), _imu_pieces(back, part)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert ptr.inertial and ptr.imu_queue is not None
 
 
 def test_load_without_device_needs_a_card(files, monkeypatch):

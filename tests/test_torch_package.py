@@ -51,7 +51,8 @@ def test_every_module_imports_without_jax_cv2_triton_or_nvcc(tmp_path):
     assert len(MODULES) >= 20
     for m in ("geometry.two_view", "solver.ba", "slam.map", "slam.local_mapping",
               "slam.tracking", "slam.system", "utils.packed_fetch", "frontend.stereo",
-              "solver.pnp", "slam.checkpoint"):
+              "solver.pnp", "slam.checkpoint", "imu.calib", "imu.preintegration",
+              "solver.inertial", "solver.marginal", "slam.imu_frontend"):
         assert f"extractorb_tpu_torch.{m}" in MODULES, m
 
 
@@ -126,6 +127,39 @@ def test_card_only_tests_skip_without_a_card():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert "1 skipped" in res.stdout and "needs a CUDA card" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("sensor,vocab,item", [
+    ("imu-stereo", False, "A.11"), ("imu-rgbd", False, "A.11"),
+    ("imu-monocular", True, "B.29")], ids=["imu-stereo", "imu-rgbd", "imu-with-vocabulary"])
+def test_unported_inertial_configurations_raise(sensor, vocab, item):
+    """imu-monocular is ported; the other inertial sensors and an inertial
+    sensor with a vocabulary raise with their ROADMAP item."""
+    import dataclasses
+
+    import numpy as np
+
+    import chip_smoke
+    from extractorb_tpu_torch.place.vocab import Vocabulary
+    from extractorb_tpu_torch.slam.system import System
+
+    cfg = dataclasses.replace(chip_smoke.vi_config(320, 240, 500), sensor=sensor)
+    voc = None
+    if vocab:
+        rng = np.random.default_rng(0)
+        voc = Vocabulary.train(rng.integers(0, 256, (200, 32), dtype=np.uint8), k=4, L=2)
+    with pytest.raises(NotImplementedError, match=item):
+        System(cfg, vocab=voc, device="cpu")
+    assert System(chip_smoke.vi_config(320, 240, 500), device="cpu").tracker.inertial
+
+
+def test_inertial_system_without_device_needs_a_card(monkeypatch):
+    import chip_smoke
+    from extractorb_tpu_torch.slam.system import System
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        System(chip_smoke.vi_config(320, 240, 500))
 
 
 @pytest.mark.gpu
