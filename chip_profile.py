@@ -4,9 +4,10 @@
 
 Runs ``System.track_monocular``, ``track_stereo`` and ``track_rgbd``
 from a cold map over the 30 rendered 640x480 frames of ``chip_smoke.py``
-([system], [stereo], [rgbd]), and ``track_monocular(img, ts, imu=...)``
-over [vi]'s 40 frames of the visual-inertial scene, each twice: first all
-four unprofiled
+([system], [stereo], [rgbd]), ``track_monocular(img, ts, imu=...)`` over
+[vi]'s 40 frames of the visual-inertial scene and ``track_stereo(l, r, ts,
+imu=...)`` over [vi-stereo]'s 40 frames of it seen by the rig, each twice:
+first all five unprofiled
 (host clock per frame, each frame ending in a synchronise), then each
 under ``torch.profiler``, with every frame inside a ``record_function``
 range.  (A trace's hundreds of thousands of events slow the host's
@@ -15,8 +16,10 @@ A frame's device time is the union of the device events (kernels and
 copies) that start inside its range; a frame ends in a synchronise, so no
 device work crosses into the next.  The idle share of a frame is 1 -
 device time / the unprofiled host time of the same frame.  The inertial
-run's frames are split into pre-init frames, fused inertial frames,
-keyframe events, and the event on which the IMU initialisation fired.
+runs' frames are split into pre-init frames, fused inertial frames, the
+other post-init frames (the legacy inertial solve: every post-init frame
+of [vi-stereo]), keyframe events, and the event on which the IMU
+initialisation fired.
 Prints one summary line per run and, with ``--out``, writes the per-frame
 times and the largest kernels there as JSON.  Needs a card; fails without
 one.
@@ -61,10 +64,13 @@ def track_all(cfg, frames, second, dev, mark=None):
                 sys_.track_stereo(img, second[k], k / 30.0)
             elif cfg.sensor == "rgbd":
                 sys_.track_rgbd(img, second[k], k / 30.0)
-            elif cfg.sensor == "imu-monocular":
+            elif cfg.sensor in ("imu-monocular", "imu-stereo"):
                 ts = k / pf.VI_FPS
-                sys_.track_monocular(img, ts,
-                                     imu=pf.imu_window((k - 1) / pf.VI_FPS, ts) if k else None)
+                imu = pf.imu_window((k - 1) / pf.VI_FPS, ts) if k else None
+                if second is None:
+                    sys_.track_monocular(img, ts, imu=imu)
+                else:
+                    sys_.track_stereo(img, second[k], ts, imu=imu)
             else:
                 sys_.track_monocular(img, k / 30.0)
             torch.cuda.synchronize()
@@ -107,13 +113,16 @@ def device_ms_per_frame(prof, n_frames: int):
 
 
 def summarise_vi(host, info, device):
-    """The inertial run: pre-init frames (after the first two), fused
-    inertial frames and keyframe events apart, the init-stage event alone."""
+    """An inertial run: pre-init frames (after the first two), fused
+    inertial frames, the other post-init frames (legacy inertial solve) and
+    keyframe events apart, the init-stage event alone."""
     init = next((k for k, (_, _, _, i) in enumerate(info) if i), None)
     inited = [init is not None and k >= init for k in range(len(host))]
     groups = {
         "pre_init": [k for k in range(2, len(host)) if not inited[k] and not info[k][1]],
         "fused": [k for k in range(len(host)) if info[k][2] and not info[k][1]],
+        "legacy": [k for k in range(len(host)) if inited[k] and k != init and not info[k][2]
+                   and not info[k][1]],
         "keyframe": [k for k in range(1, len(host)) if info[k][1] and k != init],
     }
     out = {"init_frame": init}
@@ -157,11 +166,14 @@ def main() -> int:
         pf.procedural_texture(), cs.SYS_FRAMES, cs.SYS_SPEED, cs.WIDTH, cs.HEIGHT,
         cs.STEREO_BASELINE)
     vi_frames, _ = cs.vi_frames()
+    vi_left, vi_right = cs.vi_stereo_frames()
     runs = {"system": (cs.system_config(), frames, None),
             "stereo": (cs.stereo_config("stereo"), frames, rights),
             "rgbd": (cs.stereo_config("rgbd"), frames, depths),
-            "vi": (cs.vi_config(), vi_frames, None)}
-    result = dict(card=smi, frames=cs.SYS_FRAMES, vi_frames=cs.VI_FRAMES)
+            "vi": (cs.vi_config(), vi_frames, None),
+            "vi-stereo": (cs.vi_stereo_config(), vi_left, vi_right)}
+    result = dict(card=smi, frames=cs.SYS_FRAMES, vi_frames=cs.VI_FRAMES,
+                  vi_stereo_frames=len(vi_left))
     track_all(cs.system_config(), frames[:3], None, dev)   # warm-up: build and first launches
     plain = {name: track_all(cfg, fr, second, dev) for name, (cfg, fr, second) in runs.items()}
     for name, (cfg, fr, second) in runs.items():
@@ -171,17 +183,17 @@ def main() -> int:
         device, by_kernel, n_ev = device_ms_per_frame(prof, len(fr))
         host = [h for h, *_ in plain[name]]
         kf = [e[1] for e in plain[name]]
-        s = summarise_vi(host, plain[name], device) if name == "vi" \
+        s = summarise_vi(host, plain[name], device) if name.startswith("vi") \
             else summarise(host, kf, device)
         s.update(host_ms=host, device_ms=device, keyframe=kf, n_device_events=n_ev,
                  top_kernels_ms=dict(sorted(((k, v / 1e3) for k, v in by_kernel.items()),
                                             key=lambda kv: -kv[1])[:15]))
         result[name] = s
-        if name == "vi":
-            print("[vi] " + "; ".join(
+        if name.startswith("vi"):
+            print(f"[{name}] " + "; ".join(
                 f"{g}: host {s[f'host_ms_{g}']:.2f} ms, device {s[f'device_ms_{g}']:.3f} ms, "
                 f"idle {s[f'idle_{g}']:.4f} ({s[f'n_{g}']} frames)"
-                for g in ("pre_init", "fused", "keyframe"))
+                for g in ("pre_init", "fused", "legacy", "keyframe"))
                 + (f"; the init event (frame {s['init_frame']}): host {s['host_ms_init']:.2f} ms, "
                    f"device {s['device_ms_init']:.3f} ms, idle {s['idle_init']:.4f}"
                    if s["init_frame"] is not None else "") + f" ({n_ev} device events)",

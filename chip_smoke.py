@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K22) from
+Builds the hand-written CUDA kernels (K1-K23) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
 version at the shapes of the main paths, counts the device kernels and
 host time of one extraction through the kernels and through the plain
@@ -26,7 +26,16 @@ imu=...)`` over 40 frames of tests/test_vi_e2e.py's analytic trajectory
 with 100 Hz IMU samples (IMU initialisation, fused inertial frames, local
 inertial BAs), K19-K22 are held to their plain versions on that run's own
 inputs, and [vi-reference] repeats its frames through the IMU
-initialisation on the CPU plain path.  Any failure raises:
+initialisation on the CPU plain path.  Then the stereo-inertial path and
+inertial loop closing: [vi-stereo] runs ``System.track_stereo(l, r, ts,
+imu=...)`` over the same scene seen by a rectified rig (the IMU
+initialised with a fixed scale, every later frame through the legacy
+inertial solve), [vi-stereo-reference] repeats it on the CPU plain path,
+[vi-loop] closes a loop on a constructed inertial map (the 4-DoF essential
+graph K23, the inertial GBA), and K23 (also on a long session's graph),
+K20 on the post-loop GBA, K21's fixed-scale solve and K22's legacy variant
+are held to their plain versions on those runs' inputs ([parity]).  Any
+failure raises:
 the script then exits non-zero and never prints its last line.  It needs
 a CUDA card and nothing outside the repository (the scenes are generated
 from a seed).
@@ -71,6 +80,8 @@ from extractorb_tpu_torch.dist import global_ba, sharded_ba  # noqa: E402
 from extractorb_tpu_torch.geometry import sim3 as gsim3  # noqa: E402
 from extractorb_tpu_torch.place import vocab as vocab_mod  # noqa: E402
 from extractorb_tpu_torch.slam import checkpoint, local_mapping, loop_closing, track_device  # noqa: E402,E501
+from extractorb_tpu_torch.slam import imu_frontend  # noqa: E402
+from extractorb_tpu_torch.imu.calib import ImuCalib  # noqa: E402
 from extractorb_tpu_torch.slam.map import KeyFrame, SLAMMap  # noqa: E402
 from extractorb_tpu_torch.slam.system import System  # noqa: E402
 from extractorb_tpu_torch.slam.track_device import TrackStep  # noqa: E402
@@ -144,6 +155,9 @@ KERNELS.update({
                       "extractorb_tpu/solver/inertial.py:422"),
     "pose_inertial": ("extractorb_tpu_torch/csrc/pose_inertial.cu",
                       "extractorb_tpu/solver/inertial.py:532"),
+    # the inertial loop-closing path adds this
+    "pose_graph_4dof": ("extractorb_tpu_torch/csrc/pose_graph_4dof.cu",
+                        "extractorb_tpu/solver/pose_graph.py:68"),
 })
 # the [system] run: the rendered sequence of tests/test_slam_e2e.py's
 # planar test at 640x480 / 1000 features, 30 frames at speed 0.04
@@ -175,6 +189,10 @@ MERGE_MAX_ATE = 0.30   # the JAX test's bound (tests/test_loop_from_pixels.py:14
 VI_FRAMES = 40
 VI_MAX_SCALE_ERR = 0.35
 VI_MAX_ATE = 0.25
+# the [vi-stereo] run: [vi]'s scene and length seen by [stereo]'s rig; the
+# rig fixes the metric scale, so its bound on |s - 1| is 0.05
+VI_STEREO_FRAMES = 40
+VI_STEREO_MAX_SCALE_ERR = 0.05
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense rates): memory
 # bytes/s, and float32 operations/s outside the tensor cores, against which
 # the bounds also count the kernels' integer ALU work
@@ -724,16 +742,34 @@ def vi_config(width: int = WIDTH, height: int = HEIGHT,
                       tracking=TrackingConfig(max_frames=3), sensor="imu-monocular")
 
 
-def run_vi(frames, dev, cfg=None, on_frame=None, sys_=None, start: int = 0):
+def vi_stereo_config(width: int = WIDTH, height: int = HEIGHT,
+                     n_features: int = SYS_FEATURES) -> SLAMConfig:
+    """The stereo-inertial configuration of [vi-stereo]: [vi]'s with the
+    rig of [stereo] (bf = fx x 0.1, ThDepth 40) and sensor imu-stereo."""
+    cfg = vi_config(width, height, n_features)
+    cam = dataclasses.replace(cfg.camera, bf=cfg.camera.fx * STEREO_BASELINE,
+                              th_depth=STEREO_TH_DEPTH)
+    return dataclasses.replace(cfg, camera=cam, sensor="imu-stereo")
+
+
+def run_vi(frames, dev, cfg=None, on_frame=None, sys_=None, start: int = 0, rights=None):
     """``System.track_monocular(img, ts, imu=...)`` over frames start.. of the
-    visual-inertial scene; returns (system, states)."""
-    sys_ = sys_ or System(cfg or vi_config(frames[0].shape[1], frames[0].shape[0]), device=dev)
+    visual-inertial scene, or with ``rights`` ``track_stereo(left, right,
+    ts, imu=...)`` (default configuration: vi_stereo_config); returns
+    (system, states)."""
+    if cfg is None:
+        cfg = (vi_config if rights is None else vi_stereo_config)(frames[0].shape[1],
+                                                                  frames[0].shape[0])
+    sys_ = sys_ or System(cfg, device=dev)
     states = []
     for k in range(start, len(frames)):
         ts = k / pf.VI_FPS
         imu = pf.imu_window((k - 1) / pf.VI_FPS, ts) if k else None
         t0 = time.perf_counter()
-        states.append(sys_.track_monocular(frames[k], ts, imu=imu))
+        if rights is None:
+            states.append(sys_.track_monocular(frames[k], ts, imu=imu))
+        else:
+            states.append(sys_.track_stereo(frames[k], rights[k], ts, imu=imu))
         if on_frame is not None:
             on_frame(k, states[-1], time.perf_counter() - t0, sys_)
     return sys_, states
@@ -2036,6 +2072,345 @@ def phase_vi_reference(frames, card_states, init_at, card_kf_ids, card_traj):
           f"{sc:.5f} (CPU) vs {sg:.5f} (card)", flush=True)
 
 
+# ----------------------------------------- stereo-inertial and inertial loop
+
+
+def vi_stereo_frames(width: int = WIDTH, height: int = HEIGHT, n: int = VI_STEREO_FRAMES):
+    left, right, _ = pf.render_vi_stereo_sequence(pf.procedural_texture(), n, width, height,
+                                                  STEREO_BASELINE)
+    return left, right
+
+
+def phase_vi_stereo(left, right, dev):
+    """[vi-stereo]: ``System.track_stereo(l, r, ts, imu=...)`` over the
+    visual-inertial scene seen by the rig, 640x480 / 1000 features, from a
+    cold map.  Every frame is OK, the IMU initialises (K21 with the scale
+    fixed, then K20), no frame takes the fused step, |s - 1| < 0.05, ATE <
+    0.25 m, and the K9 and K19-K22 launches equal the tracker's counts, K22's
+    legacy variant among them."""
+    host_ms, kf_ids, inited = [], [], []
+
+    def on_frame(k, st, dt, sys_):
+        host_ms.append(dt * 1e3)
+        kf_ids.append([kf.frame_id for kf in sys_.tracker.atlas.current.keyframes.values()])
+        inited.append(sys_.tracker.atlas.current.imu_initialized)
+
+    kernels.LAUNCHES.clear()
+    with _InertialRecorder() as rec:
+        torch.cuda.synchronize()
+        sys_, states = run_vi(left, dev, on_frame=on_frame, rights=right)
+        sys_.flush()
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    tr = sys_.tracker
+    st = tr.stats
+    ate, scale = pf.vi_ate_scale(tr.final_trajectory())
+    init_at = inited.index(True) if any(inited) else None
+    own = {"stereo_match": st["stereo_match"], "preint": st["preint"], "vi_ba": st["vi_ba"],
+           "inertial_init": st["inertial_init"],
+           "pose_inertial": st["pose_inertial"] + st["pose_inertial_joint"],
+           "pose_inertial_joint": st["pose_inertial_joint"], "ba_pcg": st["ba"]}
+    bad = {n: (launches.get(n, 0), c) for n, c in own.items() if launches.get(n, 0) != c}
+    fixed = [kw.get("fix_scale") for _, kw in rec.calls["inertial_init"]]
+    legacy = launches.get("pose_inertial", 0) - launches.get("pose_inertial_joint", 0)
+    if (init_at is None or any(s != TrackState.OK for s in states) or bad or not fixed
+            or not all(fixed) or legacy < 1 or not launches.get("vi_ba")
+            or tr.n_fused_frames or not abs(scale - 1.0) < VI_STEREO_MAX_SCALE_ERR
+            or not ate < VI_MAX_ATE):
+        raise AssertionError(f"[vi-stereo] states {[s.name for s in states]}, IMU init at "
+                             f"{init_at} (fix_scale {fixed}), scale {scale:.4f}, ATE {ate:.4f} m, "
+                             f"fused {tr.n_fused_frames}, legacy K22 {legacy}, launches vs "
+                             f"tracker {bad}")
+    kf_set = {k for k in range(1, len(kf_ids)) if kf_ids[k] and kf_ids[k][-1] == k}
+    for k, (s_, ms) in enumerate(zip(states, host_ms)):
+        tag = ("  keyframe event" if k in kf_set else "") + ("  IMU initialised" if k == init_at
+                                                               else "")
+        print(f"[vi-stereo] frame {k:2d}: {ms:8.2f} ms host clock  {s_.name:15s}{tag}",
+              flush=True)
+    steady = [ms for k, ms in enumerate(host_ms) if k > init_at + 1 and k not in kf_set]
+    print(f"[vi-stereo] IMU initialised at frame {init_at} (fix_scale), {sys_.n_keyframes()} "
+          f"keyframes, no fused frame, {legacy} legacy K22 solves without a prior and "
+          f"{st['pose_inertial_joint']} with one, scale {scale:.4f} "
+          f"(|s - 1| < {VI_STEREO_MAX_SCALE_ERR}), ATE {ate:.4f} m (< {VI_MAX_ATE}); post-init "
+          f"frame median {statistics.median(steady) if steady else float('nan'):.2f} ms host "
+          f"clock", flush=True)
+    print(f"[vi-stereo] launches {launches}; tracker counts {own}", flush=True)
+    return launches, rec, states, init_at, kf_ids, [e for e in tr.trajectory]
+
+
+def phase_vi_stereo_reference(left, right, card_states, init_at, card_kf_ids, card_traj):
+    """[vi-stereo-reference]: the same frames on the CPU plain path: the
+    same states, IMU init frame and keyframes, every pose within 1e-3."""
+    inited = []
+    cpu_sys, cpu_states = run_vi(left, torch.device("cpu"), rights=right,
+                                 on_frame=lambda k, st, dt, s: inited.append(
+                                     s.tracker.atlas.current.imu_initialized))
+    cpu_init = inited.index(True) if any(inited) else None
+    kf_c = [kf.frame_id for kf in cpu_sys.tracker.atlas.current.keyframes.values()]
+    tc = cpu_sys.tracker.trajectory
+    dp = max(max(float(np.abs(Rc - Rg).max()), float(np.abs(pc - pg).max()))
+             for (_, Rc, pc), (_, Rg, pg) in zip(tc, card_traj))
+    if cpu_states != card_states or cpu_init != init_at or kf_c != card_kf_ids[-1] \
+            or len(tc) != len(card_traj) or not dp <= 1e-3:
+        raise AssertionError(f"[vi-stereo-reference] states {[s.name for s in cpu_states]} vs "
+                             f"card {[s.name for s in card_states]}, IMU init {cpu_init} vs "
+                             f"{init_at}, keyframes {kf_c} vs {card_kf_ids[-1]}, max |dpose| "
+                             f"{dp:.2e}")
+    _, sc = pf.vi_ate_scale(tc)
+    _, sg = pf.vi_ate_scale(card_traj)
+    print(f"[vi-stereo-reference] frames 0-{len(left) - 1}: states, keyframes and the IMU init "
+          f"frame ({init_at}) equal to the CPU plain path's; max |dpose| {dp:.2e}, scale "
+          f"{sc:.5f} (CPU) vs {sg:.5f} (card)", flush=True)
+
+
+def inertial_looped_map(dev, calib: ImuCalib):
+    """The [vi-loop] map: [loop]'s map built with ``inertial=True`` (prev_kf
+    chain, velocities, zero biases, the true motion's 100 Hz windows
+    preintegrated on ``dev``, in a gravity-aligned world; yaw drift)."""
+    def feats(d, xy, v):
+        n = len(v)
+        return interop.features_from_numpy(
+            dict(xy=xy, response=np.zeros(n, np.float32), angle=np.zeros(n, np.float32),
+                 octave=np.zeros(n, np.int32), size=np.full(n, 31.0, np.float32), desc=d,
+                 valid=v), dev)
+    zero = np.zeros(6, np.float32)
+    return pf.build_looped_map(0, SLAMMap, KeyFrame, feats, n_kf=LOOP_KFS, n_pts=LOOP_POINTS,
+                               step=LOOP_STEP, n_cap=SYS_FEATURES + 8 * 16,
+                               return_shift=LOOP_STEP / 2, inertial=True,
+                               preintegrate=lambda m: imu_frontend.integrate_raw_host(
+                                   m, zero, calib, dev))
+
+
+def phase_vi_loop(dev):
+    """[vi-loop]: the inertial looped map at [loop]'s size through
+    ``LoopCloser.process_keyframe`` with a vocabulary and the map's IMU
+    calibration, to the first loop: K23 solves the 4-DoF essential graph
+    once, the inertial GBA runs K20, no Sim3 graph or Schur GBA runs, the
+    closing keyframe ends within half its drift, and K23's solve moves no
+    keyframe's roll or pitch (its gravity direction in the camera) by 1e-5
+    or more, measured on its output before the GBA runs."""
+    calib = ImuCalib.from_config(vi_config().imu)
+    mp, _, desc, centres = inertial_looped_map(dev, calib)
+    drift = {k: float(np.linalg.norm(-kf.R.T @ kf.t - centres[k]))
+             for k, kf in mp.keyframes.items()}
+    voc = vocab_mod.Vocabulary.train(desc, k=8, L=3, seed=0)
+    cam = Pinhole.from_config(camera_config(WIDTH, HEIGHT))
+    closer = loop_closing.LoopCloser(voc, cam, inv_sigma2=[1.2 ** (-2 * i) for i in range(8)],
+                                     imu_calib=calib, device=dev)
+    graphs, real = [], pose_graph.optimize_pose_graph_4dof
+    vibas, real_vi = [], sin.optimize_vi_ba
+
+    def spy(prob, *args, **kw):
+        res = real(prob, *args, **kw)
+        graphs.append((prob, res[0].cpu().numpy()))
+        return res
+
+    def spy_vi(prob, cam_, **kw):
+        vibas.append((prob, cam_, kw))
+        return real_vi(prob, cam_, **kw)
+
+    ms, closed = [], None
+    pose_graph.optimize_pose_graph_4dof = spy
+    sin.optimize_vi_ba = spy_vi
+    try:
+        kernels.LAUNCHES.clear()
+        for kid in sorted(mp.keyframes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = closer.process_keyframe(mp, kid)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if got:
+                closed = kid
+                break
+        closer.finish(mp)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        pose_graph.optimize_pose_graph_4dof = real
+        sin.optimize_vi_ba = real_vi
+    err = (float(np.linalg.norm(-mp.keyframes[closed].R.T @ mp.keyframes[closed].t
+                                - centres[closed])) if closed is not None else float("nan"))
+    d_grav = (float(np.abs(pf.gravity_in_cameras(graphs[0][1])
+                           - pf.gravity_in_cameras(graphs[0][0].R.cpu().numpy())).max())
+              if graphs else float("nan"))
+    want = {"vocab_words": len(ms), "pose_graph_4dof": 1, "vi_ba": 1, "pose_graph": 0,
+            "ba_schur": 0}
+    if len(vibas) != 1 or vibas[0][2] != {"n_iters": 7, "cg_iters": 40}:
+        raise AssertionError(f"[vi-loop] inertial GBA calls {[c[2] for c in vibas]}")
+    bad = {n: launches.get(n, 0) for n, v in want.items() if launches.get(n, 0) != v}
+    bad.update({n: 0 for n in ("sim3_ransac", "sim3_optimize", "hamming_best2_words")
+                if not launches.get(n, 0)})
+    if closed is None or closer.n_loops != 1 or not err < 0.5 * drift[closed] \
+            or not d_grav < 1e-5 or bad:
+        raise AssertionError(f"[vi-loop] loop at {closed}, closing keyframe centre error "
+                             f"{err:.4f} m (drifted {drift.get(closed, float('nan')):.4f} m), "
+                             f"roll/pitch change {d_grav:.2e}, launches {launches}")
+    prob = graphs[0][0]
+    print(f"[vi-loop] {len(mp.keyframes)} keyframes, "
+          f"{int(np.mean([kf.n_kps for kf in mp.keyframes.values()]))} keypoints each: one loop "
+          f"at keyframe {closed} (matched {mp.keyframes[closed].loop_edges[-1]}) after "
+          f"{len(ms)} keyframe events; 4-DoF graph K={prob.R.shape[0]} E={prob.edge_i.shape[0]} "
+          f"(K23), roll/pitch moved {d_grav:.2e} by it; inertial GBA (K20); its centre error "
+          f"{err:.4f} m (drifted {drift[closed]:.4f} m)", flush=True)
+    print(f"[vi-loop] keyframe-event ms (host clock): median {statistics.median(ms):.2f}, loop "
+          f"event {ms[-1]:.2f}", flush=True)
+    print(f"[vi-loop] launches {launches}", flush=True)
+    return launches, prob, vibas[0]
+
+
+def graph_work(K: int, E: int):
+    """K23's bytes and operations: per LM iteration two residual
+    evaluations an edge in Dual<4> (~8000 ops), the 2 x (24 + 96) x 2
+    products of g and the blocks and the trial cost (~600); 50 PCG steps of
+    an edge pass and a vertex pass (~192 ops an edge) and ~60 ops a vertex;
+    in: poses and edges, out: poses and the cost."""
+    return (K * 49 + E * 61 + K * 48 + 4,
+            15 * (E * (8000 + 480 + 600 + 50 * 192) + K * (100 + 50 * 60)))
+
+
+def phase_parity_vi_gba(call) -> dict:
+    """K20 on [vi-loop]'s post-loop inertial GBA, the closer's own inputs (7
+    LM x 40 PCG), against its plain version.
+
+    Most of the constructed map's points are seen by one keyframe: their
+    damped 3x3 blocks are rank 2 + lambda, and float32 rounding makes some
+    indefinite at lambda = 1e-4, so PCG breaks down (ROADMAP C: JAX's
+    float32 VI BA does the same).  On these inputs K20 and the plain version
+    are held through the first two iterations, whose candidates both
+    reject, and K20's result must be finite; the float64 plain solve is the
+    witness (its first candidate is finite and its solve descends).  With
+    the points seen by one keyframe fixed, the same inputs are well posed:
+    there K20 is held to the plain version after all 7 iterations (states
+    and points within 1e-4, inliers equal, as on [vi])."""
+    prob, cam, kw = call
+    it, cg = kw["n_iters"], kw["cg_iters"]
+    fields = ("Rwb", "twb", "v", "bg", "ba", "points")
+    dist = lambda x, y: max(float((getattr(x, f).double() - getattr(y, f).double()).abs().max())
+                            for f in fields)
+    k20 = lambda q, n: sin.optimize_vi_ba(q, cam, n_iters=n, cg_iters=cg)
+    plain = lambda q, n: sin.optimize_vi_ba_plain(q, cam, n_iters=n, cg_iters=cg)
+    K, P, O = prob.Rwb.shape[0], prob.points.shape[0], prob.obs_kf.shape[0]
+
+    d2 = dist(k20(prob, 2), plain(prob, 2))
+    vk, vp = k20(prob, it), plain(prob, it)
+    p64 = sin._cast(prob, torch.float64)
+    v64 = plain(p64, it)
+    first = [float(f(q, 1).cost) for f, q in ((k20, prob), (plain, prob), (plain, p64))]
+    finite = all(bool(torch.isfinite(getattr(vk, f)).all()) for f in fields)
+    line = (f"vi_ba [vi-loop] post-loop GBA K={K} P={P} O={O} ({it} LM x {cg} PCG): first "
+            f"candidate's cost K20 {first[0]:.7g}, plain {first[1]:.7g}, float64 plain "
+            f"{first[2]:.7g}; within {d2:.2e} of the plain version after 2 iterations; after "
+            f"{it}: cost {float(vk.cost):.7g} / plain {float(vp.cost):.7g} / float64 plain "
+            f"{float(v64.cost):.7g}, K20 {dist(vk, v64):.2e} and plain {dist(vp, v64):.2e} from "
+            f"the float64 solve, K20 finite {finite}")
+    if not (d2 <= 1e-4 and finite and np.isfinite(first[2]) and float(v64.cost) < first[2]):
+        raise AssertionError(line)
+    print(f"[parity] {line}", flush=True)
+
+    n_obs = torch.bincount(prob.obs_mp[prob.obs_valid].long(), minlength=P)
+    q = prob._replace(fixed_mp=prob.fixed_mp | (n_obs < 2))
+    qk, qp = k20(q, it), plain(q, it)
+    q64 = plain(sin._cast(q, torch.float64), it)
+    d = dist(qk, qp)
+    same = torch.equal(qk.inliers, qp.inliers)
+    line = (f"vi_ba [vi-loop] post-loop GBA, the {int((n_obs == 1).sum())} points seen by one "
+            f"keyframe fixed: states and points within {d:.2e} of the plain version, inliers "
+            f"equal {same}; {dist(qk, q64):.2e} from the float64 solve (plain "
+            f"{dist(qp, q64):.2e}); cost {float(qk.cost):.7g} / plain {float(qp.cost):.7g}")
+    if not (d <= 1e-4 and same):
+        raise AssertionError(line)
+    print(f"[parity] {line}", flush=True)
+    return dict(vi_loop_max_abs_err=d, vi_loop_ms=cuda_ms(lambda: k20(q, it), reps=3),
+                vi_loop_plain_ms=cuda_ms(lambda: plain(q, it), reps=1))
+
+
+def phase_parity_vi_loop(prob, stereo_rec, stats, dev) -> dict:
+    """K23 against its plain version on [vi-loop]'s essential graph (and the
+    float64 plain solve, for the precision rule), one result over 20 calls,
+    and timed on a seeded graph of a long session (300 keyframes, ~10^4
+    edges); K21's fixed-scale solve and K22's legacy variant on
+    [vi-stereo]'s own inputs."""
+    out = {}
+    dist = lambda x, y: max(float((a.double() - b.double()).abs().max()) for a, b in zip(x, y))
+    prob64 = pose_graph.PoseGraph4DoFProblem(*[a.double() if a.is_floating_point() else a
+                                               for a in prob])
+    gk = pose_graph.optimize_pose_graph_4dof(prob)
+    with kernels.ordered_plain(True):
+        g32 = pose_graph.optimize_pose_graph_4dof_plain(prob)
+        g64 = pose_graph.optimize_pose_graph_4dof_plain(prob64)
+    d, d_k64, d_3264 = dist(gk[:2], g32[:2]), dist(gk[:2], g64[:2]), dist(g32[:2], g64[:2])
+    same = all(all(torch.equal(a, b) for a, b in zip(pose_graph.optimize_pose_graph_4dof(prob),
+                                                     gk)) for _ in range(19))
+    K, E = prob.R.shape[0], prob.edge_i.shape[0]
+    line = (f"pose_graph_4dof K={K} E={E}: max |dR|,|dt| {d:.2e} from the float32 plain solve; "
+            f"{d_k64:.2e} from the float64 plain solve (float32 plain {d_3264:.2e}, ratio "
+            f"{d_k64 / max(d_3264, 1e-30):.2f}); cost {float(gk[2]):.7g} / plain "
+            f"{float(g32[2]):.7g}; 20 calls bit-identical {same}")
+    if not (d <= 1e-4 and d_k64 <= 10 * d_3264 and same):
+        raise AssertionError(line)
+    print(f"[parity] {line}", flush=True)
+    out["pose_graph_4dof"] = record(
+        d, cuda_ms(lambda: pose_graph.optimize_pose_graph_4dof(prob), reps=10),
+        cuda_ms(lambda: pose_graph.optimize_pose_graph_4dof_plain(prob), reps=1),
+        *graph_work(K, E))
+
+    # a long session's graph: 300 keyframes, ~10^4 edges; within 1e-4 of the
+    # float32 plain solve, no farther from the float64 one than it
+    fields = pf.pose_graph_4dof_random(np.random.default_rng(7), K=300, extra=7, far=26)
+    big = interop.pose_graph_4dof_from_numpy(fields, dev)
+    big64 = interop.pose_graph_4dof_from_numpy(fields, dev, torch.float64)
+    bk = pose_graph.optimize_pose_graph_4dof(big)
+    with kernels.ordered_plain(True):
+        b32 = pose_graph.optimize_pose_graph_4dof_plain(big)
+        b64 = pose_graph.optimize_pose_graph_4dof_plain(big64)
+    db, db64, db3264 = dist(bk[:2], b32[:2]), dist(bk[:2], b64[:2]), dist(b32[:2], b64[:2])
+    K, E = big.R.shape[0], big.edge_i.shape[0]
+    rec = record(db, cuda_ms(lambda: pose_graph.optimize_pose_graph_4dof(big), reps=3),
+                 cuda_ms(lambda: pose_graph.optimize_pose_graph_4dof_plain(big), reps=1),
+                 *graph_work(K, E))
+    line = (f"pose_graph_4dof K={K} E={E} (a long session's graph): max |dR|,|dt| {db:.2e} "
+            f"from the float32 plain solve, {db64:.2e} from the float64 one (float32 plain "
+            f"{db3264:.2e}); {rec['ms']:.3f} ms a call, plain {rec['plain_ms']:.1f} ms, bound "
+            f"{rec['bound_ms']:.3g} ms ({rec['bound_by']})")
+    if not (db <= 1e-4 and db64 <= 10 * max(db3264, 1e-7)):
+        raise AssertionError(line)
+    print(f"[parity] {line}", flush=True)
+    out["pose_graph_4dof"].update({f"long_session_{k}": rec[k] for k in
+                                   ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+                                  long_session_K=K, long_session_E=E)
+
+    # K21 with fix_scale, against its float64 plain solve (within 1e-4)
+    args, kw = stereo_rec.calls["inertial_init"][0]
+    ik = sin.inertial_only(*args, **kw)
+    ip = sin.inertial_only_plain(*args, **kw, solve_dtype=torch.float64)
+    fields = ("Rwg", "v", "bg", "ba")
+    d21 = max(dist([getattr(ik, f) for f in fields], [getattr(ip, f) for f in fields]),
+              float(abs(ik.scale - ip.scale)))
+    if not kw.get("fix_scale") or d21 > 1e-4 or float(ik.scale) != 1.0:
+        raise AssertionError(f"inertial_init fix_scale={kw.get('fix_scale')}: max deviation "
+                             f"{d21:.2e}, scale {float(ik.scale)}")
+    print(f"[parity] inertial_init fix_scale=True K={args[0].shape[0]}: gravity, velocities "
+          f"and biases within {d21:.2e} (plain version with float64 normal equations), scale "
+          f"{float(ik.scale)}", flush=True)
+    out["inertial_init"] = dict(stats["inertial_init"], fix_scale_max_abs_err=d21)
+
+    # K22 <false>: [vi-stereo]'s largest legacy solve without a prior
+    args, kw = _largest(stereo_rec.calls["pose_inertial"], lambda c: int(c[0][10].sum()))
+    rk, rp = sin.optimize_pose_inertial(*args, **kw), sin.optimize_pose_inertial_plain(*args, **kw)
+    fields = ("Rwb", "twb", "v", "bg", "ba")
+    d22 = dist([getattr(rk, f) for f in fields], [getattr(rp, f) for f in fields])
+    hrel = float((rk.H - rp.H).abs().max() / rp.H.abs().max())
+    if d22 > 1e-4 or hrel > 1e-4 or not torch.equal(rk.inliers, rp.inliers):
+        raise AssertionError(f"pose_inertial [vi-stereo]: max deviation {d22:.2e}, H {hrel:.2e}, "
+                             f"inliers equal {torch.equal(rk.inliers, rp.inliers)}")
+    print(f"[parity] pose_inertial joint=False [vi-stereo] N={args[7].shape[0]} "
+          f"({int(args[10].sum())} points): states within {d22:.2e}, H within {hrel:.2e} "
+          f"relative, inliers equal ({int(rk.inliers.sum())})", flush=True)
+    out["pose_inertial"] = dict(stats["pose_inertial"], stereo_max_abs_err=max(d22, hrel))
+    return out
+
+
 def main() -> int:
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -2073,6 +2448,13 @@ def main() -> int:
     paths["vi"], vi_rec, vi_states, vi_init, vi_kfs, vi_traj = phase_vi(frames_vi, dev)
     stats.update(phase_parity_inertial(vi_rec, dev))
     phase_vi_reference(frames_vi, vi_states, vi_init, vi_kfs, vi_traj)
+    vs_left, vs_right = vi_stereo_frames()
+    paths["vi_stereo"], vs_rec, vs_states, vs_init, vs_kfs, vs_traj = phase_vi_stereo(
+        vs_left, vs_right, dev)
+    phase_vi_stereo_reference(vs_left, vs_right, vs_states, vs_init, vs_kfs, vs_traj)
+    paths["vi_loop"], vi_graph, vi_gba = phase_vi_loop(dev)
+    stats.update(phase_parity_vi_loop(vi_graph, vs_rec, stats, dev))
+    stats["vi_ba"].update(phase_parity_vi_gba(vi_gba))
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():

@@ -63,6 +63,22 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     return so3_right_jacobian(-w)
 
 
+def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian of SO(3) (reference InverseRightJacobianSO3)."""
+    theta2, theta, small = _safe_theta(w)
+    W = hat(w)
+    one = torch.ones_like(theta2)
+    safe_t2 = torch.where(small, one, theta2)
+    safe_sin = torch.where(small, one, theta * torch.sin(theta))
+    generic = 1.0 / safe_t2 - (1.0 + torch.cos(theta)) / (2.0 * safe_sin)
+    c = torch.where(small, 1.0 / 12.0 + theta2 / 720.0, generic)
+    return _eye_like(W) + 0.5 * W + c[..., None, None] * (W @ W)
+
+
+def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    return so3_right_jacobian_inv(-w)
+
+
 def se3_exp(xi: torch.Tensor):
     """se(3) -> SE(3).  xi = (rho, phi): (...,6) -> (R (...,3,3), t (...,3))."""
     rho, phi = xi[..., :3], xi[..., 3:]
@@ -70,6 +86,23 @@ def se3_exp(xi: torch.Tensor):
     V = so3_left_jacobian(phi)
     t = (V @ rho[..., None])[..., 0]
     return R, t
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """SE(3) -> se(3): (...,6) as (rho, phi), rho = J_l(phi)^-1 t."""
+    phi = so3_log(R)
+    rho = (so3_left_jacobian_inv(phi) @ t[..., None])[..., 0]
+    return torch.cat([rho, phi], -1)
+
+
+def se3_inverse(R: torch.Tensor, t: torch.Tensor):
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def se3_compose(Ra, ta, Rb, tb):
+    """(Ra, ta) * (Rb, tb)."""
+    return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
 
 
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
-// SO(3) / Sim(3) maps for a generic scalar T (float or double, or Dual<7, S>
-// from dual.cuh) for K12 (sim3.cu, float) and K13 (pose_graph.cu, double):
-// the same functions,
-// branches and guards as extractorb_tpu/core/lie.py (so3_exp, rot_to_quat,
-// so3_log, sim3_exp, sim3_log, sim3_compose, sim3_inverse), so a residual
-// written once gives its value and its forward-mode Jacobian.  Matrices are
-// row-major T[9].  Include after dual.cuh, inside the same anonymous
-// namespace.
+// SO(3) / SE(3) / Sim(3) maps for a generic scalar T (float or double, or
+// Dual<7, S> / Dual<4, S> from dual.cuh) for K12 (sim3.cu, float), K13
+// (pose_graph.cu, double) and K23 (pose_graph_4dof.cu, float or double): the
+// same functions, branches and guards as extractorb_tpu/core/lie.py
+// (so3_exp, rot_to_quat, so3_log, so3_right_jacobian_inv, se3_log,
+// se3_inverse, se3_compose, sim3_exp, sim3_log, sim3_compose,
+// sim3_inverse), so a residual written once gives its value and its
+// forward-mode Jacobian.  Matrices are row-major T[9].  Include after
+// dual.cuh, inside the same anonymous namespace.
 #pragma once
 
 template <class T>
@@ -19,6 +20,12 @@ __device__ __forceinline__ Dual<7> cst<Dual<7>>(double v) { return dconst<7, flo
 template <>
 __device__ __forceinline__ Dual<7, double> cst<Dual<7, double>>(double v) {
   return dconst<7, double>(v);
+}
+template <>
+__device__ __forceinline__ Dual<4> cst<Dual<4>>(double v) { return dconst<4, float>((float)v); }
+template <>
+__device__ __forceinline__ Dual<4, double> cst<Dual<4, double>>(double v) {
+  return dconst<4, double>(v);
 }
 
 template <class T>
@@ -202,4 +209,53 @@ __device__ void sim3_inverse_t(const T* R, const T* t, const T& s, T* Ri, T* ti,
   T v[3];
   mat3_vec(Ri, t, v);
   for (int i = 0; i < 3; ++i) ti[i] = -si * v[i];
+}
+
+// I + 0.5 W + c W^2, W = hat(w), with the Taylor branch at theta^2 < 1e-8
+// (lie.so3_right_jacobian_inv)
+template <class T>
+__device__ void so3_right_jacobian_inv_t(const T* w, T* J) {
+  const T th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+  const bool small = val(th2) < 1e-8f;
+  const T one = cst<T>(1.f);
+  const T th = tsqrt(sel(small, one, th2));
+  T c;
+  if (small) {
+    c = cst<T>(1.0 / 12.0) + th2 / 720.f;
+  } else {
+    c = one / th2 - (one + tcos(th)) / (2.f * (th * tsin(th)));
+  }
+  T W[9], W2[9];
+  hat3(w, W);
+  mat3_mul(W, W, W2);
+  for (int i = 0; i < 9; ++i) J[i] = (i % 4 == 0 ? one : cst<T>(0.f)) + 0.5f * W[i] + c * W2[i];
+}
+
+// (rho, phi) = log(R, t): phi = so3_log(R), rho = J_l(phi)^-1 t with
+// J_l(phi)^-1 = J_r(-phi)^-1
+template <class T>
+__device__ void se3_log_t(const T* R, const T* t, T* xi) {
+  so3_log_t(R, xi + 3);
+  const T mphi[3] = {-xi[3], -xi[4], -xi[5]};
+  T J[9];
+  so3_right_jacobian_inv_t(mphi, J);
+  mat3_vec(J, t, xi);
+}
+
+template <class T>
+__device__ void se3_inverse_t(const T* R, const T* t, T* Ri, T* ti) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) Ri[3 * i + j] = R[3 * j + i];
+  T v[3];
+  mat3_vec(Ri, t, v);
+  for (int i = 0; i < 3; ++i) ti[i] = -v[i];
+}
+
+// (Ra,ta) * (Rb,tb)
+template <class T>
+__device__ void se3_compose_t(const T* Ra, const T* ta, const T* Rb, const T* tb, T* R, T* t) {
+  mat3_mul(Ra, Rb, R);
+  T v[3];
+  mat3_vec(Ra, tb, v);
+  for (int i = 0; i < 3; ++i) t[i] = v[i] + ta[i];
 }

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..core.camera import Pinhole
 from ..solver import ba as sba
 from ..utils.packed_fetch import pack_fetch
@@ -28,12 +29,13 @@ from .sharded_ba import optimize_schur
 
 
 def build_global_problem(mp, inv_sigma2: Sequence[float], n_shards: int,
-                         fixed_ids: Optional[Set[int]] = None, device="cpu"):
+                         fixed_ids: Optional[Set[int]] = None, device=None):
     """Full-map BAProblem on ``device`` with landmarks in ``n_shards``
     contiguous blocks and each observation stored on its point's shard.
 
     Returns (problem, kf_ids, pt_ids, obs_kf, obs_mp, obs_valid) with the
     host observation arrays, or None if the map is too small."""
+    device = kernels.resolve_device(device, "the global BA")
     kf_ids = sorted(mp.keyframes.keys())
     if len(kf_ids) < 2:
         return None

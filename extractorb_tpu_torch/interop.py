@@ -1,7 +1,7 @@
 """numpy <-> port conversions of the state a tracking step carries, of
 the map state (``SLAMMap`` / ``KeyFrame``, inertial fields included), of
 the inertial solvers' inputs (``Preintegrated``, ``InertialChain``,
-``VIBAProblem``) and of a vocabulary.
+``VIBAProblem``), of the 4-DoF essential graph and of a vocabulary.
 
 With these, the JAX package and the port can be fed byte-identical state:
 the caller builds numpy arrays once and hands them to both.  The map
@@ -21,6 +21,7 @@ from .frontend.extractor import Features
 from .imu.preintegration import Preintegrated
 from .slam.map import KeyFrame, SLAMMap
 from .solver.inertial import InertialChain, VIBAProblem
+from .solver.pose_graph import PoseGraph4DoFProblem
 from .slam.track_device import FusedOut, LocalBlock
 
 _FEATURE_DTYPES = {
@@ -195,6 +196,18 @@ def map_from_numpy(d: Mapping, device) -> SLAMMap:
     mp.dead_kfs = {k: (p, np.array(R), np.array(t)) for k, (p, R, t) in d["dead_kfs"].items()}
     mp.keyframes = {k: keyframe_from_numpy(kd, device) for k, kd in d["keyframes"].items()}
     return mp
+
+
+_GRAPH_INTS = {"edge_i": torch.int32, "edge_j": torch.int32, "edge_valid": torch.bool,
+               "fixed": torch.bool}
+
+
+def pose_graph_4dof_from_numpy(d: Mapping, device, dtype=torch.float32) -> PoseGraph4DoFProblem:
+    """The port's 4-DoF essential graph from numpy fields (a JAX
+    ``PoseGraph4DoFProblem``'s ``_asdict()`` through ``np.asarray``), its
+    real fields in ``dtype``."""
+    return PoseGraph4DoFProblem(**{k: _t(d[k], _GRAPH_INTS.get(k, dtype), device)
+                                   for k in PoseGraph4DoFProblem._fields})
 
 
 def vocab_to_numpy(voc) -> Dict:

@@ -34,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9,
 # K10, K12, K17 and K18 must round like their plain PyTorch versions (K1, K3,
 # K8, K11, K15 and K16 are integer code or copies; K4, K6, K13, K14 and
-# K19-K22 are bound by latency, not float throughput).
+# K19-K23 are bound by latency, not float throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
@@ -99,6 +99,8 @@ _SIGNATURES = {
     # ws, cost, stream
     "pose_graph_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P, _P, _P),
+    # R, t, ei, ej, mR, mt, w, fixed, K, E, n_iters, cg_iters, ws, cost, stream
+    "pose_graph_4dof_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # R, t, pts, obs_kf, obs_mp, obs_uv, isig, valid, fixed_kf, fixed_mp, K, P, O,
     # fx, fy, cx, cy, n_iters, cg_iters, use_huber, chi2_th, ws, inliers, cost, stream
     "ba_schur_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -132,13 +134,15 @@ _SIGNATURES = {
     "two_view_workspace_bytes": (_I, _I),
     "ba_workspace_bytes": (_I, _I, _I, _I),
     "pose_graph_workspace_bytes": (_I, _I, _I),
+    "pose_graph_4dof_workspace_bytes": (_I, _I),
     "ba_schur_workspace_bytes": (_I, _I, _I, _I),
     "vi_ba_workspace_bytes": (_I, _I, _I, _I),
     "inertial_init_workspace_bytes": (_I,),
 }
 # return types other than the launch status (an int cudaError_t)
 _RESTYPES = {"two_view_workspace_bytes": _L, "ba_workspace_bytes": _L,
-             "pose_graph_workspace_bytes": _L, "ba_schur_workspace_bytes": _L,
+             "pose_graph_workspace_bytes": _L, "pose_graph_4dof_workspace_bytes": _L,
+             "ba_schur_workspace_bytes": _L,
              "vi_ba_workspace_bytes": _L, "inertial_init_workspace_bytes": _L}
 
 _lib = None
@@ -214,6 +218,18 @@ def lib() -> ctypes.CDLL:
                 fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = handle
     return _lib
+
+
+def resolve_device(device, what: str) -> torch.device:
+    """``device``, or with None the card (cuda:0): the port's entry points
+    run on the card unless the caller asks for the CPU.  Raises without a
+    card rather than falling back to the plain path."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"no CUDA device: {what} runs on a card; pass device='cpu' to "
+                               "run the plain path")
+        device = "cuda:0"
+    return torch.device(device)
 
 
 def stream() -> int:

@@ -22,11 +22,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import kernels
+
 
 class KeyFrameDatabase:
-    def __init__(self, vocab, device="cpu"):
+    def __init__(self, vocab, device=None):
         self.vocab = vocab
-        self.device = device
+        self.device = kernels.resolve_device(device, "the keyframe database")
         # kf_id -> (word_ids int32, weights float32)
         self.entries: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         self._dirty = True

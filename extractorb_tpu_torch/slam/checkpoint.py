@@ -27,20 +27,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import kernels
 from ..imu import preintegration as pre
 from ..interop import features_from_numpy
 from .map import Atlas, KeyFrame, SLAMMap
 
 _PREINT_FIELDS = ("dR", "dV", "dP", "C", "JRg", "JVg", "JVa", "JPg", "JPa", "dT", "bias")
-
-
-def _device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: a checkpoint loads onto a card; "
-                               "pass device='cpu' for the plain path")
-        device = "cuda:0"
-    return torch.device(device)
 
 
 def _put_preint(blobs: dict, prefix: str, preint):
@@ -220,7 +212,7 @@ def save_map(mp: SLAMMap, path: str):
 
 def load_map(path: str, device=None) -> SLAMMap:
     """A map saved by either package; keyframe features on ``device``."""
-    return _get_map(np.load(path), "", _device(device))
+    return _get_map(np.load(path), "", kernels.resolve_device(device, "a loaded map"))
 
 
 # --------------------------------------------------------- session API

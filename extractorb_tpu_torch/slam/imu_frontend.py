@@ -22,6 +22,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import kernels
 from ..core import lie
 from ..core.camera import Pinhole
 from ..imu import preintegration as pre
@@ -48,9 +49,9 @@ class ImuQueue:
     integrates the samples covering (t0, t1] with the boundary dt clipping
     of the reference's PreintegrateIMU (src/Tracking.cc:1117)."""
 
-    def __init__(self, calib: ImuCalib, device="cpu", stats=None):
+    def __init__(self, calib: ImuCalib, device=None, stats=None):
         self.calib = calib
-        self.device = torch.device(device)
+        self.device = kernels.resolve_device(device, "the IMU queue")
         self.stats = stats    # counts the integrations ("preint"), when given
         self.t: List[float] = []
         self.acc: List[np.ndarray] = []
@@ -144,8 +145,9 @@ def integrate_raw_batch(windows, biases, calib: ImuCalib, device,
                                calib.noise_acc, calib.walk_gyro, calib.walk_acc)
 
 
-def integrate_raw(meas, bias, calib: ImuCalib, device="cpu", stats=None) -> pre.Preintegrated:
+def integrate_raw(meas, bias, calib: ImuCalib, device=None, stats=None) -> pre.Preintegrated:
     """One raw window, integrated on ``device`` (result stays there)."""
+    device = kernels.resolve_device(device, "the preintegration")
     return pre.index(integrate_raw_batch([meas], [bias], calib, device, stats), 0)
 
 
@@ -154,7 +156,7 @@ def to_host(p: pre.Preintegrated) -> pre.Preintegrated:
     return pre.Preintegrated(*pack_fetch(list(p)))
 
 
-def integrate_raw_host(meas, bias, calib: ImuCalib, device="cpu",
+def integrate_raw_host(meas, bias, calib: ImuCalib, device=None,
                        stats=None) -> pre.Preintegrated:
     """integrate_raw and one packed fetch of all eleven fields."""
     return to_host(integrate_raw(meas, bias, calib, device, stats))
@@ -221,14 +223,14 @@ def _temporal_chain(mp, calib: ImuCalib):
 
 def initialize_imu(mp, calib: ImuCalib, cam: Optional[Pinhole] = None, prior_g: float = 1e2,
                    prior_a: float = 1e10, fix_scale: bool = False, fiba: bool = True,
-                   min_kfs: int = 10, device="cpu", stats=None):
+                   min_kfs: int = 10, device=None, stats=None):
     """Reference LocalMapping::InitializeIMU (src/LocalMapping.cc:1213):
     velocities seeded from pose differences over the temporal chain, the
     inertial-only solve (gravity direction, scale, shared bias) with the
     poses fixed, the map re-expressed in the gravity frame at metric scale
     (ApplyScaledRotation), then the full visual-inertial BA with bias
     priors.  Returns (Ryw, s) when the map was initialised, else False."""
-    dev = torch.device(device)
+    dev = kernels.resolve_device(device, "the IMU initialisation")
     kids, Rwb, twb, preints, valids = _temporal_chain(mp, calib)
     K = len(kids)
     if K < min_kfs or sum(valids) < K - 1:
@@ -407,7 +409,7 @@ def _apply_result(mp, calib: ImuCalib, kids, res, pt_ids, skip=None):
 
 def full_inertial_ba(mp, calib: ImuCalib, cam: Pinhole, prior_g: float = 1.0,
                      prior_a: float = 1e5, n_iters: int = 8, cg_iters: int = 40, mesh=None,
-                     device="cpu", stats=None):
+                     device=None, stats=None):
     """FullInertialBA (reference src/Optimizer.cc:420): the joint
     visual-inertial BA over the whole temporal chain, the first keyframe
     fixed and the biases anchored by priors.  One device only: a mesh of
@@ -415,6 +417,7 @@ def full_inertial_ba(mp, calib: ImuCalib, cam: Pinhole, prior_g: float = 1.0,
     if mesh is not None and int(np.prod(list(mesh.shape.values()))) > 1:
         raise NotImplementedError("full_inertial_ba on a mesh of more than one device is not "
                                   "ported (ROADMAP A.14)")
+    device = kernels.resolve_device(device, "the full inertial BA")
     kids, Rwb, twb, preints, valids = _temporal_chain(mp, calib)
     K = len(kids)
     if K < 3:
@@ -444,13 +447,14 @@ def full_inertial_ba(mp, calib: ImuCalib, cam: Pinhole, prior_g: float = 1.0,
 
 
 def local_inertial_ba(mp, calib: ImuCalib, cam: Pinhole, kf_id: int, n_window: int = 10,
-                      max_fixed: int = 20, n_iters: int = 6, cg_iters: int = 40, device="cpu",
+                      max_fixed: int = 20, n_iters: int = 6, cg_iters: int = 40, device=None,
                       stats=None) -> bool:
     """LocalInertialBA (reference src/Optimizer.cc:4413): the temporal
     window of ``n_window`` keyframes along the prev_kf chain ending at the
     new keyframe, with visual, preintegration and bias-walk edges.  The
     window's predecessor is included fixed; other keyframes observing the
     window's points are fixed visual anchors (lFixedKeyFrames)."""
+    device = kernels.resolve_device(device, "the local inertial BA")
     window: List[int] = []
     k = kf_id
     while k in mp.keyframes and len(window) < n_window:

@@ -21,10 +21,12 @@ map welds the current map into it (``slam/merge.py``).
 
 The device work: the vocabulary descent (K11) once per keyframe, the BoW
 and projection searches (K3), the Sim3 RANSAC and OptimizeSim3 (K12), the
-essential graph (K13), the global BA (K14) and the weld BA (K6).  The host
-keeps the JAX module's control flow and its ``np.random.default_rng(7)``
-draws, in the same order.  The inertial branches (the 4-DoF graph, the
-inertial GBA and weld) are ROADMAP A.11.
+essential graph (K13), the global BA (K14) and the weld BA (K6).  On an
+inertial map (``imu_calib`` set and the map's IMU initialised) the
+essential graph is the 4-DoF one (K23), the global BA is the synchronous
+full visual-inertial BA (K20) and a weld adds the local inertial BA over
+the seam (K20).  The host keeps the JAX module's control flow and its
+``np.random.default_rng(7)`` draws, in the same order.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..core.camera import Pinhole
 from ..dist import global_ba
 from ..frontend import matcher as fm
@@ -42,6 +45,7 @@ from ..geometry import sim3 as gsim3
 from ..place.database import KeyFrameDatabase
 from ..solver import pose_graph as pg
 from ..utils.packed_fetch import pack_fetch
+from . import imu_frontend
 from . import merge as mg
 from .map import SLAMMap
 
@@ -103,8 +107,8 @@ def _sim3_inverse(R, t, s):
 class LoopCloser:
     def __init__(self, vocab, cam: Pinhole, scale_factors=None, img_wh=None, inv_sigma2=None,
                  thresholds: Optional[LoopThresholds] = None, fix_scale: bool = False,
-                 device="cpu", stats=None):
-        self.device = torch.device(device)
+                 imu_calib=None, device=None, stats=None):
+        self.device = kernels.resolve_device(device, "the loop closer")
         self.db = KeyFrameDatabase(vocab, device=self.device) if vocab else None
         self.vocab = vocab
         self.cam = cam
@@ -112,6 +116,9 @@ class LoopCloser:
         self.img_wh = tuple(img_wh or (640, 480))
         self.inv_sigma2 = inv_sigma2
         self.fix_scale = fix_scale
+        # the tracker's IMU calibration (inertial sensors): inertial maps
+        # take the 4-DoF graph, the inertial GBA and the inertial weld
+        self.imu_calib = imu_calib
         self.th = thresholds or LoopThresholds()
         self.n_loops = 0
         self.n_merges = 0
@@ -579,6 +586,9 @@ class LoopCloser:
                                              self.inv_sigma2, self.device, stats=self.stats)
             if pend is not None:
                 self.pending_weld = (other.mid, pend)
+        if self.imu_calib is not None and other.imu_initialized:
+            mg.weld_inertial_bundle_adjustment(other, self.imu_calib, self.cam, info["kf_cur"],
+                                               device=self.device, stats=self.stats)
         return info
 
     def _merge_points(self, mp: SLAMMap, keep: int, drop: int):
@@ -683,19 +693,31 @@ class LoopCloser:
 
     def _run_gba(self, mp: SLAMMap):
         """RunGlobalBundleAdjustment (:2430): the full-map Schur BA (K14),
-        dispatched; a previous in-flight solve is superseded."""
+        dispatched; a previous in-flight solve is superseded.  An inertial
+        map runs FullInertialBA (Optimizer.cc:420, 7 iterations, K20)
+        synchronously on one device, where the JAX module passes its device
+        mesh (ROADMAP C)."""
+        if self._inertial(mp):
+            imu_frontend.full_inertial_ba(mp, self.imu_calib, self.cam, n_iters=7,
+                                          device=self.device, stats=self.stats)
+            return
         self.pending_gba = None
         pending = global_ba.dispatch_global_ba(
             mp, self.cam, self.inv_sigma2 if self.inv_sigma2 is not None else [1.0] * 8,
             self.device, n_iters=10)
         self.pending_gba = pending
 
+    def _inertial(self, mp: SLAMMap) -> bool:
+        return self.imu_calib is not None and mp.imu_initialized
+
     def _optimize_essential_graph(self, mp: SLAMMap, kf_id: int, cand_id: int,
                                   window: List[int], non_corrected=None, connections=None):
         """OptimizeEssentialGraph (Optimizer.cc:2303) on one device (K13):
         all keyframes, edges of the spanning tree, loop edges, strong
         covisibility (>= 100) and the new loop connection; the matched
-        keyframe fixed.  ``fix_scale`` for stereo / RGB-D (:2621).
+        keyframe fixed.  ``fix_scale`` for stereo / RGB-D (:2621).  An
+        inertial map solves the same edges, with their weights, as the
+        4-DoF graph (OptimizeEssentialGraph4DoF, :8153; K23), scale 1.
 
         ``connections`` (window keyframe -> keyframes the fusion newly
         connected it to with >= 100 points) are the reference's
@@ -761,6 +783,19 @@ class LoopCloser:
         if not edges:
             return
         t_ = self._t
+        fixed = t_(np.array([k == cand_id for k in kf_ids]))
+        if self._inertial(mp):
+            prob4 = pg.PoseGraph4DoFProblem(
+                R=t_(Rs), t=t_(ts), edge_i=t_(np.array([e[0] for e in edges], np.int32)),
+                edge_j=t_(np.array([e[1] for e in edges], np.int32)),
+                m_R=t_(np.stack([e[2] for e in edges])), m_t=t_(np.stack([e[3] for e in edges])),
+                weight=t_(np.array([e[5] for e in edges], np.float32)),
+                edge_valid=t_(np.ones(len(edges), bool)), fixed=fixed)
+            R_new, t_new, _ = pg.optimize_pose_graph_4dof(prob4, n_iters=15)
+            R_new, t_new = pack_fetch([R_new, t_new])
+            self._apply_graph_result(mp, kf_ids, index, np.asarray(R_new), np.asarray(t_new),
+                                     np.ones(K, np.float32))
+            return
         prob = pg.PoseGraphProblem(
             R=t_(Rs), t=t_(ts), s=t_(np.ones(K, np.float32)),
             edge_i=t_(np.array([e[0] for e in edges], np.int32)),
@@ -768,8 +803,7 @@ class LoopCloser:
             m_R=t_(np.stack([e[2] for e in edges])), m_t=t_(np.stack([e[3] for e in edges])),
             m_s=t_(np.array([e[4] for e in edges], np.float32)),
             weight=t_(np.array([e[5] for e in edges], np.float32)),
-            edge_valid=t_(np.ones(len(edges), bool)),
-            fixed=t_(np.array([k == cand_id for k in kf_ids])),
+            edge_valid=t_(np.ones(len(edges), bool)), fixed=fixed,
         )
         R_new, t_new, s_new, _ = pg.optimize_pose_graph(prob, n_iters=15,
                                                         fix_scale=self.fix_scale)

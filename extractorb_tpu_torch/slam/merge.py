@@ -1,4 +1,4 @@
-"""Atlas map merging (port of ``extractorb_tpu/slam/merge.py``, visual).
+"""Atlas map merging (port of ``extractorb_tpu/slam/merge.py``).
 
 Replaces LoopClosing::MergeLocal (reference src/LoopClosing.cc:1252) and
 MergeBundleAdjustmentVisual (src/Optimizer.cc:5759).  When place
@@ -7,8 +7,9 @@ Atlas map, the active (newer) map is welded into the matched (older) one:
 every keyframe pose and map point is moved by the verified camera Sim3
 lifted to a world Sim3 (scale folded into translations and points),
 appended with new ids, and a welding bundle adjustment (the port's window
-BA, kernel K6) runs over the covisible windows around the seam.  The
-inertial weld (MergeInertialBA) is ROADMAP A.11.
+BA, kernel K6) runs over the covisible windows around the seam.  An
+inertial map also runs the local inertial BA over the seam's temporal
+window (MergeInertialBA, src/Optimizer.cc:6760; kernel K20).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 
 from ..core.camera import Pinhole
+from . import imu_frontend
 from .map import Atlas, SLAMMap
 
 F32 = np.float32
@@ -132,3 +134,14 @@ def weld_bundle_adjustment(mp: SLAMMap, kf_cur: int, kf_matched: int, cam: Pinho
         local.discard(kf_matched)
     return run_ba(mp, sorted(local | fixed), fixed, cam, inv_sigma2, device, n_iters=n_iters,
                   async_apply=True, stats=stats)
+
+
+def weld_inertial_bundle_adjustment(mp: SLAMMap, calib, cam: Pinhole, kf_cur: int,
+                                    n_window: int = 10, device=None, stats=None) -> bool:
+    """MergeInertialBA analog (reference src/Optimizer.cc:6760): after an
+    inertial Atlas weld, the visual + preintegration + bias-walk window BA
+    over the temporal window ending at the welded current keyframe
+    (``merge_maps`` kept the prev_kf chain and moved the velocities with
+    the Sim3).  Runs synchronously on ``device`` (None: the card)."""
+    return imu_frontend.local_inertial_ba(mp, calib, cam, kf_cur, n_window=n_window,
+                                          device=device, stats=stats)

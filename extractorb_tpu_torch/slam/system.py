@@ -1,6 +1,6 @@
 """System facade: the user-facing API (port of
-``extractorb_tpu/slam/system.py``, monocular, monocular-inertial, stereo and
-RGB-D).
+``extractorb_tpu/slam/system.py``: monocular, monocular-inertial, stereo,
+stereo-inertial and RGB-D).
 
 Replaces System (reference: src/System.cc:41 ctor, :222 TrackStereo, :288
 TrackRGBD, :346 TrackMonocular, :480/:573/:748
@@ -51,19 +51,23 @@ class System:
         """Reference System::TrackMonocular (src/System.cc:346).  ``imu``:
         the (t, acc(3,), gyro(3,)) measurements since the previous frame,
         for ``sensor="imu-monocular"``."""
-        if imu is not None and not self.tracker.inertial:
-            raise ValueError(f"IMU measurements with sensor {self.cfg.sensor!r}: "
-                             "pass sensor='imu-monocular' and an IMUConfig")
+        self._check_imu(imu, "imu-monocular")
         return self.tracker.track(self._to_gray(img), timestamp, imu=imu)
 
     def track_stereo(self, img_left: np.ndarray, img_right: np.ndarray, timestamp: float,
                      imu=None) -> TrackState:
         """Reference System::TrackStereo (src/System.cc:222).  The pair
-        must be rectified; Camera.bf must be set in the config."""
-        if imu is not None:
-            raise NotImplementedError("imu-stereo is not ported (ROADMAP A.11)")
+        must be rectified; Camera.bf must be set in the config.  ``imu``:
+        the (t, acc(3,), gyro(3,)) measurements since the previous frame,
+        for ``sensor="imu-stereo"``."""
+        self._check_imu(imu, "imu-stereo")
         return self.tracker.track_stereo(self._to_gray(img_left), self._to_gray(img_right),
-                                         timestamp)
+                                         timestamp, imu=imu)
+
+    def _check_imu(self, imu, sensor: str):
+        if imu is not None and not self.tracker.inertial:
+            raise ValueError(f"IMU measurements with sensor {self.cfg.sensor!r}: "
+                             f"pass sensor={sensor!r} and an IMUConfig")
 
     def track_rgbd(self, img: np.ndarray, depthmap: np.ndarray, timestamp: float) -> TrackState:
         """Reference System::TrackRGBD (src/System.cc:288).  depthmap is

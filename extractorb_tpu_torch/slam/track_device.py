@@ -152,8 +152,8 @@ class TrackStep:
         if depth_mode != "none" and cam_cfg.bf <= 0.0:
             raise ValueError(f"TrackStep: depth_mode {depth_mode!r} needs Camera.bf > 0")
         if inertial and depth_mode != "none":
-            raise NotImplementedError("TrackStep: the inertial step is ported for the "
-                                      "monocular camera only (ROADMAP A.11)")
+            raise NotImplementedError("TrackStep: the inertial step is monocular only; the JAX "
+                                      "package never builds a stereo or RGB-D inertial step")
         self.inertial = inertial
         self.depth_mode = depth_mode
         self.stereo = depth_mode != "none"

@@ -40,12 +40,18 @@ metric gravity-aligned coordinates; afterwards frames are predicted by the
 IMU (PredictStateIMU), solved with the inertial edge (K22), keyframe
 events run the local inertial BA (K20), and the fused step runs the IMU
 prediction and the joint last-frame solve with its marginalisation prior.
+Stereo-inertial (``sensor="imu-stereo"``, ``track_stereo(l, r, ts,
+imu=...)``) starts from the first stereo frame, initialises the IMU after
+1 s with the scale fixed, and tracks every frame after it through the
+legacy inertial solve (the JAX module's fused step is monocular-inertial
+only).  On an inertial map the loop closer takes the 4-DoF essential graph
+(K23), the inertial global BA and the inertial weld.
 
-Not in this slice, and raising ``NotImplementedError`` with the ROADMAP
-item: imu-stereo and imu-rgbd (A.11), an inertial sensor with a vocabulary
-(its 4-DoF essential graph, B.29), the KB8 camera, its MLPnP
-relocalization and the fisheye stereo rig (A.12), ``octree="host"`` (not
-ported: it is the JAX package's oracle) and ``pipeline_depth > 0`` (A.7).
+Not in this slice, and raising ``NotImplementedError``: imu-rgbd (the JAX
+package has no such entry point), the KB8 camera, its MLPnP
+relocalization and the fisheye stereo rig (ROADMAP A.12), ``octree="host"``
+(not ported: it is the JAX package's oracle) and ``pipeline_depth > 0``
+(A.7).
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import SLAMConfig
 from ..core.camera import Pinhole, undistort_points_pinhole
 from ..frontend import matcher as fm
@@ -171,20 +178,23 @@ class _PipeEntry:
     blk_ids: np.ndarray        # local-block ids used at dispatch
 
 
-def _unported(cfg: SLAMConfig, vocab=None) -> Optional[str]:
-    if cfg.sensor not in ("monocular", "stereo", "rgbd", "imu-monocular"):
-        return (f"sensor {cfg.sensor!r}: only 'monocular', 'stereo', 'rgbd' and "
-                "'imu-monocular' are ported (ROADMAP A.11)")
-    if cfg.sensor == "stereo" and cfg.camera2 is not None:
+INERTIAL_SENSORS = ("imu-monocular", "imu-stereo")
+
+
+def _unported(cfg: SLAMConfig) -> Optional[str]:
+    if cfg.sensor == "imu-rgbd":
+        return ("sensor 'imu-rgbd': the JAX package has no such entry point (its track_rgbd "
+                "takes no IMU measurements), so the port has none")
+    if cfg.sensor not in ("monocular", "stereo", "rgbd") + INERTIAL_SENSORS:
+        return (f"sensor {cfg.sensor!r}: only 'monocular', 'stereo', 'rgbd', 'imu-monocular' "
+                "and 'imu-stereo' are ported")
+    if cfg.sensor in ("stereo", "imu-stereo") and cfg.camera2 is not None:
         return "the fisheye stereo rig (camera2) is not ported (ROADMAP A.12)"
-    if cfg.sensor == "imu-monocular" and cfg.imu is None:
-        return "sensor 'imu-monocular' needs an IMUConfig (cfg.imu)"
-    if cfg.imu is not None and cfg.sensor != "imu-monocular":
-        return (f"an IMU with sensor {cfg.sensor!r} is not ported, only with 'imu-monocular' "
-                "(ROADMAP A.11)")
-    if cfg.sensor == "imu-monocular" and vocab is not None:
-        return ("an inertial sensor with a vocabulary is not ported: its loop closing needs "
-                "the 4-DoF essential graph (ROADMAP B.29)")
+    if cfg.sensor in INERTIAL_SENSORS and cfg.imu is None:
+        return f"sensor {cfg.sensor!r} needs an IMUConfig (cfg.imu)"
+    if cfg.imu is not None and cfg.sensor not in INERTIAL_SENSORS:
+        return (f"an IMU with sensor {cfg.sensor!r}: pass sensor='imu-monocular' or "
+                "'imu-stereo'")
     if cfg.camera.model == "KannalaBrandt8":
         return "the KannalaBrandt8 camera is not ported (ROADMAP A.12)"
     if cfg.orb.octree != "device":
@@ -196,17 +206,11 @@ def _unported(cfg: SLAMConfig, vocab=None) -> Optional[str]:
 
 class Tracker:
     def __init__(self, cfg: SLAMConfig, vocab=None, device=None):
-        why = _unported(cfg, vocab)
+        why = _unported(cfg)
         if why is not None:
             raise NotImplementedError(why)
         self.cfg = cfg
-        if device is None:
-            # the tracker runs on the card; the plain path only when asked
-            if not torch.cuda.is_available():
-                raise RuntimeError("no CUDA device: the tracker runs on a card; "
-                                   "pass device='cpu' to run the plain path")
-            device = "cuda:0"
-        self.device = torch.device(device)
+        self.device = kernels.resolve_device(device, "the tracker")
         cam_cfg = cfg.camera
         self.cam = Pinhole.from_config(cam_cfg)
         self.dist = (cam_cfg.k1, cam_cfg.k2, cam_cfg.p1, cam_cfg.p2, cam_cfg.k3)
@@ -274,8 +278,8 @@ class Tracker:
         self._fused_local_cap = 4096
         self.n_fused_frames = 0   # frames on the fused path
 
-        # inertial mode (reference sensor IMU_MONOCULAR)
-        self.inertial = cfg.sensor == "imu-monocular"
+        # inertial mode (reference sensors IMU_MONOCULAR, IMU_STEREO)
+        self.inertial = cfg.sensor in INERTIAL_SENSORS
         self.imu_calib: Optional[ImuCalib] = None
         self.imu_queue: Optional[imu_frontend.ImuQueue] = None
         self.last_kf_ts: Optional[float] = None
@@ -290,6 +294,7 @@ class Tracker:
             self.imu_calib = ImuCalib.from_config(cfg.imu)
             self.imu_queue = imu_frontend.ImuQueue(self.imu_calib, self.device, self.stats)
             self.local_mapper.imu_calib = self.imu_calib
+            self.loop_closer.imu_calib = self.imu_calib
 
     # ------------------------------------------------------------ frames
 
@@ -343,7 +348,9 @@ class Tracker:
         return f
 
     def _t(self, a, dtype=None) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        """A host array on the tracker's device, its shape kept (a 0-dim
+        array stays 0-dim: the preintegration's dT)."""
+        t = torch.from_numpy(np.ascontiguousarray(a)).reshape(np.shape(a))
         return t.to(device=self.device, dtype=dtype)
 
     # ------------------------------------------------------------- entry
@@ -424,9 +431,11 @@ class Tracker:
         self._preintegrate(frame)
         return self._track_existing(frame, ts)
 
-    def track_stereo(self, img_l: np.ndarray, img_r: np.ndarray, ts: float):
+    def track_stereo(self, img_l: np.ndarray, img_r: np.ndarray, ts: float, imu=None):
         """GrabImageStereo + Track (reference Tracking.cc, System.cc:222);
-        the pair must be rectified."""
+        the pair must be rectified.  ``imu``: the (t, acc, gyro)
+        measurements since the previous frame (sensor imu-stereo)."""
+        self.grab_imu(imu)
         return self._track_depth(img_l, img_r, ts, "stereo", self._make_frame_stereo)
 
     def track_rgbd(self, img: np.ndarray, depthmap: np.ndarray, ts: float):
@@ -454,6 +463,7 @@ class Tracker:
         if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
             self._stereo_initialization(frame)
             return self.state
+        self._preintegrate(frame)
         return self._track_existing(frame, ts)
 
     # --------------------------------------------------- fused fast path
@@ -463,7 +473,9 @@ class Tracker:
         and the previous frame device-resident.  The previous frame's
         capacity may differ (the first frame after initialisation chains
         from the 5x init extractor's arrays).  The inertial step engages once
-        the IMU is initialised and the previous frame has a velocity."""
+        the IMU is initialised and the previous frame has a velocity, for
+        imu-monocular only (the JAX module's rule): imu-stereo frames take
+        the legacy inertial solve."""
         last = self.last_frame
         common = (
             self.cfg.tracking.use_fused
@@ -473,7 +485,8 @@ class Tracker:
             and last.un_dev is not None
         )
         if self.inertial:
-            return (common and self.atlas.current.imu_initialized
+            return (common and self.cfg.sensor == "imu-monocular"
+                    and self.atlas.current.imu_initialized
                     and (last.v is not None or bool(self._pipe)))
         return common and self.velocity is not None
 
@@ -958,6 +971,13 @@ class Tracker:
             self._reset_map()
             self.last_frame = frame
             return
+        if self.inertial:
+            # the first keyframe starts the temporal IMU chain
+            self._prev_kf_id = kf.kid
+            self.last_kf_ts = self.first_kf_ts = frame.timestamp
+            kf.bg = self.cur_bias[:3].copy()
+            kf.ba = self.cur_bias[3:].copy()
+            self.imu_queue.drop_before(frame.timestamp - 0.01)
         self.ref_kf = kf.kid
         self.last_kf_frame_id = frame.frame_id
         self.velocity = None
@@ -1410,20 +1430,22 @@ class Tracker:
 
     def _imu_init_stage(self, frame: Frame) -> bool:
         """The staged inertial initialisation (reference LocalMapping.cc
-        :162-219): InitializeIMU(1e2, 1e10) once 2 s and 10 keyframes are
-        in, VIBA1 (1, 1e5) at 5 s, VIBA2 (0, 0) at 15 s.  A stage that fired
-        rotated and rescaled the map: the recorded trajectory is
+        :162-219): InitializeIMU(1e2, 1e10) once 2 s (monocular; 1 s with
+        stereo) and 10 keyframes are in, VIBA1 (1, 1e5) at 5 s, VIBA2 (0, 0)
+        at 15 s; stereo fixes the scale.  A stage that fired rotated (and
+        for monocular rescaled) the map: the recorded trajectory is
         re-expressed (reference Tracking::UpdateFrameIMU) and the frame
         takes its keyframe's state."""
         mp = self.atlas.current
         if not self.inertial or self.first_kf_ts is None:
             return False
         elapsed = frame.timestamp - self.first_kf_ts
+        mono = self.cfg.sensor == "imu-monocular"
         done = False
-        stage = dict(calib=self.imu_calib, cam=self.cam, fix_scale=False, device=self.device,
+        stage = dict(calib=self.imu_calib, cam=self.cam, fix_scale=not mono, device=self.device,
                      stats=self.stats)
         if not mp.imu_initialized:
-            if elapsed >= 2.0 and len(mp.keyframes) >= 10:
+            if elapsed >= (2.0 if mono else 1.0) and len(mp.keyframes) >= 10:
                 done = imu_frontend.initialize_imu(mp, prior_g=1e2, prior_a=1e10, **stage)
         elif not mp.imu_ba1 and elapsed >= 5.0:
             done = imu_frontend.initialize_imu(mp, prior_g=1.0, prior_a=1e5, **stage)

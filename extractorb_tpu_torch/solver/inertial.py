@@ -63,10 +63,20 @@ def _cast(tree, dtype):
     return tree
 
 
+def _leaves(tree):
+    """The tensors of a tree of tuples and NamedTuples."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [a for v in tree for a in _leaves(v)]
+    return []
+
+
 def _jac(fn, argnums=0, in_dims=None):
     """``jacfwd(fn, argnums)`` (``vmap`` of it with ``in_dims`` when given)
     with the forward-mode pass in float64 and the Jacobians returned in
-    float32.  ``fn`` must take every tensor it reads as an argument.
+    float32 (float64 when every floating argument is float64).  ``fn``
+    must take every tensor it reads as an argument.
     PyTorch's forward-mode AD promotes the tangent of a 0-dim float32
     tensor combined with a Python scalar to float64, so a float32 pass
     through the Lie maps fails; the JAX package takes these Jacobians in
@@ -76,7 +86,8 @@ def _jac(fn, argnums=0, in_dims=None):
         jf = vmap(jf, in_dims=in_dims)
 
     def run(*args):
-        return _cast(jf(*_cast(args, torch.float64)), torch.float32)
+        wide = all(a.dtype == torch.float64 for a in _leaves(args) if a.is_floating_point())
+        return _cast(jf(*_cast(args, torch.float64)), torch.float64 if wide else torch.float32)
 
     return run
 

@@ -332,7 +332,8 @@ def se3_exp_np(xi):
 def build_looped_map(seed: int, SLAMMap, KeyFrame, make_features, n_kf: int = 12,
                      n_pts: int = 200, drift_per_kf: float = 0.02, step: float = 0.3,
                      n_cap: int = 512, fx: float = 500.0, cx: float = 320.0,
-                     cy: float = 240.0, return_shift: float = 0.0):
+                     cy: float = 240.0, return_shift: float = 0.0, inertial: bool = False,
+                     preintegrate=None, maps=None):
     """The constructed map of tests/test_loop_closing.py:build_looped_map,
     for either package (its ``SLAMMap`` and ``KeyFrame`` classes, and
     ``make_features(desc, xy, valid)`` building its ``Features``).
@@ -344,22 +345,42 @@ def build_looped_map(seed: int, SLAMMap, KeyFrame, make_features, n_kf: int = 12
     true camera centres of the keyframes).  ``return_shift`` moves the
     return pass along x: at 0 the first return keyframe sits where the
     last outbound one does, a pair between which the Sim3 scale is not
-    observable (no baseline)."""
+    observable (no baseline).
+
+    ``inertial``: the map of an initialised inertial session.  The camera
+    is the body (T_bc = I), the image's y axis points down along gravity,
+    and the map is expressed in a gravity-aligned world (z up,
+    ``CAM_IN_GRAVITY_WORLD``).  The keyframes are stamped along a smooth
+    out-and-back motion (a half cosine out and back in 2 T_TURN seconds),
+    drift in yaw and translation only (gravity stays observable), and carry
+    the prev_kf chain, their true velocities, zero biases and the IMU
+    window from their predecessor: 100 Hz accelerometer samples of the
+    true motion under gravity, integrated by ``preintegrate(meas)`` (the
+    package's ``integrate_raw_host`` with zero bias); ``imu_initialized``
+    is set.
+
+    ``maps``: two maps (an Atlas's) to fill in place of one new map, the
+    outbound pass into the first and the return pass, with its own
+    keyframe ids and IMU chain, into the second; the first is returned."""
     rng = np.random.default_rng(seed)
     pts = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
                     rng.uniform(4, 7, n_pts)], -1).astype(np.float32)
     desc = rng.integers(0, 256, (n_pts, 32), dtype=np.uint8)
-    mp = SLAMMap()
+    maps = tuple(maps) if maps is not None else (SLAMMap(),) * 2
     first_id = {}
     half = n_kf // 2
     centres = []
+    x_turn = step * (half - 1) + max(return_shift, 0.0) + step / 2
     for k in range(n_kf):
         x = step * k if k < half else step * (n_kf - 1 - k) + return_shift
         centres.append(np.array([x, 0.0, 0.0]))
         R = np.eye(3, dtype=np.float32)
         t = -np.array([x, 0, 0], np.float32)
         drift = max(0, k - half + 1) * drift_per_kf
-        dR, dt = se3_exp_np([drift, drift * 0.5, 0, 0, 0, drift * 0.3])
+        # the drift turns the camera about its z axis, or for an inertial
+        # map about gravity (the image's y axis): yaw
+        dR, dt = se3_exp_np([drift, drift * 0.5, 0, 0, drift * 0.3, 0] if inertial
+                            else [drift, drift * 0.5, 0, 0, 0, drift * 0.3])
         R_est = (R @ dR).astype(np.float32)
         t_est = (R @ dt + t).astype(np.float32)
         pc = pts @ R.T + t
@@ -372,7 +393,9 @@ def build_looped_map(seed: int, SLAMMap, KeyFrame, make_features, n_kf: int = 12
         xy[:len(obs_idx)] = uv[obs_idx]
         d[:len(obs_idx)] = desc[obs_idx]
         v[:len(obs_idx)] = True
-        kf = KeyFrame(kid=-1, frame_id=k, timestamp=k / 30.0, R=R_est, t=t_est,
+        ts = _turn_time(x, x_turn, k >= half) if inertial else k / 30.0
+        mp = maps[int(k >= half)]
+        kf = KeyFrame(kid=-1, frame_id=k, timestamp=ts, R=R_est, t=t_est,
                       feats=make_features(d, xy, v), xy_un=xy,
                       octave=np.zeros(n_cap, np.int32), angle=np.zeros(n_cap, np.float32),
                       desc=d, valid=v, kp_mp=np.full(n_cap, -1, np.int32))
@@ -388,10 +411,167 @@ def build_looped_map(seed: int, SLAMMap, KeyFrame, make_features, n_kf: int = 12
                 pos = (pts[p] @ R.T + t - t_est) @ R_est   # through the drifted pose
                 mid = mp.add_point(pos, desc[p], np.zeros(3), 10.0, kf.kid)
                 mp.add_observation(mid, kf.kid, row)
-    for p in range(mp._next_mp):
-        if mp.mp_valid[p]:
-            mp.update_point_stats(p)
-    return mp, pts, desc, np.array(centres)
+    for mp in set(maps):
+        for p in range(mp._next_mp):
+            if mp.mp_valid[p]:
+                mp.update_point_stats(p)
+        if inertial:
+            _make_inertial(mp, x_turn, preintegrate)
+    centres = np.array(centres)
+    if inertial:
+        A = CAM_IN_GRAVITY_WORLD
+        pts = (pts @ A.T).astype(np.float32)
+        centres = centres @ A.T
+    return maps[0], pts, desc, centres
+
+
+def move_world(mp, R: np.ndarray, t: np.ndarray):
+    """Re-express a map in another world frame, p' = R p + t: keyframe
+    poses, velocities, points and normals."""
+    R, t = np.asarray(R, np.float64), np.asarray(t, np.float64)
+    for kf in mp.keyframes.values():
+        Rn = kf.R @ R.T
+        kf.t = (kf.t - Rn @ t).astype(np.float32)
+        kf.R = Rn.astype(np.float32)
+        if kf.v is not None:
+            kf.v = (R @ kf.v).astype(np.float32)
+    n = mp._next_mp
+    mp.mp_pos[:n] = (mp.mp_pos[:n] @ R.T + t).astype(np.float32)
+    mp.mp_normal[:n] = (mp.mp_normal[:n] @ R.T).astype(np.float32)
+
+
+T_TURN = 4.0   # seconds from the start of an inertial looped map to its turn
+
+
+def _turn_time(x: float, x_turn: float, back: bool) -> float:
+    """The time the motion x(t) = x_turn (1 - cos(pi t / T_TURN)) / 2
+    reaches x, on the way out or back."""
+    a = float(np.arccos(np.clip(1.0 - 2.0 * x / x_turn, -1.0, 1.0)))
+    return T_TURN / np.pi * (2 * np.pi - a if back else a)
+
+
+def _make_inertial(mp, x_turn: float, preintegrate):
+    """The inertial state of build_looped_map's keyframes, then the map
+    moved into the gravity-aligned world."""
+    w = np.pi / T_TURN
+    vel = lambda t: np.array([x_turn * w / 2 * np.sin(w * t), 0.0, 0.0])
+    acc = lambda t: np.array([x_turn * w * w / 2 * np.cos(w * t), 0.0, 0.0])
+    g_cam = np.array([0.0, 9.81, 0.0])   # gravity in the original (camera-aligned) frame
+    kids = sorted(mp.keyframes)
+    for i, kid in enumerate(kids):
+        kf = mp.keyframes[kid]
+        kf.v = vel(kf.timestamp).astype(np.float32)
+        kf.bg = np.zeros(3, np.float32)
+        kf.ba = np.zeros(3, np.float32)
+        if i == 0:
+            continue
+        t0, t1 = mp.keyframes[kids[i - 1]].timestamp, kf.timestamp
+        n = max(1, int(np.ceil((t1 - t0) * VI_IMU_HZ)))
+        dts = np.full(n, (t1 - t0) / n)
+        mids = t0 + (np.arange(n) + 0.5) * (t1 - t0) / n
+        a = np.stack([acc(t) - g_cam for t in mids])   # the body is the world-aligned camera
+        kf.prev_kf = kids[i - 1]
+        kf.imu_meas = (np.zeros((n, 3), np.float32), a.astype(np.float32),
+                       dts.astype(np.float32))
+        kf.preint = preintegrate(kf.imu_meas)
+    A = CAM_IN_GRAVITY_WORLD
+    for kf in mp.keyframes.values():
+        kf.R = (kf.R @ A.T).astype(np.float32)
+        kf.v = (A @ kf.v).astype(np.float32)
+    n = mp._next_mp
+    mp.mp_pos[:n] = (mp.mp_pos[:n] @ A.T).astype(np.float32)
+    mp.mp_normal[:n] = (mp.mp_normal[:n] @ A.T).astype(np.float32)
+    mp.imu_initialized = True
+
+
+def _rz(a: float) -> np.ndarray:
+    return so3_exp_np([0.0, 0.0, a])
+
+
+# camera axes (x right, y down, z forward) in a gravity-aligned world whose
+# z axis points up: the camera looks along world x
+CAM_IN_GRAVITY_WORLD = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+
+
+def pose_graph_4dof_circle(K: int = 24):
+    """The inertial essential graph of tests/test_sim3_posegraph.py:153-210:
+    K keyframes yawing around a circle of radius 3 m, the chain's odometry
+    drifting in yaw and translation, one loop edge of weight 5, keyframe 0
+    fixed.  Returns (the problem's numpy fields, true camera centres)."""
+    Rs_gt, ts_gt = [], []
+    for k in range(K):
+        a = 2 * np.pi * k / K
+        R = _rz(a).T
+        Rs_gt.append(R)
+        ts_gt.append(-R @ (np.array([np.cos(a), np.sin(a), 0.0]) * 3.0))
+    rel = lambda i, j: (Rs_gt[j] @ Rs_gt[i].T, ts_gt[j] - Rs_gt[j] @ Rs_gt[i].T @ ts_gt[i])
+    dR, dt = se3_exp_np([0.0, 0.0, 0.02, 0.015, 0.01, 0.0])
+    Rs, ts, edges = [Rs_gt[0]], [ts_gt[0]], []
+    for k in range(1, K):
+        mR, mt = rel(k - 1, k)
+        edges.append((k - 1, k, mR, mt, 1.0))
+        mRd, mtd = dR @ mR, dR @ mt + dt
+        Rs.append(mRd @ Rs[-1])
+        ts.append(mRd @ ts[-1] + mtd)
+    mR, mt = rel(K - 1, 0)
+    edges.append((K - 1, 0, mR, mt, 5.0))
+    centres = np.stack([-R.T @ t for R, t in zip(Rs_gt, ts_gt)])
+    return _graph_fields(Rs, ts, edges, np.arange(K) == 0), centres
+
+
+def pose_graph_4dof_random(rng, K: int = 40, extra: int = 3, far: int = 2):
+    """A seeded inertial essential graph: K cameras looking horizontally
+    (each with its own small roll and pitch) along a noisy circle of radius
+    2 m, a chain, ``extra`` edges from each keyframe to random ones 2-8
+    later and ``far`` to random ones anywhere, measurements from the true
+    poses with 1 mrad / 1 mm noise, the start poses drifting in yaw (5 mrad)
+    and translation (1 cm) per step, keyframe 0 fixed."""
+    Rs_gt, ts_gt = [], []
+    for k in range(K):
+        a = 2 * np.pi * k / K
+        tilt = so3_exp_np([rng.normal(0, 0.05), rng.normal(0, 0.05), 0.0])
+        Rwc = _rz(a + np.pi / 2) @ CAM_IN_GRAVITY_WORLD @ tilt
+        C = np.array([2 * np.cos(a), 2 * np.sin(a), rng.normal(0, 0.05)])
+        Rs_gt.append(Rwc.T)
+        ts_gt.append(-Rwc.T @ C)
+    pairs = [(i, i + 1) for i in range(K - 1)]
+    for i in range(K):
+        pairs += [(i, int(j) % K) for j in rng.choice(np.arange(i + 2, i + 9), extra,
+                                                      replace=False) if int(j) % K != i]
+        pairs += [(i, int(j)) for j in rng.choice(K, far, replace=False) if abs(int(j) - i) > 8]
+    edges = []
+    for i, j in pairs:
+        nR = so3_exp_np(rng.normal(0, 1e-3, 3))
+        mR = nR @ Rs_gt[j] @ Rs_gt[i].T
+        mt = ts_gt[j] - Rs_gt[j] @ Rs_gt[i].T @ ts_gt[i] + rng.normal(0, 1e-3, 3)
+        edges.append((i, j, mR, mt, 1.0))
+    Rs, ts, yaw, drift = [], [], 0.0, np.zeros(3)
+    for k in range(K):
+        if k:
+            yaw += rng.normal(0, 5e-3)
+            drift += rng.normal(0, 1e-2, 3)
+        # T_wc' = [Rz(yaw), drift] T_wc: yaw and translation only
+        Rwc = _rz(yaw) @ Rs_gt[k].T
+        C = _rz(yaw) @ (-Rs_gt[k].T @ ts_gt[k]) + drift
+        Rs.append(Rwc.T)
+        ts.append(-Rwc.T @ C)
+    return _graph_fields(Rs, ts, edges, np.arange(K) == 0)
+
+
+def _graph_fields(Rs, ts, edges, fixed) -> dict:
+    f32 = lambda a: np.asarray(a, np.float32)
+    return dict(R=f32(np.stack(Rs)), t=f32(np.stack(ts)),
+                edge_i=np.array([e[0] for e in edges], np.int32),
+                edge_j=np.array([e[1] for e in edges], np.int32),
+                m_R=f32(np.stack([e[2] for e in edges])), m_t=f32(np.stack([e[3] for e in edges])),
+                weight=f32([e[4] for e in edges]), edge_valid=np.ones(len(edges), bool),
+                fixed=np.asarray(fixed, bool))
+
+
+def gravity_in_cameras(R) -> np.ndarray:
+    """Each world->camera rotation's image of the world z axis (K,3): the
+    gravity direction a camera sees, fixed by its roll and pitch."""
+    return np.asarray(R, np.float64)[:, :, 2]
 
 
 def wide_texture(height: int = 1024, tiles: int = 4, seed: int = 0) -> np.ndarray:
@@ -483,6 +663,17 @@ def render_vi_sequence(tex: np.ndarray, n_frames: int, width: int = 640, height:
     the two-plane scene of render_two_plane."""
     poses = [vi_pose(k / VI_FPS) for k in range(n_frames)]
     return [render_two_plane(tex, p, width, height)[0] for p in poses], poses
+
+
+def render_vi_stereo_sequence(tex: np.ndarray, n_frames: int, width: int = 640,
+                              height: int = 480, baseline: float = 0.1):
+    """The frames of ``render_vi_sequence`` seen by a rectified rig whose
+    right camera sits ``baseline`` m along the left camera's x axis (as
+    ``render_stereo_sequence``): (left images, right images, poses)."""
+    left, poses = render_vi_sequence(tex, n_frames, width, height)
+    right = [render_two_plane(tex, (R, t - np.array([baseline, 0.0, 0.0])), width, height)[0]
+             for R, t in poses]
+    return left, right, poses
 
 
 def vi_ate_scale(trajectory):

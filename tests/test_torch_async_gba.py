@@ -83,7 +83,7 @@ def setup(monkeypatch):
         for k in sorted(MOVED):
             mp.keyframes[k].t = (mp.keyframes[k].t + rng.normal(0, 0.01, 3)).astype(np.float32)
         closer = jlc.LoopCloser(None, jproject, async_gba=True) if pkg == "jax" else \
-            lc.LoopCloser(None, Pinhole(FX, FX, CX, CY))
+            lc.LoopCloser(None, Pinhole(FX, FX, CX, CY), device="cpu")
         out[pkg] = (mp, closer)
     return out
 

@@ -107,7 +107,7 @@ def test_raw_window_clipping_exact():
     calib_p = ImuCalib.from_config(IMUConfig(
         noise_gyro=1e-4 / np.sqrt(200.0), noise_acc=1e-3 / np.sqrt(200.0),
         gyro_walk=1e-6 * np.sqrt(200.0), acc_walk=1e-5 * np.sqrt(200.0), frequency=200.0))
-    qj, qp = jfront.ImuQueue(calib_j), front.ImuQueue(calib_p)
+    qj, qp = jfront.ImuQueue(calib_j), front.ImuQueue(calib_p, device="cpu")
     fill_queue(qj, 1.0)
     fill_queue(qp, 1.0)
     for t0, t1 in ((0.0, 0.1), (0.0123, 0.4567), (0.9, 1.2), (0.5, 0.5), (2.0, 3.0)):
@@ -124,7 +124,7 @@ def test_raw_window_clipping_exact():
 def test_queue_preintegrate_and_predict_state():
     calib_j = make_calib()
     calib_p = ImuCalib(**{f: getattr(calib_j, f) for f in ImuCalib.__dataclass_fields__})
-    qj, qp = jfront.ImuQueue(calib_j), front.ImuQueue(calib_p)
+    qj, qp = jfront.ImuQueue(calib_j), front.ImuQueue(calib_p, device="cpu")
     fill_queue(qj, 0.6)
     fill_queue(qp, 0.6)
     bias = np.array([0.001, -0.002, 0.0005, 0.01, 0.0, -0.02], np.float32)

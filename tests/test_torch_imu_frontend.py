@@ -76,7 +76,8 @@ def test_initialize_imu_matches_jax():
     jmp, _ = _build_scaled_map(jcalib, s_true=2.0)
     mp = port_map(jmp)
     jres = jfront.initialize_imu(jmp, jcalib, project, prior_g=1e2, prior_a=1e10)
-    pres = front.initialize_imu(mp, port_calib(jcalib), PCAM, prior_g=1e2, prior_a=1e10)
+    pres = front.initialize_imu(mp, port_calib(jcalib), PCAM, prior_g=1e2, prior_a=1e10,
+                                device="cpu")
     assert jres and pres and mp.imu_initialized
     (jR, js), (pR, ps) = jres, pres
     assert abs(ps - js) < 1e-4 * js, (ps, js)
@@ -141,7 +142,8 @@ def test_local_inertial_ba_matches_jax(n_window):
 
     ep0, ev0 = errors(mp)
     assert jfront.local_inertial_ba(jmp, jcalib, project, kids[-1], n_window=n_window)
-    assert front.local_inertial_ba(mp, port_calib(jcalib), PCAM, kids[-1], n_window=n_window)
+    assert front.local_inertial_ba(mp, port_calib(jcalib), PCAM, kids[-1], n_window=n_window,
+                                   device="cpu")
     ep1, ev1 = errors(mp)
     assert ep1 < 0.5 * ep0 and ev1 < 0.5 * ev0, (ep0, ep1, ev0, ev1)
     assert max_diff(jmp, mp) < 1e-4

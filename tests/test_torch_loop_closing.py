@@ -107,7 +107,7 @@ def run_both(monkeypatch, scrambled: bool):
             voc = interop.vocab_from_numpy(interop.vocab_to_numpy(JVocabulary.train(desc, k=8,
                                                                                     L=3, seed=0)))
             closer = lc.LoopCloser(voc, Pinhole(FX, FX, CX, CY),
-                                   thresholds=lc.LoopThresholds(**THRESHOLDS))
+                                   thresholds=lc.LoopThresholds(**THRESHOLDS), device="cpu")
         closed = None
         for kid in sorted(mp.keyframes):
             if closer.process_keyframe(mp, kid):

@@ -129,12 +129,7 @@ def test_card_only_tests_skip_without_a_card():
     assert "1 skipped" in res.stdout and "needs a CUDA card" in res.stdout, res.stdout
 
 
-@pytest.mark.parametrize("sensor,vocab,item", [
-    ("imu-stereo", False, "A.11"), ("imu-rgbd", False, "A.11"),
-    ("imu-monocular", True, "B.29")], ids=["imu-stereo", "imu-rgbd", "imu-with-vocabulary"])
-def test_unported_inertial_configurations_raise(sensor, vocab, item):
-    """imu-monocular is ported; the other inertial sensors and an inertial
-    sensor with a vocabulary raise with their ROADMAP item."""
+def _vi_system(sensor: str, vocab: bool):
     import dataclasses
 
     import numpy as np
@@ -148,9 +143,24 @@ def test_unported_inertial_configurations_raise(sensor, vocab, item):
     if vocab:
         rng = np.random.default_rng(0)
         voc = Vocabulary.train(rng.integers(0, 256, (200, 32), dtype=np.uint8), k=4, L=2)
-    with pytest.raises(NotImplementedError, match=item):
-        System(cfg, vocab=voc, device="cpu")
-    assert System(chip_smoke.vi_config(320, 240, 500), device="cpu").tracker.inertial
+    return lambda: System(cfg, vocab=voc, device="cpu")
+
+
+def test_unported_inertial_configurations_raise():
+    """imu-rgbd raises: the JAX package's track_rgbd takes no IMU
+    measurements, so there is no such entry point to port."""
+    with pytest.raises(NotImplementedError, match="no such entry point"):
+        _vi_system("imu-rgbd", False)()
+
+
+@pytest.mark.parametrize("sensor,vocab", [("imu-stereo", False), ("imu-monocular", True)],
+                         ids=["imu-stereo", "imu-with-vocabulary"])
+def test_inertial_configurations_are_ported(sensor, vocab):
+    """imu-stereo and an inertial sensor with a vocabulary (its loop closer
+    takes the tracker's IMU calibration) are ported."""
+    tr = _vi_system(sensor, vocab)().tracker
+    assert tr.inertial and tr.loop_closer.imu_calib is tr.imu_calib is not None
+    assert (tr.loop_closer.db is not None) == vocab
 
 
 def test_inertial_system_without_device_needs_a_card(monkeypatch):
@@ -176,3 +186,35 @@ def test_kernel_library_builds_and_counts_launches(cuda_device):
     assert kernels.LAUNCHES["hamming_best2"] == before + 1
     assert torch.equal(r.best_idx.cpu(), torch.arange(64, dtype=torch.int32))
     assert extractorb_tpu_torch.__version__
+
+
+def _entry_points():
+    from extractorb_tpu_torch.dist import global_ba
+    from extractorb_tpu_torch.place.database import KeyFrameDatabase
+    from extractorb_tpu_torch.slam import imu_frontend as front
+    from extractorb_tpu_torch.slam import merge
+    from extractorb_tpu_torch.slam.loop_closing import LoopCloser
+
+    return {
+        "LoopCloser": lambda: LoopCloser(None, None),
+        "KeyFrameDatabase": lambda: KeyFrameDatabase(None),
+        "build_global_problem": lambda: global_ba.build_global_problem(None, [1.0], 1),
+        "ImuQueue": lambda: front.ImuQueue(None),
+        "integrate_raw": lambda: front.integrate_raw(None, None, None),
+        "integrate_raw_host": lambda: front.integrate_raw_host(None, None, None),
+        "initialize_imu": lambda: front.initialize_imu(None, None),
+        "full_inertial_ba": lambda: front.full_inertial_ba(None, None, None),
+        "local_inertial_ba": lambda: front.local_inertial_ba(None, None, None, 0),
+        "weld_inertial_bundle_adjustment":
+            lambda: merge.weld_inertial_bundle_adjustment(None, None, None, 0),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_without_device_need_a_card(name, monkeypatch):
+    """The port's entry points run on the card unless the caller passes
+    device='cpu': without a card they raise before any work, never fall
+    back to the plain path."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()

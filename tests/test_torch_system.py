@@ -116,7 +116,7 @@ def test_rot_to_quat_matches_jax():
 
 @pytest.mark.parametrize("change,item", [
     (dict(sensor="stereo", camera2=CameraConfig(model="KannalaBrandt8")), "A.12"),
-    (dict(imu=IMUConfig()), "A.11"),
+    (dict(imu=IMUConfig()), "pass sensor='imu-monocular' or 'imu-stereo'"),
     (dict(camera=CameraConfig(model="KannalaBrandt8")), "A.12"),
     (dict(orb=ORBConfig(octree="host")), "Not to be ported"),
     (dict(tracking=TrackingConfig(pipeline_depth=2)), "A.7"),

@@ -117,7 +117,7 @@ def test_database_queries_equal(vocabs, mode):
     corpus_d, jv, tv = vocabs
     rng = np.random.default_rng(7)
     kfs, covis = groups(16, rng)
-    jdb, tdb = JDatabase(jv), KeyFrameDatabase(tv)
+    jdb, tdb = JDatabase(jv), KeyFrameDatabase(tv, device="cpu")
     for i, d in enumerate(kfs):
         valid = rng.random(400) < 0.95
         jdb.add(i, d, valid)
