@@ -20,6 +20,13 @@ runs' frames are split into pre-init frames, fused inertial frames, the
 other post-init frames (the legacy inertial solve: every post-init frame
 of [vi-stereo]), keyframe events, and the event on which the IMU
 initialisation fired.
+Then the three visual sensors again at ``tracking.pipeline_depth`` 0 and
+3 (the mono run through [pipelined]'s FR1-distorted camera and frames),
+without a synchronise after each frame, since a pipelined frame returns
+while its step still runs: the median host time of an ordinary track call,
+the time per frame over the span from frame 5 to the end of the flush,
+and the idle share of that span, 1 - the union of its device events (a
+profiled run) / the unprofiled span's host time.
 Prints one summary line per run and, with ``--out``, writes the per-frame
 times and the largest kernels there as JSON.  Needs a card; fails without
 one.
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -47,17 +55,22 @@ import port_fixtures as pf  # noqa: E402
 from extractorb_tpu_torch.slam.system import System  # noqa: E402
 
 
-def track_all(cfg, frames, second, dev, mark=None):
+def track_all(cfg, frames, second, dev, mark=None, sync=True, span_from=None):
     """One cold-map run; per frame (host ms, keyframe event, fused inertial
-    frame, the IMU initialised on this frame)."""
+    frame, the IMU initialised on this frame).  ``sync=False`` leaves out
+    the synchronise around each frame; with ``span_from`` the last element
+    is the host ms from that frame's start to the end of the flush."""
     sys_ = System(cfg, device=dev)
     tr = sys_.tracker
     out = []
     for k, img in enumerate(frames):
         n_kf, n_fused = sys_.n_keyframes(), tr.n_fused_frames
         inited = tr.atlas.current.imu_initialized
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
+        if k == span_from:
+            t_span = t0
         with (torch.profiler.record_function(f"frame_{k}") if mark
               else contextlib.nullcontext()):
             if cfg.sensor == "stereo":
@@ -73,11 +86,73 @@ def track_all(cfg, frames, second, dev, mark=None):
                     sys_.track_stereo(img, second[k], ts, imu=imu)
             else:
                 sys_.track_monocular(img, k / 30.0)
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
         out.append(((time.perf_counter() - t0) * 1e3, sys_.n_keyframes() != n_kf,
                     tr.n_fused_frames != n_fused,
                     tr.atlas.current.imu_initialized and not inited))
     sys_.flush()
+    torch.cuda.synchronize()
+    if span_from is not None:
+        out.append((time.perf_counter() - t_span) * 1e3)
+    return out
+
+
+def span_device_ms(prof, first: int) -> float:
+    """Union of the device events that start at or after frame ``first``'s
+    range begins (to the end of the run), in ms."""
+    start = next(e.time_range.start for e in prof.events() if e.name == f"frame_{first}"
+                 and e.device_type == torch.autograd.DeviceType.CPU)
+    ev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith("frame_") and e.time_range.start >= start)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in ev:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3
+
+
+# the pipelined comparison's span starts at frame 5: after the initialisation
+# and the step graph's eager warm-up calls and capture (frame 3 or 4)
+SPAN_FROM = 5
+
+
+def pipeline_runs(frames, rights, depths, dev) -> dict:
+    """The three visual sensors at depth 0 and depth 3, without a
+    synchronise a frame: ordinary-call host ms, span ms per frame, idle."""
+    fr1, _ = cs.fr1_frames()
+    out = {}
+    for name, base, fr, second in (("system", cs.fr1_config(0), fr1, None),
+                                   ("stereo", cs.stereo_config("stereo"), frames, rights),
+                                   ("rgbd", cs.stereo_config("rgbd"), frames, depths)):
+        for depth in (0, cs.PIPE_DEPTH):
+            cfg = dataclasses.replace(base, tracking=dataclasses.replace(
+                base.tracking, pipeline_depth=depth))
+            plain = track_all(cfg, fr, second, dev, sync=False, span_from=SPAN_FROM)
+            span_ms = plain.pop()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                track_all(cfg, fr, second, dev, mark=True, sync=False, span_from=SPAN_FROM)
+            busy = span_device_ms(prof, SPAN_FROM)
+            del prof
+            host = [h for h, *_ in plain]
+            ordinary = [host[k] for k in range(SPAN_FROM, len(host)) if not plain[k][1]]
+            n = len(host) - SPAN_FROM
+            r = dict(host_ms_ordinary_call=statistics.median(ordinary), span_ms=span_ms,
+                     span_ms_per_frame=span_ms / n, span_device_ms=busy,
+                     span_idle=1.0 - busy / span_ms, n_span_frames=n, host_ms=host)
+            out[f"{name}-depth{depth}"] = r
+            print(f"[{name} depth {depth}] ordinary track call: host "
+                  f"{r['host_ms_ordinary_call']:.2f} ms (median); frames {SPAN_FROM}-{len(host) - 1} with the flush: "
+                  f"{span_ms:.1f} ms, {r['span_ms_per_frame']:.2f} ms per frame, device "
+                  f"{busy:.1f} ms, idle {r['span_idle']:.4f}", flush=True)
     return out
 
 
@@ -205,6 +280,7 @@ def main() -> int:
                   f"{s['device_ms_keyframe']:.3f} ms, idle {s['idle_keyframe']:.4f} "
                   f"({n_ev} device events)", flush=True)
         del prof
+    result["pipelined"] = pipeline_runs(frames, rights, depths, dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -28,6 +28,7 @@ the dense distance matrix.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -296,6 +297,14 @@ def mutual_best_match(desc1, valid1, desc2, valid2, max_dist: int = TH_LOW):
     return torch.where(ok, r12.best_idx, -1), r12.best
 
 
+@functools.lru_cache(maxsize=None)
+def _scales_on(scale_factors: tuple, device: torch.device) -> torch.Tensor:
+    """The scale factors as a float32 tensor on ``device``, made once: a
+    search enqueues no host-to-device copy (the tracking step is captured
+    in a CUDA graph on the card)."""
+    return torch.as_tensor(scale_factors, dtype=torch.float32, device=device)
+
+
 def _project(cam: Pinhole, R, t, pos):
     pc = pos @ R.T + t[None]
     return pc, cam.project(pc)
@@ -316,7 +325,7 @@ def search_by_projection_last_frame(
     first-come conflict resolution, rotation filter.
     Returns (M,) int32 keypoint index per map point or -1."""
     N = kp_xy.shape[0]
-    scales = torch.as_tensor(scale_factors, dtype=torch.float32, device=mp_pos.device)
+    scales = _scales_on(tuple(float(s) for s in scale_factors), mp_pos.device)
     pc, uv = _project(cam, R, t, mp_pos)
     row_ok = mp_valid & (pc[:, 2] > 0) & _in_image(uv, img_wh)
     radius = th * scales[mp_octave.clamp(0, len(scale_factors) - 1).long()]
@@ -340,7 +349,7 @@ def search_by_projection_local_map(
     Returns (M,) int32 keypoint index per map point or -1."""
     N = kp_xy.shape[0]
     n_levels = len(scale_factors)
-    scales = torch.as_tensor(scale_factors, dtype=torch.float32, device=mp_pos.device)
+    scales = _scales_on(tuple(float(s) for s in scale_factors), mp_pos.device)
     log_scale = torch.log(scales[1])
     pc, uv = _project(cam, R, t, mp_pos)
 

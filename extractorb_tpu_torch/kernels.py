@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9,
-# K10, K12, K17 and K18 must round like their plain PyTorch versions (K1, K3,
+# K10, K12, K17, K18 and K24 must round like their plain PyTorch versions (K1, K3,
 # K8, K11, K15 and K16 are integer code or copies; K4, K6, K13, K14 and
 # K19-K23 are bound by latency, not float throughput).
 NVCC_FLAGS = (
@@ -41,6 +41,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
+# replays of captured CUDA graphs, per graph ("track_step": the tracking step)
+GRAPH_LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -130,6 +132,10 @@ _SIGNATURES = {
     # out, inliers, n_inliers, stream
     "pose_inertial_launch": (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P,
                              _P),
+    # uv, n, prm (host float32: fx, fy, cx, cy, 1/fx, 1/fy, k1, k2, k3, p1, p2), out, stream
+    "undistort_launch": (_P, _I, _P, _P, _P),
+    # a kept cudaGraph_t, out: all nodes; returns its kernel nodes
+    "graph_kernel_nodes": (_P, _P),
     # workspace sizes in bytes
     "two_view_workspace_bytes": (_I, _I),
     "ba_workspace_bytes": (_I, _I, _I, _I),

@@ -24,8 +24,12 @@ measurement window, re-integrated by K19, and once the IMU is initialised
 the local inertial BA (K20, ``imu_frontend.local_inertial_ba``) takes the
 window BA's place.
 
-The JAX module's deferred-fetch mode (``pipeline_depth > 0``) is not ported
-(ROADMAP A.7).
+In the tracker's pipelined mode (``pipeline_depth > 0``, visual sensors)
+``process_keyframe(..., defer_fetch=True)`` only dispatches the
+triangulation and fuse launches: their results ride the tracker's next
+confirmation fetch (``pending_tf_handles`` / ``apply_tf``, the reference's
+LocalMapping queue latency), and the window BA is dispatched when they
+land.
 """
 
 from __future__ import annotations
@@ -271,6 +275,13 @@ class LocalMapper:
         self._pending_ba_mid = -1
         # the IMU calibration of an inertial tracker (None: visual-only)
         self.imu_calib = None
+        # deferred triangulation and fuse (defer_fetch): (mid, kf_id, tri,
+        # fuse) dispatched at the keyframe event, fetched with the tracker's
+        # next confirmation
+        self._pending_tf = None
+        # called when deferred results landed or were dropped (the tracker
+        # gates its weak-tracking keyframe trigger on it)
+        self.on_tf_applied = None
 
     def _dev(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -307,27 +318,76 @@ class LocalMapper:
             p.apply_fetched(mp, vals)
 
     def discard_ba(self):
-        """Drop the in-flight window BA (the map it refers to is gone)."""
+        """Drop the in-flight window BA and the deferred triangulation and
+        fuse results: the map poses under them were rewritten (a loop
+        correction, a merge, the IMU alignment) or the map is gone.  The
+        keyframe whose results are dropped keeps a sparser local map; the
+        next keyframe's triangulation refills it, as in the JAX module.
+        The notifier fires as it does when results land."""
         self._pending_ba = None
+        self._pending_tf = None
+        if self.on_tf_applied is not None:
+            self.on_tf_applied()
+
+    # ---- deferred triangulation and fuse (the fetch rides a confirmation)
+
+    def has_pending_tf(self) -> bool:
+        """True while deferred triangulation/fuse results are in flight."""
+        return self._pending_tf is not None
+
+    def pending_tf_handles(self):
+        """Device tensors of the deferred triangulation and fuse results,
+        for riding the tracker's confirmation fetch.  [] when nothing is
+        pending."""
+        if self._pending_tf is None:
+            return []
+        _, _, tri, fuse = self._pending_tf
+        return [[g[-1] for g in tri], [g[-1] for g in fuse]]
+
+    def apply_tf(self, mp: SLAMMap, fetched):
+        """Apply the deferred triangulation and fuse from already-fetched
+        host values (the pending_tf_handles structure), then dispatch the
+        window BA, so that its problem holds the points that just landed."""
+        if self._pending_tf is None:
+            return
+        mid, kf_id, tri, fuse = self._pending_tf
+        self._pending_tf = None
+        if mid == mp.mid and kf_id in mp.keyframes:
+            self._create_new_points_apply(mp, kf_id, tri, fetched[0])
+            self._fuse_apply_all(mp, fuse, fetched[1])
+            self._local_ba(mp, kf_id)
+        if self.on_tf_applied is not None:
+            self.on_tf_applied()
+
+    def flush_tf(self, mp: SLAMMap):
+        """Fetch and apply the deferred triangulation and fuse, if any."""
+        if self._pending_tf is None:
+            return
+        self.apply_tf(mp, pack_fetch(self.pending_tf_handles()))
 
     # ----------------------------------------------------------- pipeline
 
-    def process_keyframe(self, mp: SLAMMap, kf_id: int):
+    def process_keyframe(self, mp: SLAMMap, kf_id: int, defer_fetch: bool = False):
         """ProcessNewKeyFrame + culling + CreateNewMapPoints +
         SearchInNeighbors fuse + local BA + KeyFrameCulling (reference
         LocalMapping::Run body, :78-230).  The triangulation and fuse
         launches are enqueued together and fetched with one copy; the
         fuse therefore projects the PRE-triangulation point set, as in
-        the JAX module."""
+        the JAX module.  With ``defer_fetch`` the copy rides the tracker's
+        next confirmation (``apply_tf`` then dispatches the window BA)."""
+        self.flush_tf(mp)
         self.flush_ba(mp, force=False)
         self._assign_parent(mp, kf_id)
         self._cull_map_points(mp)
         tri = self._create_new_points_dispatch(mp, kf_id)
         fuse = self._fuse_dispatch(mp, kf_id)
-        fetched = pack_fetch([[g[-1] for g in tri], [g[-1] for g in fuse]])
-        self._create_new_points_apply(mp, kf_id, tri, fetched[0])
-        self._fuse_apply_all(mp, fuse, fetched[1])
-        self._local_ba(mp, kf_id)
+        if defer_fetch:
+            self._pending_tf = (mp.mid, kf_id, tri, fuse)
+        else:
+            fetched = pack_fetch([[g[-1] for g in tri], [g[-1] for g in fuse]])
+            self._create_new_points_apply(mp, kf_id, tri, fetched[0])
+            self._fuse_apply_all(mp, fuse, fetched[1])
+            self._local_ba(mp, kf_id)
         self._cull_keyframes(mp, kf_id)
 
     def _assign_parent(self, mp: SLAMMap, kf_id: int):

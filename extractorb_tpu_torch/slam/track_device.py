@@ -43,6 +43,9 @@ since its last sync, with kernel K8 ``mirror_scatter``.
 
 from __future__ import annotations
 
+import collections
+import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple, Optional, Tuple
 
@@ -118,8 +121,9 @@ def rgbd_right_coords(xy, xy_un, valid, depthmap, bf: float):
     d = depthmap[vv, uu]
     ok = valid & (d > 0)
     depth = torch.where(ok, d, -1.0)
-    # a tensor numerator: ``float / tensor`` would multiply by a reciprocal
-    bf_t = torch.tensor(bf, dtype=torch.float32, device=d.device)
+    # a tensor numerator: ``float / tensor`` would multiply by a reciprocal;
+    # filled on the device (no host copy, so the step can be captured)
+    bf_t = torch.full((), bf, dtype=torch.float32, device=d.device)
     ur = torch.where(ok, xy_un[:, 0] - bf_t / d.clamp(min=1e-9), -1.0)
     return ur, depth
 
@@ -144,7 +148,7 @@ class TrackStep:
 
     def __init__(self, cam_cfg: CameraConfig, orb_cfg: ORBConfig, img_shape: Tuple[int, int],
                  map_cap: int, local_cap: int, device, depth_mode: str = "none",
-                 inertial: bool = False):
+                 inertial: bool = False, graph: Optional[bool] = None):
         if cam_cfg.model == "KannalaBrandt8":
             raise NotImplementedError("TrackStep: only the pinhole camera is ported")
         if depth_mode not in ("none", "stereo", "rgbd"):
@@ -177,6 +181,13 @@ class TrackStep:
         self.inv_sigma2 = torch.as_tensor(
             [1.0 / float(s * s) for s in scales], dtype=torch.float32, device=self.device)
         self.img_wh = (float(cam_cfg.width), float(cam_cfg.height))
+        # the visual step on the card runs as one CUDA graph (``graph=False``
+        # keeps the eager launches, which the graph is held against)
+        if graph is None:
+            graph = self.device.type == "cuda" and not inertial
+        if graph and (self.device.type != "cuda" or inertial):
+            raise ValueError("TrackStep: the CUDA graph captures the visual step on a card")
+        self.graph = StepGraph(self) if graph else None
 
     def __call__(
         self,
@@ -192,6 +203,21 @@ class TrackStep:
         img_r=None,                       # right image (stereo) or depth map (rgbd)
         imu=None,                         # inertial inputs (see below)
     ) -> FusedOut:
+        """One frame.  On the card the visual step is a replay of its CUDA
+        graph (``StepGraph``); the inertial step and the CPU run ``_step``."""
+        args = (img, last_xy_un, last_desc, last_oct, last_ang, last_kp_mp, map_pos, map_valid,
+                lm_ids, lm_pos, lm_desc, lm_norm, lm_maxd, lm_val, ref_desc, ref_valid,
+                ref_kp_mp, R_last, t_last, R_prev, t_prev)
+        if self.graph is not None:
+            return self.graph(args, img_r)
+        return self._step(*args, img_r=img_r, imu=imu)
+
+    def _step(
+        self, img, last_xy_un, last_desc, last_oct, last_ang, last_kp_mp, map_pos, map_valid,
+        lm_ids, lm_pos, lm_desc, lm_norm, lm_maxd, lm_val, ref_desc, ref_valid, ref_kp_mp,
+        R_last, t_last, R_prev, t_prev, img_r=None, imu=None,
+    ) -> FusedOut:
+        """The step as eager launches (the arguments of ``__call__``)."""
         N, CAP = self.capacity, self.map_cap
         cam = self.cam
 
@@ -329,19 +355,168 @@ class TrackStep:
         )
 
 
+class StepGraph:
+    """A visual ``TrackStep`` as one CUDA graph on the card (the JAX step
+    is one XLA program per frame, ``extractorb_tpu/slam/track_device.py
+    :173``): K15, K1, K16, K17, K2, K24 (with distortion), K9 (stereo),
+    K3 x5, K18 x3, K4 x2 and the torch glue between them, replayed by one
+    graph launch a frame.  Both branches of the JAX step's ``lax.cond``s
+    stay decided on the device (``torch.where``), as in ``_step``.
+
+    A call with a new key runs ``_step`` eagerly: the warm-up that
+    initialises what a capture may not (cuBLAS, kernel attributes, cached
+    tables).  When the key repeats the graph is captured, and that call and
+    every later one copy their inputs into the graph's static buffers and
+    replay it (a key seen once, such as the first frame after
+    initialisation chaining from the 5x init extractor, is never
+    captured).  The key is
+    everything the graph bakes in: every input's shape and type, and the
+    addresses of the map mirror's tensors, which the graph reads in place
+    (so ``MapMirror`` growth or a new mirror recaptures).  The host values
+    the wrappers pass to their kernels (tables, counts, capacities) follow
+    from the step's configuration and those shapes.  The local and
+    reference blocks are copied only when the caller passes other tensors
+    (they are never changed in place); the previous frame's tensors, the
+    images and the poses at every call.
+
+    A replay overwrites the graph's outputs, so every replay's outputs are
+    packed in the graph into one flat buffer, which one device copy after
+    the replay snapshots: each call returns tensors of its own (views of
+    its snapshot), which in-flight pipelined frames and keyframes keep.
+
+    ``kernels.LAUNCHES`` counts launches where a wrapper launches its
+    kernel: a replay adds the launches counted while capturing (which
+    themselves are taken back: a capture launches nothing), and
+    ``kernels.GRAPH_LAUNCHES["track_step"]`` counts the replays.  A failed
+    capture raises."""
+
+    _MIRROR = (6, 7)                     # map_pos, map_valid: read in place
+    _BLOCKS = tuple(range(8, 17))        # local block, reference block
+    _PER_FRAME = (0, 1, 2, 3, 4, 5, 17, 18, 19, 20)
+
+    def __init__(self, step: "TrackStep"):
+        self.step = step
+        self.key = None
+        self._warm = None      # the key of the last eager call
+        self.cuda_graph = None
+        self.static = None
+        self.sources = None
+        self.flat = None
+        self.pieces = None     # (offset, nbytes, dtype, shape) of each packed output
+        self.template = None   # the FusedOut with piece indices in place of tensors
+        self.launches = collections.Counter()   # wrapper launches in one replay
+        self.kernel_nodes = 0
+        self.nodes = 0
+        self.n_captures = 0
+        self.n_replays = 0
+        self.n_warm = 0        # eager calls (a key's first)
+
+    def __call__(self, args, img_r=None) -> FusedOut:
+        inputs = list(args) + ([] if img_r is None else [img_r])
+        key = tuple((tuple(t.shape), t.dtype) for t in inputs) + tuple(
+            args[i].data_ptr() for i in self._MIRROR)
+        if key != self.key:
+            if key != self._warm:
+                self._warm = key
+                self.n_warm += 1
+                return self.step._step(*args, img_r=img_r)
+            self._capture(key, inputs)
+        else:
+            for i in self._PER_FRAME + tuple(range(21, len(inputs))):
+                self.static[i].copy_(inputs[i])
+            for i in self._BLOCKS:
+                if inputs[i] is not self.sources[i]:
+                    self.static[i].copy_(inputs[i])
+                    self.sources[i] = inputs[i]
+        self.cuda_graph.replay()
+        kernels.LAUNCHES.update(self.launches)
+        kernels.GRAPH_LAUNCHES["track_step"] += 1
+        self.n_replays += 1
+        return self._unpack(self.flat.clone())
+
+    def _capture(self, key, inputs):
+        dev = self.step.device
+        self.key = self.cuda_graph = self.flat = None
+        static = [t if i in self._MIRROR else torch.empty(t.shape, dtype=t.dtype, device=dev)
+                  for i, t in enumerate(inputs)]
+        for i, t in enumerate(inputs):
+            if i not in self._MIRROR:
+                static[i].copy_(t)
+        before = collections.Counter(kernels.LAUNCHES)
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with torch.cuda.graph(g):
+                out = self.step._step(*static[:21], img_r=static[21] if len(static) > 21 else None)
+                flat = self._pack(out)
+        finally:
+            self.launches = kernels.LAUNCHES - before
+            kernels.LAUNCHES.clear()
+            kernels.LAUNCHES.update(before)
+        g.instantiate()
+        total = ctypes.c_int(0)
+        self.kernel_nodes = kernels.lib().graph_kernel_nodes(g.raw_cuda_graph(),
+                                                             ctypes.byref(total))
+        self.nodes = total.value
+        if self.kernel_nodes < 0:
+            raise RuntimeError("TrackStep graph: its nodes cannot be read")
+        self.static, self.sources = static, list(inputs)
+        self.cuda_graph, self.flat, self.key = g, flat, key
+        self.n_captures += 1
+
+    def _pack(self, out: FusedOut) -> torch.Tensor:
+        """Record ``out``'s layout and return its tensors packed into one
+        uint8 buffer, each at a 16-byte offset (a tensor that is two fields,
+        such as xy_un and feats.xy without distortion, is packed once)."""
+        index, parts, pieces = {}, [], []
+        size = 0
+
+        def slot(t):
+            nonlocal size
+            if t is None:
+                return None
+            if id(t) not in index:
+                index[id(t)] = len(pieces)
+                nb = t.numel() * t.element_size()
+                pieces.append((size, nb, t.dtype, tuple(t.shape)))
+                parts.append(t.contiguous().reshape(-1).view(torch.uint8))
+                pad = -nb % 16
+                if pad:
+                    parts.append(parts[-1].new_empty(pad))
+                size += nb + pad
+            return index[id(t)]
+
+        feats = Features(*(slot(getattr(out.feats, f.name))
+                           for f in dataclasses.fields(Features)))
+        self.template = out._replace(feats=feats, **{
+            name: slot(getattr(out, name)) for name in FusedOut._fields if name != "feats"})
+        self.pieces = pieces
+        return torch.cat(parts)
+
+    def _unpack(self, snap: torch.Tensor) -> FusedOut:
+        views = [snap[o:o + nb].view(dt).view(shape) for o, nb, dt, shape in self.pieces]
+        get = lambda i: None if i is None else views[i]
+        feats = Features(*(get(getattr(self.template.feats, f.name))
+                           for f in dataclasses.fields(Features)))
+        return self.template._replace(feats=feats, **{
+            name: get(getattr(self.template, name)) for name in FusedOut._fields
+            if name != "feats"})
+
+
 # program cache: one TrackStep (and its static tables) per configuration
 _STEP_CACHE: dict = {}
 
 
 def get_track_step(cam_cfg: CameraConfig, orb_cfg: ORBConfig, img_shape, map_cap: int,
                    local_cap: int, device, depth_mode: str = "none",
-                   inertial: bool = False) -> TrackStep:
+                   inertial: bool = False, graph: Optional[bool] = None) -> TrackStep:
+    """The cached ``TrackStep`` of a configuration; ``graph`` as
+    ``TrackStep``'s (None: the CUDA graph for a visual step on a card)."""
     key = (cam_cfg, orb_cfg, tuple(img_shape), map_cap, local_cap, str(torch.device(device)),
-           depth_mode, inertial)
+           depth_mode, inertial, graph)
     step = _STEP_CACHE.get(key)
     if step is None:
         step = TrackStep(cam_cfg, orb_cfg, tuple(img_shape), map_cap, local_cap, device,
-                         depth_mode=depth_mode, inertial=inertial)
+                         depth_mode=depth_mode, inertial=inertial, graph=graph)
         _STEP_CACHE[key] = step
     return step
 
@@ -414,8 +589,13 @@ class MapMirror:
         n = mp._next_mp
         pos[: len(mp.mp_pos)] = mp.mp_pos
         valid[:n] = mp.mp_valid[:n]
-        self.pos = torch.from_numpy(pos).to(self.device)
-        self.valid = torch.from_numpy(valid).to(self.device)
+        if cap == self.cap:
+            # the same tensors: a captured tracking step reads them in place
+            self.pos.copy_(torch.from_numpy(pos))
+            self.valid.copy_(torch.from_numpy(valid))
+        else:
+            self.pos = torch.from_numpy(pos).to(self.device)
+            self.valid = torch.from_numpy(valid).to(self.device)
         self._h_pos = pos
         self._h_valid = valid
         self.cap = cap

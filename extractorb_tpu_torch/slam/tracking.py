@@ -18,9 +18,14 @@ keyframe database.
 
 The steady state is the fused step (``TrackStep``): one call per frame,
 confirmed by one packed fetch.  Frames that fail its gates replay through
-the reference-exact path (``_track_existing``).  Stereo and RGB-D maps
-start from one frame's depths (no two-view init) and create close points
-at every keyframe.
+the reference-exact path (``_track_existing``).  With
+``tracking.pipeline_depth = K > 0`` consecutive fused frames chain device
+to device (each step reads the previous step's pose and feature tensors)
+and the host confirms them in batches with one packed fetch, leaving the
+newest frames in flight; in that mode a visual keyframe's triangulation
+and fuse results ride the next confirmation too (``LocalMapper.apply_tf``).
+Stereo and RGB-D maps start from one frame's depths (no two-view init) and
+create close points at every keyframe.
 
 Recovery (reference Tracking.cc:1549-1625, :3184): a frame that fails to
 track goes LOST, or RECENTLY_LOST on a map of more than 10 keyframes for
@@ -49,9 +54,8 @@ only).  On an inertial map the loop closer takes the 4-DoF essential graph
 
 Not in this slice, and raising ``NotImplementedError``: imu-rgbd (the JAX
 package has no such entry point), the KB8 camera, its MLPnP
-relocalization and the fisheye stereo rig (ROADMAP A.12), ``octree="host"``
-(not ported: it is the JAX package's oracle) and ``pipeline_depth > 0``
-(A.7).
+relocalization and the fisheye stereo rig (ROADMAP A.12) and ``octree="host"``
+(not ported: it is the JAX package's oracle).
 """
 
 from __future__ import annotations
@@ -199,8 +203,6 @@ def _unported(cfg: SLAMConfig) -> Optional[str]:
         return "the KannalaBrandt8 camera is not ported (ROADMAP A.12)"
     if cfg.orb.octree != "device":
         return "octree='host' is not ported (ROADMAP: 'Not to be ported'; the JAX oracle)"
-    if cfg.tracking.pipeline_depth > 0:
-        return "tracking.pipeline_depth > 0 is not ported (ROADMAP A.7)"
     return None
 
 
@@ -275,8 +277,16 @@ class Tracker:
         self._pipe: List[_PipeEntry] = []
         # (last_frame_id, R, t) of the frame BEFORE last_frame
         self._prev_pose = None
+        # first frame id whose dispatch could see the latest keyframe's
+        # triangulated points (set when deferred results land)
+        self._pts_fresh_fid = 0
+        self.local_mapper.on_tf_applied = (
+            lambda: setattr(self, "_pts_fresh_fid", self._next_frame_id))
         self._fused_local_cap = 4096
         self.n_fused_frames = 0   # frames on the fused path
+        # the step's CUDA graph (None: TrackStep's default, the graph for a
+        # visual step on a card; False keeps the eager launches)
+        self.step_graph: Optional[bool] = None
 
         # inertial mode (reference sensors IMU_MONOCULAR, IMU_STEREO)
         self.inertial = cfg.sensor in INERTIAL_SENSORS
@@ -515,45 +525,61 @@ class Tracker:
             self._fused_local = (key, blk)
         blk = self._fused_local[1]
         imu_in = None
-        last = self.last_frame
+        last = self.last_frame   # the pipe's tail while frames are in flight
+        f32 = lambda a: self._t(np.asarray(a, np.float32))
         if self.inertial:
             # preintegrate (last frame, this frame] with the current bias on
-            # the card (no fetch); the previous state and its prior ride in
+            # the card (no fetch); the previous state and its prior ride in,
+            # from the pipe tail's outputs while chaining
             win = self.imu_queue.raw_window(last.timestamp, ts)
             if win is None:
                 return None  # no IMU coverage: legacy path
             preint = imu_frontend.integrate_raw(win, self.cur_bias, self.imu_calib, self.device,
                                                 self.stats)
-            f32 = lambda a: self._t(np.asarray(a, np.float32))
-            mh = self._marg_prior
-            # the JAX package reuses the prior after checking the frame id
-            # only, not the map version (ROADMAP C, matched reference fault)
-            if mh is not None and mh[0] == last.frame_id:
-                H_in = mh[2][0]
-                self.stats["fused_prior"] += 1
+            if self._pipe:
+                tail = self._pipe[-1].out
+                v_in, bg_in, ba_in, H_in = tail.v, tail.bg, tail.ba, tail.H15
             else:
-                H_in = torch.eye(15, dtype=torch.float32, device=self.device) * 1e4
-            imu_in = (preint, f32(last.v),
-                      f32(last.bg if last.bg is not None else self.cur_bias[:3]),
-                      f32(last.ba if last.ba is not None else self.cur_bias[3:]), H_in,
+                v_in = f32(last.v)
+                bg_in = f32(last.bg if last.bg is not None else self.cur_bias[:3])
+                ba_in = f32(last.ba if last.ba is not None else self.cur_bias[3:])
+                mh = self._marg_prior
+                # the JAX package reuses the prior after checking the frame
+                # id only, not the map version (ROADMAP C, matched reference
+                # fault)
+                if mh is not None and mh[0] == last.frame_id:
+                    H_in = mh[2][0]
+                    self.stats["fused_prior"] += 1
+                else:
+                    H_in = torch.eye(15, dtype=torch.float32, device=self.device) * 1e4
+            imu_in = (preint, v_in, bg_in, ba_in, H_in,
                       f32(self.imu_calib.Rcb), f32(self.imu_calib.tcb))
             self.stats["fused_inertial"] += 1
         step = td.get_track_step(self.cfg.camera, self.cfg.orb, img.shape, self._mirror.cap,
                                  self._fused_local_cap, self.device, depth_mode=depth_mode,
-                                 inertial=self.inertial)
+                                 inertial=self.inertial, graph=self.step_graph)
         ref_desc, ref_valid, ref_kp = self._ref_block(mp)
-        R1, t1 = last.R, last.t
-        if self.inertial:
-            Rp, tp = R1, t1   # the IMU prediction ignores the velocity inputs
-        elif self._prev_pose is not None and self._prev_pose[0] == last.frame_id:
-            # the actual predecessor pose: the in-step velocity
-            # R_last R_prev^T then matches the host formula exactly
-            _, Rp, tp = self._prev_pose
+        if self._pipe:
+            # chaining: the pose inputs are the in-flight steps' outputs
+            tail = self._pipe[-1]
+            R_last, t_last = tail.out.R, tail.out.t
+            if len(self._pipe) >= 2:
+                R_prev, t_prev = self._pipe[-2].out.R, self._pipe[-2].out.t
+            else:
+                R_prev, t_prev = f32(tail.prev_frame.R), f32(tail.prev_frame.t)
         else:
-            Rv, tv_ = self.velocity
-            Rp = (Rv.T @ R1).astype(np.float32)
-            tp = (Rv.T @ (t1 - tv_)).astype(np.float32)
-        f32 = lambda a: self._t(np.asarray(a, np.float32))
+            R1, t1 = last.R, last.t
+            if self.inertial:
+                Rp, tp = R1, t1   # the IMU prediction ignores the velocity inputs
+            elif self._prev_pose is not None and self._prev_pose[0] == last.frame_id:
+                # the actual predecessor pose: the in-step velocity
+                # R_last R_prev^T then matches the host formula exactly
+                _, Rp, tp = self._prev_pose
+            else:
+                Rv, tv_ = self.velocity
+                Rp = (Rv.T @ R1).astype(np.float32)
+                tp = (Rv.T @ (t1 - tv_)).astype(np.float32)
+            R_last, t_last, R_prev, t_prev = f32(R1), f32(t1), f32(Rp), f32(tp)
         last_kp = (last.kp_mp_dev if last.kp_mp_dev is not None and not last.kp_mp_dirty
                    else self._t(last.kp_mp.astype(np.int32)))
         out = step(
@@ -562,7 +588,7 @@ class Tracker:
             self._mirror.pos, self._mirror.valid,
             blk.ids, blk.pos, blk.desc, blk.norm, blk.maxd, blk.val,
             ref_desc, ref_valid, ref_kp,
-            f32(R1), f32(t1), f32(Rp), f32(tp),
+            R_last, t_last, R_prev, t_prev,
             img_r=None if img_r is None else _img(img_r), imu=imu_in,
         )
         self.stats["stereo_match"] += depth_mode == "stereo"
@@ -576,9 +602,16 @@ class Tracker:
         self._next_frame_id += 1
         self._pipe.append(_PipeEntry(frame=frame, out=out, ts=ts, prev_frame=last,
                                      blk_ids=blk.ids_host))
+        # optimistic: an in-flight frame reports OK; its confirmation
+        # corrects the state and the trajectory, replaying it through the
+        # legacy path when it fails a gate
         self.last_frame = frame
         self.state = TrackState.OK
-        self._confirm_pipe()
+        depth = self.cfg.tracking.pipeline_depth
+        if len(self._pipe) > depth:
+            # the newest frames (at most 2) keep computing on the card
+            # while the host confirms the older ones
+            self._confirm_pipe(keep=min(2, depth - 1))
         return self.state
 
     def _ref_block(self, mp: SLAMMap):
@@ -606,20 +639,32 @@ class Tracker:
         return blk
 
     def flush(self):
-        """Settle dispatched frames, the in-flight window BA and the loop
-        closer's in-flight global or welding BA."""
+        """Settle dispatched frames (states, trajectory, keyframe
+        decisions), the deferred triangulation and fuse, the in-flight
+        window BA and the loop closer's in-flight global or welding BA."""
         self._confirm_pipe()
+        self.local_mapper.flush_tf(self.atlas.current)
         self.local_mapper.flush_ba(self.atlas.current)
         self.loop_closer.finish(self.atlas.current)
 
-    def _confirm_pipe(self):
+    def _confirm_pipe(self, keep: int = 0):
         """One packed fetch confirms the dispatched frames: gates,
         velocity/trajectory commits, keyframe decisions.  A frame that
-        fails its gates is replayed through the legacy state machine.
-        The in-flight window BA result rides the same fetch."""
+        fails its gates, and every frame after a keyframe whose loop
+        closure, merge or IMU stage rewrote the map poses, is replayed
+        through the legacy state machine.  The in-flight window BA and the
+        deferred triangulation and fuse results ride the same fetch.
+
+        ``keep`` leaves that many of the newest frames in flight, so the
+        fetch waits only for work dispatched ``keep`` frames ago while the
+        card computes the chain's tail."""
         if not self._pipe:
+            self.local_mapper.flush_tf(self.atlas.current)
             return
-        pending, self._pipe = self._pipe, []
+        keep = min(keep, len(self._pipe) - 1)
+        n_confirm = len(self._pipe) - keep
+        pending, self._pipe = self._pipe[:n_confirm], self._pipe[n_confirm:]
+        tf_handles = self.local_mapper.pending_tf_handles()
         # kp_mp + lm_searched ride along for every entry: the found/visible
         # counters must tick every frame (MapPointCulling's probation);
         # stereo/RGB-D steps add their device-counted close points
@@ -635,6 +680,8 @@ class Tracker:
         ba_handles = self.local_mapper.pending_ba_handles()
         if ba_handles:
             payload.append(ba_handles)
+        if tf_handles:
+            payload.append(tf_handles)
         # the cadence keyframe trigger is known from frame ids: prefetch
         # that frame's feature host copies on the same fetch
         spec_idx = None
@@ -647,9 +694,13 @@ class Tracker:
         fetched = pack_fetch(payload)
         extra = n_gate
         if ba_handles:
+            # the older result first: the window BA predates the deferred
+            # triangulation and fuse of the newest keyframe
             self.local_mapper.apply_ba_fetched(self.atlas.current, fetched[extra])
             extra += 1
-        spec_vals = fetched[extra] if spec_idx is not None else None
+        spec_vals = fetched[extra + bool(tf_handles)] if spec_idx is not None else None
+        if tf_handles:
+            self.local_mapper.apply_tf(self.atlas.current, fetched[extra])
         kf_created = False
         for i, (e, vals) in enumerate(zip(pending, fetched[:n_gate])):
             R, t, n_match, n1, n2, used_ref, n_pre, kp_mp_h, lm_searched = vals[:9]
@@ -662,7 +713,8 @@ class Tracker:
             ok = int(n2) >= min_final and (
                 (int(n_match) >= 20 and int(n1) >= 10) or (bool(used_ref) and int(n_pre) >= 10))
             if not ok:
-                self._replay(pending[i:])
+                rest, self._pipe = pending[i:] + self._pipe, []
+                self._replay(rest)
                 return
             frame.R = np.asarray(R).copy()
             frame.t = np.asarray(t).copy()
@@ -684,8 +736,9 @@ class Tracker:
             found = frame.kp_mp[frame.kp_mp >= 0]
             found = found[found < len(mp.mp_found)]
             mp.mp_found[found] += 1
-            # at most one keyframe per confirmation batch; stereo frames
-            # pass their device-counted close points
+            # at most one keyframe per confirmation batch (the later frames
+            # were tracked against the map before it); stereo frames pass
+            # their device-counted close points
             close_counts = ((int(vals[9]), int(vals[10])) if e.out.n_close_tracked is not None
                             else None)
             if not kf_created and self._need_new_keyframe(frame, tracked=int(n2),
@@ -694,8 +747,17 @@ class Tracker:
                 vals = spec_vals if i == spec_idx else pack_fetch(frame.host_handles())
                 frame.set_host(vals)
                 self._create_keyframe(frame)
+                stale = self.velocity is None or self._vi_stage_fired
+                self._vi_stage_fired = False
+                if stale and (i + 1 < len(pending) or self._pipe):
+                    # a loop closure, merge or IMU stage rewrote the map
+                    # poses: the frames after it were predicted in the old
+                    # frame of reference
+                    rest, self._pipe = pending[i + 1:] + self._pipe, []
+                    self._replay(rest)
+                    return
             self._record_traj(e.ts, frame.R, frame.t)
-            if i == len(pending) - 1:
+            if i == len(pending) - 1 and not self._pipe:
                 self.last_frame = frame
 
     def _replay(self, entries):
@@ -1099,6 +1161,7 @@ class Tracker:
         return out
 
     def _reset_map(self):
+        # in-flight frames belong to the abandoned map: dropped, not confirmed
         self._pipe = []
         self.local_mapper.discard_ba()
         self.atlas.create_new_map()
@@ -1397,7 +1460,12 @@ class Tracker:
             th_ref_ratio = 0.75
         c1a = frame.frame_id >= self.last_kf_frame_id + self.cfg.tracking.max_frames
         c1b = frame.frame_id >= self.last_kf_frame_id + self.cfg.tracking.min_frames
-        c2 = (tracked < ref_tracked * th_ref_ratio or need_close) and tracked > 15
+        # the weak-tracking trigger waits until the map the frame saw holds
+        # the last keyframe's deferred triangulation (frames dispatched
+        # before it could not match the new points)
+        c2_allowed = (not self.local_mapper.has_pending_tf()
+                      and frame.frame_id >= self._pts_fresh_fid)
+        c2 = c2_allowed and (tracked < ref_tracked * th_ref_ratio or need_close) and tracked > 15
         # inertial pre-init: keyframes at >= 4 Hz so the IMU initialisation
         # window fills (reference Tracking.cc:2647: IMU sensor, not
         # initialised, dt >= 0.25)
@@ -1495,7 +1563,11 @@ class Tracker:
             self._create_close_points(frame, kf, mp)
         self.ref_kf = kf.kid
         self.last_kf_frame_id = frame.frame_id
-        self.local_mapper.process_keyframe(mp, kf.kid)
+        # pipelined visual tracking defers the triangulation and fuse fetch
+        # to the next confirmation (the reference's LocalMapping queue
+        # latency); synchronous mode applies them in the event
+        defer = self.cfg.tracking.pipeline_depth > 0 and not self.inertial
+        self.local_mapper.process_keyframe(mp, kf.kid, defer_fetch=defer)
         # the staged IMU initialisation; a stage that fired moved the map
         self._vi_stage_fired = self._imu_init_stage(frame)
         lc = self.loop_closer.process_keyframe(mp, kf.kid, atlas=self.atlas)

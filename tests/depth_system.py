@@ -39,21 +39,24 @@ def patch_jax_draws(m):
                   jax_sim3_sets(seed, valid, n_hyp).astype(np.int64)))
 
 
-def jax_and_port_runs(sensor: str, black=()) -> dict:
+def jax_and_port_runs(sensor: str, black=(), depth: int = 0) -> dict:
     """Both Systems over the same frames (right images or the renderer's
     depth maps), from a cold map; the port on the CPU.  The images at the
-    indices in ``black`` (left and right) are black."""
+    indices in ``black`` (left and right) are black; ``depth`` is both
+    trackers' ``pipeline_depth``."""
     left, right, depths, poses = pf.render_stereo_sequence(pf.procedural_texture(), N_FRAMES,
                                                            SPEED, W, H)
     left, right = pf.blackout(left, black), pf.blackout(right, black)
     second = right if sensor == "stereo" else depths
     cfg = dataclasses.replace(chip_smoke.stereo_config(sensor, W, H, NF),
-                              tracking=TrackingConfig(max_frames=MAX_FRAMES))
+                              tracking=TrackingConfig(max_frames=MAX_FRAMES,
+                                                      pipeline_depth=depth))
     c = cfg.camera
     jcfg = JSLAMConfig(orb=JORBConfig(n_features=NF),
                        camera=JCameraConfig(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, width=W, height=H,
                                             bf=c.bf, th_depth=c.th_depth),
-                       tracking=JTrackingConfig(max_frames=MAX_FRAMES), sensor=sensor)
+                       tracking=JTrackingConfig(max_frames=MAX_FRAMES, pipeline_depth=depth),
+                       sensor=sensor)
     jsys = JSystem(jcfg)
     track = jsys.track_stereo if sensor == "stereo" else jsys.track_rgbd
     jstates, init_points = [], []

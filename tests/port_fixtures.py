@@ -70,6 +70,53 @@ def camera_matrix(width: int, height: int) -> np.ndarray:
     return np.array([[f, 0, width / 2.0], [0, f, height / 2.0], [0, 0, 1]], np.float64)
 
 
+# TUM fr1's pinhole intrinsics and radial-tangential distortion at 640x480
+# (ORB-SLAM3 Examples/Monocular/TUM1.yaml, as tests/test_camera.py:33-36):
+# fx, fy, cx, cy and k1, k2, p1, p2, k3
+FR1_INTRINSICS = (517.306408, 516.469215, 318.643040, 255.313989)
+FR1_DIST = (0.262383, -0.953104, -0.005358, 0.002628, 1.163314)
+
+
+def fr1_camera_matrix(width: int, height: int) -> np.ndarray:
+    """FR1's K scaled to width x height (the distortion acts on normalised
+    coordinates and keeps its coefficients)."""
+    s = width / 640.0
+    fx, fy, cx, cy = FR1_INTRINSICS
+    return np.array([[fx * s, 0, cx * s], [0, fy * s, cy * s], [0, 0, 1]], np.float64)
+
+
+def distort_normalized(x, y, dist):
+    """Radial-tangential distortion of normalised coordinates (float64)."""
+    k1, k2, p1, p2, k3 = dist
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    return (x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x),
+            y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y)
+
+
+def undistort_normalized(xd, yd, dist, tol: float = 1e-14, max_iter: int = 50):
+    """The normalised (x, y) that ``distort_normalized`` maps to (xd, yd),
+    by Newton's method on the 2x2 Jacobian, in float64 to convergence
+    (independent of the 8-step fixed-point iteration the trackers use)."""
+    k1, k2, p1, p2, k3 = dist
+    x, y = np.array(xd, np.float64), np.array(yd, np.float64)
+    for _ in range(max_iter):
+        fx_, fy_ = distort_normalized(x, y, dist)
+        ex, ey = fx_ - xd, fy_ - yd
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dr = k1 + r2 * (2 * k2 + 3 * k3 * r2)          # d radial / d r2
+        a = radial + 2 * x * x * dr + 2 * p1 * y + 6 * p2 * x
+        b = 2 * x * y * dr + 2 * p1 * x + 2 * p2 * y
+        d = radial + 2 * y * y * dr + 6 * p1 * y + 2 * p2 * x
+        det = a * d - b * b
+        sx, sy = (d * ex - b * ey) / det, (a * ey - b * ex) / det
+        x, y = x - sx, y - sy
+        if max(np.abs(sx).max(), np.abs(sy).max()) < tol:
+            break
+    return x, y
+
+
 def true_pose(k: int, speed: float = 0.06):
     """World->camera (R, t) of frame k (k may be negative): a camera
     translating in front of the scene while it yaws."""
@@ -93,17 +140,24 @@ def _sample_bilinear(tex: np.ndarray, s: np.ndarray, t: np.ndarray) -> np.ndarra
     return top * (1 - ft) + bot * ft
 
 
-def render_two_plane(tex: np.ndarray, pose, width: int = 640, height: int = 480):
+def render_two_plane(tex: np.ndarray, pose, width: int = 640, height: int = 480,
+                     K=None, dist=None):
     """Render the far wall (z = 5) and the near poster (z = 3, mirrored
-    texture) by inverse warping.  Returns (uint8 image, float32 depth)."""
+    texture) by inverse warping.  Returns (uint8 image, float32 depth).
+    ``K`` defaults to ``camera_matrix``; with ``dist`` (k1, k2, p1, p2, k3)
+    each pixel shows the ray of its undistorted coordinates
+    (``undistort_normalized``), so the image is the distorted camera's."""
     R, t = pose
-    K = camera_matrix(width, height)
+    K = camera_matrix(width, height) if K is None else np.asarray(K, np.float64)
     n = tex.shape[0]
     s_far, s_near = 5.0 / n, 1.6 / n
     A_far = np.array([[s_far, 0, -2.5], [0, s_far, -2.5], [0, 0, 5.0]])
     A_near = np.array([[s_near, 0, -1.1], [0, s_near, -0.8], [0, 0, 3.0]])
     e3 = np.array([[0.0, 0.0, 1.0]])
     vv, uu = np.mgrid[0:height, 0:width].astype(np.float64)
+    if dist is not None:
+        x, y = undistort_normalized((uu - K[0, 2]) / K[0, 0], (vv - K[1, 2]) / K[1, 1], dist)
+        uu, vv = K[0, 0] * x + K[0, 2], K[1, 1] * y + K[1, 2]
     pix = np.stack([uu.ravel(), vv.ravel(), np.ones(uu.size)])
 
     def plane(A):
@@ -124,9 +178,11 @@ def render_two_plane(tex: np.ndarray, pose, width: int = 640, height: int = 480)
 
 
 def render_sequence(tex: np.ndarray, n_frames: int, speed: float = 0.06,
-                    width: int = 640, height: int = 480):
-    """Frames 0..n_frames-1: (images, depths, poses)."""
-    out = [render_two_plane(tex, true_pose(k, speed), width, height) for k in range(n_frames)]
+                    width: int = 640, height: int = 480, K=None, dist=None):
+    """Frames 0..n_frames-1: (images, depths, poses); ``K`` and ``dist`` as
+    ``render_two_plane``'s."""
+    out = [render_two_plane(tex, true_pose(k, speed), width, height, K, dist)
+           for k in range(n_frames)]
     poses = [true_pose(k, speed) for k in range(n_frames)]
     return [o[0] for o in out], [o[1] for o in out], poses
 

@@ -8,7 +8,7 @@ sets are drawn with the JAX package's generator from the same integer
 hypotheses.  Both must initialise on the same frame pair, keep every
 later frame OK, insert the same number of keyframes, and the port's ATE
 after Sim3 alignment must stay within 1.05 x the JAX run's + 1 mm
-(ROADMAP A.7).
+(PERF.md section 2's parity bound).
 """
 
 import dataclasses
@@ -27,7 +27,7 @@ from extractorb_tpu.config import SLAMConfig as JSLAMConfig
 from extractorb_tpu.config import TrackingConfig as JTrackingConfig
 from extractorb_tpu.core import lie as jlie
 from extractorb_tpu.slam.system import System as JSystem
-from extractorb_tpu_torch.config import CameraConfig, IMUConfig, ORBConfig, TrackingConfig
+from extractorb_tpu_torch.config import CameraConfig, IMUConfig, ORBConfig
 from extractorb_tpu_torch.core import lie
 from extractorb_tpu_torch.geometry import two_view
 from extractorb_tpu_torch.slam.system import System
@@ -119,8 +119,7 @@ def test_rot_to_quat_matches_jax():
     (dict(imu=IMUConfig()), "pass sensor='imu-monocular' or 'imu-stereo'"),
     (dict(camera=CameraConfig(model="KannalaBrandt8")), "A.12"),
     (dict(orb=ORBConfig(octree="host")), "Not to be ported"),
-    (dict(tracking=TrackingConfig(pipeline_depth=2)), "A.7"),
-], ids=["stereo", "imu", "kb8", "host-octree", "pipelined"])
+], ids=["stereo", "imu", "kb8", "host-octree"])
 def test_unported_configurations_raise(change, item):
     cfg = dataclasses.replace(chip_smoke.system_config(W, H, NF), **change)
     with pytest.raises(NotImplementedError, match=item):
