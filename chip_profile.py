@@ -6,8 +6,10 @@ Runs ``System.track_monocular``, ``track_stereo`` and ``track_rgbd``
 from a cold map over the 30 rendered 640x480 frames of ``chip_smoke.py``
 ([system], [stereo], [rgbd]), ``track_monocular(img, ts, imu=...)`` over
 [vi]'s 40 frames of the visual-inertial scene and ``track_stereo(l, r, ts,
-imu=...)`` over [vi-stereo]'s 40 frames of it seen by the rig, each twice:
-first all five unprofiled
+imu=...)`` over [vi-stereo]'s 40 frames of it seen by the rig, and
+``track_monocular`` through the KB8 fisheye over [kb8]'s 30 512x512
+frames (1500 features), each twice:
+first all six unprofiled
 (host clock per frame, each frame ending in a synchronise), then each
 under ``torch.profiler``, with every frame inside a ``record_function``
 range.  (A trace's hundreds of thousands of events slow the host's
@@ -242,7 +244,9 @@ def main() -> int:
         cs.STEREO_BASELINE)
     vi_frames, _ = cs.vi_frames()
     vi_left, vi_right = cs.vi_stereo_frames()
+    kb8_frames, _ = cs.kb8_frames()
     runs = {"system": (cs.system_config(), frames, None),
+            "kb8": (cs.kb8_config(), kb8_frames, None),
             "stereo": (cs.stereo_config("stereo"), frames, rights),
             "rgbd": (cs.stereo_config("rgbd"), frames, depths),
             "vi": (cs.vi_config(), vi_frames, None),

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K24) from
+Builds the hand-written CUDA kernels (K1-K25) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
 version at the shapes of the main paths, counts the device kernels and
 host time of one extraction through the kernels and through the plain
@@ -42,7 +42,15 @@ sequence and times both, [pipelined] runs ``track_monocular`` at depth 3
 over [system]'s scene seen through TUM fr1's distorted pinhole (the graph
 against the eager step over the whole run, depth 0 beside it),
 [pipelined-stereo] / [pipelined-rgbd] run [stereo] / [rgbd] at depth 3
-and [pipelined-vi] runs [vi] at depth 3.  Any
+and [pipelined-vi] runs [vi] at depth 3.  Then [det] counts the distinct
+results of 20 calls of K13 and of K14 on one input (one each: fixed-order
+sums), and the KB8 fisheye camera: [parity-kb8] holds K4 and K6 through
+the KB8 camera template and K25 (MLPnP's RANSAC and refinement) to their
+plain versions, [kb8] runs ``System.track_monocular`` over [system]'s scene
+and motion seen through TUM-VI's 512x512 KB8 camera with 1500 features
+(init, every later frame OK, ATE), [kb8-reference] repeats its first frames
+on the CPU plain path, and [reloc-kb8] blacks out frames 14-15 and
+relocalizes through K25.  Any
 failure raises:
 the script then exits non-zero and never prints its last line.  It needs
 a CUDA card and nothing outside the repository (the scenes are generated
@@ -168,6 +176,9 @@ KERNELS.update({
                         "extractorb_tpu/solver/pose_graph.py:68"),
     # the distorted camera's step (the [pipelined] path) adds this
     "undistort": ("extractorb_tpu_torch/csrc/undistort.cu", "extractorb_tpu/core/camera.py:151"),
+    # the KB8 camera's relocalization (the [reloc-kb8] path) adds these
+    "mlpnp_ransac": ("extractorb_tpu_torch/csrc/mlpnp.cu", "extractorb_tpu/solver/pnp.py:275"),
+    "mlpnp_refine": ("extractorb_tpu_torch/csrc/mlpnp.cu", "extractorb_tpu/solver/pnp.py:306"),
 })
 # the [system] run: the rendered sequence of tests/test_slam_e2e.py's
 # planar test at 640x480 / 1000 features, 30 frames at speed 0.04
@@ -211,6 +222,13 @@ PIPE_DEPTH = 3
 PIPE_MAX_ATE = 0.15
 PIPE_STEREO_BOUNDS = {"stereo": (0.15, 0.07), "rgbd": (0.1, 0.06)}
 PIPE_VI_MIN_FUSED = 8   # tests/test_vi_e2e.py:219
+# the [kb8] runs: [system]'s scene and motion seen through TUM-VI's 512x512
+# KB8 fisheye (pf.kb8_camera), 1500 features (the JAX package's TUM-VI run,
+# tests/test_real_sequences.py:141; ORB-SLAM3 Examples/Monocular/TUM_512.yaml)
+KB8_SIZE = 512
+KB8_FEATURES = 1500
+# the [det] phase: calls of K13 and K14 on one input
+DET_CALLS = 20
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense rates): memory
 # bytes/s, and float32 operations/s outside the tensor cores, against which
 # the bounds also count the kernels' integer ALU work
@@ -855,20 +873,24 @@ def init_pairs(frames, dev, k1: int = 0, k2: int = 2):
 
 
 def ba_problem(rng, dev, n_kf: int = 6, n_pts: int = 1000, Kp: int = 32, Pp: int = 2048,
-               Op: int = 8192) -> ba.BAProblem:
+               Op: int = 8192, kb8=None) -> ba.BAProblem:
     """A BA problem padded like run_ba's init problem (Kp 32, Pp 2048, Op
     8192): n_kf keyframes (the first two fixed, so no gauge freedom is
     left), points 4-9 m away, pixel noise within +-0.5 px and 5% gross
-    outliers (+40 px), so no residual lies near the chi2 threshold."""
+    outliers (+40 px), so no residual lies near the chi2 threshold.  With
+    ``kb8`` (fx, fy, cx, cy, k1..k4) the points spread to about 55 degrees
+    off the axis and project through the KB8 model."""
     K = pf.camera_matrix(WIDTH, HEIGHT)
-    pts = np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-1.5, 1.5, n_pts),
+    w = 3.0 if kb8 is not None else 1.0
+    pts = np.stack([rng.uniform(-2 * w, 2 * w, n_pts), rng.uniform(-1.5 * w, 1.5 * w, n_pts),
                     rng.uniform(4, 9, n_pts)], -1)
     Rs = np.stack([pf.so3_exp_np(rng.normal(0, 0.03, 3)) for _ in range(n_kf)])
     ts = np.stack([np.array([0.25 * k, 0, 0]) + rng.normal(0, 0.02, 3) for k in range(n_kf)])
     obs_kf, obs_mp, obs_uv = [], [], []
     for k in range(n_kf):
         pc = pts @ Rs[k].T + ts[k]
-        uv = pc[:, :2] / pc[:, 2:] * K[0, 0] + K[:2, 2]
+        uv = (pf.kb8_project_np(pc, kb8) if kb8 is not None
+              else pc[:, :2] / pc[:, 2:] * K[0, 0] + K[:2, 2])
         obs_kf.append(np.full(n_pts, k))
         obs_mp.append(np.arange(n_pts))
         obs_uv.append(uv + rng.uniform(-0.5, 0.5, uv.shape))
@@ -2725,6 +2747,281 @@ def phase_pipelined_vi(frames, dev):
     return launches
 
 
+# ------------------------------------------------ determinism (C.7), KB8
+
+
+def _distinct(results) -> int:
+    """The number of distinct results among calls (bytes of every output)."""
+    return len({b"".join(t.detach().cpu().contiguous().numpy().tobytes() for t in r)
+                for r in results})
+
+
+def phase_det(dev) -> dict:
+    """[det]: K13 on [parity]'s essential graph and K14 on the [loop] map's
+    GBA problem, ``DET_CALLS`` calls each on one input: both sum in a fixed
+    order, so each gives one result."""
+    prob = pose_graph_problem(np.random.default_rng(8), dev)
+    pg = [pose_graph.optimize_pose_graph(prob, n_iters=15) for _ in range(DET_CALLS)]
+    mp, _, _, _ = looped_map(dev)
+    gprob = global_ba.build_global_problem(mp, [1.0] * 8, 1, None, dev)[0]
+    cam = Pinhole.from_config(camera_config(WIDTH, HEIGHT))
+    sb = [tuple(sharded_ba.optimize_schur(gprob, cam)) for _ in range(DET_CALLS)]
+    torch.cuda.synchronize()
+    out = {}
+    for name, res in (("pose_graph", pg), ("ba_schur", sb)):
+        n = _distinct(res)
+        print(f"[det] {name}: {n} distinct result(s) over {DET_CALLS} calls on one input",
+              flush=True)
+        if n != 1:
+            raise AssertionError(f"[det] {name}: {n} distinct results over {DET_CALLS} calls")
+        out[name] = n
+    return out
+
+
+def kb8_config(width: int = KB8_SIZE, height: int = KB8_SIZE,
+               n_features: int = KB8_FEATURES) -> SLAMConfig:
+    """[system]'s configuration through TUM-VI's KB8 fisheye (scaled to the
+    image), monocular, no vocabulary."""
+    fx, fy, cx, cy, k1, k2, k3, k4 = pf.kb8_camera(width, height)
+    cam = CameraConfig(model="KannalaBrandt8", fx=fx, fy=fy, cx=cx, cy=cy, k1=k1, k2=k2, k3=k3,
+                       k4=k4, width=width, height=height)
+    return dataclasses.replace(system_config(width, height, n_features), camera=cam)
+
+
+def kb8_frames(n: int = SYS_FRAMES, size: int = KB8_SIZE):
+    frames, _, poses = pf.render_sequence(pf.procedural_texture(), n, SYS_SPEED, size, size,
+                                          camera="kb8")
+    return frames, poses
+
+
+def _fisheye_pnp_scene(rng, N: int, matched: float = 0.8, out_frac: float = 0.3):
+    """MLPnP at the relocalization shape: N keypoint slots, ``matched`` of
+    them matched to map points 2-8 m away over more than a hemisphere
+    (bearings up to ~100 degrees off the axis, as the 512x512 KB8 camera
+    sees), ``out_frac`` of those with a random bearing."""
+    dirs = rng.normal(size=(N, 3))
+    dirs[:, 2] = np.abs(dirs[:, 2]) * 0.8 - 0.15
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    R = pf.so3_exp_np([0.2, -0.3, 0.1]).astype(np.float32)
+    t = np.array([0.4, -0.2, 0.6], np.float32)
+    pc = (dirs * rng.uniform(2, 8, N)[:, None]).astype(np.float32)
+    p3d = ((pc - t) @ R).astype(np.float32)
+    bear = pc / np.linalg.norm(pc, axis=1, keepdims=True)
+    out = rng.random(N) < out_frac
+    noise = rng.normal(size=(N, 3))
+    bear[out] = noise[out] / np.linalg.norm(noise[out], axis=1, keepdims=True)
+    return p3d, bear.astype(np.float32), rng.random(N) < matched
+
+
+def phase_parity_kb8(dev) -> dict:
+    """[parity-kb8]: K4<KB8> and K6<KB8> against their plain versions at
+    [kb8]'s shapes (two pose problems of the 1500-feature extractor's 1628
+    slots; run_ba's init-shaped problem), poses within 1e-4 and the same
+    inliers; K25's RANSAC with the same winner as its plain version (the
+    first maximum), the same mask and pose within 1e-5, and its refinement
+    within 1e-5.  The sets whose counts differ are printed: a set with a
+    repeated index leaves a two-dimensional null space, which Jacobi and
+    LAPACK resolve differently."""
+    rng = np.random.default_rng(11)
+    kb8 = pf.kb8_camera(KB8_SIZE, KB8_SIZE)
+    cam = track_device.kb8_project(*kb8)
+    N = KB8_FEATURES + 8 * 16
+    t = lambda a, dt: torch.as_tensor(np.asarray(a), device=dev).to(dt)
+    stats = {}
+
+    # K4<KB8>: two mono problems, 20% gross outliers, points to ~60 degrees
+    R0, t0, pts, obs, isig, val, _ = pf.synthetic_pose_problems(rng, 2, N, *kb8[:4], kb8=kb8)
+    args = [t(a, torch.float32) for a in (R0, t0, pts, obs, isig)] + [t(val, torch.bool)]
+    rk = pose_opt.optimize_pose(*args, cam)
+    rp = pose_opt.optimize_pose_plain(*args, cam)
+    d = max(float((rk.R - rp.R).abs().max()), float((rk.t - rp.t).abs().max()))
+    if d > 1e-4 or not torch.equal(rk.inliers, rp.inliers):
+        raise AssertionError(f"pose_lm<KB8>: pose error {d:.2e}, inliers equal "
+                             f"{torch.equal(rk.inliers, rp.inliers)}")
+    # work: the pinhole count plus ~150 operations a valid observation and
+    # LM iteration for the KB8 projection in Dual<3> (atan2, sqrt, the
+    # polynomial and its three tangents)
+    nbytes, ops = pose_lm_work(2, N, int(val.sum()), stereo_rows=False)
+    stats["pose_lm_kb8"] = record(d, cuda_ms(lambda: pose_opt.optimize_pose(*args, cam)),
+                                  cuda_ms(lambda: pose_opt.optimize_pose_plain(*args, cam)),
+                                  nbytes + 16, ops + 40 * 150 * int(val.sum()))
+    print(f"[parity-kb8] pose_lm<KB8> B=2 N={N}: max |dR|,|dt| {d:.2e}, inliers equal",
+          flush=True)
+
+    # K6<KB8>: run_ba's init-shaped problem, 12 LM x 40 PCG
+    prob = ba_problem(np.random.default_rng(1), dev, kb8=kb8)
+    bk = ba.optimize(prob, cam, n_iters=12, cg_iters=40)
+    bp = ba.optimize_plain(prob, cam, n_iters=12, cg_iters=40)
+    d = max(float((bk.R - bp.R).abs().max()), float((bk.t - bp.t).abs().max()))
+    dp = float((bk.points - bp.points).abs().max())
+    if d > 1e-4 or not torch.equal(bk.inliers, bp.inliers):
+        raise AssertionError(f"ba_pcg<KB8>: poses {d:.2e}, points {dp:.2e}, inliers equal "
+                             f"{torch.equal(bk.inliers, bp.inliers)}")
+    Ob, Pb, Kb = prob.obs_kf.shape[0], prob.points.shape[0], prob.R.shape[0]
+    stats["ba_pcg_kb8"] = record(
+        d, cuda_ms(lambda: ba.optimize(prob, cam, 12, 40), reps=5),
+        cuda_ms(lambda: ba.optimize_plain(prob, cam, 12, 40), reps=2),
+        Ob * (4 + 4 + 8 + 4 + 1) + Pb * (12 + 1) + Kb * (48 + 1) + Kb * 48 + Pb * 12 + Ob + 4
+        + 16, 12 * int(prob.obs_valid.sum()) * (150 + 2 * 150 + 40 * 80))
+    print(f"[parity-kb8] ba_pcg<KB8> K={Kb} P={Pb} O={Ob}: poses within {d:.2e} (points "
+          f"{dp:.2e}), inliers equal ({int(bk.inliers.sum())})", flush=True)
+
+    # K25: RANSAC on 256 sets, then the refinement on its inliers
+    p3d, bear, valid = _fisheye_pnp_scene(rng, N)
+    a = [t(p3d, torch.float32), t(bear, torch.float32), t(valid, torch.bool)]
+    sets = pnp.sample_pnp_sets(3, torch.from_numpy(valid)).to(dev)
+    H = sets.shape[0]
+    ck, cp = (torch.empty(H, dtype=torch.int32, device=dev) for _ in range(2))
+    run_k = lambda: pnp.mlpnp_ransac(*a, sets, min_inliers=12, counts_out=ck)
+    run_p = lambda: pnp.mlpnp_ransac_plain(*a, sets, min_inliers=12, counts_out=cp)
+    rk, rp = run_k(), run_p()
+    d = max(float((rk.R - rp.R).abs().max()), float((rk.t - rp.t).abs().max()))
+    winner, winner_p = int(torch.argmax(ck)), int(torch.argmax(cp))   # first maximum
+    same = (winner == winner_p and int(rk.n_inliers) == int(rp.n_inliers)
+            and torch.equal(rk.inliers, rp.inliers) and bool(rk.ok) == bool(rp.ok))
+    differ = (ck != cp).cpu().numpy()
+    repeated = np.array([len(set(r)) < 6 for r in sets.cpu().numpy().tolist()])
+    if not same or not d <= 1e-5 or not bool(rk.ok):
+        raise AssertionError(f"mlpnp_ransac: winner {winner}/{winner_p}, n_inliers "
+                             f"{int(rk.n_inliers)}/{int(rp.n_inliers)}, masks equal "
+                             f"{torch.equal(rk.inliers, rp.inliers)}, |dR|,|dt| {d:.2e}, counts "
+                             f"differ on {int(differ.sum())} sets, {int((differ & ~repeated).sum())}"
+                             " of them without a repeated index")
+    nv = int(valid.sum())
+    # work: per hypothesis ~25k float64 operations (the 12x12 normal matrix
+    # of 12 rows 1.7k, its Jacobi eigenproblem ~9 n^3 = 15.6k, the tangent
+    # bases, the sign, the 3x3 SVD ~5k); ~20 float32 operations per
+    # (hypothesis, valid slot) of scoring and the winner's mask.  In: points,
+    # bearings, mask, sets; out: R, t, mask, count, ok
+    stats["mlpnp_ransac"] = record(d, cuda_ms(run_k), cuda_ms(run_p, reps=5),
+                                   N * (12 + 12 + 1) + H * 6 * 4 + 48 + N + 5,
+                                   20 * (H + 1) * nv, ops64=25000 * H)
+    info = torch.full((N,), float(1.0 * kb8[0] ** 2), device=dev)
+    use = a[2] & rk.inliers
+    Rk, tk = pnp.mlpnp_refine(rk.R, rk.t, a[0], a[1], info, use)
+    Rq, tq = pnp.mlpnp_refine_plain(rk.R, rk.t, a[0], a[1], info, use)
+    dr = max(float((Rk - Rq).abs().max()), float((tk - tq).abs().max()))
+    if not dr <= 1e-5:
+        raise AssertionError(f"mlpnp_refine: |dR|,|dt| {dr:.2e}")
+    n_use = int(use.sum())
+    # work: 8 Gauss-Newton steps of ~400 float64 operations per used slot
+    # (tangent basis, residual, Jacobian, the 27 sums) and the 6x6 solve
+    stats["mlpnp_refine"] = record(
+        dr, cuda_ms(lambda: pnp.mlpnp_refine(rk.R, rk.t, a[0], a[1], info, use)),
+        cuda_ms(lambda: pnp.mlpnp_refine_plain(rk.R, rk.t, a[0], a[1], info, use), reps=5),
+        48 + N * (12 + 12 + 4 + 1) + 48, 0, ops64=8 * (400 * n_use + 500))
+    print(f"[parity-kb8] mlpnp_ransac N={N} H={H}: the same winner {winner} "
+          f"({int(rk.n_inliers)} of {nv} matched), inlier mask equal, max |dR|,|dt| {d:.2e}; "
+          f"counts differ on {int((differ & repeated).sum())} of the {int(repeated.sum())} sets "
+          f"with a repeated index and on {int((differ & ~repeated).sum())} of the others; "
+          f"mlpnp_refine on {n_use} inliers within {dr:.2e}", flush=True)
+    return stats
+
+
+def phase_kb8(frames, poses, dev):
+    """[kb8]: ``System.track_monocular`` through the KB8 camera at 512x512
+    and 1500 features over [system]'s 30 frames from a cold map (counts set
+    to 0 before it and read after): init by frame 2, every later frame OK,
+    >= 4 keyframes, > 500 map points, ATE after Sim3 alignment under 0.05 x
+    the scene scale; every pose solve and BA through the KB8 instantiations
+    of K4 and K6, no undistortion, no PnP."""
+    host_ms, kf_frames, event_ms = [], [], []
+
+    def on_frame(k, st, dt, kf, _):
+        host_ms.append(dt * 1e3)
+        if kf:
+            kf_frames.append(k)
+
+    kernels.LAUNCHES.clear()
+    kernels.GRAPH_LAUNCHES.clear()
+    with _TwoViewRecorder() as rec:
+        sys_, states = run_system(frames, dev, on_frame, kb8_config(), event_ms=event_ms)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    replays = kernels.GRAPH_LAUNCHES["track_step"]
+    first_ok, ate, scale = check_system(sys_, states, poses)
+    tr = sys_.tracker
+    want = {"pose_lm_kb8": launches.get("pose_lm", 0), "ba_pcg_kb8": launches.get("ba_pcg", 0),
+            "ba_pcg": tr.stats["ba"], "two_view": tr.stats["two_view"]}
+    bad = {n: (launches.get(n, 0), w) for n, w in want.items() if launches.get(n, 0) != w or not w}
+    missing = [n for n in VISUAL_KERNELS if n not in ("stereo_match", "pnp_ransac")
+               and launches.get(n, 0) == 0]
+    stray = {n: launches[n] for n in ("undistort", "pnp_ransac", "mlpnp_ransac", "stereo_match")
+             if launches.get(n, 0)}
+    if bad or missing or stray or not replays:
+        raise AssertionError(f"[kb8] launches {launches}: (got, want) {bad}, never launched "
+                             f"{missing}, stray {stray}, graph replays {replays}")
+    for k, (st, ms) in enumerate(zip(states, host_ms)):
+        print(f"[kb8] frame {k:2d}: {ms:8.2f} ms host {event_ms[k]:8.2f} ms events  "
+              f"{st.name:15s}{'  keyframe event' if k in kf_frames else ''}", flush=True)
+    steady = [k for k in range(first_ok + 2, len(states)) if k not in kf_frames]
+    kfs = [k for k in kf_frames if k > first_ok]
+    med = lambda v, ks: statistics.median([v[k] for k in ks]) if ks else float("nan")
+    print(f"[kb8] init at frame {first_ok}, {sys_.n_keyframes()} keyframes, "
+          f"{sys_.n_map_points()} map points, ATE {ate:.4f} m (scene scale {scale:.3f} m); "
+          f"ordinary frames median {med(host_ms, steady):.2f} ms host / "
+          f"{med(event_ms, steady):.2f} ms events, keyframe events {med(host_ms, kfs):.2f} / "
+          f"{med(event_ms, kfs):.2f} ms; {replays} graph replays", flush=True)
+    print(f"[kb8] launches {launches}", flush=True)
+    return launches, rec.results, sys_, states
+
+
+def phase_kb8_reference(frames, card_inits, card_sys, card_states):
+    """[kb8-reference]: the init and three tracked frames of [kb8] through
+    the port's CPU plain path with the same draws: the same states and
+    keyframes, R21/t21 within 1e-3 and the triangulated masks agreeing on
+    >= 99%, poses within 1e-3."""
+    first_ok = int(round(card_sys.tracker.trajectory[1][0] * 30.0))
+    n = first_ok + 4
+    with _TwoViewRecorder() as rec:
+        cpu_sys, cpu_states = run_system(frames[:n], torch.device("cpu"), cfg=kb8_config())
+    g, c = card_inits[-1], rec.results[-1]
+    d = max(float(np.abs(g["R21"] - c["R21"]).max()), float(np.abs(g["t21"] - c["t21"]).max()))
+    agree = float((g["is_triangulated"] == c["is_triangulated"]).mean())
+    kf_ids = lambda s: sorted(kf.frame_id for kf in s.tracker.atlas.current.keyframes.values()
+                              if kf.frame_id < n)
+    if (d > 1e-3 or agree < 0.99 or list(cpu_states) != list(card_states[:n])
+            or kf_ids(cpu_sys) != kf_ids(card_sys)):
+        raise AssertionError(f"[kb8-reference] init |dR21|,|dt21| {d:.2e}, masks agree "
+                             f"{agree:.4f}, states {cpu_states} / {card_states[:n]}, keyframes "
+                             f"{kf_ids(cpu_sys)} / {kf_ids(card_sys)}")
+    dp = 0.0
+    for (ts, Rg, tg), (_, Rc, tc) in zip(card_sys.tracker.trajectory, cpu_sys.tracker.trajectory):
+        dp = max(dp, float(np.abs(Rg - Rc).max()), float(np.abs(tg - tc).max()))
+    if dp > 1e-3:
+        raise AssertionError(f"[kb8-reference] card vs CPU poses {dp:.2e}")
+    print(f"[kb8-reference] frames 0-{n - 1}: the same states and keyframes as the CPU plain "
+          f"path, init |dR21|,|dt21| {d:.2e}, triangulated masks agree {agree:.4f}, poses "
+          f"within {dp:.2e}", flush=True)
+
+
+def phase_reloc_kb8(frames, poses, dev):
+    """[reloc-kb8]: [kb8] with frames 14-15 black: LOST, relocalized through
+    MLPnP (K25's RANSAC and refinement, one each per PnP call of the
+    tracker; K10 never) on the first real frame or the next, then OK to the
+    end, ATE within the [kb8] limit."""
+    sys_, states, launches = run_recovery("[reloc-kb8]", pf.blackout(frames, RELOC_BLACK), dev,
+                                          cfg=kb8_config())
+    first_real = RELOC_BLACK[-1] + 1
+    back = next((k for k in range(first_real, len(states)) if states[k] == TrackState.OK), None)
+    n_pnp = sys_.tracker.stats["pnp"]
+    if (states[RELOC_BLACK[0]] not in (TrackState.LOST, TrackState.RECENTLY_LOST)
+            or back is None or back > first_real + 1
+            or any(s != TrackState.OK for s in states[back:])):
+        raise AssertionError(f"[reloc-kb8] states {[s.name for s in states]}")
+    if (launches.get("mlpnp_ransac", 0) != n_pnp or launches.get("mlpnp_refine", 0) != n_pnp
+            or n_pnp == 0 or launches.get("pnp_ransac", 0) or not sys_.tracker.stats["reloc_ok"]):
+        raise AssertionError(f"[reloc-kb8] launches {launches}, the tracker counted {n_pnp} PnP "
+                             "calls")
+    ate, scale = pf.trajectory_ate(sys_.tracker.trajectory, poses)
+    if not np.isfinite(ate) or ate > 0.05 * max(scale, 1.0):
+        raise AssertionError(f"[reloc-kb8] ATE {ate:.4f} m over a scene scale of {scale:.3f} m")
+    print(f"[reloc-kb8] OK again at frame {back} through MLPnP ({n_pnp} PnP calls), "
+          f"{sys_.n_keyframes()} keyframes, ATE {ate:.4f} m (scene scale {scale:.3f} m)",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -2778,6 +3075,12 @@ def main() -> int:
     paths["pipelined_rgbd"] = phase_pipelined_depth("rgbd", sys_frames, sys_depths, sys_poses,
                                                     dev)
     paths["pipelined_vi"] = phase_pipelined_vi(frames_vi, dev)
+    det = phase_det(dev)
+    stats.update(phase_parity_kb8(dev))
+    kb8_seq, kb8_poses = kb8_frames()
+    paths["kb8"], kb8_inits, kb8_sys, kb8_states = phase_kb8(kb8_seq, kb8_poses, dev)
+    phase_kb8_reference(kb8_seq, kb8_inits, kb8_sys, kb8_states)
+    paths["reloc_kb8"] = phase_reloc_kb8(kb8_seq, kb8_poses, dev)
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():
@@ -2790,6 +3093,13 @@ def main() -> int:
             row.update(stereo_launches=sum(count("pose_lm_stereo").values()),
                        stereo_ms=st["ms"], stereo_plain_ms=st["plain_ms"],
                        stereo_bound_ms=st["bound_ms"], stereo_max_abs_err=st["max_abs_err"])
+        if n in ("pose_lm", "ba_pcg"):   # the KB8 instantiation beside the pinhole one
+            st = stats[f"{n}_kb8"]
+            row.update(kb8_launches=sum(count(f"{n}_kb8").values()), kb8_ms=st["ms"],
+                       kb8_plain_ms=st["plain_ms"], kb8_bound_ms=st["bound_ms"],
+                       kb8_bound_by=st["bound_by"], kb8_max_abs_err=st["max_abs_err"])
+        if n in det:
+            row.update(distinct_results=det[n], distinct_results_calls=DET_CALLS)
         if n == "pose_inertial":   # the row is the legacy variant; the joint one beside it
             st = stats["pose_inertial_joint"]
             row.update(joint_launches=sum(count("pose_inertial_joint").values()),

@@ -1,13 +1,20 @@
-"""Pinhole camera (port of ``extractorb_tpu/core/camera.py``, pinhole subset).
+"""Camera models: Pinhole and Kannala-Brandt 8-parameter fisheye (port of
+``extractorb_tpu/core/camera.py``; the fisheye rig's ``triangulate_matches``
+is ROADMAP A.12.4).
 
-The JAX package passes a projection closure to its matchers and solver;
+The JAX package passes a projection closure to its matchers and solvers;
 here the camera is a small frozen dataclass of Python floats, because the
-CUDA kernels need the intrinsics as numbers.
+CUDA kernels need the intrinsics as numbers.  ``project`` is the closure's
+arithmetic; ``project_jac`` is its Jacobian d(u, v)/d(x, y, z), which the
+JAX solvers take by ``jax.jacfwd`` through the closure and the plain
+solvers here take in closed form.  K4 and K6 take the camera as a template
+parameter (``csrc/camera_t.cuh``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import numpy as np
 import torch
@@ -47,11 +54,138 @@ class Pinhole:
             -1,
         )
 
+    def project_jac(self, pc: torch.Tensor) -> torch.Tensor:
+        """d(u, v)/d(x, y, z) (...,2,3) at camera-frame points (...,3)."""
+        x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
+        iz = 1.0 / z
+        zero = torch.zeros_like(z)
+        return torch.stack([torch.stack([self.fx * iz, zero, -self.fx * x * iz * iz], -1),
+                            torch.stack([zero, self.fy * iz, -self.fy * y * iz * iz], -1)], -2)
+
     def unproject(self, uv: torch.Tensor) -> torch.Tensor:
         """Pixels (...,2) -> unit-depth rays (...,3)."""
         x = (uv[..., 0] - self.cx) / self.fx
         y = (uv[..., 1] - self.cy) / self.fy
         return torch.stack([x, y, torch.ones_like(x)], -1)
+
+    def kernel_params(self) -> None:
+        """The extra camera parameters K4 and K6 take: none (pinhole)."""
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class KannalaBrandt8:
+    """KB8 fisheye: r(theta) = theta + k1 theta^3 + k2 theta^5 + k3 theta^7 +
+    k4 theta^9 (reference KannalaBrandt8.cpp:28-56 project, :103-160
+    unproject).  Keypoints stay raw (the reference keeps mvKeysUn ==
+    mvKeys for a fisheye camera); every residual projects through the
+    full model."""
+
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    k1: float
+    k2: float
+    k3: float
+    k4: float
+
+    NEWTON_ITERS = 10
+
+    @staticmethod
+    def from_config(c: CameraConfig) -> "KannalaBrandt8":
+        return KannalaBrandt8(*(float(v) for v in (c.fx, c.fy, c.cx, c.cy, c.k1, c.k2, c.k3,
+                                                   c.k4)))
+
+    @property
+    def k(self):
+        return (self.k1, self.k2, self.k3, self.k4)
+
+    def K(self, device=None) -> torch.Tensor:
+        return Pinhole(self.fx, self.fy, self.cx, self.cy).K(device)
+
+    def _theta_to_r(self, theta: torch.Tensor) -> torch.Tensor:
+        t2 = theta * theta
+        k1, k2, k3, k4 = self.k
+        return theta * (1.0 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))))
+
+    def project(self, p3d: torch.Tensor) -> torch.Tensor:
+        """Camera-frame points (...,3) -> pixels (...,2) in the JAX
+        function's operation order: theta = atan2(r, z), the polynomial,
+        and scale d / r with the ``r < 1e-8`` guard (scale 0 on the axis).
+        Points with z <= 0 project too (theta > pi/2): the callers' depth
+        gates keep them out."""
+        x, y, z = p3d[..., 0], p3d[..., 1], p3d[..., 2]
+        r = torch.sqrt(x * x + y * y)
+        theta = torch.atan2(r, z)
+        d = self._theta_to_r(theta)
+        small = r < 1e-8
+        scale = torch.where(small, 0.0, d / torch.where(small, 1.0, r))
+        return torch.stack([self.fx * scale * x + self.cx, self.fy * scale * y + self.cy], -1)
+
+    def project_jac(self, pc: torch.Tensor) -> torch.Tensor:
+        """d(u, v)/d(x, y, z) (...,2,3), in closed form and float64, rounded
+        to pc's type.  On the axis (r < 1e-8) it is 0, as ``jax.jacfwd``
+        gives it through the JAX function's ``jnp.where`` guard."""
+        q = pc.double()
+        x, y, z = q[..., 0], q[..., 1], q[..., 2]
+        r2 = x * x + y * y
+        r = torch.sqrt(r2)
+        small = r < 1e-8
+        rs = torch.where(small, 1.0, r)
+        theta = torch.atan2(r, z)
+        t2 = theta * theta
+        k1, k2, k3, k4 = self.k
+        d = self._theta_to_r(theta)
+        dd = 1.0 + t2 * (3.0 * k1 + t2 * (5.0 * k2 + t2 * (7.0 * k3 + t2 * 9.0 * k4)))
+        den = r2 + z * z
+        s = d / rs
+        ds_dr = dd * (z / den) / rs - d / (rs * rs)
+        ds_dz = -dd * (r / den) / rs
+        ds_dx, ds_dy = ds_dr * x / rs, ds_dr * y / rs
+        J = torch.stack([
+            torch.stack([self.fx * (s + x * ds_dx), self.fx * x * ds_dy, self.fx * x * ds_dz], -1),
+            torch.stack([self.fy * y * ds_dx, self.fy * (s + y * ds_dy), self.fy * y * ds_dz], -1),
+        ], -2)
+        return torch.where(small[..., None, None], 0.0, J).to(pc.dtype)
+
+    def unproject(self, uv: torch.Tensor) -> torch.Tensor:
+        """Pixels (...,2) -> unit bearings (...,3): 10 Newton steps on theta
+        from r_d (clamped to pi, as the reference), then (sin(theta) x / r,
+        sin(theta) y / r, cos(theta)), which holds rays past 90 degrees."""
+        f = np.float32
+        k1, k2, k3, k4 = (f(v) for v in self.k)
+        c3, c5, c7, c9 = (float(f(n) * k) for n, k in ((3, k1), (5, k2), (7, k3), (9, k4)))
+        k1, k2, k3, k4 = float(k1), float(k2), float(k3), float(k4)
+        wx = (uv[..., 0] - self.cx) / self.fx
+        wy = (uv[..., 1] - self.cy) / self.fy
+        r_d = torch.clamp(torch.sqrt(wx * wx + wy * wy), max=float(f(np.pi)))
+        theta = r_d
+        for _ in range(self.NEWTON_ITERS):
+            t2 = theta * theta
+            t4, t6, t8 = t2 * t2, t2 * t2 * t2, t2 * t2 * t2 * t2
+            fv = theta * (1.0 + k1 * t2 + k2 * t4 + k3 * t6 + k4 * t8) - r_d
+            fp = 1.0 + c3 * t2 + c5 * t4 + c7 * t6 + c9 * t8
+            theta = theta - fv / torch.where(torch.abs(fp) < 1e-8, 1.0, fp)
+        small = r_d < 1e-8
+        s = torch.where(small, 1.0, torch.sin(theta) / torch.where(small, 1.0, r_d))
+        return torch.stack([wx * s, wy * s, torch.cos(theta)], -1)
+
+    def kernel_params(self) -> np.ndarray:
+        """The extra camera parameters K4 and K6 take: k1..k4 in float32."""
+        return np.array(self.k, np.float32)
+
+
+# a camera the projecting searches and the solvers K4 / K6 take
+Camera = Union[Pinhole, KannalaBrandt8]
+
+
+def camera_from_config(c: CameraConfig) -> Camera:
+    """The camera of a configuration: ``KannalaBrandt8`` for
+    ``model="KannalaBrandt8"``, else ``Pinhole``."""
+    if c.model == "KannalaBrandt8":
+        return KannalaBrandt8.from_config(c)
+    return Pinhole.from_config(c)
 
 
 def _undistort_constants(cam: Pinhole, dist):

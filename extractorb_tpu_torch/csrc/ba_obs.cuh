@@ -1,15 +1,16 @@
 // Device code shared by K6 (ba_pcg.cu, the window BA) and K14 (ba_schur.cu,
 // the global BA): the mono reprojection observation -- the residual
-// r = obs - pi(R p + t) and its analytic Jacobians for the right
-// perturbation R Exp(delta), delta = (rho, phi): with A = J_pi R,
-// J_pose = [-A | A hat(p)] and J_point = -A (the JAX package's
-// solver/ba.py:_obs_residual_jac takes them with jacfwd) -- its chi2 and
-// Huber weight, the damped block inverses, the pose retraction, the LM
-// accept rule and the final re-orthonormalization.  Each file includes it
-// inside its own anonymous namespace.
+// r = obs - pi(R p + t) and its Jacobians for the right perturbation
+// R Exp(delta), delta = (rho, phi): with A = J_pi R (the camera's a_rows,
+// camera_t.cuh), J_pose = [-A | A hat(p)] and J_point = -A (the JAX
+// package's solver/ba.py:_obs_residual_jac takes them with jacfwd) -- its
+// chi2 and Huber weight, the damped block inverses, the pose retraction,
+// the LM accept rule and the final re-orthonormalization.  The observation
+// functions take the camera as a template parameter (Cam: pinhole; CamKB8).
+// Each file includes it inside its own anonymous namespace, after dual.cuh.
 #pragma once
 
-struct Cam { float fx, fy, cx, cy; };
+#include "camera_t.cuh"
 
 struct Prob {
   const int* obs_kf;
@@ -48,23 +49,22 @@ __device__ __forceinline__ float rho(float c2, bool huber, float delta) {
 
 // residual (r0, r1) and Jacobian rows J[row] = [pose 6 | point 3] of
 // observation o, with the pose (Rk, tk)
+template <class C>
 __device__ void obs_residual_jac(const float* Rk, const float* tk, const float* pts, const Prob& q,
-                                 const Cam& cam, int o, float& r0, float& r1, float (&J)[2][9]) {
+                                 const C& cam, int o, float& r0, float& r1, float (&J)[2][9]) {
   float pw[3], pc[3];
   obs_point(Rk, tk, pts, q, o, pw, pc);
-  const float x = pc[0], y = pc[1], zc = pc[2];
-  r0 = q.obs_uv[2 * o] - (cam.fx * x / zc + cam.cx);
-  r1 = q.obs_uv[2 * o + 1] - (cam.fy * y / zc + cam.cy);
-  const float iz = 1.f / zc;
-  const float j00 = cam.fx * iz, j02 = -cam.fx * x * iz * iz;
-  const float j11 = cam.fy * iz, j12 = -cam.fy * y * iz * iz;
+  float u, v;
+  cam.project(pc[0], pc[1], pc[2], u, v);
+  r0 = q.obs_uv[2 * o] - u;
+  r1 = q.obs_uv[2 * o + 1] - v;
+  float a0[3], a1[3];
+  cam.a_rows(pc[0], pc[1], pc[2], Rk, a0, a1);
   for (int c = 0; c < 3; ++c) {
-    const float a0 = j00 * Rk[c] + j02 * Rk[6 + c];
-    const float a1 = j11 * Rk[3 + c] + j12 * Rk[6 + c];
-    J[0][c] = -a0;
-    J[1][c] = -a1;
-    J[0][6 + c] = -a0;
-    J[1][6 + c] = -a1;
+    J[0][c] = -a0[c];
+    J[1][c] = -a1[c];
+    J[0][6 + c] = -a0[c];
+    J[1][6 + c] = -a1[c];
   }
   for (int rr = 0; rr < 2; ++rr) {  // A x p with a = -J[rr][0..2]
     const float a0 = -J[rr][0], a1 = -J[rr][1], a2 = -J[rr][2];
@@ -75,12 +75,15 @@ __device__ void obs_residual_jac(const float* Rk, const float* tk, const float* 
 }
 
 // chi2 of observation o with the pose (Rk, tk)
+template <class C>
 __device__ __forceinline__ float obs_chi2(const float* Rk, const float* tk, const float* pts,
-                                          const Prob& q, const Cam& cam, int o) {
+                                          const Prob& q, const C& cam, int o) {
   float pw[3], pc[3];
   obs_point(Rk, tk, pts, q, o, pw, pc);
-  const float r0 = q.obs_uv[2 * o] - (cam.fx * pc[0] / pc[2] + cam.cx);
-  const float r1 = q.obs_uv[2 * o + 1] - (cam.fy * pc[1] / pc[2] + cam.cy);
+  float u, v;
+  cam.project(pc[0], pc[1], pc[2], u, v);
+  const float r0 = q.obs_uv[2 * o] - u;
+  const float r1 = q.obs_uv[2 * o + 1] - v;
   return (r0 * r0 + r1 * r1) * q.isig[o];
 }
 
@@ -90,8 +93,9 @@ __device__ __forceinline__ float huber_delta() { return sqrtf(5.991f); }
 // one valid observation's linearization: residual, Jacobian rows (stored
 // as (O,18): pose 2x6 then point 2x3) and IRLS weight (stored as (O,)),
 // and its robust cost
+template <class C>
 __device__ void obs_linearize(const float* Rk, const float* tk, const float* pts, const Prob& q,
-                              const Cam& cam, bool huber, int o, float* Jstore, float* wstore,
+                              const C& cam, bool huber, int o, float* Jstore, float* wstore,
                               float& r0, float& r1, float (&J)[2][9], float& wt, float& cost) {
   obs_residual_jac(Rk, tk, pts, q, cam, o, r0, r1, J);
   const float is = q.isig[o];

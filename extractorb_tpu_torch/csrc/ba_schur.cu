@@ -5,30 +5,36 @@
 // shard (the program the JAX package runs on a single device,
 // dist/global_ba.py:212-219): a lax.scan of LM steps, each eliminating the
 // landmarks with batched 3x3 inverses and running lax.scan PCG sweeps on
-// (Hpp + lam - W (Hll + lam)^-1 W^T) dp = bp - W (Hll + lam)^-1 bl.  Here
-// each LM iteration is:
+// (Hpp + lam - W (Hll + lam)^-1 W^T) dp = bp - W (Hll + lam)^-1 bl.  Once
+// per solve the observations are listed per keyframe and per point, in
+// index order (det_reduce.cuh, K6's lists).  Then each LM iteration is:
 //   build:   one thread per observation: residual and Jacobians (ba_obs.cuh,
-//            K6's code), the Huber weight at delta_mono, the gradients bp,
-//            bl and the 6x6 / 3x3 diagonal blocks with atomics, the cost;
+//            K6's code) and the Huber weight at delta_mono, stored, and the
+//            cost;
+//   reduce:  one CTA per keyframe sums bp and the 6x6 block over its list,
+//            one thread per point bl and the 3x3 block over its;
 //   invert:  one thread per pose (6x6 Gauss-Jordan of Hpp + lam) or point
 //            (3x3 adjugate of Hll + lam; y = Ml bl);
-//   reduce:  W y over the observations, then per pose the reduced
+//   W y:     one CTA per keyframe over its list, then per pose the reduced
 //            right-hand side b_red = bp - W y and the start of PCG;
-//   cg_iters x five launches: W^T p over the observations into the points
-//            (p = z + beta p built on the fly), y = Ml (W^T p) per point,
-//            W y over the observations into the poses, per pose
-//            Ap = Hpp p + lam p - W y with p.Ap, then the alpha step with the
-//            preconditioner and r.z;
+//   cg_iters x five launches: W^T p per point over its list (p = z + beta p
+//            built on the fly), y = Ml (W^T p) per point, W y per keyframe,
+//            per pose Ap = Hpp p + lam p - W y with p.Ap, then the alpha step
+//            with the preconditioner and r.z;
 //   back-substitution dl = -Ml (bl - W^T x), the retraction, the candidate
 //            cost and the accept with lambda x0.5 or x4.
 // Scalars (alpha, beta, costs, lambda) stay on the card in float64; the
 // rotations are re-orthonormalized at the end and observations classified
 // by chi2 <= chi2_mono; the returned cost is the final sum of chi2.
 //
+// Every sum runs in a fixed order (no float atomics), so a solve gives one
+// result per input, as the JAX program does: the blocks over the
+// index-ordered lists, the scalars as per-CTA partials summed in block order
+// by the last CTA (det_reduce.cuh).
+//
 // Bound on the H100: launch latency.  A map of ~24 keyframes and ~10k
 // observations is microseconds of arithmetic per pass; the ~5 dependent
-// launches per PCG step and ~10 per LM iteration set the time.  Float
-// atomics make the summation order (and the last bits) vary from run to run.
+// launches per PCG step and ~10 per LM iteration set the time.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,9 +42,11 @@
 
 namespace {
 
-#include "ba_obs.cuh"
-
 constexpr int kThreads = 256;
+
+#include "dual.cuh"
+#include "ba_obs.cuh"
+#include "det_reduce.cuh"
 
 struct Ws {
   float* Rn;    // (K,9) candidates
@@ -46,22 +54,25 @@ struct Ws {
   float* pn;    // (P,3)
   float* J;     // (O,18) pose 2x6 then point 2x3
   float* w;     // (O,)
-  // zeroed at every LM iteration, contiguous: bp, bl, Hpp, Hll, hp, tl
+  float* r;     // (O,2) residuals
   float* bp;    // (K,6)
   float* bl;    // (P,3)
   float* Hpp;   // (K,21)
   float* Hll;   // (P,6)
-  float* hp;    // (K,6) W y accumulator
-  float* tl;    // (P,3) W^T v accumulator
+  float* hp;    // (K,6) W y, then Ap
+  float* tl;    // (P,3) W^T v
   float* Mp;    // (K,36)
   float* Ml;    // (P,9)
   float* y;     // (P,3)
   float* x;     // (K,6) CG vectors
-  float* r;
+  float* res;
   float* z;
   float* p;
   double* lam;
   double* sc;   // [cost_old, cost_new, rz[0..cg], pAp[0..cg-1]]
+  double* part; // per-CTA partials of the scalar being reduced
+  unsigned* ticket;
+  Lists L;
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
@@ -79,32 +90,36 @@ __host__ __device__ inline size_t carve(Ws* w, uint8_t* base, int K, int P, int 
   q = take(sizeof(float) * 3 * P); if (w) w->pn = (float*)q;
   q = take(sizeof(float) * 18 * (size_t)O); if (w) w->J = (float*)q;
   q = take(sizeof(float) * (size_t)O); if (w) w->w = (float*)q;
-  const size_t zero_floats = (size_t)6 * K + 3 * (size_t)P + 21 * (size_t)K + 6 * (size_t)P +
-                             6 * (size_t)K + 3 * (size_t)P;
-  q = take(sizeof(float) * zero_floats);
-  if (w) {
-    w->bp = (float*)q;
-    w->bl = w->bp + (size_t)6 * K;
-    w->Hpp = w->bl + (size_t)3 * P;
-    w->Hll = w->Hpp + (size_t)21 * K;
-    w->hp = w->Hll + (size_t)6 * P;
-    w->tl = w->hp + (size_t)6 * K;
-  }
+  q = take(sizeof(float) * 2 * (size_t)O); if (w) w->r = (float*)q;
+  q = take(sizeof(float) * 6 * K);  if (w) w->bp = (float*)q;
+  q = take(sizeof(float) * 3 * P);  if (w) w->bl = (float*)q;
+  q = take(sizeof(float) * 21 * K); if (w) w->Hpp = (float*)q;
+  q = take(sizeof(float) * 6 * P);  if (w) w->Hll = (float*)q;
+  q = take(sizeof(float) * 6 * K);  if (w) w->hp = (float*)q;
+  q = take(sizeof(float) * 3 * P);  if (w) w->tl = (float*)q;
   q = take(sizeof(float) * 36 * K); if (w) w->Mp = (float*)q;
   q = take(sizeof(float) * 9 * P);  if (w) w->Ml = (float*)q;
   q = take(sizeof(float) * 3 * P);  if (w) w->y = (float*)q;
   q = take(sizeof(float) * 6 * K);  if (w) w->x = (float*)q;
-  q = take(sizeof(float) * 6 * K);  if (w) w->r = (float*)q;
+  q = take(sizeof(float) * 6 * K);  if (w) w->res = (float*)q;
   q = take(sizeof(float) * 6 * K);  if (w) w->z = (float*)q;
   q = take(sizeof(float) * 6 * K);  if (w) w->p = (float*)q;
   q = take(sizeof(double));         if (w) w->lam = (double*)q;
   q = take(sizeof(double) * (3 + 2 * (size_t)cg)); if (w) w->sc = (double*)q;
+  q = take(sizeof(double) * ((size_t)n_blocks(O > K ? O : K) + 1)); if (w) w->part = (double*)q;
+  q = take(sizeof(unsigned));       if (w) w->ticket = (unsigned*)q;
+  // cnt_kf, cnt_mp, cur_mp contiguous (zeroed together)
+  q = take(sizeof(int) * ((size_t)K + 2 * (size_t)P));
+  if (w) {
+    w->L.cnt_kf = (int*)q;
+    w->L.cnt_mp = w->L.cnt_kf + K;
+    w->L.cur_mp = w->L.cnt_mp + P;
+  }
+  q = take(sizeof(int) * ((size_t)K + 1)); if (w) w->L.off_kf = (int*)q;
+  q = take(sizeof(int) * ((size_t)P + 1)); if (w) w->L.off_mp = (int*)q;
+  q = take(sizeof(int) * (size_t)O); if (w) w->L.list_kf = (int*)q;
+  q = take(sizeof(int) * (size_t)O); if (w) w->L.list_mp = (int*)q;
   return o;
-}
-
-inline size_t zero_bytes(int K, int P) {
-  return sizeof(float) * ((size_t)6 * K + 3 * (size_t)P + 21 * (size_t)K + 6 * (size_t)P +
-                          6 * (size_t)K + 3 * (size_t)P);
 }
 
 __device__ __forceinline__ double* cost_old(const Ws& w) { return w.sc; }
@@ -112,38 +127,66 @@ __device__ __forceinline__ double* cost_new(const Ws& w) { return w.sc + 1; }
 __device__ __forceinline__ double* rz(const Ws& w, int it) { return w.sc + 2 + it; }
 __device__ __forceinline__ double* pAp(const Ws& w, int it, int cg) { return w.sc + 3 + cg + it; }
 
-__device__ __forceinline__ void add_block_sum(double v, double* dst) {
-  v = warp_sum_d(v);
-  if ((threadIdx.x & 31) == 0 && v != 0.0) atomicAdd(dst, v);
-}
-
 __global__ void __launch_bounds__(kThreads)
 build_kernel(const float* __restrict__ R, const float* __restrict__ t, const float* __restrict__ pts,
              const Prob q, const Cam cam, bool huber, Ws w) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   float cost = 0.f;
   if (o < q.O) {
-    if (!q.valid[o]) {
-      w.w[o] = 0.f;
-    } else {
-      const int kf = q.obs_kf[o], m = q.obs_mp[o];
+    if (q.valid[o]) {
+      const int kf = q.obs_kf[o];
       float r0, r1, J[2][9], wt;
       obs_linearize(R + 9 * kf, t + 3 * kf, pts, q, cam, huber, o, w.J, w.w, r0, r1, J, wt, cost);
-      int k = 0;
-      for (int a = 0; a < 6; ++a) {
-        atomicAdd(w.bp + 6 * kf + a, wt * (J[0][a] * r0 + J[1][a] * r1));
-        for (int b = a; b < 6; ++b)
-          atomicAdd(w.Hpp + 21 * kf + k++, wt * (J[0][a] * J[0][b] + J[1][a] * J[1][b]));
-      }
-      k = 0;
-      for (int a = 0; a < 3; ++a) {
-        atomicAdd(w.bl + (size_t)3 * m + a, wt * (J[0][6 + a] * r0 + J[1][6 + a] * r1));
-        for (int b = a; b < 3; ++b)
-          atomicAdd(w.Hll + (size_t)6 * m + k++, wt * (J[0][6 + a] * J[0][6 + b] + J[1][6 + a] * J[1][6 + b]));
-      }
+      w.r[2 * o] = r0;
+      w.r[2 * o + 1] = r1;
+    } else {
+      w.w[o] = 0.f;
     }
   }
-  add_block_sum((double)cost, cost_old(w));
+  reduce_store((double)cost, w.part, w.ticket, cost_old(w));
+}
+
+// bp and the pose blocks: blocks [0, K) are one CTA per keyframe over its
+// list; the rest one thread per point over its list (bl, the point block)
+__global__ void __launch_bounds__(kThreads)
+reduce_kernel(const Prob q, Ws w) {
+  __shared__ float red[27 * kThreads / 32];
+  if (blockIdx.x < q.K) {
+    const int k = blockIdx.x;
+    float v[27];  // bp 6, then the upper 6x6 triangle
+    for (int i = 0; i < 27; ++i) v[i] = 0.f;
+    for (int j = w.L.off_kf[k] + threadIdx.x; j < w.L.off_kf[k + 1]; j += kThreads) {
+      const int o = w.L.list_kf[j];
+      const float* J = w.J + (size_t)18 * o;
+      const float wt = w.w[o], r0 = w.r[2 * o], r1 = w.r[2 * o + 1];
+      int n = 6;
+      for (int a = 0; a < 6; ++a) {
+        v[a] += wt * (J[a] * r0 + J[6 + a] * r1);
+        for (int b2 = a; b2 < 6; ++b2) v[n++] += wt * (J[a] * J[b2] + J[6 + a] * J[6 + b2]);
+      }
+    }
+    block_sum_fixed<27>(v, red);
+    if (threadIdx.x == 0) {
+      for (int a = 0; a < 6; ++a) w.bp[6 * k + a] = v[a];
+      for (int i = 0; i < 21; ++i) w.Hpp[21 * k + i] = v[6 + i];
+    }
+    return;
+  }
+  const int m = (blockIdx.x - q.K) * kThreads + threadIdx.x;
+  if (m >= q.P) return;
+  float g[3] = {0.f, 0.f, 0.f}, H[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int j = w.L.off_mp[m]; j < w.L.off_mp[m + 1]; ++j) {
+    const int o = w.L.list_mp[j];
+    const float* J = w.J + (size_t)18 * o + 12;
+    const float wt = w.w[o], r0 = w.r[2 * o], r1 = w.r[2 * o + 1];
+    int n = 0;
+    for (int a = 0; a < 3; ++a) {
+      g[a] += wt * (J[a] * r0 + J[3 + a] * r1);
+      for (int b2 = a; b2 < 3; ++b2) H[n++] += wt * (J[a] * J[b2] + J[3 + a] * J[3 + b2]);
+    }
+  }
+  for (int a = 0; a < 3; ++a) w.bl[3 * m + a] = g[a];
+  for (int i = 0; i < 6; ++i) w.Hll[6 * m + i] = H[i];
 }
 
 // poses: Mp = (Hpp + lam)^-1; points: Ml = (Hll + lam)^-1, y = Ml (bl masked)
@@ -164,21 +207,27 @@ invert_kernel(const Prob q, Ws w) {
   }
 }
 
-// hp[kf] += Jp^T (w Jl y[mp]) over the observations (W y)
+// hp[kf] = sum over its list of Jp^T (w Jl y[mp]) (W y): one CTA per keyframe
 __global__ void __launch_bounds__(kThreads)
 w_y_kernel(const Prob q, Ws w) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= q.O || !q.valid[o]) return;
-  const int kf = q.obs_kf[o], m = q.obs_mp[o];
-  const float* J = w.J + (size_t)18 * o;
-  const float* y = w.y + 3 * m;
-  float u[2];
-  for (int rr = 0; rr < 2; ++rr)
-    u[rr] = (J[12 + 3 * rr] * y[0] + J[13 + 3 * rr] * y[1] + J[14 + 3 * rr] * y[2]) * w.w[o];
-  for (int i = 0; i < 6; ++i) atomicAdd(w.hp + 6 * kf + i, J[i] * u[0] + J[6 + i] * u[1]);
+  __shared__ float red[6 * kThreads / 32];
+  const int k = blockIdx.x;
+  float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int j = w.L.off_kf[k] + threadIdx.x; j < w.L.off_kf[k + 1]; j += kThreads) {
+    const int o = w.L.list_kf[j];
+    const float* J = w.J + (size_t)18 * o;
+    const float* y = w.y + 3 * q.obs_mp[o];
+    float u[2];
+    for (int rr = 0; rr < 2; ++rr)
+      u[rr] = (J[12 + 3 * rr] * y[0] + J[13 + 3 * rr] * y[1] + J[14 + 3 * rr] * y[2]) * w.w[o];
+    for (int i = 0; i < 6; ++i) v[i] += J[i] * u[0] + J[6 + i] * u[1];
+  }
+  block_sum_fixed<6>(v, red);
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 6; ++i) w.hp[6 * k + i] = v[i];
 }
 
-// per pose: b_red = (bp - W y) masked; x = 0, r = b_red, z = Mp r, r.z; clear hp
+// per pose: b_red = (bp - W y) masked; x = 0, r = b_red, z = Mp r, r.z
 __global__ void __launch_bounds__(kThreads)
 reduce_rhs_kernel(const Prob q, Ws w) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
@@ -188,10 +237,9 @@ reduce_rhs_kernel(const Prob q, Ws w) {
     float rb[6];
     for (int a = 0; a < 6; ++a) {
       rb[a] = fr ? w.bp[6 * k + a] - w.hp[6 * k + a] : 0.f;
-      w.r[6 * k + a] = rb[a];
+      w.res[6 * k + a] = rb[a];
       w.x[6 * k + a] = 0.f;
       w.p[6 * k + a] = 0.f;
-      w.hp[6 * k + a] = 0.f;
     }
     const float* M = w.Mp + 36 * k;
     for (int a = 0; a < 6; ++a) {
@@ -202,49 +250,51 @@ reduce_rhs_kernel(const Prob q, Ws w) {
       part += (double)(rb[a] * s);
     }
   }
-  add_block_sum(part, rz(w, 0));
+  reduce_store(part, w.part, w.ticket, rz(w, 0));
 }
 
 __device__ __forceinline__ float beta_of(const Ws& w, int it) {
   return it == 0 ? 0.f : (float)(*rz(w, it) / fmax(*rz(w, it - 1), 1e-20));
 }
 
-// tl[mp] += Jl^T (w Jp v[kf]) over the observations (W^T v), with v the
-// direction p = z + beta p built on the fly (it >= 0) or x (it < 0)
+// tl[mp] = sum over its list of Jl^T (w Jp v[kf]) (W^T v), one thread per
+// point, with v the direction p = z + beta p built on the fly (it >= 0) or x
+// (it < 0); fixed keyframes and points contribute nothing
 __global__ void __launch_bounds__(kThreads)
 wt_v_kernel(const Prob q, Ws w, int it) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= q.O || !q.valid[o]) return;
-  const int kf = q.obs_kf[o], m = q.obs_mp[o];
-  if (q.fixed_kf[kf] || q.fixed_mp[m]) return;
-  float v[6];
-  if (it >= 0) {
-    const float beta = beta_of(w, it);
-    for (int i = 0; i < 6; ++i) v[i] = w.z[6 * kf + i] + beta * w.p[6 * kf + i];
-  } else {
-    for (int i = 0; i < 6; ++i) v[i] = w.x[6 * kf + i];
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= q.P) return;
+  float acc[3] = {0.f, 0.f, 0.f};
+  if (!q.fixed_mp[m]) {
+    const float beta = it >= 0 ? beta_of(w, it) : 0.f;
+    for (int j = w.L.off_mp[m]; j < w.L.off_mp[m + 1]; ++j) {
+      const int o = w.L.list_mp[j];
+      const int kf = q.obs_kf[o];
+      if (q.fixed_kf[kf]) continue;
+      float v[6];
+      for (int i = 0; i < 6; ++i)
+        v[i] = it >= 0 ? w.z[6 * kf + i] + beta * w.p[6 * kf + i] : w.x[6 * kf + i];
+      const float* J = w.J + (size_t)18 * o;
+      float u[2];
+      for (int rr = 0; rr < 2; ++rr) {
+        float s = 0.f;
+        for (int i = 0; i < 6; ++i) s += J[6 * rr + i] * v[i];
+        u[rr] = s * w.w[o];
+      }
+      for (int i = 0; i < 3; ++i) acc[i] += J[12 + i] * u[0] + J[15 + i] * u[1];
+    }
   }
-  const float* J = w.J + (size_t)18 * o;
-  float u[2];
-  for (int rr = 0; rr < 2; ++rr) {
-    float s = 0.f;
-    for (int i = 0; i < 6; ++i) s += J[6 * rr + i] * v[i];
-    u[rr] = s * w.w[o];
-  }
-  for (int i = 0; i < 3; ++i) atomicAdd(w.tl + 3 * m + i, J[12 + i] * u[0] + J[15 + i] * u[1]);
+  for (int i = 0; i < 3; ++i) w.tl[3 * m + i] = acc[i];
 }
 
-// per point: y = Ml (tl masked); clear tl
+// per point: y = Ml (tl masked)
 __global__ void __launch_bounds__(kThreads)
 point_solve_kernel(const Prob q, Ws w) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= q.P) return;
   const bool fr = !q.fixed_mp[m];
   float b[3];
-  for (int a = 0; a < 3; ++a) {
-    b[a] = fr ? w.tl[3 * m + a] : 0.f;
-    w.tl[3 * m + a] = 0.f;
-  }
+  for (int a = 0; a < 3; ++a) b[a] = fr ? w.tl[3 * m + a] : 0.f;
   const float* Mi = w.Ml + 9 * m;
   for (int a = 0; a < 3; ++a) w.y[3 * m + a] = Mi[3 * a] * b[0] + Mi[3 * a + 1] * b[1] + Mi[3 * a + 2] * b[2];
 }
@@ -274,10 +324,10 @@ cg_a_kernel(const Prob q, Ws w, int it, int cg) {
       part += (double)(pv[a] * ap);
     }
   }
-  add_block_sum(part, pAp(w, it, cg));
+  reduce_store(part, w.part, w.ticket, pAp(w, it, cg));
 }
 
-// per pose: x += alpha p, r -= alpha Ap, z = Mp r, r.z; clear hp
+// per pose: x += alpha p, r -= alpha Ap, z = Mp r, r.z
 __global__ void __launch_bounds__(kThreads)
 cg_b_kernel(const Prob q, Ws w, int it, int cg) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
@@ -288,9 +338,8 @@ cg_b_kernel(const Prob q, Ws w, int it, int cg) {
     float rb[6];
     for (int a = 0; a < 6; ++a) {
       w.x[6 * k + a] += alpha * w.p[6 * k + a];
-      rb[a] = w.r[6 * k + a] - alpha * w.hp[6 * k + a];
-      w.r[6 * k + a] = rb[a];
-      w.hp[6 * k + a] = 0.f;
+      rb[a] = w.res[6 * k + a] - alpha * w.hp[6 * k + a];
+      w.res[6 * k + a] = rb[a];
     }
     const float* M = w.Mp + 36 * k;
     for (int a = 0; a < 6; ++a) {
@@ -301,7 +350,7 @@ cg_b_kernel(const Prob q, Ws w, int it, int cg) {
       part += (double)(rb[a] * s);
     }
   }
-  add_block_sum(part, rz(w, it + 1));
+  reduce_store(part, w.part, w.ticket, rz(w, it + 1));
 }
 
 // candidates: poses R Exp(-x), points p + dl with dl = -Ml (bl - W^T x)
@@ -318,10 +367,7 @@ retract_kernel(const float* __restrict__ R, const float* __restrict__ t,
     const int m = e - q.K;
     const bool fr = !q.fixed_mp[m];
     float b[3];
-    for (int a = 0; a < 3; ++a) {
-      b[a] = fr ? w.bl[3 * m + a] - w.tl[3 * m + a] : 0.f;
-      w.tl[3 * m + a] = 0.f;
-    }
+    for (int a = 0; a < 3; ++a) b[a] = fr ? w.bl[3 * m + a] - w.tl[3 * m + a] : 0.f;
     const float* Mi = w.Ml + 9 * m;
     for (int a = 0; a < 3; ++a) {
       const float dl = fr ? -(Mi[3 * a] * b[0] + Mi[3 * a + 1] * b[1] + Mi[3 * a + 2] * b[2]) : 0.f;
@@ -338,7 +384,7 @@ cost_kernel(const Prob q, const Cam cam, bool huber, Ws w) {
     const int kf = q.obs_kf[o];
     cost = rho(obs_chi2(w.Rn + 9 * kf, w.tn + 3 * kf, w.pn, q, cam, o), huber, huber_delta());
   }
-  add_block_sum((double)cost, cost_new(w));
+  reduce_store((double)cost, w.part, w.ticket, cost_new(w));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -364,14 +410,17 @@ classify_kernel(const float* __restrict__ R, const float* __restrict__ t,
       inl[o] = c <= chi2_th;
     }
   }
-  add_block_sum((double)c, cost_new(w));
+  reduce_store((double)c, w.part, w.ticket, cost_new(w));
 }
 
-__global__ void init_kernel(Ws w) { *w.lam = 1e-4; }
+__global__ void init_kernel(Ws w) {
+  *w.lam = 1e-4;
+  *w.ticket = 0u;
+}
 
 __global__ void final_cost_kernel(Ws w, float* cost_out) { *cost_out = (float)*cost_new(w); }
 
-inline int blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+inline int blocks(long long n) { return n_blocks(n); }
 
 }  // namespace
 
@@ -397,31 +446,31 @@ extern "C" int ba_schur_launch(void* R, void* t, void* pts, const void* obs_kf, 
   float* Rf = (float*)R;
   float* tf = (float*)t;
   float* pf = (float*)pts;
-  const size_t sc_bytes = sizeof(double) * (3 + 2 * (size_t)cg_iters);
   cudaError_t e;
   init_kernel<<<1, 1, 0, st>>>(w);
+  if ((e = build_lists(q.obs_kf, q.obs_mp, q.valid, K, P, O, w.L, st)) != cudaSuccess)
+    return (int)e;
+  const int nbP = blocks(P);
   for (int it = 0; it < n_iters; ++it) {
-    if ((e = cudaMemsetAsync(w.bp, 0, zero_bytes(K, P), st)) != cudaSuccess) return (int)e;
-    if ((e = cudaMemsetAsync(w.sc, 0, sc_bytes, st)) != cudaSuccess) return (int)e;
     build_kernel<<<blocks(O), kThreads, 0, st>>>(Rf, tf, pf, q, cam, huber, w);
+    reduce_kernel<<<K + nbP, kThreads, 0, st>>>(q, w);
     invert_kernel<<<blocks(K + P), kThreads, 0, st>>>(q, w);
-    w_y_kernel<<<blocks(O), kThreads, 0, st>>>(q, w);
+    w_y_kernel<<<K, kThreads, 0, st>>>(q, w);
     reduce_rhs_kernel<<<blocks(K), kThreads, 0, st>>>(q, w);
     for (int c = 0; c < cg_iters; ++c) {
-      wt_v_kernel<<<blocks(O), kThreads, 0, st>>>(q, w, c);
-      point_solve_kernel<<<blocks(P), kThreads, 0, st>>>(q, w);
-      w_y_kernel<<<blocks(O), kThreads, 0, st>>>(q, w);
+      wt_v_kernel<<<nbP, kThreads, 0, st>>>(q, w, c);
+      point_solve_kernel<<<nbP, kThreads, 0, st>>>(q, w);
+      w_y_kernel<<<K, kThreads, 0, st>>>(q, w);
       cg_a_kernel<<<blocks(K), kThreads, 0, st>>>(q, w, c, cg_iters);
       cg_b_kernel<<<blocks(K), kThreads, 0, st>>>(q, w, c, cg_iters);
     }
-    wt_v_kernel<<<blocks(O), kThreads, 0, st>>>(q, w, -1);
+    wt_v_kernel<<<nbP, kThreads, 0, st>>>(q, w, -1);
     retract_kernel<<<blocks(K + P), kThreads, 0, st>>>(Rf, tf, pf, q, w);
     cost_kernel<<<blocks(O), kThreads, 0, st>>>(q, cam, huber, w);
     accept_kernel<<<blocks(K + P), kThreads, 0, st>>>(Rf, tf, pf, q, w);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   orthonormalize_kernel<<<blocks(K), kThreads, 0, st>>>(Rf, K);
-  if ((e = cudaMemsetAsync(w.sc, 0, sc_bytes, st)) != cudaSuccess) return (int)e;
   classify_kernel<<<blocks(O), kThreads, 0, st>>>(Rf, tf, pf, q, cam, chi2_th, (bool*)inliers, w);
   final_cost_kernel<<<1, 1, 0, st>>>(w, (float*)cost_out);
   return (int)cudaGetLastError();

@@ -4,19 +4,22 @@
 // Replaces extractorb_tpu/solver/pose_graph.py:optimize_pose_graph, which
 // the TPU runs as a lax.scan of LM steps over a vmapped jacfwd of the edge
 // residual r = log(m_ij Exp(di) S_i (Exp(dj) S_j)^-1) and a lax.scan of PCG
-// sweeps with segment sums.  Here each LM iteration is:
+// sweeps with segment sums.  Once per solve each vertex gets the list of its
+// edge ends (2 e + side) in index order.  Then each LM iteration is:
 //   build:   one thread per edge evaluates the residual and both 7x7
 //            Jacobians at d = 0 in forward-mode dual numbers (Dual<7, double>,
 //            lie_t.cuh: the same sim3_exp / sim3_log branches as the JAX
 //            package, so the theta -> 0 guards of sim3_log are the JAX
-//            function's), stores them, adds the gradient and the 7x7
-//            diagonal blocks with atomics, and the current cost;
+//            function's), stores them, and the current cost;
+//   gather:  one warp per vertex sums the gradient and its 7x7 diagonal
+//            block over its list (lanes over the entries, then a fixed
+//            xor tree);
 //   invert:  one thread per vertex inverts its damped block (Gauss-Jordan
 //            with partial pivoting) and starts PCG;
-//   cg_iters x three launches: the Hessian-vector product over the edges
-//            (p = z + beta p built on the fly), the damped and masked
-//            product with p.Ap, the alpha step with the preconditioner and
-//            r.z (K6's scheme);
+//   cg_iters x three launches: the Hessian-vector product, one warp per
+//            vertex over its list (each edge's J v, with p = z + beta p built
+//            on the fly), the damped and masked product with p.Ap, the alpha
+//            step with the preconditioner and r.z (K6's scheme);
 //   retract: S <- Exp(-x) S per vertex, the rotation projected onto SO(3)
 //            through its SVD (small_linalg.cuh), the candidate cost, and the
 //            accept with lambda x0.5 or x4.
@@ -29,10 +32,14 @@
 // float32 digits to cancellation; a float32 solve then ends ~1e-5 from the
 // float64 optimum, the kernel ~1e-7 (its output's rounding).
 //
+// Every sum runs in a fixed order (no float atomics), so a solve gives one
+// result per input, as the JAX program does: the vertex sums over the
+// index-ordered lists, the scalars (costs, r.z, p.Ap) as per-CTA partials
+// summed in block order by the last CTA (det_reduce.cuh's reduce_store).
+//
 // Bound on the H100: launch latency.  A graph of ~200 vertices and ~1500
-// edges is microseconds of arithmetic per pass; the 3 cg_iters + 6
-// dependent launches of each LM iteration set the time.  Atomics make the
-// summation order (and the last bits) vary from run to run.
+// edges is microseconds of arithmetic per pass; the 3 cg_iters + 7
+// dependent launches of each LM iteration set the time.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,7 +74,6 @@ struct Ws {
   real* r;    // (E,7)
   real* Ji;   // (E,49)
   real* Jj;   // (E,49)
-  // zeroed at every LM iteration, contiguous: g, Hd, h
   real* g;    // (K,7)
   real* Hd;   // (K,49)
   real* h;    // (K,7)
@@ -79,6 +85,11 @@ struct Ws {
   real* Ap;
   double* lam;
   double* sc;  // [cost_old, cost_new, rz[0..cg], pAp[0..cg-1]]
+  double* part;  // per-CTA partials of the scalar being reduced
+  unsigned* ticket;
+  int* cnt;    // (K,) edge ends per vertex
+  int* off;    // (K+1,) list offsets
+  int* list;   // (2E,) edge ends 2 e + side, grouped by vertex, in index order
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
@@ -111,6 +122,12 @@ __host__ __device__ inline size_t carve(Ws* w, uint8_t* base, int K, int E, int 
   q = take(sizeof(real) * 7 * K);  if (w) w->Ap = (real*)q;
   q = take(sizeof(double));         if (w) w->lam = (double*)q;
   q = take(sizeof(double) * (3 + 2 * (size_t)cg)); if (w) w->sc = (double*)q;
+  const long long nb = (long long)(E > 7 * K ? E : 7 * K) / kThreads + 2;
+  q = take(sizeof(double) * (size_t)nb); if (w) w->part = (double*)q;
+  q = take(sizeof(unsigned)); if (w) w->ticket = (unsigned*)q;
+  q = take(sizeof(int) * (size_t)K); if (w) w->cnt = (int*)q;
+  q = take(sizeof(int) * ((size_t)K + 1)); if (w) w->off = (int*)q;
+  q = take(sizeof(int) * 2 * (size_t)E); if (w) w->list = (int*)q;
   return o;
 }
 
@@ -123,9 +140,53 @@ __device__ __forceinline__ bool free_dim(const Graph& q, int k, int a) {
   return !q.fixed[k] && !(q.fix_scale && a == 6);
 }
 
+// a double summed over the warp by a fixed xor tree: every lane gets the sum
 __device__ double warp_sum_d(double v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+#include "det_reduce.cuh"  // block_scan_into, reduce_store
+
+// the vertex lists: counts, offsets, then one CTA per vertex compacts the
+// edge ends that touch it, in index order
+__global__ void __launch_bounds__(kThreads) vl_count(const int* ei, const int* ej, int E, int* cnt) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  atomicAdd(cnt + ei[e], 1);
+  atomicAdd(cnt + ej[e], 1);
+}
+
+__global__ void __launch_bounds__(kScanThreads) vl_scan(const int* cnt, int K, int* off) {
+  __shared__ int sh[kScanThreads];
+  block_scan_into(cnt, K, off, sh);
+}
+
+__global__ void __launch_bounds__(kThreads)
+vl_fill(const int* __restrict__ ei, const int* __restrict__ ej, int E, const int* __restrict__ off,
+        int* __restrict__ list) {
+  __shared__ int warp_cnt[kThreads / 32];
+  __shared__ int base;
+  const int k = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) base = off[k];
+  __syncthreads();
+  for (int n0 = 0; n0 < 2 * E; n0 += kThreads) {
+    const int n = n0 + threadIdx.x;
+    const bool f = n < 2 * E && ((n & 1) ? ej[n >> 1] : ei[n >> 1]) == k;
+    const unsigned bal = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) warp_cnt[warp] = __popc(bal);
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w2 = 0; w2 < kThreads / 32; ++w2) {
+      before += w2 < warp ? warp_cnt[w2] : 0;
+      total += warp_cnt[w2];
+    }
+    if (f) list[base + before + __popc(bal & ((1u << lane) - 1u))] = n;
+    __syncthreads();
+    if (threadIdx.x == 0) base += total;
+    __syncthreads();
+  }
 }
 
 // r = log(m (Exp(di) S_i) (Exp(dj) S_j)^-1) with S_i, S_j, m constants
@@ -154,7 +215,7 @@ __device__ __forceinline__ void vertex_pose(const real* R, const real* t, const 
   sk = s[k];
 }
 
-// residual and both Jacobians per edge; gradient, diagonal blocks, cost
+// residual and both Jacobians per edge, stored, and the cost
 __global__ void __launch_bounds__(kThreads)
 build_kernel(const real* __restrict__ R, const real* __restrict__ t, const real* __restrict__ s,
              const Graph q, Ws w) {
@@ -187,25 +248,46 @@ build_kernel(const real* __restrict__ R, const real* __restrict__ t, const real*
     real c = 0.0;
     for (int a = 0; a < 7; ++a) c += re[a] * re[a];
     cost = (double)(c * we);
-    if (we != 0.0) {
-      for (int side = 0; side < 2; ++side) {
-        const real* J = side ? Jje : Jie;
-        const int k = side ? j : i;
-        for (int f = 0; f < 7; ++f) {
-          real gf = 0.0;
-          for (int a = 0; a < 7; ++a) gf += J[7 * a + f] * we * re[a];
-          if (free_dim(q, k, f)) atomicAdd(w.g + 7 * k + f, gf);
-          for (int g2 = 0; g2 < 7; ++g2) {
-            real hf = 0.0;
-            for (int a = 0; a < 7; ++a) hf += J[7 * a + f] * we * J[7 * a + g2];
-            atomicAdd(w.Hd + 49 * k + 7 * f + g2, hf);
-          }
-        }
+  }
+  reduce_store(cost, w.part, w.ticket, cost_old(w));
+}
+
+// one warp per vertex: the gradient (masked) and the 7x7 diagonal block over
+// its list, lane l taking entries l, l + 32, ... in order, then the lanes
+// summed by a fixed tree
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const Graph q, Ws w) {
+  const int k = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (k >= q.K) return;  // whole warps
+  real g[7], H[49];
+  for (int i = 0; i < 7; ++i) g[i] = 0.0;
+  for (int i = 0; i < 49; ++i) H[i] = 0.0;
+  for (int n = w.off[k] + lane; n < w.off[k + 1]; n += 32) {
+    const int ent = w.list[n];
+    const int e = ent >> 1;
+    const real we = q.w[e];
+    if (we == 0.0) continue;
+    const real* J = ((ent & 1) ? w.Jj : w.Ji) + 49 * (size_t)e;
+    const real* re = w.r + 7 * (size_t)e;
+    for (int f = 0; f < 7; ++f) {
+      real gf = 0.0;
+      for (int a = 0; a < 7; ++a) gf += J[7 * a + f] * we * re[a];
+      if (free_dim(q, k, f)) g[f] += gf;
+      for (int g2 = 0; g2 < 7; ++g2) {
+        real hf = 0.0;
+        for (int a = 0; a < 7; ++a) hf += J[7 * a + f] * we * J[7 * a + g2];
+        H[7 * f + g2] += hf;
       }
     }
   }
-  cost = warp_sum_d(cost);
-  if ((threadIdx.x & 31) == 0 && cost != 0.0) atomicAdd(cost_old(w), cost);
+  for (int i = 0; i < 7; ++i) {
+    const real v = warp_sum_d(g[i]);
+    if (lane == 0) w.g[7 * k + i] = v;
+  }
+  for (int i = 0; i < 49; ++i) {
+    const real v = warp_sum_d(H[i]);
+    if (lane == 0) w.Hd[49 * k + i] = v;
+  }
 }
 
 // per vertex: M = (Hd + lam I)^-1; x = 0, r = g, z = M r (masked), r.z
@@ -256,41 +338,51 @@ invert_kernel(const Graph q, Ws w) {
       part += (double)(rb[a] * sacc);
     }
   }
-  part = warp_sum_d(part);
-  if ((threadIdx.x & 31) == 0 && part != 0.0) atomicAdd(rz(w, 0), part);
+  reduce_store(part, w.part, w.ticket, rz(w, 0));
 }
 
 __device__ __forceinline__ real beta_of(const Ws& w, int it) {
   return it == 0 ? 0.0 : (*rz(w, it) / fmax(*rz(w, it - 1), 1e-20));
 }
 
-// h += J^T W J p over the edges, p = z + beta p_prev (masked) on the fly
+// h = J^T W J p, one warp per vertex over its list (lanes and order as
+// gather_kernel): each edge's u = w (Ji vi + Jj vj) with v = z + beta p_prev
+// (masked) built on the fly
 __global__ void __launch_bounds__(kThreads)
 hv_kernel(const Graph q, Ws w, int it) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= q.E) return;
-  const real we = q.w[e];
-  if (we == 0.0) return;
-  const int i = q.ei[e], j = q.ej[e];
+  const int k = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (k >= q.K) return;  // whole warps
   const real beta = beta_of(w, it);
-  real vi[7], vj[7];
-  for (int a = 0; a < 7; ++a) {
-    vi[a] = free_dim(q, i, a) ? w.z[7 * i + a] + beta * w.p[7 * i + a] : 0.0;
-    vj[a] = free_dim(q, j, a) ? w.z[7 * j + a] + beta * w.p[7 * j + a] : 0.0;
-  }
-  const real* Ji = w.Ji + 49 * (size_t)e;
-  const real* Jj = w.Jj + 49 * (size_t)e;
-  real u[7];
-  for (int a = 0; a < 7; ++a) {
-    real sacc = 0.0, sj = 0.0;
-    for (int b = 0; b < 7; ++b) { sacc += Ji[7 * a + b] * vi[b]; sj += Jj[7 * a + b] * vj[b]; }
-    u[a] = (sacc + sj) * we;
+  real h[7] = {0, 0, 0, 0, 0, 0, 0};
+  for (int n = w.off[k] + lane; n < w.off[k + 1]; n += 32) {
+    const int ent = w.list[n];
+    const int e = ent >> 1;
+    const real we = q.w[e];
+    if (we == 0.0) continue;
+    const int i = q.ei[e], j = q.ej[e];
+    real vi[7], vj[7];
+    for (int a = 0; a < 7; ++a) {
+      vi[a] = free_dim(q, i, a) ? w.z[7 * i + a] + beta * w.p[7 * i + a] : 0.0;
+      vj[a] = free_dim(q, j, a) ? w.z[7 * j + a] + beta * w.p[7 * j + a] : 0.0;
+    }
+    const real* Ji = w.Ji + 49 * (size_t)e;
+    const real* Jj = w.Jj + 49 * (size_t)e;
+    real u[7];
+    for (int a = 0; a < 7; ++a) {
+      real sacc = 0.0, sj = 0.0;
+      for (int b = 0; b < 7; ++b) { sacc += Ji[7 * a + b] * vi[b]; sj += Jj[7 * a + b] * vj[b]; }
+      u[a] = (sacc + sj) * we;
+    }
+    const real* J = (ent & 1) ? Jj : Ji;
+    for (int f = 0; f < 7; ++f) {
+      real hf = 0.0;
+      for (int a = 0; a < 7; ++a) hf += J[7 * a + f] * u[a];
+      h[f] += hf;
+    }
   }
   for (int f = 0; f < 7; ++f) {
-    real hi = 0.0, hj = 0.0;
-    for (int a = 0; a < 7; ++a) { hi += Ji[7 * a + f] * u[a]; hj += Jj[7 * a + f] * u[a]; }
-    atomicAdd(w.h + 7 * i + f, hi);
-    atomicAdd(w.h + 7 * j + f, hj);
+    const real v = warp_sum_d(h[f]);
+    if (lane == 0) w.h[7 * k + f] = v;
   }
 }
 
@@ -307,11 +399,10 @@ cg_a_kernel(const Graph q, Ws w, int it, int cg) {
     w.Ap[e] = ap;
     part = (double)(pe * ap);
   }
-  part = warp_sum_d(part);
-  if ((threadIdx.x & 31) == 0 && part != 0.0) atomicAdd(pAp(w, it, cg), part);
+  reduce_store(part, w.part, w.ticket, pAp(w, it, cg));
 }
 
-// per vertex: x += alpha p, r -= alpha Ap, z = M r, r.z partial; clear h
+// per vertex: x += alpha p, r -= alpha Ap, z = M r, r.z partial
 __global__ void __launch_bounds__(kThreads)
 cg_b_kernel(const Graph q, Ws w, int it, int cg) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
@@ -323,7 +414,6 @@ cg_b_kernel(const Graph q, Ws w, int it, int cg) {
       w.x[7 * k + a] += alpha * w.p[7 * k + a];
       rb[a] = w.rr[7 * k + a] - alpha * w.Ap[7 * k + a];
       w.rr[7 * k + a] = rb[a];
-      w.h[7 * k + a] = 0.0;
     }
     const real* M = w.M + 49 * k;
     for (int a = 0; a < 7; ++a) {
@@ -334,8 +424,7 @@ cg_b_kernel(const Graph q, Ws w, int it, int cg) {
       part += (double)(rb[a] * sacc);
     }
   }
-  part = warp_sum_d(part);
-  if ((threadIdx.x & 31) == 0 && part != 0.0) atomicAdd(rz(w, it + 1), part);
+  reduce_store(part, w.part, w.ticket, rz(w, it + 1));
 }
 
 // candidate S_k' = Exp(-x masked) S_k, rotation re-projected by its SVD
@@ -377,8 +466,7 @@ cost_kernel(const Graph q, Ws w) {
     for (int a = 0; a < 7; ++a) c += r[a] * r[a];
     cost = (double)(c * q.w[e]);
   }
-  cost = warp_sum_d(cost);
-  if ((threadIdx.x & 31) == 0 && cost != 0.0) atomicAdd(cost_new(w), cost);
+  reduce_store(cost, w.part, w.ticket, cost_new(w));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -397,7 +485,10 @@ accept_kernel(real* __restrict__ R, real* __restrict__ t, real* __restrict__ s, 
   s[k] = w.sn[k];
 }
 
-__global__ void init_kernel(Ws w) { *w.lam = 1e-4; }
+__global__ void init_kernel(Ws w) {
+  *w.lam = 1e-4;
+  *w.ticket = 0u;
+}
 
 inline int blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
@@ -423,19 +514,20 @@ extern "C" int pose_graph_launch(void* R, void* t, void* s, const void* ei, cons
   real* Rf = (real*)R;
   real* tf = (real*)t;
   real* sf = (real*)s;
-  const size_t zero_bytes = sizeof(real) * (size_t)(7 + 49 + 7) * K;
-  const size_t sc_bytes = sizeof(double) * (3 + 2 * (size_t)cg_iters);
   cudaError_t e;
   if ((e = cudaMemsetAsync(cost_out, 0, sizeof(real), st)) != cudaSuccess) return (int)e;
+  if ((e = cudaMemsetAsync(w.cnt, 0, sizeof(int) * (size_t)K, st)) != cudaSuccess) return (int)e;
   init_kernel<<<1, 1, 0, st>>>(w);
   const int eb = blocks(E > 0 ? E : 1);
+  vl_count<<<eb, kThreads, 0, st>>>(q.ei, q.ej, E, w.cnt);
+  vl_scan<<<1, kScanThreads, 0, st>>>(w.cnt, K, w.off);
+  vl_fill<<<K, kThreads, 0, st>>>(q.ei, q.ej, E, w.off, w.list);
   for (int it = 0; it < n_iters; ++it) {
-    if ((e = cudaMemsetAsync(w.g, 0, zero_bytes, st)) != cudaSuccess) return (int)e;
-    if ((e = cudaMemsetAsync(w.sc, 0, sc_bytes, st)) != cudaSuccess) return (int)e;
     build_kernel<<<eb, kThreads, 0, st>>>(Rf, tf, sf, q, w);
+    gather_kernel<<<blocks(32LL * K), kThreads, 0, st>>>(q, w);
     invert_kernel<<<blocks(K), kThreads, 0, st>>>(q, w);
     for (int c = 0; c < cg_iters; ++c) {
-      hv_kernel<<<eb, kThreads, 0, st>>>(q, w, c);
+      hv_kernel<<<blocks(32LL * K), kThreads, 0, st>>>(q, w, c);
       cg_a_kernel<<<blocks(7 * K), kThreads, 0, st>>>(q, w, c, cg_iters);
       cg_b_kernel<<<blocks(K), kThreads, 0, st>>>(q, w, c, cg_iters);
     }

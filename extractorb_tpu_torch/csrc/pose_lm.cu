@@ -19,7 +19,10 @@
 // ur - (u - bf / z) (reference EdgeStereoSE3ProjectXYZOnlyPose), Huber delta
 // sqrt(7.815) and the chi2 threshold 7.815; one with ur < 0 stays a mono edge.
 // The kernel is a template on the stereo flag, so a mono problem runs the
-// mono arithmetic unchanged.
+// mono arithmetic unchanged, and on the camera (camera_t.cuh): the pinhole
+// Cam keeps the closed-form Jacobian, CamKB8 (the fisheye camera, mono only)
+// takes d pi / d pc in forward mode through its projection, as the JAX
+// package's jacfwd through the KB8 closure does.
 //
 // Bound on the H100: latency.  ~1100 observations and 40 iterations of two
 // block reductions each are a few microseconds of arithmetic per iteration;
@@ -32,12 +35,13 @@
 
 namespace {
 
+#include "dual.cuh"
+#include "camera_t.cuh"
+
 constexpr int kThreads = 256;
 constexpr int kSums = 28;  // 21 (upper H) + 6 (b) + 1 (cost)
 constexpr float kChi2 = 5.991f;
 constexpr float kChi2Stereo = 7.815f;
-
-struct Cam { float fx, fy, cx, cy; };
 
 // sum `n` per-thread values across the block; every thread gets the sums
 template <int n>
@@ -129,15 +133,16 @@ __device__ void solve6(float* A, float* rhs, float* x) {
 
 // residuals of observation i at pose (R, t): r0, r1 and, for a stereo edge,
 // r2; returns chi2 (times inv_sigma2) and sets the edge's Huber delta
-template <bool kStereo>
+template <bool kStereo, class C>
 __device__ __forceinline__ float residual(const float* R, const float* t, const float* p,
-                                          const float* o, float ur, float is, const Cam& cam,
+                                          const float* o, float ur, float is, const C& cam,
                                           float bf, float& x, float& y, float& z, float& r0,
                                           float& r1, float& r2, float& delta) {
   project(R, t, p, x, y, z);
-  const float u = cam.fx * x / z + cam.cx;
+  float u, v;
+  cam.project(x, y, z, u, v);
   r0 = o[0] - u;
-  r1 = o[1] - (cam.fy * y / z + cam.cy);
+  r1 = o[1] - v;
   if constexpr (kStereo) {
     const bool has_r = ur >= 0.f;
     r2 = has_r ? ur - (u - bf / z) : 0.f;
@@ -150,12 +155,12 @@ __device__ __forceinline__ float residual(const float* R, const float* t, const 
   }
 }
 
-template <bool kStereo>
+template <bool kStereo, class C>
 __global__ void __launch_bounds__(kThreads)
 pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
                const float* __restrict__ pts_w, const float* __restrict__ obs,
                const float* __restrict__ obs_ur, const float* __restrict__ isig,
-               const bool* __restrict__ valid, int N, const Cam cam, float bf, int n_rounds,
+               const bool* __restrict__ valid, int N, const C cam, float bf, int n_rounds,
                int n_iters, float* __restrict__ R_out, float* __restrict__ t_out,
                bool* __restrict__ inl_out, int* __restrict__ n_inl_out) {
   __shared__ float s_R[9], s_t[3], s_Rn[9], s_tn[3];
@@ -195,22 +200,23 @@ pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
         float x, y, z, r0, r1, r2, delta;
         const float chi2 = residual<kStereo>(R, t, p, O + 2 * i, ur, is, cam, bf, x, y, z, r0,
                                              r1, r2, delta);
-        const float iz = 1.f / z;
         float w = huber ? fminf(1.f, delta / sqrtf(fmaxf(chi2, 1e-12f))) : 1.f;
         w *= is;
         // A = J_pi R (2x3, or 3x3 for a stereo edge); J = [-A | A x p]
-        const float j00 = cam.fx * iz, j02 = -cam.fx * x * iz * iz;
-        const float j11 = cam.fy * iz, j12 = -cam.fy * y * iz * iz;
         constexpr int kRows = kStereo ? 3 : 2;
         float J[kRows][6];
-        for (int c = 0; c < 3; ++c) {
-          const float a0 = j00 * R[c] + j02 * R[6 + c];
-          const float a1 = j11 * R[3 + c] + j12 * R[6 + c];
-          J[0][c] = -a0;
-          J[1][c] = -a1;
+        {
+          float a0[3], a1[3];
+          cam.a_rows(x, y, z, R, a0, a1);
+          for (int c = 0; c < 3; ++c) {
+            J[0][c] = -a0[c];
+            J[1][c] = -a1[c];
+          }
         }
         if constexpr (kStereo) {
           // d(u - bf/z)/d pc = (fx/z, 0, (bf - fx x)/z^2), zero for a mono edge
+          const float iz = 1.f / z;
+          const float j00 = cam.fx * iz;
           const bool has_r = ur >= 0.f;
           const float j22 = (-cam.fx * x + bf) * iz * iz;
           for (int c = 0; c < 3; ++c) J[2][c] = has_r ? -(j00 * R[c] + j22 * R[6 + c]) : 0.f;
@@ -330,17 +336,17 @@ pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
   }
 }
 
-template <bool kStereo>
+template <bool kStereo, class C>
 int launch(const void* R0, const void* t0, const void* pts, const void* obs, const void* obs_ur,
-           const void* isig, const void* valid, int B, int N, Cam cam, float bf, int n_rounds,
+           const void* isig, const void* valid, int B, int N, C cam, float bf, int n_rounds,
            int n_iters, void* R, void* t, void* inliers, void* n_inliers, cudaStream_t stream) {
   const int smem = N;  // one active flag per observation
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(pose_lm_kernel<kStereo>,
+    cudaError_t e = cudaFuncSetAttribute(pose_lm_kernel<kStereo, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  pose_lm_kernel<kStereo><<<B, kThreads, smem, stream>>>(
+  pose_lm_kernel<kStereo, C><<<B, kThreads, smem, stream>>>(
       (const float*)R0, (const float*)t0, (const float*)pts, (const float*)obs,
       (const float*)obs_ur, (const float*)isig, (const bool*)valid, N, cam, bf, n_rounds,
       n_iters, (float*)R, (float*)t, (bool*)inliers, (int*)n_inliers);
@@ -349,16 +355,22 @@ int launch(const void* R0, const void* t0, const void* pts, const void* obs, con
 
 }  // namespace
 
-// obs_ur null: mono problems; else (B, N) right-image u per observation (< 0: mono edge)
+// obs_ur null: mono problems; else (B, N) right-image u per observation (< 0: mono edge).
+// kb8 null: the pinhole camera; else a host array k1..k4 of the KB8 camera (mono only).
 extern "C" int pose_lm_launch(const void* R0, const void* t0, const void* pts,
                               const void* obs, const void* obs_ur, const void* isig,
                               const void* valid, int B, int N, float fx, float fy, float cx,
-                              float cy, float bf, int n_rounds, int n_iters, void* R, void* t,
-                              void* inliers, void* n_inliers, void* stream) {
+                              float cy, const float* kb8, float bf, int n_rounds, int n_iters,
+                              void* R, void* t, void* inliers, void* n_inliers, void* stream) {
   if (B < 0 || N < 0) return (int)cudaErrorInvalidValue;
+  if (kb8 != nullptr && obs_ur != nullptr) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   const Cam cam{fx, fy, cx, cy};
   cudaStream_t s = (cudaStream_t)stream;
+  if (kb8 != nullptr)
+    return launch<false>(R0, t0, pts, obs, obs_ur, isig, valid, B, N,
+                         CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, bf, n_rounds,
+                         n_iters, R, t, inliers, n_inliers, s);
   if (obs_ur == nullptr)
     return launch<false>(R0, t0, pts, obs, obs_ur, isig, valid, B, N, cam, bf, n_rounds, n_iters,
                          R, t, inliers, n_inliers, s);

@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from .. import kernels
-from ..core.camera import Pinhole
+from ..core.camera import Camera, Pinhole
 
 TH_LOW = 50
 TH_HIGH = 100
@@ -305,7 +305,9 @@ def _scales_on(scale_factors: tuple, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(scale_factors, dtype=torch.float32, device=device)
 
 
-def _project(cam: Pinhole, R, t, pos):
+def _project(cam: Camera, R, t, pos):
+    """Camera-frame points and their pixels through the camera (pinhole or
+    KB8), as the JAX searches' ``jax.vmap(project)``."""
     pc = pos @ R.T + t[None]
     return pc, cam.project(pc)
 
@@ -317,7 +319,7 @@ def _in_image(uv, img_wh):
 def search_by_projection_last_frame(
     mp_pos, mp_desc, mp_valid, mp_octave, mp_angle, R, t,
     kp_xy, kp_desc, kp_octave, kp_angle, kp_valid_and_free,
-    cam: Pinhole, scale_factors: Sequence[float], img_wh, th: float = 15.0,
+    cam: Camera, scale_factors: Sequence[float], img_wh, th: float = 15.0,
 ):
     """SearchByProjection, motion-model variant: project the last frame's
     map points with the predicted pose, search a th*scale[lastOctave]
@@ -339,7 +341,7 @@ def search_by_projection_last_frame(
 def search_by_projection_local_map(
     mp_pos, mp_desc, mp_valid, mp_normal, mp_max_dist, R, t,
     kp_xy, kp_desc, kp_octave, kp_valid_and_free,
-    cam: Pinhole, scale_factors: Sequence[float], img_wh,
+    cam: Camera, scale_factors: Sequence[float], img_wh,
     th: float = 1.0, nn_ratio: float = 0.8,
 ):
     """SearchByProjection, local-map variant: frustum (view cos >= 0.5)

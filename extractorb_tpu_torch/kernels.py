@@ -32,9 +32,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9,
-# K10, K12, K17, K18 and K24 must round like their plain PyTorch versions (K1, K3,
-# K8, K11, K15 and K16 are integer code or copies; K4, K6, K13, K14 and
-# K19-K23 are bound by latency, not float throughput).
+# K10, K12, K17, K18, K24 and K25's scoring must round like their plain PyTorch
+# versions (K1, K3, K8, K11, K15 and K16 are integer code or copies; K4, K6,
+# K13, K14 and K19-K23 are bound by latency, not float throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
@@ -58,18 +58,20 @@ _SIGNATURES = {
     # c_desc, c_x, c_y, c_oct, c_ok, N, best, second, best_idx, second_idx, stream
     "hamming_best2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P),
-    # R0, t0, pts, obs, obs_ur (null: mono), isig, valid, B, N, fx, fy, cx, cy, bf,
-    # n_rounds, n_iters, R, t, inliers, n_inliers, stream
-    "pose_lm_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
+    # R0, t0, pts, obs, obs_ur (null: mono), isig, valid, B, N, fx, fy, cx, cy,
+    # kb8 (host float32 k1..k4; null: pinhole), bf, n_rounds, n_iters, R, t, inliers,
+    # n_inliers, stream
+    "pose_lm_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _F,
                        _I, _I, _P, _P, _P, _P, _P),
     # xn1, xn2, x1, x2, valid, sets, mats, S, N, fx, fy, cx, cy, ws,
     # success, R21, t21, points, tri, used_h, stream
     "two_view_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P,
                         _P, _P, _P, _P, _P, _P, _P),
     # R, t, pts, obs_kf, obs_mp, obs_uv, isig, valid, fixed_kf, fixed_mp, K, P, O,
-    # fx, fy, cx, cy, n_iters, cg_iters, use_huber, chi2_th, ws, inliers, cost, stream
+    # fx, fy, cx, cy, kb8 (host float32 k1..k4; null: pinhole), n_iters, cg_iters,
+    # use_huber, chi2_th, ws, inliers, cost, stream
     "ba_pcg_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _F, _F, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P),
+                      _F, _F, _F, _F, _P, _I, _I, _I, _F, _P, _P, _P, _P),
     # desc1, xy1, oct1, free1, N1, desc2, xy2, oct2, free2, N2, B, F12, sigma2,
     # n_lvl, geom_f, geom_b, fx, fy, cx, cy, factor, ws, m12, X, ok, stream
     "tri_search_launch": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
@@ -87,6 +89,12 @@ _SIGNATURES = {
     # R, t, inliers, n_inliers, ok, stream
     "pnp_ransac_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P),
+    # p3d, bear, valid, sets, N, H, cos_th, min_inliers, Rs, ts, counts,
+    # R, t, inliers, n_inliers, ok, stream
+    "mlpnp_ransac_launch": (_P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P),
+    # R0, t0, p3d, bear, info, valid, N, n_iters, R, t, stream
+    "mlpnp_refine_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
     # q, N, desc, ids, meta, k, L, out, stream
     "vocab_words_launch": (_P, _I, _P, _P, _P, _I, _I, _P, _P),
     # p1, p2, uv1, uv2, valid, sets, N, H, fix_scale, th2, fx, fy, cx, cy,

@@ -9,9 +9,13 @@ work per event:
 
 * the triangulation of new points: kernel K7 ``tri_search`` (epipolar
   search, claim, DLT and gates), one launch per neighbour-capacity group;
+  it builds P1/P2, F12 and its reprojection gate from the pinhole K even
+  for a KB8 camera, as the JAX program does (a matched reference fault,
+  ROADMAP C.2: ORB-SLAM3 goes through the camera model there);
 * the fuse (SearchInNeighbors): one K3 launch per (points, keyframe) job,
-  then the local-map accept logic of ``frontend/matcher.py``;
-* the window BA: kernel K6, dispatched without waiting and applied at the
+  its boxes from the tracker's camera (pinhole or KB8), then the local-map
+  accept logic of ``frontend/matcher.py``;
+* the window BA: kernel K6 through the tracker's camera, dispatched without waiting and applied at the
   next confirmation fetch or keyframe event.  A keyframe event only polls
   it (a CUDA event's ``query()``): a solve still running stays in flight,
   the reference's mbAbortBA semantics.
@@ -40,7 +44,7 @@ from typing import List, Optional, Sequence, Set
 import numpy as np
 import torch
 
-from ..core.camera import Pinhole
+from ..core.camera import Camera
 from ..frontend import matcher as fm
 from ..solver import ba as sba
 from ..utils.packed_fetch import pack_fetch
@@ -52,7 +56,7 @@ def run_ba(
     mp: SLAMMap,
     kf_ids: Sequence[int],
     fixed_ids: Set[int],
-    cam: Pinhole,
+    cam: Camera,
     inv_sigma2: Sequence[float],
     device,
     n_iters: int = 10,
@@ -240,7 +244,7 @@ def _triangulation_program(scale_factors, inv_sigma2, K):
     return run
 
 
-def _fuse_program(cam: Pinhole, scale_factors):
+def _fuse_program(cam, scale_factors):
     """SearchInNeighbors device stage: the local-map projection search of
     each (point block, keyframe) job, one K3 launch per job.  The JAX
     module passes th=0.75 and img_wh=(1e9, 1e9); so does this."""
@@ -257,7 +261,7 @@ def _fuse_program(cam: Pinhole, scale_factors):
 
 
 class LocalMapper:
-    def __init__(self, cam: Pinhole, scale_factors, inv_sigma2, K, device,
+    def __init__(self, cam: Camera, scale_factors, inv_sigma2, K, device,
                  stats: Optional[collections.Counter] = None):
         self.cam = cam
         self.scale_factors = scale_factors
@@ -438,6 +442,8 @@ class LocalMapper:
                 use.append(kf2)
         if not use:
             return []
+        # the pinhole K on raw pixels whatever the camera, as the JAX
+        # program (its local_mapping.py:204-245): a matched fault (ROADMAP C.2)
         P1 = (self.K @ np.concatenate([kf1.R, kf1.t[:, None]], 1)).astype(np.float32)
         prog = _triangulation_program(tuple(self.scale_factors), tuple(self.inv_sigma2), self.K)
         out = []

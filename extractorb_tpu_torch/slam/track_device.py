@@ -1,5 +1,7 @@
 """The fused per-frame tracking step, monocular, stereo and RGB-D
-(port of ``extractorb_tpu/slam/track_device.py``, visual-only subset).
+(port of ``extractorb_tpu/slam/track_device.py``).  A monocular step may
+take the KB8 fisheye camera (``project_for_camera``): its keypoints stay
+raw and every search and pose solve projects through the KB8 model.
 
 One call runs the chain the reference's tracking thread runs for an
 ordinary frame: motion-model prediction, ORB extraction, the motion-model
@@ -54,7 +56,7 @@ import torch
 
 from .. import kernels
 from ..config import CameraConfig, ORBConfig
-from ..core.camera import Pinhole, undistort_points_pinhole
+from ..core.camera import Camera, KannalaBrandt8, Pinhole, undistort_points_pinhole
 from ..frontend import matcher as fm
 from ..frontend import stereo as fstereo
 from ..frontend.extractor import Features, ORBExtractor, scale_factors
@@ -68,6 +70,22 @@ def pinhole_project(fx: float, fy: float, cx: float, cy: float) -> Pinhole:
     """Canonical pinhole camera of a parameter set (its ``project`` is the
     JAX step's projection closure)."""
     return Pinhole(float(fx), float(fy), float(cx), float(cy))
+
+
+@functools.lru_cache(maxsize=None)
+def kb8_project(fx: float, fy: float, cx: float, cy: float,
+                k1: float, k2: float, k3: float, k4: float) -> KannalaBrandt8:
+    """Canonical KB8 fisheye camera of a parameter set (the JAX step's
+    ``kb8_project`` closure)."""
+    return KannalaBrandt8(*(float(v) for v in (fx, fy, cx, cy, k1, k2, k3, k4)))
+
+
+def project_for_camera(cam_cfg: CameraConfig) -> Camera:
+    """The canonical camera of a CameraConfig (JAX ``project_for_camera``)."""
+    if cam_cfg.model == "KannalaBrandt8":
+        return kb8_project(cam_cfg.fx, cam_cfg.fy, cam_cfg.cx, cam_cfg.cy,
+                           cam_cfg.k1, cam_cfg.k2, cam_cfg.k3, cam_cfg.k4)
+    return pinhole_project(cam_cfg.fx, cam_cfg.fy, cam_cfg.cx, cam_cfg.cy)
 
 
 class FusedOut(NamedTuple):
@@ -149,8 +167,9 @@ class TrackStep:
     def __init__(self, cam_cfg: CameraConfig, orb_cfg: ORBConfig, img_shape: Tuple[int, int],
                  map_cap: int, local_cap: int, device, depth_mode: str = "none",
                  inertial: bool = False, graph: Optional[bool] = None):
-        if cam_cfg.model == "KannalaBrandt8":
-            raise NotImplementedError("TrackStep: only the pinhole camera is ported")
+        if cam_cfg.model == "KannalaBrandt8" and (depth_mode != "none" or inertial):
+            raise NotImplementedError("TrackStep: the KB8 camera is ported for the monocular "
+                                      "visual step only (ROADMAP A.12.3, A.12.4)")
         if depth_mode not in ("none", "stereo", "rgbd"):
             raise ValueError(f"TrackStep: depth_mode {depth_mode!r}")
         if depth_mode != "none" and cam_cfg.bf <= 0.0:
@@ -173,8 +192,9 @@ class TrackStep:
         self.local_cap = local_cap
         self.extractor = ORBExtractor(orb_cfg, self.img_shape, self.device)
         self.capacity = self.extractor.capacity
-        self.cam = pinhole_project(cam_cfg.fx, cam_cfg.fy, cam_cfg.cx, cam_cfg.cy)
-        self.has_dist = abs(cam_cfg.k1) > 1e-12
+        self.cam = project_for_camera(cam_cfg)
+        # a KB8 camera's keypoints stay raw: only a distorted pinhole undistorts
+        self.has_dist = abs(cam_cfg.k1) > 1e-12 and not isinstance(self.cam, KannalaBrandt8)
         self.dist = (cam_cfg.k1, cam_cfg.k2, cam_cfg.p1, cam_cfg.p2, cam_cfg.k3)
         scales = scale_factors(orb_cfg)
         self.scale_factors = tuple(float(s) for s in scales)
@@ -370,9 +390,11 @@ class StepGraph:
     replay it (a key seen once, such as the first frame after
     initialisation chaining from the 5x init extractor, is never
     captured).  The key is
-    everything the graph bakes in: every input's shape and type, and the
-    addresses of the map mirror's tensors, which the graph reads in place
-    (so ``MapMirror`` growth or a new mirror recaptures).  The host values
+    everything the graph bakes in: the camera (its model and intrinsics
+    select K4's instantiation and the projection's constants), every
+    input's shape and type, and the addresses of the map mirror's
+    tensors, which the graph reads in place (so ``MapMirror`` growth or a
+    new mirror recaptures).  The host values
     the wrappers pass to their kernels (tables, counts, capacities) follow
     from the step's configuration and those shapes.  The local and
     reference blocks are copied only when the caller passes other tensors
@@ -413,7 +435,7 @@ class StepGraph:
 
     def __call__(self, args, img_r=None) -> FusedOut:
         inputs = list(args) + ([] if img_r is None else [img_r])
-        key = tuple((tuple(t.shape), t.dtype) for t in inputs) + tuple(
+        key = (self.step.cam,) + tuple((tuple(t.shape), t.dtype) for t in inputs) + tuple(
             args[i].data_ptr() for i in self._MIRROR)
         if key != self.key:
             if key != self._warm:

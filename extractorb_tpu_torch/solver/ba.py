@@ -6,12 +6,15 @@ preconditioned conjugate gradients with a matrix-free Hessian-vector
 product over the observation list and a block-Jacobi preconditioner (the
 damped 6x6 pose and 3x3 point blocks); the sparse normal equations are
 never formed.  Jacobians are analytic (the JAX module takes them with
-``jax.jacfwd``): for the right perturbation R Exp(delta), delta = (rho,
-phi), with A = J_pi R, the residual r = obs - pi(R p + t) has
-J_pose = [-A | A hat(p)] and J_point = -A.
+``jax.jacfwd`` through the projection closure): for the right
+perturbation R Exp(delta), delta = (rho, phi), with A = J_pi R, the
+residual r = obs - pi(R p + t) has J_pose = [-A | A hat(p)] and
+J_point = -A; J_pi is the camera's ``project_jac`` (pinhole, or KB8 in
+float64).
 
-``optimize`` launches kernel K6 (``csrc/ba_pcg.cu``) on CUDA tensors and
-runs ``optimize_plain`` on the CPU.  The stereo residual (``obs_ur``) and
+``optimize`` launches kernel K6 (``csrc/ba_pcg.cu``, with the camera as a
+template parameter) on CUDA tensors and runs ``optimize_plain`` on the
+CPU.  The stereo residual (``obs_ur``) and
 ``solver="schur_dense"`` are not ported (ROADMAP B.21): the window BA
 builds mono problems for every sensor.
 """
@@ -24,7 +27,7 @@ import torch
 
 from .. import kernels
 from ..core import lie
-from ..core.camera import Pinhole
+from ..core.camera import Camera
 from .robust import CHI2_MONO, DELTA_MONO, huber_weight
 
 
@@ -75,22 +78,16 @@ def _camera_point(Rk, tk, pw):
                         + tk[:, i] for i in range(3)], -1)
 
 
-def _residual(pc, uv, cam: Pinhole):
-    return torch.stack([uv[:, 0] - (cam.fx * pc[:, 0] / pc[:, 2] + cam.cx),
-                        uv[:, 1] - (cam.fy * pc[:, 1] / pc[:, 2] + cam.cy)], -1)
+def _residual(pc, uv, cam):
+    return uv - cam.project(pc)
 
 
-def _residual_jac(R, t, points, p: BAProblem, cam: Pinhole):
+def _residual_jac(R, t, points, p: BAProblem, cam):
     """Residuals (O,2), pose Jacobians (O,2,6), point Jacobians (O,2,3)."""
     Rk, tk, pw = _gather(R, t, points, p)
     pc = _camera_point(Rk, tk, pw)
     r = _residual(pc, p.obs_uv, cam)
-    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
-    iz = 1.0 / z
-    zero = torch.zeros_like(z)
-    Jpi = torch.stack([torch.stack([cam.fx * iz, zero, -cam.fx * x * iz * iz], -1),
-                       torch.stack([zero, cam.fy * iz, -cam.fy * y * iz * iz], -1)], -2)
-    A = Jpi @ Rk                                                     # (O,2,3)
+    A = cam.project_jac(pc) @ Rk                                                     # (O,2,3)
     Ap = torch.linalg.cross(A, pw[:, None, :].expand_as(A), dim=-1)  # A hat(p)
     return r, torch.cat([-A, Ap], -1), -A
 
@@ -123,7 +120,7 @@ def _rho(c2, use_huber: bool):
     return torch.where(c2 <= d2, c2, 2.0 * DELTA_MONO * torch.sqrt(c2) - d2)
 
 
-def optimize_plain(p: BAProblem, cam: Pinhole, n_iters: int = 10, cg_iters: int = 40,
+def optimize_plain(p: BAProblem, cam: Camera, n_iters: int = 10, cg_iters: int = 40,
                    use_huber: bool = True, chi2_outlier: float = CHI2_MONO,
                    solver: str = "cg") -> BAResult:
     """Plain version of ``optimize`` (same arguments); on the card its sums
@@ -133,7 +130,7 @@ def optimize_plain(p: BAProblem, cam: Pinhole, n_iters: int = 10, cg_iters: int 
         return _optimize_plain(p, cam, n_iters, cg_iters, use_huber, chi2_outlier)
 
 
-def _optimize_plain(p: BAProblem, cam: Pinhole, n_iters: int, cg_iters: int, use_huber: bool,
+def _optimize_plain(p: BAProblem, cam: Camera, n_iters: int, cg_iters: int, use_huber: bool,
                     chi2_outlier: float) -> BAResult:
     K, P = p.R.shape[0], p.points.shape[0]
     dt = p.points.dtype
@@ -224,7 +221,7 @@ def _optimize_plain(p: BAProblem, cam: Pinhole, n_iters: int, cg_iters: int, use
     return BAResult(R=R, t=t, points=points, inliers=valid & (chi2 <= chi2_outlier), cost=cost)
 
 
-def optimize(p: BAProblem, cam: Pinhole, n_iters: int = 10, cg_iters: int = 40,
+def optimize(p: BAProblem, cam: Camera, n_iters: int = 10, cg_iters: int = 40,
              use_huber: bool = True, chi2_outlier: float = CHI2_MONO,
              solver: str = "cg") -> BAResult:
     """LM bundle adjustment of a padded problem.
@@ -233,7 +230,8 @@ def optimize(p: BAProblem, cam: Pinhole, n_iters: int = 10, cg_iters: int = 40,
     Fixed keyframes/points stay where they are (g2o's setFixed).  On CUDA
     tensors this launches K6: every LM and PCG step is enqueued without a
     host synchronisation (alpha, beta, the cost and lambda stay on the
-    card).  On the CPU it runs ``optimize_plain``."""
+    card).  ``cam`` is a ``Pinhole`` or a ``KannalaBrandt8``.  On the CPU
+    it runs ``optimize_plain``."""
     _check_problem(p, solver)
     if not p.points.is_cuda:
         return optimize_plain(p, cam, n_iters, cg_iters, use_huber, chi2_outlier, solver)
@@ -251,10 +249,14 @@ def optimize(p: BAProblem, cam: Pinhole, n_iters: int = 10, cg_iters: int = 40,
                      device=dev)
     inl = torch.empty(O, dtype=torch.bool, device=dev)
     cost = torch.empty((), dtype=torch.float32, device=dev)
+    kb8 = cam.kernel_params()
     err = lib.ba_pcg_launch(
         R.data_ptr(), t.data_ptr(), pts.data_ptr(), *[a.data_ptr() for a in args], K, P, O,
-        cam.fx, cam.fy, cam.cx, cam.cy, n_iters, cg_iters, int(use_huber), float(chi2_outlier),
-        ws.data_ptr(), inl.data_ptr(), cost.data_ptr(), kernels.stream())
+        cam.fx, cam.fy, cam.cx, cam.cy, None if kb8 is None else kb8.ctypes.data, n_iters,
+        cg_iters, int(use_huber), float(chi2_outlier), ws.data_ptr(), inl.data_ptr(),
+        cost.data_ptr(), kernels.stream())
     kernels.check(err, "ba_pcg")
     kernels.LAUNCHES["ba_pcg"] += 1
+    if kb8 is not None:
+        kernels.LAUNCHES["ba_pcg_kb8"] += 1     # of those, through the KB8 camera
     return BAResult(R=R, t=t, points=pts, inliers=inl, cost=cost)

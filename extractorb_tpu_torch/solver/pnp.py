@@ -1,6 +1,7 @@
 """Batched RANSAC PnP for relocalization (port of
-``extractorb_tpu/solver/pnp.py``, the pinhole part: ``ransac_pnp`` and
-``refine_pnp``; MLPnP for the KB8 camera is ROADMAP A.12).
+``extractorb_tpu/solver/pnp.py``: ``ransac_pnp`` and ``refine_pnp`` for the
+pinhole camera, ``mlpnp_ransac`` and ``mlpnp_refine`` on unit bearings for
+the KB8 camera).
 
 The reference draws minimal sets and iterates a PnP solver until enough
 inliers (src/Tracking.cc:3184 region, inc/PnPsolver.h:60-92).  Here all
@@ -29,15 +30,33 @@ finite hypothesis.  Scoring runs in float32 in the JAX function's order.
 
 ``ransac_pnp`` launches K10 on CUDA tensors and runs ``ransac_pnp_plain``
 on the CPU.
+
+MLPnP (reference inc/MLPnPsolver.h) works on unit bearings, so rays past
+90 degrees off the axis, which a fisheye camera sees, are measurements
+like any other.  ``mlpnp_ransac`` takes its sets from ``sample_pnp_sets``
+as K10 does (the JAX function draws them as ``ransac_pnp`` does); each
+hypothesis stacks the nullspace constraints of its 6 bearings into a
+(12,12) system, whose null vector (the smallest eigenvector of its normal
+matrix, float64) gives [R | t] up to scale and sign: the sign comes from
+the bearings' cheirality on the raw estimate, then Procrustes (``_svd3``)
+and the mean singular value fix R and the scale.  Hypotheses are scored in
+float32 by the bearing angle (0.6 degrees).  ``mlpnp_refine`` runs the 8
+covariance-weighted Gauss-Newton steps on the tangent residuals in
+float64 with closed-form Jacobians (JAX: float32, ``jax.jacfwd``) and
+rounds the orthonormalized result.  Both launch kernel K25
+(``csrc/mlpnp.cu``) on CUDA tensors and run their plain versions on the
+CPU.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import kernels
+from ..core import lie
 from ..core.camera import Pinhole
 from ..geometry.two_view import _det3, _svd3
 from . import pose_opt as spo
@@ -264,6 +283,203 @@ def ransac_pnp(p3d, xy, valid, sets, th: float = 0.01, min_inliers: int = 15,
     kernels.check(err, "pnp_ransac")
     kernels.LAUNCHES["pnp_ransac"] += 1
     return PnPResult(R, t, inl, n_inl, ok)
+
+
+# ---------------------------------------------------------------- MLPnP
+
+
+MLPNP_ANGLE_DEG = 0.6
+MLPNP_REFINE_ITERS = 8
+
+
+def mlpnp_cos_threshold(ang_th_deg: float = MLPNP_ANGLE_DEG) -> float:
+    """cos of the inlier cone in float32, as the JAX function computes it."""
+    return float(np.cos(np.deg2rad(np.float32(ang_th_deg))))
+
+
+def _null_basis(bear):
+    """Per-bearing tangent basis (r, s) of (...,3) bearings: r, s unit and
+    orthogonal to the bearing, from the cross product with the axis least
+    aligned with it (reference MLPnPsolver's nullspace), in bear's type."""
+    v = bear / torch.sqrt((bear * bear).sum(-1, keepdim=True))
+    ez = torch.tensor([0.0, 0.0, 1.0], dtype=v.dtype, device=v.device)
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=v.dtype, device=v.device)
+    ref = torch.where(torch.abs(v[..., 2:3]) < 0.9, ez, ex)
+    r = torch.linalg.cross(v, ref.expand_as(v), dim=-1)
+    r = r / torch.clamp(torch.sqrt((r * r).sum(-1, keepdim=True)), min=1e-12)
+    return r, torch.linalg.cross(v, r, dim=-1)
+
+
+def _mlpnp_pose(p3s, bs):
+    """MLPnP's closed form for (H,S,3) float64 points and bearings -> R
+    (H,3,3), t (H,3): the (2S,12) nullspace system r^T (R p + t) = 0,
+    s^T (R p + t) = 0 in [vec(R) row-major, t], its null vector, the sign
+    that makes the raw points agree with their bearings, Procrustes."""
+    r, s_ = _null_basis(bs)
+
+    def rows(n):
+        return torch.cat([n[..., 0:1] * p3s, n[..., 1:2] * p3s, n[..., 2:3] * p3s, n], -1)
+
+    A = torch.cat([rows(r), rows(s_)], -2)                      # (H,2S,12)
+    v = _null_vector12(A)
+    H = p3s.shape[0]
+    M, t_raw = v[:, :9].reshape(H, 3, 3), v[:, 9:]
+    pc_raw = p3s @ M.transpose(-1, -2) + t_raw[:, None]
+    flip = (pc_raw * bs).sum((-1, -2)) < 0
+    M = torch.where(flip[:, None, None], -M, M)
+    t_raw = torch.where(flip[:, None], -t_raw, t_raw)
+    R, scale = _orth(M)
+    return R, t_raw / scale[:, None]
+
+
+def mlpnp_poses(p3d, bear, sets):
+    """Each hypothesis' pose from its 6-point set: (H,3,3), (H,3) float32.
+    A set holding an index outside [0, N) or a non-finite entry solves to
+    NaN."""
+    N = p3d.shape[0]
+    idx = sets.long()
+    out = (idx < 0) | (idx >= N)
+    idx = torch.where(out, N, idx)
+    pad = lambda a: torch.cat([a.double(), a.new_zeros((1, 3), dtype=torch.float64)], 0)
+    p3s, bs = pad(p3d)[idx], pad(bear)[idx]
+    bad = out.any(-1) | ~torch.isfinite(p3s).all(-1).all(-1) | ~torch.isfinite(bs).all(-1).all(-1)
+    # a placeholder sample for the bad sets (their result is replaced)
+    p3s = torch.where(bad[:, None, None], torch.eye(3, dtype=torch.float64,
+                                                    device=p3d.device).repeat(1, 2)
+                      .reshape(6, 3) + 1.0, p3s)
+    bs = torch.where(bad[:, None, None], p3s, bs)
+    R, t = _mlpnp_pose(p3s, bs)
+    nan = torch.tensor(float("nan"), dtype=torch.float64, device=p3d.device)
+    R = torch.where(bad[:, None, None], nan, R)
+    t = torch.where(bad[:, None], nan, t)
+    return R.float(), t.float()
+
+
+def _score_bearing(R, t, p3d, bear, valid, cos_th: float):
+    """Inlier masks (H,N) in float32: the angle between R p + t and the
+    bearing inside the cone (cos > cos_th), valid.  K25's order."""
+    pc = [R[:, None, i, 0] * p3d[:, 0] + R[:, None, i, 1] * p3d[:, 1]
+          + R[:, None, i, 2] * p3d[:, 2] + t[:, None, i] for i in range(3)]
+    n = torch.clamp(torch.sqrt(pc[0] * pc[0] + pc[1] * pc[1] + pc[2] * pc[2]), min=1e-12)
+    cosang = (pc[0] * bear[:, 0] + pc[1] * bear[:, 1] + pc[2] * bear[:, 2]) / n
+    return valid & (cosang > cos_th)
+
+
+def mlpnp_ransac_plain(p3d, bear, valid, sets, ang_th_deg: float = MLPNP_ANGLE_DEG,
+                       min_inliers: int = 12, counts_out=None) -> PnPResult:
+    """Plain version of ``mlpnp_ransac`` (same arguments)."""
+    p3d, bear, valid = p3d.to(torch.float32), bear.to(torch.float32), valid.to(torch.bool)
+    Rs, ts = mlpnp_poses(p3d, bear, sets)
+    inl = _score_bearing(Rs, ts, p3d, bear, valid, mlpnp_cos_threshold(ang_th_deg))
+    counts = inl.sum(-1).to(torch.int32)
+    if counts_out is not None:
+        counts_out.copy_(counts)
+    best = torch.argmax(counts)                      # first maximum wins
+    n_inl = counts[best]
+    return PnPResult(Rs[best], ts[best], inl[best], n_inl, n_inl >= min_inliers)
+
+
+def mlpnp_ransac(p3d, bear, valid, sets, ang_th_deg: float = MLPNP_ANGLE_DEG,
+                 min_inliers: int = 12, counts_out=None) -> PnPResult:
+    """RANSAC MLPnP over the 6-point sets ``sets`` (H,6)
+    (``sample_pnp_sets``).
+
+    Replaces ``extractorb_tpu/solver/pnp.py:mlpnp_ransac``.  p3d (N,3)
+    world points, bear (N,3) unit bearings, valid (N,) bool; an inlier's
+    bearing lies within ``ang_th_deg`` of R p + t.  ``ok`` needs
+    ``min_inliers`` inliers; ``counts_out`` (H,) int32, where given,
+    receives every hypothesis' inlier count.  On CUDA tensors this launches
+    K25 (hypotheses, scores, selection; no host synchronisation); on the
+    CPU it runs ``mlpnp_ransac_plain``."""
+    if not p3d.is_cuda:
+        return mlpnp_ransac_plain(p3d, bear, valid, sets, ang_th_deg, min_inliers, counts_out)
+    N, H = p3d.shape[0], sets.shape[0]
+    if H == 0 or sets.shape[1:] != (MIN_SAMPLE,):
+        raise ValueError(f"mlpnp_ransac: sets {tuple(sets.shape)}, expected (H>0, {MIN_SAMPLE})")
+    if p3d.shape != (N, 3) or bear.shape != (N, 3) or valid.shape != (N,):
+        raise ValueError(f"mlpnp_ransac: p3d {tuple(p3d.shape)}, bear {tuple(bear.shape)}, "
+                         f"valid {tuple(valid.shape)}")
+    dev = p3d.device
+    args = [p3d.to(torch.float32).contiguous(), bear.to(torch.float32).contiguous(),
+            valid.to(torch.bool).contiguous(), sets.to(torch.int32).contiguous()]
+    kernels.require_cuda("mlpnp_ransac", *args)
+    Rs = torch.empty(H, 3, 3, dtype=torch.float32, device=dev)
+    ts = torch.empty(H, 3, dtype=torch.float32, device=dev)
+    counts = counts_out if counts_out is not None else torch.empty(H, dtype=torch.int32,
+                                                                   device=dev)
+    if counts.dtype != torch.int32 or counts.shape != (H,):
+        raise ValueError(f"mlpnp_ransac: counts_out {counts.dtype} {tuple(counts.shape)}, "
+                         f"expected int32 ({H},)")
+    kernels.require_cuda("mlpnp_ransac", counts)
+    R = torch.empty(3, 3, dtype=torch.float32, device=dev)
+    t = torch.empty(3, dtype=torch.float32, device=dev)
+    inl = torch.empty(N, dtype=torch.bool, device=dev)
+    n_inl = torch.empty((), dtype=torch.int32, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    err = kernels.lib().mlpnp_ransac_launch(
+        *[a.data_ptr() for a in args], N, H, mlpnp_cos_threshold(ang_th_deg), int(min_inliers),
+        Rs.data_ptr(), ts.data_ptr(), counts.data_ptr(), R.data_ptr(), t.data_ptr(),
+        inl.data_ptr(), n_inl.data_ptr(), ok.data_ptr(), kernels.stream())
+    kernels.check(err, "mlpnp_ransac")
+    kernels.LAUNCHES["mlpnp_ransac"] += 1
+    return PnPResult(R, t, inl, n_inl, ok)
+
+
+def mlpnp_refine_plain(R0, t0, p3d, bear, info, valid,
+                       n_iters: int = MLPNP_REFINE_ITERS):
+    """Plain version of ``mlpnp_refine`` (same arguments), in float64."""
+    f64 = lambda a: a.to(torch.float64)
+    p, b = f64(p3d), f64(bear)
+    r_b, s_b = _null_basis(b)
+    Bm = torch.stack([r_b, s_b], -2)                             # (N,2,3)
+    w = f64(info) * valid.to(torch.float64)
+    R, t = f64(R0), f64(t0)
+    eye3 = torch.eye(3, dtype=torch.float64, device=p.device)
+    for _ in range(n_iters):
+        pc = p @ R.T + t
+        n = torch.clamp(torch.sqrt((pc * pc).sum(-1)), min=1e-12)
+        u = pc / n[:, None]
+        res = (Bm @ u[..., None])[..., 0]                        # (N,2)
+        P = (eye3 - u[:, :, None] * u[:, None, :]) / n[:, None, None]
+        A = Bm @ P @ R                                           # d res / d rho
+        J = torch.cat([A, -torch.linalg.cross(A, p[:, None].expand_as(A), dim=-1)], -1)
+        Jw = J * w[:, None, None]
+        H = torch.einsum("nio,nij->oj", Jw, J)
+        g = torch.einsum("nio,ni->o", Jw, res)
+        d = -torch.linalg.solve(H + 1e-8 * torch.eye(6, dtype=torch.float64, device=p.device), g)
+        dR, dt = lie.se3_exp(d)
+        R, t = R @ dR, R @ dt + t
+    return lie.orthonormalize(R).float(), t.float()
+
+
+def mlpnp_refine(R0, t0, p3d, bear, info, valid, n_iters: int = MLPNP_REFINE_ITERS):
+    """MLPnP's maximum-likelihood refinement: Gauss-Newton on the tangent
+    residuals [r^T u; s^T u], u = (R p + t) / |R p + t|, weighted by
+    ``info`` (the inverse tangent variance per observation) over ``valid``,
+    then the rotation re-orthonormalized.  Returns (R (3,3), t (3,))
+    float32.
+
+    Replaces ``extractorb_tpu/solver/pnp.py:mlpnp_refine``.  On CUDA
+    tensors this launches K25's refinement (one CTA, fixed-order float64
+    sums); on the CPU it runs ``mlpnp_refine_plain``."""
+    if not p3d.is_cuda:
+        return mlpnp_refine_plain(R0, t0, p3d, bear, info, valid, n_iters)
+    N = p3d.shape[0]
+    dev = p3d.device
+    f32 = lambda a: a.to(torch.float32).contiguous()
+    args = [f32(R0), f32(t0), f32(p3d), f32(bear), f32(info), valid.to(torch.bool).contiguous()]
+    if args[0].shape != (3, 3) or args[1].shape != (3,) or args[2].shape != (N, 3) \
+            or args[3].shape != (N, 3) or args[4].shape != (N,) or args[5].shape != (N,):
+        raise ValueError("mlpnp_refine: expected R0 (3,3), t0 (3,), p3d/bear (N,3), "
+                         "info/valid (N,)")
+    kernels.require_cuda("mlpnp_refine", *args)
+    R = torch.empty(3, 3, dtype=torch.float32, device=dev)
+    t = torch.empty(3, dtype=torch.float32, device=dev)
+    err = kernels.lib().mlpnp_refine_launch(*[a.data_ptr() for a in args], N, int(n_iters),
+                                            R.data_ptr(), t.data_ptr(), kernels.stream())
+    kernels.check(err, "mlpnp_refine")
+    kernels.LAUNCHES["mlpnp_refine"] += 1
+    return R, t
 
 
 def refine_pnp(result: PnPResult, p3d, xy, cam: Pinhole, inv_sigma2=None) -> spo.PoseOptResult:

@@ -277,7 +277,8 @@ def optimize_pose_graph(p: PoseGraphProblem, n_iters: int = 15, cg_iters: int = 
     Replaces ``extractorb_tpu/solver/pose_graph.py:optimize_pose_graph``.
     On CUDA tensors this launches K13: every LM and PCG step is enqueued
     without a host synchronisation (alpha, beta, the costs and lambda stay
-    on the card; 6 + 3 cg_iters launches per LM iteration).  The kernel
+    on the card; 7 + 3 cg_iters launches per LM iteration, every sum in a fixed
+    order).  The kernel
     computes in float64 and returns the problem's dtype: exact-scale edges
     put the float32 Sim3 log in cancellation (csrc/pose_graph.cu).  On the
     CPU it runs ``optimize_pose_graph_plain``."""

@@ -3,15 +3,18 @@
 The reference's PoseOptimization: one SE3 pose, unary reprojection edges,
 Huber(sqrt(5.991)) in rounds 0-2 and none in round 3, 4 rounds x 10 LM
 iterations with chi2 re-classification between rounds.  The JAX package
-takes its Jacobians with ``jax.jacfwd``; here they are analytic: for the
-right perturbation R Exp(delta), delta = (rho, phi), a point's camera
-coordinates move by [R | -R hat(p)] delta, and the residual
-r = obs - pi(pc) by -J_pi [R | -R hat(p)].
+takes its Jacobians with ``jax.jacfwd`` through the projection closure;
+here they are analytic: for the right perturbation R Exp(delta), delta =
+(rho, phi), a point's camera coordinates move by [R | -R hat(p)] delta,
+and the residual r = obs - pi(pc) by -J_pi [R | -R hat(p)], with J_pi
+the camera's ``project_jac`` (the pinhole's in float32; the KB8 camera's
+in float64, rounded).
 
 ``optimize_pose`` takes a batch of B independent problems (the fused
 step solves its motion and reference-keyframe branches in one call).
 On CUDA tensors it launches kernel K4 (``csrc/pose_lm.cu``, one CTA per
-problem), with the stereo residual's third row where ``obs_ur`` is given;
+problem), with the stereo residual's third row where ``obs_ur`` is given
+(pinhole only) and the KB8 projection for a ``KannalaBrandt8`` camera;
 on the CPU it runs ``optimize_pose_plain``.
 """
 
@@ -23,7 +26,7 @@ import torch
 
 from .. import kernels
 from ..core import lie
-from ..core.camera import Pinhole
+from ..core.camera import Camera, Pinhole
 from .robust import CHI2_MONO, CHI2_STEREO, DELTA_MONO, DELTA_STEREO, huber_weight
 
 
@@ -34,14 +37,14 @@ class PoseOptResult(NamedTuple):
     n_inliers: torch.Tensor  # (B,) int32
 
 
-def _residuals(R, t, pts, obs, cam: Pinhole, obs_ur=None, bf: float = 0.0,
+def _residuals(R, t, pts, obs, cam: Camera, obs_ur=None, bf: float = 0.0,
                with_jac: bool = False):
     """Residuals (B,N,k) and, with_jac, Jacobians (B,N,k,6) at delta = 0;
     k = 2 (mono) or 3 (stereo, third row zero where obs_ur < 0)."""
     pc = torch.einsum("bij,bnj->bni", R, pts) + t[:, None]
     x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
-    u = cam.fx * x / z + cam.cx
-    v = cam.fy * y / z + cam.cy
+    uv = cam.project(pc)
+    u, v = uv[..., 0], uv[..., 1]
     res = [obs[..., 0] - u, obs[..., 1] - v]
     has_r = None
     if obs_ur is not None:
@@ -50,24 +53,18 @@ def _residuals(R, t, pts, obs, cam: Pinhole, obs_ur=None, bf: float = 0.0,
     r = torch.stack(res, -1)
     if not with_jac:
         return r, None
-    iz = 1.0 / z
-    zero = torch.zeros_like(z)
-    # d(u, v[, u_r]) / d pc
-    rows = [
-        torch.stack([cam.fx * iz, zero, -cam.fx * x * iz * iz], -1),
-        torch.stack([zero, cam.fy * iz, -cam.fy * y * iz * iz], -1),
-    ]
+    Jpi = cam.project_jac(pc)                        # d(u, v[, u_r]) / d pc (B,N,k,3)
     if obs_ur is not None:
-        ju = torch.stack([cam.fx * iz, zero, (-cam.fx * x + bf) * iz * iz], -1)
-        rows.append(torch.where(has_r[..., None], ju, 0.0))
-    Jpi = torch.stack(rows, -2)                      # (B,N,k,3)
+        iz = 1.0 / z
+        ju = torch.stack([cam.fx * iz, torch.zeros_like(z), (-cam.fx * x + bf) * iz * iz], -1)
+        Jpi = torch.cat([Jpi, torch.where(has_r[..., None], ju, 0.0)[..., None, :]], -2)
     A = Jpi @ R[:, None]                             # J_pi R
     Ap = torch.linalg.cross(A, pts[:, :, None, :].expand_as(A), dim=-1)  # A hat(p) = a x p
     J = torch.cat([-A, Ap], -1)                      # (B,N,k,6)
     return r, J
 
 
-def optimize_pose_plain(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Pinhole,
+def optimize_pose_plain(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Camera,
                         n_rounds: int = 4, n_iters: int = 10,
                         obs_ur: Optional[torch.Tensor] = None, bf: float = 0.0
                         ) -> PoseOptResult:
@@ -126,7 +123,7 @@ def optimize_pose_plain(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Pinhole,
     return PoseOptResult(R, t, active, torch.sum(active.to(torch.int32), -1))
 
 
-def optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Pinhole,
+def optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Camera,
                   n_rounds: int = 4, n_iters: int = 10,
                   obs_ur: Optional[torch.Tensor] = None, bf: float = 0.0
                   ) -> PoseOptResult:
@@ -137,8 +134,11 @@ def optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Pinhole,
     pixels, inv_sigma2 (B,N), valid (B,N) bool.  Invalid slots never
     contribute.  obs_ur (B,N), with bf = fx * baseline, makes an
     observation with obs_ur >= 0 a stereo edge (3-row residual, stereo
-    Huber delta and chi2).  On CUDA tensors this launches K4 once for the
+    Huber delta and chi2; pinhole only).  ``cam`` is a ``Pinhole`` or a
+    ``KannalaBrandt8``.  On CUDA tensors this launches K4 once for the
     batch."""
+    if obs_ur is not None and not isinstance(cam, Pinhole):
+        raise ValueError("optimize_pose: the stereo residual takes a pinhole camera")
     if not R0.is_cuda:
         return optimize_pose_plain(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam,
                                    n_rounds, n_iters, obs_ur, bf)
@@ -156,13 +156,16 @@ def optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Pinhole,
     n_inl = torch.empty(B, dtype=torch.int32, device=R0.device)
     p = [a.data_ptr() for a in args]
     ur_ptr = p[6] if obs_ur is not None else None
+    kb8 = cam.kernel_params()
     err = kernels.lib().pose_lm_launch(
         p[0], p[1], p[2], p[3], ur_ptr, p[4], p[5], B, N, cam.fx, cam.fy, cam.cx, cam.cy,
-        float(bf), n_rounds, n_iters, R.data_ptr(), t.data_ptr(), inl.data_ptr(),
-        n_inl.data_ptr(), kernels.stream(),
+        None if kb8 is None else kb8.ctypes.data, float(bf), n_rounds, n_iters, R.data_ptr(),
+        t.data_ptr(), inl.data_ptr(), n_inl.data_ptr(), kernels.stream(),
     )
     kernels.check(err, "pose_lm")
     kernels.LAUNCHES["pose_lm"] += 1
+    if kb8 is not None:
+        kernels.LAUNCHES["pose_lm_kb8"] += 1     # of those, through the KB8 camera
     if obs_ur is not None:
         kernels.LAUNCHES["pose_lm_stereo"] += 1   # of those, with the stereo rows
     return PoseOptResult(R, t, inl, n_inl)

@@ -117,6 +117,57 @@ def undistort_normalized(xd, yd, dist, tol: float = 1e-14, max_iter: int = 50):
     return x, y
 
 
+# TUM-VI's 512x512 fisheye (ORB-SLAM3 Examples/Monocular/TUM_512.yaml, as
+# tests/test_camera.py:26-31): fx, fy, cx, cy and the KB8 k1, k2, k3, k4
+KB8_TUMVI = (190.978477, 190.973307, 254.931706, 256.897442,
+             0.003482389402, 0.000715034845, -0.002053236141, 0.000202936736)
+# the grey of pixels whose ray meets no plane (the KB8 camera sees past them)
+BACKGROUND = 128
+
+
+def kb8_camera(width: int = 512, height: int = 512):
+    """TUM-VI's KB8 parameters scaled to width (fx, fy, cx, cy scale; the
+    k's act on the angle and stay)."""
+    s = width / 512.0
+    fx, fy, cx, cy, k1, k2, k3, k4 = KB8_TUMVI
+    return (fx * s, fy * s, cx * s, cy * height / 512.0, k1, k2, k3, k4)
+
+
+def kb8_project_np(pc, kb8):
+    """Pixels (..., 2) of camera-frame points (..., 3) through the KB8
+    model ``kb8`` in float64 (the polynomial of ``kb8_rays``)."""
+    fx, fy, cx, cy, k1, k2, k3, k4 = kb8
+    pc = np.asarray(pc, np.float64)
+    r = np.hypot(pc[..., 0], pc[..., 1])
+    th = np.arctan2(r, pc[..., 2])
+    t2 = th * th
+    d = th * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))))
+    s = np.where(r > 0, d / np.where(r > 0, r, 1.0), 0.0)
+    return np.stack([fx * s * pc[..., 0] + cx, fy * s * pc[..., 1] + cy], -1)
+
+
+def kb8_rays(u, v, kb8, tol: float = 1e-14, max_iter: int = 50):
+    """Unit rays (3, n) of pixels (u, v) through the KB8 model ``kb8`` =
+    (fx, fy, cx, cy, k1..k4): r(theta) = theta (1 + k1 theta^2 + k2 theta^4 +
+    k3 theta^6 + k4 theta^8) solved for theta by Newton's method in float64
+    to convergence (independent of the trackers' 10-step unprojection).
+    Rays may point past 90 degrees (z < 0)."""
+    fx, fy, cx, cy, k1, k2, k3, k4 = kb8
+    mx, my = (np.asarray(u, np.float64) - cx) / fx, (np.asarray(v, np.float64) - cy) / fy
+    r_d = np.hypot(mx, my)
+    th = r_d.copy()
+    for _ in range(max_iter):
+        t2 = th * th
+        f = th * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4)))) - r_d
+        fp = 1 + t2 * (3 * k1 + t2 * (5 * k2 + t2 * (7 * k3 + t2 * 9 * k4)))
+        step = f / fp
+        th = th - step
+        if np.abs(step).max() < tol:
+            break
+    s = np.where(r_d > 0, np.sin(th) / np.where(r_d > 0, r_d, 1.0), 1.0)
+    return np.stack([mx * s, my * s, np.cos(th)])
+
+
 def true_pose(k: int, speed: float = 0.06):
     """World->camera (R, t) of frame k (k may be negative): a camera
     translating in front of the scene while it yaws."""
@@ -141,12 +192,18 @@ def _sample_bilinear(tex: np.ndarray, s: np.ndarray, t: np.ndarray) -> np.ndarra
 
 
 def render_two_plane(tex: np.ndarray, pose, width: int = 640, height: int = 480,
-                     K=None, dist=None):
+                     K=None, dist=None, kb8=None):
     """Render the far wall (z = 5) and the near poster (z = 3, mirrored
     texture) by inverse warping.  Returns (uint8 image, float32 depth).
     ``K`` defaults to ``camera_matrix``; with ``dist`` (k1, k2, p1, p2, k3)
     each pixel shows the ray of its undistorted coordinates
-    (``undistort_normalized``), so the image is the distorted camera's."""
+    (``undistort_normalized``), so the image is the distorted camera's.
+    With ``kb8`` (fx, fy, cx, cy, k1..k4) each pixel shows the ray of the
+    KB8 model (``kb8_rays``); the wall then ends at its texture's edge, and
+    a ray that meets neither plane in front of the camera shows
+    ``BACKGROUND`` (depth 0)."""
+    if kb8 is not None:
+        return _render_kb8(tex, pose, width, height, kb8)
     R, t = pose
     K = camera_matrix(width, height) if K is None else np.asarray(K, np.float64)
     n = tex.shape[0]
@@ -177,11 +234,43 @@ def render_two_plane(tex: np.ndarray, pose, width: int = 640, height: int = 480,
     return img, depth.astype(np.float32).reshape(height, width)
 
 
+_A_FAR = lambda n: np.array([[5.0 / n, 0, -2.5], [0, 5.0 / n, -2.5], [0, 0, 5.0]])
+_A_NEAR = lambda n: np.array([[1.6 / n, 0, -1.1], [0, 1.6 / n, -0.8], [0, 0, 3.0]])
+
+
+def _render_kb8(tex, pose, width, height, kb8):
+    """``render_two_plane`` through the KB8 model: each plane is hit where
+    its texture coordinates h = (R A + t e3^T)^-1 ray have h_z > 0 (in
+    front of the camera) and lie inside the texture."""
+    R, t = pose
+    n = tex.shape[0]
+    vv, uu = np.mgrid[0:height, 0:width].astype(np.float64)
+    rays = kb8_rays(uu.ravel(), vv.ravel(), kb8)
+    e3 = np.array([[0.0, 0.0, 1.0]])
+    img = np.full(rays.shape[1], float(BACKGROUND))
+    depth = np.zeros(rays.shape[1])
+    for A, flip in ((_A_FAR(n), False), (_A_NEAR(n), True)):
+        h = np.linalg.solve(R @ A + t[:, None] @ e3, rays)
+        front = h[2] > 1e-12
+        hz = np.where(front, h[2], 1.0)
+        s, tt = h[0] / hz, h[1] / hz
+        hit = front & (s >= 0) & (s <= n - 1) & (tt >= 0) & (tt <= n - 1)
+        img = np.where(hit, _sample_bilinear(tex[:, ::-1] if flip else tex, s, tt), img)
+        depth = np.where(hit, rays[2] / hz, depth)
+    img = np.clip(np.rint(img), 0, 255).astype(np.uint8).reshape(height, width)
+    return img, depth.astype(np.float32).reshape(height, width)
+
+
 def render_sequence(tex: np.ndarray, n_frames: int, speed: float = 0.06,
-                    width: int = 640, height: int = 480, K=None, dist=None):
+                    width: int = 640, height: int = 480, K=None, dist=None,
+                    camera: str = "pinhole"):
     """Frames 0..n_frames-1: (images, depths, poses); ``K`` and ``dist`` as
-    ``render_two_plane``'s."""
-    out = [render_two_plane(tex, true_pose(k, speed), width, height, K, dist)
+    ``render_two_plane``'s; ``camera="kb8"`` renders through TUM-VI's KB8
+    fisheye (``kb8_camera(width, height)``)."""
+    if camera not in ("pinhole", "kb8"):
+        raise ValueError(f"render_sequence: camera {camera!r}")
+    kb8 = kb8_camera(width, height) if camera == "kb8" else None
+    out = [render_two_plane(tex, true_pose(k, speed), width, height, K, dist, kb8)
            for k in range(n_frames)]
     poses = [true_pose(k, speed) for k in range(n_frames)]
     return [o[0] for o in out], [o[1] for o in out], poses
@@ -260,19 +349,23 @@ def seed_map(xy, octave, valid, desc, depth, pose, K, scale_factors,
 
 
 def synthetic_pose_problems(rng, B: int, N: int, fx: float, fy: float, cx: float, cy: float,
-                            outlier_frac: float = 0.2):
+                            outlier_frac: float = 0.2, kb8=None):
     """B mono pose problems of N observations: points 2-8 m in front of
     the camera, bounded pixel noise (chi2 <= 2.25 at the true pose),
     ``outlier_frac`` gross outliers (>= 10 px, chi2 >= 100), a few padded
     slots and a perturbed start pose, so that no residual of the solution
-    lies near the chi2 threshold 5.991.  Returns float32/bool numpy
-    (R0, t0, pts, obs, isig, valid) and the true (R, t)."""
+    lies near the chi2 threshold 5.991.  With ``kb8`` (fx, fy, cx, cy,
+    k1..k4; the other intrinsics unused) the points spread to about 60
+    degrees off the axis and project through the KB8 model.  Returns
+    float32/bool numpy (R0, t0, pts, obs, isig, valid) and the true (R, t)."""
     R_true = np.stack([so3_exp_np(rng.normal(0, 0.1, 3)) for _ in range(B)])
     t_true = rng.normal(0, 0.2, (B, 3))
-    pc = np.stack([rng.uniform(-2, 2, (B, N)), rng.uniform(-1.5, 1.5, (B, N)),
+    w = 3.0 if kb8 is not None else 1.0
+    pc = np.stack([rng.uniform(-2 * w, 2 * w, (B, N)), rng.uniform(-1.5 * w, 1.5 * w, (B, N)),
                    rng.uniform(2, 8, (B, N))], -1)
     pts = np.einsum("bji,bnj->bni", R_true, pc - t_true[:, None])
-    uv = np.stack([fx * pc[..., 0] / pc[..., 2] + cx, fy * pc[..., 1] / pc[..., 2] + cy], -1)
+    uv = (kb8_project_np(pc, kb8) if kb8 is not None else
+          np.stack([fx * pc[..., 0] / pc[..., 2] + cx, fy * pc[..., 1] / pc[..., 2] + cy], -1))
     scale = 1.2 ** rng.integers(0, 4, (B, N))
     isig = 1.0 / (scale * scale)
     outlier = rng.random((B, N)) < outlier_frac

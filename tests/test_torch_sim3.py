@@ -8,7 +8,8 @@ with JAX's draws patched in (the same count and mask, the Sim3 within
 1e-4), OptimizeSim3 with and without a fixed scale, the pose graph with
 and without a fixed scale (poses within 1e-4) and the one-shard Schur GBA
 against ``optimize_schur_sharded`` on a one-device mesh (within 1e-3).  On
-a card, K12-K14 hold to their plain versions.
+a card, K12-K14 hold to their plain versions, and K13 and K14 give one
+result over 20 calls on one input (fixed-order sums).
 """
 
 import jax
@@ -222,3 +223,23 @@ def test_pose_graph_and_schur_kernels_match_plain(cuda_device):
     bk, bp = sharded_ba.optimize_schur(gb, CAM), sharded_ba.optimize_schur_plain(gb, CAM)
     assert float((bk.points - bp.points).abs().max()) <= 1e-3
     assert float((bk.t - bp.t).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_pose_graph_kernel_deterministic(cuda_device):
+    """K13 with fixed-order sums: 20 calls on one graph, one result."""
+    p = chip_smoke.pose_graph_problem(np.random.default_rng(8), cuda_device)
+    first = pose_graph.optimize_pose_graph(p)
+    for _ in range(19):
+        r = pose_graph.optimize_pose_graph(p)
+        assert all(torch.equal(a, b) for a, b in zip(r, first))
+
+
+@pytest.mark.gpu
+def test_schur_kernel_deterministic(cuda_device):
+    """K14 with fixed-order sums: 20 calls on one problem, one result."""
+    gb = gba_problem(cuda_device)
+    first = sharded_ba.optimize_schur(gb, CAM)
+    for _ in range(19):
+        r = sharded_ba.optimize_schur(gb, CAM)
+        assert all(torch.equal(getattr(r, f), getattr(first, f)) for f in r._fields)

@@ -114,16 +114,27 @@ def test_rot_to_quat_matches_jax():
     np.testing.assert_allclose(got, np.asarray(jlie.rot_to_quat(jnp.asarray(Rs))), atol=1e-6)
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(sensor="stereo", camera2=CameraConfig(model="KannalaBrandt8")), "A.12"),
-    (dict(imu=IMUConfig()), "pass sensor='imu-monocular' or 'imu-stereo'"),
-    (dict(camera=CameraConfig(model="KannalaBrandt8")), "A.12"),
-    (dict(orb=ORBConfig(octree="host")), "Not to be ported"),
-], ids=["stereo", "imu", "kb8", "host-octree"])
-def test_unported_configurations_raise(change, item):
+KB8 = CameraConfig(model="KannalaBrandt8")
+
+
+@pytest.mark.parametrize("change,item,vocab", [
+    (dict(sensor="stereo", camera2=CameraConfig(model="KannalaBrandt8")), "A.12", False),
+    (dict(imu=IMUConfig()), "pass sensor='imu-monocular' or 'imu-stereo'", False),
+    (dict(camera=KB8, sensor="imu-monocular", imu=IMUConfig()), "A.12", False),
+    (dict(camera=KB8), "A.12", True),
+    (dict(orb=ORBConfig(octree="host")), "Not to be ported", False),
+], ids=["stereo", "imu", "kb8-imu", "kb8-vocab", "host-octree"])
+def test_unported_configurations_raise(change, item, vocab):
+    """What still raises; the KB8 camera itself runs monocular
+    (tests/test_torch_system_kb8.py), but not with an IMU or a vocabulary
+    (ROADMAP A.12.3)."""
+    from extractorb_tpu_torch.place.vocab import Vocabulary
+
     cfg = dataclasses.replace(chip_smoke.system_config(W, H, NF), **change)
+    voc = (Vocabulary.train(np.random.default_rng(0).integers(0, 256, (300, 32), dtype=np.uint8),
+                            k=4, L=2) if vocab else None)
     with pytest.raises(NotImplementedError, match=item):
-        System(cfg, device="cpu")
+        System(cfg, vocab=voc, device="cpu")
 
 
 def test_system_without_device_needs_a_card(monkeypatch):
