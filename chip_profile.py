@@ -8,8 +8,10 @@ from a cold map over the 30 rendered 640x480 frames of ``chip_smoke.py``
 [vi]'s 40 frames of the visual-inertial scene and ``track_stereo(l, r, ts,
 imu=...)`` over [vi-stereo]'s 40 frames of it seen by the rig, and
 ``track_monocular`` through the KB8 fisheye over [kb8]'s 30 512x512
-frames (1500 features), each twice:
-first all six unprofiled
+frames (1500 features), ``track_stereo`` on the fisheye rig over
+[stereo-kb8]'s 30 frames, and [vi]'s trajectory through KB8 on the rig
+([vi-stereo-kb8], imu-stereo) and monocular ([vi-kb8]), each twice:
+first all nine unprofiled
 (host clock per frame, each frame ending in a synchronise), then each
 under ``torch.profiler``, with every frame inside a ``record_function``
 range.  (A trace's hundreds of thousands of events slow the host's
@@ -245,12 +247,17 @@ def main() -> int:
     vi_frames, _ = cs.vi_frames()
     vi_left, vi_right = cs.vi_stereo_frames()
     kb8_frames, _ = cs.kb8_frames()
+    rig_l, rig_r, _ = cs.rig_frames()
+    vk_l, vk_r, _ = cs.vi_rig_frames()
     runs = {"system": (cs.system_config(), frames, None),
             "kb8": (cs.kb8_config(), kb8_frames, None),
             "stereo": (cs.stereo_config("stereo"), frames, rights),
             "rgbd": (cs.stereo_config("rgbd"), frames, depths),
             "vi": (cs.vi_config(), vi_frames, None),
-            "vi-stereo": (cs.vi_stereo_config(), vi_left, vi_right)}
+            "vi-stereo": (cs.vi_stereo_config(), vi_left, vi_right),
+            "stereo-kb8": (cs.kb8_rig_config(), rig_l, rig_r),
+            "vi-stereo-kb8": (cs.kb8_rig_config("imu-stereo"), vk_l, vk_r),
+            "vi-kb8": (cs.vi_kb8_config(), vk_l, None)}
     result = dict(card=smi, frames=cs.SYS_FRAMES, vi_frames=cs.VI_FRAMES,
                   vi_stereo_frames=len(vi_left))
     track_all(cs.system_config(), frames[:3], None, dev)   # warm-up: build and first launches

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K25) from
+Builds the hand-written CUDA kernels (K1-K26) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
 version at the shapes of the main paths, counts the device kernels and
 host time of one extraction through the kernels and through the plain
@@ -50,7 +50,14 @@ plain versions, [kb8] runs ``System.track_monocular`` over [system]'s scene
 and motion seen through TUM-VI's 512x512 KB8 camera with 1500 features
 (init, every later frame OK, ATE), [kb8-reference] repeats its first frames
 on the CPU plain path, and [reloc-kb8] blacks out frames 14-15 and
-relocalizes through K25.  Any
+relocalizes through K25.  Then TUM-VI's fisheye stereo rig and KB8 with an
+IMU: [parity-stereo-kb8] holds K26 (the lapping-area match and the
+triangulation) to its plain version on the rig's frames and on a rig turned
+0.8 degrees, [stereo-kb8] runs ``System.track_stereo`` on the rig,
+[stereo-kb8-reference] repeats its first frames on the CPU plain path, and
+[vi-stereo-kb8] / [vi-kb8] run [vi]'s trajectory through KB8 on the rig
+(imu-stereo) and monocular (imu-monocular), holding K20 and K22's KB8
+instantiations to their plain versions at their first calls.  Any
 failure raises:
 the script then exits non-zero and never prints its last line.  It needs
 a CUDA card and nothing outside the repository (the scenes are generated
@@ -91,7 +98,7 @@ from extractorb_tpu_torch.frontend.extractor import ORBExtractor  # noqa: E402
 from extractorb_tpu_torch.frontend.pyramid import (compute_pyramid,  # noqa: E402
                                                    compute_pyramid_plain)
 from extractorb_tpu_torch.geometry import two_view  # noqa: E402
-from extractorb_tpu_torch.core.camera import Pinhole  # noqa: E402
+from extractorb_tpu_torch.core.camera import KannalaBrandt8, Pinhole  # noqa: E402
 from extractorb_tpu_torch.dist import global_ba, sharded_ba  # noqa: E402
 from extractorb_tpu_torch.geometry import sim3 as gsim3  # noqa: E402
 from extractorb_tpu_torch.place import vocab as vocab_mod  # noqa: E402
@@ -179,6 +186,11 @@ KERNELS.update({
     # the KB8 camera's relocalization (the [reloc-kb8] path) adds these
     "mlpnp_ransac": ("extractorb_tpu_torch/csrc/mlpnp.cu", "extractorb_tpu/solver/pnp.py:275"),
     "mlpnp_refine": ("extractorb_tpu_torch/csrc/mlpnp.cu", "extractorb_tpu/solver/pnp.py:306"),
+    # the fisheye rig (the [stereo-kb8] and [vi-stereo-kb8] paths) adds K26
+    "stereo_fisheye_match": ("extractorb_tpu_torch/csrc/stereo_fisheye.cu",
+                             "extractorb_tpu/frontend/stereo.py:182 (+ :170 lapping_mask)"),
+    "fisheye_triangulate": ("extractorb_tpu_torch/csrc/stereo_fisheye.cu",
+                            "extractorb_tpu/core/camera.py:174"),
 })
 # the [system] run: the rendered sequence of tests/test_slam_e2e.py's
 # planar test at 640x480 / 1000 features, 30 frames at speed 0.04
@@ -227,6 +239,13 @@ PIPE_VI_MIN_FUSED = 8   # tests/test_vi_e2e.py:219
 # tests/test_real_sequences.py:141; ORB-SLAM3 Examples/Monocular/TUM_512.yaml)
 KB8_SIZE = 512
 KB8_FEATURES = 1500
+# the fisheye rig of [stereo-kb8] and [vi-stereo-kb8]: TUM-VI's 0.101 m
+# baseline and ThDepth 35 (tests/test_stereo_fisheye.py:135-143)
+KB8_BASELINE = 0.101
+KB8_TH_DEPTH = 35.0
+# [vi-stereo-kb8] and [vi-kb8]: [vi]'s trajectory, shortened to the frames
+# that reach the monocular IMU initialisation (2 s) and a second after it
+VI_KB8_FRAMES = 32
 # the [det] phase: calls of K13 and K14 on one input
 DET_CALLS = 20
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense rates): memory
@@ -2788,6 +2807,28 @@ def kb8_config(width: int = KB8_SIZE, height: int = KB8_SIZE,
     return dataclasses.replace(system_config(width, height, n_features), camera=cam)
 
 
+def kb8_rig_config(sensor: str = "stereo", width: int = KB8_SIZE, height: int = KB8_SIZE,
+                   n_features: int = KB8_FEATURES) -> SLAMConfig:
+    """The fisheye rig of [stereo-kb8] ("stereo": [kb8]'s configuration) and
+    [vi-stereo-kb8] ("imu-stereo": [vi-kb8]'s): both cameras TUM-VI's KB8
+    calibration, the right one 0.101 m along x (``pf.KB8_RIG_T_LR``), bf =
+    190.97 x 0.101 and ThDepth 35 (tests/test_stereo_fisheye.py:135-143),
+    both scaled to the image, the lapping band the whole width."""
+    base = kb8_config if sensor == "stereo" else vi_kb8_config
+    cfg = base(width, height, n_features)
+    cam = dataclasses.replace(cfg.camera, bf=190.97 * KB8_BASELINE * width / KB8_SIZE,
+                              th_depth=KB8_TH_DEPTH)
+    return dataclasses.replace(cfg, camera=cam, camera2=dataclasses.replace(cam, bf=0.0),
+                               T_lr=pf.KB8_RIG_T_LR, sensor=sensor)
+
+
+def vi_kb8_config(width: int = KB8_SIZE, height: int = KB8_SIZE,
+                  n_features: int = KB8_FEATURES) -> SLAMConfig:
+    """[vi]'s configuration through TUM-VI's KB8 camera (imu-monocular)."""
+    cam = dataclasses.replace(kb8_config(width, height, n_features).camera, fps=pf.VI_FPS)
+    return dataclasses.replace(vi_config(width, height, n_features), camera=cam)
+
+
 def kb8_frames(n: int = SYS_FRAMES, size: int = KB8_SIZE):
     frames, _, poses = pf.render_sequence(pf.procedural_texture(), n, SYS_SPEED, size, size,
                                           camera="kb8")
@@ -3022,6 +3063,343 @@ def phase_reloc_kb8(frames, poses, dev):
     return launches
 
 
+# ------------------------------------------------------- the fisheye rig
+
+
+def rig_frames(n: int = SYS_FRAMES, size: int = KB8_SIZE):
+    """[stereo-kb8]'s frames: [system]'s motion seen by the fisheye rig."""
+    return pf.render_kb8_stereo_sequence(pf.procedural_texture(), n, SYS_SPEED, size, size)
+
+
+def vi_rig_frames(n: int = VI_KB8_FRAMES, size: int = KB8_SIZE):
+    """[vi-stereo-kb8]'s and [vi-kb8]'s frames: [vi]'s trajectory in the rig's
+    scene (left and right images, poses)."""
+    return pf.render_vi_kb8_stereo_sequence(pf.procedural_texture(), n, size, size)
+
+
+def _k26_inputs(left, right, dev, cfg):
+    """The tracker's K26 inputs of one rig frame: both images extracted on
+    the card (1628 slots a side at 1500 features), the lapping masks."""
+    ext = ORBExtractor(cfg.orb, left.shape, dev)
+    fl, fr = ext(torch.from_numpy(left).to(dev)), ext(torch.from_numpy(right).to(dev))
+    lap_l = stereo.lapping_mask(fl.xy, 0.0, float(cfg.camera.width), fl.valid)
+    lap_r = stereo.lapping_mask(fr.xy, 0.0, float(cfg.camera2.width), fr.valid)
+    sigma2 = [s * s for s in track_device.scale_factors(cfg.orb)]
+    return fl, fr, lap_l, lap_r, sigma2
+
+
+def phase_parity_stereo_kb8(left, right, right_rot, rig_rot, dev) -> dict:
+    """[parity-stereo-kb8]: K26 against its plain version on the card at the
+    tracker's shapes: [stereo-kb8]'s frame 0, and the same left image with a
+    right camera turned 0.8 degrees about y (R_rl != I).  The best column
+    and the candidate mask bit-equal, right_idx equal where both agree on
+    validity, p3d within 1e-5 relative on the rows valid in both; the rows
+    whose validity differs (Jacobi against LAPACK's SVD, both float64) must
+    sit within 1e-4 of a gate, and their count is printed, as is p3d's
+    distance from JAX's float32 SVD of the same rows."""
+    from extractorb_tpu_torch.core import camera as pcam
+    cfg = kb8_rig_config()
+    cam = KannalaBrandt8.from_config(cfg.camera)
+    tr = System(cfg, device=torch.device("cpu")).tracker
+    stats = {}
+    for tag, r_img, (R_rl, t_rl) in (("rig", right, (tr.R_rl, tr.t_rl)),
+                                     ("R_rl != I", right_rot, rig_rot)):
+        fl, fr, lap_l, lap_r, sigma2 = _k26_inputs(left, r_img, dev, cfg)
+        args = (cam, cam, fl.xy, fl.octave, fl.desc, lap_l, fr.xy, fr.octave, fr.desc, lap_r,
+                R_rl, t_rl, sigma2)
+        k = stereo.compute_stereo_fisheye_matches(*args)
+        p = stereo.compute_stereo_fisheye_matches_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(k.best_idx, p.best_idx) and torch.equal(k.candidate, p.candidate)):
+            raise AssertionError(f"[parity-stereo-kb8] {tag}: best columns equal "
+                                 f"{torch.equal(k.best_idx, p.best_idx)}, candidates equal "
+                                 f"{torch.equal(k.candidate, p.candidate)}")
+        vk, vp = k.valid, p.valid
+        both = vk & vp
+        scale = p.p3d[both].norm(dim=1)
+        rel = float(((k.p3d[both] - p.p3d[both]).abs().amax(1) / scale).max()) if both.any() \
+            else 0.0
+        bi = p.best_idx.long()
+        s2 = torch.as_tensor(np.float32(sigma2), device=dev)
+        lvl = lambda o: o.long().clamp(0, len(sigma2) - 1)
+        R_t, t_t = (torch.as_tensor(np.asarray(a, np.float32), device=dev) for a in (R_rl, t_rl))
+        terms = pcam.triangulation_terms(cam, cam, fl.xy, fr.xy[bi], R_t, t_t)
+        margin = pcam.triangulation_gate_margin(terms, s2[lvl(fl.octave)], s2[lvl(fr.octave[bi])])
+        differ = (vk != vp) & p.candidate
+        n_diff, n_edge = int(differ.sum()), int((differ & (margin < 1e-4)).sum())
+        same_idx = torch.equal(k.right_idx[vk == vp], p.right_idx[vk == vp].to(torch.int32))
+        # K26's distance from JAX's solve of the same rows, a float32 SVD
+        p32 = pcam.triangulation_terms(cam, cam, fl.xy, fr.xy[bi], R_t, t_t,
+                                       svd_dtype=torch.float32).p3d
+        rel32 = float(((k.p3d[both] - p32[both]).abs().amax(1) / scale).max()) if both.any() \
+            else 0.0
+        if not rel <= 1e-5 or n_edge != n_diff or not same_idx or int(both.sum()) < 100:
+            raise AssertionError(f"[parity-stereo-kb8] {tag}: p3d within {rel:.2e} relative, "
+                                 f"{n_diff} validity flips ({n_edge} at a gate edge), right_idx "
+                                 f"equal {same_idx}, {int(both.sum())} valid")
+        print(f"[parity-stereo-kb8] {tag}: NL={fl.xy.shape[0]} NR={fr.xy.shape[0]}, "
+              f"{int(p.candidate.sum())} candidates (bit-equal), {int(both.sum())} valid in both, "
+              f"p3d within {rel:.2e} relative ({rel32:.2e} from a float32 SVD, JAX's solve); "
+              f"gate-edge flips: {n_diff}", flush=True)
+        if tag != "rig":
+            continue
+        NL, NR = fl.xy.shape[0], fr.xy.shape[0]
+        m_args = (fl.desc, lap_l, fr.desc, lap_r)
+        # work: NL x NR lapping pairs of 8 XOR, 8 popcount and 8 adds, the
+        # top-2 insert; in: descriptors and masks, out: 3 int32 and a flag
+        pairs = int(lap_l.sum()) * int(lap_r.sum())
+        stats["stereo_fisheye_match"] = record(
+            0.0, cuda_ms(lambda: stereo.fisheye_match(*m_args)),
+            cuda_ms(lambda: stereo.fisheye_best2_plain(*m_args)),
+            (NL + NR) * 33 + NL * 13, 28 * pairs)
+        t_args = (cam, cam, fl.xy, fr.xy, k.best_idx, k.candidate, fl.octave, fr.octave, R_rl,
+                  t_rl, sigma2)
+        nc = int(k.candidate.sum())
+        # work per candidate: two 10-step Newton unprojections and two
+        # projections (~700 float32 operations) and the 4x4 A^T A and its
+        # Jacobi eigenproblem (~3000 float64); in: both sides' pixels and
+        # octaves, the columns and candidates; out: p3d, depth, valid, index
+        stats["fisheye_triangulate"] = record(
+            rel, cuda_ms(lambda: stereo.fisheye_triangulate(*t_args)),
+            cuda_ms(lambda: stereo.fisheye_triangulate_plain(*t_args)),
+            NL * (8 + 4 + 4 + 1) + NR * 12 + NL * (12 + 4 + 1 + 4), 700 * nc, ops64=3000 * nc)
+    return stats
+
+
+def _parity_inertial_kb8(tag, rec, stats):
+    """K20<KB8> and K22<KB8> against their plain versions at their first
+    calls in a run (``rec``): states within 1e-4, inliers equal, K20's points
+    seen by three or more keyframes within 1e-3 m, K22's H within 1e-4 (1e-3
+    marginalised); times recorded the first time (K20's with the one-view
+    points fixed)."""
+    def err(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    out = []
+    if rec.calls["vi_ba"]:
+        # the IMU initialisation's full VI BA.  Its map's points seen by one
+        # keyframe (the rig's close points) have rank-2 blocks, on which a
+        # float32 PCG breaks down (ROADMAP C.2, as [vi-loop]'s GBA), and the
+        # points the triangulation program made through the pinhole K (C.2)
+        # are ill-conditioned: two float32 PCG solves part there by metres,
+        # each as far from the float64 solve as from the other.  So: with
+        # the one-view points fixed, the states within 1e-4, the inliers
+        # equal and the points seen by three or more keyframes within 1e-3 m
+        # (all points' deviation printed beside both solves' distance from
+        # the float64 one), and with every point fixed the states within
+        # 1e-4 and the inliers equal
+        args, kw = rec.calls["vi_ba"][0]
+        prob, cam = args[0], args[1]
+        it, cg = kw.get("n_iters", 8), kw.get("cg_iters", 50)
+        states = ("Rwb", "twb", "v", "bg", "ba")
+        run = lambda f, q: f(q, cam, n_iters=it, cg_iters=cg)
+        n_obs = torch.bincount(prob.obs_mp[prob.obs_valid].long(),
+                               minlength=prob.points.shape[0])
+        q = prob._replace(fixed_mp=prob.fixed_mp | (n_obs < 2))
+        vk, vp = run(sin.optimize_vi_ba, q), run(sin.optimize_vi_ba_plain, q)
+        v64 = run(sin.optimize_vi_ba_plain, sin._cast(q, torch.float64))
+        d = err([getattr(vk, f) for f in states], [getattr(vp, f) for f in states])
+        dpt = [float((a.points.double() - b.points.double()).abs().max())
+               for a, b in ((vk, vp), (vk, v64), (vp, v64))]
+        qa = prob._replace(fixed_mp=torch.ones_like(prob.fixed_mp))
+        ak, ap = run(sin.optimize_vi_ba, qa), run(sin.optimize_vi_ba_plain, qa)
+        da = err([getattr(ak, f) for f in states], [getattr(ap, f) for f in states])
+        m3 = ~q.fixed_mp & (n_obs >= 3)
+        dp3 = float((vk.points - vp.points)[m3].abs().max()) if bool(m3.any()) else 0.0
+        if d > 1e-4 or da > 1e-4 or not dp3 <= 1e-3 or int(m3.sum()) < 100 or \
+                not torch.equal(vk.inliers, vp.inliers) or \
+                not torch.equal(ak.inliers, ap.inliers) or not isinstance(cam, KannalaBrandt8):
+            raise AssertionError(f"{tag} vi_ba<KB8>: states {d:.2e} apart with the one-view "
+                                 f"points fixed (the {int(m3.sum())} points seen by 3+ keyframes "
+                                 f"{dp3:.2e}, all {dpt[0]:.2e}), {da:.2e} with every point "
+                                 f"fixed, inliers equal {torch.equal(vk.inliers, vp.inliers)} / "
+                                 f"{torch.equal(ak.inliers, ap.inliers)}, camera {cam}")
+        K, P, O = prob.Rwb.shape[0], prob.points.shape[0], prob.obs_kf.shape[0]
+        if "vi_ba_kb8" not in stats:
+            ov = int(prob.obs_valid.sum())
+            stats["vi_ba_kb8"] = record(
+                max(d, dp3), cuda_ms(lambda: run(sin.optimize_vi_ba, q), reps=5),
+                cuda_ms(lambda: run(sin.optimize_vi_ba_plain, q), reps=1),
+                K * (84 + 1168 + 3) + P * 13 + O * 21 + 48 + K * 84 + P * 12 + O + 4 + 16,
+                it * (ov * (150 + 2 * 150 + cg * 80) + K * (2 * 16 * 2500 + cg * 2 * 15 * 30 * 2)
+                      + P * cg * 30))
+        out.append(f"vi_ba<KB8> K={K} P={P} O={O} ({it} LM x {cg} PCG), the "
+                   f"{int((n_obs == 1).sum())} one-view points fixed: states within {d:.2e}, "
+                   f"inliers equal, the {int(m3.sum())} points seen by 3+ keyframes within "
+                   f"{dp3:.2e}, all points {dpt[0]:.2e} apart (K20 {dpt[1]:.2e}, plain "
+                   f"{dpt[2]:.2e} from the float64 solve); every point fixed: states within "
+                   f"{da:.2e}")
+    for key, joint in (("pose_inertial", False), ("pose_inertial_joint", True)):
+        if not rec.calls[key]:
+            continue
+        args, kw = rec.calls[key][0]
+        fk = sin.optimize_pose_inertial_last_frame if joint else sin.optimize_pose_inertial
+        fp = (sin.optimize_pose_inertial_last_frame_plain if joint
+              else sin.optimize_pose_inertial_plain)
+        rk, rp = fk(*args, **kw), fp(*args, **kw)
+        fields = ("Rwb", "twb", "v", "bg", "ba")
+        d = err([getattr(rk, f) for f in fields], [getattr(rp, f) for f in fields])
+        hrel = float((rk.H - rp.H).abs().max() / rp.H.abs().max())
+        if d > 1e-4 or not torch.equal(rk.inliers, rp.inliers) or \
+                hrel > (1e-3 if joint else 1e-4) or not isinstance(args[13], KannalaBrandt8):
+            raise AssertionError(f"{tag} {key}<KB8>: max deviation {d:.2e}, H {hrel:.2e}, "
+                                 f"inliers equal {torch.equal(rk.inliers, rp.inliers)}")
+        if f"{key}_kb8" not in stats:
+            N, nv = args[7].shape[0], int(args[10].sum())
+            n = 30 if joint else 15
+            stats[f"{key}_kb8"] = record(
+                max(d, hrel), cuda_ms(lambda: fk(*args, **kw), reps=10),
+                cuda_ms(lambda: fp(*args, **kw), reps=1), 592 * 4 + N * 25 + 246 * 4 + N + 4 + 16,
+                41 * (nv * (150 + 2 * 150) + (3 if joint else 1) * 16 * 2500 + n ** 3 // 3))
+        out.append(f"{key}<KB8> N={args[7].shape[0]} within {d:.2e} (H {hrel:.2e})")
+    print(f"{tag} at the first calls: " + "; ".join(out), flush=True)
+
+
+def phase_stereo_kb8(left, right, poses, dev):
+    """[stereo-kb8]: ``System.track_stereo`` on the fisheye rig at 512x512 /
+    1500 features over [system]'s 30 frames, from a cold map (counts set to
+    0 before it and read after): every frame after the stereo initialisation
+    OK, camera-centre error < 0.08 m unaligned, path length within 5%, K26's
+    two kernels once per frame (the tracker's count), every pose solve and
+    BA through KB8, no K9, no two-view init, no fused frame."""
+    host_ms, kf_frames, init = [], [], []
+
+    def on_frame(k, st, dt, kf, s):
+        host_ms.append(dt * 1e3)
+        if kf:
+            kf_frames.append(k)
+        init.extend([_init_map(s)] if k == 0 else [])
+
+    kernels.LAUNCHES.clear()
+    kernels.GRAPH_LAUNCHES.clear()
+    sys_, states = run_system(left, dev, on_frame, kb8_rig_config(), right)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    tr, n = sys_.tracker, len(left)
+    first_ok = next((k for k, s in enumerate(states) if s == TrackState.OK), None)
+    err, ratio = pf.metric_error(tr.trajectory, poses)
+    bad = [k for k in range(first_ok or 0, n) if states[k] != TrackState.OK]
+    if (first_ok is None or bad or sys_.n_keyframes() < 3 or not err < 0.08
+            or abs(ratio - 1.0) >= 0.05):
+        raise AssertionError(f"[stereo-kb8] states {[s.name for s in states]}, "
+                             f"{sys_.n_keyframes()} keyframes, metric error {err:.4f} m, path "
+                             f"ratio {ratio:.4f}")
+    want = {"stereo_fisheye_match": tr.stats["stereo_match"],
+            "fisheye_triangulate": tr.stats["stereo_match"], "ba_pcg": tr.stats["ba"],
+            "ba_pcg_kb8": tr.stats["ba"], "pose_lm_kb8": launches.get("pose_lm", 0),
+            "tri_search": tr.stats["tri_groups"], **{k: 2 * n for k in EXTRACT_KERNELS}}
+    got = {k: (launches.get(k, 0), v) for k, v in want.items() if launches.get(k, 0) != v}
+    stray = {k: launches[k] for k in ("stereo_match", "two_view", "undistort", "pose_lm_stereo")
+             if launches.get(k, 0)}
+    if got or stray or tr.stats["stereo_match"] != n or tr.n_fused_frames \
+            or kernels.GRAPH_LAUNCHES["track_step"] or not launches.get("pose_lm"):
+        raise AssertionError(f"[stereo-kb8] launches (got, want) {got}, stray {stray}, "
+                             f"fused {tr.n_fused_frames}")
+    for k, (st, ms) in enumerate(zip(states, host_ms)):
+        print(f"[stereo-kb8] frame {k:2d}: {ms:8.2f} ms host clock  {st.name:4s}"
+              f"{'  keyframe event' if k in kf_frames else ''}", flush=True)
+    steady = [ms for k, ms in enumerate(host_ms) if k > first_ok + 1 and k not in kf_frames]
+    print(f"[stereo-kb8] init at frame {first_ok}, {sys_.n_keyframes()} keyframes, "
+          f"{sys_.n_map_points()} map points, metric error {err:.4f} m, path ratio "
+          f"{ratio:.4f}; legacy-frame median {statistics.median(steady):.2f} ms host clock",
+          flush=True)
+    print(f"[stereo-kb8] launches {launches}", flush=True)
+    return launches, sys_, states, init[0]
+
+
+def _init_map(sys_):
+    """The stereo initialisation's points by keypoint: (N,3) positions,
+    NaN where keyframe 0's keypoint made no point."""
+    mp = sys_.tracker.atlas.current
+    kp = mp.keyframes[0].kp_mp
+    return np.where((kp >= 0)[:, None], mp.mp_pos[np.maximum(kp, 0)], np.nan)
+
+
+def phase_stereo_kb8_reference(left, right, card_sys, card_states, card_init):
+    """[stereo-kb8-reference]: [stereo-kb8]'s first 5 frames on the CPU plain
+    path: the same states and keyframes, the initial map's points within
+    1e-4 relative where both made one (K26's float64 Jacobi against the
+    float64 SVD: a point on a gate edge may be made by one only), poses
+    within 1e-3."""
+    n, init = 5, []
+    cpu_sys, cpu_states = run_system(left[:n], torch.device("cpu"), cfg=kb8_rig_config(),
+                                     second=right[:n], on_frame=lambda k, st, dt, kf, s:
+                                     init.extend([_init_map(s)] if k == 0 else []))
+    kf_ids = lambda s: sorted(kf.frame_id for kf in s.tracker.atlas.current.keyframes.values()
+                              if kf.frame_id < n)
+    made_c, made_g = ~np.isnan(init[0][:, 0]), ~np.isnan(card_init[:, 0])
+    both = made_c & made_g
+    pc, pg = init[0][both], card_init[both]
+    rel = float((np.abs(pc - pg).max(1) / np.linalg.norm(pc, axis=1)).max())
+    only = int((made_c != made_g).sum())
+    dp = max(max(float(np.abs(Rg - Rc).max()), float(np.abs(tg - tc).max()))
+             for (_, Rg, tg), (_, Rc, tc) in zip(card_sys.tracker.trajectory[:n],
+                                                 cpu_sys.tracker.trajectory))
+    if (list(cpu_states) != list(card_states[:n]) or kf_ids(cpu_sys) != kf_ids(card_sys)
+            or not rel <= 1e-4 or only > 0.01 * int(both.sum()) or not dp <= 1e-3):
+        raise AssertionError(f"[stereo-kb8-reference] states {cpu_states} / {card_states[:n]}, "
+                             f"keyframes {kf_ids(cpu_sys)} / {kf_ids(card_sys)}, init points "
+                             f"{rel:.2e} relative ({only} made by one side only), poses {dp:.2e}")
+    print(f"[stereo-kb8-reference] frames 0-{n - 1}: the CPU plain path's states and keyframes; "
+          f"{int(both.sum())} initial points within {rel:.2e} relative ({only} made by one side "
+          f"only), poses within {dp:.2e}", flush=True)
+
+
+def phase_vi_kb8(tag, left, right, dev, stats):
+    """[vi-stereo-kb8] (``right`` given: ``track_stereo(l, r, ts, imu=...)``
+    on the rig, sensor imu-stereo) and [vi-kb8] (``track_monocular(img, ts,
+    imu=...)``, imu-monocular) over [vi]'s trajectory through TUM-VI's KB8
+    camera at 512x512 / 1500 features: the IMU initialised, |s - 1| < 0.05
+    (rig) or < 0.35 (mono), ATE < 0.25 m, every frame OK (rig) or the last
+    4 (mono); every K20 and K22 launch through KB8 and equal to the
+    tracker's counts, K26 once per rig frame, fused inertial frames (mono)
+    or none (rig); K20<KB8> and K22<KB8> held to their plain versions at
+    their first calls."""
+    host_ms, inited = [], []
+    cfg = kb8_rig_config("imu-stereo") if right is not None else vi_kb8_config()
+
+    def on_frame(k, st, dt, sys_):
+        host_ms.append(dt * 1e3)
+        inited.append(sys_.tracker.atlas.current.imu_initialized)
+
+    kernels.LAUNCHES.clear()
+    with _InertialRecorder() as rec:
+        torch.cuda.synchronize()
+        sys_, states = run_vi(left, dev, cfg=cfg, on_frame=on_frame, rights=right)
+        sys_.flush()
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    tr, st = sys_.tracker, sys_.tracker.stats
+    ate, scale = pf.vi_ate_scale(tr.final_trajectory())
+    init_at = inited.index(True) if any(inited) else None
+    n_pi = st["pose_inertial"] + st["pose_inertial_joint"] + st["fused_inertial"]
+    want = {"vi_ba": st["vi_ba"], "vi_ba_kb8": st["vi_ba"], "inertial_init": st["inertial_init"],
+            "pose_inertial": n_pi, "pose_inertial_kb8": n_pi,
+            "pose_inertial_joint_kb8": launches.get("pose_inertial_joint", 0),
+            "stereo_fisheye_match": st["stereo_match"], "fisheye_triangulate": st["stereo_match"]}
+    bad = {k: (launches.get(k, 0), v) for k, v in want.items() if launches.get(k, 0) != v}
+    rig = right is not None
+    ok_states = (all(s == TrackState.OK for s in states) if rig
+                 else all(s == TrackState.OK for s in states[-4:]))
+    fused_ok = tr.n_fused_frames == 0 if rig else tr.n_fused_frames >= 1
+    bound = VI_STEREO_MAX_SCALE_ERR if rig else VI_MAX_SCALE_ERR
+    if (init_at is None or not ok_states or bad or not fused_ok or not launches.get("vi_ba")
+            or not launches.get("pose_inertial") or (rig and st["stereo_match"] != len(left))
+            or not abs(scale - 1.0) < bound or not ate < VI_MAX_ATE):
+        raise AssertionError(f"{tag} states {[s.name for s in states]}, IMU init at {init_at}, "
+                             f"scale {scale:.4f}, ATE {ate:.4f} m, fused {tr.n_fused_frames}, "
+                             f"launches (got, want) {bad}")
+    for k, (s_, ms) in enumerate(zip(states, host_ms)):
+        print(f"{tag} frame {k:2d}: {ms:8.2f} ms host clock  {s_.name:15s}"
+              f"{'  IMU initialised' if k == init_at else ''}", flush=True)
+    print(f"{tag} IMU initialised at frame {init_at}, {sys_.n_keyframes()} keyframes, "
+          f"{tr.n_fused_frames} fused inertial frames, scale {scale:.4f} (|s - 1| < {bound}), "
+          f"ATE {ate:.4f} m (< {VI_MAX_ATE})", flush=True)
+    print(f"{tag} launches {launches}", flush=True)
+    _parity_inertial_kb8(tag, rec, stats)
+    return launches
+
+
 def main() -> int:
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -3081,6 +3459,20 @@ def main() -> int:
     paths["kb8"], kb8_inits, kb8_sys, kb8_states = phase_kb8(kb8_seq, kb8_poses, dev)
     phase_kb8_reference(kb8_seq, kb8_inits, kb8_sys, kb8_states)
     paths["reloc_kb8"] = phase_reloc_kb8(kb8_seq, kb8_poses, dev)
+    rig_l, rig_r, rig_poses = rig_frames()
+    T_rot = np.eye(4)
+    T_rot[:3, :3] = pf.so3_exp_np([0.0, np.deg2rad(0.8), 0.0]).T   # R_rl turned 0.8 deg about y
+    T_rot[0, 3] = KB8_BASELINE
+    right_rot = pf.render_kb8_stereo_sequence(pf.procedural_texture(), 1, SYS_SPEED, KB8_SIZE,
+                                              KB8_SIZE, T_lr=T_rot)[1][0]
+    stats.update(phase_parity_stereo_kb8(rig_l[0], rig_r[0], right_rot,
+                                         pf.rig_extrinsics(T_rot), dev))
+    paths["stereo_kb8"], rig_sys, rig_states, rig_init = phase_stereo_kb8(rig_l, rig_r,
+                                                                          rig_poses, dev)
+    phase_stereo_kb8_reference(rig_l, rig_r, rig_sys, rig_states, rig_init)
+    vi_l, vi_r, _ = vi_rig_frames()
+    paths["vi_stereo_kb8"] = phase_vi_kb8("[vi-stereo-kb8]", vi_l, vi_r, dev, stats)
+    paths["vi_kb8"] = phase_vi_kb8("[vi-kb8]", vi_l, None, dev, stats)
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():
@@ -3093,7 +3485,7 @@ def main() -> int:
             row.update(stereo_launches=sum(count("pose_lm_stereo").values()),
                        stereo_ms=st["ms"], stereo_plain_ms=st["plain_ms"],
                        stereo_bound_ms=st["bound_ms"], stereo_max_abs_err=st["max_abs_err"])
-        if n in ("pose_lm", "ba_pcg"):   # the KB8 instantiation beside the pinhole one
+        if n in ("pose_lm", "ba_pcg", "vi_ba", "pose_inertial"):   # KB8 beside the pinhole
             st = stats[f"{n}_kb8"]
             row.update(kb8_launches=sum(count(f"{n}_kb8").values()), kb8_ms=st["ms"],
                        kb8_plain_ms=st["plain_ms"], kb8_bound_ms=st["bound_ms"],
@@ -3107,6 +3499,10 @@ def main() -> int:
                        joint_bound_ms=st["bound_ms"], joint_max_abs_err=st["max_abs_err"],
                        joint_replaces="extractorb_tpu/solver/inertial.py:683 + "
                                       "extractorb_tpu/solver/marginal.py:23")
+            st = stats["pose_inertial_joint_kb8"]
+            row.update(joint_kb8_launches=sum(count("pose_inertial_joint_kb8").values()),
+                       joint_kb8_ms=st["ms"], joint_kb8_plain_ms=st["plain_ms"],
+                       joint_kb8_bound_ms=st["bound_ms"], joint_kb8_max_abs_err=st["max_abs_err"])
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

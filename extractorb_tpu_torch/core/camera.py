@@ -1,6 +1,5 @@
-"""Camera models: Pinhole and Kannala-Brandt 8-parameter fisheye (port of
-``extractorb_tpu/core/camera.py``; the fisheye rig's ``triangulate_matches``
-is ROADMAP A.12.4).
+"""Camera models: Pinhole and Kannala-Brandt 8-parameter fisheye, and the
+fisheye rig's two-view triangulation (port of ``extractorb_tpu/core/camera.py``).
 
 The JAX package passes a projection closure to its matchers and solvers;
 here the camera is a small frozen dataclass of Python floats, because the
@@ -9,12 +8,16 @@ arithmetic; ``project_jac`` is its Jacobian d(u, v)/d(x, y, z), which the
 JAX solvers take by ``jax.jacfwd`` through the closure and the plain
 solvers here take in closed form.  K4 and K6 take the camera as a template
 parameter (``csrc/camera_t.cuh``).
+
+``triangulate_matches`` is the plain version of the triangulation half of
+kernel K26 (``csrc/stereo_fisheye.cu``): on the card the rig's matches are
+triangulated inside ``frontend.stereo.compute_stereo_fisheye_matches``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import NamedTuple, Union
 
 import numpy as np
 import torch
@@ -186,6 +189,93 @@ def camera_from_config(c: CameraConfig) -> Camera:
     if c.model == "KannalaBrandt8":
         return KannalaBrandt8.from_config(c)
     return Pinhole.from_config(c)
+
+
+# the rig's triangulation gates (KannalaBrandt8::TriangulateMatches): the
+# rays' parallax (cos < 0.9998, ~1.15 degrees) and the reprojection chi2
+MIN_PARALLAX_COS = 0.9998
+TRI_CHI2 = 5.991
+
+
+class TriangulationTerms(NamedTuple):
+    """The quantities ``triangulate_matches`` gates on, per match."""
+    p3d: torch.Tensor      # (N,3) left-camera point
+    cos_par: torch.Tensor  # (N,) cosine of the rays' angle (gate: < min_parallax_cos)
+    w: torch.Tensor        # (N,) homogeneous weight (gate: |w| > 1e-12)
+    z1: torch.Tensor       # (N,) depth along the left bearing (gate: > 0)
+    z2: torch.Tensor       # (N,) depth along the right bearing (gate: > 0)
+    e1: torch.Tensor       # (N,) squared reprojection error, left (gate: <= chi2 sigma2_l)
+    e2: torch.Tensor       # (N,) right (gate: <= chi2 sigma2_r)
+
+
+def triangulation_terms(cam_l: KannalaBrandt8, cam_r: KannalaBrandt8, uv_l, uv_r, R_rl, t_rl,
+                        svd_dtype: torch.dtype = torch.float64) -> TriangulationTerms:
+    """The DLT triangulation of ``triangulate_matches`` and its gated
+    quantities, in the JAX function's operation order: unit bearings, the
+    four DLT rows b x (P p) = 0 against them, the (N,4,4) SVD, the point
+    p = h[:3] / w (w guarded at 1e-12), depths along each bearing (fisheye
+    rays may pass 90 degrees), reprojection through both cameras.  The SVD
+    of the float32 rows runs in float64 and the point is rounded to float32
+    (JAX: a float32 SVD): a float32 SVD of these 4x4 systems is good to only
+    ~1e-5 of the point, which K26's float64 solve is held to.  ``svd_dtype``
+    float32 gives JAX's solve (``chip_smoke.py`` prints K26's distance from
+    it)."""
+    b1 = cam_l.unproject(uv_l)
+    b2 = cam_r.unproject(uv_r)
+    cos_par = torch.sum(b1 * (b2 @ R_rl), -1)   # right bearings rotated into the left camera
+    P1 = torch.cat([torch.eye(3, dtype=b1.dtype, device=b1.device),
+                    torch.zeros(3, 1, dtype=b1.dtype, device=b1.device)], 1)
+    P2 = torch.cat([R_rl, t_rl[:, None]], 1)
+
+    def rows(b, P):
+        return torch.stack([b[..., 2:3] * P[0] - b[..., 0:1] * P[2],
+                            b[..., 2:3] * P[1] - b[..., 1:2] * P[2]], -2)
+
+    A = torch.cat([rows(b1, P1), rows(b2, P2)], -2)   # (N,4,4)
+    hp = torch.linalg.svd(A.to(svd_dtype)).Vh[..., 3, :]
+    w = hp[..., 3]
+    safe_w = torch.where(torch.abs(w) < 1e-12, 1.0, w)
+    p3d = (hp[..., :3] / safe_w[..., None]).to(b1.dtype)
+    z1 = torch.sum(p3d * b1, -1)
+    p3d_r = p3d @ R_rl.T + t_rl
+    z2 = torch.sum(p3d_r * b2, -1)
+    e1 = torch.sum((cam_l.project(p3d) - uv_l) ** 2, -1)
+    e2 = torch.sum((cam_r.project(p3d_r) - uv_r) ** 2, -1)
+    return TriangulationTerms(p3d, cos_par, w, z1, z2, e1, e2)
+
+
+def triangulation_gate_margin(t: TriangulationTerms, sigma2_l, sigma2_r,
+                              min_parallax_cos: float = MIN_PARALLAX_COS, chi2: float = TRI_CHI2
+                              ) -> torch.Tensor:
+    """(N,) the smallest relative distance of a match's quantities to their
+    gates: |cos - c| / c, |z| / |p3d| for the depths, |e - chi2 s2| / (chi2
+    s2) for the errors.  A match whose validity two solvers disagree on
+    sits on a gate when this is small (1e-4: float32 rounding)."""
+    n = torch.linalg.vector_norm(t.p3d, dim=-1).clamp(min=1e-30)
+    th_l, th_r = chi2 * sigma2_l, chi2 * sigma2_r
+    return torch.stack([(t.cos_par - min_parallax_cos).abs() / min_parallax_cos,
+                        t.z1.abs() / n, t.z2.abs() / n, (t.e1 - th_l).abs() / th_l,
+                        (t.e2 - th_r).abs() / th_r], -1).amin(-1)
+
+
+def triangulate_matches(cam_l: KannalaBrandt8, cam_r: KannalaBrandt8, uv_l, uv_r, R_rl, t_rl,
+                        sigma2_l, sigma2_r, min_parallax_cos: float = MIN_PARALLAX_COS,
+                        chi2: float = TRI_CHI2):
+    """Batched two-view triangulation of a fisheye rig's matches with
+    parallax, depth and chi2 gates.
+
+    Replaces ``extractorb_tpu/core/camera.py:triangulate_matches``
+    (KannalaBrandt8::TriangulateMatches, KannalaBrandt8.cpp:336-438): uv_l,
+    uv_r (N,2) raw pixels of the left and right camera, the rig's relative
+    pose [R_rl | t_rl] (left-camera coordinates to right-camera ones),
+    per-match variances sigma2_l, sigma2_r (N,).  Returns (p3d (N,3) in the
+    left camera for every row, depth (N,) = p3d's z where valid else -1,
+    valid (N,)).  This is the plain version of K26's triangulation, which
+    the card runs inside ``frontend.stereo.compute_stereo_fisheye_matches``."""
+    t = triangulation_terms(cam_l, cam_r, uv_l, uv_r, R_rl, t_rl)
+    valid = ((t.cos_par < min_parallax_cos) & (t.z1 > 0) & (t.z2 > 0) & (torch.abs(t.w) > 1e-12)
+             & (t.e1 <= chi2 * sigma2_l) & (t.e2 <= chi2 * sigma2_r))
+    return t.p3d, torch.where(valid, t.p3d[..., 2], -1.0), valid
 
 
 def _undistort_constants(cam: Pinhole, dist):

@@ -1,7 +1,9 @@
-// Device cameras for K4 (pose_lm.cu) and K6 (ba_pcg.cu), taken as a template
-// parameter: the projection (u, v) = pi(x, y, z) for a generic scalar T
-// (float, or Dual<n> from dual.cuh) and A = (d pi / d pc) R, the rows the
-// Jacobians of a right perturbation R Exp(delta) are built from.
+// Device cameras for K4 (pose_lm.cu), K6 (ba_pcg.cu), K20 (vi_ba.cu) and K22
+// (pose_inertial.cu), taken as a template parameter: the projection (u, v) =
+// pi(x, y, z) for a generic scalar T (float, or Dual<n> from dual.cuh) and
+// A = (d pi / d pc) R, the rows the Jacobians of a right perturbation
+// R Exp(delta) are built from.  CamKB8 also unprojects a pixel to a unit
+// bearing for K26 (stereo_fisheye.cu).
 //
 // The JAX package hands its solvers a projection closure and takes these
 // Jacobians with jax.jacfwd through it (extractorb_tpu/slam/track_device.py
@@ -63,6 +65,29 @@ struct CamKB8 {  // Kannala-Brandt 8, extractorb_tpu/core/camera.py:113
       a0[c] = U.d[0] * R[c] + U.d[1] * R[3 + c] + U.d[2] * R[6 + c];
       a1[c] = V.d[0] * R[c] + V.d[1] * R[3 + c] + V.d[2] * R[6 + c];
     }
+  }
+
+  // pixel -> unit bearing b, in core/camera.py:KannalaBrandt8.unproject's
+  // float32 operation order as PyTorch runs it on the card (a division by
+  // the scalar fx is a product with its float32 reciprocal): 10 Newton
+  // steps on theta from r_d (clamped to pi), then (sin(theta) x / r_d,
+  // sin(theta) y / r_d, cos(theta)), which holds rays past 90 degrees
+  __device__ __forceinline__ void unproject(float u, float v, float* b) const {
+    const float c3 = 3.f * k1, c5 = 5.f * k2, c7 = 7.f * k3, c9 = 9.f * k4;
+    const float wx = (u - cx) * (1.f / fx), wy = (v - cy) * (1.f / fy);
+    const float r_d = fminf(sqrtf(wx * wx + wy * wy), 3.14159274f);
+    float theta = r_d;
+    for (int it = 0; it < 10; ++it) {
+      const float t2 = theta * theta;
+      const float t4 = t2 * t2, t6 = t2 * t2 * t2, t8 = t2 * t2 * t2 * t2;
+      const float f = theta * (1.f + k1 * t2 + k2 * t4 + k3 * t6 + k4 * t8) - r_d;
+      const float fp = 1.f + c3 * t2 + c5 * t4 + c7 * t6 + c9 * t8;
+      theta = theta - f / (fabsf(fp) < 1e-8f ? 1.f : fp);
+    }
+    const float s = r_d < 1e-8f ? 1.f : sinf(theta) / r_d;
+    b[0] = wx * s;
+    b[1] = wy * s;
+    b[2] = cosf(theta);
   }
 
   // a constant 0 of T's kind, tangents 0

@@ -6,9 +6,13 @@
 // extractorb_tpu/solver/inertial.py (_apply_delta, _edge_resid15) and
 // imu/preintegration.py (delta_*, inertial_residual) in the same order of
 // operations.  Also the whitening factor L = chol((C + 1e-8 I)^-1)
-// (inertial.py:_info_sqrt), in float64, rounded to float.  Include after
-// dual.cuh and lie_t.cuh, inside the same anonymous namespace.
+// (inertial.py:_info_sqrt), in float64, rounded to float.  The visual
+// residual (vis_rj) takes the camera as a template parameter
+// (camera_t.cuh).  Include after dual.cuh and lie_t.cuh, inside the same
+// anonymous namespace.
 #pragma once
+
+#include "camera_t.cuh"
 
 using D15 = Dual<15, float>;
 template <>
@@ -216,34 +220,43 @@ __device__ void orthonormalize3(float* Rm) {
   }
 }
 
-// the visual residual of a world point pw in the camera of body state (R, t)
-// (pc = Rcb R^T (pw - t) + tcb) and its Jacobians: wrt the body's (phi, rho)
-// (Jp, 2x6) and wrt the point (Jl, 2x3); analytic, as the JAX module's
+// the residual uv - pi(pc) of a camera-frame point and, with `jac`, the rows
+// A = (d pi / d pc) Rcb, through the camera's project and a_rows
+// (camera_t.cuh: the pinhole in closed form, CamKB8 in Dual<3>)
+template <class C>
+__device__ __forceinline__ void vis_proj(const C& cam, float x, float y, float z, const float* uv,
+                                         const float* Rcb, bool jac, float* r, float (*A)[3]) {
+  float u, v;
+  cam.project(x, y, z, u, v);
+  r[0] = uv[0] - u;
+  r[1] = uv[1] - v;
+  if (jac) cam.a_rows(x, y, z, Rcb, A[0], A[1]);
+}
+
+// the visual residual of a world point pw in the camera `cam` of body state
+// (R, t) (pc = Rcb R^T (pw - t) + tcb) and its Jacobians: wrt the body's
+// (phi, rho) (Jp, 2x6) and wrt the point (Jl, 2x3), as the JAX module's
 // jacfwd of inertial.py:_vis_residual_jac gives them
+template <class C>
 __device__ void vis_rj(const float* R, const float* t, const float* pw, const float* uv,
-                       const float* Rcb, const float* tcb, float fx, float fy, float cx, float cy,
-                       float* r, float (*Jp)[6], float (*Jl)[3]) {
+                       const float* Rcb, const float* tcb, const C& cam, float* r,
+                       float (*Jp)[6], float (*Jl)[3]) {
   float d[3], pb[3], pc[3];
   for (int i = 0; i < 3; ++i) d[i] = pw[i] - t[i];
   for (int i = 0; i < 3; ++i) pb[i] = R[i] * d[0] + R[3 + i] * d[1] + R[6 + i] * d[2];
   for (int i = 0; i < 3; ++i)
     pc[i] = Rcb[3 * i] * pb[0] + Rcb[3 * i + 1] * pb[1] + Rcb[3 * i + 2] * pb[2] + tcb[i];
-  const float x = pc[0], y = pc[1], z = pc[2];
-  r[0] = uv[0] - (fx * x / z + cx);
-  r[1] = uv[1] - (fy * y / z + cy);
+  float A[2][3];  // (J_pi Rcb) rows
+  vis_proj(cam, pc[0], pc[1], pc[2], uv, Rcb, Jp != nullptr, r, A);
   if (Jp == nullptr) return;
-  const float iz = 1.f / z;
-  const float jpi[2][3] = {{fx * iz, 0.f, -fx * x * iz * iz}, {0.f, fy * iz, -fy * y * iz * iz}};
   for (int rr = 0; rr < 2; ++rr) {
-    float A[3];  // (J_pi Rcb) row
-    for (int c = 0; c < 3; ++c)
-      A[c] = jpi[rr][0] * Rcb[c] + jpi[rr][1] * Rcb[3 + c] + jpi[rr][2] * Rcb[6 + c];
+    const float* a = A[rr];
     // d pb / d phi = hat(pb), d pb / d rho = -I, d pb / d pw = R^T
-    Jp[rr][0] = -(A[1] * pb[2] - A[2] * pb[1]);
-    Jp[rr][1] = -(A[2] * pb[0] - A[0] * pb[2]);
-    Jp[rr][2] = -(A[0] * pb[1] - A[1] * pb[0]);
-    for (int c = 0; c < 3; ++c) Jp[rr][3 + c] = A[c];
+    Jp[rr][0] = -(a[1] * pb[2] - a[2] * pb[1]);
+    Jp[rr][1] = -(a[2] * pb[0] - a[0] * pb[2]);
+    Jp[rr][2] = -(a[0] * pb[1] - a[1] * pb[0]);
+    for (int c = 0; c < 3; ++c) Jp[rr][3 + c] = a[c];
     if (Jl != nullptr)
-      for (int c = 0; c < 3; ++c) Jl[rr][c] = -(A[0] * R[3 * c] + A[1] * R[3 * c + 1] + A[2] * R[3 * c + 2]);
+      for (int c = 0; c < 3; ++c) Jl[rr][c] = -(a[0] * R[3 * c] + a[1] * R[3 * c + 1] + a[2] * R[3 * c + 2]);
   }
 }

@@ -10,9 +10,10 @@
 // The TPU runs each as a lax.scan of 4 chi2 rounds x 10 iterations over
 // jacfwd Jacobians of every residual.  Here, per iteration:
 //   - every thread sums the 6x6 + 6 normal equations of its visual unary
-//     edges (analytic Jacobians on the current pose, imu_t.cuh vis_rj; Huber
-//     in the first three rounds), and the block reduces them in a fixed
-//     order;
+//     edges (Jacobians on the current pose, imu_t.cuh vis_rj, through the
+//     camera template parameter: the pinhole's closed form or CamKB8's
+//     Dual<3> projection Jacobian; Huber in the first three rounds), and the
+//     block reduces them in a fixed order;
 //   - one thread each takes the inertial edge's Jacobian wrt the current
 //     state and (joint) wrt the previous state, and the prior residual's, by
 //     Dual<15> forward passes of imu_t.cuh's residuals;
@@ -261,16 +262,15 @@ __device__ void apply_to(float* S, const float* d) {
 }
 
 // the 27 visual sums of this thread's points at the current state into s.vis
+template <class C>
 __device__ void visual_sums(Sh& s, const float* pts, const float* uv, const float* isig,
-                            const bool* active, int N, bool huber, float fx, float fy, float cx,
-                            float cy) {
+                            const bool* active, int N, bool huber, const C& cam) {
   float v[27];
   for (int i = 0; i < 27; ++i) v[i] = 0.f;
   for (int i = threadIdx.x; i < N; i += kThreads) {
     if (!active[i]) continue;
     float r[2], Jp[2][6];
-    vis_rj(s.cur, s.cur + 9, pts + 3 * i, uv + 2 * i, s.Rcb, s.tcb, fx, fy, cx, cy, r, Jp,
-           nullptr);
+    vis_rj(s.cur, s.cur + 9, pts + 3 * i, uv + 2 * i, s.Rcb, s.tcb, cam, r, Jp, nullptr);
     const float is = isig[i];
     const float chi2 = (r[0] * r[0] + r[1] * r[1]) * is;
     const float wt = (huber ? fminf(huber_delta() / sqrtf(fmaxf(chi2, 1e-12f)), 1.f) : 1.f) * is;
@@ -299,12 +299,12 @@ __device__ void inertial_terms(Sh& s) {
   if (joint && threadIdx.x == 64) prior_jac(s.prev, s.prs, s.rp, s.Jpr);
 }
 
-template <bool joint>
+template <bool joint, class C>
 __global__ void __launch_bounds__(kThreads)
 pose_inertial_kernel(const float* __restrict__ state, const float* __restrict__ pts,
                      const float* __restrict__ uv, const float* __restrict__ isig,
-                     const bool* __restrict__ valid, int N, float fx, float fy, float cx, float cy,
-                     int n_rounds, int n_iters, float* __restrict__ out, bool* __restrict__ active,
+                     const bool* __restrict__ valid, int N, const C cam, int n_rounds,
+                     int n_iters, float* __restrict__ out, bool* __restrict__ active,
                      int* __restrict__ n_inl) {
   constexpr int n = joint ? 30 : 15;
   __shared__ Sh s;
@@ -334,7 +334,7 @@ pose_inertial_kernel(const float* __restrict__ state, const float* __restrict__ 
   for (int rnd = 0; rnd < n_rounds; ++rnd) {
     const bool huber = rnd < n_rounds - 1;
     for (int it = 0; it < n_iters; ++it) {
-      visual_sums(s, pts, uv, isig, active, N, huber, fx, fy, cx, cy);
+      visual_sums(s, pts, uv, isig, active, N, huber, cam);
       inertial_terms<joint>(s);
       __syncthreads();
       assemble<joint>(s, true);
@@ -350,8 +350,8 @@ pose_inertial_kernel(const float* __restrict__ state, const float* __restrict__ 
     // re-classify on the raw points
     for (int i = threadIdx.x; i < N; i += kThreads) {
       float r[2];
-      vis_rj(s.cur, s.cur + 9, pts + 3 * i, uv + 2 * i, s.Rcb, s.tcb, fx, fy, cx, cy, r,
-             nullptr, nullptr);
+      vis_rj(s.cur, s.cur + 9, pts + 3 * i, uv + 2 * i, s.Rcb, s.tcb, cam, r, nullptr,
+             nullptr);
       active[i] = valid[i] && (r[0] * r[0] + r[1] * r[1]) * isig[i] <= kChi2;
     }
     __syncthreads();
@@ -362,7 +362,7 @@ pose_inertial_kernel(const float* __restrict__ state, const float* __restrict__ 
   }
   __syncthreads();
   // the final Hessian: visual weights isig (no Huber) on the inliers
-  visual_sums(s, pts, uv, isig, active, N, false, fx, fy, cx, cy);
+  visual_sums(s, pts, uv, isig, active, N, false, cam);
   inertial_terms<joint>(s);
   __syncthreads();
   assemble<joint>(s, false);
@@ -406,27 +406,43 @@ pose_inertial_kernel(const float* __restrict__ state, const float* __restrict__ 
   }
 }
 
+template <bool joint, class C>
+int launch(const void* state, const void* pts, const void* uv, const void* isig,
+           const void* valid, int N, const C& cam, int n_rounds, int n_iters, void* out,
+           void* inliers, void* n_inl, cudaStream_t st) {
+  pose_inertial_kernel<joint, C><<<1, kThreads, 0, st>>>(
+      (const float*)state, (const float*)pts, (const float*)uv, (const float*)isig,
+      (const bool*)valid, N, cam, n_rounds, n_iters, (float*)out, (bool*)inliers, (int*)n_inl);
+  return (int)cudaGetLastError();
+}
+
+template <class C>
+int launch(bool joint, const void* state, const void* pts, const void* uv, const void* isig,
+           const void* valid, int N, const C& cam, int n_rounds, int n_iters, void* out,
+           void* inliers, void* n_inl, cudaStream_t st) {
+  return joint ? launch<true>(state, pts, uv, isig, valid, N, cam, n_rounds, n_iters, out,
+                              inliers, n_inl, st)
+               : launch<false>(state, pts, uv, isig, valid, N, cam, n_rounds, n_iters, out,
+                               inliers, n_inl, st);
+}
+
 }  // namespace
 
 // state: the packed problem (592 floats: cur 21, prev 21, prior H 225, prior
 // state 21, preintegration 292, Rcb 9, tcb 3); pts (N,3), uv (N,2), isig (N,),
-// valid (N,); out: the current state 21 then H 225; inliers (N,), n_inl ()
+// valid (N,); kb8 null: the pinhole camera, else a host array k1..k4 of the
+// KB8 camera; out: the current state 21 then H 225; inliers (N,), n_inl ()
 extern "C" int pose_inertial_launch(const void* state, const void* pts, const void* uv,
                                     const void* isig, const void* valid, int N, float fx,
-                                    float fy, float cx, float cy, int joint, int n_rounds,
-                                    int n_iters, void* out, void* inliers, void* n_inl,
-                                    void* stream) {
+                                    float fy, float cx, float cy, const float* kb8, int joint,
+                                    int n_rounds, int n_iters, void* out, void* inliers,
+                                    void* n_inl, void* stream) {
   if (N <= 0 || n_rounds < 1 || n_iters < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (joint)
-    pose_inertial_kernel<true><<<1, kThreads, 0, st>>>(
-        (const float*)state, (const float*)pts, (const float*)uv, (const float*)isig,
-        (const bool*)valid, N, fx, fy, cx, cy, n_rounds, n_iters, (float*)out, (bool*)inliers,
-        (int*)n_inl);
-  else
-    pose_inertial_kernel<false><<<1, kThreads, 0, st>>>(
-        (const float*)state, (const float*)pts, (const float*)uv, (const float*)isig,
-        (const bool*)valid, N, fx, fy, cx, cy, n_rounds, n_iters, (float*)out, (bool*)inliers,
-        (int*)n_inl);
-  return (int)cudaGetLastError();
+  if (kb8 != nullptr)
+    return launch(joint != 0, state, pts, uv, isig, valid, N,
+                  CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, n_rounds, n_iters, out,
+                  inliers, n_inl, st);
+  return launch(joint != 0, state, pts, uv, isig, valid, N, Cam{fx, fy, cx, cy}, n_rounds,
+                n_iters, out, inliers, n_inl, st);
 }

@@ -7,8 +7,10 @@
 // Jacobians, each a lax.scan of PCG sweeps.  K6's design (ba_pcg.cu) with
 // wider pose blocks:
 //   - visual rows: the camera sees a point through the fixed extrinsics
-//     (pc = Rcb R^T (pw - t) + tcb); analytic 2x6 Jacobians on the pose
-//     slice of the body state and 2x3 on the point (imu_t.cuh vis_rj);
+//     (pc = Rcb R^T (pw - t) + tcb); 2x6 Jacobians on the pose slice of the
+//     body state and 2x3 on the point (imu_t.cuh vis_rj), through the camera
+//     template parameter: the pinhole's closed form, or CamKB8's projection
+//     Jacobian in Dual<3> (camera_t.cuh);
 //   - chain edges: edge k joins keyframe k-1 and k with the whitened
 //     15-dim [EdgeInertial; bias walk] residual, its two 15x15 Jacobians
 //     taken in forward mode (two Dual<15> passes of imu_t.cuh's edge_r15,
@@ -52,7 +54,6 @@ struct VProb {
   const float* chain;   // (K, 292)
   const float* ext;     // Rcb 9, tcb 3
   int K, P, O;
-  float fx, fy, cx, cy;
   float prior_g, prior_a;
 };
 
@@ -159,12 +160,13 @@ __device__ void obs_world(const float* S, const float* pts, const VProb& q, int 
     pw[i] = S[3 * i] * pb[0] + S[3 * i + 1] * pb[1] + S[3 * i + 2] * pb[2] + S[9 + i];
 }
 
-__device__ float obs_cost(const float* states, const float* pts, const VProb& q, int o, bool huber,
-                          float* r, float (*Jp)[6], float (*Jl)[3], float* wt) {
+template <class C>
+__device__ float obs_cost(const float* states, const float* pts, const VProb& q, const C& cam,
+                          int o, bool huber, float* r, float (*Jp)[6], float (*Jl)[3], float* wt) {
   const float* S = states + kS * q.obs_kf[o];
   float pw[3];
   obs_world(S, pts, q, o, pw);
-  vis_rj(S, S + 9, pw, q.obs_uv + 2 * o, q.ext, q.ext + 9, q.fx, q.fy, q.cx, q.cy, r, Jp, Jl);
+  vis_rj(S, S + 9, pw, q.obs_uv + 2 * o, q.ext, q.ext + 9, cam, r, Jp, Jl);
   const float is = q.isig[o];
   const float chi2 = (r[0] * r[0] + r[1] * r[1]) * is;
   const float delta = huber_delta();
@@ -206,16 +208,17 @@ __global__ void __launch_bounds__(kThreads) setup_kernel(const VProb q, VWs w) {
 }
 
 // blocks [0, nbO): one thread per observation; the last block: the edges
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 build_kernel(const float* __restrict__ states, const float* __restrict__ pts, const VProb q,
-             bool huber, VWs w) {
+             const C cam, bool huber, VWs w) {
   float cost = 0.f;
   if (blockIdx.x + 1 < gridDim.x) {
     const int o = blockIdx.x * blockDim.x + threadIdx.x;
     if (o < q.O) {
       if (q.valid[o]) {
         float r[2], Jp[2][6], Jl[2][3], wt;
-        cost = obs_cost(states, pts, q, o, huber, r, Jp, Jl, &wt);
+        cost = obs_cost(states, pts, q, cam, o, huber, r, Jp, Jl, &wt);
         float* Jo = w.J + (size_t)18 * o;
         for (int c = 0; c < 6; ++c) { Jo[c] = Jp[0][c]; Jo[6 + c] = Jp[1][c]; }
         for (int c = 0; c < 3; ++c) { Jo[12 + c] = Jl[0][c]; Jo[15 + c] = Jl[1][c]; }
@@ -555,14 +558,15 @@ retract_kernel(const float* __restrict__ states, const float* __restrict__ pts, 
 }
 
 // the candidate's cost: observations, then the edges in the last block
+template <class C>
 __global__ void __launch_bounds__(kThreads)
-cost_kernel(const VProb q, bool huber, VWs w) {
+cost_kernel(const VProb q, const C cam, bool huber, VWs w) {
   float cost = 0.f;
   if (blockIdx.x + 1 < gridDim.x) {
     const int o = blockIdx.x * blockDim.x + threadIdx.x;
     if (o < q.O && q.valid[o]) {
       float r[2];
-      cost = obs_cost(w.Sn, w.pn, q, o, huber, r, nullptr, nullptr, nullptr);
+      cost = obs_cost(w.Sn, w.pn, q, cam, o, huber, r, nullptr, nullptr, nullptr);
     }
   } else {
     for (int k = threadIdx.x; k < q.K; k += kThreads) {
@@ -604,14 +608,15 @@ finish_kernel(float* __restrict__ states, const float* __restrict__ pts, const V
   if (e < q.K) orthonormalize3(states + kS * e);
 }
 
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 classify_kernel(const float* __restrict__ states, const float* __restrict__ pts, const VProb q,
-                float chi2_th, bool* __restrict__ inl) {
+                const C cam, float chi2_th, bool* __restrict__ inl) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= q.O) return;
   if (!q.valid[o]) { inl[o] = false; return; }
   float r[2];
-  obs_cost(states, pts, q, o, false, r, nullptr, nullptr, nullptr);
+  obs_cost(states, pts, q, cam, o, false, r, nullptr, nullptr, nullptr);
   inl[o] = (r[0] * r[0] + r[1] * r[1]) * q.isig[o] <= chi2_th;
 }
 
@@ -621,32 +626,10 @@ __global__ void init_kernel(VWs w, float* cost_out) {
   *cost_out = INFINITY;
 }
 
-}  // namespace
-
-extern "C" long long vi_ba_workspace_bytes(int K, int P, int O, int cg_iters) {
-  return (long long)carve(nullptr, nullptr, K, P, O, cg_iters);
-}
-
-// states (K,21) and pts (P,3): the start, overwritten with the result;
-// chain (K,292); ext: Rcb 9, tcb 3
-extern "C" int vi_ba_launch(void* states, void* pts, const void* chain, const void* obs_kf,
-                            const void* obs_mp, const void* obs_uv, const void* isig,
-                            const void* valid, const void* chain_valid, const void* fixed_kf,
-                            const void* fixed_mp, const void* ext, int K, int P, int O, float fx,
-                            float fy, float cx, float cy, float prior_g, float prior_a,
-                            int n_iters, int cg_iters, int use_huber, float chi2_th, void* ws,
-                            void* inliers, void* cost_out, void* stream) {
-  if (K <= 0 || P <= 0 || O <= 0 || n_iters < 0 || cg_iters < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  VWs w;
-  carve(&w, static_cast<uint8_t*>(ws), K, P, O, cg_iters);
-  const VProb q{(const int*)obs_kf, (const int*)obs_mp, (const float*)obs_uv, (const float*)isig,
-                (const bool*)valid, (const bool*)chain_valid, (const bool*)fixed_kf,
-                (const bool*)fixed_mp, (const float*)chain, (const float*)ext, K, P, O,
-                fx, fy, cx, cy, prior_g, prior_a};
-  const bool huber = use_huber != 0;
-  float* S = (float*)states;
-  float* X = (float*)pts;
+template <class C>
+int solve(float* S, float* X, const VProb q, const C cam, int n_iters, int cg_iters, bool huber,
+          float chi2_th, VWs w, void* inliers, void* cost_out, cudaStream_t st) {
+  const int K = q.K, P = q.P, O = q.O;
   const long long nv = (long long)kD * K + 3LL * P;
   init_kernel<<<1, 1, 0, st>>>(w, (float*)cost_out);
   setup_kernel<<<n_blocks(K), kThreads, 0, st>>>(q, w);
@@ -654,7 +637,7 @@ extern "C" int vi_ba_launch(void* states, void* pts, const void* chain, const vo
   if (e != cudaSuccess) return (int)e;
   const int nbP = n_blocks(P), nbO = n_blocks(O);
   for (int it = 0; it < n_iters; ++it) {
-    build_kernel<<<nbO + 1, kThreads, 0, st>>>(S, X, q, huber, w);
+    build_kernel<C><<<nbO + 1, kThreads, 0, st>>>(S, X, q, cam, huber, w);
     reduce_kernel<<<K + nbP, kThreads, 0, st>>>(q, w);
     invert_kernel<<<n_blocks(K + P), kThreads, 0, st>>>(q, w);
     for (int c = 0; c < cg_iters; ++c) {
@@ -663,11 +646,45 @@ extern "C" int vi_ba_launch(void* states, void* pts, const void* chain, const vo
       cg_b_kernel<<<n_blocks(K + P), kThreads, 0, st>>>(q, w, c, cg_iters);
     }
     retract_kernel<<<n_blocks(K + P), kThreads, 0, st>>>(S, X, q, w);
-    cost_kernel<<<nbO + 1, kThreads, 0, st>>>(q, huber, w);
+    cost_kernel<C><<<nbO + 1, kThreads, 0, st>>>(q, cam, huber, w);
     accept_kernel<<<n_blocks(K + P), kThreads, 0, st>>>(S, X, q, w, (float*)cost_out);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   finish_kernel<<<n_blocks(K), kThreads, 0, st>>>(S, X, q, chi2_th, (bool*)inliers);
-  classify_kernel<<<nbO, kThreads, 0, st>>>(S, X, q, chi2_th, (bool*)inliers);
+  classify_kernel<C><<<nbO, kThreads, 0, st>>>(S, X, q, cam, chi2_th, (bool*)inliers);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" long long vi_ba_workspace_bytes(int K, int P, int O, int cg_iters) {
+  return (long long)carve(nullptr, nullptr, K, P, O, cg_iters);
+}
+
+// states (K,21) and pts (P,3): the start, overwritten with the result;
+// chain (K,292); ext: Rcb 9, tcb 3; kb8 null: the pinhole camera, else a
+// host array k1..k4 of the KB8 camera
+extern "C" int vi_ba_launch(void* states, void* pts, const void* chain, const void* obs_kf,
+                            const void* obs_mp, const void* obs_uv, const void* isig,
+                            const void* valid, const void* chain_valid, const void* fixed_kf,
+                            const void* fixed_mp, const void* ext, int K, int P, int O, float fx,
+                            float fy, float cx, float cy, const float* kb8, float prior_g,
+                            float prior_a, int n_iters, int cg_iters, int use_huber,
+                            float chi2_th, void* ws, void* inliers, void* cost_out,
+                            void* stream) {
+  if (K <= 0 || P <= 0 || O <= 0 || n_iters < 0 || cg_iters < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  VWs w;
+  carve(&w, static_cast<uint8_t*>(ws), K, P, O, cg_iters);
+  const VProb q{(const int*)obs_kf, (const int*)obs_mp, (const float*)obs_uv, (const float*)isig,
+                (const bool*)valid, (const bool*)chain_valid, (const bool*)fixed_kf,
+                (const bool*)fixed_mp, (const float*)chain, (const float*)ext, K, P, O,
+                prior_g, prior_a};
+  const bool huber = use_huber != 0;
+  if (kb8 != nullptr)
+    return solve((float*)states, (float*)pts, q,
+                 CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, n_iters, cg_iters, huber,
+                 chi2_th, w, inliers, cost_out, st);
+  return solve((float*)states, (float*)pts, q, Cam{fx, fy, cx, cy}, n_iters, cg_iters, huber,
+               chi2_th, w, inliers, cost_out, st);
 }

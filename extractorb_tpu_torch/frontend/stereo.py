@@ -15,8 +15,15 @@ extracts a pair and matches it.
 On CUDA tensors ``compute_stereo_matches`` launches kernel K9
 (``csrc/stereo_match.cu``); on the CPU it runs
 ``compute_stereo_matches_plain``, which follows the JAX function operation
-by operation.  The fisheye rig's matcher (``compute_stereo_fisheye_matches``,
-``lapping_mask``) is not ported (ROADMAP A.12).
+by operation.
+
+The fisheye rig (two KB8 cameras, not rectified): ``lapping_mask`` marks
+the keypoints of the cameras' overlap, and ``compute_stereo_fisheye_matches``
+takes the best and second-best Hamming match of each lapping left keypoint
+among the lapping right ones (ratio 0.7) and triangulates the pairs that pass
+(``core.camera.triangulate_matches``).  On CUDA tensors it launches kernel
+K26 (``csrc/stereo_fisheye.cu``: the match, then the triangulation); on the
+CPU it runs ``compute_stereo_fisheye_matches_plain``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..core.camera import MIN_PARALLAX_COS, TRI_CHI2, KannalaBrandt8, triangulate_matches
 from .extractor import Features
 from .matcher import TH_HIGH, TH_LOW, hamming_matrix
 from .pyramid import EDGE_THRESHOLD, Pyramid, PyramidPlan
@@ -205,3 +213,175 @@ def match_pair(extractor, img_l: torch.Tensor, img_r: torch.Tensor, bf: float,
                                  extractor.pyr_plan, tuple(float(s) for s in extractor.scales),
                                  bf, baseline)
     return feats, res
+
+
+# ------------------------------------------------------------ fisheye rig
+
+
+class FisheyeStereoMatches(NamedTuple):
+    right_idx: torch.Tensor  # (NL,) matched right keypoint or -1
+    depth: torch.Tensor      # (NL,) depth (z) in the left camera or -1
+    p3d: torch.Tensor        # (NL,3) triangulated point, left-camera coords
+    valid: torch.Tensor      # (NL,) bool
+    best_idx: torch.Tensor   # (NL,) int32 the best column before the gates
+    candidate: torch.Tensor  # (NL,) bool the pairs that passed TH_ORB and the ratio test
+
+
+def lapping_mask(xy, lap_begin: float, lap_end: float, valid):
+    """The keypoints of the stereo overlap: valid with u in [lap_begin,
+    lap_end] (JAX ``frontend/stereo.py:lapping_mask``; the reference moves
+    them to the end of its arrays, ORBextractor.cc:1078-1162)."""
+    x = xy[..., 0]
+    return valid & (x >= lap_begin) & (x <= lap_end)
+
+
+def fisheye_best2_plain(desc_l, lap_l, desc_r, lap_r, ratio: float = 0.7):
+    """(best_idx, best, second, candidate) of each left keypoint among the
+    right ones under the lapping gate: the first index of the minimum, and
+    the minimum with only that column masked (so two equal best distances
+    fail the ratio test), as the JAX function."""
+    d = torch.where(lap_l[:, None] & lap_r[None, :], hamming_matrix(desc_l, desc_r), 1 << 20)
+    best, best_idx = d.min(1).values, d.argmin(1)
+    cols = torch.arange(d.shape[1], device=d.device)
+    second = torch.where(cols[None, :] == best_idx[:, None], 1 << 20, d).min(1).values
+    ratio32 = torch.tensor(np.float32(ratio), device=d.device)
+    cand = (best < TH_ORB) & (best.to(torch.float32) < ratio32 * second.to(torch.float32))
+    i32 = lambda t: t.to(torch.int32)
+    return i32(best_idx), i32(best), i32(second), cand
+
+
+def _rig(R_rl, t_rl, dev):
+    f = lambda a: torch.as_tensor(np.asarray(a.cpu() if torch.is_tensor(a) else a, np.float32),
+                                  device=dev)
+    return f(R_rl).reshape(3, 3), f(t_rl).reshape(3)
+
+
+def fisheye_triangulate_plain(cam_l: KannalaBrandt8, cam_r: KannalaBrandt8, uv_l, uv_r, idx,
+                              cand, octave_l, octave_r, R_rl, t_rl, sigma2):
+    """Plain version of ``fisheye_triangulate``: ``triangulate_matches`` of
+    every left row with its right row ``idx``, kept where ``cand``; p3d on
+    every row, as the JAX function returns it."""
+    dev = uv_l.device
+    s2 = torch.as_tensor(np.asarray(sigma2, np.float32), device=dev)
+    lvl = lambda o: o.long().clamp(0, s2.shape[0] - 1)
+    j = idx.long()
+    R, t = _rig(R_rl, t_rl, dev)
+    p3d, depth, ok = triangulate_matches(cam_l, cam_r, uv_l, uv_r[j], R, t, s2[lvl(octave_l)],
+                                         s2[lvl(octave_r[j])])
+    ok = ok & cand
+    return p3d, torch.where(ok, depth, -1.0), ok, torch.where(ok, idx.to(torch.int32), -1)
+
+
+def compute_stereo_fisheye_matches_plain(cam_l: KannalaBrandt8, cam_r: KannalaBrandt8, xy_l,
+                                         octave_l, desc_l, lap_l, xy_r, octave_r, desc_r, lap_r,
+                                         R_rl, t_rl, sigma2,
+                                         ratio: float = 0.7) -> FisheyeStereoMatches:
+    """Plain version of ``compute_stereo_fisheye_matches`` (same arguments).
+    A candidate is a lapping left keypoint (its best column passed the
+    lapping gate), so JAX's final ``& lap_l`` is implied."""
+    best_idx, _, _, cand = fisheye_best2_plain(desc_l, lap_l, desc_r, lap_r, ratio)
+    p3d, depth, ok, right_idx = fisheye_triangulate_plain(cam_l, cam_r, xy_l, xy_r, best_idx,
+                                                          cand, octave_l, octave_r, R_rl, t_rl,
+                                                          sigma2)
+    return FisheyeStereoMatches(right_idx=right_idx, depth=depth, p3d=p3d, valid=ok,
+                                best_idx=best_idx, candidate=cand)
+
+
+def tri_params(cam_l: KannalaBrandt8, cam_r: KannalaBrandt8, R_rl, t_rl, sigma2) -> np.ndarray:
+    """The host float32 constants of K26's triangulation: both cameras, the
+    rig, the gates, the per-octave variances."""
+    f = lambda a: np.asarray(a.cpu() if torch.is_tensor(a) else a, np.float32).reshape(-1)
+    cams = [np.asarray([c.fx, c.fy, c.cx, c.cy, *c.k], np.float32) for c in (cam_l, cam_r)]
+    return np.ascontiguousarray(np.concatenate(
+        cams + [f(R_rl), f(t_rl), np.float32([MIN_PARALLAX_COS, TRI_CHI2]), f(sigma2)]),
+        np.float32)
+
+
+def fisheye_match(desc_l, lap_l, desc_r, lap_r, ratio: float = 0.7):
+    """K26's match kernel: ``fisheye_best2_plain`` on CUDA tensors (its plain
+    version on the CPU)."""
+    if not desc_l.is_cuda:
+        return fisheye_best2_plain(desc_l, lap_l, desc_r, lap_r, ratio)
+    NL, NR = desc_l.shape[0], desc_r.shape[0]
+    args = [desc_l.contiguous(), lap_l.contiguous(), desc_r.contiguous(), lap_r.contiguous()]
+    kernels.require_cuda("stereo_fisheye_match", *args)
+    if desc_l.shape != (NL, 32) or desc_r.shape != (NR, 32) or desc_l.dtype != torch.uint8 \
+            or desc_r.dtype != torch.uint8:
+        raise TypeError("stereo_fisheye_match: descriptors are (N,32) uint8")
+    if lap_l.dtype != torch.bool or lap_r.dtype != torch.bool or lap_l.shape != (NL,) \
+            or lap_r.shape != (NR,):
+        raise TypeError("stereo_fisheye_match: lapping masks are (N,) bool")
+    if NR < 1 or NR >= 1 << 22:
+        raise ValueError("stereo_fisheye_match: 1 to 2^22 - 1 right keypoints")
+    for k in (0, 2):
+        if args[k].data_ptr() % 4:
+            args[k] = args[k].clone()   # the kernel reads descriptors as 32-bit words
+    dev = desc_l.device
+    best_idx, best, second = (torch.empty(NL, dtype=torch.int32, device=dev) for _ in range(3))
+    cand = torch.empty(NL, dtype=torch.bool, device=dev)
+    err = kernels.lib().stereo_fisheye_match_launch(
+        args[0].data_ptr(), args[1].data_ptr(), NL, args[2].data_ptr(), args[3].data_ptr(), NR,
+        TH_ORB, float(np.float32(ratio)), best_idx.data_ptr(), best.data_ptr(),
+        second.data_ptr(), cand.data_ptr(), kernels.stream())
+    kernels.check(err, "stereo_fisheye_match")
+    kernels.LAUNCHES["stereo_fisheye_match"] += 1
+    return best_idx, best, second, cand
+
+
+def fisheye_triangulate(cam_l: KannalaBrandt8, cam_r: KannalaBrandt8, uv_l, uv_r, idx, cand,
+                        octave_l, octave_r, R_rl, t_rl, sigma2):
+    """K26's triangulation kernel: left row i with right row idx[i] where
+    cand[i]; returns (p3d (N,3), depth, valid, right_idx), the rows that are
+    no candidate with p3d 0.  The CPU runs ``fisheye_triangulate_plain``."""
+    if not uv_l.is_cuda:
+        return fisheye_triangulate_plain(cam_l, cam_r, uv_l, uv_r, idx, cand, octave_l,
+                                         octave_r, R_rl, t_rl, sigma2)
+    N = uv_l.shape[0]
+    f32 = lambda a: a.to(torch.float32).contiguous()
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    args = [f32(uv_l), f32(uv_r), i32(idx), cand.contiguous(), i32(octave_l), i32(octave_r)]
+    kernels.require_cuda("fisheye_triangulate", *args)
+    if args[0].shape != (N, 2) or args[1].dim() != 2 or args[1].shape[1] != 2 \
+            or args[2].shape != (N,) or cand.dtype != torch.bool or cand.shape != (N,) \
+            or args[4].shape != (N,) or args[5].shape != (args[1].shape[0],):
+        raise ValueError("fisheye_triangulate: uv (N,2) / (NR,2), idx, cand, octave (N,) / (NR,)")
+    n_lvl = len(np.asarray(sigma2).reshape(-1))
+    prm = tri_params(cam_l, cam_r, R_rl, t_rl, sigma2)
+    dev = uv_l.device
+    p3d = torch.empty(N, 3, dtype=torch.float32, device=dev)
+    depth = torch.empty(N, dtype=torch.float32, device=dev)
+    valid = torch.empty(N, dtype=torch.bool, device=dev)
+    right_idx = torch.empty(N, dtype=torch.int32, device=dev)
+    err = kernels.lib().fisheye_triangulate_launch(
+        *[a.data_ptr() for a in args], N, prm.ctypes.data, n_lvl, p3d.data_ptr(),
+        depth.data_ptr(), valid.data_ptr(), right_idx.data_ptr(), kernels.stream())
+    kernels.check(err, "fisheye_triangulate")
+    kernels.LAUNCHES["fisheye_triangulate"] += 1
+    return p3d, depth, valid, right_idx
+
+
+def compute_stereo_fisheye_matches(cam_l: KannalaBrandt8, cam_r: KannalaBrandt8, xy_l,
+                                   octave_l, desc_l, lap_l, xy_r, octave_r, desc_r, lap_r,
+                                   R_rl, t_rl, sigma2,
+                                   ratio: float = 0.7) -> FisheyeStereoMatches:
+    """Non-rectified (fisheye) stereo matching and triangulation.
+
+    Replaces ``extractorb_tpu/frontend/stereo.py:compute_stereo_fisheye_matches``
+    (Frame::ComputeStereoFishEyeMatches, Frame.cc:1139): each lapping left
+    keypoint's best and second-best Hamming match among the lapping right
+    keypoints (TH_ORB 75, ratio 0.7), each surviving pair triangulated with
+    the parallax, depth and chi2 gates.  xy (N,2) raw pixels, octave (N,),
+    desc (N,32) uint8, lap (N,) bool per side; [R_rl | t_rl] maps left-camera
+    coordinates to right-camera ones (host arrays or tensors); sigma2 the
+    per-octave variances.  On CUDA tensors this launches K26's two kernels
+    (its p3d is 0 on the rows that are no candidate); on the CPU it runs the
+    plain version."""
+    if not xy_l.is_cuda:
+        return compute_stereo_fisheye_matches_plain(cam_l, cam_r, xy_l, octave_l, desc_l, lap_l,
+                                                    xy_r, octave_r, desc_r, lap_r, R_rl, t_rl,
+                                                    sigma2, ratio)
+    best_idx, _, _, cand = fisheye_match(desc_l, lap_l, desc_r, lap_r, ratio)
+    p3d, depth, valid, right_idx = fisheye_triangulate(cam_l, cam_r, xy_l, xy_r, best_idx, cand,
+                                                       octave_l, octave_r, R_rl, t_rl, sigma2)
+    return FisheyeStereoMatches(right_idx=right_idx, depth=depth, p3d=p3d, valid=valid,
+                                best_idx=best_idx, candidate=cand)

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9,
-# K10, K12, K17, K18, K24 and K25's scoring must round like their plain PyTorch
+# K10, K12, K17, K18, K24, K25's scoring and K26 must round like their plain PyTorch
 # versions (K1, K3, K8, K11, K15 and K16 are integer code or copies; K4, K6,
 # K13, K14 and K19-K23 are bound by latency, not float throughput).
 NVCC_FLAGS = (
@@ -129,17 +129,22 @@ _SIGNATURES = {
     # gyro, acc, dts, valid, bias, B, T, ng2, na2, wg2, wa2, out, stream
     "preint_launch": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P),
     # states, pts, chain, obs_kf, obs_mp, obs_uv, isig, valid, chain_valid, fixed_kf,
-    # fixed_mp, ext, K, P, O, fx, fy, cx, cy, prior_g, prior_a, n_iters, cg_iters,
-    # use_huber, chi2_th, ws, inliers, cost, stream
+    # fixed_mp, ext, K, P, O, fx, fy, cx, cy, kb8 (host float32 k1..k4; null: pinhole),
+    # prior_g, prior_a, n_iters, cg_iters, use_huber, chi2_th, ws, inliers, cost, stream
     "vi_ba_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                     _F, _F, _F, _F, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P),
+                     _F, _F, _F, _F, _P, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P),
     # Rwb, twb, chain, valid, v0, bias0, Rwg_seed, K, prior_g, prior_a, fix_scale,
     # n_iters, ws, out, stream
     "inertial_init_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _I, _P, _P, _P),
-    # state, pts, uv, isig, valid, N, fx, fy, cx, cy, joint, n_rounds, n_iters,
-    # out, inliers, n_inliers, stream
-    "pose_inertial_launch": (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P,
-                             _P),
+    # state, pts, uv, isig, valid, N, fx, fy, cx, cy, kb8 (host float32 k1..k4; null:
+    # pinhole), joint, n_rounds, n_iters, out, inliers, n_inliers, stream
+    "pose_inertial_launch": (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P, _I, _I, _I, _P, _P,
+                             _P, _P),
+    # desc_l, lap_l, NL, desc_r, lap_r, NR, th_orb, ratio, best_idx, best, second, cand, stream
+    "stereo_fisheye_match_launch": (_P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P),
+    # uv_l, uv_r, idx, cand, oct_l, oct_r, N, prm (host float32), n_lvl, p3d, depth, valid,
+    # right_idx, stream
+    "fisheye_triangulate_launch": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P),
     # uv, n, prm (host float32: fx, fy, cx, cy, 1/fx, 1/fy, k1, k2, k3, p1, p2), out, stream
     "undistort_launch": (_P, _I, _P, _P, _P),
     # a kept cudaGraph_t, out: all nodes; returns its kernel nodes

@@ -24,7 +24,7 @@ import torch
 
 from .. import kernels
 from ..core import lie
-from ..core.camera import Pinhole
+from ..core.camera import Camera
 from ..imu import preintegration as pre
 from ..imu.calib import ImuCalib
 from ..solver import inertial as sin
@@ -221,7 +221,7 @@ def _temporal_chain(mp, calib: ImuCalib):
     return kids, np.stack(Rwb), np.stack(twb), preints, valids
 
 
-def initialize_imu(mp, calib: ImuCalib, cam: Optional[Pinhole] = None, prior_g: float = 1e2,
+def initialize_imu(mp, calib: ImuCalib, cam: Optional[Camera] = None, prior_g: float = 1e2,
                    prior_a: float = 1e10, fix_scale: bool = False, fiba: bool = True,
                    min_kfs: int = 10, device=None, stats=None):
     """Reference LocalMapping::InitializeIMU (src/LocalMapping.cc:1213):
@@ -407,7 +407,7 @@ def _apply_result(mp, calib: ImuCalib, kids, res, pt_ids, skip=None):
     mp.version += 1
 
 
-def full_inertial_ba(mp, calib: ImuCalib, cam: Pinhole, prior_g: float = 1.0,
+def full_inertial_ba(mp, calib: ImuCalib, cam: Camera, prior_g: float = 1.0,
                      prior_a: float = 1e5, n_iters: int = 8, cg_iters: int = 40, mesh=None,
                      device=None, stats=None):
     """FullInertialBA (reference src/Optimizer.cc:420): the joint
@@ -446,7 +446,7 @@ def full_inertial_ba(mp, calib: ImuCalib, cam: Pinhole, prior_g: float = 1.0,
     _apply_result(mp, calib, kids, res, pt_ids)
 
 
-def local_inertial_ba(mp, calib: ImuCalib, cam: Pinhole, kf_id: int, n_window: int = 10,
+def local_inertial_ba(mp, calib: ImuCalib, cam: Camera, kf_id: int, n_window: int = 10,
                       max_fixed: int = 20, n_iters: int = 6, cg_iters: int = 40, device=None,
                       stats=None) -> bool:
     """LocalInertialBA (reference src/Optimizer.cc:4413): the temporal

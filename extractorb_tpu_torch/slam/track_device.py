@@ -1,7 +1,8 @@
 """The fused per-frame tracking step, monocular, stereo and RGB-D
-(port of ``extractorb_tpu/slam/track_device.py``).  A monocular step may
-take the KB8 fisheye camera (``project_for_camera``): its keypoints stay
-raw and every search and pose solve projects through the KB8 model.
+(port of ``extractorb_tpu/slam/track_device.py``).  A monocular step,
+visual or inertial, may take the KB8 fisheye camera (``project_for_camera``):
+its keypoints stay raw and every search and pose solve projects through the
+KB8 model.
 
 One call runs the chain the reference's tracking thread runs for an
 ordinary frame: motion-model prediction, ORB extraction, the motion-model
@@ -167,9 +168,10 @@ class TrackStep:
     def __init__(self, cam_cfg: CameraConfig, orb_cfg: ORBConfig, img_shape: Tuple[int, int],
                  map_cap: int, local_cap: int, device, depth_mode: str = "none",
                  inertial: bool = False, graph: Optional[bool] = None):
-        if cam_cfg.model == "KannalaBrandt8" and (depth_mode != "none" or inertial):
-            raise NotImplementedError("TrackStep: the KB8 camera is ported for the monocular "
-                                      "visual step only (ROADMAP A.12.3, A.12.4)")
+        if cam_cfg.model == "KannalaBrandt8" and depth_mode != "none":
+            raise NotImplementedError("TrackStep: the KB8 camera takes the monocular steps "
+                                      "only; the JAX tracker never fuses a fisheye rig frame "
+                                      "(ROADMAP A.12.4)")
         if depth_mode not in ("none", "stereo", "rgbd"):
             raise ValueError(f"TrackStep: depth_mode {depth_mode!r}")
         if depth_mode != "none" and cam_cfg.bf <= 0.0:

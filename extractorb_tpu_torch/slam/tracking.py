@@ -9,7 +9,7 @@ machine; the dense stages run on the device: extraction (K1, K2), the
 searches (K3), pose optimisation (K4, with the stereo residual), the
 two-view initialisation (K5), bundle adjustment (K6), the triangulation
 search (K7), the map mirror and packed fetches (K8), the stereo match
-(K9) and the relocalization PnP (K10).  With a vocabulary every new
+(K9, or K26 on a fisheye rig) and the relocalization PnP (K10).  With a vocabulary every new
 keyframe goes through the loop closer (``slam/loop_closing.py``: the
 vocabulary descent K11, Sim3 K12, the essential graph K13, the global BA
 K14), which corrects a loop in the map or welds the map into an older
@@ -35,13 +35,20 @@ keyframes (K3 match, K10 RANSAC PnP, K4), and more than five failed LOST
 frames start a new Atlas map (the failed one is dropped below 10
 keyframes).
 
-A Kannala-Brandt 8 fisheye camera (``camera.model="KannalaBrandt8"``,
-monocular): keypoints stay raw, and every projecting search and solve goes
-through the KB8 projection (K3's gates see KB8 pixels; K4 and K6 take the
+A Kannala-Brandt 8 fisheye camera (``camera.model="KannalaBrandt8"``):
+keypoints stay raw, and every projecting search and solve goes through the
+KB8 projection (K3's gates see KB8 pixels; K4, K6, K20 and K22 take the
 camera as a template parameter); relocalization unprojects the keypoints to
 unit bearings and runs MLPnP (K25) in place of K10.  The two-view
 initialisation and the triangulation program keep the pinhole K on raw
-fisheye pixels, as the JAX package does (ROADMAP C.2).
+fisheye pixels, as the JAX package does (ROADMAP C.2).  A fisheye stereo
+rig (``camera2`` and ``T_lr`` with sensor "stereo" or "imu-stereo",
+``track_stereo``): both images are extracted, the lapping keypoints matched
+and triangulated (K26, ``frontend/stereo.compute_stereo_fisheye_matches``),
+and each matched keypoint keeps its depth and its triangulated point
+(``Frame.p3d_stereo``), from which stereo initialisation and keyframes make
+map points; the residuals stay monocular (no right-image u), and every rig
+frame takes the legacy path (the JAX tracker never fuses one).
 
 Monocular-inertial (``sensor="imu-monocular"`` with an ``IMUConfig``):
 frames carry their preintegration from the last frame and the last
@@ -61,9 +68,10 @@ only).  On an inertial map the loop closer takes the 4-DoF essential graph
 (K23), the inertial global BA and the inertial weld.
 
 Not in this slice, and raising ``NotImplementedError``: imu-rgbd (the JAX
-package has no such entry point), the KB8 camera with an IMU or a
-vocabulary (ROADMAP A.12.3) or with any sensor but monocular, the fisheye
-stereo rig (A.12.4) and ``octree="host"`` (not ported: it is the JAX
+package has no such entry point), the KB8 camera with a vocabulary (ROADMAP
+A.12.3's vocabulary half), with RGB-D or on a stereo sensor without
+``camera2`` (A.12), ``camera2`` with a pinhole first camera (A.12.4: the
+JAX tracker ignores it) and ``octree="host"`` (not ported: it is the JAX
 package's oracle).
 """
 
@@ -126,6 +134,9 @@ class Frame:
     # stereo/RGB-D channels (reference mvuRight/mvDepth); None for mono
     ur: Optional[np.ndarray] = None
     depth: Optional[np.ndarray] = None
+    # fisheye rig: each keypoint's triangulated point in left-camera
+    # coordinates (reference mvStereo3Dpoints); None for rectified rigs
+    p3d_stereo: Optional[np.ndarray] = None
     # inertial state (reference Frame mVw / mImuBias / mpImuPreintegratedFrame)
     v: Optional[np.ndarray] = None
     bg: Optional[np.ndarray] = None
@@ -139,16 +150,20 @@ class Frame:
     kp_mp_dev: Optional[torch.Tensor] = None
     ur_dev: Optional[torch.Tensor] = None
     depth_dev: Optional[torch.Tensor] = None
+    p3d_dev: Optional[torch.Tensor] = None
     kp_mp_dirty: bool = False               # host kp_mp modified since fetch
     host_ready: bool = True
 
     def host_handles(self):
         """Device tensors of the feature arrays, in ``set_host`` order;
-        stereo frames append their ur/depth channels."""
+        stereo frames append their ur/depth channels, fisheye rig frames
+        their depth and triangulated points."""
         un = self.un_dev if self.un_dev is not None else self.feats.xy
         base = (un, self.feats.octave, self.feats.angle, self.feats.desc, self.feats.valid)
         if self.ur_dev is not None:
             return base + (self.ur_dev, self.depth_dev)
+        if self.p3d_dev is not None:
+            return base + (self.depth_dev, self.p3d_dev)
         return base
 
     def set_host(self, vals):
@@ -159,7 +174,10 @@ class Frame:
         self.angle = np.asarray(angle)
         self.desc = np.asarray(desc)
         self.valid = np.asarray(valid)
-        if len(vals) > 5:
+        if len(vals) > 5 and self.p3d_dev is not None:
+            self.depth = np.asarray(vals[5], np.float32)
+            self.p3d_stereo = np.asarray(vals[6], np.float32)
+        elif len(vals) > 5:
             self.ur = np.asarray(vals[5], np.float32)
             self.depth = np.asarray(vals[6], np.float32)
         self.host_ready = True
@@ -201,23 +219,26 @@ def _unported(cfg: SLAMConfig, vocab=None) -> Optional[str]:
     if cfg.sensor not in ("monocular", "stereo", "rgbd") + INERTIAL_SENSORS:
         return (f"sensor {cfg.sensor!r}: only 'monocular', 'stereo', 'rgbd', 'imu-monocular' "
                 "and 'imu-stereo' are ported")
-    if cfg.sensor in ("stereo", "imu-stereo") and cfg.camera2 is not None:
-        return "the fisheye stereo rig (camera2) is not ported (ROADMAP A.12.4)"
     if cfg.sensor in INERTIAL_SENSORS and cfg.imu is None:
         return f"sensor {cfg.sensor!r} needs an IMUConfig (cfg.imu)"
     if cfg.imu is not None and cfg.sensor not in INERTIAL_SENSORS:
         return (f"an IMU with sensor {cfg.sensor!r}: pass sensor='imu-monocular' or "
                 "'imu-stereo'")
+    rig = cfg.sensor in ("stereo", "imu-stereo")
     if cfg.camera.model == "KannalaBrandt8":
-        if cfg.sensor in INERTIAL_SENSORS:
-            return ("the KannalaBrandt8 camera with an IMU is not ported: the inertial kernels "
-                    "K20 and K22 are pinhole (ROADMAP A.12.3)")
         if vocab is not None:
-            return ("the KannalaBrandt8 camera with a vocabulary is not ported: loop closing's "
-                    "K12, K14 and the global BA are pinhole (ROADMAP A.12.3)")
-        if cfg.sensor != "monocular":
-            return (f"the KannalaBrandt8 camera with sensor {cfg.sensor!r} is not ported: "
-                    "only 'monocular' (ROADMAP A.12.4)")
+            return ("the KannalaBrandt8 camera with a vocabulary is not ported (ROADMAP A.12.3, "
+                    "the vocabulary half: K12, K14 and the global BA are pinhole)")
+        if cfg.sensor == "rgbd":
+            return ("the KannalaBrandt8 camera with sensor 'rgbd' is not ported (ROADMAP A.12: "
+                    "the JAX package's RGB-D frame unprojects through the pinhole K)")
+        if rig and cfg.camera2 is None:
+            return (f"the KannalaBrandt8 camera with sensor {cfg.sensor!r} needs camera2 and "
+                    "T_lr, the fisheye rig (ROADMAP A.12.4: a rectified KB8 pair is not ported)")
+    elif rig and cfg.camera2 is not None:
+        return ("camera2 with a pinhole first camera: the JAX tracker ignores it and runs the "
+                "rectified rig (ROADMAP A.12.4: the fisheye rig needs model='KannalaBrandt8'); "
+                "pass camera2=None")
     if cfg.orb.octree != "device":
         return "octree='host' is not ported (ROADMAP: 'Not to be ported'; the JAX oracle)"
     return None
@@ -236,6 +257,17 @@ class Tracker:
         # a distorted pinhole undistorts
         self.cam = camera_from_config(cam_cfg)
         self.is_fisheye = isinstance(self.cam, KannalaBrandt8)
+        # the fisheye rig (reference Tracking::ParseCamParamFile's KB8
+        # two-camera branch): the right camera and p_right = R_rl p_left + t_rl
+        self.cam_r = None
+        self.R_rl = self.t_rl = None
+        if cfg.camera2 is not None and self.is_fisheye:
+            self.cam_r = KannalaBrandt8.from_config(cfg.camera2)
+            T = (np.asarray(cfg.T_lr, np.float32).reshape(4, 4) if cfg.T_lr is not None
+                 else np.eye(4, dtype=np.float32))
+            R_lr, t_lr = T[:3, :3], T[:3, 3]
+            self.R_rl = R_lr.T.copy()
+            self.t_rl = (-R_lr.T @ t_lr).astype(np.float32)
         self.dist = (cam_cfg.k1, cam_cfg.k2, cam_cfg.p1, cam_cfg.p2, cam_cfg.k3)
         self.has_dist = abs(cam_cfg.k1) > 1e-12 and not self.is_fisheye
         fx, fy, cx, cy = cam_cfg.fx, cam_cfg.fy, cam_cfg.cx, cam_cfg.cy
@@ -246,6 +278,7 @@ class Tracker:
         scales = td.scale_factors(cfg.orb)
         self.scale_factors = tuple(float(s) for s in scales)
         sig = [s * s for s in self.scale_factors]
+        self.sigma2 = tuple(sig)
         self.inv_sigma2 = tuple(1.0 / v for v in sig)
         # stereo/RGB-D geometry (reference Camera.bf, ThDepth: mThDepth =
         # mbf * ThDepth / fx) and the thFarPoints gate on point creation
@@ -344,12 +377,33 @@ class Tracker:
     def _make_frame_stereo(self, img_l: np.ndarray, img_r: np.ndarray, ts: float) -> Frame:
         """Stereo Frame ctor (reference src/Frame.cc:88): extract both
         images, then ComputeStereoMatches on the extractor's pyramids
-        (K9); one packed fetch lands the host copies with ur/depth."""
+        (K9); one packed fetch lands the host copies with ur/depth.  On a
+        fisheye rig: the lapping keypoints matched and triangulated (K26,
+        reference ComputeStereoFishEyeMatches, Frame.cc:1139), the host
+        copies landing with the depths and points."""
+        if self.cam_r is not None:
+            return self._make_frame_rig(img_l, img_r, ts)
         feats, res = fstereo.match_pair(self._extractor(img_l.shape, False), _img(img_l),
                                         _img(img_r), self.bf, self.baseline)
         self.stats["stereo_match"] += 1
         frame = self._frame(feats, ts, lazy=True)
         frame.ur_dev, frame.depth_dev = res.u_right, res.depth
+        frame.ensure_host()
+        return frame
+
+    def _make_frame_rig(self, img_l: np.ndarray, img_r: np.ndarray, ts: float) -> Frame:
+        ext = self._extractor(img_l.shape, False)
+        feats, feats_r = ext(_img(img_l)), ext(_img(img_r))
+        band = lambda c: (c.lapping_begin if c.lapping_begin >= 0 else 0.0,
+                          c.lapping_end if c.lapping_end >= 0 else float(c.width))
+        lap_l = fstereo.lapping_mask(feats.xy, *band(self.cfg.camera), feats.valid)
+        lap_r = fstereo.lapping_mask(feats_r.xy, *band(self.cfg.camera2), feats_r.valid)
+        res = fstereo.compute_stereo_fisheye_matches(
+            self.cam, self.cam_r, feats.xy, feats.octave, feats.desc, lap_l, feats_r.xy,
+            feats_r.octave, feats_r.desc, lap_r, self.R_rl, self.t_rl, self.sigma2)
+        self.stats["stereo_match"] += 1
+        frame = self._frame(feats, ts, lazy=True)
+        frame.depth_dev, frame.p3d_dev = res.depth, res.p3d
         frame.ensure_host()
         return frame
 
@@ -519,7 +573,8 @@ class Tracker:
             return (common and self.cfg.sensor == "imu-monocular"
                     and self.atlas.current.imu_initialized
                     and (last.v is not None or bool(self._pipe)))
-        return common and self.velocity is not None
+        # the JAX rule: a fisheye rig frame is never fused
+        return common and self.velocity is not None and self.cam_r is None
 
     def _track_fused(self, img: np.ndarray, ts: float, img_r: Optional[np.ndarray] = None,
                      depth_mode: str = "none"):
@@ -1073,8 +1128,7 @@ class Tracker:
             z = float(frame.depth[i])
             if self.th_far_points > 0 and z > self.th_far_points:
                 continue
-            u, v = frame.xy_un[i]
-            pos = np.array([(u - cx) * z / fx, (v - cy) * z / fy, z], np.float32)
+            pos = self._stereo_point(frame, i, z, fx, fy, cx, cy)
             mid = mp.add_point(pos, frame.desc[i], np.zeros(3, np.float32), 1.0, kf.kid)
             mp.add_observation(mid, kf.kid, int(i))
             frame.kp_mp[i] = mid
@@ -1617,7 +1671,8 @@ class Tracker:
         # pipelined visual tracking defers the triangulation and fuse fetch
         # to the next confirmation (the reference's LocalMapping queue
         # latency); synchronous mode applies them in the event
-        defer = self.cfg.tracking.pipeline_depth > 0 and not self.inertial
+        defer = (self.cfg.tracking.pipeline_depth > 0 and not self.inertial
+                 and self.cam_r is None)
         self.local_mapper.process_keyframe(mp, kf.kid, defer_fetch=defer)
         # the staged IMU initialisation; a stage that fired moved the map
         self._vi_stage_fired = self._imu_init_stage(frame)
@@ -1670,6 +1725,16 @@ class Tracker:
                 _, Ra, ta = self.trajectory[i]
                 self.traj_rel[i] = (ts, mp.mid, -1, Ra.copy(), ta.copy())
 
+    @staticmethod
+    def _stereo_point(frame: Frame, i: int, z: float, fx, fy, cx, cy) -> np.ndarray:
+        """Keypoint i's point in its camera at depth z: the rig's
+        triangulated point, else the back-projection of its undistorted
+        pixel (reference UnprojectStereo)."""
+        if frame.p3d_stereo is not None:
+            return frame.p3d_stereo[i].astype(np.float32)
+        u, v = frame.xy_un[i]
+        return np.array([(u - cx) * z / fx, (v - cy) * z / fy, z], np.float32)
+
     def _create_close_points(self, frame: Frame, kf: KeyFrame, mp: SLAMMap):
         """Stereo/RGB-D CreateNewKeyFrame (reference Tracking.cc:2907):
         unproject the keyframe's unmatched keypoints with a depth, nearest
@@ -1687,8 +1752,7 @@ class Tracker:
                 break
             if self.th_far_points > 0 and z > self.th_far_points:
                 break  # depth-sorted: everything after is farther
-            u, v = frame.xy_un[i]
-            pc = np.array([(u - cx) * z / fx, (v - cy) * z / fy, z], np.float32)
+            pc = self._stereo_point(frame, i, z, fx, fy, cx, cy)
             pos = kf.R.T @ (pc - kf.t)
             mid = mp.add_point(pos, frame.desc[i], np.zeros(3, np.float32), 1.0, kf.kid)
             mp.add_observation(mid, kf.kid, int(i))

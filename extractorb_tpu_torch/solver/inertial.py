@@ -24,10 +24,13 @@ States are body-in-world (Rwb, twb, v, bg, ba); the camera sees a point
 through the fixed extrinsics Tcb.  Edge residuals are whitened with the
 Cholesky factor of the preintegration information.
 
-Each solver dispatches on its tensors' device: CUDA tensors launch the
-kernel, CPU tensors run the plain version (``*_plain``), which takes its
-Jacobians with ``torch.func.jacfwd`` as the JAX package takes them with
-``jax.jacfwd``.
+The camera (``core.camera``: ``Pinhole`` or ``KannalaBrandt8``) projects
+every visual residual.  Each solver dispatches on its tensors' device: CUDA
+tensors launch the kernel's instantiation for the camera, CPU tensors run
+the plain version (``*_plain``), which takes its Jacobians with
+``torch.func.jacfwd`` as the JAX package takes them with ``jax.jacfwd``,
+but the projection's part in closed form (``cam.project_jac``, chained onto
+the forward-mode Jacobian of the camera-frame point).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from torch.func import jacfwd, vmap
 
 from .. import kernels
 from ..core import lie
-from ..core.camera import Pinhole
+from ..core.camera import Camera
 from ..imu import preintegration as pre
 from . import marginal as mg
 from .robust import CHI2_MONO, DELTA_MONO, huber_weight
@@ -72,11 +75,11 @@ def _leaves(tree):
     return []
 
 
-def _jac(fn, argnums=0, in_dims=None):
+def _jac(fn, argnums=0, in_dims=None, wide: bool = False):
     """``jacfwd(fn, argnums)`` (``vmap`` of it with ``in_dims`` when given)
     with the forward-mode pass in float64 and the Jacobians returned in
-    float32 (float64 when every floating argument is float64).  ``fn``
-    must take every tensor it reads as an argument.
+    float32 (float64 when every floating argument is float64, or ``wide``).
+    ``fn`` must take every tensor it reads as an argument.
     PyTorch's forward-mode AD promotes the tangent of a 0-dim float32
     tensor combined with a Python scalar to float64, so a float32 pass
     through the Lie maps fails; the JAX package takes these Jacobians in
@@ -86,8 +89,31 @@ def _jac(fn, argnums=0, in_dims=None):
         jf = vmap(jf, in_dims=in_dims)
 
     def run(*args):
-        wide = all(a.dtype == torch.float64 for a in _leaves(args) if a.is_floating_point())
-        return _cast(jf(*_cast(args, torch.float64)), torch.float64 if wide else torch.float32)
+        w = wide or _wide(args)
+        return _cast(jf(*_cast(args, torch.float64)), torch.float64 if w else torch.float32)
+
+    return run
+
+
+def _wide(args) -> bool:
+    return all(a.dtype == torch.float64 for a in _leaves(args) if a.is_floating_point())
+
+
+def _camera_jac(cam: Camera, fn, argnums=0, in_dims=None):
+    """Jacobians of ``(uv - cam.project(pc), *rest)`` where ``fn(*args)``
+    returns ``(pc, *rest)`` (camera-frame points (N,3) first; ``vmap`` of
+    ``fn`` with ``in_dims`` when given): the projection's part in closed
+    form (``cam.project_jac``, float64) chained onto ``jacfwd`` of ``pc``,
+    everything in float64 and returned in float32 (float64 when every
+    floating argument is)."""
+    jf = _jac(fn, argnums, in_dims, wide=True)
+    fv = fn if in_dims is None else vmap(fn, in_dims=in_dims)
+
+    def run(*args):
+        J = jf(*args)
+        pc = fv(*_cast(args, torch.float64))[0]
+        Jr = -cam.project_jac(pc) @ J[0]
+        return _cast((Jr,) + tuple(J[1:]), torch.float64 if _wide(args) else torch.float32)
 
     return run
 
@@ -154,11 +180,6 @@ def edge_resid15(p: pre.Preintegrated, Lr, Lb, g, Ri, ti, vi, bgi, bai, Rj, tj, 
     return torch.cat([_mv(Lr.T, r9), _mv(Lb.T, r6)])
 
 
-def _project(cam: Pinhole, pc):
-    return torch.stack([cam.fx * pc[..., 0] / pc[..., 2] + cam.cx,
-                        cam.fy * pc[..., 1] / pc[..., 2] + cam.cy], -1)
-
-
 # --------------------------------------------------------------------------
 # visual-inertial bundle adjustment
 # --------------------------------------------------------------------------
@@ -206,29 +227,27 @@ def _vis_points(Rwb, twb, points, p: VIBAProblem):
     return Rk, tk, torch.where(p.obs_valid[:, None], pw, pw_safe)
 
 
-def _vis_residual(Rwb, twb, points, p: VIBAProblem, cam: Pinhole):
+def _vis_residual(Rwb, twb, points, p: VIBAProblem, cam: Camera):
     Rk, tk, pw = _vis_points(Rwb, twb, points, p)
     pb = _mv(Rk.transpose(-1, -2), pw - tk)
-    return p.obs_uv - _project(cam, _mv(p.Rcb, pb) + p.tcb)
+    return p.obs_uv - cam.project(_mv(p.Rcb, pb) + p.tcb)
 
 
-def _vis_residual_jac(Rwb, twb, points, p: VIBAProblem, cam: Pinhole):
+def _vis_residual_jac(Rwb, twb, points, p: VIBAProblem, cam: Camera):
     """Reprojection residual and its Jacobians wrt the pose slice (rotation,
     translation) of the 15-dim body state and wrt the point."""
     Rk, tk, pw = _vis_points(Rwb, twb, points, p)
 
-    def r_fn(d6, dp, Rk1, tk1, pw1, uv1, Rcb, tcb):
-        Rn = Rk1 @ lie.so3_exp(d6[0:3])
-        tn = tk1 + _mv(Rk1, d6[3:6])
-        pb = _mv(Rn.T, pw1 + dp - tn)
-        return uv1 - _project(cam, _mv(Rcb, pb) + tcb)
+    def pc_fn(d9, Rk1, tk1, pw1, Rcb, tcb):   # d9: the pose's (phi, rho), the point's step
+        Rn = Rk1 @ lie.so3_exp(d9[0:3])
+        tn = tk1 + _mv(Rk1, d9[3:6])
+        pb = _mv(Rn.T, pw1 + d9[6:9] - tn)
+        return (_mv(Rcb, pb) + tcb,)
 
-    z6 = torch.zeros(6, dtype=points.dtype, device=points.device)
-    z3 = torch.zeros(3, dtype=points.dtype, device=points.device)
+    z9 = torch.zeros(9, dtype=points.dtype, device=points.device)
     r = _vis_residual(Rwb, twb, points, p, cam)
-    Jp, Jl = _jac(r_fn, (0, 1), (None, None, 0, 0, 0, 0, None, None))(
-        z6, z3, Rk, tk, pw, p.obs_uv, p.Rcb, p.tcb)
-    return r, Jp, Jl
+    J = _camera_jac(cam, pc_fn, 0, (None, 0, 0, 0, None, None))(z9, Rk, tk, pw, p.Rcb, p.tcb)[0]
+    return r, J[..., :6], J[..., 6:]
 
 
 def _edge_residual_jac(Rwb, twb, v, bg, ba, chain: InertialChain, g, with_jac: bool = True):
@@ -264,7 +283,7 @@ def _rho(c2, use_huber: bool):
     return torch.where(c2 <= d2, c2, 2.0 * DELTA_MONO * torch.sqrt(c2) - d2)
 
 
-def optimize_vi_ba_plain(p: VIBAProblem, cam: Pinhole, n_iters: int = 8, cg_iters: int = 50,
+def optimize_vi_ba_plain(p: VIBAProblem, cam: Camera, n_iters: int = 8, cg_iters: int = 50,
                          use_huber: bool = True) -> VIBAResult:
     """Plain version of ``optimize_vi_ba`` (same arguments); on the card its
     sums run in PyTorch's deterministic order (``kernels.ordered_plain``)."""
@@ -272,7 +291,7 @@ def optimize_vi_ba_plain(p: VIBAProblem, cam: Pinhole, n_iters: int = 8, cg_iter
         return _optimize_vi_ba_plain(p, cam, n_iters, cg_iters, use_huber)
 
 
-def _optimize_vi_ba_plain(p: VIBAProblem, cam: Pinhole, n_iters: int, cg_iters: int,
+def _optimize_vi_ba_plain(p: VIBAProblem, cam: Camera, n_iters: int, cg_iters: int,
                           use_huber: bool) -> VIBAResult:
     K, P = p.Rwb.shape[0], p.points.shape[0]
     dt, dev = p.points.dtype, p.points.device
@@ -394,13 +413,14 @@ def pack_preint(p, device=None) -> torch.Tensor:
                       f(bias, 6)], -1).contiguous()
 
 
-def optimize_vi_ba(p: VIBAProblem, cam: Pinhole, n_iters: int = 8, cg_iters: int = 50,
+def optimize_vi_ba(p: VIBAProblem, cam: Camera, n_iters: int = 8, cg_iters: int = 50,
                    use_huber: bool = True) -> VIBAResult:
     """LM visual-inertial BA with matrix-free PCG over padded problems.
 
     Replaces ``extractorb_tpu/solver/inertial.py:optimize_vi_ba``.  On CUDA
-    tensors this launches K20 once: every LM and PCG step is enqueued from
-    C without a host synchronisation, and every sum runs in a fixed order.
+    tensors this launches K20 once (its instantiation for ``cam``: pinhole
+    or KB8): every LM and PCG step is enqueued from C without a host
+    synchronisation, and every sum runs in a fixed order.
     On the CPU it runs ``optimize_vi_ba_plain``."""
     if not p.points.is_cuda:
         return optimize_vi_ba_plain(p, cam, n_iters, cg_iters, use_huber)
@@ -422,13 +442,17 @@ def optimize_vi_ba(p: VIBAProblem, cam: Pinhole, n_iters: int = 8, cg_iters: int
                      device=dev)
     inl = torch.empty(O, dtype=torch.bool, device=dev)
     cost = torch.empty((), dtype=torch.float32, device=dev)
+    kb8 = cam.kernel_params()
     err = lib.vi_ba_launch(
         state.data_ptr(), pts.data_ptr(), chain.data_ptr(), *[a.data_ptr() for a in obs],
         *[a.data_ptr() for a in masks], ext.data_ptr(), K, P, O, cam.fx, cam.fy, cam.cx, cam.cy,
-        float(p.prior_g), float(p.prior_a), n_iters, cg_iters, int(use_huber), float(CHI2_MONO),
-        ws.data_ptr(), inl.data_ptr(), cost.data_ptr(), kernels.stream())
+        None if kb8 is None else kb8.ctypes.data, float(p.prior_g), float(p.prior_a), n_iters,
+        cg_iters, int(use_huber), float(CHI2_MONO), ws.data_ptr(), inl.data_ptr(),
+        cost.data_ptr(), kernels.stream())
     kernels.check(err, "vi_ba")
     kernels.LAUNCHES["vi_ba"] += 1
+    if kb8 is not None:
+        kernels.LAUNCHES["vi_ba_kb8"] += 1     # of those, through the KB8 camera
     return VIBAResult(Rwb=state[:, :9].reshape(K, 3, 3), twb=state[:, 9:12], v=state[:, 12:15],
                       bg=state[:, 15:18], ba=state[:, 18:21], points=pts, inliers=inl, cost=cost)
 
@@ -566,9 +590,13 @@ class PoseInertialResult(NamedTuple):
     H: torch.Tensor        # (15,15) information for the next frame's prior
 
 
-def _pose_resid(R, t, pts, uv, Rcb, tcb, cam: Pinhole):
-    pb = _mv(R.T, pts - t)
-    return uv - _project(cam, _mv(Rcb, pb) + tcb)
+def _pose_pc(R, t, pts, Rcb, tcb):
+    """Camera-frame points of world points seen from body state (R, t)."""
+    return _mv(Rcb, _mv(R.T, pts - t)) + tcb
+
+
+def _pose_resid(R, t, pts, uv, Rcb, tcb, cam: Camera):
+    return uv - cam.project(_pose_pc(R, t, pts, Rcb, tcb))
 
 
 def _safe_pts(R, t, pts_w, valid, Rcb, tcb):
@@ -585,7 +613,7 @@ def prior_sqrt(Hp):
 
 
 def optimize_pose_inertial_plain(Rwb0, twb0, v0, bg0, ba0, prev_state, preint, pts_w, obs_uv,
-                                 inv_sigma2, valid, Rcb, tcb, cam: Pinhole, n_rounds: int = 4,
+                                 inv_sigma2, valid, Rcb, tcb, cam: Camera, n_rounds: int = 4,
                                  n_iters: int = 10) -> PoseInertialResult:
     """Plain version of ``optimize_pose_inertial`` (same arguments)."""
     dt, dev = twb0.dtype, twb0.device
@@ -594,13 +622,17 @@ def optimize_pose_inertial_plain(Rwb0, twb0, v0, bg0, ba0, prev_state, preint, p
     I15 = torch.eye(15, dtype=dt, device=dev)
     z15 = torch.zeros(15, dtype=dt, device=dev)
 
-    def resid_all(d, st, pts, ctx):
+    def state_fn(d, st, pts, ctx):   # camera-frame points, inertial residual
         g, prev, pk, Lr_, Lb_, uv, Rcb_, tcb_ = ctx
         R, t, vv, bgn, ban = apply_delta(*st, d)
-        rv = _pose_resid(R, t, pts, uv, Rcb_, tcb_, cam)
-        return rv, edge_resid15(pk, Lr_, Lb_, g, *prev, R, t, vv, bgn, ban)
+        return _pose_pc(R, t, pts, Rcb_, tcb_), edge_resid15(pk, Lr_, Lb_, g, *prev, R, t, vv,
+                                                             bgn, ban)
 
-    jac = _jac(resid_all, 0)
+    def resid_all(d, st, pts, ctx):
+        pc, ri = state_fn(d, st, pts, ctx)
+        return ctx[5] - cam.project(pc), ri
+
+    jac = _camera_jac(cam, state_fn, 0)
     st = (Rwb0, twb0, v0, bg0, ba0)
     active = valid
     for rnd in range(n_rounds):
@@ -629,7 +661,7 @@ def optimize_pose_inertial_plain(Rwb0, twb0, v0, bg0, ba0, prev_state, preint, p
 
 
 def optimize_pose_inertial_last_frame_plain(Rwb0, twb0, v0, bg0, ba0, prev_state, preint, pts_w,
-                                            obs_uv, inv_sigma2, valid, Rcb, tcb, cam: Pinhole,
+                                            obs_uv, inv_sigma2, valid, Rcb, tcb, cam: Camera,
                                             n_rounds: int = 4, n_iters: int = 10,
                                             prior=None) -> PoseInertialResult:
     """Plain version of ``optimize_pose_inertial_last_frame``."""
@@ -645,18 +677,21 @@ def optimize_pose_inertial_last_frame_plain(Rwb0, twb0, v0, bg0, ba0, prev_state
     I30 = torch.eye(30, dtype=dt, device=dev)
     z30 = torch.zeros(30, dtype=dt, device=dev)
 
-    def resid_all(d30, st, pts, ctx):
+    def state_fn(d30, st, pts, ctx):   # camera-frame points, inertial and prior residuals
         g, pk, Lr_, Lb_, Lp_, ps, uv, Rcb_, tcb_ = ctx
         Rp, tp, vp, bgp, bap = apply_delta(*st[:5], d30[:15])
         R, t, vv, bgn, ban = apply_delta(*st[5:], d30[15:])
-        rv = _pose_resid(R, t, pts, uv, Rcb_, tcb_, cam)
         ri = edge_resid15(pk, Lr_, Lb_, g, Rp, tp, vp, bgp, bap, R, t, vv, bgn, ban)
         Rpr, tpr, vpr, bgpr, bapr = ps
         rp = _mv(Lp_.T, torch.cat([lie.so3_log(Rpr.T @ Rp), _mv(Rpr.T, tp - tpr), vp - vpr,
                                    bgp - bgpr, bap - bapr]))
-        return rv, ri, rp
+        return _pose_pc(R, t, pts, Rcb_, tcb_), ri, rp
 
-    jac = _jac(resid_all, 0)
+    def resid_all(d30, st, pts, ctx):
+        pc, ri, rp = state_fn(d30, st, pts, ctx)
+        return ctx[6] - cam.project(pc), ri, rp
+
+    jac = _camera_jac(cam, state_fn, 0)
     st = tuple(prev_state) + (Rwb0, twb0, v0, bg0, ba0)
     active = valid
     for rnd in range(n_rounds):
@@ -688,7 +723,7 @@ def optimize_pose_inertial_last_frame_plain(Rwb0, twb0, v0, bg0, ba0, prev_state
 
 
 def _pose_inertial_launch(joint: bool, Rwb0, twb0, v0, bg0, ba0, prev_state, preint, pts_w,
-                          obs_uv, inv_sigma2, valid, Rcb, tcb, cam: Pinhole, n_rounds, n_iters,
+                          obs_uv, inv_sigma2, valid, Rcb, tcb, cam: Camera, n_rounds, n_iters,
                           prior=None) -> PoseInertialResult:
     """Launch K22 (``<joint>``) on one problem; every input stays on the
     card (no host synchronisation)."""
@@ -713,20 +748,24 @@ def _pose_inertial_launch(joint: bool, Rwb0, twb0, v0, bg0, ba0, prev_state, pre
     out = torch.empty(21 + 225, dtype=torch.float32, device=dev)
     inl = torch.empty(N, dtype=torch.bool, device=dev)
     n_inl = torch.empty((), dtype=torch.int32, device=dev)
+    kb8 = cam.kernel_params()
     err = kernels.lib().pose_inertial_launch(
         state.data_ptr(), *[a.data_ptr() for a in obs], N, cam.fx, cam.fy, cam.cx, cam.cy,
-        int(joint), n_rounds, n_iters, out.data_ptr(), inl.data_ptr(), n_inl.data_ptr(),
-        kernels.stream())
+        None if kb8 is None else kb8.ctypes.data, int(joint), n_rounds, n_iters, out.data_ptr(),
+        inl.data_ptr(), n_inl.data_ptr(), kernels.stream())
     kernels.check(err, "pose_inertial")
     kernels.LAUNCHES["pose_inertial"] += 1
     kernels.LAUNCHES["pose_inertial_joint"] += int(joint)   # of those, the joint variant
+    if kb8 is not None:   # of those, through the KB8 camera (and of these, the joint variant)
+        kernels.LAUNCHES["pose_inertial_kb8"] += 1
+        kernels.LAUNCHES["pose_inertial_joint_kb8"] += int(joint)
     return PoseInertialResult(Rwb=out[:9].reshape(3, 3), twb=out[9:12], v=out[12:15],
                               bg=out[15:18], ba=out[18:21], inliers=inl, n_inliers=n_inl,
                               H=out[21:].reshape(15, 15))
 
 
 def optimize_pose_inertial(Rwb0, twb0, v0, bg0, ba0, prev_state, preint, pts_w, obs_uv,
-                           inv_sigma2, valid, Rcb, tcb, cam: Pinhole, n_rounds: int = 4,
+                           inv_sigma2, valid, Rcb, tcb, cam: Camera, n_rounds: int = 4,
                            n_iters: int = 10) -> PoseInertialResult:
     """PoseInertialOptimizationLastKeyFrame (src/Optimizer.cc:7327): GN on
     the frame's 15-dim state with visual unary edges (chi2 reclassified
@@ -746,7 +785,7 @@ def optimize_pose_inertial(Rwb0, twb0, v0, bg0, ba0, prev_state, preint, pts_w, 
 
 
 def optimize_pose_inertial_last_frame(Rwb0, twb0, v0, bg0, ba0, prev_state, preint, pts_w,
-                                      obs_uv, inv_sigma2, valid, Rcb, tcb, cam: Pinhole,
+                                      obs_uv, inv_sigma2, valid, Rcb, tcb, cam: Camera,
                                       n_rounds: int = 4, n_iters: int = 10,
                                       prior=None) -> PoseInertialResult:
     """PoseInertialOptimizationLastFrame (src/Optimizer.cc:7722): joint GN

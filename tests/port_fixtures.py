@@ -238,10 +238,13 @@ _A_FAR = lambda n: np.array([[5.0 / n, 0, -2.5], [0, 5.0 / n, -2.5], [0, 0, 5.0]
 _A_NEAR = lambda n: np.array([[1.6 / n, 0, -1.1], [0, 1.6 / n, -0.8], [0, 0, 3.0]])
 
 
-def _render_kb8(tex, pose, width, height, kb8):
+def _render_kb8(tex, pose, width, height, kb8, wrap: bool = False, scene_scale: float = 1.0):
     """``render_two_plane`` through the KB8 model: each plane is hit where
     its texture coordinates h = (R A + t e3^T)^-1 ray have h_z > 0 (in
-    front of the camera) and lie inside the texture."""
+    front of the camera) and lie inside the texture; with ``wrap`` the
+    wall's coordinates are taken modulo the texture's size, so the wall
+    fills every ray that meets its plane in front of the camera;
+    ``scene_scale`` scales both planes about the world origin."""
     R, t = pose
     n = tex.shape[0]
     vv, uu = np.mgrid[0:height, 0:width].astype(np.float64)
@@ -250,10 +253,12 @@ def _render_kb8(tex, pose, width, height, kb8):
     img = np.full(rays.shape[1], float(BACKGROUND))
     depth = np.zeros(rays.shape[1])
     for A, flip in ((_A_FAR(n), False), (_A_NEAR(n), True)):
-        h = np.linalg.solve(R @ A + t[:, None] @ e3, rays)
+        h = np.linalg.solve(R @ (scene_scale * A) + t[:, None] @ e3, rays)
         front = h[2] > 1e-12
         hz = np.where(front, h[2], 1.0)
         s, tt = h[0] / hz, h[1] / hz
+        if wrap and not flip:
+            s, tt = np.mod(s, n - 1.0), np.mod(tt, n - 1.0)
         hit = front & (s >= 0) & (s <= n - 1) & (tt >= 0) & (tt <= n - 1)
         img = np.where(hit, _sample_bilinear(tex[:, ::-1] if flip else tex, s, tt), img)
         depth = np.where(hit, rays[2] / hz, depth)
@@ -286,6 +291,56 @@ def render_stereo_sequence(tex: np.ndarray, n_frames: int, speed: float = 0.06,
     right = [render_two_plane(tex, (R, t - np.array([baseline, 0.0, 0.0])), width, height)[0]
              for R, t in poses]
     return left, right, depths, poses
+
+
+def rig_extrinsics(T_lr):
+    """(R_rl, t_rl) of a rig whose right camera has the pose ``T_lr`` (4x4,
+    or its 16 values row by row) in the left camera's frame, as the
+    trackers read ``SLAMConfig.T_lr``: p_right = R_rl p_left + t_rl."""
+    T = np.asarray(T_lr, np.float64).reshape(4, 4)
+    R_rl = T[:3, :3].T
+    return R_rl, -R_rl @ T[:3, 3]
+
+
+def _right_pose(pose, T_lr):
+    R_rl, t_rl = rig_extrinsics(T_lr)
+    R, t = pose
+    return R_rl @ R, R_rl @ t + t_rl
+
+
+def _render_rig(tex, poses, width, height, T_lr, right: bool = True):
+    kb8 = kb8_camera(width, height)
+    draw = lambda p: _render_kb8(tex, p, width, height, kb8, wrap=True,
+                                 scene_scale=KB8_RIG_SCENE_SCALE)[0]
+    left = [draw(p) for p in poses]
+    if not right:
+        return left
+    return left, [draw(_right_pose(p, KB8_RIG_T_LR if T_lr is None else T_lr)) for p in poses]
+
+
+# the right camera 0.101 m along the left camera's x axis (TUM-VI's rig,
+# tests/test_stereo_fisheye.py:140-143), row-major 4x4
+KB8_RIG_T_LR = (1.0, 0.0, 0.0, 0.101, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0)
+# the rig's scenes are the two planes at 0.3 of their distance (wall 1.5 m,
+# poster 0.9 m), a room's depth: the 0.101 m baseline gives a point the 1.15
+# degrees of parallax that the triangulation's gate (cos < 0.9998) asks for
+# only up to ~5 m, and the stereo depths, gated at chi2 5.991 (~2.4 px at
+# octave 0), scatter by +-15-25% at 2.5 m (``chip_smoke.run_system`` over
+# [stereo-kb8]'s 30 frames on the CPU plain path: 5.6% of the path lost with
+# the wall at 2.5 m, 0.6% at 1.5 m)
+KB8_RIG_SCENE_SCALE = 0.3
+
+
+def render_kb8_stereo_sequence(tex: np.ndarray, n_frames: int, speed: float = 0.06,
+                               width: int = 512, height: int = 512, T_lr=None):
+    """A fisheye stereo rig over ``render_sequence``'s motion, both cameras
+    TUM-VI's KB8 (``kb8_camera(width, height)``), the planes at
+    ``KB8_RIG_SCENE_SCALE`` of their distance and the wall wrapped so it
+    fills the field of view; the right camera has the pose ``T_lr`` in the
+    left camera's frame (default ``KB8_RIG_T_LR``: 0.101 m along x, TUM-VI's
+    baseline).  Returns (left images, right images, poses)."""
+    poses = [true_pose(k, speed) for k in range(n_frames)]
+    return _render_rig(tex, poses, width, height, T_lr) + (poses,)
 
 
 def blackout(images, black) -> list:
@@ -823,6 +878,22 @@ def render_vi_stereo_sequence(tex: np.ndarray, n_frames: int, width: int = 640,
     right = [render_two_plane(tex, (R, t - np.array([baseline, 0.0, 0.0])), width, height)[0]
              for R, t in poses]
     return left, right, poses
+
+
+def render_vi_kb8_sequence(tex: np.ndarray, n_frames: int, width: int = 512,
+                           height: int = 512):
+    """The trajectory of ``render_vi_sequence`` through TUM-VI's KB8 camera
+    in the scene of ``render_kb8_stereo_sequence``: (images, poses)."""
+    poses = [vi_pose(k / VI_FPS) for k in range(n_frames)]
+    return _render_rig(tex, poses, width, height, None, right=False), poses
+
+
+def render_vi_kb8_stereo_sequence(tex: np.ndarray, n_frames: int, width: int = 512,
+                                  height: int = 512, T_lr=None):
+    """``render_vi_kb8_sequence`` seen by the fisheye rig of
+    ``render_kb8_stereo_sequence``: (left images, right images, poses)."""
+    poses = [vi_pose(k / VI_FPS) for k in range(n_frames)]
+    return _render_rig(tex, poses, width, height, T_lr) + (poses,)
 
 
 def vi_ate_scale(trajectory):
