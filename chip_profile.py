@@ -31,6 +31,10 @@ while its step still runs: the median host time of an ordinary track call,
 the time per frame over the span from frame 5 to the end of the flush,
 and the idle share of that span, 1 - the union of its device events (a
 profiled run) / the unprofiled span's host time.
+Last, the loop event of [loop] and [loop-kb8] and the merge frame of
+[merge] and [merge-kb8] (``chip_smoke.py``'s constructed loop and merge
+sweep, pinhole and through TUM-VI's KB8 camera): host ms unprofiled,
+device ms profiled, idle share.
 Prints one summary line per run and, with ``--out``, writes the per-frame
 times and the largest kernels there as JSON.  Needs a card; fails without
 one.
@@ -158,6 +162,80 @@ def pipeline_runs(frames, rights, depths, dev) -> dict:
                   f"{span_ms:.1f} ms, {r['span_ms_per_frame']:.2f} ms per frame, device "
                   f"{busy:.1f} ms, idle {r['span_idle']:.4f}", flush=True)
     return out
+
+
+def merge_track(cfg, frames, voc, dev, mark=None):
+    """[merge]'s run (frames 19-28 black) with a vocabulary: per frame the
+    host ms (each frame ending in a synchronise) and the Atlas merges so far."""
+    sys_ = System(cfg, vocab=voc, device=dev)
+    out = []
+    for k, img in enumerate(pf.blackout(frames, cs.MERGE_BLACK)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (torch.profiler.record_function(f"frame_{k}") if mark
+              else contextlib.nullcontext()):
+            sys_.track_monocular(img, k / 30.0)
+            torch.cuda.synchronize()
+        out.append(((time.perf_counter() - t0) * 1e3, sys_.tracker.loop_closer.n_merges))
+    sys_.flush()
+    torch.cuda.synchronize()
+    return out
+
+
+def event_runs(dev) -> dict:
+    """The loop event of [loop] and [loop-kb8] (``cs.run_loop``: the closer
+    over the constructed map to its first loop; the event dispatches the
+    GBA, which runs before its closing synchronise) and the merge frame of
+    [merge] and [merge-kb8]: host ms unprofiled, device ms (union of the
+    event's device events) profiled, and the idle share; beside them the
+    median of the other keyframe events (loop) or tracked frames (merge),
+    and the run's largest kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for kb8 in (False, True):
+        name = "loop-kb8" if kb8 else "loop"
+        _, _, loops, host, _, _ = cs.run_loop(dev, kb8=kb8)
+        with torch.profiler.profile(activities=acts) as prof:
+            _, _, loops_p, _, _, _ = cs.run_loop(dev, kb8=kb8, mark=True)
+        device, by_kernel, _ = device_ms_per_frame(prof, len(host))
+        del prof
+        if len(loops) != 1 or loops != loops_p:
+            raise AssertionError(f"[{name}] loops {loops} / profiled {loops_p}")
+        k = len(host) - 1
+        rest = list(range(k))
+        out[name] = _event(host, device, k, rest, by_kernel)
+    for kb8 in (False, True):
+        name = "merge-kb8" if kb8 else "merge"
+        frames, _ = cs.merge_frames(kb8)
+        voc = cs.train_vocab(frames, dev, n_features=cs.KB8_FEATURES if kb8 else cs.SYS_FEATURES)
+        cfg = cs.merge_config(cs.KB8_SIZE, cs.KB8_SIZE, kb8=True) if kb8 else cs.merge_config()
+        plain = merge_track(cfg, frames, voc, dev)
+        with torch.profiler.profile(activities=acts) as prof:
+            prof_run = merge_track(cfg, frames, voc, dev, mark=True)
+        device, by_kernel, _ = device_ms_per_frame(prof, len(plain))
+        del prof
+        at = next((k for k, (_, n) in enumerate(plain) if n), None)
+        if at is None or at != next((k for k, (_, n) in enumerate(prof_run) if n), None):
+            raise AssertionError(f"[{name}] merge frame {at} / profiled run's differs")
+        rest = [k for k in range(2, len(plain)) if k != at and k not in cs.MERGE_BLACK]
+        out[name] = _event([h for h, _ in plain], device, at, rest, by_kernel)
+    for name, r in out.items():
+        print(f"[{name}] the {'merge frame' if 'merge' in name else 'loop event'} "
+              f"({r['index']}): host {r['host_ms']:.2f} ms, device {r['device_ms']:.3f} ms, "
+              f"idle {r['idle']:.4f}; the others' median: host {r['host_ms_others']:.2f} ms, "
+              f"device {r['device_ms_others']:.3f} ms; the run's largest kernels "
+              f"{', '.join(f'{n} {v:.3f}' for n, v in list(r['top_kernels_ms'].items())[:4])} ms",
+              flush=True)
+    return out
+
+
+def _event(host, device, k, rest, by_kernel) -> dict:
+    return dict(index=k, host_ms=host[k], device_ms=device[k], idle=1.0 - device[k] / host[k],
+                host_ms_others=statistics.median([host[j] for j in rest]),
+                device_ms_others=statistics.median([device[j] for j in rest]),
+                host_ms_all=host, device_ms_all=device,
+                top_kernels_ms=dict(sorted(((n, v / 1e3) for n, v in by_kernel.items()),
+                                           key=lambda kv: -kv[1])[:10]))
 
 
 def device_ms_per_frame(prof, n_frames: int):
@@ -292,6 +370,7 @@ def main() -> int:
                   f"({n_ev} device events)", flush=True)
         del prof
     result["pipelined"] = pipeline_runs(frames, rights, depths, dev)
+    result["events"] = event_runs(dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -57,8 +57,16 @@ triangulation) to its plain version on the rig's frames and on a rig turned
 [stereo-kb8-reference] repeats its first frames on the CPU plain path, and
 [vi-stereo-kb8] / [vi-kb8] run [vi]'s trajectory through KB8 on the rig
 (imu-stereo) and monocular (imu-monocular), holding K20 and K22's KB8
-instantiations to their plain versions at their first calls.  Any
-failure raises:
+instantiations to their plain versions at their first calls.  Last, loop
+closing through the KB8 camera: [loop-kb8] runs [loop] on the constructed
+map with its keypoints in TUM-VI's 512x512 KB8 image (every K12 and K14
+launch through ``CamKB8``), [parity-loop-kb8] holds K12<KB8> and K14<KB8>
+to their plain versions (on a KB8 Sim3 scene, on every K12 and K14 call of
+[loop-kb8] and on its map's GBA problem), [merge-kb8] runs [merge] through
+the KB8 camera (``System(kb8 cfg, vocab)`` over the sweep seen through
+the fisheye) and [vi-loop-kb8] runs [vi-loop] on the KB8 inertial map
+(K23, K20<KB8>, K12<KB8>); [det] also counts K14<KB8>'s distinct results.
+Any failure raises:
 the script then exits non-zero and never prints its last line.  It needs
 a CUDA card and nothing outside the repository (the scenes are generated
 from a seed).
@@ -72,6 +80,7 @@ then the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1540,30 +1549,49 @@ def train_vocab(frames, dev, every: int = 5, n_features: int = SYS_FEATURES):
     return vocab_mod.Vocabulary.train(np.concatenate(descs, 0), k=8, L=3, seed=0)
 
 
-def looped_map(dev, n_kf: int = LOOP_KFS, n_pts: int = LOOP_POINTS):
-    """The [loop] map: ``pf.build_looped_map`` at full width (LOOP_KFS
-    keyframes of up to 1128 keypoints, ~1000 observed each), the return
-    pass half a step off the outbound one; keyframe features on ``dev``."""
+def _map_feats(dev):
     def feats(d, xy, v):
         n = len(v)
         return interop.features_from_numpy(
             dict(xy=xy, response=np.zeros(n, np.float32), angle=np.zeros(n, np.float32),
                  octave=np.zeros(n, np.int32), size=np.full(n, 31.0, np.float32), desc=d,
                  valid=v), dev)
-    return pf.build_looped_map(0, SLAMMap, KeyFrame, feats, n_kf=n_kf, n_pts=n_pts,
+    return feats
+
+
+def looped_map(dev, n_kf: int = LOOP_KFS, n_pts: int = LOOP_POINTS, kb8: bool = False):
+    """The [loop] map: ``pf.build_looped_map`` at full width (LOOP_KFS
+    keyframes of up to 1128 keypoints, ~1000 observed each), the return
+    pass half a step off the outbound one; keyframe features on ``dev``.
+    With ``kb8`` (the [loop-kb8] map) the keypoints lie in TUM-VI's 512x512
+    KB8 image (every landmark in view: 1128 a keyframe)."""
+    return pf.build_looped_map(0, SLAMMap, KeyFrame, _map_feats(dev), n_kf=n_kf, n_pts=n_pts,
                                step=LOOP_STEP, n_cap=SYS_FEATURES + 8 * 16,
-                               return_shift=LOOP_STEP / 2)
+                               return_shift=LOOP_STEP / 2,
+                               camera=pf.kb8_camera() if kb8 else None)
 
 
-def sim3_scene(rng, N: int = 512, out_frac: float = 0.3):
+def loop_camera(kb8: bool = False):
+    """The camera of the [loop] map (640x480 pinhole) or of [loop-kb8]'s
+    (TUM-VI's 512x512 KB8)."""
+    return (KannalaBrandt8(*pf.kb8_camera()) if kb8 else
+            Pinhole.from_config(camera_config(WIDTH, HEIGHT)))
+
+
+def sim3_scene(rng, N: int = 512, out_frac: float = 0.3, kb8=None):
     """N Sim3 pairs: points 2-8 m in front of camera 1, p2 = s R p1 + t
     (s 1.3), both pixels with 0.5 px noise, ``out_frac`` of the second
     pixels moved 10-40 px, 90% valid.  float32 numpy (p1, p2, uv1, uv2,
-    valid) and the true (R, t, s)."""
+    valid) and the true (R, t, s).  With ``kb8`` (fx, fy, cx, cy, k1..k4)
+    the points spread to about 55 degrees off the axis and project through
+    the KB8 model."""
     cam = camera_config(WIDTH, HEIGHT)
-    proj = lambda p: np.stack([cam.fx * p[:, 0] / p[:, 2] + cam.cx,
-                               cam.fy * p[:, 1] / p[:, 2] + cam.cy], -1)
-    p1 = np.stack([rng.uniform(-2, 2, N), rng.uniform(-1.5, 1.5, N), rng.uniform(2, 8, N)], -1)
+    proj = ((lambda p: pf.kb8_project_np(p, kb8)) if kb8 is not None else
+            (lambda p: np.stack([cam.fx * p[:, 0] / p[:, 2] + cam.cx,
+                                 cam.fy * p[:, 1] / p[:, 2] + cam.cy], -1)))
+    w = 3.0 if kb8 is not None else 1.0
+    p1 = np.stack([rng.uniform(-2 * w, 2 * w, N), rng.uniform(-1.5 * w, 1.5 * w, N),
+                   rng.uniform(2, 8, N)], -1)
     R, t, s = pf.so3_exp_np([0.05, -0.1, 0.03]), np.array([0.2, -0.05, 0.1]), 1.3
     p2 = s * p1 @ R.T + t
     uv1 = proj(p1) + rng.normal(0, 0.5, (N, 2))
@@ -1792,25 +1820,28 @@ def phase_parity_loop(frames, voc, dev) -> dict:
     return stats
 
 
-def run_loop(dev, n_kf: int = LOOP_KFS):
-    """The LoopCloser over the keyframes of the [loop] map on ``dev`` in
-    order until a loop closes, with the reference's thresholds; then
-    ``finish``.  Returns the
-    map, the closer, the (keyframe, matched keyframe) of each loop closed
-    and each keyframe event's host ms."""
-    mp, _, desc, centres = looped_map(dev, n_kf)
+def run_loop(dev, n_kf: int = LOOP_KFS, kb8: bool = False, mark: bool = False):
+    """The LoopCloser over the keyframes of the [loop] map (with ``kb8`` the
+    [loop-kb8] map and camera) on ``dev`` in order until a loop closes, with
+    the reference's thresholds; then ``finish``.  Returns the map, the
+    closer, the (keyframe, matched keyframe) of each loop closed and each
+    keyframe event's host ms.  ``mark`` puts event i in a profiler range
+    ``frame_i``."""
+    mp, _, desc, centres = looped_map(dev, n_kf, kb8=kb8)
     voc = vocab_mod.Vocabulary.train(desc, k=8, L=3, seed=0)
-    cam = Pinhole.from_config(camera_config(WIDTH, HEIGHT))
     inv_sigma2 = [1.2 ** (-2 * i) for i in range(8)]
-    closer = loop_closing.LoopCloser(voc, cam, inv_sigma2=inv_sigma2, device=dev)
+    closer = loop_closing.LoopCloser(voc, loop_camera(kb8), inv_sigma2=inv_sigma2, device=dev,
+                                     img_wh=(KB8_SIZE, KB8_SIZE) if kb8 else None)
     loops, ms = [], []
     for kid in sorted(mp.keyframes):
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got = closer.process_keyframe(mp, kid)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        with (torch.profiler.record_function(f"frame_{len(ms)}") if mark
+              else contextlib.nullcontext()):
+            got = closer.process_keyframe(mp, kid)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         if got:
             loops.append((kid, mp.keyframes[kid].loop_edges[-1]))
@@ -1820,7 +1851,7 @@ def run_loop(dev, n_kf: int = LOOP_KFS):
     return mp, closer, loops, ms, centres, closer.n_gba_applied - n_gba
 
 
-def phase_loop(dev):
+def phase_loop(dev, kb8: bool = False, rec=None):
     """[loop]: the constructed out-and-back map at full width (24 keyframes,
     ~1000 observed keypoints each, the return pass drifting) through
     ``LoopCloser.process_keyframe`` on the card: exactly one loop, on the
@@ -1828,57 +1859,223 @@ def phase_loop(dev):
     error well under its drift, and the GBA applied at ``finish``.  The
     closer stops at the first loop, as tests/test_loop_closing.py does;
     the return keyframes after it keep the drift they gathered since the
-    closing one, which no loop has measured yet."""
+    closing one, which no loop has measured yet.  With ``kb8`` [loop-kb8]:
+    the map and closer through TUM-VI's 512x512 KB8 camera, where every
+    K12 and K14 launch takes the ``CamKB8`` instantiation (no pinhole one).
+    ``rec`` (a ``_LoopRecorder``) keeps the card run's K12 and K14 calls."""
+    tag = "[loop-kb8]" if kb8 else "[loop]"
     kernels.LAUNCHES.clear()
-    mp, closer, loops, ms, centres, n_gba = run_loop(dev)
+    with rec if rec is not None else contextlib.nullcontext():
+        mp, closer, loops, ms, centres, n_gba = run_loop(dev, kb8=kb8)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    _, _, cpu_loops, _, _, _ = run_loop(torch.device("cpu"))
-    drift = looped_map(torch.device("cpu"))[0]
+    _, _, cpu_loops, _, _, _ = run_loop(torch.device("cpu"), kb8=kb8)
+    drift = looped_map(torch.device("cpu"), kb8=kb8)[0]
     last_id = loops[0][0] if loops else max(mp.keyframes)
     err = lambda kf: float(np.linalg.norm(-kf.R.T @ kf.t - centres[kf.kid]))
     e_after, e_before = err(mp.keyframes[last_id]), err(drift.keyframes[last_id])
     n_kf = len(mp.keyframes)
     want = {"vocab_words": len(ms), "pose_graph": 1, "ba_schur": 1}
+    if kb8:   # every K12 / K14 launch through the KB8 camera
+        want.update({f"{n}_kb8": launches.get(n, 0)
+                     for n in ("sim3_ransac", "sim3_optimize", "ba_schur")})
     bad = {n: launches.get(n, 0) for n, v in want.items() if launches.get(n, 0) != v}
     bad.update({n: 0 for n in ("sim3_ransac", "sim3_optimize", "hamming_best2_words")
                 if not launches.get(n, 0)})
     if len(loops) != 1 or loops != cpu_loops or not e_after < 0.5 * e_before or n_gba != 1 \
             or bad:
-        raise AssertionError(f"[loop] loops {loops} (CPU plain path {cpu_loops}), closing keyframe "
-                             f"centre error {e_after:.4f} m (drifted {e_before:.4f} m), GBA applied "
-                             f"{n_gba}, launches {launches}")
+        raise AssertionError(f"{tag} loops {loops} (CPU plain path {cpu_loops}), closing "
+                             f"keyframe centre error {e_after:.4f} m (drifted {e_before:.4f} m), "
+                             f"GBA applied {n_gba}, launches {launches} (off: {bad})")
     k = loops[0][0]
-    print(f"[loop] {n_kf} keyframes, {int(np.mean([kf.n_kps for kf in mp.keyframes.values()]))} "
+    print(f"{tag} {n_kf} keyframes, {int(np.mean([kf.n_kps for kf in mp.keyframes.values()]))} "
           f"keypoints each: one loop at keyframe {k} (matched {loops[0][1]}) after {len(ms)} "
           f"keyframe events, as the CPU plain "
           f"path; its centre error {e_after:.4f} m (drifted {e_before:.4f} m); GBA "
           f"applied at finish", flush=True)
-    print(f"[loop] keyframe-event ms (host clock): median {statistics.median(ms):.2f}, loop "
+    print(f"{tag} keyframe-event ms (host clock): median {statistics.median(ms):.2f}, loop "
           f"event {ms[k]:.2f}", flush=True)
-    print(f"[loop] launches {launches}", flush=True)
+    print(f"{tag} launches {launches}", flush=True)
     return launches
 
 
-def merge_config(width: int = WIDTH, height: int = HEIGHT) -> SLAMConfig:
+def _ba_dist(a, b) -> float:
+    return max(float((a.R - b.R).abs().max()), float((a.t - b.t).abs().max()),
+               float((a.points - b.points).abs().max()))
+
+
+def phase_parity_loop_kb8(rec, dev) -> dict:
+    """[parity-loop-kb8]: K12 and K14 through the KB8 camera against their
+    plain versions: on a KB8 Sim3 scene at [parity]'s shapes (512 pairs, 30%
+    outliers, the seeded sets; 1024 pairs from a start 0.02 rad / 5 cm / 3%
+    off), on every K12 and K14 call of the [loop-kb8] run (``rec``), on the
+    [loop-kb8] map's full GBA problem and on a noisy KB8 problem of its K and
+    O.  Equal inliers and counts; the Sim3 within 1e-4, the GBA within 1e-3,
+    its cost within 1e-3 relative on the noisy problem (the post-loop GBA
+    call: the inliers and a cost at rounding, below)."""
+    rng = np.random.default_rng(15)
+    kb8 = pf.kb8_camera()
+    cam = loop_camera(kb8=True)
+    stats = {}
+    t_ = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def sim3_dist(a, b):
+        return max(float((a.R12 - b.R12).abs().max()), float((a.t12 - b.t12).abs().max()),
+                   float((a.s12 - b.s12).abs()))
+
+    # K12<KB8> RANSAC
+    p1, p2, uv1, uv2, val, _ = sim3_scene(rng, kb8=kb8)
+    sargs = [t_(a) for a in (p1, p2, uv1, uv2, val)]
+    sets = gsim3.sample_sim3_sets(3, torch.from_numpy(val)).to(dev)
+    run_k = lambda: gsim3.solve_sim3_ransac(sets, *sargs, cam)
+    run_p = lambda: gsim3.solve_sim3_ransac_plain(sets, *sargs, cam)
+    rk, rp = run_k(), run_p()
+    d_r = sim3_dist(rk, rp)
+    if not (bool(rk.success) == bool(rp.success) and bool(rk.success)
+            and int(rk.n_inliers) == int(rp.n_inliers) and torch.equal(rk.inliers, rp.inliers)
+            and d_r <= 1e-4):
+        raise AssertionError(f"sim3_ransac<KB8>: ok {bool(rk.success)}/{bool(rp.success)}, count "
+                             f"{int(rk.n_inliers)}/{int(rp.n_inliers)}, |dR|,|dt|,|ds| {d_r:.2e}")
+    H, nv = sets.shape[0], int(val.sum())
+    print(f"[parity-loop-kb8] sim3_ransac<KB8> N=512 H={H}: ok, count ({int(rk.n_inliers)} of "
+          f"{nv} valid) and mask equal, max |dR|,|dt|,|ds| {d_r:.2e}", flush=True)
+
+    # K12<KB8> OptimizeSim3
+    p1, p2, uv1, uv2, val, (R, t, s) = sim3_scene(rng, 1024, out_frac=0.1, kb8=kb8)
+    Ri, ti, si = R.T, -(R.T @ t) / s, 1.0 / s
+    R0 = t_((pf.so3_exp_np([0.02, 0.0, -0.01]) @ Ri).astype(np.float32))
+    t0 = t_((ti + np.array([0.05, 0.0, -0.03])).astype(np.float32))
+    s0 = torch.tensor(si * 1.03, dtype=torch.float32, device=dev)
+    oargs = (R0, t0, s0, t_(p1), t_(p2), t_(uv1), t_(uv2), t_(val))
+    d_o = 0.0
+    for fix in (False, True):
+        ok_ = gsim3.optimize_sim3(*oargs, cam, fix)
+        op_ = gsim3.optimize_sim3_plain(*oargs, cam, fix)
+        d = sim3_dist(ok_, op_)
+        if int(ok_.n_in) != int(op_.n_in) or not torch.equal(ok_.inliers, op_.inliers) \
+                or not d <= 1e-4:
+            raise AssertionError(f"sim3_optimize<KB8> fix_scale={fix}: n_in {int(ok_.n_in)}/"
+                                 f"{int(op_.n_in)}, |dR|,|dt|,|ds| {d:.2e}")
+        print(f"[parity-loop-kb8] sim3_optimize<KB8> N=1024 fix_scale={fix}: n_in "
+              f"{int(ok_.n_in)} equal, max |dR|,|dt|,|ds| {d:.2e}", flush=True)
+        d_o = max(d_o, d)
+
+    # every K12 call of the [loop-kb8] run
+    n_calls = 0
+    for key, kern, plain in (
+            ("sim3_ransac", gsim3.solve_sim3_ransac, gsim3.solve_sim3_ransac_plain),
+            ("sim3_optimize", gsim3.optimize_sim3, gsim3.optimize_sim3_plain)):
+        for args, kw in rec.calls[key]:
+            a, b = kern(*args, **kw), plain(*args, **kw)
+            d = sim3_dist(a, b)
+            cnt = (a.n_inliers, b.n_inliers) if key == "sim3_ransac" else (a.n_in, b.n_in)
+            if int(cnt[0]) != int(cnt[1]) or not torch.equal(a.inliers, b.inliers) \
+                    or not d <= 1e-4:
+                raise AssertionError(f"{key}<KB8> on [loop-kb8] call {n_calls}: counts "
+                                     f"{int(cnt[0])}/{int(cnt[1])}, |dR|,|dt|,|ds| {d:.2e}")
+            d_r, d_o = (max(d_r, d), d_o) if key == "sim3_ransac" else (d_r, max(d_o, d))
+            n_calls += 1
+    print(f"[parity-loop-kb8] the [loop-kb8] run's {len(rec.calls['sim3_ransac'])} sim3_ransac "
+          f"and {len(rec.calls['sim3_optimize'])} sim3_optimize calls: counts and masks equal "
+          f"to the plain versions', Sim3 within 1e-4", flush=True)
+    # work: as [parity]'s K12 rows; KB8's projection (~40 ops in float, ~7 x
+    # 60 in Dual<7>) in place of the pinhole's
+    stats["sim3_ransac_kb8"] = record(d_r, cuda_ms(run_k), cuda_ms(run_p, reps=5),
+                                      512 * 41 + H * 12 + 52 + 512 + 5, 100 * (H + 1) * 512,
+                                      ops64=3600 * H)
+    stats["sim3_optimize_kb8"] = record(
+        d_o, cuda_ms(lambda: gsim3.optimize_sim3(*oargs, cam, True)),
+        cuda_ms(lambda: gsim3.optimize_sim3_plain(*oargs, cam, True), reps=3),
+        52 + 1024 * 41 + 52 + 1024 + 4, 15 * 1024 * (7 * 450 + 4 * 70))
+
+    # K14<KB8>: the [loop-kb8] map's full GBA problem, a noisy one of its
+    # K and O, and the post-loop GBA call of the [loop-kb8] run
+    mp, _, _, _ = looped_map(dev, kb8=True)
+    gprob = global_ba.build_global_problem(mp, [1.0] * 8, 1, None, dev)[0]
+    Kb, Pb, Ob = gprob.R.shape[0], gprob.points.shape[0], gprob.obs_kf.shape[0]
+    noisy = ba_problem(rng, dev, n_kf=Kb, n_pts=Ob // Kb, Kp=Kb, Pp=-(-(Ob // Kb) // 128) * 128,
+                       Op=Ob, kb8=kb8)
+    d_ba = 0.0
+    for name, prob_ in (("[loop-kb8] map", gprob), ("noisy", noisy)):
+        bk = sharded_ba.optimize_schur(prob_, cam)
+        bp = sharded_ba.optimize_schur_plain(prob_, cam)
+        d = _ba_dist(bk, bp)
+        ck, cp = float(bk.cost), float(bp.cost)
+        dc = abs(ck - cp) / cp if name == "noisy" else 0.0
+        if not d <= 1e-3 or not dc <= 1e-3 or not torch.equal(bk.inliers, bp.inliers):
+            raise AssertionError(f"ba_schur<KB8> ({name}): |dR|,|dt|,|dp| {d:.2e}, cost {ck:.6g} / "
+                                 f"{cp:.6g}, inliers equal {torch.equal(bk.inliers, bp.inliers)}")
+        cost_note = f"{dc:.2e} relative" if name == "noisy" else "rounding, not compared"
+        print(f"[parity-loop-kb8] ba_schur<KB8> {name} K={prob_.R.shape[0]} "
+              f"P={prob_.points.shape[0]} O={prob_.obs_kf.shape[0]}: max |dR|,|dt|,|dp| "
+              f"{d:.2e}, inliers equal, cost {ck:.6g} / plain {cp:.6g} ({cost_note})", flush=True)
+        d_ba = max(d_ba, d, dc)
+    # the post-loop GBA call of [loop-kb8]: its map agrees with itself, the
+    # cost sits at float32 rounding with one keyframe fixed, and the LM's
+    # accept decisions on that noise make the solution unique only to
+    # ~1e-3 (the plain version moves that far when its points move by one
+    # ulp, the witness below): held are the inlier mask and both costs at
+    # rounding (under 1e-4); the distances are printed
+    (gargs, gkw), = rec.calls["ba_schur"]
+    prob_, kw = gargs[0], {k: v for k, v in gkw.items() if k != "world_size"}
+    bk = sharded_ba.optimize_schur(prob_, cam, **gkw)
+    bp = sharded_ba.optimize_schur_plain(prob_, cam, **kw)
+    bw = sharded_ba.optimize_schur_plain(
+        prob_._replace(points=torch.nextafter(prob_.points,
+                                              torch.full_like(prob_.points, float("inf")))),
+        cam, **kw)
+    d, d_w = _ba_dist(bk, bp), _ba_dist(bw, bp)
+    if not torch.equal(bk.inliers, bp.inliers) or not max(float(bk.cost), float(bp.cost)) < 1e-4:
+        raise AssertionError(f"ba_schur<KB8> ([loop-kb8] post-loop call): inliers equal "
+                             f"{torch.equal(bk.inliers, bp.inliers)}, cost {float(bk.cost):.6g} / "
+                             f"{float(bp.cost):.6g}")
+    print(f"[parity-loop-kb8] ba_schur<KB8> [loop-kb8] post-loop call K={prob_.R.shape[0]} "
+          f"P={prob_.points.shape[0]} O={prob_.obs_kf.shape[0]}: inliers equal, cost "
+          f"{float(bk.cost):.6g} / plain {float(bp.cost):.6g} (rounding); max |dR|,|dt|,|dp| "
+          f"{d:.2e} from plain, whose points moved by one ulp move it {d_w:.2e}", flush=True)
+    # work: as [parity]'s K14 row, with KB8's Dual<3> projection (~250 ops)
+    # in place of the pinhole's ~60 per observation in the build and cost
+    stats["ba_schur_kb8"] = record(
+        d_ba, cuda_ms(lambda: sharded_ba.optimize_schur(gprob, cam), reps=5),
+        cuda_ms(lambda: sharded_ba.optimize_schur_plain(gprob, cam), reps=2),
+        Kb * 50 + Pb * 13 + Ob * 22 + Kb * 48 + Pb * 12 + Ob + 4,
+        10 * (Ob * 360 + 20 * (Ob * 72 + Pb * 18 + Kb * 72)))
+    return stats
+
+
+def merge_config(width: int = WIDTH, height: int = HEIGHT, kb8: bool = False) -> SLAMConfig:
     """[merge]'s configuration: [system]'s with the recovery timing of
     tests/test_loop_from_pixels.py (time_recently_lost 0.05 s) and a
     keyframe every frame (the JAX test's cadence of 2 leaves the
     procedural scene's first map at 9 keyframes when the lens is covered,
-    below the 10 an Atlas keeps, so nothing would be left to merge into)."""
-    return dataclasses.replace(system_config(width, height),
-                               tracking=TrackingConfig(max_frames=MERGE_MAX_FRAMES,
-                                                       time_recently_lost=0.05))
+    below the 10 an Atlas keeps, so nothing would be left to merge into).
+    With ``kb8`` [merge-kb8]'s: [kb8]'s camera and 1500 features."""
+    base = kb8_config(width, height) if kb8 else system_config(width, height)
+    return dataclasses.replace(base, tracking=TrackingConfig(max_frames=MERGE_MAX_FRAMES,
+                                                             time_recently_lost=0.05))
 
 
-def phase_merge(dev):
+def merge_frames(kb8: bool = False):
+    """[merge]'s sweep at 640x480, or [merge-kb8]'s through TUM-VI's 512x512
+    KB8 camera (the wall wrapped to fill the view)."""
+    if kb8:
+        return pf.render_loop_sequence(pf.wide_texture(), MERGE_FRAMES, KB8_SIZE, KB8_SIZE,
+                                       camera="kb8")
+    return pf.render_loop_sequence(pf.wide_texture(), MERGE_FRAMES, WIDTH, HEIGHT)
+
+
+def phase_merge(dev, kb8: bool = False):
     """[merge]: ``System(cfg, vocab).track_monocular`` over the 40-frame
     out-and-back sweep with frames 19-28 black and a vocabulary trained
     on the sequence (k=8, L=3): a second Atlas map starts after the
     blackout and place recognition welds it into the first one.  Final
-    state OK, one map, n_merges >= 1, ATE within the JAX test's bound."""
-    frames, poses = pf.render_loop_sequence(pf.wide_texture(), MERGE_FRAMES, WIDTH, HEIGHT)
-    voc = train_vocab(frames, dev)
+    state OK, one map, n_merges >= 1, ATE within the JAX test's bound.
+    With ``kb8`` [merge-kb8]: the sweep, the System and the weld through
+    TUM-VI's 512x512 KB8 camera (K12 and the weld BA K6 through ``CamKB8``,
+    relocalization by K25)."""
+    tag = "[merge-kb8]" if kb8 else "[merge]"
+    frames, poses = merge_frames(kb8)
+    voc = train_vocab(frames, dev, n_features=KB8_FEATURES if kb8 else SYS_FEATURES)
     events, kf = [], []
 
     def on_frame(k, st, dt, kf_event, sys_):
@@ -1888,7 +2085,7 @@ def phase_merge(dev):
             kf.append(k)
 
     kernels.LAUNCHES.clear()
-    cfg = merge_config()
+    cfg = merge_config(KB8_SIZE, KB8_SIZE, kb8=True) if kb8 else merge_config()
     sys_ = System(cfg, vocab=voc, device=dev)
     for k, img in enumerate(pf.blackout(frames, MERGE_BLACK)):
         n_kf = sys_.n_keyframes()
@@ -1905,17 +2102,25 @@ def phase_merge(dev):
     merged_at = next((k for k, _, _, n, _ in events if n), None)
     for k, name, n_maps, n_merges, ms in events:
         if k in MERGE_BLACK or abs(k - (merged_at or -9)) <= 1:
-            print(f"[merge] frame {k:2d}: {ms:8.2f} ms host clock  {name:15s} {n_maps} map(s)"
+            print(f"{tag} frame {k:2d}: {ms:8.2f} ms host clock  {name:15s} {n_maps} map(s)"
                   f"{'  merged' if k == merged_at else ''}", flush=True)
+    # with the KB8 camera every launch of a camera kernel takes CamKB8, and
+    # relocalization runs MLPnP (K25), never K10
+    off = {n: (launches.get(n, 0), launches.get(f"{n}_kb8", 0))
+           for n in ("sim3_ransac", "sim3_optimize", "ba_schur", "ba_pcg", "pose_lm")
+           if kb8 and launches.get(n, 0) != launches.get(f"{n}_kb8", 0)}
+    if kb8 and launches.get("pnp_ransac", 0):
+        off["pnp_ransac"] = launches["pnp_ransac"]
     if events[-1][1] != "OK" or len(tr.atlas.maps) != 1 or lc_.n_merges < 1 or \
             not ate < MERGE_MAX_ATE or launches.get("ba_pcg", 0) != tr.stats["ba"] or \
-            any(not launches.get(n, 0) for n in ("vocab_words", "sim3_ransac")):
-        raise AssertionError(f"[merge] states {[e[1] for e in events]}, {len(tr.atlas.maps)} "
-                             f"maps, {lc_.n_merges} merges, ATE {ate:.4f} m, launches {launches}")
-    print(f"[merge] welded at frame {merged_at}: one map of {sys_.n_keyframes()} keyframes, "
+            any(not launches.get(n, 0) for n in ("vocab_words", "sim3_ransac")) or off:
+        raise AssertionError(f"{tag} states {[e[1] for e in events]}, {len(tr.atlas.maps)} "
+                             f"maps, {lc_.n_merges} merges, ATE {ate:.4f} m, launches {launches} "
+                             f"(off: {off})")
+    print(f"{tag} welded at frame {merged_at}: one map of {sys_.n_keyframes()} keyframes, "
           f"{lc_.n_merges} merge(s), final state OK, ATE {ate:.4f} m (bound {MERGE_MAX_ATE})",
           flush=True)
-    print(f"[merge] launches {launches}; tracker counts {dict(tr.stats)}", flush=True)
+    print(f"{tag} launches {launches}; tracker counts {dict(tr.stats)}", flush=True)
     return launches
 
 
@@ -1987,6 +2192,14 @@ class _InertialRecorder:
     def __exit__(self, *exc):
         for (mod, name), orig in self._orig.items():
             setattr(mod, name, orig)
+
+
+class _LoopRecorder(_InertialRecorder):
+    """Keeps the arguments of every K12 and K14 wrapper call of a
+    loop-closing run."""
+
+    NAMES = ((gsim3, "solve_sim3_ransac", "sim3_ransac"), (gsim3, "optimize_sim3", "sim3_optimize"),
+             (global_ba, "optimize_schur", "ba_schur"))
 
 
 def vi_frames(width: int = WIDTH, height: int = HEIGHT, n: int = VI_FRAMES):
@@ -2265,40 +2478,40 @@ def phase_vi_stereo_reference(left, right, card_states, init_at, card_kf_ids, ca
           f"{sc:.5f} (CPU) vs {sg:.5f} (card)", flush=True)
 
 
-def inertial_looped_map(dev, calib: ImuCalib):
+def inertial_looped_map(dev, calib: ImuCalib, kb8: bool = False):
     """The [vi-loop] map: [loop]'s map built with ``inertial=True`` (prev_kf
     chain, velocities, zero biases, the true motion's 100 Hz windows
-    preintegrated on ``dev``, in a gravity-aligned world; yaw drift)."""
-    def feats(d, xy, v):
-        n = len(v)
-        return interop.features_from_numpy(
-            dict(xy=xy, response=np.zeros(n, np.float32), angle=np.zeros(n, np.float32),
-                 octave=np.zeros(n, np.int32), size=np.full(n, 31.0, np.float32), desc=d,
-                 valid=v), dev)
+    preintegrated on ``dev``, in a gravity-aligned world; yaw drift).  With
+    ``kb8`` the [vi-loop-kb8] map, its keypoints in the KB8 image."""
     zero = np.zeros(6, np.float32)
-    return pf.build_looped_map(0, SLAMMap, KeyFrame, feats, n_kf=LOOP_KFS, n_pts=LOOP_POINTS,
-                               step=LOOP_STEP, n_cap=SYS_FEATURES + 8 * 16,
+    return pf.build_looped_map(0, SLAMMap, KeyFrame, _map_feats(dev), n_kf=LOOP_KFS,
+                               n_pts=LOOP_POINTS, step=LOOP_STEP, n_cap=SYS_FEATURES + 8 * 16,
                                return_shift=LOOP_STEP / 2, inertial=True,
                                preintegrate=lambda m: imu_frontend.integrate_raw_host(
-                                   m, zero, calib, dev))
+                                   m, zero, calib, dev),
+                               camera=pf.kb8_camera() if kb8 else None)
 
 
-def phase_vi_loop(dev):
+def phase_vi_loop(dev, kb8: bool = False):
     """[vi-loop]: the inertial looped map at [loop]'s size through
     ``LoopCloser.process_keyframe`` with a vocabulary and the map's IMU
     calibration, to the first loop: K23 solves the 4-DoF essential graph
     once, the inertial GBA runs K20, no Sim3 graph or Schur GBA runs, the
     closing keyframe ends within half its drift, and K23's solve moves no
     keyframe's roll or pitch (its gravity direction in the camera) by 1e-5
-    or more, measured on its output before the GBA runs."""
+    or more, measured on its output before the GBA runs.  With ``kb8``
+    [vi-loop-kb8]: the map's keypoints in TUM-VI's 512x512 KB8 image and the
+    closer through that camera (K12<KB8>, K20<KB8>)."""
+    tag = "[vi-loop-kb8]" if kb8 else "[vi-loop]"
     calib = ImuCalib.from_config(vi_config().imu)
-    mp, _, desc, centres = inertial_looped_map(dev, calib)
+    mp, _, desc, centres = inertial_looped_map(dev, calib, kb8=kb8)
     drift = {k: float(np.linalg.norm(-kf.R.T @ kf.t - centres[k]))
              for k, kf in mp.keyframes.items()}
     voc = vocab_mod.Vocabulary.train(desc, k=8, L=3, seed=0)
-    cam = Pinhole.from_config(camera_config(WIDTH, HEIGHT))
-    closer = loop_closing.LoopCloser(voc, cam, inv_sigma2=[1.2 ** (-2 * i) for i in range(8)],
-                                     imu_calib=calib, device=dev)
+    closer = loop_closing.LoopCloser(voc, loop_camera(kb8),
+                                     inv_sigma2=[1.2 ** (-2 * i) for i in range(8)],
+                                     imu_calib=calib, device=dev,
+                                     img_wh=(KB8_SIZE, KB8_SIZE) if kb8 else None)
     graphs, real = [], pose_graph.optimize_pose_graph_4dof
     vibas, real_vi = [], sin.optimize_vi_ba
 
@@ -2338,26 +2551,29 @@ def phase_vi_loop(dev):
               if graphs else float("nan"))
     want = {"vocab_words": len(ms), "pose_graph_4dof": 1, "vi_ba": 1, "pose_graph": 0,
             "ba_schur": 0}
+    if kb8:   # every K12 / K20 launch through the KB8 camera
+        want.update({f"{n}_kb8": launches.get(n, 0)
+                     for n in ("sim3_ransac", "sim3_optimize", "vi_ba")})
     if len(vibas) != 1 or vibas[0][2] != {"n_iters": 7, "cg_iters": 40}:
-        raise AssertionError(f"[vi-loop] inertial GBA calls {[c[2] for c in vibas]}")
+        raise AssertionError(f"{tag} inertial GBA calls {[c[2] for c in vibas]}")
     bad = {n: launches.get(n, 0) for n, v in want.items() if launches.get(n, 0) != v}
     bad.update({n: 0 for n in ("sim3_ransac", "sim3_optimize", "hamming_best2_words")
                 if not launches.get(n, 0)})
     if closed is None or closer.n_loops != 1 or not err < 0.5 * drift[closed] \
             or not d_grav < 1e-5 or bad:
-        raise AssertionError(f"[vi-loop] loop at {closed}, closing keyframe centre error "
+        raise AssertionError(f"{tag} loop at {closed}, closing keyframe centre error "
                              f"{err:.4f} m (drifted {drift.get(closed, float('nan')):.4f} m), "
                              f"roll/pitch change {d_grav:.2e}, launches {launches}")
     prob = graphs[0][0]
-    print(f"[vi-loop] {len(mp.keyframes)} keyframes, "
+    print(f"{tag} {len(mp.keyframes)} keyframes, "
           f"{int(np.mean([kf.n_kps for kf in mp.keyframes.values()]))} keypoints each: one loop "
           f"at keyframe {closed} (matched {mp.keyframes[closed].loop_edges[-1]}) after "
           f"{len(ms)} keyframe events; 4-DoF graph K={prob.R.shape[0]} E={prob.edge_i.shape[0]} "
           f"(K23), roll/pitch moved {d_grav:.2e} by it; inertial GBA (K20); its centre error "
           f"{err:.4f} m (drifted {drift[closed]:.4f} m)", flush=True)
-    print(f"[vi-loop] keyframe-event ms (host clock): median {statistics.median(ms):.2f}, loop "
+    print(f"{tag} keyframe-event ms (host clock): median {statistics.median(ms):.2f}, loop "
           f"event {ms[-1]:.2f}", flush=True)
-    print(f"[vi-loop] launches {launches}", flush=True)
+    print(f"{tag} launches {launches}", flush=True)
     return launches, prob, vibas[0]
 
 
@@ -2776,18 +2992,20 @@ def _distinct(results) -> int:
 
 
 def phase_det(dev) -> dict:
-    """[det]: K13 on [parity]'s essential graph and K14 on the [loop] map's
-    GBA problem, ``DET_CALLS`` calls each on one input: both sum in a fixed
-    order, so each gives one result."""
+    """[det]: K13 on [parity]'s essential graph, K14 on the [loop] map's GBA
+    problem and K14<KB8> on the [loop-kb8] map's, ``DET_CALLS`` calls each
+    on one input: they sum in a fixed order, so each gives one result."""
     prob = pose_graph_problem(np.random.default_rng(8), dev)
     pg = [pose_graph.optimize_pose_graph(prob, n_iters=15) for _ in range(DET_CALLS)]
-    mp, _, _, _ = looped_map(dev)
-    gprob = global_ba.build_global_problem(mp, [1.0] * 8, 1, None, dev)[0]
-    cam = Pinhole.from_config(camera_config(WIDTH, HEIGHT))
-    sb = [tuple(sharded_ba.optimize_schur(gprob, cam)) for _ in range(DET_CALLS)]
+    sb = {}
+    for kb8 in (False, True):
+        mp, _, _, _ = looped_map(dev, kb8=kb8)
+        gprob = global_ba.build_global_problem(mp, [1.0] * 8, 1, None, dev)[0]
+        cam = loop_camera(kb8)
+        sb[kb8] = [tuple(sharded_ba.optimize_schur(gprob, cam)) for _ in range(DET_CALLS)]
     torch.cuda.synchronize()
     out = {}
-    for name, res in (("pose_graph", pg), ("ba_schur", sb)):
+    for name, res in (("pose_graph", pg), ("ba_schur", sb[False]), ("ba_schur_kb8", sb[True])):
         n = _distinct(res)
         print(f"[det] {name}: {n} distinct result(s) over {DET_CALLS} calls on one input",
               flush=True)
@@ -3473,6 +3691,11 @@ def main() -> int:
     vi_l, vi_r, _ = vi_rig_frames()
     paths["vi_stereo_kb8"] = phase_vi_kb8("[vi-stereo-kb8]", vi_l, vi_r, dev, stats)
     paths["vi_kb8"] = phase_vi_kb8("[vi-kb8]", vi_l, None, dev, stats)
+    loop_rec = _LoopRecorder()
+    paths["loop_kb8"] = phase_loop(dev, kb8=True, rec=loop_rec)
+    stats.update(phase_parity_loop_kb8(loop_rec, dev))
+    paths["merge_kb8"] = phase_merge(dev, kb8=True)
+    paths["vi_loop_kb8"], _, _ = phase_vi_loop(dev, kb8=True)
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():
@@ -3485,13 +3708,16 @@ def main() -> int:
             row.update(stereo_launches=sum(count("pose_lm_stereo").values()),
                        stereo_ms=st["ms"], stereo_plain_ms=st["plain_ms"],
                        stereo_bound_ms=st["bound_ms"], stereo_max_abs_err=st["max_abs_err"])
-        if n in ("pose_lm", "ba_pcg", "vi_ba", "pose_inertial"):   # KB8 beside the pinhole
+        if n in ("pose_lm", "ba_pcg", "vi_ba", "pose_inertial", "sim3_ransac", "sim3_optimize",
+                 "ba_schur"):   # KB8 beside the pinhole
             st = stats[f"{n}_kb8"]
             row.update(kb8_launches=sum(count(f"{n}_kb8").values()), kb8_ms=st["ms"],
                        kb8_plain_ms=st["plain_ms"], kb8_bound_ms=st["bound_ms"],
                        kb8_bound_by=st["bound_by"], kb8_max_abs_err=st["max_abs_err"])
         if n in det:
             row.update(distinct_results=det[n], distinct_results_calls=DET_CALLS)
+        if f"{n}_kb8" in det:
+            row.update(kb8_distinct_results=det[f"{n}_kb8"])
         if n == "pose_inertial":   # the row is the legacy variant; the joint one beside it
             st = stats["pose_inertial_joint"]
             row.update(joint_launches=sum(count("pose_inertial_joint").values()),

@@ -32,6 +32,10 @@
 // index-ordered lists, the scalars as per-CTA partials summed in block order
 // by the last CTA (det_reduce.cuh).
 //
+// The camera is a template parameter (camera_t.cuh via ba_obs.cuh, as K6):
+// the pinhole Cam, or CamKB8, whose Jacobians come in forward mode
+// (Dual<3>) through its projection in the build and the cost passes.
+//
 // Bound on the H100: launch latency.  A map of ~24 keyframes and ~10k
 // observations is microseconds of arithmetic per pass; the ~5 dependent
 // launches per PCG step and ~10 per LM iteration set the time.
@@ -127,9 +131,10 @@ __device__ __forceinline__ double* cost_new(const Ws& w) { return w.sc + 1; }
 __device__ __forceinline__ double* rz(const Ws& w, int it) { return w.sc + 2 + it; }
 __device__ __forceinline__ double* pAp(const Ws& w, int it, int cg) { return w.sc + 3 + cg + it; }
 
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 build_kernel(const float* __restrict__ R, const float* __restrict__ t, const float* __restrict__ pts,
-             const Prob q, const Cam cam, bool huber, Ws w) {
+             const Prob q, const C cam, bool huber, Ws w) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   float cost = 0.f;
   if (o < q.O) {
@@ -376,8 +381,9 @@ retract_kernel(const float* __restrict__ R, const float* __restrict__ t,
   }
 }
 
+template <class C>
 __global__ void __launch_bounds__(kThreads)
-cost_kernel(const Prob q, const Cam cam, bool huber, Ws w) {
+cost_kernel(const Prob q, const C cam, bool huber, Ws w) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   float cost = 0.f;
   if (o < q.O && q.valid[o]) {
@@ -395,9 +401,10 @@ accept_kernel(float* __restrict__ R, float* __restrict__ t, float* __restrict__ 
 }
 
 // inliers (chi2 <= chi2_th) and the final sum of chi2 over valid observations
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 classify_kernel(const float* __restrict__ R, const float* __restrict__ t,
-                const float* __restrict__ pts, const Prob q, const Cam cam, float chi2_th,
+                const float* __restrict__ pts, const Prob q, const C cam, float chi2_th,
                 bool* __restrict__ inl, Ws w) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   float c = 0.f;
@@ -422,37 +429,17 @@ __global__ void final_cost_kernel(Ws w, float* cost_out) { *cost_out = (float)*c
 
 inline int blocks(long long n) { return n_blocks(n); }
 
-}  // namespace
-
-extern "C" long long ba_schur_workspace_bytes(int K, int P, int O, int cg_iters) {
-  return (long long)carve(nullptr, nullptr, K, P, O, cg_iters);
-}
-
-// R (K,9), t (K,3), pts (P,3): the start state, overwritten with the result.
-extern "C" int ba_schur_launch(void* R, void* t, void* pts, const void* obs_kf, const void* obs_mp,
-                               const void* obs_uv, const void* isig, const void* valid,
-                               const void* fixed_kf, const void* fixed_mp, int K, int P, int O,
-                               float fx, float fy, float cx, float cy, int n_iters, int cg_iters,
-                               int use_huber, float chi2_th, void* ws, void* inliers,
-                               void* cost_out, void* stream) {
-  if (K <= 0 || P <= 0 || O <= 0 || n_iters < 0 || cg_iters < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  Ws w;
-  carve(&w, static_cast<uint8_t*>(ws), K, P, O, cg_iters);
-  const Prob q{(const int*)obs_kf, (const int*)obs_mp, (const float*)obs_uv, (const float*)isig,
-               (const bool*)valid, (const bool*)fixed_kf, (const bool*)fixed_mp, K, P, O};
-  const Cam cam{fx, fy, cx, cy};
-  const bool huber = use_huber != 0;
-  float* Rf = (float*)R;
-  float* tf = (float*)t;
-  float* pf = (float*)pts;
+template <class C>
+int solve(float* Rf, float* tf, float* pf, const Prob& q, const C& cam, int n_iters, int cg_iters,
+          bool huber, float chi2_th, Ws& w, void* inliers, void* cost_out, cudaStream_t st) {
+  const int K = q.K, P = q.P, O = q.O;
   cudaError_t e;
   init_kernel<<<1, 1, 0, st>>>(w);
   if ((e = build_lists(q.obs_kf, q.obs_mp, q.valid, K, P, O, w.L, st)) != cudaSuccess)
     return (int)e;
   const int nbP = blocks(P);
   for (int it = 0; it < n_iters; ++it) {
-    build_kernel<<<blocks(O), kThreads, 0, st>>>(Rf, tf, pf, q, cam, huber, w);
+    build_kernel<C><<<blocks(O), kThreads, 0, st>>>(Rf, tf, pf, q, cam, huber, w);
     reduce_kernel<<<K + nbP, kThreads, 0, st>>>(q, w);
     invert_kernel<<<blocks(K + P), kThreads, 0, st>>>(q, w);
     w_y_kernel<<<K, kThreads, 0, st>>>(q, w);
@@ -466,12 +453,42 @@ extern "C" int ba_schur_launch(void* R, void* t, void* pts, const void* obs_kf, 
     }
     wt_v_kernel<<<nbP, kThreads, 0, st>>>(q, w, -1);
     retract_kernel<<<blocks(K + P), kThreads, 0, st>>>(Rf, tf, pf, q, w);
-    cost_kernel<<<blocks(O), kThreads, 0, st>>>(q, cam, huber, w);
+    cost_kernel<C><<<blocks(O), kThreads, 0, st>>>(q, cam, huber, w);
     accept_kernel<<<blocks(K + P), kThreads, 0, st>>>(Rf, tf, pf, q, w);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   orthonormalize_kernel<<<blocks(K), kThreads, 0, st>>>(Rf, K);
-  classify_kernel<<<blocks(O), kThreads, 0, st>>>(Rf, tf, pf, q, cam, chi2_th, (bool*)inliers, w);
+  classify_kernel<C><<<blocks(O), kThreads, 0, st>>>(Rf, tf, pf, q, cam, chi2_th, (bool*)inliers,
+                                                     w);
   final_cost_kernel<<<1, 1, 0, st>>>(w, (float*)cost_out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" long long ba_schur_workspace_bytes(int K, int P, int O, int cg_iters) {
+  return (long long)carve(nullptr, nullptr, K, P, O, cg_iters);
+}
+
+// R (K,9), t (K,3), pts (P,3): the start state, overwritten with the result.
+// kb8 null: the pinhole camera; else a host array k1..k4 of the KB8 camera.
+extern "C" int ba_schur_launch(void* R, void* t, void* pts, const void* obs_kf, const void* obs_mp,
+                               const void* obs_uv, const void* isig, const void* valid,
+                               const void* fixed_kf, const void* fixed_mp, int K, int P, int O,
+                               float fx, float fy, float cx, float cy, const float* kb8,
+                               int n_iters, int cg_iters, int use_huber, float chi2_th, void* ws,
+                               void* inliers, void* cost_out, void* stream) {
+  if (K <= 0 || P <= 0 || O <= 0 || n_iters < 0 || cg_iters < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Ws w;
+  carve(&w, static_cast<uint8_t*>(ws), K, P, O, cg_iters);
+  const Prob q{(const int*)obs_kf, (const int*)obs_mp, (const float*)obs_uv, (const float*)isig,
+               (const bool*)valid, (const bool*)fixed_kf, (const bool*)fixed_mp, K, P, O};
+  const bool huber = use_huber != 0;
+  if (kb8 != nullptr)
+    return solve((float*)R, (float*)t, (float*)pts, q,
+                 CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, n_iters, cg_iters, huber,
+                 chi2_th, w, inliers, cost_out, st);
+  return solve((float*)R, (float*)t, (float*)pts, q, Cam{fx, fy, cx, cy}, n_iters, cg_iters, huber,
+               chi2_th, w, inliers, cost_out, st);
 }

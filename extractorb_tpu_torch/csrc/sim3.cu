@@ -24,6 +24,12 @@
 //   dropped); 5 steps on every edge, the chi2 <= th2 re-selection, 10 more
 //   on the inliers when at least 10 remain.  fix_scale freezes the scale.
 //
+// The camera is a template parameter (camera_t.cuh): the pinhole Cam, or
+// CamKB8, the fisheye, projected in the JAX closure's order for float and
+// for Dual<7> (its r < 1e-8 guard gives scale and tangents 0).  The JAX
+// package hands both functions the camera's projection closure
+// (extractorb_tpu/slam/track_device.py:project_for_camera).
+//
 // Bound on the H100: the RANSAC is ~128 x 512 pair tests plus 128 small
 // eigenproblems, microseconds of arithmetic: launch latency bounds it.  The
 // LM is 15 dependent block-wide reductions on one SM: latency again.
@@ -35,13 +41,12 @@
 namespace {
 
 #include "dual.cuh"
+#include "camera_t.cuh"
 #include "lie_t.cuh"
 #include "small_linalg.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kHypThreads = 64;
-
-struct Cam { float fx, fy, cx, cy; };
 
 __device__ int block_sum_i(int v, int* s_red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -113,10 +118,11 @@ sim3_hyp_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
 }
 
 // pair i is an inlier of hypothesis S = hs (R, t, s): the plain version's order
+template <class C>
 __device__ bool sim3_inlier(const float* hs, const float* __restrict__ p1,
                             const float* __restrict__ p2, const float* __restrict__ uv1,
                             const float* __restrict__ uv2, const bool* __restrict__ valid, int i,
-                            const Cam cam, float th2) {
+                            const C& cam, float th2) {
   const float* R = hs;
   const float* t = hs + 9;
   const float s = hs[12];
@@ -127,18 +133,20 @@ __device__ bool sim3_inlier(const float* hs, const float* __restrict__ p1,
   for (int r = 0; r < 3; ++r) ti[r] = -si * (R[r] * t[0] + R[3 + r] * t[1] + R[6 + r] * t[2]);
   for (int r = 0; r < 3; ++r)
     q1[r] = si * (R[r] * p2[3 * i] + R[3 + r] * p2[3 * i + 1] + R[6 + r] * p2[3 * i + 2]) + ti[r];
-  const float du2 = cam.fx * q2[0] / q2[2] + cam.cx - uv2[2 * i];
-  const float dv2 = cam.fy * q2[1] / q2[2] + cam.cy - uv2[2 * i + 1];
-  const float du1 = cam.fx * q1[0] / q1[2] + cam.cx - uv1[2 * i];
-  const float dv1 = cam.fy * q1[1] / q1[2] + cam.cy - uv1[2 * i + 1];
+  float u2, v2, u1, v1;
+  cam.project(q2[0], q2[1], q2[2], u2, v2);
+  cam.project(q1[0], q1[1], q1[2], u1, v1);
+  const float du2 = u2 - uv2[2 * i], dv2 = v2 - uv2[2 * i + 1];
+  const float du1 = u1 - uv1[2 * i], dv1 = v1 - uv1[2 * i + 1];
   const float e2 = du2 * du2 + dv2 * dv2, e1 = du1 * du1 + dv1 * dv1;
   return valid[i] && e1 < th2 && e2 < th2 && q2[2] > 0.f && q1[2] > 0.f;
 }
 
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 sim3_score_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
                   const float* __restrict__ uv1, const float* __restrict__ uv2,
-                  const bool* __restrict__ valid, int N, const Cam cam, float th2,
+                  const bool* __restrict__ valid, int N, const C cam, float th2,
                   const float* __restrict__ hyp, int* __restrict__ counts) {
   __shared__ float s_h[13];
   __shared__ int s_red[kThreads / 32];
@@ -151,10 +159,11 @@ sim3_score_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
   if (threadIdx.x == 0) counts[h] = c;
 }
 
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 sim3_select_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
                    const float* __restrict__ uv1, const float* __restrict__ uv2,
-                   const bool* __restrict__ valid, int N, int H, const Cam cam, float th2,
+                   const bool* __restrict__ valid, int N, int H, const C cam, float th2,
                    const float* __restrict__ hyp, const int* __restrict__ counts,
                    float* __restrict__ out, bool* __restrict__ inl, int* __restrict__ n_inl,
                    bool* __restrict__ ok) {
@@ -202,11 +211,11 @@ sim3_select_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
 
 // residuals r12 (obs1 - pi(S p2)) and r21 (obs2 - pi(S^-1 p1)) of pair i at
 // the update x = (phi, tau, dls) of (R, t, ls)
-template <class T>
+template <class T, class C>
 __device__ void sim3_edge(const float* R0, const float* t0, float ls0, const T* x, bool fix_scale,
                           const float* __restrict__ p1, const float* __restrict__ p2,
                           const float* __restrict__ obs1, const float* __restrict__ obs2, int i,
-                          const Cam cam, T* r) {
+                          const C& cam, T* r) {
   T E[9], Rc[9], R[9], t[3];
   so3_exp_t(x, E);
   for (int k = 0; k < 9; ++k) Rc[k] = cst<T>(R0[k]);
@@ -217,15 +226,18 @@ __device__ void sim3_edge(const float* R0, const float* t0, float ls0, const T* 
   for (int k = 0; k < 3; ++k) pp[k] = cst<T>(p2[3 * i + k]);
   mat3_vec(R, pp, q);
   for (int k = 0; k < 3; ++k) q[k] = s * q[k] + t[k];
-  r[0] = obs1[2 * i] - (cam.fx * q[0] / q[2] + cam.cx);
-  r[1] = obs1[2 * i + 1] - (cam.fy * q[1] / q[2] + cam.cy);
+  T u, v;
+  cam.project(q[0], q[1], q[2], u, v);
+  r[0] = obs1[2 * i] - u;
+  r[1] = obs1[2 * i + 1] - v;
   T Ri[9], ti[3], si;
   sim3_inverse_t(R, t, s, Ri, ti, si);
   for (int k = 0; k < 3; ++k) pp[k] = cst<T>(p1[3 * i + k]);
   mat3_vec(Ri, pp, q);
   for (int k = 0; k < 3; ++k) q[k] = si * q[k] + ti[k];
-  r[2] = obs2[2 * i] - (cam.fx * q[0] / q[2] + cam.cx);
-  r[3] = obs2[2 * i + 1] - (cam.fy * q[1] / q[2] + cam.cy);
+  cam.project(q[0], q[1], q[2], u, v);
+  r[2] = obs2[2 * i] - u;
+  r[3] = obs2[2 * i + 1] - v;
 }
 
 constexpr int kNormal = 28 + 7;  // upper triangle of H, then b
@@ -240,11 +252,12 @@ __device__ void block_sum_f(float* v, int n, float* s_part) {
   __syncthreads();
 }
 
+template <class C>
 __global__ void __launch_bounds__(kThreads)
 sim3_optimize_kernel(const float* __restrict__ state, const float* __restrict__ p1,
                      const float* __restrict__ p2, const float* __restrict__ obs1,
                      const float* __restrict__ obs2, const bool* __restrict__ valid, int N,
-                     bool fix_scale, float th2, const Cam cam, float* __restrict__ out,
+                     bool fix_scale, float th2, const C cam, float* __restrict__ out,
                      bool* __restrict__ inl_out, int* __restrict__ n_in_out) {
   __shared__ float s_R[9], s_t[3], s_ls;
   __shared__ float s_part[(kThreads / 32) * kNormal];
@@ -259,7 +272,7 @@ sim3_optimize_kernel(const float* __restrict__ state, const float* __restrict__ 
   const float delta = sqrtf(th2);
   auto chi2_inlier = [&](int i) {
     float x0[7] = {0, 0, 0, 0, 0, 0, 0}, r[4];
-    sim3_edge<float>(s_R, s_t, s_ls, x0, false, p1, p2, obs1, obs2, i, cam, r);
+    sim3_edge<float, C>(s_R, s_t, s_ls, x0, false, p1, p2, obs1, obs2, i, cam, r);
     return valid[i] && (r[0] * r[0] + r[1] * r[1]) <= th2 && (r[2] * r[2] + r[3] * r[3]) <= th2;
   };
   for (int it = 0; it < 15; ++it) {
@@ -286,7 +299,7 @@ sim3_optimize_kernel(const float* __restrict__ state, const float* __restrict__ 
         x[k].d[k] = 1.f;
       }
       Dual<7> r[4];
-      sim3_edge<Dual<7>>(s_R, s_t, s_ls, x, fix_scale, p1, p2, obs1, obs2, i, cam, r);
+      sim3_edge<Dual<7>, C>(s_R, s_t, s_ls, x, fix_scale, p1, p2, obs1, obs2, i, cam, r);
       for (int e = 0; e < 2; ++e) {
         const float c = r[2 * e].v * r[2 * e].v + r[2 * e + 1].v * r[2 * e + 1].v;
         const float en = sqrtf(fmaxf(c, 1e-12f));
@@ -374,46 +387,72 @@ sim3_optimize_kernel(const float* __restrict__ state, const float* __restrict__ 
   }
 }
 
-}  // namespace
-
-// p1, p2 (N,3), uv1, uv2 (N,2) f32, valid (N,) bool, sets (H,3) i32; workspace
-// hyp (H,13) f32, counts (H,) i32; out (13,) = R, t, s of the winner, inl
-// (N,) bool, n_inl () i32, ok () bool
-extern "C" int sim3_ransac_launch(const void* p1, const void* p2, const void* uv1, const void* uv2,
-                                  const void* valid, const void* sets, int N, int H, int fix_scale,
-                                  float th2, float fx, float fy, float cx, float cy, void* hyp,
-                                  void* counts, void* out, void* inl, void* n_inl, void* ok,
-                                  void* stream) {
-  if (H <= 0 || N < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const Cam cam{fx, fy, cx, cy};
+template <class C>
+int ransac(const void* p1, const void* p2, const void* uv1, const void* uv2, const void* valid,
+           const void* sets, int N, int H, int fix_scale, float th2, const C& cam, void* hyp,
+           void* counts, void* out, void* inl, void* n_inl, void* ok, cudaStream_t st) {
   sim3_hyp_kernel<<<(H + kHypThreads - 1) / kHypThreads, kHypThreads, 0, st>>>(
       (const float*)p1, (const float*)p2, (const int*)sets, H, N, fix_scale != 0, (float*)hyp);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  sim3_score_kernel<<<H, kThreads, 0, st>>>((const float*)p1, (const float*)p2, (const float*)uv1,
-                                             (const float*)uv2, (const bool*)valid, N, cam, th2,
-                                             (const float*)hyp, (int*)counts);
+  sim3_score_kernel<C><<<H, kThreads, 0, st>>>((const float*)p1, (const float*)p2,
+                                                (const float*)uv1, (const float*)uv2,
+                                                (const bool*)valid, N, cam, th2,
+                                                (const float*)hyp, (int*)counts);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  sim3_select_kernel<<<1, kThreads, 0, st>>>((const float*)p1, (const float*)p2, (const float*)uv1,
-                                              (const float*)uv2, (const bool*)valid, N, H, cam,
-                                              th2, (const float*)hyp, (const int*)counts,
-                                              (float*)out, (bool*)inl, (int*)n_inl, (bool*)ok);
+  sim3_select_kernel<C><<<1, kThreads, 0, st>>>((const float*)p1, (const float*)p2,
+                                                 (const float*)uv1, (const float*)uv2,
+                                                 (const bool*)valid, N, H, cam, th2,
+                                                 (const float*)hyp, (const int*)counts,
+                                                 (float*)out, (bool*)inl, (int*)n_inl, (bool*)ok);
   return (int)cudaGetLastError();
 }
 
-// state (13,) = R, t, s start; p1, p2 (N,3), obs1, obs2 (N,2), valid (N,);
-// out (13,), inl (N,) bool, n_in () i32
-extern "C" int sim3_optimize_launch(const void* state, const void* p1, const void* p2,
-                                    const void* obs1, const void* obs2, const void* valid, int N,
-                                    int fix_scale, float th2, float fx, float fy, float cx,
-                                    float cy, void* out, void* inl, void* n_in, void* stream) {
-  if (N < 0) return (int)cudaErrorInvalidValue;
-  const Cam cam{fx, fy, cx, cy};
-  sim3_optimize_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+template <class C>
+int optimize(const void* state, const void* p1, const void* p2, const void* obs1,
+             const void* obs2, const void* valid, int N, int fix_scale, float th2, const C& cam,
+             void* out, void* inl, void* n_in, cudaStream_t st) {
+  sim3_optimize_kernel<C><<<1, kThreads, 0, st>>>(
       (const float*)state, (const float*)p1, (const float*)p2, (const float*)obs1,
       (const float*)obs2, (const bool*)valid, N, fix_scale != 0, th2, cam, (float*)out,
       (bool*)inl, (int*)n_in);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// p1, p2 (N,3), uv1, uv2 (N,2) f32, valid (N,) bool, sets (H,3) i32; workspace
+// hyp (H,13) f32, counts (H,) i32; out (13,) = R, t, s of the winner, inl
+// (N,) bool, n_inl () i32, ok () bool.  kb8 null: the pinhole camera; else a
+// host array k1..k4 of the KB8 camera.
+extern "C" int sim3_ransac_launch(const void* p1, const void* p2, const void* uv1, const void* uv2,
+                                  const void* valid, const void* sets, int N, int H, int fix_scale,
+                                  float th2, float fx, float fy, float cx, float cy,
+                                  const float* kb8, void* hyp, void* counts, void* out, void* inl,
+                                  void* n_inl, void* ok, void* stream) {
+  if (H <= 0 || N < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (kb8 != nullptr)
+    return ransac(p1, p2, uv1, uv2, valid, sets, N, H, fix_scale, th2,
+                  CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, hyp, counts, out, inl,
+                  n_inl, ok, st);
+  return ransac(p1, p2, uv1, uv2, valid, sets, N, H, fix_scale, th2, Cam{fx, fy, cx, cy}, hyp,
+                counts, out, inl, n_inl, ok, st);
+}
+
+// state (13,) = R, t, s start; p1, p2 (N,3), obs1, obs2 (N,2), valid (N,);
+// out (13,), inl (N,) bool, n_in () i32; kb8 as sim3_ransac_launch's
+extern "C" int sim3_optimize_launch(const void* state, const void* p1, const void* p2,
+                                    const void* obs1, const void* obs2, const void* valid, int N,
+                                    int fix_scale, float th2, float fx, float fy, float cx,
+                                    float cy, const float* kb8, void* out, void* inl, void* n_in,
+                                    void* stream) {
+  if (N < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (kb8 != nullptr)
+    return optimize(state, p1, p2, obs1, obs2, valid, N, fix_scale, th2,
+                    CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, out, inl, n_in, st);
+  return optimize(state, p1, p2, obs1, obs2, valid, N, fix_scale, th2, Cam{fx, fy, cx, cy}, out,
+                  inl, n_in, st);
 }

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..core.camera import Pinhole
+from ..core.camera import Camera
 from ..solver import ba as sba
 from ..utils.packed_fetch import pack_fetch
 from .sharded_ba import optimize_schur
@@ -162,7 +162,7 @@ class PendingGBA:
         return True
 
 
-def dispatch_global_ba(mp, cam: Pinhole, inv_sigma2: Sequence[float], device, n_iters: int = 10,
+def dispatch_global_ba(mp, cam: Camera, inv_sigma2: Sequence[float], device, n_iters: int = 10,
                        world_size: int = 1,
                        fixed_ids: Optional[Set[int]] = None) -> Optional[PendingGBA]:
     """Build and dispatch the full-map BA without waiting; None when the
@@ -178,7 +178,7 @@ def dispatch_global_ba(mp, cam: Pinhole, inv_sigma2: Sequence[float], device, n_
                       mid=mp.mid)
 
 
-def run_global_ba(mp, cam: Pinhole, inv_sigma2: Sequence[float], device, n_iters: int = 10,
+def run_global_ba(mp, cam: Camera, inv_sigma2: Sequence[float], device, n_iters: int = 10,
                   world_size: int = 1, fixed_ids: Optional[Set[int]] = None) -> bool:
     """Synchronous full-map BA: dispatch and apply.  True when a BA ran."""
     pending = dispatch_global_ba(mp, cam, inv_sigma2, device, n_iters, world_size, fixed_ids)

@@ -15,7 +15,9 @@ device it runs exactly this one-shard program (``dist/global_ba.py``).
 A world size above one (the sharded solvers, ROADMAP A.14) raises
 ``NotImplementedError``.
 
-``optimize_schur`` launches kernel K14 (``csrc/ba_schur.cu``) on CUDA
+Both project through the camera (``core.camera.Camera``: the pinhole or
+the KB8 fisheye).  ``optimize_schur`` launches kernel K14
+(``csrc/ba_schur.cu``, its ``Cam`` or ``CamKB8`` instantiation) on CUDA
 tensors and runs ``optimize_schur_plain`` on the CPU.
 """
 
@@ -25,13 +27,13 @@ import torch
 
 from .. import kernels
 from ..core import lie
-from ..core.camera import Pinhole
+from ..core.camera import Camera
 from ..solver.ba import (BAProblem, BAResult, _camera_point, _gather, _inv3x3, _residual,
                          _residual_jac, _rho)
 from ..solver.robust import CHI2_MONO, DELTA_MONO, huber_weight
 
 
-def optimize_schur_plain(p: BAProblem, cam: Pinhole, n_iters: int = 10, cg_iters: int = 20,
+def optimize_schur_plain(p: BAProblem, cam: Camera, n_iters: int = 10, cg_iters: int = 20,
                          use_huber: bool = True) -> BAResult:
     """Plain version of ``optimize_schur`` (same arguments)."""
     K, P = p.R.shape[0], p.points.shape[0]
@@ -115,7 +117,7 @@ def optimize_schur_plain(p: BAProblem, cam: Pinhole, n_iters: int = 10, cg_iters
                     cost=torch.sum(torch.where(valid, chi2, 0.0)))
 
 
-def optimize_schur(p: BAProblem, cam: Pinhole, n_iters: int = 10, cg_iters: int = 20,
+def optimize_schur(p: BAProblem, cam: Camera, n_iters: int = 10, cg_iters: int = 20,
                    use_huber: bool = True, world_size: int = 1) -> BAResult:
     """LM bundle adjustment of a whole map on the reduced camera system.
 
@@ -123,7 +125,8 @@ def optimize_schur(p: BAProblem, cam: Pinhole, n_iters: int = 10, cg_iters: int 
     on a one-device mesh.  On CUDA tensors this launches K14: every LM and
     PCG step is enqueued without a host synchronisation (alpha, beta, the
     costs and lambda stay on the card); on the CPU it runs
-    ``optimize_schur_plain``."""
+    ``optimize_schur_plain``.  ``cam`` is a ``Pinhole`` or a
+    ``KannalaBrandt8``."""
     if world_size != 1:
         raise NotImplementedError("optimize_schur: the sharded multi-device solve is not "
                                   "ported (ROADMAP A.14)")
@@ -146,10 +149,14 @@ def optimize_schur(p: BAProblem, cam: Pinhole, n_iters: int = 10, cg_iters: int 
                      device=dev)
     inl = torch.empty(O, dtype=torch.bool, device=dev)
     cost = torch.empty((), dtype=torch.float32, device=dev)
+    kb8 = cam.kernel_params()
     err = lib.ba_schur_launch(
         R.data_ptr(), t.data_ptr(), pts.data_ptr(), *[a.data_ptr() for a in args], K, P, O,
-        cam.fx, cam.fy, cam.cx, cam.cy, n_iters, cg_iters, int(use_huber), float(CHI2_MONO),
-        ws.data_ptr(), inl.data_ptr(), cost.data_ptr(), kernels.stream())
+        cam.fx, cam.fy, cam.cx, cam.cy, None if kb8 is None else kb8.ctypes.data, n_iters,
+        cg_iters, int(use_huber), float(CHI2_MONO), ws.data_ptr(), inl.data_ptr(),
+        cost.data_ptr(), kernels.stream())
     kernels.check(err, "ba_schur")
     kernels.LAUNCHES["ba_schur"] += 1
+    if kb8 is not None:
+        kernels.LAUNCHES["ba_schur_kb8"] += 1   # of those, through the KB8 camera
     return BAResult(R=R, t=t, points=pts, inliers=inl, cost=cost)

@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from .. import kernels
-from ..core.camera import Camera, Pinhole
+from ..core.camera import Camera
 
 TH_LOW = 50
 TH_HIGH = 100
@@ -565,7 +565,7 @@ def search_by_bow(desc1, word1, angle1, valid1, desc2, word2, angle2, valid2,
 
 def search_by_projection_sim3(mp_pos, mp_desc, mp_valid, mp_normal, mp_max_dist, s, R, t,
                               kp_xy, kp_desc, kp_octave, kp_valid_and_free,
-                              cam: Pinhole, scale_factors: Sequence[float], img_wh,
+                              cam: Camera, scale_factors: Sequence[float], img_wh,
                               th: float = 7.5):
     """SearchByProjection through a Sim3 Scw (reference ORBmatcher.cc:473):
     project s R p + t, distance inside the scale-invariance range, view

@@ -26,8 +26,11 @@ test can hand both packages JAX's draw.  Horn's eigenproblem runs in
 float64 (the centroids and the cross-dispersion in float32, in a fixed
 order), the rest in float32.
 
+Both project through the camera (``core.camera.Camera``: the pinhole or
+the KB8 fisheye), as the JAX functions through their projection closure.
 ``solve_sim3_ransac`` and ``optimize_sim3`` launch kernel K12
-(``csrc/sim3.cu``) on CUDA tensors and run their plain versions on the CPU.
+(``csrc/sim3.cu``, its ``Cam`` or ``CamKB8`` instantiation) on CUDA
+tensors and run their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 
 from .. import kernels
 from ..core import lie
-from ..core.camera import Pinhole
+from ..core.camera import Camera
 
 N_HYPOTHESES = 128
 
@@ -143,13 +146,12 @@ def _sim3_points(R, t, s, p):
                         for i in range(3)], -1)
 
 
-def _reproj_err2(pc, uv, cam: Pinhole):
-    du = cam.fx * pc[..., 0] / pc[..., 2] + cam.cx - uv[:, 0]
-    dv = cam.fy * pc[..., 1] / pc[..., 2] + cam.cy - uv[:, 1]
-    return du * du + dv * dv
+def _reproj_err2(pc, uv, cam: Camera):
+    d = cam.project(pc) - uv
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
 
 
-def _score(R, t, s, p1, p2, uv1, uv2, valid, cam: Pinhole, th2: float):
+def _score(R, t, s, p1, p2, uv1, uv2, valid, cam: Camera, th2: float):
     """Inlier masks (H,N): both reprojections under th2, both depths > 0."""
     p2p = _sim3_points(R, t, s, p1)
     Ri = R.transpose(-1, -2)
@@ -162,7 +164,7 @@ def _score(R, t, s, p1, p2, uv1, uv2, valid, cam: Pinhole, th2: float):
     return valid & (e1 < th2) & (e2 < th2) & (p2p[..., 2] > 0) & (p1p[..., 2] > 0)
 
 
-def solve_sim3_ransac_plain(sets, p1, p2, uv1, uv2, valid, cam: Pinhole,
+def solve_sim3_ransac_plain(sets, p1, p2, uv1, uv2, valid, cam: Camera,
                             fix_scale: bool = False, th2: float = 9.21) -> Sim3Result:
     """Plain version of ``solve_sim3_ransac`` (same arguments)."""
     idx = sets.long()
@@ -176,7 +178,7 @@ def solve_sim3_ransac_plain(sets, p1, p2, uv1, uv2, valid, cam: Pinhole,
     return Sim3Result(counts[best] >= need, R[best], t[best], s[best], inl[best], counts[best])
 
 
-def solve_sim3_ransac(sets, p1, p2, uv1, uv2, valid, cam: Pinhole, fix_scale: bool = False,
+def solve_sim3_ransac(sets, p1, p2, uv1, uv2, valid, cam: Camera, fix_scale: bool = False,
                       th2: float = 9.21) -> Sim3Result:
     """Batched RANSAC Sim3 over the 3-point ``sets`` (H,3)
     (``sample_sim3_sets``): p1/p2 (N,3) float32 points in camera 1 / 2,
@@ -186,7 +188,8 @@ def solve_sim3_ransac(sets, p1, p2, uv1, uv2, valid, cam: Pinhole, fix_scale: bo
     Replaces ``extractorb_tpu/geometry/sim3.py:solve_sim3_ransac``.  On
     CUDA tensors this launches K12's RANSAC entry (hypotheses, scores,
     selection; no host synchronisation); on the CPU it runs
-    ``solve_sim3_ransac_plain``."""
+    ``solve_sim3_ransac_plain``.  ``cam`` is a ``Pinhole`` or a
+    ``KannalaBrandt8``."""
     if not p1.is_cuda:
         return solve_sim3_ransac_plain(sets, p1, p2, uv1, uv2, valid, cam, fix_scale, th2)
     N, H = p1.shape[0], sets.shape[0]
@@ -206,19 +209,23 @@ def solve_sim3_ransac(sets, p1, p2, uv1, uv2, valid, cam: Pinhole, fix_scale: bo
     inl = torch.empty(N, dtype=torch.bool, device=dev)
     n_inl = torch.empty((), dtype=torch.int32, device=dev)
     ok = torch.empty((), dtype=torch.bool, device=dev)
+    kb8 = cam.kernel_params()
     err = kernels.lib().sim3_ransac_launch(
         *[a.data_ptr() for a in args], N, H, int(fix_scale), float(th2), cam.fx, cam.fy,
-        cam.cx, cam.cy, hyp.data_ptr(), counts.data_ptr(), out.data_ptr(), inl.data_ptr(),
-        n_inl.data_ptr(), ok.data_ptr(), kernels.stream())
+        cam.cx, cam.cy, None if kb8 is None else kb8.ctypes.data, hyp.data_ptr(),
+        counts.data_ptr(), out.data_ptr(), inl.data_ptr(), n_inl.data_ptr(), ok.data_ptr(),
+        kernels.stream())
     kernels.check(err, "sim3_ransac")
     kernels.LAUNCHES["sim3_ransac"] += 1
+    if kb8 is not None:
+        kernels.LAUNCHES["sim3_ransac_kb8"] += 1     # of those, through the KB8 camera
     return Sim3Result(ok, out[:9].reshape(3, 3), out[9:12], out[12], inl, n_inl)
 
 
 # ------------------------------------------------------- OptimizeSim3
 
 
-def _sim3_residuals(x, R, t, ls, p1, p2, obs1, obs2, cam: Pinhole, fix_scale: bool):
+def _sim3_residuals(x, R, t, ls, p1, p2, obs1, obs2, cam: Camera, fix_scale: bool):
     """The 4N residual vector at the left-multiplied update x = (phi, tau,
     dls): r12 = obs1 - pi(S p2), r21 = obs2 - pi(S^-1 p1)."""
     # batched so3_exp: under jacfwd a 0-dim torch.where promotes the
@@ -232,13 +239,13 @@ def _sim3_residuals(x, R, t, ls, p1, p2, obs1, obs2, cam: Pinhole, fix_scale: bo
     return torch.cat([r12.reshape(-1), r21.reshape(-1)])
 
 
-def _chi2(R, t, ls, p1, p2, obs1, obs2, cam: Pinhole):
+def _chi2(R, t, ls, p1, p2, obs1, obs2, cam: Camera):
     r = _sim3_residuals(torch.zeros(7, dtype=R.dtype, device=R.device), R, t, ls, p1, p2,
                         obs1, obs2, cam, False).reshape(2, -1, 2)
     return torch.sum(r[0] * r[0], -1), torch.sum(r[1] * r[1], -1)
 
 
-def optimize_sim3_plain(R12, t12, s12, p1, p2, obs1, obs2, valid, cam: Pinhole,
+def optimize_sim3_plain(R12, t12, s12, p1, p2, obs1, obs2, valid, cam: Camera,
                         fix_scale: bool = False, th2: float = 10.0) -> Sim3OptResult:
     """Plain version of ``optimize_sim3`` (same arguments)."""
     dev = p1.device
@@ -287,7 +294,7 @@ def optimize_sim3_plain(R12, t12, s12, p1, p2, obs1, obs2, valid, cam: Pinhole,
     return Sim3OptResult(R, t, torch.exp(ls), inl_f, inl_f.sum().to(torch.int32))
 
 
-def optimize_sim3(R12, t12, s12, p1, p2, obs1, obs2, valid, cam: Pinhole,
+def optimize_sim3(R12, t12, s12, p1, p2, obs1, obs2, valid, cam: Camera,
                   fix_scale: bool = False, th2: float = 10.0) -> Sim3OptResult:
     """LM refinement of a relative Sim3 (x1 = s R x2 + t) on bidirectional
     projection edges: p1/p2 (N,3) points in camera 1 / 2, obs1/obs2 (N,2)
@@ -312,10 +319,13 @@ def optimize_sim3(R12, t12, s12, p1, p2, obs1, obs2, valid, cam: Pinhole,
     out = torch.empty(13, dtype=torch.float32, device=dev)
     inl = torch.empty(N, dtype=torch.bool, device=dev)
     n_in = torch.empty((), dtype=torch.int32, device=dev)
+    kb8 = cam.kernel_params()
     err = kernels.lib().sim3_optimize_launch(
         state.data_ptr(), *[a.data_ptr() for a in args], N, int(fix_scale), float(th2),
-        cam.fx, cam.fy, cam.cx, cam.cy, out.data_ptr(), inl.data_ptr(), n_in.data_ptr(),
-        kernels.stream())
+        cam.fx, cam.fy, cam.cx, cam.cy, None if kb8 is None else kb8.ctypes.data,
+        out.data_ptr(), inl.data_ptr(), n_in.data_ptr(), kernels.stream())
     kernels.check(err, "sim3_optimize")
     kernels.LAUNCHES["sim3_optimize"] += 1
+    if kb8 is not None:
+        kernels.LAUNCHES["sim3_optimize_kb8"] += 1   # of those, through the KB8 camera
     return Sim3OptResult(out[:9].reshape(3, 3), out[9:12], out[12], inl, n_in)

@@ -98,12 +98,12 @@ _SIGNATURES = {
     # q, N, desc, ids, meta, k, L, out, stream
     "vocab_words_launch": (_P, _I, _P, _P, _P, _I, _I, _P, _P),
     # p1, p2, uv1, uv2, valid, sets, N, H, fix_scale, th2, fx, fy, cx, cy,
-    # hyp, counts, out, inl, n_inl, ok, stream
-    "sim3_ransac_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
+    # kb8 (host float32 k1..k4; null: pinhole), hyp, counts, out, inl, n_inl, ok, stream
+    "sim3_ransac_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P,
                            _P, _P, _P, _P, _P, _P, _P),
     # state, p1, p2, obs1, obs2, valid, N, fix_scale, th2, fx, fy, cx, cy,
-    # out, inl, n_in, stream
-    "sim3_optimize_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
+    # kb8 (host float32 k1..k4; null: pinhole), out, inl, n_in, stream
+    "sim3_optimize_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _P,
                              _P, _P, _P, _P),
     # R, t, s, ei, ej, mR, mt, ms, w, fixed, K, E, n_iters, cg_iters, fix_scale,
     # ws, cost, stream
@@ -112,9 +112,10 @@ _SIGNATURES = {
     # R, t, ei, ej, mR, mt, w, fixed, K, E, n_iters, cg_iters, ws, cost, stream
     "pose_graph_4dof_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # R, t, pts, obs_kf, obs_mp, obs_uv, isig, valid, fixed_kf, fixed_mp, K, P, O,
-    # fx, fy, cx, cy, n_iters, cg_iters, use_huber, chi2_th, ws, inliers, cost, stream
+    # fx, fy, cx, cy, kb8 (host float32 k1..k4; null: pinhole), n_iters, cg_iters,
+    # use_huber, chi2_th, ws, inliers, cost, stream
     "ba_schur_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _F, _F, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P),
+                        _F, _F, _F, _F, _P, _I, _I, _I, _F, _P, _P, _P, _P),
     # img, flat, tables, tab(host ptr), stream
     "pyramid_launch": (_P, _P, _P, _P, _P),
     # keep, score, tab(host ptr), xy, resp, valid, stream

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..core.camera import Pinhole
+from ..core.camera import Camera
 from ..dist import global_ba
 from ..frontend import matcher as fm
 from ..geometry import sim3 as gsim3
@@ -105,7 +105,7 @@ def _sim3_inverse(R, t, s):
 
 
 class LoopCloser:
-    def __init__(self, vocab, cam: Pinhole, scale_factors=None, img_wh=None, inv_sigma2=None,
+    def __init__(self, vocab, cam: Camera, scale_factors=None, img_wh=None, inv_sigma2=None,
                  thresholds: Optional[LoopThresholds] = None, fix_scale: bool = False,
                  imu_calib=None, device=None, stats=None):
         self.device = kernels.resolve_device(device, "the loop closer")
@@ -137,10 +137,9 @@ class LoopCloser:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=self.device, dtype=dtype)
 
     def _project_np(self, p) -> np.ndarray:
-        c = self.cam
-        p = np.asarray(p, np.float32)
-        return np.array([np.float32(c.fx) * p[0] / p[2] + np.float32(c.cx),
-                         np.float32(c.fy) * p[1] / p[2] + np.float32(c.cy)], np.float32)
+        """The pixel of one camera-frame point through the camera, in float32
+        on the host (the JAX closer calls its projection closure here)."""
+        return self.cam.project(torch.from_numpy(np.asarray(p, np.float32))).numpy()
 
     # ------------------------------------------------------- pending GBA
 

@@ -18,7 +18,7 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
-from ..core.camera import Pinhole
+from ..core.camera import Camera
 from . import imu_frontend
 from .map import Atlas, SLAMMap
 
@@ -107,7 +107,7 @@ def merge_maps(atlas: Atlas, drop: SLAMMap, keep: SLAMMap, kf_drop_id: int, kf_k
     }
 
 
-def weld_bundle_adjustment(mp: SLAMMap, kf_cur: int, kf_matched: int, cam: Pinhole,
+def weld_bundle_adjustment(mp: SLAMMap, kf_cur: int, kf_matched: int, cam: Camera,
                            inv_sigma2: Sequence[float], device, n_iters: int = 10,
                            window: int = 8, stats=None):
     """MergeBundleAdjustmentVisual analog: the covisible windows around
@@ -136,7 +136,7 @@ def weld_bundle_adjustment(mp: SLAMMap, kf_cur: int, kf_matched: int, cam: Pinho
                   async_apply=True, stats=stats)
 
 
-def weld_inertial_bundle_adjustment(mp: SLAMMap, calib, cam: Pinhole, kf_cur: int,
+def weld_inertial_bundle_adjustment(mp: SLAMMap, calib, cam: Camera, kf_cur: int,
                                     n_window: int = 10, device=None, stats=None) -> bool:
     """MergeInertialBA analog (reference src/Optimizer.cc:6760): after an
     inertial Atlas weld, the visual + preintegration + bias-walk window BA

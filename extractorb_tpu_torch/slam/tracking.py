@@ -67,12 +67,15 @@ legacy inertial solve (the JAX module's fused step is monocular-inertial
 only).  On an inertial map the loop closer takes the 4-DoF essential graph
 (K23), the inertial global BA and the inertial weld.
 
+With a vocabulary the KB8 camera goes through place recognition, loop
+closing (K12 and K14 through ``CamKB8``), Atlas merging and BoW
+relocalization (K25) as the pinhole does.
+
 Not in this slice, and raising ``NotImplementedError``: imu-rgbd (the JAX
-package has no such entry point), the KB8 camera with a vocabulary (ROADMAP
-A.12.3's vocabulary half), with RGB-D or on a stereo sensor without
-``camera2`` (A.12), ``camera2`` with a pinhole first camera (A.12.4: the
-JAX tracker ignores it) and ``octree="host"`` (not ported: it is the JAX
-package's oracle).
+package has no such entry point), the KB8 camera with RGB-D or on a stereo
+sensor without ``camera2``, ``camera2`` with a pinhole first camera (the
+JAX tracker ignores it; all three ROADMAP A.12.5) and ``octree="host"``
+(not ported: it is the JAX package's oracle).
 """
 
 from __future__ import annotations
@@ -212,7 +215,7 @@ class _PipeEntry:
 INERTIAL_SENSORS = ("imu-monocular", "imu-stereo")
 
 
-def _unported(cfg: SLAMConfig, vocab=None) -> Optional[str]:
+def _unported(cfg: SLAMConfig) -> Optional[str]:
     if cfg.sensor == "imu-rgbd":
         return ("sensor 'imu-rgbd': the JAX package has no such entry point (its track_rgbd "
                 "takes no IMU measurements), so the port has none")
@@ -226,19 +229,16 @@ def _unported(cfg: SLAMConfig, vocab=None) -> Optional[str]:
                 "'imu-stereo'")
     rig = cfg.sensor in ("stereo", "imu-stereo")
     if cfg.camera.model == "KannalaBrandt8":
-        if vocab is not None:
-            return ("the KannalaBrandt8 camera with a vocabulary is not ported (ROADMAP A.12.3, "
-                    "the vocabulary half: K12, K14 and the global BA are pinhole)")
         if cfg.sensor == "rgbd":
-            return ("the KannalaBrandt8 camera with sensor 'rgbd' is not ported (ROADMAP A.12: "
+            return ("the KannalaBrandt8 camera with sensor 'rgbd' is not ported (ROADMAP A.12.5: "
                     "the JAX package's RGB-D frame unprojects through the pinhole K)")
         if rig and cfg.camera2 is None:
             return (f"the KannalaBrandt8 camera with sensor {cfg.sensor!r} needs camera2 and "
-                    "T_lr, the fisheye rig (ROADMAP A.12.4: a rectified KB8 pair is not ported)")
+                    "T_lr, the fisheye rig (ROADMAP A.12.5: a rectified KB8 pair is not ported)")
     elif rig and cfg.camera2 is not None:
         return ("camera2 with a pinhole first camera: the JAX tracker ignores it and runs the "
-                "rectified rig (ROADMAP A.12.4: the fisheye rig needs model='KannalaBrandt8'); "
-                "pass camera2=None")
+                "rectified rig (ROADMAP A.12.5; the fisheye rig of A.12.4 needs "
+                "model='KannalaBrandt8'); pass camera2=None")
     if cfg.orb.octree != "device":
         return "octree='host' is not ported (ROADMAP: 'Not to be ported'; the JAX oracle)"
     return None
@@ -246,7 +246,7 @@ def _unported(cfg: SLAMConfig, vocab=None) -> Optional[str]:
 
 class Tracker:
     def __init__(self, cfg: SLAMConfig, vocab=None, device=None):
-        why = _unported(cfg, vocab)
+        why = _unported(cfg)
         if why is not None:
             raise NotImplementedError(why)
         self.cfg = cfg

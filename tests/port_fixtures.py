@@ -238,28 +238,34 @@ _A_FAR = lambda n: np.array([[5.0 / n, 0, -2.5], [0, 5.0 / n, -2.5], [0, 0, 5.0]
 _A_NEAR = lambda n: np.array([[1.6 / n, 0, -1.1], [0, 1.6 / n, -0.8], [0, 0, 3.0]])
 
 
-def _render_kb8(tex, pose, width, height, kb8, wrap: bool = False, scene_scale: float = 1.0):
+def _render_kb8(tex, pose, width, height, kb8, wrap: bool = False, scene_scale: float = 1.0,
+                planes=None, rays=None):
     """``render_two_plane`` through the KB8 model: each plane is hit where
     its texture coordinates h = (R A + t e3^T)^-1 ray have h_z > 0 (in
     front of the camera) and lie inside the texture; with ``wrap`` the
     wall's coordinates are taken modulo the texture's size, so the wall
     fills every ray that meets its plane in front of the camera;
-    ``scene_scale`` scales both planes about the world origin."""
+    ``scene_scale`` scales both planes about the world origin.  ``planes``
+    (A of the wall, A of the poster) replaces the two planes of
+    ``render_two_plane``; ``rays`` the pixels' rays (``kb8_rays``)."""
     R, t = pose
-    n = tex.shape[0]
-    vv, uu = np.mgrid[0:height, 0:width].astype(np.float64)
-    rays = kb8_rays(uu.ravel(), vv.ravel(), kb8)
+    th, tw = tex.shape
+    if planes is None:
+        planes = (_A_FAR(th), _A_NEAR(th))
+    if rays is None:
+        vv, uu = np.mgrid[0:height, 0:width].astype(np.float64)
+        rays = kb8_rays(uu.ravel(), vv.ravel(), kb8)
     e3 = np.array([[0.0, 0.0, 1.0]])
     img = np.full(rays.shape[1], float(BACKGROUND))
     depth = np.zeros(rays.shape[1])
-    for A, flip in ((_A_FAR(n), False), (_A_NEAR(n), True)):
+    for A, flip in zip(planes, (False, True)):
         h = np.linalg.solve(R @ (scene_scale * A) + t[:, None] @ e3, rays)
         front = h[2] > 1e-12
         hz = np.where(front, h[2], 1.0)
         s, tt = h[0] / hz, h[1] / hz
         if wrap and not flip:
-            s, tt = np.mod(s, n - 1.0), np.mod(tt, n - 1.0)
-        hit = front & (s >= 0) & (s <= n - 1) & (tt >= 0) & (tt <= n - 1)
+            s, tt = np.mod(s, tw - 1.0), np.mod(tt, th - 1.0)
+        hit = front & (s >= 0) & (s <= tw - 1) & (tt >= 0) & (tt <= th - 1)
         img = np.where(hit, _sample_bilinear(tex[:, ::-1] if flip else tex, s, tt), img)
         depth = np.where(hit, rays[2] / hz, depth)
     img = np.clip(np.rint(img), 0, 255).astype(np.uint8).reshape(height, width)
@@ -537,7 +543,7 @@ def build_looped_map(seed: int, SLAMMap, KeyFrame, make_features, n_kf: int = 12
                      n_pts: int = 200, drift_per_kf: float = 0.02, step: float = 0.3,
                      n_cap: int = 512, fx: float = 500.0, cx: float = 320.0,
                      cy: float = 240.0, return_shift: float = 0.0, inertial: bool = False,
-                     preintegrate=None, maps=None):
+                     preintegrate=None, maps=None, camera=None):
     """The constructed map of tests/test_loop_closing.py:build_looped_map,
     for either package (its ``SLAMMap`` and ``KeyFrame`` classes, and
     ``make_features(desc, xy, valid)`` building its ``Features``).
@@ -565,7 +571,12 @@ def build_looped_map(seed: int, SLAMMap, KeyFrame, make_features, n_kf: int = 12
 
     ``maps``: two maps (an Atlas's) to fill in place of one new map, the
     outbound pass into the first and the return pass, with its own
-    keyframe ids and IMU chain, into the second; the first is returned."""
+    keyframe ids and IMU chain, into the second; the first is returned.
+
+    ``camera``: a KB8 camera (fx, fy, cx, cy, k1..k4; ``kb8_camera``) whose
+    image the keypoints lie in, projected by ``kb8_project_np``, in place of
+    the pinhole (fx, fx, cx, cy); the margins are 20 px inside (2 cx, 2 cy)
+    for both."""
     rng = np.random.default_rng(seed)
     pts = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
                     rng.uniform(4, 7, n_pts)], -1).astype(np.float32)
@@ -588,7 +599,11 @@ def build_looped_map(seed: int, SLAMMap, KeyFrame, make_features, n_kf: int = 12
         R_est = (R @ dR).astype(np.float32)
         t_est = (R @ dt + t).astype(np.float32)
         pc = pts @ R.T + t
-        uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fx * pc[:, 1] / pc[:, 2] + cy], -1)
+        if camera is None:
+            uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fx * pc[:, 1] / pc[:, 2] + cy], -1)
+        else:
+            uv = kb8_project_np(pc, camera)
+            cx, cy = camera[2], camera[3]
         vis = (uv[:, 0] > 20) & (uv[:, 0] < 2 * cx - 20) & (uv[:, 1] > 20) & (uv[:, 1] < 2 * cy - 20)
         obs_idx = np.where(vis)[0][:n_cap]
         xy = np.zeros((n_cap, 2), np.float32)
@@ -794,18 +809,30 @@ def loop_pose(k: int, n_frames: int):
 
 
 def render_loop_sequence(tex: np.ndarray, n_frames: int = 40, width: int = 640,
-                         height: int = 480):
+                         height: int = 480, camera: str = "pinhole"):
     """The out-and-back sweep over a wide wall (tests/test_loop_from_pixels.py
     :26-75, without cv2): the wall z = 5 spans x in [-3.4, 10.6], y in
     [-3, 3] with ``tex`` stretched over it, the mirrored poster z = 3 spans
     x from -1.1 and y in [-0.8, 0.8] at 1.6 m per texture height.  The
-    turnaround view shares nothing with the start.  Returns (images,
-    poses)."""
-    K = camera_matrix(width, height)
+    pinhole's turnaround view shares nothing with the start.
+    ``camera="kb8"`` renders through TUM-VI's KB8 fisheye
+    (``kb8_camera(width, height)``, ``_render_kb8``) with the wall wrapped
+    to fill the view (it repeats every 14 m in x and 6 m in y).  Returns
+    (images, poses)."""
+    if camera not in ("pinhole", "kb8"):
+        raise ValueError(f"render_loop_sequence: camera {camera!r}")
     h, w = tex.shape
     A_far = np.array([[14.0 / w, 0, -3.4], [0, 6.0 / h, -3.0], [0, 0, 5.0]])
     s_near = 1.6 / h
     A_near = np.array([[s_near, 0, -1.1], [0, s_near, -0.8], [0, 0, 3.0]])
+    if camera == "kb8":
+        kb8 = kb8_camera(width, height)
+        vv, uu = np.mgrid[0:height, 0:width].astype(np.float64)
+        rays = kb8_rays(uu.ravel(), vv.ravel(), kb8)
+        poses = [loop_pose(k, n_frames) for k in range(n_frames)]
+        return [_render_kb8(tex, pose, width, height, kb8, wrap=True, planes=(A_far, A_near),
+                            rays=rays)[0] for pose in poses], poses
+    K = camera_matrix(width, height)
     e3 = np.array([[0.0, 0.0, 1.0]])
     vv, uu = np.mgrid[0:height, 0:width].astype(np.float64)
     pix = np.stack([uu.ravel(), vv.ravel(), np.ones(uu.size)])

@@ -121,14 +121,15 @@ KB8 = CameraConfig(model="KannalaBrandt8")
     (dict(sensor="stereo", camera2=CameraConfig(model="KannalaBrandt8")), "A.12", False),
     (dict(imu=IMUConfig()), "pass sensor='imu-monocular' or 'imu-stereo'", False),
     (dict(camera=KB8, sensor="imu-stereo", imu=IMUConfig()), "A.12", False),
-    (dict(camera=KB8), "A.12", True),
+    (dict(camera=KB8, sensor="rgbd"), "A.12", True),
     (dict(orb=ORBConfig(octree="host")), "Not to be ported", False),
 ], ids=["stereo", "imu", "kb8-imu", "kb8-vocab", "host-octree"])
 def test_unported_configurations_raise(change, item, vocab):
     """What still raises: camera2 beside a pinhole camera, the KB8 camera
-    on a stereo sensor without camera2 (the fisheye rig, ROADMAP A.12.4;
+    on a stereo sensor without camera2 (the fisheye rig, ROADMAP A.12.5;
     with it: tests/test_torch_system_stereo_kb8.py and _vi_kb8.py) and with
-    a vocabulary (A.12.3's vocabulary half)."""
+    RGB-D, a vocabulary or not (A.12.5; the KB8 camera with a vocabulary
+    runs: tests/test_torch_system_loop_kb8.py)."""
     from extractorb_tpu_torch.place.vocab import Vocabulary
 
     cfg = dataclasses.replace(chip_smoke.system_config(W, H, NF), **change)

@@ -21,8 +21,9 @@ triangulates raw fisheye pixels through the pinhole K in both packages (a
 matched reference fault, ROADMAP C.2), where the rays meet badly and the
 two packages' rounding moves its points; the window BAs carry that into the
 poses (within 1.5e-6 through frame 5, 7.5 mm apart at frame 11, both 0.048 m
-from the truth).  And the refusals that remain: the KB8 camera with
-a vocabulary (ROADMAP A.12.3), ``camera2`` beside a pinhole camera (A.12.4).
+from the truth).  And the refusal that remains, ``camera2`` beside a
+pinhole camera (ROADMAP A.12.5), beside the KB8 camera with a vocabulary,
+refused until loop closing ran through KB8 (A.12.3).
 """
 
 import dataclasses
@@ -115,7 +116,9 @@ def test_poses_and_metric_error_match_jax(runs):
 
 
 def refused(case):
-    """The rig's configuration made into one the port still refuses."""
+    """The rig's configuration made into one the port refused: the KB8
+    camera with a vocabulary (refused until loop closing ran through KB8),
+    or ``camera2`` beside a pinhole camera (still refused)."""
     from extractorb_tpu_torch.place.vocab import Vocabulary
 
     cfg = chip_smoke.kb8_rig_config("stereo", W, W, NF)
@@ -128,7 +131,15 @@ def refused(case):
 
 @pytest.mark.parametrize("case,item", [("kb8-vocab", "A.12.3"), ("camera2-pinhole", "A.12.4")])
 def test_remaining_refusals(case, item):
+    """``camera2`` beside a pinhole camera still raises (ROADMAP A.12.5: the
+    rig of A.12.4 is KB8 only); the KB8 camera with a vocabulary, the last
+    refusal of A.12.3, now constructs, its loop closer on the KB8 camera
+    (tests/test_torch_system_loop_kb8.py runs it)."""
     cfg, voc = refused(case)
     assert isinstance(cfg.camera2, CameraConfig)
+    if case == "kb8-vocab":
+        tr = System(cfg, vocab=voc, device="cpu").tracker
+        assert tr.is_fisheye and tr.loop_closer.db is not None and tr.loop_closer.cam is tr.cam
+        return
     with pytest.raises(NotImplementedError, match=item):
         System(cfg, vocab=voc, device="cpu")
