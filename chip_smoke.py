@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K26) from
+Builds the hand-written CUDA kernels (K1-K28) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
 version at the shapes of the main paths, counts the device kernels and
 host time of one extraction through the kernels and through the plain
@@ -66,6 +66,11 @@ to their plain versions (on a KB8 Sim3 scene, on every K12 and K14 call of
 the KB8 camera (``System(kb8 cfg, vocab)`` over the sweep seen through
 the fisheye) and [vi-loop-kb8] runs [vi-loop] on the KB8 inertial map
 (K23, K20<KB8>, K12<KB8>); [det] also counts K14<KB8>'s distinct results.
+Then the demos' path: [parity-clahe] holds K27 (CLAHE) and [parity-grid]
+K28 (the frame grid's cell lookup, bucketing and area mask) bit-equal to
+their plain versions, and [demos] runs the seven demo mains of
+``extractorb_tpu_torch.demos`` on the card at their JAX default budgets,
+each with the launch counts set to 0 before it and checked after it.
 Any failure raises:
 the script then exits non-zero and never prints its last line.  It needs
 a CUDA card and nothing outside the repository (the scenes are generated
@@ -200,6 +205,11 @@ KERNELS.update({
                              "extractorb_tpu/frontend/stereo.py:182 (+ :170 lapping_mask)"),
     "fisheye_triangulate": ("extractorb_tpu_torch/csrc/stereo_fisheye.cu",
                             "extractorb_tpu/core/camera.py:174"),
+    # the demos (the [demos] path) add K27 and K28
+    "clahe": ("extractorb_tpu_torch/csrc/clahe.cu", "extractorb_tpu/utils/clahe.py:22"),
+    "grid_pos": ("extractorb_tpu_torch/csrc/grid.cu", "extractorb_tpu/frontend/grid.py:31"),
+    "grid_assign": ("extractorb_tpu_torch/csrc/grid.cu", "extractorb_tpu/frontend/grid.py:59"),
+    "grid_area": ("extractorb_tpu_torch/csrc/grid.cu", "extractorb_tpu/frontend/grid.py:96"),
 })
 # the [system] run: the rendered sequence of tests/test_slam_e2e.py's
 # planar test at 640x480 / 1000 features, 30 frames at speed 0.04
@@ -3015,6 +3025,176 @@ def phase_det(dev) -> dict:
     return out
 
 
+# [parity-clahe]: the procedural texture at these shapes with these (clip
+# limit, tiles), and a constant image; K27's time at the demos' 640x480
+CLAHE_SHAPES = ((480, 640), (512, 512), (501, 753))
+CLAHE_SETTINGS = ((3.0, 8), (40.0, 8), (3.0, 4))
+# [parity-grid] / [demo_frame]: a 1500-feature extraction of a 512x512 frame
+GRID_SIZE = 512
+GRID_FEATURES = 1500
+
+
+def phase_parity_clahe(dev) -> dict:
+    """[parity-clahe]: K27 against ``clahe_plain`` on the card, outputs and
+    LUTs bit-equal, on the procedural texture at 640x480, 512x512 and
+    501x753 (rows and columns past the last whole tile) with clip 3 and 40
+    (no clipping) and 8 and 4 tiles, and on a constant image; timed at
+    640x480, clip 3, 8 tiles."""
+    from extractorb_tpu_torch.utils import clahe as clahe_mod
+
+    tex = pf.procedural_texture()
+    images = [(f"{w}x{h}", np.ascontiguousarray(tex[:h, :w])) for h, w in CLAHE_SHAPES]
+    images.append(("constant 640x480", np.full((480, 640), 77, np.uint8)))
+    n = 0
+    for name, img in images:
+        x = torch.from_numpy(img).to(dev)
+        for clip, tiles in CLAHE_SETTINGS if name[0] != "c" else CLAHE_SETTINGS[:1]:
+            out, lut = clahe_mod.clahe_with_lut(x, clip, tiles)
+            want_lut = clahe_mod.clahe_lut_plain(x, clip, tiles)
+            want = clahe_mod.clahe_apply_plain(x, want_lut, tiles)
+            d_lut = int((lut != want_lut).sum())
+            d_out = int((out != want).sum())
+            if d_lut or d_out:
+                raise AssertionError(f"[parity-clahe] {name} clip {clip} tiles {tiles}: {d_out} "
+                                     f"pixels and {d_lut} LUT entries differ from plain")
+            n += 1
+    x = torch.from_numpy(images[0][1]).to(dev)
+    H, W = x.shape
+    # in: the image; out: the image (the LUTs stay inside the call); per
+    # pixel 4 LUT reads and ~20 float operations, per tile 256 bins x ~6
+    stats = {"clahe": record(0.0, cuda_ms(lambda: clahe_mod.clahe(x)),
+                             cuda_ms(lambda: clahe_mod.clahe_plain(x)), 2 * H * W,
+                             20 * H * W + 64 * 256 * 6)}
+    print(f"[parity-clahe] K27 bit-equal to the plain version (outputs and LUTs) on {n} "
+          f"inputs; {W}x{H}: {stats['clahe']['ms']:.4f} ms a call, plain "
+          f"{stats['clahe']['plain_ms']:.3f} ms, bound {stats['clahe']['bound_ms']:.6f} ms "
+          f"({stats['clahe']['bound_by']})", flush=True)
+    return stats
+
+
+def grid_extraction(dev):
+    """The keypoints of a ``GRID_FEATURES``-feature extraction of a 512x512
+    crop of the procedural texture, on ``dev``: (xy, valid, octave, bounds)."""
+    img = np.ascontiguousarray(pf.procedural_texture()[:GRID_SIZE, :GRID_SIZE])
+    f = ORBExtractor(ORBConfig(n_features=GRID_FEATURES, max_kps_per_level=4096),
+                     img.shape, dev)(torch.from_numpy(img).to(dev))
+    bounds = torch.tensor([0.0, GRID_SIZE, 0.0, GRID_SIZE], dtype=torch.float32, device=dev)
+    return f.xy, f.valid, f.octave, bounds
+
+
+def phase_parity_grid(dev) -> dict:
+    """[parity-grid]: K28's three entry points against their plain versions
+    on the card, bit-equal, on a 1500-feature extraction's keypoints and on
+    ``pf.grid_cases`` (points outside and on the bounds, 100 in one cell of
+    capacity 8, none valid), ``strict`` both ways, the level-gate queries of
+    tests/test_grid.py; timed on the extraction's keypoints."""
+    from extractorb_tpu_torch.frontend import grid as grid_mod
+
+    cases = {name: tuple(torch.from_numpy(a).to(dev) for a in c[:4]) + (c[4],)
+             for name, c in pf.grid_cases().items()}
+    cases["extraction"] = grid_extraction(dev) + (16,)
+    for name, (xy, valid, octave, bounds, cap) in cases.items():
+        for strict in (True, False):
+            got = grid_mod.pos_in_grid(xy, bounds, valid, strict=strict)
+            want = grid_mod.pos_in_grid_plain(xy, bounds, valid, strict=strict)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"[parity-grid] grid_pos differs on {name} ({strict})")
+        got = grid_mod.assign_features_to_grid(xy, bounds, valid, cell_capacity=cap)
+        want = grid_mod.assign_features_to_grid_plain(xy, bounds, valid, cell_capacity=cap)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"[parity-grid] grid_assign differs on {name}")
+        for q in pf.GRID_AREA_QUERIES:
+            if not torch.equal(grid_mod.features_in_area_mask(xy, octave, valid, *q),
+                               grid_mod.features_in_area_mask_plain(xy, octave, valid, *q)):
+                raise AssertionError(f"[parity-grid] grid_area differs on {name} {q}")
+    xy, valid, octave, bounds, cap = cases["extraction"]
+    n, cells = xy.shape[0], grid_mod.FRAME_GRID_ROWS * grid_mod.FRAME_GRID_COLS
+    q = (GRID_SIZE / 2, GRID_SIZE / 2, 50.0, 0, 0)
+    # bytes: keypoints (8 B) and flags in, the outputs out; ops ~10 a point
+    stats = {
+        "grid_pos": record(0.0, cuda_ms(lambda: grid_mod.pos_in_grid(xy, bounds, valid)),
+                           cuda_ms(lambda: grid_mod.pos_in_grid_plain(xy, bounds, valid)),
+                           n * (8 + 1) + 16 + n * (8 + 1), 10 * n),
+        "grid_assign": record(
+            0.0, cuda_ms(lambda: grid_mod.assign_features_to_grid(xy, bounds, valid)),
+            cuda_ms(lambda: grid_mod.assign_features_to_grid_plain(xy, bounds, valid)),
+            n * (8 + 1) + 16 + 4 * cells * (cap + 1), 12 * n),
+        "grid_area": record(
+            0.0, cuda_ms(lambda: grid_mod.features_in_area_mask(xy, octave, valid, *q)),
+            cuda_ms(lambda: grid_mod.features_in_area_mask_plain(xy, octave, valid, *q)),
+            n * (8 + 4 + 1) + n, 8 * n),
+    }
+    print(f"[parity-grid] K28 bit-equal to the plain versions on {len(cases)} cases "
+          f"({int(valid.sum())} keypoints of {n} slots in the extraction); "
+          + ", ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f})"
+                      for k, v in stats.items()), flush=True)
+    return stats
+
+
+# the kernels each demo must launch on the card
+DEMO_KERNELS = {
+    "demo_clahe": ("clahe",),
+    "demo_clahe_keypoint": ("clahe",) + EXTRACT_KERNELS,
+    "demo_orb_extractor": ("clahe",) + EXTRACT_KERNELS,
+    "demo_distribute_oct_tree": ("pyramid", "fast_detect", "kp_collect", "octree_select"),
+    "demo_whole_extractor": EXTRACT_KERNELS,
+    "demo_frame": EXTRACT_KERNELS + ("grid_assign", "grid_pos", "grid_area", "vocab_words"),
+    "demo_matcher": EXTRACT_KERNELS + ("hamming_best2", "match_epilogue", "two_view"),
+}
+
+
+def phase_demos() -> dict:
+    """[demos]: every demo's ``main`` on the card at its JAX default budget
+    (1500 features, 1000 for the oct-tree and whole-extractor demos; 640x480,
+    512x512 for frame and matcher), the launch counts set to 0 before each
+    and read after it: each demo launched the kernels it should, and what it
+    computed holds (contrast up, the budget distributed, every keypoint in
+    the grid, the pair's yaw and baseline direction recovered)."""
+    import importlib
+
+    paths = {}
+    for name, want in DEMO_KERNELS.items():
+        module = importlib.import_module(f"extractorb_tpu_torch.demos.{name}")
+        print(f"[demos] {name}:", flush=True)
+        kernels.LAUNCHES.clear()
+        res = module.main([])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        missing = [k for k in want if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"[demos] {name} never launched {missing}: {launches}")
+        print(f"[demos] {name} launches {launches}", flush=True)
+        paths[f"demos/{name}"] = launches
+        if name == "demo_clahe" and not res["enhanced"].std() > res["image"].std():
+            raise AssertionError("[demos] demo_clahe: the contrast did not rise")
+        if name == "demo_distribute_oct_tree" and res["total"] != 1000:
+            raise AssertionError(f"[demos] {name}: {res['total']} keypoints distributed")
+        if name == "demo_frame" and not (res["counts"].sum() == res["in_grid"]
+                                         == res["n_keypoints"] > 1000):
+            raise AssertionError(f"[demos] demo_frame: {res['n_keypoints']} keypoints, "
+                                 f"{res['in_grid']} in the grid, {res['counts'].sum()} counted")
+        if name == "demo_matcher":
+            check_demo_pair(res)
+    return paths
+
+
+def check_demo_pair(res):
+    """The matcher demo's reconstruction recovers the default pair's yaw
+    within 0.3 degrees and its baseline's direction within 3 degrees."""
+    from extractorb_tpu_torch.demos._common import PAIR_T21, PAIR_YAW_DEG
+
+    if not res["success"]:
+        raise AssertionError(f"[demos] demo_matcher: no reconstruction: {res}")
+    t_true = np.asarray(PAIR_T21, np.float64) / np.linalg.norm(PAIR_T21)
+    yaw = float(np.degrees(np.arcsin(np.clip(res["R21"][0, 2], -1.0, 1.0))))
+    cos_t = float(res["t21"] @ t_true)
+    if abs(yaw - PAIR_YAW_DEG) > 0.3 or cos_t < np.cos(np.radians(3.0)):
+        raise AssertionError(f"[demos] demo_matcher: yaw {yaw:.3f} deg (true {PAIR_YAW_DEG}), "
+                             f"baseline direction cos {cos_t:.5f}")
+    print(f"[demos] demo_matcher: yaw {yaw:.3f} deg (true {PAIR_YAW_DEG}), baseline "
+          f"direction cos {cos_t:.5f}", flush=True)
+
+
 def kb8_config(width: int = KB8_SIZE, height: int = KB8_SIZE,
                n_features: int = KB8_FEATURES) -> SLAMConfig:
     """[system]'s configuration through TUM-VI's KB8 fisheye (scaled to the
@@ -3696,6 +3876,9 @@ def main() -> int:
     stats.update(phase_parity_loop_kb8(loop_rec, dev))
     paths["merge_kb8"] = phase_merge(dev, kb8=True)
     paths["vi_loop_kb8"], _, _ = phase_vi_loop(dev, kb8=True)
+    stats.update(phase_parity_clahe(dev))
+    stats.update(phase_parity_grid(dev))
+    paths.update(phase_demos())
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():

@@ -191,6 +191,18 @@ def camera_from_config(c: CameraConfig) -> Camera:
     return Pinhole.from_config(c)
 
 
+def distort_points_pinhole(xy_norm: torch.Tensor, dist) -> torch.Tensor:
+    """Apply radial-tangential distortion (k1, k2, p1, p2, k3) to
+    normalised coordinates (...,2)."""
+    k1, k2, p1, p2, k3 = (dist[i] for i in range(5))
+    x, y = xy_norm[..., 0], xy_norm[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+    dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+    return torch.stack([x * radial + dx, y * radial + dy], -1)
+
+
 # the rig's triangulation gates (KannalaBrandt8::TriangulateMatches): the
 # rays' parallax (cos < 0.9998, ~1.15 degrees) and the reprojection chi2
 MIN_PARALLAX_COS = 0.9998

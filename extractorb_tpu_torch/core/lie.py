@@ -1,9 +1,8 @@
 """SO(3)/SE(3) operations on torch tensors (port of ``extractorb_tpu/core/lie.py``).
 
-Only the subset the tracking step needs.  Conventions follow the
-reference: rotations are 3x3 matrices, SE(3) is (R, t), the SE(3)
-tangent is ordered (rho, phi) = (translation, rotation), and the solver
-updates T * Exp(xi).  Every function broadcasts over leading dims and is
+Conventions follow the reference: rotations are 3x3 matrices, SE(3) is
+(R, t), the SE(3) tangent is ordered (rho, phi) = (translation,
+rotation), and the solver updates T * Exp(xi).  Every function broadcasts over leading dims and is
 Taylor-guarded near theta = 0.
 """
 
@@ -24,6 +23,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
         ],
         -2,
     )
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (...,3,3) -> (...,3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], -1)
 
 
 def _safe_theta(w: torch.Tensor):
@@ -103,6 +107,22 @@ def se3_inverse(R: torch.Tensor, t: torch.Tensor):
 def se3_compose(Ra, ta, Rb, tb):
     """(Ra, ta) * (Rb, tb)."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def se3_apply(R, t, p):
+    """Transform points p (...,3)."""
+    return (R @ p[..., None])[..., 0] + t
+
+
+def se3_matrix(R, t):
+    """(R, t) -> 4x4 homogeneous matrix."""
+    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([torch.cat([R, t[..., None]], -1), bottom], -2)
+
+
+def se3_from_matrix(T):
+    return T[..., :3, :3], T[..., :3, 3]
 
 
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:

@@ -32,8 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9,
-# K10, K12, K17, K18, K24, K25's scoring and K26 must round like their plain PyTorch
-# versions (K1, K3, K8, K11, K15 and K16 are integer code or copies; K4, K6,
+# K10, K12, K17, K18, K24, K25's scoring, K26, K27 and K28 must round like their plain
+# PyTorch versions (K1, K3, K8, K11, K15 and K16 are integer code or copies; K4, K6,
 # K13, K14 and K19-K23 are bound by latency, not float throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
@@ -148,6 +148,14 @@ _SIGNATURES = {
     "fisheye_triangulate_launch": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P),
     # uv, n, prm (host float32: fx, fy, cx, cy, 1/fx, 1/fy, k1, k2, k3, p1, p2), out, stream
     "undistort_launch": (_P, _I, _P, _P, _P),
+    # img, H, W, tiles, clip limit, LUT scale, 1/th, 1/tw, lut, out, stream
+    "clahe_launch": (_P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P),
+    # xy, bounds, valid, n, rows, cols, strict, cell, ok, stream
+    "grid_pos_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # xy, bounds, valid, n, rows, cols, cap, grid, counts, stream
+    "grid_assign_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # xy, octave, valid, n, x, y, r, min_level, max_level, out, stream
+    "grid_area_launch": (_P, _P, _P, _I, _F, _F, _F, _I, _I, _P, _P),
     # a kept cudaGraph_t, out: all nodes; returns its kernel nodes
     "graph_kernel_nodes": (_P, _P),
     # workspace sizes in bytes

@@ -129,3 +129,7 @@ class System:
                         Rwc[1, 0], Rwc[1, 1], Rwc[1, 2], twc[1],
                         Rwc[2, 0], Rwc[2, 1], Rwc[2, 2], twc[2]]
                 f.write(" ".join(f"{v:.9e}" for v in vals) + "\n")
+
+    def shutdown(self):
+        """System::Shutdown: a no-op, as in the JAX package (nothing runs on
+        a thread of its own)."""

@@ -932,3 +932,45 @@ def vi_ate_scale(trajectory):
     gt = np.array([-vi_pose(ts)[0].T @ vi_pose(ts)[1] for ts, _, _ in trajectory])
     aligned = umeyama_align(est, gt)
     return float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean())), umeyama_scale(est, gt)
+
+
+# the level-gate cases of tests/test_grid.py:test_features_in_area_mask_matches_oracle:
+# (x, y, r, min_level, max_level)
+GRID_AREA_QUERIES = ((320.0, 240.0, 50.0, -1, -1), (100.0, 100.0, 30.0, 0, 0),
+                     (500.0, 400.0, 120.0, 2, 7), (320.0, 240.0, 15.0, 0, -1))
+
+
+def grid_cases(seed: int = 0, n: int = 1500):
+    """Seeded edge cases of the frame grid (``frontend/grid.py``): a dict of
+    name -> (xy (N,2) float32, valid (N,) bool, octave (N,) int32, bounds
+    (4,) float32, cell capacity).  Points outside the bounds, points exactly
+    on them (both the 640x480 image's and off-pixel ones), 100 points in one
+    cell with capacity 8, and nothing valid."""
+    rng = np.random.default_rng(seed)
+    image = np.array([0.0, 640.0, 0.0, 480.0], np.float32)
+
+    def scatter():
+        xy = np.stack([rng.uniform(-20, 660, n), rng.uniform(-20, 500, n)], -1)
+        return xy.astype(np.float32), rng.random(n) > 0.1, rng.integers(0, 8, n).astype(np.int32)
+
+    cases = {}
+    xy, valid, octave = scatter()
+    cases["outside"] = (xy, valid, octave, image, 16)
+    xy, valid, octave = scatter()
+    odd = np.array([1.3, 639.7, -0.4, 481.1], np.float32)
+    for b, (lo, hi) in ((image, (0, 100)), (odd, (100, 200))):
+        k = (hi - lo) // 4
+        xy[lo:lo + k, 0] = b[0]
+        xy[lo + k:lo + 2 * k, 0] = b[1]
+        xy[lo + 2 * k:lo + 3 * k, 1] = b[2]
+        xy[lo + 3 * k:hi, 1] = b[3]
+    valid[:200] = True
+    cases["on-bounds"] = (xy, valid, octave, image, 16)
+    cases["on-bounds-odd"] = (xy, valid, octave, odd, 16)
+    xy, valid, octave = scatter()
+    xy[:100] = 5.0
+    valid[:100] = True
+    cases["one-cell-cap8"] = (xy, valid, octave, image, 8)
+    xy, _, octave = scatter()
+    cases["all-invalid"] = (xy, np.zeros(n, bool), octave, image, 16)
+    return cases

@@ -52,7 +52,8 @@ def test_every_module_imports_without_jax_cv2_triton_or_nvcc(tmp_path):
     for m in ("geometry.two_view", "solver.ba", "slam.map", "slam.local_mapping",
               "slam.tracking", "slam.system", "utils.packed_fetch", "frontend.stereo",
               "solver.pnp", "slam.checkpoint", "imu.calib", "imu.preintegration",
-              "solver.inertial", "solver.marginal", "slam.imu_frontend"):
+              "solver.inertial", "solver.marginal", "slam.imu_frontend", "utils.clahe",
+              "frontend.grid", "viz.frame_drawer", "demos.demo_frame"):
         assert f"extractorb_tpu_torch.{m}" in MODULES, m
 
 
@@ -188,7 +189,14 @@ def test_kernel_library_builds_and_counts_launches(cuda_device):
     assert extractorb_tpu_torch.__version__
 
 
+DEMOS = ("demo_clahe", "demo_clahe_keypoint", "demo_orb_extractor", "demo_distribute_oct_tree",
+         "demo_whole_extractor", "demo_frame", "demo_matcher")
+
+
 def _entry_points():
+    import functools
+    import importlib
+
     from extractorb_tpu_torch.dist import global_ba
     from extractorb_tpu_torch.place.database import KeyFrameDatabase
     from extractorb_tpu_torch.slam import imu_frontend as front
@@ -207,6 +215,8 @@ def _entry_points():
         "local_inertial_ba": lambda: front.local_inertial_ba(None, None, None, 0),
         "weld_inertial_bundle_adjustment":
             lambda: merge.weld_inertial_bundle_adjustment(None, None, None, 0),
+        **{f"demos.{d}": functools.partial(
+            importlib.import_module(f"extractorb_tpu_torch.demos.{d}").main, []) for d in DEMOS},
     }
 
 
