@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K28) from
+Builds the hand-written CUDA kernels (K1-K31) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
 version at the shapes of the main paths, counts the device kernels and
 host time of one extraction through the kernels and through the plain
@@ -71,6 +71,17 @@ K28 (the frame grid's cell lookup, bucketing and area mask) bit-equal to
 their plain versions, and [demos] runs the seven demo mains of
 ``extractorb_tpu_torch.demos`` on the card at their JAX default budgets,
 each with the launch counts set to 0 before it and checked after it.
+Last, loop closing over a device mesh (one process driving an ordered list
+of devices, ``dist/mesh.py``): [loop-mesh] runs [loop] over 4 shards of
+the card (the visible cards when there are more than one) with the
+keyframe database's dense backend (K29 per shard and query), the essential
+graph edge-sharded (K31) and the GBA over landmark shards (K30), and holds
+the loop and the corrected keyframes to [loop]'s one-shard run;
+[parity-mesh] holds K29 (also at 1024 keyframes x 65536 words), K30 and
+K31 to their plain versions over those shards, and K30 to K14; [det] also
+counts K30's and K31's distinct results.  On one card the shards' partial
+sums meet in one kernel; the peer route between cards runs only where
+there are several.
 Any failure raises:
 the script then exits non-zero and never prints its last line.  It needs
 a CUDA card and nothing outside the repository (the scenes are generated
@@ -114,6 +125,9 @@ from extractorb_tpu_torch.frontend.pyramid import (compute_pyramid,  # noqa: E40
 from extractorb_tpu_torch.geometry import two_view  # noqa: E402
 from extractorb_tpu_torch.core.camera import KannalaBrandt8, Pinhole  # noqa: E402
 from extractorb_tpu_torch.dist import global_ba, sharded_ba  # noqa: E402
+from extractorb_tpu_torch.dist import kf_blocks as kfb  # noqa: E402
+from extractorb_tpu_torch.dist import mesh as dmesh  # noqa: E402
+from extractorb_tpu_torch.dist import sharded_pose_graph as dpg  # noqa: E402
 from extractorb_tpu_torch.geometry import sim3 as gsim3  # noqa: E402
 from extractorb_tpu_torch.place import vocab as vocab_mod  # noqa: E402
 from extractorb_tpu_torch.slam import checkpoint, local_mapping, loop_closing, track_device  # noqa: E402,E501
@@ -210,6 +224,13 @@ KERNELS.update({
     "grid_pos": ("extractorb_tpu_torch/csrc/grid.cu", "extractorb_tpu/frontend/grid.py:31"),
     "grid_assign": ("extractorb_tpu_torch/csrc/grid.cu", "extractorb_tpu/frontend/grid.py:59"),
     "grid_area": ("extractorb_tpu_torch/csrc/grid.cu", "extractorb_tpu/frontend/grid.py:96"),
+    # loop closing over a device mesh (the [loop-mesh] path) adds K29-K31
+    "place_dense": ("extractorb_tpu_torch/csrc/place_dense.cu",
+                    "extractorb_tpu/dist/kf_blocks.py:39"),
+    "ba_schur_sharded": ("extractorb_tpu_torch/csrc/ba_schur.cu + shard_sum.cuh",
+                         "extractorb_tpu/dist/sharded_ba.py:258 (more than one shard)"),
+    "pose_graph_sharded": ("extractorb_tpu_torch/csrc/pose_graph.cu + shard_sum.cuh",
+                           "extractorb_tpu/dist/sharded_pose_graph.py:27"),
 })
 # the [system] run: the rendered sequence of tests/test_slam_e2e.py's
 # planar test at 640x480 / 1000 features, 30 frames at speed 0.04
@@ -265,8 +286,14 @@ KB8_TH_DEPTH = 35.0
 # [vi-stereo-kb8] and [vi-kb8]: [vi]'s trajectory, shortened to the frames
 # that reach the monocular IMU initialisation (2 s) and a second after it
 VI_KB8_FRAMES = 32
-# the [det] phase: calls of K13 and K14 on one input
+# the [det] phase: calls of K13, K14, K30 and K31 on one input
 DET_CALLS = 20
+# [parity-mesh] / [loop-mesh]: the shards of one card (or the visible cards,
+# when there are more than one); K29 also at an ORBvoc-scale dense block of
+# 1024 keyframes over 65536 words (its largest dense vocabulary), ~1000
+# words a keyframe
+MESH_SHARDS = 4
+PLACE_K, PLACE_W, PLACE_NNZ = 1024, 65536, 1000
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense rates): memory
 # bytes/s, and float32 operations/s outside the tensor cores, against which
 # the bounds also count the kernels' integer ALU work
@@ -338,6 +365,17 @@ def cuda_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def timed(fn):
+    """``fn()``'s result and the CUDA-event time of that one call (no
+    warm-up: for plain versions that take seconds)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def record(err, ms, plain_ms, nbytes, ops, library_ms=None, ops64=0) -> dict:
@@ -1764,8 +1802,7 @@ def phase_parity_loop(frames, voc, dev) -> dict:
     # farther from that solve than the float32 plain solve is.
     prob = pose_graph_problem(rng, dev)
     K, E = prob.R.shape[0], prob.edge_i.shape[0]
-    prob64 = pose_graph.PoseGraphProblem(*[a.double() if a.is_floating_point() else a
-                                           for a in prob])
+    prob64 = graph_f64(prob)
     dist = lambda x, y: max(float((a.double() - b.double()).abs().max()) for a, b in zip(x, y))
     d_pg = 0.0
     for fix in (False, True):
@@ -1830,34 +1867,46 @@ def phase_parity_loop(frames, voc, dev) -> dict:
     return stats
 
 
-def run_loop(dev, n_kf: int = LOOP_KFS, kb8: bool = False, mark: bool = False):
+def run_loop(dev, n_kf: int = LOOP_KFS, kb8: bool = False, mark: bool = False, devices=None,
+             keep=None):
     """The LoopCloser over the keyframes of the [loop] map (with ``kb8`` the
     [loop-kb8] map and camera) on ``dev`` in order until a loop closes, with
     the reference's thresholds; then ``finish``.  Returns the map, the
     closer, the (keyframe, matched keyframe) of each loop closed and each
     keyframe event's host ms.  ``mark`` puts event i in a profiler range
-    ``frame_i``."""
-    mp, _, desc, centres = looped_map(dev, n_kf, kb8=kb8)
-    voc = vocab_mod.Vocabulary.train(desc, k=8, L=3, seed=0)
-    inv_sigma2 = [1.2 ** (-2 * i) for i in range(8)]
-    closer = loop_closing.LoopCloser(voc, loop_camera(kb8), inv_sigma2=inv_sigma2, device=dev,
-                                     img_wh=(KB8_SIZE, KB8_SIZE) if kb8 else None)
-    loops, ms = [], []
-    for kid in sorted(mp.keyframes):
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with (torch.profiler.record_function(f"frame_{len(ms)}") if mark
-              else contextlib.nullcontext()):
-            got = closer.process_keyframe(mp, kid)
+    ``frame_i``.  With ``devices`` (the [loop-mesh] run) the closer runs
+    over the mesh of those devices (``use_devices``): places scored by the
+    database's device backend, every essential graph edge-sharded
+    (``sharded_graph_min_edges`` 1), the GBA over landmark shards.  ``keep``
+    (a dict) gets the keyframes' poses before ``finish`` applies the GBA
+    (``"before"``)."""
+    with dmesh.use_devices(devices) if devices else contextlib.nullcontext():
+        mp, _, desc, centres = looped_map(dev, n_kf, kb8=kb8)
+        voc = vocab_mod.Vocabulary.train(desc, k=8, L=3, seed=0)
+        inv_sigma2 = [1.2 ** (-2 * i) for i in range(8)]
+        closer = loop_closing.LoopCloser(voc, loop_camera(kb8), inv_sigma2=inv_sigma2,
+                                         device=dev, img_wh=(KB8_SIZE, KB8_SIZE) if kb8 else None)
+        if devices:
+            closer.sharded_graph_min_edges = 1
+            closer.db.enable_device_backend(dmesh.make_mesh())
+        loops, ms = [], []
+        for kid in sorted(mp.keyframes):
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        if got:
-            loops.append((kid, mp.keyframes[kid].loop_edges[-1]))
-            break   # as tests/test_loop_closing.py: the later return keyframes would close again
-    n_gba = closer.n_gba_applied
-    closer.finish(mp)
+            t0 = time.perf_counter()
+            with (torch.profiler.record_function(f"frame_{len(ms)}") if mark
+                  else contextlib.nullcontext()):
+                got = closer.process_keyframe(mp, kid)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if got:
+                loops.append((kid, mp.keyframes[kid].loop_edges[-1]))
+                break   # as tests/test_loop_closing.py: the later return keyframes would close again
+        if keep is not None:
+            keep["before"] = {k: (kf.R.copy(), kf.t.copy()) for k, kf in mp.keyframes.items()}
+        n_gba = closer.n_gba_applied
+        closer.finish(mp)
     return mp, closer, loops, ms, centres, closer.n_gba_applied - n_gba
 
 
@@ -2027,13 +2076,13 @@ def phase_parity_loop_kb8(rec, dev) -> dict:
     # ulp, the witness below): held are the inlier mask and both costs at
     # rounding (under 1e-4); the distances are printed
     (gargs, gkw), = rec.calls["ba_schur"]
-    prob_, kw = gargs[0], {k: v for k, v in gkw.items() if k != "world_size"}
+    prob_ = gargs[0]
     bk = sharded_ba.optimize_schur(prob_, cam, **gkw)
-    bp = sharded_ba.optimize_schur_plain(prob_, cam, **kw)
+    bp = sharded_ba.optimize_schur_plain(prob_, cam, **gkw)
     bw = sharded_ba.optimize_schur_plain(
         prob_._replace(points=torch.nextafter(prob_.points,
                                               torch.full_like(prob_.points, float("inf")))),
-        cam, **kw)
+        cam, **gkw)
     d, d_w = _ba_dist(bk, bp), _ba_dist(bw, bp)
     if not torch.equal(bk.inliers, bp.inliers) or not max(float(bk.cost), float(bp.cost)) < 1e-4:
         raise AssertionError(f"ba_schur<KB8> ([loop-kb8] post-loop call): inliers equal "
@@ -2210,6 +2259,267 @@ class _LoopRecorder(_InertialRecorder):
 
     NAMES = ((gsim3, "solve_sim3_ransac", "sim3_ransac"), (gsim3, "optimize_sim3", "sim3_optimize"),
              (global_ba, "optimize_schur", "ba_schur"))
+
+
+# ------------------------------------------------------- the device mesh
+
+
+def mesh_devices(dev):
+    """[loop-mesh]'s shards: the visible cards when there are more than one,
+    else ``MESH_SHARDS`` shards of ``dev``."""
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev] * MESH_SHARDS
+
+
+def place_problem(rng, K: int, W: int, nnz=None):
+    """Dense L1-normalised BoW histograms of K keyframes over W words, their
+    shared-word masks, validity (the last three rows invalid) and a query
+    near row 5.  ``nnz`` None: every word weighted at random and a word
+    counted as held above 1 / W (tests/test_dist_ba.py:156-166); else ~nnz
+    words a keyframe, as a keyframe's BoW is sparse."""
+    if nnz is None:
+        hists = rng.random((K, W)).astype(np.float32)
+        hists /= hists.sum(1, keepdims=True)
+        has = hists > 1.0 / W
+    else:
+        hists = np.zeros((K, W), np.float32)
+        hists[np.repeat(np.arange(K), nnz), rng.integers(0, W, K * nnz)] = rng.random(K * nnz)
+        hists /= hists.sum(1, keepdims=True)
+        has = hists > 0
+    valid = np.ones(K, bool)
+    valid[-3:] = False
+    q = hists[5] + (hists[5] > 0) * rng.random(W).astype(np.float32) * 0.01
+    q = (q / q.sum()).astype(np.float32)
+    return hists, has, valid, q
+
+
+def pad_graph(p, n: int):
+    """An essential graph's edges padded with 1 to n invalid ones (identity
+    measurements, weight 0, vertex 0) to a multiple of n."""
+    E = p.edge_i.shape[0]
+    pad = -(-(E + 1) // n) * n - E
+    dev = p.t.device
+    z = lambda a, fill: torch.cat([a, torch.full((pad,) + a.shape[1:], fill, dtype=a.dtype,
+                                                 device=dev)])
+    return p._replace(edge_i=z(p.edge_i, 0), edge_j=z(p.edge_j, 0),
+                      m_R=torch.cat([p.m_R, torch.eye(3, dtype=p.m_R.dtype,
+                                                      device=dev).expand(pad, 3, 3)]),
+                      m_t=z(p.m_t, 0.0), m_s=z(p.m_s, 1.0), weight=z(p.weight, 0.0),
+                      edge_valid=z(p.edge_valid, False))
+
+
+def graph_f64(p):
+    return pose_graph.PoseGraphProblem(*[a.double() if a.is_floating_point() else a for a in p])
+
+
+def phase_parity_mesh(loop_graph, dev) -> dict:
+    """[parity-mesh]: K29, K30 and K31 over ``MESH_SHARDS`` shards of ``dev``
+    against their plain versions on the same inputs.  K29 at the test size
+    and at 1024 keyframes x 65536 words (scores within 1e-5, counts and
+    invalid rows equal), with ``torch.cdist`` and a matvec as the library
+    call; K30 on the [loop] map's global problem and on a noisy one of its K
+    (within 1e-3, inliers equal, the noisy cost within 1e-3), and against
+    K14 on the noisy problem; K31 on a 200-keyframe graph (both
+    ``fix_scale``) and on [loop-mesh]'s essential graph ``loop_graph``,
+    against the float64 plain solve (within 1e-4)."""
+    mesh = dmesh.Mesh([dev] * MESH_SHARDS)
+    n = mesh.size
+    rng = np.random.default_rng(15)
+    stats = {}
+
+    # K29
+    d29 = 0.0
+    for name, (K, W, nnz) in (("test size", (24, 64, None)),
+                              (f"{PLACE_K} x {PLACE_W}", (PLACE_K, PLACE_W, PLACE_NNZ))):
+        h, w, v, q = place_problem(rng, K, W, nnz)
+        blocks = [kfb.shard_kf_axis(mesh, kfb.pad_to_mesh(a, n)) for a in (h, w, v)]
+        qt = torch.from_numpy(q)
+        ks, kc = (kfb.gather_host(b) for b in kfb.sharded_place_scores(mesh, *blocks, qt))
+        ps, pc = (kfb.gather_host(b) for b in kfb.sharded_place_scores_plain(mesh, *blocks, qt))
+        fin = np.isfinite(ps)
+        d = float(np.abs(ks[fin] - ps[fin]).max())
+        if not (np.array_equal(np.isfinite(ks), fin) and np.array_equal(kc, pc) and d <= 1e-5):
+            raise AssertionError(f"place_dense ({name}): max |d score| {d:.2e}, counts equal "
+                                 f"{np.array_equal(kc, pc)}, -inf rows equal "
+                                 f"{np.array_equal(np.isfinite(ks), fin)}")
+        print(f"[parity-mesh] place_dense {name} on {n} shards: max |d score| {d:.2e}, counts "
+              f"and -inf rows equal, best row {int(np.argmax(ks))}", flush=True)
+        d29 = max(d29, d)
+    hd, qd = torch.from_numpy(h).to(dev), qt.to(dev)
+    wd = torch.from_numpy(w).to(dev).float()
+    lib_ms = cuda_ms(lambda: (torch.cdist(hd, qd[None], p=1), wd @ (qd > 0).float()))
+    # a query: the block read once (4 + 1 bytes a word), q, valid, the scores
+    # and counts written; per word a subtract, an absolute value and an add,
+    # and the count's compare, and and add
+    stats["place_dense"] = record(
+        d29, cuda_ms(lambda: kfb.sharded_place_scores(mesh, *blocks, qt)),
+        cuda_ms(lambda: kfb.sharded_place_scores_plain(mesh, *blocks, qt), reps=5),
+        K * W * 5 + W * 4 + K + K * 8, K * W * 6, library_ms=lib_ms)
+    del hd, wd, blocks
+
+    # K30: the [loop] map's problem on n landmark shards (self-consistent: its
+    # cost is float32 rounding, printed, not compared) and a noisy problem of
+    # its K (two fixed keyframes, no gauge freedom)
+    cam = loop_camera()
+    mp, _, _, _ = looped_map(dev)
+    gprob = global_ba.build_global_problem(mp, [1.0] * 8, n, None, dev)[0]
+    Kb, Pb, Ob = gprob.R.shape[0], gprob.points.shape[0], gprob.obs_kf.shape[0]
+    n_pts = Ob // Kb // 2
+    noisy = ba_problem(rng, dev, n_kf=Kb, n_pts=n_pts, Kp=Kb, Pp=-(-n_pts // 128) * 128,
+                       Op=Kb * n_pts)
+    noisy_n = sharded_ba.relayout_for_schur(noisy, n)
+    d30 = 0.0
+    for name, prob_ in (("[loop] map", gprob), ("noisy", noisy_n)):
+        bk = sharded_ba.optimize_schur(prob_, cam, mesh=mesh)
+        bp = sharded_ba.optimize_schur_plain(prob_, cam, mesh=mesh)
+        d = _ba_dist(bk, bp)
+        ck, cp = float(bk.cost), float(bp.cost)
+        dc = abs(ck - cp) / cp if name == "noisy" else 0.0
+        if not d <= 1e-3 or not dc <= 1e-3 or not torch.equal(bk.inliers, bp.inliers):
+            raise AssertionError(f"ba_schur_sharded ({name}): |dR|,|dt|,|dp| {d:.2e}, cost "
+                                 f"{ck:.6g} / {cp:.6g}, inliers equal "
+                                 f"{torch.equal(bk.inliers, bp.inliers)}")
+        note = f"{dc:.2e} relative" if name == "noisy" else "rounding, not compared"
+        print(f"[parity-mesh] ba_schur_sharded {name} on {n} shards K={Kb} "
+              f"P={prob_.points.shape[0]} O={prob_.obs_kf.shape[0]}: max |dR|,|dt|,|dp| {d:.2e} "
+              f"from the plain {n}-shard solve, inliers equal, cost {ck:.6g} / plain {cp:.6g} "
+              f"({note})", flush=True)
+        d30 = max(d30, d, dc)
+    b14 = sharded_ba.optimize_schur(noisy, cam)
+    P0 = noisy.points.shape[0]
+    d14 = max(float((bk.R - b14.R).abs().max()), float((bk.t - b14.t).abs().max()),
+              float((bk.points[:P0] - b14.points).abs().max()))
+    c14 = abs(float(bk.cost) - float(b14.cost)) / float(b14.cost)
+    if not (d14 <= 1e-3 and c14 <= 1e-3 and int(bk.inliers.sum()) == int(b14.inliers.sum())):
+        raise AssertionError(f"ba_schur_sharded against K14 (noisy): {d14:.2e}, cost {c14:.2e} "
+                             f"relative, inliers {int(bk.inliers.sum())} / "
+                             f"{int(b14.inliers.sum())}")
+    k30_ms = cuda_ms(lambda: sharded_ba.optimize_schur(gprob, cam, mesh=mesh), reps=5)
+    gprob1 = global_ba.build_global_problem(mp, [1.0] * 8, 1, None, dev)[0]
+    k14_ms = cuda_ms(lambda: sharded_ba.optimize_schur(gprob1, cam), reps=5)
+    print(f"[parity-mesh] ba_schur_sharded against K14 on the noisy problem: max |dR|,|dt|,|dp| "
+          f"{d14:.2e}, cost {c14:.2e} relative, {int(b14.inliers.sum())} inliers each; the "
+          f"[loop] map's GBA {k30_ms:.3f} ms on {n} shards, {k14_ms:.3f} ms on one (K14)",
+          flush=True)
+    # work: K14's per LM iteration (as [parity]'s row) with the pose side on
+    # every shard, and per reduction the n shards' partials read and the
+    # sums written back (27 K floats and a cost per LM step, 6 K per W y)
+    stats["ba_schur_sharded"] = record(
+        d30, k30_ms,
+        cuda_ms(lambda: sharded_ba.optimize_schur_plain(gprob, cam, mesh=mesh), reps=2),
+        Kb * 50 * n + Pb * 13 + Ob * 22 + Kb * 48 + Pb * 12 + Ob + 4,
+        10 * (Ob * 170 + 20 * (Ob * 72 + Pb * 18 + Kb * 72 * n) + n * Kb * 40))
+
+    # K31: float64, against the float64 plain n-shard solve
+    prob = pad_graph(pose_graph_problem(rng, dev), n)
+    K, E = prob.R.shape[0], prob.edge_i.shape[0]
+    d31, plain_ms = 0.0, []
+    for name, p_, fixes in ((f"K={K} E={E}", prob, (False, True)),
+                            (f"[loop-mesh]'s essential graph K={loop_graph.R.shape[0]} "
+                             f"E={loop_graph.edge_i.shape[0]}", loop_graph, (False,))):
+        for fix in fixes:
+            gk = dpg.optimize_sharded_pose_graph(mesh, p_, n_iters=15, fix_scale=fix)
+            g64, t64 = timed(lambda: dpg.optimize_sharded_pose_graph_plain(
+                mesh, graph_f64(p_), n_iters=15, fix_scale=fix))
+            plain_ms.append(t64)
+            d = max(float((a.double() - b).abs().max()) for a, b in zip(gk[:3], g64[:3]))
+            line = (f"pose_graph_sharded {name} fix_scale={fix} on {n} shards: max "
+                    f"|dR|,|dt|,|ds| {d:.2e} from the plain float64 {n}-shard solve, cost "
+                    f"{float(gk[3]):.7g} / plain {float(g64[3]):.7g}")
+            if not d <= 1e-4:
+                raise AssertionError(line)
+            print(f"[parity-mesh] {line}", flush=True)
+            d31 = max(d31, d)
+    # work: K13's (as [parity]'s row), float64, with the vertex side on every
+    # shard, and per reduction the n shards' partials read and the sums
+    # written (56 K per LM step, 7 K per PCG step)
+    stats["pose_graph_sharded"] = record(
+        d31, cuda_ms(lambda: dpg.optimize_sharded_pose_graph(mesh, prob, n_iters=15), reps=5),
+        plain_ms[0], K * 53 * n + E * 72 + K + K * 52 + 4, 0,
+        ops64=15 * (E * (2 * 7 * 900 + 2 * 7 * 7 * 14) + K * 700 * n
+                    + 50 * (E * 392 + K * 120 * n) + n * K * 120))
+    return stats
+
+
+class _MeshRecorder(_InertialRecorder):
+    """Keeps the arguments of every K29 and K31 wrapper call of a run."""
+
+    NAMES = ((kfb, "sharded_place_scores", "place_dense"),
+             (dpg, "optimize_sharded_pose_graph", "pose_graph_sharded"))
+
+
+def phase_loop_mesh(dev):
+    """[loop-mesh]: [loop] over a device mesh (``mesh_devices``: 4 shards of
+    the card, or the visible cards) with [loop]'s 512-word vocabulary on the
+    database's device backend and every essential graph edge-sharded: the
+    loop closes at the keyframe pair of [loop]'s one-shard run, the
+    keyframes at the loop event (the essential graph applied, the GBA not
+    yet) stay within 2e-3 of that run's, the GBA is applied at ``finish``,
+    and K29 (once per shard and query), K30 and K31 (once each) run in
+    place of K14 and K13.  Each query's dense scores are held to the host
+    pass's (within 1e-5) and their near-ties printed; the loop event's host
+    ms, and its device ms from a profiled run (the union of its device
+    events).  Returns the launches and the loop's essential graph."""
+    import chip_profile
+
+    devs = mesh_devices(dev)
+    keep1, keep = {}, {}
+    _, _, loops1, _, _, _ = run_loop(dev, keep=keep1)
+    rec = _MeshRecorder()
+    kernels.LAUNCHES.clear()
+    with rec:
+        mp, closer, loops, ms, centres, n_gba = run_loop(dev, devices=devs, keep=keep)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    n_q, n_sh = len(rec.calls["place_dense"]), len(devs)
+    want = {"place_dense": n_q * n_sh, "ba_schur_sharded": 1, "pose_graph_sharded": 1,
+            "ba_schur": 0, "pose_graph": 0}
+    bad = {k: launches.get(k, 0) for k, v in want.items() if launches.get(k, 0) != v}
+    same_kfs = set(keep["before"]) == set(keep1["before"])
+    d_pose = max(max(float(np.abs(-R.T @ t + R1.T @ t1).max()), float(np.abs(R - R1).max()))
+                 for k, (R, t) in keep["before"].items()
+                 for R1, t1 in [keep1["before"][k]]) if same_kfs else float("inf")
+    if len(loops) != 1 or loops != loops1 or n_gba != 1 or n_q == 0 or bad or \
+            not d_pose <= 2e-3:
+        raise AssertionError(f"[loop-mesh] loops {loops} (one shard {loops1}), GBA applied "
+                             f"{n_gba}, {n_q} queries, launches {launches} (off: {bad}), poses "
+                             f"{d_pose:.2e} from the one-shard run's")
+    # each query's dense scores against the host formula on the same entries
+    d_sc, ties = 0.0, []
+    for (args, _) in rec.calls["place_dense"]:
+        m_, h, w, v, q = args
+        sc = kfb.gather_host(kfb.sharded_place_scores(m_, h, w, v, q)[0])
+        ref = 1.0 - 0.5 * np.abs(kfb.gather_host(h).astype(np.float64)
+                                 - np.asarray(q)[None]).sum(1)
+        ok = kfb.gather_host(v)
+        d_sc = max(d_sc, float(np.abs(sc[ok] - ref[ok]).max()))
+        top = np.sort(sc[ok])[::-1][:5]
+        ties += [float(a - b) for a, b in zip(top[:-1], top[1:]) if a - b < 1e-5]
+    if not d_sc <= 1e-5:
+        raise AssertionError(f"[loop-mesh] dense scores {d_sc:.2e} from the host formula")
+    (gmesh, graph), _ = rec.calls["pose_graph_sharded"][0]
+    E = int(graph.edge_valid.sum())
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, _, loops_p, ms_p, _, _ = run_loop(dev, devices=devs, mark=True)
+    device, _, _ = chip_profile.device_ms_per_frame(prof, len(ms_p))
+    del prof
+    k = len(ms) - 1
+    print(f"[loop-mesh] {n_sh} shards ({', '.join(str(d) for d in devs)}; the peer route "
+          f"{'ran' if len(set(devs)) > 1 else 'did not run: one card'}): one loop at keyframe "
+          f"{loops[0][0]} (matched {loops[0][1]}) as [loop]'s one-shard run; the essential graph "
+          f"E={E} edges (padded to {graph.edge_i.shape[0]}) edge-sharded; keyframes at the loop "
+          f"event within {d_pose:.2e} of the one-shard run's; GBA over {gmesh.size} landmark "
+          f"shards applied at finish", flush=True)
+    print(f"[loop-mesh] {n_q} queries on the dense backend: max |d score| {d_sc:.2e} from the "
+          f"host formula; near-ties (< 1e-5) among each query's top 5: "
+          f"{['%.1e' % x for x in ties] or 'none'}", flush=True)
+    print(f"[loop-mesh] loop event (keyframe event {k}): host {ms[k]:.2f} ms, device "
+          f"{device[k]:.3f} ms (profiled run: loops {loops_p}); other events' median host "
+          f"{statistics.median(ms[:k]):.2f} ms", flush=True)
+    print(f"[loop-mesh] launches {launches}", flush=True)
+    return launches, graph
 
 
 def vi_frames(width: int = WIDTH, height: int = HEIGHT, n: int = VI_FRAMES):
@@ -3003,19 +3313,29 @@ def _distinct(results) -> int:
 
 def phase_det(dev) -> dict:
     """[det]: K13 on [parity]'s essential graph, K14 on the [loop] map's GBA
-    problem and K14<KB8> on the [loop-kb8] map's, ``DET_CALLS`` calls each
-    on one input: they sum in a fixed order, so each gives one result."""
+    problem and K14<KB8> on the [loop-kb8] map's, and over ``MESH_SHARDS``
+    shards of the card K30 on the [loop] map's problem and K31 on the
+    essential graph, ``DET_CALLS`` calls each on one input: they sum in a
+    fixed order (the shards in shard order), so each gives one result."""
     prob = pose_graph_problem(np.random.default_rng(8), dev)
     pg = [pose_graph.optimize_pose_graph(prob, n_iters=15) for _ in range(DET_CALLS)]
+    mesh = dmesh.Mesh([dev] * MESH_SHARDS)
+    prob_n = pad_graph(prob, mesh.size)
+    pgs = [dpg.optimize_sharded_pose_graph(mesh, prob_n, n_iters=15) for _ in range(DET_CALLS)]
     sb = {}
     for kb8 in (False, True):
         mp, _, _, _ = looped_map(dev, kb8=kb8)
         gprob = global_ba.build_global_problem(mp, [1.0] * 8, 1, None, dev)[0]
         cam = loop_camera(kb8)
         sb[kb8] = [tuple(sharded_ba.optimize_schur(gprob, cam)) for _ in range(DET_CALLS)]
+        if not kb8:
+            gprob_n = global_ba.build_global_problem(mp, [1.0] * 8, mesh.size, None, dev)[0]
+            sbs = [tuple(sharded_ba.optimize_schur(gprob_n, cam, mesh=mesh))
+                   for _ in range(DET_CALLS)]
     torch.cuda.synchronize()
     out = {}
-    for name, res in (("pose_graph", pg), ("ba_schur", sb[False]), ("ba_schur_kb8", sb[True])):
+    for name, res in (("pose_graph", pg), ("ba_schur", sb[False]), ("ba_schur_kb8", sb[True]),
+                      ("ba_schur_sharded", sbs), ("pose_graph_sharded", pgs)):
         n = _distinct(res)
         print(f"[det] {name}: {n} distinct result(s) over {DET_CALLS} calls on one input",
               flush=True)
@@ -3799,6 +4119,7 @@ def phase_vi_kb8(tag, left, right, dev, stats):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     phase_environment()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -3879,6 +4200,10 @@ def main() -> int:
     stats.update(phase_parity_clahe(dev))
     stats.update(phase_parity_grid(dev))
     paths.update(phase_demos())
+    t_mesh = time.perf_counter()
+    paths["loop_mesh"], loop_graph = phase_loop_mesh(dev)
+    stats.update(phase_parity_mesh(loop_graph, dev))
+    print(f"[parity-mesh] the mesh phases in {time.perf_counter() - t_mesh:.1f} s", flush=True)
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():
@@ -3913,6 +4238,7 @@ def main() -> int:
                        joint_kb8_ms=st["ms"], joint_kb8_plain_ms=st["plain_ms"],
                        joint_kb8_bound_ms=st["bound_ms"], joint_kb8_max_abs_err=st["max_abs_err"])
         rows.append(row)
+    print(f"[done] every phase in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

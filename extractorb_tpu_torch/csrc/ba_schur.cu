@@ -1,8 +1,9 @@
 // K14 ba_schur: the global bundle adjustment, Levenberg-Marquardt on the
-// reduced camera system (Schur complement) with block-Jacobi PCG.
+// reduced camera system (Schur complement) with block-Jacobi PCG; and K30,
+// the same solve over n landmark shards.
 //
-// Replaces extractorb_tpu/dist/sharded_ba.py:optimize_schur_sharded on one
-// shard (the program the JAX package runs on a single device,
+// K14 replaces extractorb_tpu/dist/sharded_ba.py:optimize_schur_sharded on
+// one shard (the program the JAX package runs on a single device,
 // dist/global_ba.py:212-219): a lax.scan of LM steps, each eliminating the
 // landmarks with batched 3x3 inverses and running lax.scan PCG sweeps on
 // (Hpp + lam - W (Hll + lam)^-1 W^T) dp = bp - W (Hll + lam)^-1 bl.  Once
@@ -27,10 +28,25 @@
 // rotations are re-orthonormalized at the end and observations classified
 // by chi2 <= chi2_mono; the returned cost is the final sum of chi2.
 //
+// K30 replaces optimize_schur_sharded on n > 1 shards (its shard_map over a
+// device mesh): shard s holds points [s Ps, (s+1) Ps) and the Os
+// observations of those points (obs_mp local to the shard; the layout of
+// dist/global_ba.py and relayout_for_schur), and a copy of the poses.  It
+// runs K14's kernels on its own data, shard by shard, and where the JAX
+// program psums, the shards' partials are summed in shard order
+// (shard_sum.cuh): bp, the Hpp blocks and the current cost after the
+// reduce, the (K,6) W y after each W y pass (once for b_red, once per PCG
+// step), the candidate cost before the accept and the final cost.  The
+// pose-side steps (inverses, PCG vectors and dot products, retraction,
+// accept) then run on every shard on the same sums, so the shards' poses
+// stay equal, as the replicated values of the shard_map do.  Padding needs
+// no case of its own: a padded observation is invalid (weight 0, on no
+// list) and a padded point is fixed (no step).
+//
 // Every sum runs in a fixed order (no float atomics), so a solve gives one
 // result per input, as the JAX program does: the blocks over the
 // index-ordered lists, the scalars as per-CTA partials summed in block order
-// by the last CTA (det_reduce.cuh).
+// by the last CTA (det_reduce.cuh), the shards in shard order.
 //
 // The camera is a template parameter (camera_t.cuh via ba_obs.cuh, as K6):
 // the pinhole Cam, or CamKB8, whose Jacobians come in forward mode
@@ -38,7 +54,9 @@
 //
 // Bound on the H100: launch latency.  A map of ~24 keyframes and ~10k
 // observations is microseconds of arithmetic per pass; the ~5 dependent
-// launches per PCG step and ~10 per LM iteration set the time.
+// launches per PCG step and ~10 per LM iteration set the time.  K30 on n
+// shards of one card launches each pass n times plus a small sum kernel at
+// each reduction.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,6 +69,7 @@ constexpr int kThreads = 256;
 #include "dual.cuh"
 #include "ba_obs.cuh"
 #include "det_reduce.cuh"
+#include "shard_sum.cuh"
 
 struct Ws {
   float* Rn;    // (K,9) candidates
@@ -59,9 +78,9 @@ struct Ws {
   float* J;     // (O,18) pose 2x6 then point 2x3
   float* w;     // (O,)
   float* r;     // (O,2) residuals
-  float* bp;    // (K,6)
-  float* bl;    // (P,3)
+  float* bp;    // (K,6), followed by Hpp (one range for the cross-shard sum)
   float* Hpp;   // (K,21)
+  float* bl;    // (P,3)
   float* Hll;   // (P,6)
   float* hp;    // (K,6) W y, then Ap
   float* tl;    // (P,3) W^T v
@@ -95,9 +114,12 @@ __host__ __device__ inline size_t carve(Ws* w, uint8_t* base, int K, int P, int 
   q = take(sizeof(float) * 18 * (size_t)O); if (w) w->J = (float*)q;
   q = take(sizeof(float) * (size_t)O); if (w) w->w = (float*)q;
   q = take(sizeof(float) * 2 * (size_t)O); if (w) w->r = (float*)q;
-  q = take(sizeof(float) * 6 * K);  if (w) w->bp = (float*)q;
+  q = take(sizeof(float) * 27 * K);
+  if (w) {
+    w->bp = (float*)q;
+    w->Hpp = w->bp + 6 * K;
+  }
   q = take(sizeof(float) * 3 * P);  if (w) w->bl = (float*)q;
-  q = take(sizeof(float) * 21 * K); if (w) w->Hpp = (float*)q;
   q = take(sizeof(float) * 6 * P);  if (w) w->Hll = (float*)q;
   q = take(sizeof(float) * 6 * K);  if (w) w->hp = (float*)q;
   q = take(sizeof(float) * 3 * P);  if (w) w->tl = (float*)q;
@@ -429,45 +451,102 @@ __global__ void final_cost_kernel(Ws w, float* cost_out) { *cost_out = (float)*c
 
 inline int blocks(long long n) { return n_blocks(n); }
 
+// one shard of a solve: its start state (overwritten with the result), its
+// observations and points, its workspace and its inlier mask
+struct Shard {
+  float* R;
+  float* t;
+  float* pts;
+  Prob q;
+  Ws w;
+  bool* inl;
+};
+
 template <class C>
-int solve(float* Rf, float* tf, float* pf, const Prob& q, const C& cam, int n_iters, int cg_iters,
-          bool huber, float chi2_th, Ws& w, void* inliers, void* cost_out, cudaStream_t st) {
-  const int K = q.K, P = q.P, O = q.O;
+int solve(int n, Shard* sh, ShardComm& cm, const C& cam, int n_iters, int cg_iters, bool huber,
+          float chi2_th, void* cost_out) {
+  const int K = sh[0].q.K;
   cudaError_t e;
-  init_kernel<<<1, 1, 0, st>>>(w);
-  if ((e = build_lists(q.obs_kf, q.obs_mp, q.valid, K, P, O, w.L, st)) != cudaSuccess)
-    return (int)e;
-  const int nbP = blocks(P);
-  for (int it = 0; it < n_iters; ++it) {
-    build_kernel<C><<<blocks(O), kThreads, 0, st>>>(Rf, tf, pf, q, cam, huber, w);
-    reduce_kernel<<<K + nbP, kThreads, 0, st>>>(q, w);
-    invert_kernel<<<blocks(K + P), kThreads, 0, st>>>(q, w);
-    w_y_kernel<<<K, kThreads, 0, st>>>(q, w);
-    reduce_rhs_kernel<<<blocks(K), kThreads, 0, st>>>(q, w);
-    for (int c = 0; c < cg_iters; ++c) {
-      wt_v_kernel<<<nbP, kThreads, 0, st>>>(q, w, c);
-      point_solve_kernel<<<nbP, kThreads, 0, st>>>(q, w);
-      w_y_kernel<<<K, kThreads, 0, st>>>(q, w);
-      cg_a_kernel<<<blocks(K), kThreads, 0, st>>>(q, w, c, cg_iters);
-      cg_b_kernel<<<blocks(K), kThreads, 0, st>>>(q, w, c, cg_iters);
-    }
-    wt_v_kernel<<<nbP, kThreads, 0, st>>>(q, w, -1);
-    retract_kernel<<<blocks(K + P), kThreads, 0, st>>>(Rf, tf, pf, q, w);
-    cost_kernel<C><<<blocks(O), kThreads, 0, st>>>(q, cam, huber, w);
-    accept_kernel<<<blocks(K + P), kThreads, 0, st>>>(Rf, tf, pf, q, w);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  float* red[kMaxShards];
+  float* hp[kMaxShards];
+  double* c_old[kMaxShards];
+  double* c_new[kMaxShards];
+  for (int s = 0; s < n; ++s) {
+    red[s] = sh[s].w.bp;
+    hp[s] = sh[s].w.hp;
+    c_old[s] = sh[s].w.sc;       // cost_old
+    c_new[s] = sh[s].w.sc + 1;   // cost_new
   }
-  orthonormalize_kernel<<<blocks(K), kThreads, 0, st>>>(Rf, K);
-  classify_kernel<C><<<blocks(O), kThreads, 0, st>>>(Rf, tf, pf, q, cam, chi2_th, (bool*)inliers,
-                                                     w);
-  final_cost_kernel<<<1, 1, 0, st>>>(w, (float*)cost_out);
+// the statement for every shard, on its device and stream
+#define EACH(...)                                                     \
+  for (int s = 0; s < n; ++s) {                                       \
+    if ((e = use_shard(cm, s)) != cudaSuccess) return (int)e;         \
+    Shard& S = sh[s];                                                 \
+    const cudaStream_t st = cm.st[s];                                 \
+    const int nbP = blocks(S.q.P);                                    \
+    (void)nbP;                                                        \
+    __VA_ARGS__;                                                      \
+  }
+#define SUM(ptrs, count) \
+  if ((e = allreduce(cm, ptrs, count)) != cudaSuccess) return (int)e;
+  EACH(init_kernel<<<1, 1, 0, st>>>(S.w);
+       if ((e = build_lists(S.q.obs_kf, S.q.obs_mp, S.q.valid, K, S.q.P, S.q.O, S.w.L, st)) !=
+           cudaSuccess) return (int)e)
+  for (int it = 0; it < n_iters; ++it) {
+    EACH(build_kernel<C><<<blocks(S.q.O), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, cam, huber,
+                                                               S.w);
+         reduce_kernel<<<K + nbP, kThreads, 0, st>>>(S.q, S.w))
+    SUM(red, 27LL * K)
+    SUM(c_old, 1)
+    EACH(invert_kernel<<<blocks(K + S.q.P), kThreads, 0, st>>>(S.q, S.w);
+         w_y_kernel<<<K, kThreads, 0, st>>>(S.q, S.w))
+    SUM(hp, 6LL * K)
+    EACH(reduce_rhs_kernel<<<blocks(K), kThreads, 0, st>>>(S.q, S.w))
+    for (int c = 0; c < cg_iters; ++c) {
+      EACH(wt_v_kernel<<<nbP, kThreads, 0, st>>>(S.q, S.w, c);
+           point_solve_kernel<<<nbP, kThreads, 0, st>>>(S.q, S.w);
+           w_y_kernel<<<K, kThreads, 0, st>>>(S.q, S.w))
+      SUM(hp, 6LL * K)
+      EACH(cg_a_kernel<<<blocks(K), kThreads, 0, st>>>(S.q, S.w, c, cg_iters);
+           cg_b_kernel<<<blocks(K), kThreads, 0, st>>>(S.q, S.w, c, cg_iters))
+    }
+    EACH(wt_v_kernel<<<nbP, kThreads, 0, st>>>(S.q, S.w, -1);
+         retract_kernel<<<blocks(K + S.q.P), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, S.w);
+         cost_kernel<C><<<blocks(S.q.O), kThreads, 0, st>>>(S.q, cam, huber, S.w))
+    SUM(c_new, 1)
+    EACH(accept_kernel<<<blocks(K + S.q.P), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, S.w);
+         if ((e = cudaGetLastError()) != cudaSuccess) return (int)e)
+  }
+  EACH(orthonormalize_kernel<<<blocks(K), kThreads, 0, st>>>(S.R, K);
+       classify_kernel<C><<<blocks(S.q.O), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, cam, chi2_th,
+                                                              S.inl, S.w))
+  SUM(c_new, 1)
+#undef EACH
+#undef SUM
+  if ((e = use_shard(cm, 0)) != cudaSuccess) return (int)e;
+  final_cost_kernel<<<1, 1, 0, cm.st[0]>>>(sh[0].w, (float*)cost_out);
   return (int)cudaGetLastError();
+}
+
+int solve_cam(int n, Shard* sh, ShardComm& cm, float fx, float fy, float cx, float cy,
+              const float* kb8, int n_iters, int cg_iters, bool huber, float chi2_th,
+              void* cost_out) {
+  if (kb8 != nullptr)
+    return solve(n, sh, cm, CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, n_iters,
+                 cg_iters, huber, chi2_th, cost_out);
+  return solve(n, sh, cm, Cam{fx, fy, cx, cy}, n_iters, cg_iters, huber, chi2_th, cost_out);
 }
 
 }  // namespace
 
 extern "C" long long ba_schur_workspace_bytes(int K, int P, int O, int cg_iters) {
   return (long long)carve(nullptr, nullptr, K, P, O, cg_iters);
+}
+
+// K30's peer route: bytes of the n slots on shard 0's device (the largest
+// summed range: bp and the Hpp blocks)
+extern "C" long long ba_schur_gather_bytes(int n, int K) {
+  return (long long)n * (long long)align16(sizeof(float) * 27 * (size_t)K);
 }
 
 // R (K,9), t (K,3), pts (P,3): the start state, overwritten with the result.
@@ -479,16 +558,59 @@ extern "C" int ba_schur_launch(void* R, void* t, void* pts, const void* obs_kf, 
                                int n_iters, int cg_iters, int use_huber, float chi2_th, void* ws,
                                void* inliers, void* cost_out, void* stream) {
   if (K <= 0 || P <= 0 || O <= 0 || n_iters < 0 || cg_iters < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  Ws w;
-  carve(&w, static_cast<uint8_t*>(ws), K, P, O, cg_iters);
-  const Prob q{(const int*)obs_kf, (const int*)obs_mp, (const float*)obs_uv, (const float*)isig,
-               (const bool*)valid, (const bool*)fixed_kf, (const bool*)fixed_mp, K, P, O};
-  const bool huber = use_huber != 0;
-  if (kb8 != nullptr)
-    return solve((float*)R, (float*)t, (float*)pts, q,
-                 CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, n_iters, cg_iters, huber,
-                 chi2_th, w, inliers, cost_out, st);
-  return solve((float*)R, (float*)t, (float*)pts, q, Cam{fx, fy, cx, cy}, n_iters, cg_iters, huber,
-               chi2_th, w, inliers, cost_out, st);
+  Shard sh;
+  sh.R = (float*)R;
+  sh.t = (float*)t;
+  sh.pts = (float*)pts;
+  sh.q = Prob{(const int*)obs_kf, (const int*)obs_mp, (const float*)obs_uv, (const float*)isig,
+              (const bool*)valid, (const bool*)fixed_kf, (const bool*)fixed_mp, K, P, O};
+  carve(&sh.w, static_cast<uint8_t*>(ws), K, P, O, cg_iters);
+  sh.inl = (bool*)inliers;
+  ShardComm cm;
+  cm.st[0] = (cudaStream_t)stream;
+  return solve_cam(1, &sh, cm, fx, fy, cx, cy, kb8, n_iters, cg_iters, use_huber != 0,
+                        chi2_th, cost_out);
+}
+
+// K30: n shards of Ps points and Os observations each.  devs (n,) the CUDA
+// device of each shard; tab (n, 13) host rows of pointers: R (K,9), t (K,3)
+// (each shard's copy of the start poses), pts (Ps,3), obs_kf, obs_mp (local
+// to the shard), obs_uv, isig, valid (Os), fixed_kf (K), fixed_mp (Ps), the
+// shard's workspace (ba_schur_workspace_bytes(K, Ps, Os, cg_iters)), its
+// inlier mask (Os) and its stream.  gather: ba_schur_gather_bytes(n, K) on
+// devs[0] when the devices differ, else null.  The result: every shard's R,
+// t (equal), pts and inliers; cost_out (float32, on devs[0]) the final sum
+// of chi2 over every shard.  The caller's current device is kept.
+extern "C" int ba_schur_sharded_launch(int n, const int* devs, const long long* tab, int K,
+                                       int Ps, int Os, float fx, float fy, float cx, float cy,
+                                       const float* kb8, int n_iters, int cg_iters,
+                                       int use_huber, float chi2_th, void* gather,
+                                       void* cost_out) {
+  if (n < 1 || n > kMaxShards || K <= 0 || Ps <= 0 || Os <= 0 || n_iters < 0 || cg_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  Shard sh[kMaxShards];
+  cudaStream_t sts[kMaxShards];
+  for (int s = 0; s < n; ++s) {
+    const long long* r = tab + 13 * (size_t)s;
+    sh[s].R = (float*)r[0];
+    sh[s].t = (float*)r[1];
+    sh[s].pts = (float*)r[2];
+    sh[s].q = Prob{(const int*)r[3], (const int*)r[4], (const float*)r[5], (const float*)r[6],
+                   (const bool*)r[7], (const bool*)r[8], (const bool*)r[9], K, Ps, Os};
+    carve(&sh[s].w, (uint8_t*)r[10], K, Ps, Os, cg_iters);
+    sh[s].inl = (bool*)r[11];
+    sts[s] = (cudaStream_t)r[12];
+  }
+  int prev;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  ShardComm cm;
+  e = comm_open(cm, n, devs, sts, gather, (size_t)ba_schur_gather_bytes(1, K));
+  int err = (int)e;
+  if (e == cudaSuccess)
+    err = solve_cam(n, sh, cm, fx, fy, cx, cy, kb8, n_iters, cg_iters, use_huber != 0,
+                         chi2_th, cost_out);
+  comm_close(cm);
+  cudaSetDevice(prev);
+  return err;
 }

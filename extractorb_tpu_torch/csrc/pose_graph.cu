@@ -1,5 +1,5 @@
 // K13 pose_graph: Levenberg-Marquardt over the Sim3 essential graph with a
-// matrix-free block-Jacobi PCG.
+// matrix-free block-Jacobi PCG; and K31, the same solve over n edge shards.
 //
 // Replaces extractorb_tpu/solver/pose_graph.py:optimize_pose_graph, which
 // the TPU runs as a lax.scan of LM steps over a vmapped jacfwd of the edge
@@ -32,14 +32,29 @@
 // float32 digits to cancellation; a float32 solve then ends ~1e-5 from the
 // float64 optimum, the kernel ~1e-7 (its output's rounding).
 //
+// K31 replaces extractorb_tpu/dist/sharded_pose_graph.py:
+// optimize_sharded_pose_graph (a shard_map over a device mesh): shard s
+// holds edges [s Es, (s+1) Es) (padded edges have weight 0) and a copy of
+// the vertices.  It runs K13's kernels on its own edges, shard by shard, and
+// where the JAX program psums, the shards' partials are summed in shard
+// order (shard_sum.cuh): the gradient, the 7x7 blocks and the current cost
+// after the gather, the Hessian-vector product after each hv pass, the
+// candidate cost before the accept.  The vertex-side steps (inverses, PCG
+// vectors and dot products, retraction, accept) then run on every shard on
+// the same sums, so the shards' vertices stay equal, as the replicated
+// values of the shard_map do.
+//
 // Every sum runs in a fixed order (no float atomics), so a solve gives one
 // result per input, as the JAX program does: the vertex sums over the
 // index-ordered lists, the scalars (costs, r.z, p.Ap) as per-CTA partials
-// summed in block order by the last CTA (det_reduce.cuh's reduce_store).
+// summed in block order by the last CTA (det_reduce.cuh's reduce_store),
+// the shards in shard order.
 //
 // Bound on the H100: launch latency.  A graph of ~200 vertices and ~1500
 // edges is microseconds of arithmetic per pass; the 3 cg_iters + 7
-// dependent launches of each LM iteration set the time.
+// dependent launches of each LM iteration set the time.  K31 on n shards of
+// one card launches each pass n times plus a small sum kernel at each
+// reduction.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,7 +89,7 @@ struct Ws {
   real* r;    // (E,7)
   real* Ji;   // (E,49)
   real* Jj;   // (E,49)
-  real* g;    // (K,7)
+  real* g;    // (K,7), followed by Hd (one range for the cross-shard sum)
   real* Hd;   // (K,49)
   real* h;    // (K,7)
   real* M;    // (K,49)
@@ -147,6 +162,7 @@ __device__ double warp_sum_d(double v) {
 }
 
 #include "det_reduce.cuh"  // block_scan_into, reduce_store
+#include "shard_sum.cuh"
 
 // the vertex lists: counts, offsets, then one CTA per vertex compacts the
 // edge ends that touch it, in index order
@@ -492,10 +508,82 @@ __global__ void init_kernel(Ws w) {
 
 inline int blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
+// one shard of a solve: its copy of the vertices (overwritten with the
+// result), its edges, its workspace and its cost
+struct Shard {
+  real* R;
+  real* t;
+  real* s;
+  Graph q;
+  Ws w;
+  real* cost_out;
+};
+
+int solve(int n, Shard* sh, ShardComm& cm, int n_iters, int cg_iters) {
+  const int K = sh[0].q.K;
+  cudaError_t e;
+  real* gH[kMaxShards];
+  real* h[kMaxShards];
+  double* c_old[kMaxShards];
+  double* c_new[kMaxShards];
+  for (int s = 0; s < n; ++s) {
+    gH[s] = sh[s].w.g;
+    h[s] = sh[s].w.h;
+    c_old[s] = sh[s].w.sc;       // cost_old
+    c_new[s] = sh[s].w.sc + 1;   // cost_new
+  }
+// the statement for every shard, on its device and stream
+#define EACH(...)                                                     \
+  for (int s = 0; s < n; ++s) {                                       \
+    if ((e = use_shard(cm, s)) != cudaSuccess) return (int)e;         \
+    Shard& S = sh[s];                                                 \
+    const cudaStream_t st = cm.st[s];                                 \
+    const int eb = blocks(S.q.E > 0 ? S.q.E : 1);                     \
+    (void)eb;                                                         \
+    __VA_ARGS__;                                                      \
+  }
+#define SUM(ptrs, count) \
+  if ((e = allreduce(cm, ptrs, count)) != cudaSuccess) return (int)e;
+  EACH(if ((e = cudaMemsetAsync(S.cost_out, 0, sizeof(real), st)) != cudaSuccess) return (int)e;
+       if ((e = cudaMemsetAsync(S.w.cnt, 0, sizeof(int) * (size_t)K, st)) != cudaSuccess)
+           return (int)e;
+       init_kernel<<<1, 1, 0, st>>>(S.w);
+       vl_count<<<eb, kThreads, 0, st>>>(S.q.ei, S.q.ej, S.q.E, S.w.cnt);
+       vl_scan<<<1, kScanThreads, 0, st>>>(S.w.cnt, K, S.w.off);
+       vl_fill<<<K, kThreads, 0, st>>>(S.q.ei, S.q.ej, S.q.E, S.w.off, S.w.list))
+  for (int it = 0; it < n_iters; ++it) {
+    EACH(build_kernel<<<eb, kThreads, 0, st>>>(S.R, S.t, S.s, S.q, S.w);
+         gather_kernel<<<blocks(32LL * K), kThreads, 0, st>>>(S.q, S.w))
+    SUM(gH, 56LL * K)
+    SUM(c_old, 1)
+    EACH(invert_kernel<<<blocks(K), kThreads, 0, st>>>(S.q, S.w))
+    for (int c = 0; c < cg_iters; ++c) {
+      EACH(hv_kernel<<<blocks(32LL * K), kThreads, 0, st>>>(S.q, S.w, c))
+      SUM(h, 7LL * K)
+      EACH(cg_a_kernel<<<blocks(7 * K), kThreads, 0, st>>>(S.q, S.w, c, cg_iters);
+           cg_b_kernel<<<blocks(K), kThreads, 0, st>>>(S.q, S.w, c, cg_iters))
+    }
+    EACH(retract_kernel<<<blocks(K), kThreads, 0, st>>>(S.R, S.t, S.s, S.q, S.w);
+         cost_kernel<<<eb, kThreads, 0, st>>>(S.q, S.w))
+    SUM(c_new, 1)
+    EACH(accept_kernel<<<blocks(K), kThreads, 0, st>>>(S.R, S.t, S.s, S.q, S.w, S.cost_out);
+         if ((e = cudaGetLastError()) != cudaSuccess) return (int)e)
+  }
+#undef EACH
+#undef SUM
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" long long pose_graph_workspace_bytes(int K, int E, int cg_iters) {
   return (long long)carve(nullptr, nullptr, K, E, cg_iters);
+}
+
+// K31's peer route: bytes of the n slots on shard 0's device (the largest
+// summed range: the gradient and the 7x7 blocks)
+extern "C" long long pose_graph_gather_bytes(int n, int K) {
+  return (long long)n * (long long)align16(sizeof(real) * 56 * (size_t)K);
 }
 
 // R (K,9), t (K,3), s (K,): the start state, overwritten with the result;
@@ -506,35 +594,53 @@ extern "C" int pose_graph_launch(void* R, void* t, void* s, const void* ei, cons
                                  const void* fixed, int K, int E, int n_iters, int cg_iters,
                                  int fix_scale, void* ws, void* cost_out, void* stream) {
   if (K <= 0 || E < 0 || n_iters < 0 || cg_iters < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  Ws w;
-  carve(&w, static_cast<uint8_t*>(ws), K, E, cg_iters);
-  const Graph q{(const int*)ei, (const int*)ej, (const real*)mR, (const real*)mt,
-                (const real*)ms, (const real*)wt, (const bool*)fixed, K, E, fix_scale != 0};
-  real* Rf = (real*)R;
-  real* tf = (real*)t;
-  real* sf = (real*)s;
-  cudaError_t e;
-  if ((e = cudaMemsetAsync(cost_out, 0, sizeof(real), st)) != cudaSuccess) return (int)e;
-  if ((e = cudaMemsetAsync(w.cnt, 0, sizeof(int) * (size_t)K, st)) != cudaSuccess) return (int)e;
-  init_kernel<<<1, 1, 0, st>>>(w);
-  const int eb = blocks(E > 0 ? E : 1);
-  vl_count<<<eb, kThreads, 0, st>>>(q.ei, q.ej, E, w.cnt);
-  vl_scan<<<1, kScanThreads, 0, st>>>(w.cnt, K, w.off);
-  vl_fill<<<K, kThreads, 0, st>>>(q.ei, q.ej, E, w.off, w.list);
-  for (int it = 0; it < n_iters; ++it) {
-    build_kernel<<<eb, kThreads, 0, st>>>(Rf, tf, sf, q, w);
-    gather_kernel<<<blocks(32LL * K), kThreads, 0, st>>>(q, w);
-    invert_kernel<<<blocks(K), kThreads, 0, st>>>(q, w);
-    for (int c = 0; c < cg_iters; ++c) {
-      hv_kernel<<<blocks(32LL * K), kThreads, 0, st>>>(q, w, c);
-      cg_a_kernel<<<blocks(7 * K), kThreads, 0, st>>>(q, w, c, cg_iters);
-      cg_b_kernel<<<blocks(K), kThreads, 0, st>>>(q, w, c, cg_iters);
-    }
-    retract_kernel<<<blocks(K), kThreads, 0, st>>>(Rf, tf, sf, q, w);
-    cost_kernel<<<eb, kThreads, 0, st>>>(q, w);
-    accept_kernel<<<blocks(K), kThreads, 0, st>>>(Rf, tf, sf, q, w, (real*)cost_out);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  Shard sh;
+  sh.R = (real*)R;
+  sh.t = (real*)t;
+  sh.s = (real*)s;
+  sh.q = Graph{(const int*)ei, (const int*)ej, (const real*)mR, (const real*)mt,
+               (const real*)ms, (const real*)wt, (const bool*)fixed, K, E, fix_scale != 0};
+  carve(&sh.w, static_cast<uint8_t*>(ws), K, E, cg_iters);
+  sh.cost_out = (real*)cost_out;
+  ShardComm cm;
+  cm.st[0] = (cudaStream_t)stream;
+  return solve(1, &sh, cm, n_iters, cg_iters);
+}
+
+// K31: n shards of Es edges each.  devs (n,) the CUDA device of each shard;
+// tab (n, 13) host rows of pointers: R (K,9), t (K,3), s (K,) (each shard's
+// copy of the start vertices), ei, ej, mR, mt, ms, w (its Es edges), fixed
+// (K), its workspace (pose_graph_workspace_bytes(K, Es, cg_iters)), its cost
+// and its stream; all reals float64.  gather: pose_graph_gather_bytes(n, K)
+// on devs[0] when the devices differ, else null.  Every shard ends with the
+// same vertices and cost.  The caller's current device is kept.
+extern "C" int pose_graph_sharded_launch(int n, const int* devs, const long long* tab, int K,
+                                         int Es, int n_iters, int cg_iters, int fix_scale,
+                                         void* gather) {
+  if (n < 1 || n > kMaxShards || K <= 0 || Es < 0 || n_iters < 0 || cg_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  Shard sh[kMaxShards];
+  cudaStream_t sts[kMaxShards];
+  for (int s = 0; s < n; ++s) {
+    const long long* r = tab + 13 * (size_t)s;
+    sh[s].R = (real*)r[0];
+    sh[s].t = (real*)r[1];
+    sh[s].s = (real*)r[2];
+    sh[s].q = Graph{(const int*)r[3], (const int*)r[4], (const real*)r[5], (const real*)r[6],
+                    (const real*)r[7], (const real*)r[8], (const bool*)r[9], K, Es,
+                    fix_scale != 0};
+    carve(&sh[s].w, (uint8_t*)r[10], K, Es, cg_iters);
+    sh[s].cost_out = (real*)r[11];
+    sts[s] = (cudaStream_t)r[12];
   }
-  return (int)cudaGetLastError();
+  int prev;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  ShardComm cm;
+  e = comm_open(cm, n, devs, sts, gather, (size_t)pose_graph_gather_bytes(1, K));
+  int err = (int)e;
+  if (e == cudaSuccess) err = solve(n, sh, cm, n_iters, cg_iters);
+  comm_close(cm);
+  cudaSetDevice(prev);
+  return err;
 }

@@ -1,17 +1,17 @@
 """Global bundle adjustment after a loop correction (port of
-``extractorb_tpu/dist/global_ba.py``, one device).
+``extractorb_tpu/dist/global_ba.py``).
 
 Replaces LoopClosing::RunGlobalBundleAdjustment (reference
 src/LoopClosing.cc:2430): the whole active map is refined by the Schur
-LM solver (``dist/sharded_ba.optimize_schur``, kernel K14 on the card).
-The problem is built once on the host in the JAX module's layout (points
-in contiguous shard blocks, observations grouped by their point's shard
-and padded to a multiple of 128); on one device that is one shard.  The
-solve is dispatched without waiting (``PendingGBA``) and applied on a
-later keyframe event or at ``finish``, which also propagates the
-correction to keyframes and points outside the problem through the
-spanning tree and the points' reference keyframes (LoopClosing.cc
-:2430+8-66).
+LM solver over the device mesh (``dist/sharded_ba.optimize_schur``: kernel
+K14 on one card, K30 over n shards).  The problem is built once on the
+host in the JAX module's layout (points in contiguous shard blocks,
+observations grouped by their point's shard and padded to a multiple of
+128), one shard per device of ``make_mesh()``.  The solve is dispatched
+without waiting (``PendingGBA``) and applied on a later keyframe event or
+at ``finish``, which also propagates the correction to keyframes and
+points outside the problem through the spanning tree and the points'
+reference keyframes (LoopClosing.cc :2430+8-66).
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ from .. import kernels
 from ..core.camera import Camera
 from ..solver import ba as sba
 from ..utils.packed_fetch import pack_fetch
-from .sharded_ba import optimize_schur
+from . import mesh as dmesh
+from .sharded_ba import optimize_schur, shard_layout
 
 
 def build_global_problem(mp, inv_sigma2: Sequence[float], n_shards: int,
@@ -45,8 +46,6 @@ def build_global_problem(mp, inv_sigma2: Sequence[float], n_shards: int,
     if len(pt_ids) < 8:
         return None
     P = len(pt_ids)
-    Ps = -(-P // n_shards)
-    P_pad = Ps * n_shards
 
     lookup = np.full(len(mp.mp_valid), -1, np.int32)
     lookup[pt_ids] = np.arange(P, dtype=np.int32)
@@ -69,41 +68,13 @@ def build_global_problem(mp, inv_sigma2: Sequence[float], n_shards: int,
     if len(obs_kf) < 16:
         return None
 
-    shard_of = obs_mp // Ps
-    order = np.argsort(shard_of, kind="stable")
-    obs_kf, obs_mp = obs_kf[order], obs_mp[order]
-    obs_uv, obs_sig = obs_uv[order], obs_sig[order]
-    shard_of = shard_of[order]
-    counts = np.bincount(shard_of, minlength=n_shards)
-    Os = int(np.ceil(max(int(counts.max()), 1) / 128) * 128)
-    O_pad = Os * n_shards
-    okf = np.zeros(O_pad, np.int32)
-    omp = np.zeros(O_pad, np.int32)
-    ouv = np.zeros((O_pad, 2), np.float32)
-    osig = np.ones(O_pad, np.float32)
-    oval = np.zeros(O_pad, bool)
-    start = 0
-    for s in range(n_shards):
-        n = int(counts[s])
-        dst = s * Os
-        okf[dst:dst + n] = obs_kf[start:start + n]
-        omp[dst:dst + n] = obs_mp[start:start + n]
-        ouv[dst:dst + n] = obs_uv[start:start + n]
-        osig[dst:dst + n] = obs_sig[start:start + n]
-        oval[dst:dst + n] = True
-        omp[dst + n:dst + Os] = s * Ps   # padding addresses a point of its own shard
-        start += n
-
+    pts, fixed_mp, okf, omp, ouv, osig, oval = shard_layout(
+        mp.mp_pos[pt_ids], np.zeros(P, bool), obs_kf, obs_mp, obs_uv, obs_sig, n_shards)
     Rs = np.stack([mp.keyframes[k].R for k in kf_ids]).astype(np.float32)
     ts = np.stack([mp.keyframes[k].t for k in kf_ids]).astype(np.float32)
     fixed = np.array([k in fixed_ids for k in kf_ids])
     if not fixed.any():
         fixed[0] = True
-    pts = np.zeros((P_pad, 3), np.float32)
-    pts[:, 2] = 1.0                  # padded points off the camera plane
-    pts[:P] = mp.mp_pos[pt_ids]
-    fixed_mp = np.ones(P_pad, bool)
-    fixed_mp[:P] = False
 
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     prob = sba.BAProblem(R=to(Rs), t=to(ts), points=to(pts), obs_kf=to(okf), obs_mp=to(omp),
@@ -115,10 +86,11 @@ def build_global_problem(mp, inv_sigma2: Sequence[float], n_shards: int,
 class PendingGBA:
     """A dispatched-but-unfetched global BA (reference: the transient
     RunGlobalBundleAdjustment thread, LoopClosing.cc:1013+231, :2430).  On
-    the card a CUDA event recorded after the dispatch tells whether the
-    solve has finished; CPU results are always ready.  ``apply`` fetches
-    the result, writes it back, erases outlier observations and
-    propagates the correction."""
+    the card a CUDA event recorded after the dispatch (on the card that
+    holds the result: the shards' points gathered back there in global
+    order) tells whether the solve has finished; CPU results are always
+    ready.  ``apply`` fetches the result, writes it back, erases outlier
+    observations and propagates the correction."""
 
     def __init__(self, res, fixed, kf_ids, pt_ids, obs_kf, obs_mp, obs_valid, old_poses, mid):
         self.res = res
@@ -133,7 +105,7 @@ class PendingGBA:
         self.event = None
         if res.R.is_cuda:
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(res.R.device))
 
     def is_ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -163,25 +135,29 @@ class PendingGBA:
 
 
 def dispatch_global_ba(mp, cam: Camera, inv_sigma2: Sequence[float], device, n_iters: int = 10,
-                       world_size: int = 1,
+                       mesh: Optional[dmesh.Mesh] = None,
                        fixed_ids: Optional[Set[int]] = None) -> Optional[PendingGBA]:
-    """Build and dispatch the full-map BA without waiting; None when the
-    map is too small.  ``world_size`` > 1 raises (ROADMAP A.14)."""
-    built = build_global_problem(mp, inv_sigma2, world_size, fixed_ids, device)
+    """Build and dispatch the full-map BA over ``mesh`` (None:
+    ``make_mesh`` of ``device``'s kind, every visible card or the CPU)
+    without waiting; None when the map is too small."""
+    if mesh is None:
+        mesh = dmesh.make_mesh(device=kernels.resolve_device(device, "the global BA"))
+    built = build_global_problem(mp, inv_sigma2, mesh.size, fixed_ids, device)
     if built is None:
         return None
     prob, kf_ids, pt_ids, obs_kf, obs_mp, obs_valid = built
     old_poses = {k: (mp.keyframes[k].R.copy(), mp.keyframes[k].t.copy()) for k in kf_ids}
-    res = optimize_schur(prob, cam, n_iters=n_iters, world_size=world_size)
+    res = optimize_schur(prob, cam, n_iters=n_iters, mesh=mesh)
     return PendingGBA(res=res, fixed=prob.fixed_kf.cpu().numpy(), kf_ids=kf_ids, pt_ids=pt_ids,
                       obs_kf=obs_kf, obs_mp=obs_mp, obs_valid=obs_valid, old_poses=old_poses,
                       mid=mp.mid)
 
 
 def run_global_ba(mp, cam: Camera, inv_sigma2: Sequence[float], device, n_iters: int = 10,
-                  world_size: int = 1, fixed_ids: Optional[Set[int]] = None) -> bool:
+                  mesh: Optional[dmesh.Mesh] = None,
+                  fixed_ids: Optional[Set[int]] = None) -> bool:
     """Synchronous full-map BA: dispatch and apply.  True when a BA ran."""
-    pending = dispatch_global_ba(mp, cam, inv_sigma2, device, n_iters, world_size, fixed_ids)
+    pending = dispatch_global_ba(mp, cam, inv_sigma2, device, n_iters, mesh, fixed_ids)
     if pending is None:
         return False
     return pending.apply(mp)

@@ -34,7 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9,
 # K10, K12, K17, K18, K24, K25's scoring, K26, K27 and K28 must round like their plain
 # PyTorch versions (K1, K3, K8, K11, K15 and K16 are integer code or copies; K4, K6,
-# K13, K14 and K19-K23 are bound by latency, not float throughput).
+# K13, K14, K19-K23, K30 and K31 are bound by latency and K29 by bytes, not float
+# throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
@@ -109,6 +110,9 @@ _SIGNATURES = {
     # ws, cost, stream
     "pose_graph_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P, _P, _P),
+    # n, devs (host int32 per shard), tab (host int64 (n, 13): R, t, s, ei, ej, mR, mt, ms,
+    # w, fixed, ws, cost, stream), K, Es, n_iters, cg_iters, fix_scale, gather
+    "pose_graph_sharded_launch": (_I, _P, _P, _I, _I, _I, _I, _I, _P),
     # R, t, ei, ej, mR, mt, w, fixed, K, E, n_iters, cg_iters, ws, cost, stream
     "pose_graph_4dof_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # R, t, pts, obs_kf, obs_mp, obs_uv, isig, valid, fixed_kf, fixed_mp, K, P, O,
@@ -116,6 +120,14 @@ _SIGNATURES = {
     # use_huber, chi2_th, ws, inliers, cost, stream
     "ba_schur_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _F, _F, _F, _F, _P, _I, _I, _I, _F, _P, _P, _P, _P),
+    # n, devs (host int32 per shard), tab (host int64 (n, 13): R, t, pts, obs_kf, obs_mp,
+    # obs_uv, isig, valid, fixed_kf, fixed_mp, ws, inliers, stream), K, Ps, Os, fx, fy, cx,
+    # cy, kb8 (host float32 k1..k4; null: pinhole), n_iters, cg_iters, use_huber, chi2_th,
+    # gather, cost
+    "ba_schur_sharded_launch": (_I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _I, _I, _I, _F,
+                                _P, _P),
+    # hists, has, valid, q, K, W, scores, common, stream
+    "place_dense_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _P),
     # img, flat, tables, tab(host ptr), stream
     "pyramid_launch": (_P, _P, _P, _P, _P),
     # keep, score, tab(host ptr), xy, resp, valid, stream
@@ -164,13 +176,16 @@ _SIGNATURES = {
     "pose_graph_workspace_bytes": (_I, _I, _I),
     "pose_graph_4dof_workspace_bytes": (_I, _I),
     "ba_schur_workspace_bytes": (_I, _I, _I, _I),
+    "ba_schur_gather_bytes": (_I, _I),
+    "pose_graph_gather_bytes": (_I, _I),
     "vi_ba_workspace_bytes": (_I, _I, _I, _I),
     "inertial_init_workspace_bytes": (_I,),
 }
 # return types other than the launch status (an int cudaError_t)
 _RESTYPES = {"two_view_workspace_bytes": _L, "ba_workspace_bytes": _L,
              "pose_graph_workspace_bytes": _L, "pose_graph_4dof_workspace_bytes": _L,
-             "ba_schur_workspace_bytes": _L,
+             "ba_schur_workspace_bytes": _L, "ba_schur_gather_bytes": _L,
+             "pose_graph_gather_bytes": _L,
              "vi_ba_workspace_bytes": _L, "inertial_init_workspace_bytes": _L}
 
 _lib = None

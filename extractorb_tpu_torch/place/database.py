@@ -12,8 +12,14 @@ L1-normalised vectors
 
 The words of a query come from ``Vocabulary.bow_sparse`` on the
 database's ``device`` (kernel K11 on the card); a caller that already has
-a keyframe's BoW passes it as ``bow``.  The JAX module's optional
-mesh-sharded scoring (``dist/kf_blocks``) is ROADMAP B.26 / A.14.
+a keyframe's BoW passes it as ``bow``.
+
+``enable_device_backend(mesh)`` scores places on the device mesh instead,
+as the JAX module does: dense per-keyframe histograms, one block of
+keyframes per shard (``dist/kf_blocks``, kernel K29 on a card), rebuilt
+when the entries change.  Dense rows are W floats each, so the backend is
+taken only for vocabularies of at most ``max_dense_words`` words; the host
+CSR pass stays the default at ORBvoc scale (~1M words).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from .. import kernels
+from ..dist import kf_blocks as kfb
 
 
 class KeyFrameDatabase:
@@ -36,10 +43,32 @@ class KeyFrameDatabase:
         self._cat_weights: Optional[np.ndarray] = None
         self._cat_row: Optional[np.ndarray] = None
         self._row_ids: Optional[np.ndarray] = None
+        self._mesh = None
+        self._max_dense_words = 1 << 16
+        self._rev = 0            # bumped on every mutation
+        self._dev_rev = -1       # the revision the device arena holds
+        self._dev_arena = None   # KF-sharded (hists, has_word, valid)
 
     def enable_device_backend(self, mesh, max_dense_words: int = 1 << 16):
-        raise NotImplementedError("KeyFrameDatabase: the mesh-sharded dense scoring "
-                                  "(dist/kf_blocks) is not ported (ROADMAP B.26, A.14)")
+        """Score places on ``mesh`` (the host pass's scores within float32
+        rounding; None turns the backend off)."""
+        self._mesh = mesh
+        self._max_dense_words = max_dense_words
+        self._dirty = True
+        self._dev_arena = None
+
+    def _device_arena(self):
+        """The dense histograms, shared-word masks and row validity of the
+        entries, padded to the mesh and KF-sharded; rebuilt after a change."""
+        if self._dev_arena is None or self._dev_rev != self._rev:
+            self._dev_rev = self._rev
+            cw, cwt, crow, row_ids = self._arena()
+            K, n = len(row_ids), self._mesh.size
+            hists = np.zeros((K, self.vocab.n_words), np.float32)
+            hists[crow, cw] = cwt
+            blocks = [kfb.pad_to_mesh(a, n) for a in (hists, hists > 0, np.ones(K, bool))]
+            self._dev_arena = tuple(kfb.shard_kf_axis(self._mesh, a) for a in blocks)
+        return self._dev_arena
 
     def __len__(self) -> int:
         return len(self.entries)
@@ -50,6 +79,7 @@ class KeyFrameDatabase:
     def add(self, kf_id: int, descs: np.ndarray, valid=None, bow=None):
         self.entries[kf_id] = self._bow(descs, valid, bow)
         self._dirty = True
+        self._rev += 1
 
     def rekey(self, old_id: int, new_id: int):
         """Rename an entry (welded keyframes get new ids after a merge)."""
@@ -57,11 +87,13 @@ class KeyFrameDatabase:
         if e is not None:
             self.entries[new_id] = e
             self._dirty = True
+        self._rev += 1
 
     def erase(self, kf_id: int):
         """Drop a culled keyframe's entry (KeyFrameDatabase::erase)."""
         if self.entries.pop(kf_id, None) is not None:
             self._dirty = True
+        self._rev += 1
 
     def _arena(self):
         if self._dirty:
@@ -122,13 +154,18 @@ class KeyFrameDatabase:
             return []
         qv = np.zeros(self.vocab.n_words, np.float32)
         qv[q_ids] = q_w
-        qg = qv[cw]
-        shared = qg > 0
-        common = np.zeros(K, np.int64)
-        np.add.at(common, crow[shared], 1)
-        contrib = 0.5 * (cwt + qg - np.abs(cwt - qg))
-        scores = np.zeros(K, np.float64)
-        np.add.at(scores, crow, contrib)
+        if self._mesh is not None and self.vocab.n_words <= self._max_dense_words:
+            sc, cm = kfb.sharded_place_scores(self._mesh, *self._device_arena(), qv)
+            scores = kfb.gather_host(sc)[:K].astype(np.float64)
+            common = kfb.gather_host(cm)[:K].astype(np.int64)
+        else:
+            qg = qv[cw]
+            shared = qg > 0
+            common = np.zeros(K, np.int64)
+            np.add.at(common, crow[shared], 1)
+            contrib = 0.5 * (cwt + qg - np.abs(cwt - qg))
+            scores = np.zeros(K, np.float64)
+            np.add.at(scores, crow, contrib)
 
         live = np.ones(K, bool)
         if exclude:

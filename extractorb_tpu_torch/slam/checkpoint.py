@@ -322,4 +322,5 @@ def load_session(path: str, cfg, vocab=None, device=None):
                                     np.asarray(z["db_weights"][off:off + ln]))
             off += int(ln)
         db._dirty = True
+        db._rev += 1   # the device backend's arena too
     return tr

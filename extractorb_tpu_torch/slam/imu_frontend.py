@@ -413,10 +413,11 @@ def full_inertial_ba(mp, calib: ImuCalib, cam: Camera, prior_g: float = 1.0,
     """FullInertialBA (reference src/Optimizer.cc:420): the joint
     visual-inertial BA over the whole temporal chain, the first keyframe
     fixed and the biases anchored by priors.  One device only: a mesh of
-    more than one device is ROADMAP A.14."""
+    more than one shard (the sharded K20 of ``optimize_vi_sharded``) is
+    ROADMAP A.14.2."""
     if mesh is not None and int(np.prod(list(mesh.shape.values()))) > 1:
-        raise NotImplementedError("full_inertial_ba on a mesh of more than one device is not "
-                                  "ported (ROADMAP A.14)")
+        raise NotImplementedError("full_inertial_ba on a mesh of more than one shard is not "
+                                  "ported (ROADMAP A.14.2)")
     device = kernels.resolve_device(device, "the full inertial BA")
     kids, Rwb, twb, preints, valids = _temporal_chain(mp, calib)
     K = len(kids)

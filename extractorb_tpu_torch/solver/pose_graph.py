@@ -35,6 +35,7 @@ import torch
 
 from .. import kernels
 from ..core import lie
+from ..dist.mesh import shard_sum
 
 
 class PoseGraphProblem(NamedTuple):
@@ -80,46 +81,59 @@ def _build(p: PoseGraphProblem, R, t, s, jac: bool = True):
     return r, torch.stack(cols_i, -1), torch.stack(cols_j, -1)
 
 
-def _lm_block_jacobi(p, state, build, retract, free, B: int, n_iters: int, cg_iters: int):
+def _lm_block_jacobi(p, state, build, retract, free, B: int, n_iters: int, cg_iters: int,
+                     n_shards: int = 1):
     """The plain LM both essential graphs run: ``build(state, jac)`` gives
     the edge residuals and, with ``jac``, both ends' Jacobians (E,r,B);
     ``retract(state, d)`` the candidate state for the step ``d`` (K,B);
     ``free`` masks the fixed coordinates ((K,B) or (K,1)).  Each iteration
     solves the damped normal equations by ``cg_iters`` sweeps of PCG with a
     BxB block-Jacobi preconditioner and keeps the step only when the cost
-    falls (lambda x0.5, else x4).  Returns (state, the last candidate's
-    cost)."""
+    falls (lambda x0.5, else x4).  Over ``n_shards`` edge shards (E / n
+    consecutive edges each) the gradient, the blocks, the Hessian-vector
+    products and the costs are per-shard partials summed by ``shard_sum``.
+    Returns (state, the last candidate's cost)."""
     K = p.R.shape[0]
     dt = p.t.dtype
     dev = p.t.device
-    ei, ej = p.edge_i.long(), p.edge_j.long()
+    E = p.edge_i.shape[0]
+    if E % n_shards:
+        raise ValueError(f"pose graph: {E} edges on {n_shards} shards")
+    # each end's vertex in its shard's block of n x K partial rows
+    shard_of = torch.arange(E, device=dev) // (E // n_shards) * K
+    ei, ej = p.edge_i.long() + shard_of, p.edge_j.long() + shard_of
     w = p.weight.to(dt) * p.edge_valid.to(dt)
     I = torch.eye(B, dtype=dt, device=dev)
 
-    def seg(vals, idx, shape):
-        return torch.zeros(shape, dtype=dt, device=dev).index_add_(0, idx, vals)
+    def seg2(a, b):
+        """Each shard's segment sums of ``a`` over its edges' i ends plus
+        ``b`` over their j ends, then the shards summed in order."""
+        z = lambda vals, idx: torch.zeros((n_shards * K,) + vals.shape[1:], dtype=dt,
+                                          device=dev).index_add_(0, idx, vals)
+        per = z(a, ei) + z(b, ej)
+        return shard_sum(list(per.view((n_shards, K) + a.shape[1:]).unbind(0)))
 
     def cost(st):
         r2 = build(st, False)
-        return torch.sum(torch.where(p.edge_valid, torch.sum(r2 * r2, -1) * p.weight, 0.0))
+        c = torch.where(p.edge_valid, torch.sum(r2 * r2, -1) * p.weight, 0.0)
+        return torch.sum(c) if n_shards == 1 else shard_sum(list(torch.sum(
+            c.view(n_shards, -1), 1).unbind(0)))
 
     lam = torch.tensor(1e-4, dtype=dt, device=dev)
     c_new = torch.tensor(0.0, dtype=dt, device=dev)
     for _ in range(n_iters):
         r, Ji, Jj = build(state, True)
         Jiw, Jjw = Ji * w[:, None, None], Jj * w[:, None, None]
-        g = (seg(torch.einsum("eif,ei->ef", Jiw, r), ei, (K, B))
-             + seg(torch.einsum("eif,ei->ef", Jjw, r), ej, (K, B))) * free
-        Hd = (seg(torch.einsum("eif,eig->efg", Jiw, Ji), ei, (K, B, B))
-              + seg(torch.einsum("eif,eig->efg", Jjw, Jj), ej, (K, B, B)))
+        g = seg2(torch.einsum("eif,ei->ef", Jiw, r), torch.einsum("eif,ei->ef", Jjw, r)) * free
+        Hd = seg2(torch.einsum("eif,eig->efg", Jiw, Ji), torch.einsum("eif,eig->efg", Jjw, Jj))
         M = torch.linalg.inv(Hd + lam * I[None])
 
         def hv(v):
             v = v * free
-            u = torch.einsum("eif,ef->ei", Ji, v[ei]) + torch.einsum("eif,ef->ei", Jj, v[ej])
+            vi, vj = v[p.edge_i.long()], v[p.edge_j.long()]
+            u = torch.einsum("eif,ef->ei", Ji, vi) + torch.einsum("eif,ef->ei", Jj, vj)
             uw = u * w[:, None]
-            h = (seg(torch.einsum("eif,ei->ef", Ji, uw), ei, (K, B))
-                 + seg(torch.einsum("eif,ei->ef", Jj, uw), ej, (K, B)))
+            h = seg2(torch.einsum("eif,ei->ef", Ji, uw), torch.einsum("eif,ei->ef", Jj, uw))
             return h * free + lam * v
 
         precond = lambda v: torch.einsum("kfg,kg->kf", M, v) * free
@@ -147,8 +161,10 @@ def _lm_block_jacobi(p, state, build, retract, free, B: int, n_iters: int, cg_it
 
 
 def optimize_pose_graph_plain(p: PoseGraphProblem, n_iters: int = 15, cg_iters: int = 50,
-                              fix_scale: bool = False):
-    """Plain version of ``optimize_pose_graph`` (same arguments)."""
+                              fix_scale: bool = False, n_shards: int = 1):
+    """Plain version of ``optimize_pose_graph`` (same arguments); with
+    ``n_shards`` the plain version of the edge-sharded solve
+    (``dist/sharded_pose_graph.py``)."""
     K = p.R.shape[0]
     free = (~p.fixed).to(p.t.dtype)[:, None].expand(K, 7).clone()
     if fix_scale:
@@ -161,7 +177,7 @@ def optimize_pose_graph_plain(p: PoseGraphProblem, n_iters: int = 15, cg_iters: 
 
     (R, t, s), c = _lm_block_jacobi(p, (p.R, p.t, p.s),
                                     lambda st, jac: _build(p, *st, jac=jac), retract, free, 7,
-                                    n_iters, cg_iters)
+                                    n_iters, cg_iters, n_shards)
     return R, t, s, c
 
 

@@ -1,0 +1,292 @@
+"""The device mesh of the port (``extractorb_tpu_torch/dist/``) against the
+JAX package's ``dist/`` on its virtual 8-device CPU mesh.
+
+The port's mesh is one process driving an ordered list of devices; here
+``use_devices([cpu] * 8)`` gives it the JAX suite's eight shards.  The same
+seeded numpy inputs go through both: the dense place scores (K29's plain
+version) within 1e-5 with the counts and the -inf rows equal, the
+covisibility gather bit-equal, a keyframe database with the device backend
+against JAX's with it and against the port's host pass (the same ids,
+scores within 1e-5, after an erase and a rekey), ``relayout_for_schur``
+bit-equal on 4 and 8 shards, the landmark-sharded Schur GBA on
+``make_mesh(4)`` within 1e-3 of ``optimize_schur_sharded`` and of the
+port's one-shard solve, and the edge-sharded essential graph on 8 shards
+within 1e-4 of JAX's, both ways of ``fix_scale``.  On a card, K29, K30 and
+K31 hold to their plain versions over shards that share the card, and K30
+and K31 give one result over 20 calls on one input.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from extractorb_tpu.dist import kf_blocks as jkfb
+from extractorb_tpu.dist import mesh as jmesh
+from extractorb_tpu.dist import sharded_ba as jsba
+from extractorb_tpu.dist import sharded_pose_graph as jspg
+from extractorb_tpu.place.database import KeyFrameDatabase as JDatabase
+from extractorb_tpu.solver import ba as jba
+from extractorb_tpu.solver import pose_graph as jpg
+from extractorb_tpu_torch.dist import kf_blocks as kfb
+from extractorb_tpu_torch.dist import mesh as dmesh
+from extractorb_tpu_torch.dist import sharded_ba, sharded_pose_graph
+from extractorb_tpu_torch.place.database import KeyFrameDatabase
+from extractorb_tpu_torch.slam import imu_frontend
+from test_torch_sim3 import CAM, gba_problem, jproject
+from test_torch_vocab import groups, vocabs  # noqa: F401  (pytest fixture)
+from torch_card import cuda_device, one_torch_thread  # noqa: F401  (pytest fixtures)
+
+CPU = torch.device("cpu")
+CPU8 = [CPU] * 8
+
+
+def j(a):
+    return jnp.asarray(a.numpy())
+
+
+# ------------------------------------------------------------------ mesh
+
+
+def test_mesh_devices_and_shard_sum():
+    assert dmesh.make_mesh(device="cpu").devices == (CPU,)
+    with dmesh.use_devices(CPU8):
+        m = dmesh.make_mesh()
+        assert m.shape == {"shard": 8} and m.size == 8 and m.devices == tuple(CPU8)
+        assert dmesh.make_mesh(4).shape == {"shard": 4}
+        with dmesh.use_devices([CPU] * 2):
+            assert dmesh.make_mesh().size == 2
+        assert dmesh.make_mesh().size == 8
+    assert dmesh.make_mesh(device="cpu").size == 1
+    # shard order: shard 0 first, the sum of float32 partials in that order
+    parts = [torch.tensor([1e8], dtype=torch.float32), torch.tensor([1.0]),
+             torch.tensor([-1e8])]
+    assert float(dmesh.shard_sum(parts)) == float((parts[0] + parts[1]) + parts[2]) == 0.0
+    x = torch.ones(3)
+    assert dmesh.shard_sum([x]) is x
+
+
+# ------------------------------------------------- keyframe blocks (K29)
+
+
+def place_inputs():
+    """tests/test_dist_ba.py:156-166's inputs (the last three rows invalid),
+    and one row with no word of the query's."""
+    hists, has_word, valid, q = chip_smoke.place_problem(np.random.default_rng(0), 24, 64)
+    q[has_word[7]] = 0.0
+    return hists, has_word, valid, q
+
+
+@pytest.mark.parametrize("K", [24, 21])
+def test_place_scores_match_jax(K):
+    """K29's plain version against JAX's on 8 shards; K = 21 is padded to
+    the mesh (the padded rows invalid)."""
+    hists, has_word, valid, q = place_inputs()
+    hists, has_word, valid = (kfb.pad_to_mesh(a[:K], 8) for a in (hists, has_word, valid))
+    jm = jmesh.make_mesh(8)
+    js, jc = jkfb.sharded_place_scores(jm, *[jkfb.shard_kf_axis(jm, jnp.asarray(a))
+                                             for a in (hists, has_word, valid)], jnp.asarray(q))
+    with dmesh.use_devices(CPU8):
+        m = dmesh.make_mesh()
+        blocks = [kfb.shard_kf_axis(m, a) for a in (hists, has_word, valid)]
+        assert [b.shape[0] for b in blocks[0]] == [3] * 8
+        ts, tc = kfb.sharded_place_scores(m, *blocks, torch.from_numpy(q))
+        ps, pc = kfb.sharded_place_scores_plain(m, *blocks, torch.from_numpy(q))
+    ts, tc, js, jc = kfb.gather_host(ts), kfb.gather_host(tc), np.asarray(js), np.asarray(jc)
+    np.testing.assert_array_equal(np.isinf(ts), np.isinf(js))
+    np.testing.assert_array_equal(np.isinf(ts), ~valid)
+    np.testing.assert_allclose(ts[valid], js[valid], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(tc, jc)
+    assert tc[7] == 0 and tc.dtype == np.int32
+    assert np.array_equal(kfb.gather_host(ps), ts) and np.array_equal(kfb.gather_host(pc), tc)
+    assert int(np.argmax(ts)) == 5
+
+
+def test_all_gather_kf_blocks_bit_equal():
+    rng = np.random.default_rng(1)
+    desc = rng.integers(0, 256, (24, 32, 32), np.uint8)
+    idx = np.array([5, 17, 2, 23, 0], np.int32)
+    jm = jmesh.make_mesh(8)
+    want = np.asarray(jkfb.all_gather_kf_blocks(jm, jkfb.shard_kf_axis(jm, jnp.asarray(desc)),
+                                                jnp.asarray(idx)))
+    with dmesh.use_devices(CPU8):
+        m = dmesh.make_mesh()
+        got = kfb.all_gather_kf_blocks(m, kfb.shard_kf_axis(m, desc), torch.from_numpy(idx))
+    assert len(got) == 8
+    for g in got:
+        np.testing.assert_array_equal(g.numpy(), want)
+    np.testing.assert_array_equal(want, desc[idx])
+
+
+@pytest.mark.parametrize("mode", ["plain", "covis", "reloc", "min-score"])
+def test_database_device_backend(vocabs, mode):
+    """tests/test_place_sharded.py for the port: JAX's database with its
+    device backend on 8 devices, the port's on 8 CPU shards and the port's
+    host pass, after an erase and a rekey, in every query mode."""
+    _, jv, tv = vocabs
+    rng = np.random.default_rng(7)
+    kfs, covis = groups(18, rng)
+    jdb, tdb, hdb = JDatabase(jv), KeyFrameDatabase(tv, device="cpu"), \
+        KeyFrameDatabase(tv, device="cpu")
+    jdb.enable_device_backend(jmesh.make_mesh(8))
+    with dmesh.use_devices(CPU8):
+        tdb.enable_device_backend(dmesh.make_mesh())
+    for i, d in enumerate(kfs):
+        valid = rng.random(400) < 0.95
+        for db in (jdb, tdb, hdb):
+            db.add(i, d, valid)
+    q = kfs[2].copy()
+    q[rng.random(400) < 0.2] = rng.integers(0, 256, 32, dtype=np.uint8)
+    assert tdb.query(q, n_best=5)   # the arena before the mutations
+    for db in (jdb, tdb, hdb):
+        db.erase(5)
+        db.rekey(6, 60)
+    kw = {"plain": dict(exclude={2}, n_best=5),
+          "covis": dict(exclude={2, 3}, n_best=3, covis_fn=covis),
+          "reloc": dict(n_best=5, covis_fn=covis, rel_score_ratio=0.75),
+          "min-score": dict(exclude={2}, covis_fn=covis,
+                            min_score=jdb.min_score_against([10, 14, 99], q))}[mode]
+    jr, tr, hr = jdb.query(q, **kw), tdb.query(q, **kw), hdb.query(q, **kw)
+    assert jr and [k for k, _ in tr] == [k for k, _ in jr] == [k for k, _ in hr]
+    for other in (jr, hr):
+        np.testing.assert_allclose([s for _, s in tr], [s for _, s in other], rtol=0, atol=1e-5)
+    assert tdb._dev_arena[0][0].shape[0] == 3   # 17 entries padded to 24 rows on 8 shards
+
+
+def test_unported_refusals():
+    with dmesh.use_devices([CPU] * 4):
+        m = dmesh.make_mesh()
+        with pytest.raises(NotImplementedError, match="A.14.3"):
+            kfb.sharded_loop_candidate_match(m, None, None, None, None)
+        with pytest.raises(NotImplementedError, match="A.14.3"):
+            sharded_ba.optimize_sharded(m, gba_problem(), CAM)
+        with pytest.raises(NotImplementedError, match="A.14.2"):
+            imu_frontend.full_inertial_ba(None, None, CAM, mesh=m, device="cpu")
+
+
+# ------------------------------------------------------ landmark-sharded GBA
+
+
+def jprob(p):
+    return jba.BAProblem(*[j(a) for a in p[:10]])
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_relayout_for_schur_bit_equal(n):
+    p = gba_problem()
+    t = sharded_ba.relayout_for_schur(p, n)
+    jr = jsba.relayout_for_schur(jprob(p), n)
+    for name in jba.BAProblem._fields:
+        a, b = getattr(t, name), getattr(jr, name)
+        if b is None:   # the stereo column
+            assert a is None
+            continue
+        assert a.dtype == torch.from_numpy(np.array(b)).dtype, name
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    assert t.obs_kf.shape[0] % (128 * n) == 0 and t.points.shape[0] % n == 0
+
+
+@pytest.fixture(scope="module")
+def schur4():
+    p = sharded_ba.relayout_for_schur(gba_problem(), 4)
+    with dmesh.use_devices(CPU8):
+        r = sharded_ba.optimize_schur(p, CAM, mesh=dmesh.make_mesh(4))
+    return p, r
+
+
+def test_sharded_schur_matches_jax(schur4):
+    p, r = schur4
+    jr = jsba.optimize_schur_sharded(jmesh.make_mesh(4), jprob(p), jproject)
+    for name in ("R", "t", "points"):
+        np.testing.assert_allclose(getattr(r, name).numpy(), np.asarray(getattr(jr, name)),
+                                   atol=1e-3, err_msg=name)
+    np.testing.assert_array_equal(r.inliers.numpy(), np.asarray(jr.inliers))
+    assert float(r.cost) == pytest.approx(float(jr.cost), rel=1e-3)
+
+
+def test_sharded_schur_matches_one_shard(schur4):
+    p, r = schur4
+    one = sharded_ba.optimize_schur(p, CAM)
+    for name in ("R", "t", "points"):
+        np.testing.assert_allclose(getattr(r, name).numpy(), getattr(one, name).numpy(),
+                                   atol=1e-3, err_msg=name)
+    assert torch.equal(r.inliers, one.inliers)
+    assert float(r.cost) == pytest.approx(float(one.cost), rel=1e-3)
+    assert float(r.cost) < 0.9 * float(sharded_ba.optimize_schur(p, CAM, n_iters=0).cost)
+
+
+# ------------------------------------------------------ edge-sharded graph
+
+
+def padded_graph(n: int, dev=CPU):
+    """chip_smoke.pose_graph_problem(K=40) padded with invalid edges to a
+    multiple of n."""
+    return chip_smoke.pad_graph(chip_smoke.pose_graph_problem(np.random.default_rng(9), dev,
+                                                              K=40), n)
+
+
+@pytest.mark.parametrize("fix_scale", [False, True])
+def test_sharded_pose_graph_matches_jax(fix_scale):
+    p = padded_graph(8)
+    with dmesh.use_devices(CPU8):
+        R, t, s, c = sharded_pose_graph.optimize_sharded_pose_graph(dmesh.make_mesh(), p,
+                                                                    fix_scale=fix_scale)
+    jR, jt, js, jc = jspg.optimize_sharded_pose_graph(
+        jmesh.make_mesh(8), jpg.PoseGraphProblem(*[j(a) for a in p]), fix_scale=fix_scale)
+    for a, b in ((R, jR), (t, jt), (s, js)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+    assert float(c) == pytest.approx(float(jc), rel=1e-3)
+    if fix_scale:
+        assert torch.equal(s, torch.ones_like(s))
+
+
+# ------------------------------------------------------ card (K29-K31)
+
+
+@pytest.mark.gpu
+def test_place_kernel_matches_plain(cuda_device):
+    hists, has_word, valid, q = place_inputs()
+    with dmesh.use_devices([cuda_device] * 4):
+        m = dmesh.make_mesh()
+        blocks = [kfb.shard_kf_axis(m, kfb.pad_to_mesh(a, 4)) for a in (hists, has_word, valid)]
+        ks, kc = kfb.sharded_place_scores(m, *blocks, torch.from_numpy(q))
+        ps, pc = kfb.sharded_place_scores_plain(m, *blocks, torch.from_numpy(q))
+    ks, ps = kfb.gather_host(ks), kfb.gather_host(ps)
+    np.testing.assert_array_equal(np.isinf(ks), np.isinf(ps))
+    np.testing.assert_allclose(ks[valid], ps[valid], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(kfb.gather_host(kc), kfb.gather_host(pc))
+
+
+@pytest.mark.gpu
+def test_sharded_kernels_match_plain(cuda_device):
+    p = sharded_ba.relayout_for_schur(gba_problem(cuda_device), 4)
+    pg_ = padded_graph(4, cuda_device)
+    with dmesh.use_devices([cuda_device] * 4):
+        m = dmesh.make_mesh()
+        bk = sharded_ba.optimize_schur(p, CAM, mesh=m)
+        bp = sharded_ba.optimize_schur_plain(p, CAM, mesh=m)
+        gk = sharded_pose_graph.optimize_sharded_pose_graph(m, pg_)
+        gp = sharded_pose_graph.optimize_sharded_pose_graph_plain(m, chip_smoke.graph_f64(pg_))
+    for name in ("R", "t", "points"):
+        assert float((getattr(bk, name) - getattr(bp, name)).abs().max()) <= 1e-3, name
+    assert torch.equal(bk.inliers, bp.inliers)
+    for a, b in zip(gk[:3], gp[:3]):
+        assert float((a.double() - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_sharded_kernels_deterministic(cuda_device):
+    """K30 and K31 with fixed-order sums over 4 shards of one card: 20 calls
+    on one input, one result each."""
+    p = sharded_ba.relayout_for_schur(gba_problem(cuda_device), 4)
+    pg_ = padded_graph(4, cuda_device)
+    with dmesh.use_devices([cuda_device] * 4):
+        m = dmesh.make_mesh()
+        b0 = sharded_ba.optimize_schur(p, CAM, mesh=m)
+        g0 = sharded_pose_graph.optimize_sharded_pose_graph(m, pg_)
+        for _ in range(19):
+            b = sharded_ba.optimize_schur(p, CAM, mesh=m)
+            assert all(torch.equal(getattr(b, f), getattr(b0, f)) for f in b._fields)
+            g = sharded_pose_graph.optimize_sharded_pose_graph(m, pg_)
+            assert all(torch.equal(x, y) for x, y in zip(g, g0))

@@ -53,7 +53,8 @@ def test_every_module_imports_without_jax_cv2_triton_or_nvcc(tmp_path):
               "slam.tracking", "slam.system", "utils.packed_fetch", "frontend.stereo",
               "solver.pnp", "slam.checkpoint", "imu.calib", "imu.preintegration",
               "solver.inertial", "solver.marginal", "slam.imu_frontend", "utils.clahe",
-              "frontend.grid", "viz.frame_drawer", "demos.demo_frame"):
+              "frontend.grid", "viz.frame_drawer", "demos.demo_frame", "dist.mesh",
+              "dist.kf_blocks", "dist.sharded_pose_graph"):
         assert f"extractorb_tpu_torch.{m}" in MODULES, m
 
 
@@ -198,6 +199,7 @@ def _entry_points():
     import importlib
 
     from extractorb_tpu_torch.dist import global_ba
+    from extractorb_tpu_torch.dist import mesh
     from extractorb_tpu_torch.place.database import KeyFrameDatabase
     from extractorb_tpu_torch.slam import imu_frontend as front
     from extractorb_tpu_torch.slam import merge
@@ -207,6 +209,8 @@ def _entry_points():
         "LoopCloser": lambda: LoopCloser(None, None),
         "KeyFrameDatabase": lambda: KeyFrameDatabase(None),
         "build_global_problem": lambda: global_ba.build_global_problem(None, [1.0], 1),
+        "dispatch_global_ba": lambda: global_ba.dispatch_global_ba(None, None, [1.0], None),
+        "make_mesh": lambda: mesh.make_mesh(),
         "ImuQueue": lambda: front.ImuQueue(None),
         "integrate_raw": lambda: front.integrate_raw(None, None, None),
         "integrate_raw_host": lambda: front.integrate_raw_host(None, None, None),

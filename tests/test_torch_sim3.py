@@ -7,9 +7,10 @@ forward-mode Jacobians at zero within 1e-5, Horn within 1e-5, the RANSAC
 with JAX's draws patched in (the same count and mask, the Sim3 within
 1e-4), OptimizeSim3 with and without a fixed scale, the pose graph with
 and without a fixed scale (poses within 1e-4) and the one-shard Schur GBA
-against ``optimize_schur_sharded`` on a one-device mesh (within 1e-3).  On
-a card, K12-K14 hold to their plain versions, and K13 and K14 give one
-result over 20 calls on one input (fixed-order sums).
+against ``optimize_schur_sharded`` on a one-device mesh (within 1e-3), and
+the GBA on four landmark shards against one.  On a card, K12-K14 hold to
+their plain versions, and K13 and K14 give one result over 20 calls on one
+input (fixed-order sums).
 """
 
 import jax
@@ -28,6 +29,7 @@ from extractorb_tpu.solver import ba as jba
 from extractorb_tpu.solver import pose_graph as jpg
 from extractorb_tpu_torch.core import lie
 from extractorb_tpu_torch.core.camera import Pinhole
+from extractorb_tpu_torch.dist import mesh as dmesh
 from extractorb_tpu_torch.dist import sharded_ba
 from extractorb_tpu_torch.geometry import sim3
 from extractorb_tpu_torch.solver import pose_graph
@@ -182,8 +184,17 @@ def test_schur_gba_matches_one_device_mesh():
     assert float(r.cost) == pytest.approx(float(j.cost), rel=1e-3)
     assert float(r.cost) < 0.9 * float(sharded_ba.optimize_schur(p, CAM, n_iters=0).cost)
     np.testing.assert_array_equal(r.inliers.numpy(), np.asarray(j.inliers))
-    with pytest.raises(NotImplementedError, match="A.14"):
-        sharded_ba.optimize_schur(p, CAM, world_size=4)
+    # four landmark shards (the layout of relayout_for_schur) on CPU shards:
+    # the one-shard solution, the padded points fixed at z = 1
+    p4 = sharded_ba.relayout_for_schur(p, 4)
+    with dmesh.use_devices([CPU] * 4):
+        r4 = sharded_ba.optimize_schur(p4, CAM, mesh=dmesh.make_mesh())
+    P = p.points.shape[0]
+    for a, b in ((r4.R, r.R), (r4.t, r.t), (r4.points[:P], r.points)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-3)
+    assert float(r4.cost) == pytest.approx(float(r.cost), rel=1e-3)
+    assert int(r4.inliers.sum()) == int(r.inliers.sum())
+    assert torch.equal(r4.points[P:], p4.points[P:])
 
 
 # ------------------------------------------------------------ card (K12-K14)

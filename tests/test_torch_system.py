@@ -29,6 +29,7 @@ from extractorb_tpu.core import lie as jlie
 from extractorb_tpu.slam.system import System as JSystem
 from extractorb_tpu_torch.config import CameraConfig, IMUConfig, ORBConfig
 from extractorb_tpu_torch.core import lie
+from extractorb_tpu_torch.dist.mesh import make_mesh
 from extractorb_tpu_torch.geometry import two_view
 from extractorb_tpu_torch.slam.system import System
 from extractorb_tpu_torch.slam.tracking import TrackState
@@ -152,7 +153,7 @@ def test_vocabulary_raises(tmp_path):
     """A vocabulary turns on the loop closer and its keyframe database
     (tests/test_torch_system_loop.py); ``vocab_path`` reads the ORBvoc text
     format or the npz of ``Vocabulary.save``, and raises on a missing
-    file.  The database's mesh-sharded scoring is not ported (B.26)."""
+    file.  The database's device backend scores as its host pass."""
     from extractorb_tpu_torch.place.vocab import Vocabulary, save_orbvoc_text
 
     cfg = chip_smoke.system_config(W, H, NF)
@@ -165,5 +166,14 @@ def test_vocabulary_raises(tmp_path):
         assert db is not None and db.vocab.n_words == voc.n_words
     with pytest.raises(FileNotFoundError):
         System(cfg, vocab_path=str(tmp_path / "missing.txt"), device="cpu")
-    with pytest.raises(NotImplementedError, match="B.26"):
-        System(cfg, vocab=voc, device="cpu").tracker.loop_closer.db.enable_device_backend(None)
+    # the database's device backend on the CPU's one-shard mesh: the host
+    # pass's candidates
+    db = System(cfg, vocab=voc, device="cpu").tracker.loop_closer.db
+    descs = [rng.integers(0, 256, (200, 32), dtype=np.uint8) for _ in range(6)]
+    for i, d in enumerate(descs):
+        db.add(i, d)
+    host = db.query(descs[3], n_best=4)
+    db.enable_device_backend(make_mesh(device="cpu"))
+    dense = db.query(descs[3], n_best=4)
+    assert host[0][0] == 3 and [k for k, _ in dense] == [k for k, _ in host]
+    np.testing.assert_allclose([s for _, s in dense], [s for _, s in host], rtol=0, atol=1e-5)
