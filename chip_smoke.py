@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K31) from
+Builds the hand-written CUDA kernels (K1-K34) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
 version at the shapes of the main paths, counts the device kernels and
 host time of one extraction through the kernels and through the plain
@@ -42,9 +42,7 @@ sequence and times both, [pipelined] runs ``track_monocular`` at depth 3
 over [system]'s scene seen through TUM fr1's distorted pinhole (the graph
 against the eager step over the whole run, depth 0 beside it),
 [pipelined-stereo] / [pipelined-rgbd] run [stereo] / [rgbd] at depth 3
-and [pipelined-vi] runs [vi] at depth 3.  Then [det] counts the distinct
-results of 20 calls of K13 and of K14 on one input (one each: fixed-order
-sums), and the KB8 fisheye camera: [parity-kb8] holds K4 and K6 through
+and [pipelined-vi] runs [vi] at depth 3.  Then the KB8 fisheye camera: [parity-kb8] holds K4 and K6 through
 the KB8 camera template and K25 (MLPnP's RANSAC and refinement) to their
 plain versions, [kb8] runs ``System.track_monocular`` over [system]'s scene
 and motion seen through TUM-VI's 512x512 KB8 camera with 1500 features
@@ -65,7 +63,7 @@ to their plain versions (on a KB8 Sim3 scene, on every K12 and K14 call of
 [loop-kb8] and on its map's GBA problem), [merge-kb8] runs [merge] through
 the KB8 camera (``System(kb8 cfg, vocab)`` over the sweep seen through
 the fisheye) and [vi-loop-kb8] runs [vi-loop] on the KB8 inertial map
-(K23, K20<KB8>, K12<KB8>); [det] also counts K14<KB8>'s distinct results.
+(K23, K20<KB8>, K12<KB8>).
 Then the demos' path: [parity-clahe] holds K27 (CLAHE) and [parity-grid]
 K28 (the frame grid's cell lookup, bucketing and area mask) bit-equal to
 their plain versions, and [demos] runs the seven demo mains of
@@ -78,10 +76,16 @@ keyframe database's dense backend (K29 per shard and query), the essential
 graph edge-sharded (K31) and the GBA over landmark shards (K30), and holds
 the loop and the corrected keyframes to [loop]'s one-shard run;
 [parity-mesh] holds K29 (also at 1024 keyframes x 65536 words), K30 and
-K31 to their plain versions over those shards, and K30 to K14; [det] also
-counts K30's and K31's distinct results.  On one card the shards' partial
-sums meet in one kernel; the peer route between cards runs only where
-there are several.
+K31 to their plain versions over those shards, and K30 to K14;
+[vi-loop-mesh] runs [vi-loop] over the same shards, its inertial GBA over
+landmark shards (K32 in place of K20); [mesh-api] calls the mesh's two
+functions no engine path calls, ``optimize_sharded`` (K33) on the [loop]
+map's problem and ``sharded_loop_candidate_match`` (K34) against its
+keyframes; [parity-mesh] holds K32 to its plain version and to K20, K33
+and K34 (also at 1024 keyframes x 1024 descriptors) to theirs; and [det]
+counts the distinct results of 20 calls of K13, K14, K14<KB8> and K30-K33.
+On one card the shards' partial sums meet in one kernel; the peer route
+between cards runs only where there are several (``chip_peer.py``).
 Any failure raises:
 the script then exits non-zero and never prints its last line.  It needs
 a CUDA card and nothing outside the repository (the scenes are generated
@@ -231,6 +235,13 @@ KERNELS.update({
                          "extractorb_tpu/dist/sharded_ba.py:258 (more than one shard)"),
     "pose_graph_sharded": ("extractorb_tpu_torch/csrc/pose_graph.cu + shard_sum.cuh",
                            "extractorb_tpu/dist/sharded_pose_graph.py:27"),
+    # the inertial loop closer over a device mesh (the [vi-loop-mesh] path) adds K32, and
+    # the mesh's two functions no engine path calls (the [mesh-api] path) K33 and K34
+    "vi_ba_sharded": ("extractorb_tpu_torch/csrc/vi_ba.cu + shard_sum.cuh",
+                      "extractorb_tpu/dist/sharded_ba.py:589"),
+    "ba_pcg_sharded": ("extractorb_tpu_torch/csrc/ba_pcg.cu + shard_sum.cuh",
+                       "extractorb_tpu/dist/sharded_ba.py:40"),
+    "kf_match": ("extractorb_tpu_torch/csrc/kf_match.cu", "extractorb_tpu/dist/kf_blocks.py:98"),
 })
 # the [system] run: the rendered sequence of tests/test_slam_e2e.py's
 # planar test at 640x480 / 1000 features, 30 frames at speed 0.04
@@ -286,7 +297,7 @@ KB8_TH_DEPTH = 35.0
 # [vi-stereo-kb8] and [vi-kb8]: [vi]'s trajectory, shortened to the frames
 # that reach the monocular IMU initialisation (2 s) and a second after it
 VI_KB8_FRAMES = 32
-# the [det] phase: calls of K13, K14, K30 and K31 on one input
+# the [det] phase: calls of K13, K14 and K30-K33 on one input
 DET_CALLS = 20
 # [parity-mesh] / [loop-mesh]: the shards of one card (or the visible cards,
 # when there are more than one); K29 also at an ORBvoc-scale dense block of
@@ -2442,6 +2453,214 @@ def phase_parity_mesh(loop_graph, dev) -> dict:
     return stats
 
 
+def vi_dist(a, b) -> float:
+    """The largest state or point difference of two VI BA results."""
+    return max(float((getattr(a, f).double() - getattr(b, f).double()).abs().max())
+               for f in ("Rwb", "twb", "v", "bg", "ba", "points"))
+
+
+def one_view_fixed(prob):
+    """``prob`` with its points seen by fewer than two valid observations
+    fixed: the well-posed part of the constructed map's GBA problem."""
+    n_obs = torch.bincount(prob.obs_mp[prob.obs_valid].long(), minlength=prob.points.shape[0])
+    return prob._replace(fixed_mp=prob.fixed_mp | (n_obs < 2))
+
+
+def candidate_problem(rng, K: int, N: int, Nq: int):
+    """K34's inputs: K keyframes of N random descriptors, a query of Nq
+    taken from keyframe 11 with every seventh replaced; ties (a query row
+    equal to two rows of keyframe 3, two query rows equal to one row of
+    keyframe 6, a keyframe of one repeated descriptor), keyframe 4 masked
+    and ~5% of the query rows and ~10% of the keyframe rows masked."""
+    desc = rng.integers(0, 256, (K, N, 32), np.uint8)
+    valid = rng.random((K, N)) < 0.9
+    q = desc[11, :Nq].copy()
+    q[::7] = rng.integers(0, 256, (len(q[::7]), 32), np.uint8)
+    qv = rng.random(Nq) < 0.95
+    desc[3, 9] = desc[3, 5]
+    q[2] = desc[3, 5]
+    q[40] = q[41] = desc[6, 7]
+    desc[8, :] = desc[8, 0]
+    q[50] = desc[8, 0]
+    valid[4] = False
+    return desc, valid, q, qv
+
+
+def phase_parity_mesh_rest(vi_call, dev) -> dict:
+    """[parity-mesh], the rest of the mesh: K32, K33 and K34 against their
+    plain versions on the shards of [vi-loop-mesh].
+
+    K32 on [vi-loop-mesh]'s own post-loop GBA call (7 LM x 40 PCG over its
+    shards): the map's single-observation points make the float32 PCG break
+    down (ROADMAP C, as K20's [parity] row), so on the raw inputs K32 is
+    held to the plain n-shard solve through two iterations and its result
+    must be finite; with the one-view points fixed, within 1e-4 of the plain
+    n-shard solve after all 7 iterations with the inliers equal, and within
+    1e-3 of K20 on the same problem as one shard (the n-shard sums run in
+    another order: the plain 4- and 1-shard solves of this problem part by
+    ~6e-4 on the CPU; K30 is held to K14 the same way).  K33 on a noisy problem
+    of tests/test_dist_ba.py::build_problem's size (6 keyframes, 100
+    points; 20 LM steps: after JAX's default 10 its float32 solves have not
+    converged, and the last accept decisions, taken on costs a few float32
+    ulps apart, part the plain solve from the float64 one by 2.1e-4 on the
+    CPU and by 2.5e-5 after 20) and on one of the [loop] map's size (10 LM
+    steps), two keyframes fixed: poses and points within 1e-4 of the plain
+    n-shard solve, inliers equal, cost within 1e-4.  K34 at the
+    test size and at 1024 keyframes x 1024 descriptors against a
+    1000-descriptor query (~34 MB): counts bit-equal."""
+    mesh, prob, cam, kw = vi_call
+    n = mesh.size
+    it, cg = kw["n_iters"], kw["cg_iters"]
+    k32 = lambda q, m: sharded_ba.optimize_vi_sharded(mesh, q, cam, n_iters=m, cg_iters=cg)
+    plain = lambda q, m: sin.optimize_vi_ba_plain(q, cam, n_iters=m, cg_iters=cg, mesh=mesh)
+    k20 = lambda q, m: sin.optimize_vi_ba(q, cam, n_iters=m, cg_iters=cg)
+    K, P, O = prob.Rwb.shape[0], prob.points.shape[0], prob.obs_kf.shape[0]
+    stats = {}
+
+    d2 = vi_dist(k32(prob, 2), plain(prob, 2))
+    vk = k32(prob, it)
+    finite = all(bool(torch.isfinite(getattr(vk, f)).all())
+                 for f in ("Rwb", "twb", "v", "bg", "ba", "points"))
+    line = (f"vi_ba_sharded [vi-loop-mesh] post-loop GBA on {n} shards K={K} P={P} O={O} ({it} "
+            f"LM x {cg} PCG): within {d2:.2e} of the plain {n}-shard solve after 2 iterations; "
+            f"after {it}: cost {float(vk.cost):.7g}, finite {finite}")
+    if not (d2 <= 1e-4 and finite):
+        raise AssertionError(line)
+    print(f"[parity-mesh] {line}", flush=True)
+    q = one_view_fixed(prob)
+    qk, (qp, plain_ms), q20 = k32(q, it), timed(lambda: plain(q, it)), k20(q, it)
+    d, d20 = vi_dist(qk, qp), vi_dist(qk, q20)
+    same = torch.equal(qk.inliers, qp.inliers) and torch.equal(qk.inliers, q20.inliers)
+    line = (f"vi_ba_sharded [vi-loop-mesh] post-loop GBA, the "
+            f"{int((q.fixed_mp & ~prob.fixed_mp).sum())} points seen by one keyframe fixed: "
+            f"states and points within {d:.2e} of the plain {n}-shard solve and {d20:.2e} of "
+            f"K20 on one shard, inliers equal {same}; cost {float(qk.cost):.7g} / plain "
+            f"{float(qp.cost):.7g} / K20 {float(q20.cost):.7g}")
+    if not (d <= 1e-4 and d20 <= 1e-3 and same):
+        raise AssertionError(line)
+    print(f"[parity-mesh] {line}", flush=True)
+    ov = int(prob.obs_valid.sum())
+    k32_ms, k20_ms = cuda_ms(lambda: k32(q, it), reps=3), cuda_ms(lambda: k20(q, it), reps=3)
+    print(f"[parity-mesh] vi_ba_sharded: {k32_ms:.3f} ms on {n} shards, K20 {k20_ms:.3f} ms on "
+          f"one, plain {n}-shard {plain_ms:.1f} ms", flush=True)
+    # work: K20's (as [parity]'s row) with the state side on every shard, and
+    # per reduction the n shards' partials read and the sums written back (27
+    # K floats and a cost per LM step, 6 K per product, 2 dots per PCG step)
+    stats["vi_ba_sharded"] = dict(record(
+        max(d, d2), k32_ms, plain_ms,
+        n * K * (84 + 1168 + 3) + P * 13 + O * 21 + 48 * n + K * 84 + P * 12 + O + 4,
+        it * (ov * (150 + cg * 80) + n * K * (2 * 16 * 2500 + cg * 2 * 15 * 30 * 2)
+              + P * cg * 30 + n * K * (27 + 6 * cg))), k20_ms=k20_ms)
+
+    # K33: observation-sharded, poses and points on every shard
+    rng = np.random.default_rng(16)
+    mp, _, _, _ = looped_map(dev)
+    gprob = global_ba.build_global_problem(mp, [1.0] * 8, 1, None, dev)[0]
+    Kb, Ob = gprob.R.shape[0], int(gprob.obs_valid.sum())
+    n_pts = Ob // Kb // 2
+    cam_l = loop_camera()
+    d33, rec33 = 0.0, None
+    for name, (nk, npt, it33) in (("build_problem's size", (6, 100, 20)),
+                                  ("[loop] map's size", (Kb, n_pts, 10))):
+        Op = -(-nk * npt // n) * n
+        prob_ = ba_problem(rng, dev, n_kf=nk, n_pts=npt, Kp=nk, Pp=npt, Op=Op)
+        bk = sharded_ba.optimize_sharded(mesh, prob_, cam_l, n_iters=it33)
+        bp, p_ms = timed(lambda: sharded_ba.optimize_sharded_plain(mesh, prob_, cam_l,
+                                                                   n_iters=it33))
+        dd = _ba_dist(bk, bp)
+        dc = abs(float(bk.cost) - float(bp.cost)) / float(bp.cost)
+        line = (f"ba_pcg_sharded {name} on {n} shards K={nk} P={npt} O={Op} ({it33} LM x 40 "
+                f"PCG): poses and points within {dd:.2e} of the plain {n}-shard solve, inliers "
+                f"equal {torch.equal(bk.inliers, bp.inliers)}, cost {float(bk.cost):.7g} / "
+                f"{float(bp.cost):.7g} ({dc:.2e} relative)")
+        if not (dd <= 1e-4 and dc <= 1e-4 and torch.equal(bk.inliers, bp.inliers)):
+            raise AssertionError(line)
+        print(f"[parity-mesh] {line}", flush=True)
+        d33 = max(d33, dd, dc)
+        ov = int(prob_.obs_valid.sum())
+        # work: K6's (as [parity]'s row, 10 LM x 40 PCG) with the pose and point
+        # side on every shard, and per reduction the n shards' partials read and
+        # the sums written back (6K + 3P + 21K + 6P per LM step, 6K + 3P per product)
+        rec33 = record(
+            d33, cuda_ms(lambda: sharded_ba.optimize_sharded(mesh, prob_, cam_l), reps=5), p_ms,
+            Op * 21 + npt * 13 * n + nk * 49 * n + nk * 48 + npt * 12 + Op + 4,
+            10 * (ov * (150 + 40 * 80) + n * (nk * 27 + npt * 9) * 2 * 41
+                  + n * (nk * 100 + npt * 40) * 41))
+    stats["ba_pcg_sharded"] = rec33
+
+    # K34: the keyframe-sharded candidate match
+    d34 = 0
+    for name, (K_, N_, Nq) in (("test size", (16, 64, 64)),
+                               ("1024 x 1024, a 1000-descriptor query", (1024, 1024, 1000))):
+        desc, valid, qd, qv = candidate_problem(rng, K_, N_, Nq)
+        blocks = [kfb.shard_kf_axis(mesh, a) for a in (desc, valid)]
+        qt = (torch.from_numpy(qd), torch.from_numpy(qv))
+        ck = kfb.gather_host(kfb.sharded_loop_candidate_match(mesh, *blocks, *qt))
+        cp, p_ms = timed(lambda: kfb.sharded_loop_candidate_match_plain(mesh, *blocks, *qt))
+        cp = kfb.gather_host(cp)
+        line = (f"kf_match {name} on {n} shards: counts equal {np.array_equal(ck, cp)}, best "
+                f"keyframe {int(np.argmax(ck))} ({int(ck.max())} mutual matches), keyframe 4 "
+                f"(masked) {int(ck[4])}")
+        if not (np.array_equal(ck, cp) and int(np.argmax(ck)) == 11 and ck[4] == 0):
+            raise AssertionError(line)
+        print(f"[parity-mesh] {line}", flush=True)
+        d34 = max(d34, int(np.abs(ck - cp).max()))
+    # work: every (query, keyframe descriptor) pair twice (the row and the
+    # column argmin), 8 XOR + 8 popcounts + 8 adds and a compare each; in: the
+    # descriptors and masks once, out: the counts
+    stats["kf_match"] = record(
+        float(d34), cuda_ms(lambda: kfb.sharded_loop_candidate_match(mesh, *blocks, *qt),
+                            reps=10), p_ms,
+        K_ * N_ * 33 + Nq * 33 + K_ * 4, 2 * K_ * N_ * Nq * 25)
+    return stats
+
+
+def phase_mesh_api(dev):
+    """[mesh-api]: the mesh's two functions that no engine path calls,
+    through their entry points over ``mesh_devices`` (the counts cleared
+    before and read after): ``optimize_sharded`` (K33) on the [loop] map's
+    global problem with its observations sharded and its free points moved
+    by 1 cm (seeded), and ``sharded_loop_candidate_match`` (K34) of keyframe
+    5's descriptors against every keyframe of the [loop] map,
+    keyframe-sharded.  The BA's sum of chi2 must fall and keyframe 5 must
+    hold the most matches.  Returns the launches."""
+    devs = mesh_devices(dev)
+    mesh = dmesh.Mesh(devs)
+    n = mesh.size
+    mp, _, _, _ = looped_map(dev)
+    gprob = global_ba.build_global_problem(mp, [1.0] * 8, 1, None, dev)[0]
+    noise = torch.from_numpy(np.random.default_rng(17).normal(
+        0, 0.01, tuple(gprob.points.shape)).astype(np.float32)).to(dev)
+    gprob = gprob._replace(points=gprob.points + noise * (~gprob.fixed_mp)[:, None])
+    O = gprob.obs_kf.shape[0]
+    if O % n:
+        raise AssertionError(f"[mesh-api] {O} observations on {n} shards")
+    kids = sorted(mp.keyframes)
+    desc = np.stack([mp.keyframes[k].desc for k in kids])
+    valid = np.stack([mp.keyframes[k].valid for k in kids])
+    qd, qv = desc[5], valid[5]
+    blocks = [kfb.shard_kf_axis(mesh, kfb.pad_to_mesh(a, n)) for a in (desc, valid)]
+    c0 = float(sharded_ba.optimize_sharded_plain(mesh, gprob, loop_camera(), n_iters=0).cost)
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.clear()
+    res = sharded_ba.optimize_sharded(mesh, gprob, loop_camera())
+    counts = kfb.gather_host(kfb.sharded_loop_candidate_match(
+        mesh, *blocks, torch.from_numpy(qd), torch.from_numpy(qv)))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = {"ba_pcg_sharded": 1, "kf_match": n}
+    line = (f"[mesh-api] optimize_sharded on the [loop] map's problem over {n} shards K="
+            f"{gprob.R.shape[0]} P={gprob.points.shape[0]} O={O}: chi2 {c0:.6g} -> "
+            f"{float(res.cost):.6g}, {int(res.inliers.sum())} inliers; "
+            f"sharded_loop_candidate_match of keyframe 5 against {len(kids)} keyframes: best "
+            f"{int(np.argmax(counts))} ({int(counts.max())} of {int(qv.sum())}); launches "
+            f"{launches}")
+    if launches != want or not float(res.cost) < c0 or counts[5] != counts.max():
+        raise AssertionError(line)
+    print(line, flush=True)
+    return launches
+
+
 class _MeshRecorder(_InertialRecorder):
     """Keeps the arguments of every K29 and K31 wrapper call of a run."""
 
@@ -2812,28 +3031,18 @@ def inertial_looped_map(dev, calib: ImuCalib, kb8: bool = False):
                                camera=pf.kb8_camera() if kb8 else None)
 
 
-def phase_vi_loop(dev, kb8: bool = False):
-    """[vi-loop]: the inertial looped map at [loop]'s size through
-    ``LoopCloser.process_keyframe`` with a vocabulary and the map's IMU
-    calibration, to the first loop: K23 solves the 4-DoF essential graph
-    once, the inertial GBA runs K20, no Sim3 graph or Schur GBA runs, the
-    closing keyframe ends within half its drift, and K23's solve moves no
-    keyframe's roll or pitch (its gravity direction in the camera) by 1e-5
-    or more, measured on its output before the GBA runs.  With ``kb8``
-    [vi-loop-kb8]: the map's keypoints in TUM-VI's 512x512 KB8 image and the
-    closer through that camera (K12<KB8>, K20<KB8>)."""
-    tag = "[vi-loop-kb8]" if kb8 else "[vi-loop]"
+def run_vi_loop(dev, kb8: bool = False, devices=None, mark: bool = False):
+    """The [vi-loop] closer over the inertial looped map until the first
+    loop, then ``finish`` (over the mesh of ``devices`` with ``use_devices``
+    when given; ``mark``: event i in a profiler range ``frame_i``).
+    Returns the map, the closer, the closing keyframe, each keyframe event's
+    host ms, the true centres, each keyframe's drift before the loop, each
+    4-DoF graph with its solved rotations, the one-device VI BA calls, the
+    sharded VI BA calls and the launches."""
     calib = ImuCalib.from_config(vi_config().imu)
-    mp, _, desc, centres = inertial_looped_map(dev, calib, kb8=kb8)
-    drift = {k: float(np.linalg.norm(-kf.R.T @ kf.t - centres[k]))
-             for k, kf in mp.keyframes.items()}
-    voc = vocab_mod.Vocabulary.train(desc, k=8, L=3, seed=0)
-    closer = loop_closing.LoopCloser(voc, loop_camera(kb8),
-                                     inv_sigma2=[1.2 ** (-2 * i) for i in range(8)],
-                                     imu_calib=calib, device=dev,
-                                     img_wh=(KB8_SIZE, KB8_SIZE) if kb8 else None)
     graphs, real = [], pose_graph.optimize_pose_graph_4dof
     vibas, real_vi = [], sin.optimize_vi_ba
+    sharded, real_sh = [], sharded_ba.optimize_vi_sharded
 
     def spy(prob, *args, **kw):
         res = real(prob, *args, **kw)
@@ -2844,38 +3053,78 @@ def phase_vi_loop(dev, kb8: bool = False):
         vibas.append((prob, cam_, kw))
         return real_vi(prob, cam_, **kw)
 
+    def spy_sh(mesh, prob, cam_, **kw):
+        sharded.append((mesh, prob, cam_, kw))
+        return real_sh(mesh, prob, cam_, **kw)
+
     ms, closed = [], None
     pose_graph.optimize_pose_graph_4dof = spy
     sin.optimize_vi_ba = spy_vi
+    sharded_ba.optimize_vi_sharded = spy_sh
     try:
-        kernels.LAUNCHES.clear()
-        for kid in sorted(mp.keyframes):
+        with dmesh.use_devices(devices) if devices else contextlib.nullcontext():
+            mp, _, desc, centres = inertial_looped_map(dev, calib, kb8=kb8)
+            drift = {k: float(np.linalg.norm(-kf.R.T @ kf.t - centres[k]))
+                     for k, kf in mp.keyframes.items()}
+            voc = vocab_mod.Vocabulary.train(desc, k=8, L=3, seed=0)
+            closer = loop_closing.LoopCloser(voc, loop_camera(kb8),
+                                             inv_sigma2=[1.2 ** (-2 * i) for i in range(8)],
+                                             imu_calib=calib, device=dev,
+                                             img_wh=(KB8_SIZE, KB8_SIZE) if kb8 else None)
+            kernels.LAUNCHES.clear()
+            for kid in sorted(mp.keyframes):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (torch.profiler.record_function(f"frame_{len(ms)}") if mark
+                      else contextlib.nullcontext()):
+                    got = closer.process_keyframe(mp, kid)
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if got:
+                    closed = kid
+                    break
+            closer.finish(mp)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = closer.process_keyframe(mp, kid)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            if got:
-                closed = kid
-                break
-        closer.finish(mp)
-        torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
+            launches = dict(kernels.LAUNCHES)
     finally:
         pose_graph.optimize_pose_graph_4dof = real
         sin.optimize_vi_ba = real_vi
+        sharded_ba.optimize_vi_sharded = real_sh
+    return mp, closer, closed, ms, centres, drift, graphs, vibas, sharded, launches
+
+
+def phase_vi_loop(dev, kb8: bool = False, devices=None):
+    """[vi-loop]: the inertial looped map at [loop]'s size through
+    ``LoopCloser.process_keyframe`` with a vocabulary and the map's IMU
+    calibration, to the first loop: K23 solves the 4-DoF essential graph
+    once, the inertial GBA runs K20, no Sim3 graph or Schur GBA runs, the
+    closing keyframe ends within half its drift, and K23's solve moves no
+    keyframe's roll or pitch (its gravity direction in the camera) by 1e-5
+    or more, measured on its output before the GBA runs.  With ``kb8``
+    [vi-loop-kb8]: the map's keypoints in TUM-VI's 512x512 KB8 image and the
+    closer through that camera (K12<KB8>, K20<KB8>).  With ``devices``
+    [vi-loop-mesh]: the closer over the mesh of those devices
+    (``use_devices``), its inertial GBA over landmark shards (K32 once, no
+    K20).  Returns the launches, the 4-DoF graph, the GBA call (K20's
+    arguments, or K32's with its mesh first) and each event's host ms."""
+    tag = "[vi-loop-kb8]" if kb8 else ("[vi-loop-mesh]" if devices else "[vi-loop]")
+    mp, closer, closed, ms, centres, drift, graphs, vibas, sharded, launches = run_vi_loop(
+        dev, kb8=kb8, devices=devices)
     err = (float(np.linalg.norm(-mp.keyframes[closed].R.T @ mp.keyframes[closed].t
                                 - centres[closed])) if closed is not None else float("nan"))
     d_grav = (float(np.abs(pf.gravity_in_cameras(graphs[0][1])
                            - pf.gravity_in_cameras(graphs[0][0].R.cpu().numpy())).max())
               if graphs else float("nan"))
-    want = {"vocab_words": len(ms), "pose_graph_4dof": 1, "vi_ba": 1, "pose_graph": 0,
-            "ba_schur": 0}
+    want = {"vocab_words": len(ms), "pose_graph_4dof": 1, "pose_graph": 0, "ba_schur": 0,
+            "vi_ba": 0 if devices else 1, "vi_ba_sharded": 1 if devices else 0}
     if kb8:   # every K12 / K20 launch through the KB8 camera
         want.update({f"{n}_kb8": launches.get(n, 0)
                      for n in ("sim3_ransac", "sim3_optimize", "vi_ba")})
-    if len(vibas) != 1 or vibas[0][2] != {"n_iters": 7, "cg_iters": 40}:
-        raise AssertionError(f"{tag} inertial GBA calls {[c[2] for c in vibas]}")
+    calls = sharded if devices else vibas
+    if len(calls) != 1 or calls[0][-1] != {"n_iters": 7, "cg_iters": 40} or \
+            (devices and (vibas or calls[0][0].size != len(devices))):
+        raise AssertionError(f"{tag} inertial GBA calls {[c[-1] for c in calls]}, one-device "
+                             f"calls {len(vibas)}")
     bad = {n: launches.get(n, 0) for n, v in want.items() if launches.get(n, 0) != v}
     bad.update({n: 0 for n in ("sim3_ransac", "sim3_optimize", "hamming_best2_words")
                 if not launches.get(n, 0)})
@@ -2885,16 +3134,42 @@ def phase_vi_loop(dev, kb8: bool = False):
                              f"{err:.4f} m (drifted {drift.get(closed, float('nan')):.4f} m), "
                              f"roll/pitch change {d_grav:.2e}, launches {launches}")
     prob = graphs[0][0]
+    gba = (f"inertial GBA over {len(devices)} landmark shards (K32)" if devices
+           else "inertial GBA (K20)")
     print(f"{tag} {len(mp.keyframes)} keyframes, "
           f"{int(np.mean([kf.n_kps for kf in mp.keyframes.values()]))} keypoints each: one loop "
           f"at keyframe {closed} (matched {mp.keyframes[closed].loop_edges[-1]}) after "
           f"{len(ms)} keyframe events; 4-DoF graph K={prob.R.shape[0]} E={prob.edge_i.shape[0]} "
-          f"(K23), roll/pitch moved {d_grav:.2e} by it; inertial GBA (K20); its centre error "
+          f"(K23), roll/pitch moved {d_grav:.2e} by it; {gba}; its centre error "
           f"{err:.4f} m (drifted {drift[closed]:.4f} m)", flush=True)
     print(f"{tag} keyframe-event ms (host clock): median {statistics.median(ms):.2f}, loop "
           f"event {ms[-1]:.2f}", flush=True)
     print(f"{tag} launches {launches}", flush=True)
-    return launches, prob, vibas[0]
+    return launches, prob, calls[0], ms
+
+
+def phase_vi_loop_mesh(dev):
+    """[vi-loop-mesh]: [vi-loop] over ``mesh_devices`` (4 shards of the card,
+    or the visible cards): the same checks, with the inertial GBA over
+    landmark shards (K32 once, K20 never), and the loop event's device ms
+    from a profiled run (the union of its device events).  Returns the
+    launches and the K32 call (mesh, problem, camera, keywords)."""
+    import chip_profile
+
+    devs = mesh_devices(dev)
+    launches, _, call, ms = phase_vi_loop(dev, devices=devs)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, _, closed_p, ms_p, *_ = run_vi_loop(dev, devices=devs, mark=True)
+    device, _, _ = chip_profile.device_ms_per_frame(prof, len(ms_p))
+    del prof
+    k = len(ms) - 1
+    print(f"[vi-loop-mesh] {len(devs)} shards ({', '.join(str(d) for d in devs)}): loop event "
+          f"(keyframe event {k}, with the inertial GBA): host {ms[k]:.2f} ms, device "
+          f"{device[k]:.3f} ms (profiled run: loop at keyframe {closed_p}, host "
+          f"{ms_p[k]:.2f} ms); other events' median host {statistics.median(ms[:k]):.2f} ms",
+          flush=True)
+    return launches, call
 
 
 def graph_work(K: int, E: int):
@@ -3311,12 +3586,15 @@ def _distinct(results) -> int:
                 for r in results})
 
 
-def phase_det(dev) -> dict:
+def phase_det(dev, vi_call) -> dict:
     """[det]: K13 on [parity]'s essential graph, K14 on the [loop] map's GBA
     problem and K14<KB8> on the [loop-kb8] map's, and over ``MESH_SHARDS``
     shards of the card K30 on the [loop] map's problem and K31 on the
-    essential graph, ``DET_CALLS`` calls each on one input: they sum in a
-    fixed order (the shards in shard order), so each gives one result."""
+    essential graph, then K32 on [vi-loop-mesh]'s GBA call (``vi_call``, its
+    one-view points fixed) over its shards and K33 on the [loop] map's
+    problem with its observations sharded, ``DET_CALLS`` calls each on one
+    input: they sum in a fixed order (the shards in shard order), so each
+    gives one result."""
     prob = pose_graph_problem(np.random.default_rng(8), dev)
     pg = [pose_graph.optimize_pose_graph(prob, n_iters=15) for _ in range(DET_CALLS)]
     mesh = dmesh.Mesh([dev] * MESH_SHARDS)
@@ -3332,10 +3610,16 @@ def phase_det(dev) -> dict:
             gprob_n = global_ba.build_global_problem(mp, [1.0] * 8, mesh.size, None, dev)[0]
             sbs = [tuple(sharded_ba.optimize_schur(gprob_n, cam, mesh=mesh))
                    for _ in range(DET_CALLS)]
+            pcs = [tuple(sharded_ba.optimize_sharded(mesh, gprob, cam)) for _ in range(DET_CALLS)]
+    vmesh, vprob, vcam, vkw = vi_call
+    vprob = one_view_fixed(vprob)
+    vis = [tuple(sharded_ba.optimize_vi_sharded(vmesh, vprob, vcam, **vkw))
+           for _ in range(DET_CALLS)]
     torch.cuda.synchronize()
     out = {}
     for name, res in (("pose_graph", pg), ("ba_schur", sb[False]), ("ba_schur_kb8", sb[True]),
-                      ("ba_schur_sharded", sbs), ("pose_graph_sharded", pgs)):
+                      ("ba_schur_sharded", sbs), ("pose_graph_sharded", pgs),
+                      ("vi_ba_sharded", vis), ("ba_pcg_sharded", pcs)):
         n = _distinct(res)
         print(f"[det] {name}: {n} distinct result(s) over {DET_CALLS} calls on one input",
               flush=True)
@@ -4161,7 +4445,7 @@ def main() -> int:
     paths["vi_stereo"], vs_rec, vs_states, vs_init, vs_kfs, vs_traj = phase_vi_stereo(
         vs_left, vs_right, dev)
     phase_vi_stereo_reference(vs_left, vs_right, vs_states, vs_init, vs_kfs, vs_traj)
-    paths["vi_loop"], vi_graph, vi_gba = phase_vi_loop(dev)
+    paths["vi_loop"], vi_graph, vi_gba, _ = phase_vi_loop(dev)
     stats.update(phase_parity_vi_loop(vi_graph, vs_rec, stats, dev))
     stats["vi_ba"].update(phase_parity_vi_gba(vi_gba))
     fr1, fr1_poses = fr1_frames()
@@ -4172,7 +4456,6 @@ def main() -> int:
     paths["pipelined_rgbd"] = phase_pipelined_depth("rgbd", sys_frames, sys_depths, sys_poses,
                                                     dev)
     paths["pipelined_vi"] = phase_pipelined_vi(frames_vi, dev)
-    det = phase_det(dev)
     stats.update(phase_parity_kb8(dev))
     kb8_seq, kb8_poses = kb8_frames()
     paths["kb8"], kb8_inits, kb8_sys, kb8_states = phase_kb8(kb8_seq, kb8_poses, dev)
@@ -4196,14 +4479,19 @@ def main() -> int:
     paths["loop_kb8"] = phase_loop(dev, kb8=True, rec=loop_rec)
     stats.update(phase_parity_loop_kb8(loop_rec, dev))
     paths["merge_kb8"] = phase_merge(dev, kb8=True)
-    paths["vi_loop_kb8"], _, _ = phase_vi_loop(dev, kb8=True)
+    paths["vi_loop_kb8"], _, _, _ = phase_vi_loop(dev, kb8=True)
     stats.update(phase_parity_clahe(dev))
     stats.update(phase_parity_grid(dev))
     paths.update(phase_demos())
     t_mesh = time.perf_counter()
     paths["loop_mesh"], loop_graph = phase_loop_mesh(dev)
     stats.update(phase_parity_mesh(loop_graph, dev))
-    print(f"[parity-mesh] the mesh phases in {time.perf_counter() - t_mesh:.1f} s", flush=True)
+    paths["vi_loop_mesh"], vi_mesh_call = phase_vi_loop_mesh(dev)
+    paths["mesh_api"] = phase_mesh_api(dev)
+    stats.update(phase_parity_mesh_rest(vi_mesh_call, dev))
+    det = phase_det(dev, vi_mesh_call)
+    print(f"[parity-mesh] the mesh phases and [det] in {time.perf_counter() - t_mesh:.1f} s",
+          flush=True)
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():

@@ -31,10 +31,26 @@
 // result per input: the blocks over the index-ordered lists, the scalars by
 // per-CTA partials summed in block order by the last CTA.
 //
+// K33 replaces extractorb_tpu/dist/sharded_ba.py:optimize_sharded (its
+// shard_map over a device mesh): the observations are sharded, shard s
+// holding the Os observations [s Os, (s+1) Os) (obs_mp global), and every
+// shard a copy of the poses and points.  It runs K6's passes on its own
+// observations, shard by shard, and where the JAX program psums, the shards'
+// partials are summed in shard order (shard_sum.cuh): the gradient (6K + 3P),
+// the Hpp and Hll blocks and the current cost after the reduce, the Hessian
+// product (6K + 3P) after each product pass, the candidate cost before the
+// accept and the final sum of chi2.  The rest (inverses, PCG vectors and
+// dots, retraction, accept) runs on every shard on the same sums, so the
+// shards' poses and points stay equal, as the replicated values of the
+// shard_map do.  It returns the final sum of chi2, as the JAX program does.
+// Padding needs no case of its own: a padded observation is invalid (weight
+// 0, on no list).  One shard is K6's launch sequence.
+//
 // Bound on the H100: launch latency.  An init problem (2 keyframes, ~2k
 // observations) and a window problem (~10 keyframes, ~10k observations) are
 // microseconds of arithmetic per pass; the 3 x cg_iters + 7 dependent
-// launches per LM iteration set the time.
+// launches per LM iteration set the time.  K33 on n shards of one card
+// launches each pass n times plus a small sum kernel at each reduction.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,6 +63,7 @@ constexpr int kThreads = 256;
 #include "dual.cuh"
 #include "ba_obs.cuh"
 #include "det_reduce.cuh"
+#include "shard_sum.cuh"
 
 struct Ws {
   float* Rn;    // (K,9) candidate poses / points
@@ -66,6 +83,7 @@ struct Ws {
   float* z;
   float* p;
   float* Ap;
+  float* cst;   // the cost of a shard other than shard 0 (K33)
   double* lam;  // (1,)
   double* sc;   // scalars: [cost_old, cost_new, rz[0..cg], pAp[0..cg-1]]
   double* part; // per-CTA partials of the scalar being reduced
@@ -101,6 +119,7 @@ __host__ __device__ inline size_t carve(Ws* w, uint8_t* base, int K, int P, int 
   q = take(sizeof(float) * nv);     if (w) w->z = (float*)q;
   q = take(sizeof(float) * nv);     if (w) w->p = (float*)q;
   q = take(sizeof(float) * nv);     if (w) w->Ap = (float*)q;
+  q = take(sizeof(float));          if (w) w->cst = (float*)q;
   q = take(sizeof(double));         if (w) w->lam = (double*)q;
   q = take(sizeof(double) * (3 + 2 * (size_t)cg)); if (w) w->sc = (double*)q;
   const size_t max_blocks = (size_t)n_blocks(O > (long long)nv ? O : (long long)nv) + K + 1;
@@ -379,17 +398,28 @@ accept_kernel(float* __restrict__ R, float* __restrict__ t, float* __restrict__ 
   lm_accept(w.sc, w.lam, e, q.K, q.P, w.Rn, w.tn, w.pn, R, t, pts);
 }
 
+// inliers (chi2 <= chi2_th); with sum_chi2 (K33) also the sum of chi2 over
+// the valid observations, into cost_new
 template <class C>
 __global__ void __launch_bounds__(kThreads)
 classify_kernel(const float* __restrict__ R, const float* __restrict__ t,
                 const float* __restrict__ pts, const Prob q, const C cam, float chi2_th,
-                bool* __restrict__ inl) {
+                bool* __restrict__ inl, bool sum_chi2, Ws w) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= q.O) return;
-  if (!q.valid[o]) { inl[o] = false; return; }
-  const int kf = q.obs_kf[o];
-  inl[o] = obs_chi2(R + 9 * kf, t + 3 * kf, pts, q, cam, o) <= chi2_th;
+  float c = 0.f;
+  if (o < q.O) {
+    if (!q.valid[o]) {
+      inl[o] = false;
+    } else {
+      const int kf = q.obs_kf[o];
+      c = obs_chi2(R + 9 * kf, t + 3 * kf, pts, q, cam, o);
+      inl[o] = c <= chi2_th;
+    }
+  }
+  if (sum_chi2) reduce_store((double)c, w.part, w.ticket, cost_new(w));
 }
+
+__global__ void final_cost_kernel(Ws w, float* cost_out) { *cost_out = (float)*cost_new(w); }
 
 __global__ void init_kernel(Ws w, float* cost_out) {
   *w.lam = 1e-4;
@@ -399,38 +429,109 @@ __global__ void init_kernel(Ws w, float* cost_out) {
 
 inline int blocks(long long n) { return n_blocks(n); }
 
+// one shard of a solve: its start poses and points (overwritten with the
+// result), its observations, workspace, inlier mask and cost
+struct Shard {
+  float* R;
+  float* t;
+  float* pts;
+  Prob q;
+  Ws w;
+  bool* inl;
+  float* cost;
+};
+
+// sharded (K33): the final sum of chi2 into sh[0].cost, else (K6) the last
+// LM step's smaller cost
 template <class C>
-int solve(float* Rf, float* tf, float* pf, const Prob q, const C cam, int n_iters, int cg_iters,
-          bool huber, float chi2_th, Ws w, void* inliers, void* cost_out, cudaStream_t st) {
-  const int K = q.K, P = q.P, O = q.O;
+int solve(int n, Shard* sh, ShardComm& cm, const C& cam, int n_iters, int cg_iters, bool huber,
+          float chi2_th, bool sharded) {
+  const int K = sh[0].q.K, P = sh[0].q.P;
   const long long nv = 6LL * K + 3LL * P;
-  init_kernel<<<1, 1, 0, st>>>(w, (float*)cost_out);
-  cudaError_t e = build_lists(q.obs_kf, q.obs_mp, q.valid, K, P, O, w.L, st);
-  if (e != cudaSuccess) return (int)e;
   const int nbP = blocks(P);
-  for (int it = 0; it < n_iters; ++it) {
-    build_kernel<C><<<blocks(O), kThreads, 0, st>>>(Rf, tf, pf, q, cam, huber, w);
-    reduce_kernel<<<K + nbP, kThreads, 0, st>>>(q, w);
-    invert_kernel<<<blocks(K + P), kThreads, 0, st>>>(q, w);
-    for (int c = 0; c < cg_iters; ++c) {
-      hv_kernel<<<K + nbP, kThreads, 0, st>>>(q, w, c);
-      cg_a_kernel<<<blocks(nv), kThreads, 0, st>>>(q, w, c, cg_iters);
-      cg_b_kernel<<<blocks(K + P), kThreads, 0, st>>>(q, w, c, cg_iters);
-    }
-    retract_kernel<<<blocks(K + P), kThreads, 0, st>>>(Rf, tf, pf, q, w);
-    cost_kernel<C><<<blocks(O), kThreads, 0, st>>>(q, cam, huber, w);
-    accept_kernel<<<blocks(K + P), kThreads, 0, st>>>(Rf, tf, pf, q, w, (float*)cost_out);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  cudaError_t e;
+  float *g[kMaxShards], *Hp[kMaxShards], *Hl[kMaxShards], *h[kMaxShards];
+  double* c_old[kMaxShards];
+  double* c_new[kMaxShards];
+  for (int s = 0; s < n; ++s) {
+    g[s] = sh[s].w.g;
+    Hp[s] = sh[s].w.Hpp;
+    Hl[s] = sh[s].w.Hll;
+    h[s] = sh[s].w.h;
+    c_old[s] = sh[s].w.sc;       // cost_old
+    c_new[s] = sh[s].w.sc + 1;   // cost_new
   }
-  orthonormalize_kernel<<<blocks(K), kThreads, 0, st>>>(Rf, K);
-  classify_kernel<C><<<blocks(O), kThreads, 0, st>>>(Rf, tf, pf, q, cam, chi2_th, (bool*)inliers);
+// the statement for every shard, on its device and stream
+#define EACH(...)                                                     \
+  for (int s = 0; s < n; ++s) {                                       \
+    if ((e = use_shard(cm, s)) != cudaSuccess) return (int)e;         \
+    Shard& S = sh[s];                                                 \
+    const cudaStream_t st = cm.st[s];                                 \
+    __VA_ARGS__;                                                      \
+  }
+#define SUM(ptrs, count) \
+  if ((e = allreduce(cm, ptrs, count)) != cudaSuccess) return (int)e;
+  EACH(init_kernel<<<1, 1, 0, st>>>(S.w, S.cost);
+       if ((e = build_lists(S.q.obs_kf, S.q.obs_mp, S.q.valid, K, P, S.q.O, S.w.L, st)) !=
+           cudaSuccess) return (int)e)
+  for (int it = 0; it < n_iters; ++it) {
+    EACH(build_kernel<C><<<blocks(S.q.O), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, cam, huber,
+                                                               S.w);
+         reduce_kernel<<<K + nbP, kThreads, 0, st>>>(S.q, S.w))
+    SUM(g, nv)
+    SUM(Hp, 21LL * K)
+    SUM(Hl, 6LL * P)
+    SUM(c_old, 1)
+    EACH(invert_kernel<<<blocks(K + P), kThreads, 0, st>>>(S.q, S.w))
+    for (int c = 0; c < cg_iters; ++c) {
+      EACH(hv_kernel<<<K + nbP, kThreads, 0, st>>>(S.q, S.w, c))
+      SUM(h, nv)
+      EACH(cg_a_kernel<<<blocks(nv), kThreads, 0, st>>>(S.q, S.w, c, cg_iters);
+           cg_b_kernel<<<blocks(K + P), kThreads, 0, st>>>(S.q, S.w, c, cg_iters))
+    }
+    EACH(retract_kernel<<<blocks(K + P), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, S.w);
+         cost_kernel<C><<<blocks(S.q.O), kThreads, 0, st>>>(S.q, cam, huber, S.w))
+    SUM(c_new, 1)
+    EACH(accept_kernel<<<blocks(K + P), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, S.w, S.cost);
+         if ((e = cudaGetLastError()) != cudaSuccess) return (int)e)
+  }
+  EACH(orthonormalize_kernel<<<blocks(K), kThreads, 0, st>>>(S.R, K);
+       classify_kernel<C><<<blocks(S.q.O), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, cam, chi2_th,
+                                                              S.inl, sharded, S.w))
+  if (sharded) {
+    SUM(c_new, 1)
+    if ((e = use_shard(cm, 0)) != cudaSuccess) return (int)e;
+    final_cost_kernel<<<1, 1, 0, cm.st[0]>>>(sh[0].w, sh[0].cost);
+  }
+#undef EACH
+#undef SUM
+  if ((e = use_shard(cm, 0)) != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+int solve_cam(int n, Shard* sh, ShardComm& cm, float fx, float fy, float cx, float cy,
+              const float* kb8, int n_iters, int cg_iters, bool huber, float chi2_th,
+              bool sharded) {
+  if (kb8 != nullptr)
+    return solve(n, sh, cm, CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, n_iters,
+                 cg_iters, huber, chi2_th, sharded);
+  return solve(n, sh, cm, Cam{fx, fy, cx, cy}, n_iters, cg_iters, huber, chi2_th, sharded);
 }
 
 }  // namespace
 
 extern "C" long long ba_workspace_bytes(int K, int P, int O, int cg_iters) {
   return (long long)carve(nullptr, nullptr, K, P, O, cg_iters);
+}
+
+// K33's peer route: bytes of the n slots on shard 0's device (the largest
+// summed range: the gradient and the product, 6K + 3P floats, or the Hpp or
+// Hll blocks)
+extern "C" long long ba_pcg_gather_bytes(int n, int K, int P) {
+  const size_t nv = 6 * (size_t)K + 3 * (size_t)P;
+  size_t m = nv > 21 * (size_t)K ? nv : 21 * (size_t)K;
+  m = m > 6 * (size_t)P ? m : 6 * (size_t)P;
+  return (long long)n * (long long)align16(sizeof(float) * m);
 }
 
 // R (K,9), t (K,3), pts (P,3): the start state, overwritten with the result.
@@ -442,15 +543,61 @@ extern "C" int ba_pcg_launch(void* R, void* t, void* pts, const void* obs_kf, co
                              int n_iters, int cg_iters, int use_huber, float chi2_th, void* ws,
                              void* inliers, void* cost_out, void* stream) {
   if (K <= 0 || P <= 0 || O <= 0 || n_iters < 0 || cg_iters < 0) return (int)cudaErrorInvalidValue;
-  Ws w;
-  carve(&w, static_cast<uint8_t*>(ws), K, P, O, cg_iters);
-  const Prob q{(const int*)obs_kf, (const int*)obs_mp, (const float*)obs_uv, (const float*)isig,
-               (const bool*)valid, (const bool*)fixed_kf, (const bool*)fixed_mp, K, P, O};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (kb8 != nullptr)
-    return solve((float*)R, (float*)t, (float*)pts, q,
-                 CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, n_iters, cg_iters,
-                 use_huber != 0, chi2_th, w, inliers, cost_out, st);
-  return solve((float*)R, (float*)t, (float*)pts, q, Cam{fx, fy, cx, cy}, n_iters, cg_iters,
-               use_huber != 0, chi2_th, w, inliers, cost_out, st);
+  Shard sh;
+  sh.R = (float*)R;
+  sh.t = (float*)t;
+  sh.pts = (float*)pts;
+  sh.q = Prob{(const int*)obs_kf, (const int*)obs_mp, (const float*)obs_uv, (const float*)isig,
+              (const bool*)valid, (const bool*)fixed_kf, (const bool*)fixed_mp, K, P, O};
+  carve(&sh.w, static_cast<uint8_t*>(ws), K, P, O, cg_iters);
+  sh.inl = (bool*)inliers;
+  sh.cost = (float*)cost_out;
+  ShardComm cm;
+  cm.st[0] = (cudaStream_t)stream;
+  return solve_cam(1, &sh, cm, fx, fy, cx, cy, kb8, n_iters, cg_iters, use_huber != 0, chi2_th,
+                   false);
+}
+
+// K33: n shards of Os observations each, the poses and points on every
+// shard.  devs (n,) the CUDA device of each shard; tab (n, 13) host rows of
+// pointers: R (K,9), t (K,3), pts (P,3) (each shard's copy of the start
+// state), obs_kf, obs_mp (global), obs_uv, isig, valid (Os), fixed_kf (K),
+// fixed_mp (P), the shard's workspace (ba_workspace_bytes(K, P, Os,
+// cg_iters)), its inlier mask (Os) and its stream.  gather:
+// ba_pcg_gather_bytes(n, K, P) on devs[0] when the devices differ, else
+// null.  The result: every shard's R, t and pts (equal) and inliers;
+// cost_out (float32, on devs[0]) the final sum of chi2 over every shard.
+// The caller's current device is kept.
+extern "C" int ba_pcg_sharded_launch(int n, const int* devs, const long long* tab, int K, int P,
+                                     int Os, float fx, float fy, float cx, float cy,
+                                     const float* kb8, int n_iters, int cg_iters, int use_huber,
+                                     float chi2_th, void* gather, void* cost_out) {
+  if (n < 1 || n > kMaxShards || K <= 0 || P <= 0 || Os <= 0 || n_iters < 0 || cg_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  Shard sh[kMaxShards];
+  cudaStream_t sts[kMaxShards];
+  for (int s = 0; s < n; ++s) {
+    const long long* r = tab + 13 * (size_t)s;
+    sh[s].R = (float*)r[0];
+    sh[s].t = (float*)r[1];
+    sh[s].pts = (float*)r[2];
+    sh[s].q = Prob{(const int*)r[3], (const int*)r[4], (const float*)r[5], (const float*)r[6],
+                   (const bool*)r[7], (const bool*)r[8], (const bool*)r[9], K, P, Os};
+    carve(&sh[s].w, (uint8_t*)r[10], K, P, Os, cg_iters);
+    sh[s].inl = (bool*)r[11];
+    sh[s].cost = s == 0 ? (float*)cost_out : sh[s].w.cst;
+    sts[s] = (cudaStream_t)r[12];
+  }
+  int prev;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  ShardComm cm;
+  e = comm_open(cm, n, devs, sts, gather, (size_t)ba_pcg_gather_bytes(1, K, P));
+  int err = (int)e;
+  if (e == cudaSuccess)
+    err = solve_cam(n, sh, cm, fx, fy, cx, cy, kb8, n_iters, cg_iters, use_huber != 0, chi2_th,
+                    true);
+  comm_close(cm);
+  cudaSetDevice(prev);
+  return err;
 }

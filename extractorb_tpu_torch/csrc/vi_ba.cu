@@ -22,9 +22,30 @@
 // scalars by per-CTA partials summed in block order.  The LM and PCG loop is
 // enqueued from C with its scalars on the card: nothing waits on the host.
 //
+//
+// K32 replaces extractorb_tpu/dist/sharded_ba.py:optimize_vi_sharded on n > 1
+// shards (its shard_map over a device mesh, the inertial post-loop GBA):
+// shard s holds points [s Ps, (s+1) Ps) and the Os observations of those
+// points (obs_mp local to the shard; relayout_point_sharded's layout), and a
+// copy of the states and the chain.  It runs K20's passes on its own data,
+// shard by shard, and where the JAX program psums, the shards' partials are
+// summed in shard order (shard_sum.cuh): the visual cost, the visual
+// gradient and 6x6 blocks (27 floats a keyframe), the visual part of each
+// Hessian product (6 a keyframe), the landmark half of each PCG dot.  The
+// chain edges and the priors are then added to those sums by a pass per
+// keyframe on every shard, and the state side (the 15x15 inverses, the PCG
+// steps on the states, the retraction, the accept) runs on every shard on
+// the same sums, so the shards' states stay equal, as the replicated values
+// of the shard_map do.  Only shard 0 counts the replicated parts of a
+// scalar (the edges' cost, the state half of a dot).  One shard is K20's
+// launch sequence.  Padding needs no case of its own: a padded observation
+// is invalid (weight 0, on no list) and a padded point is fixed.
+//
 // Bound on the H100: launch latency, as K6.  A local window (11 keyframes,
 // ~10k observations) is microseconds of arithmetic per pass; the 3 x
-// cg_iters + 7 dependent launches per LM iteration set the time.
+// cg_iters + 7 dependent launches per LM iteration set the time.  K32 on n
+// shards of one card launches each pass n times plus a small sum kernel and
+// a state pass at each reduction.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,6 +62,7 @@ constexpr int kD = 15;   // tangent dims per keyframe
 #include "imu_t.cuh"
 #include "ba_obs.cuh"
 #include "det_reduce.cuh"
+#include "shard_sum.cuh"
 
 struct VProb {
   const int* obs_kf;
@@ -79,6 +101,8 @@ struct VWs {
   float* z;
   float* p;
   float* Ap;
+  float* vis;   // (K,27) a keyframe's visual gradient and 6x6 triangle (K32's sums)
+  float* cst;   // the cost of a shard other than shard 0
   double* lam;
   double* sc;   // [cost_old, cost_new, rz[0..cg], pAp[0..cg-1]]
   double* part;
@@ -119,6 +143,8 @@ __host__ __device__ inline size_t carve(VWs* w, uint8_t* base, int K, int P, int
   q = f(nv); if (w) w->z = q;
   q = f(nv); if (w) w->p = q;
   q = f(nv); if (w) w->Ap = q;
+  q = f((size_t)27 * K); if (w) w->vis = q;
+  q = f(1); if (w) w->cst = q;
   uint8_t* b;
   b = take(sizeof(double)); if (w) w->lam = (double*)b;
   b = take(sizeof(double) * (3 + 2 * (size_t)cg)); if (w) w->sc = (double*)b;
@@ -208,10 +234,11 @@ __global__ void __launch_bounds__(kThreads) setup_kernel(const VProb q, VWs w) {
 }
 
 // blocks [0, nbO): one thread per observation; the last block: the edges
+// (their cost counted by the lead shard only)
 template <class C>
 __global__ void __launch_bounds__(kThreads)
 build_kernel(const float* __restrict__ states, const float* __restrict__ pts, const VProb q,
-             const C cam, bool huber, VWs w) {
+             const C cam, bool huber, bool lead, VWs w) {
   float cost = 0.f;
   if (blockIdx.x + 1 < gridDim.x) {
     const int o = blockIdx.x * blockDim.x + threadIdx.x;
@@ -237,7 +264,8 @@ build_kernel(const float* __restrict__ states, const float* __restrict__ pts, co
       if (q.chain_valid[k]) {
         edge_eval(states, q, w, k, 0, r, Ji);
         edge_eval(states, q, w, k, 1, nullptr, Jj);
-        for (int a = 0; a < kD; ++a) cost += r[a] * r[a];
+        if (lead)
+          for (int a = 0; a < kD; ++a) cost += r[a] * r[a];
       } else {
         for (int a = 0; a < kD; ++a) r[a] = 0.f;
         for (int a = 0; a < 225; ++a) Ji[a] = Jj[a] = 0.f;
@@ -265,9 +293,45 @@ __device__ int edges_of(const VProb& q, const VWs& w, int k, int* e_out, const f
   return n;
 }
 
+// keyframe k's Hpp block and gradient from its visual sums vis (g 6, then the
+// upper 6x6 triangle), its edges and KF0's priors; a CTA of >= 240 threads
+__device__ void state_blocks(const VProb& q, const VWs& w, int k, const float* vis) {
+  int es[3], oth[3];
+  const float *Jk[3], *Jo[3];
+  const int ne = edges_of(q, w, k, es, Jk, Jo, oth);
+  const bool fr = !q.fixed_kf[k];
+  const int t = threadIdx.x;
+  if (t < 225) {
+    const int a = t / kD, b = t % kD;
+    float s = 0.f;
+    if (a < 6 && b < 6) {
+      const int lo = a < b ? a : b, hi = a < b ? b : a;
+      s = vis[6 + lo * 6 - lo * (lo - 1) / 2 + (hi - lo)];
+    }
+    for (int e = 0; e < ne; ++e) {
+      float acc = 0.f;
+      for (int rr = 0; rr < kD; ++rr) acc += Jk[e][kD * rr + a] * Jk[e][kD * rr + b];
+      s += acc;
+    }
+    if (k == 0 && a == b) s += a >= 12 ? q.prior_a : (a >= 9 ? q.prior_g : 0.f);
+    w.Hpp[225 * k + t] = s;
+  } else if (t < 225 + kD) {
+    const int a = t - 225;
+    float s = a < 6 ? vis[a] : 0.f;
+    for (int e = 0; e < ne; ++e) {
+      float acc = 0.f;
+      for (int rr = 0; rr < kD; ++rr) acc += Jk[e][kD * rr + a] * w.re[kD * es[e] + rr];
+      s += acc;
+    }
+    w.g[kD * k + a] = fr ? s : 0.f;
+  }
+}
+
 // the gradient and the diagonal blocks: a CTA per keyframe (visual list and
-// its edges), a thread per point
-__global__ void __launch_bounds__(kThreads) reduce_kernel(const VProb q, VWs w) {
+// its edges), a thread per point.  split (K32): a keyframe's CTA stores its
+// visual sums in w.vis for the cross-shard sum, and state_kernel adds the
+// edges after it
+__global__ void __launch_bounds__(kThreads) reduce_kernel(const VProb q, VWs w, bool split) {
   __shared__ float red[27 * kThreads / 32];
   __shared__ float vis[27];
   if (blockIdx.x < q.K) {
@@ -286,37 +350,10 @@ __global__ void __launch_bounds__(kThreads) reduce_kernel(const VProb q, VWs w) 
     }
     block_sum_fixed<27>(v, red);
     if (threadIdx.x == 0)
-      for (int i = 0; i < 27; ++i) vis[i] = v[i];
+      for (int i = 0; i < 27; ++i) (split ? w.vis + 27 * k : vis)[i] = v[i];
+    if (split) return;
     __syncthreads();
-    int es[3], oth[3];
-    const float *Jk[3], *Jo[3];
-    const int ne = edges_of(q, w, k, es, Jk, Jo, oth);
-    const bool fr = !q.fixed_kf[k];
-    const int t = threadIdx.x;
-    if (t < 225) {
-      const int a = t / kD, b = t % kD;
-      float s = 0.f;
-      if (a < 6 && b < 6) {
-        const int lo = a < b ? a : b, hi = a < b ? b : a;
-        s = vis[6 + lo * 6 - lo * (lo - 1) / 2 + (hi - lo)];
-      }
-      for (int e = 0; e < ne; ++e) {
-        float acc = 0.f;
-        for (int rr = 0; rr < kD; ++rr) acc += Jk[e][kD * rr + a] * Jk[e][kD * rr + b];
-        s += acc;
-      }
-      if (k == 0 && a == b) s += a >= 12 ? q.prior_a : (a >= 9 ? q.prior_g : 0.f);
-      w.Hpp[225 * k + t] = s;
-    } else if (t < 225 + kD) {
-      const int a = t - 225;
-      float s = a < 6 ? vis[a] : 0.f;
-      for (int e = 0; e < ne; ++e) {
-        float acc = 0.f;
-        for (int rr = 0; rr < kD; ++rr) acc += Jk[e][kD * rr + a] * w.re[kD * es[e] + rr];
-        s += acc;
-      }
-      w.g[kD * k + a] = fr ? s : 0.f;
-    }
+    state_blocks(q, w, k, vis);
     return;
   }
   const int m = (blockIdx.x - q.K) * kThreads + threadIdx.x;
@@ -335,6 +372,11 @@ __global__ void __launch_bounds__(kThreads) reduce_kernel(const VProb q, VWs w) 
   const bool fr = !q.fixed_mp[m];
   for (int a = 0; a < 3; ++a) w.g[(size_t)kD * q.K + 3 * m + a] = fr ? g[a] : 0.f;
   for (int i = 0; i < 6; ++i) w.Hll[6 * m + i] = H[i];
+}
+
+// K32: the state blocks from the shards' summed visual sums, a CTA per keyframe
+__global__ void __launch_bounds__(kThreads) state_kernel(const VProb q, VWs w) {
+  state_blocks(q, w, blockIdx.x, w.vis + 27 * blockIdx.x);
 }
 
 // M = (H + lam I)^-1 of a 15x15 block, Gauss-Jordan with partial pivoting
@@ -368,7 +410,7 @@ __device__ void inv15_damped(const float* H, float lam, float* M) {
 
 // M = (H + lam I)^-1 of a 3x3 block given by its upper triangle (full inverse
 // by the adjugate, as ba_obs.cuh)
-__global__ void __launch_bounds__(kThreads) invert_kernel(const VProb q, VWs w) {
+__global__ void __launch_bounds__(kThreads) invert_kernel(const VProb q, VWs w, bool lead) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   double part = 0.0;
   if (e < q.K + q.P) {
@@ -392,7 +434,7 @@ __global__ void __launch_bounds__(kThreads) invert_kernel(const VProb q, VWs w) 
       for (int b = 0; b < n; ++b) s += M[n * a + b] * rb[b];
       s = fr ? s : 0.f;
       w.z[base + a] = s;
-      part += (double)(rb[a] * s);
+      if (lead || !pose) part += (double)(rb[a] * s);
     }
   }
   reduce_store(part, w.part, w.ticket, rz(w, 0));
@@ -423,8 +465,40 @@ __device__ __forceinline__ void obs_u(const VProb& q, const VWs& w, int o, float
   }
 }
 
-// h = (J^T W J + prior) p, masked: a CTA per keyframe, a thread per point
-__global__ void __launch_bounds__(kThreads) hv_kernel(const VProb q, VWs w, int it) {
+// keyframe k's h = (J^T W J + prior) p from its visual part vis (6), its
+// edges and KF0's priors, masked; threads [0, 15)
+__device__ void hv_state(const VProb& q, VWs& w, int k, float beta, const float* vis) {
+  const int a = threadIdx.x;
+  if (a >= kD) return;
+  int es[3], oth[3];
+  const float *Jk[3], *Jo[3];
+  const int ne = edges_of(q, w, k, es, Jk, Jo, oth);
+  const bool fr = !q.fixed_kf[k];
+  float pk_[kD];
+  for (int c = 0; c < kD; ++c) pk_[c] = pdir(w, (size_t)kD * k + c, beta, fr);
+  float s = a < 6 ? vis[a] : 0.f;
+  for (int e = 0; e < ne; ++e) {
+    // ue = J_k p_k + J_other p_other, then J_k^T ue
+    const bool fo = !q.fixed_kf[oth[e]];
+    float po[kD];
+    for (int c = 0; c < kD; ++c) po[c] = pdir(w, (size_t)kD * oth[e] + c, beta, fo);
+    float acc = 0.f;
+    for (int rr = 0; rr < kD; ++rr) {
+      float ue = 0.f;
+      for (int c = 0; c < kD; ++c) ue += Jk[e][kD * rr + c] * pk_[c] + Jo[e][kD * rr + c] * po[c];
+      acc += Jk[e][kD * rr + a] * ue;
+    }
+    s += acc;
+  }
+  if (k == 0 && a >= 9)
+    s += (a >= 12 ? q.prior_a : q.prior_g) * pk_[a];
+  w.h[kD * k + a] = fr ? s : 0.f;
+}
+
+// h = (J^T W J + prior) p, masked: a CTA per keyframe, a thread per point.
+// split (K32): a keyframe's CTA stores its visual part in w.vis for the
+// cross-shard sum, and hv_state_kernel adds the edges after it
+__global__ void __launch_bounds__(kThreads) hv_kernel(const VProb q, VWs w, int it, bool split) {
   __shared__ float red[6 * kThreads / 32];
   __shared__ float vis[6];
   const float beta = beta_of(w, it);
@@ -440,34 +514,10 @@ __global__ void __launch_bounds__(kThreads) hv_kernel(const VProb q, VWs w, int 
     }
     block_sum_fixed<6>(v, red);
     if (threadIdx.x == 0)
-      for (int i = 0; i < 6; ++i) vis[i] = v[i];
+      for (int i = 0; i < 6; ++i) (split ? w.vis + 6 * k : vis)[i] = v[i];
+    if (split) return;
     __syncthreads();
-    const int a = threadIdx.x;
-    if (a < kD) {
-      int es[3], oth[3];
-      const float *Jk[3], *Jo[3];
-      const int ne = edges_of(q, w, k, es, Jk, Jo, oth);
-      const bool fr = !q.fixed_kf[k];
-      float pk_[kD];
-      for (int c = 0; c < kD; ++c) pk_[c] = pdir(w, (size_t)kD * k + c, beta, fr);
-      float s = a < 6 ? vis[a] : 0.f;
-      for (int e = 0; e < ne; ++e) {
-        // ue = J_k p_k + J_other p_other, then J_k^T ue
-        const bool fo = !q.fixed_kf[oth[e]];
-        float po[kD];
-        for (int c = 0; c < kD; ++c) po[c] = pdir(w, (size_t)kD * oth[e] + c, beta, fo);
-        float acc = 0.f;
-        for (int rr = 0; rr < kD; ++rr) {
-          float ue = 0.f;
-          for (int c = 0; c < kD; ++c) ue += Jk[e][kD * rr + c] * pk_[c] + Jo[e][kD * rr + c] * po[c];
-          acc += Jk[e][kD * rr + a] * ue;
-        }
-        s += acc;
-      }
-      if (k == 0 && a >= 9)
-        s += (a >= 12 ? q.prior_a : q.prior_g) * pk_[a];
-      w.h[kD * k + a] = fr ? s : 0.f;
-    }
+    hv_state(q, w, k, beta, vis);
     return;
   }
   const int m = (blockIdx.x - q.K) * kThreads + threadIdx.x;
@@ -484,11 +534,19 @@ __global__ void __launch_bounds__(kThreads) hv_kernel(const VProb q, VWs w, int 
   for (int i = 0; i < 3; ++i) w.h[(size_t)kD * q.K + 3 * m + i] = fm ? hl[i] : 0.f;
 }
 
+// K32: the state side of h from the shards' summed visual parts, a CTA per keyframe
+__global__ void hv_state_kernel(const VProb q, VWs w, int it) {
+  hv_state(q, w, blockIdx.x, beta_of(w, it), w.vis + 6 * blockIdx.x);
+}
+
 __device__ __forceinline__ bool free_entry(const VProb& q, int e) {
   return e < kD * q.K ? !q.fixed_kf[e / kD] : !q.fixed_mp[(e - kD * q.K) / 3];
 }
 
-__global__ void __launch_bounds__(kThreads) cg_a_kernel(const VProb q, VWs w, int it, int cg) {
+// lead: the state entries count in p.Ap (the lead shard; the others add only
+// their landmarks)
+__global__ void __launch_bounds__(kThreads)
+cg_a_kernel(const VProb q, VWs w, int it, int cg, bool lead) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const int nv = kD * q.K + 3 * q.P;
   double part = 0.0;
@@ -498,12 +556,13 @@ __global__ void __launch_bounds__(kThreads) cg_a_kernel(const VProb q, VWs w, in
     const float ap = fr ? w.h[e] + (float)*w.lam * pe : 0.f;
     w.p[e] = pe;
     w.Ap[e] = ap;
-    part = (double)(pe * ap);
+    if (lead || e >= kD * q.K) part = (double)(pe * ap);
   }
   reduce_store(part, w.part, w.ticket, pAp(w, it, cg));
 }
 
-__global__ void __launch_bounds__(kThreads) cg_b_kernel(const VProb q, VWs w, int it, int cg) {
+__global__ void __launch_bounds__(kThreads)
+cg_b_kernel(const VProb q, VWs w, int it, int cg, bool lead) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   double part = 0.0;
   if (e < q.K + q.P) {
@@ -524,7 +583,7 @@ __global__ void __launch_bounds__(kThreads) cg_b_kernel(const VProb q, VWs w, in
       for (int b = 0; b < n; ++b) s += M[n * a + b] * rb[b];
       s = fr ? s : 0.f;
       w.z[base + a] = s;
-      part += (double)(rb[a] * s);
+      if (lead || !pose) part += (double)(rb[a] * s);
     }
   }
   reduce_store(part, w.part, w.ticket, rz(w, it + 1));
@@ -560,7 +619,7 @@ retract_kernel(const float* __restrict__ states, const float* __restrict__ pts, 
 // the candidate's cost: observations, then the edges in the last block
 template <class C>
 __global__ void __launch_bounds__(kThreads)
-cost_kernel(const VProb q, const C cam, bool huber, VWs w) {
+cost_kernel(const VProb q, const C cam, bool huber, bool lead, VWs w) {
   float cost = 0.f;
   if (blockIdx.x + 1 < gridDim.x) {
     const int o = blockIdx.x * blockDim.x + threadIdx.x;
@@ -568,7 +627,7 @@ cost_kernel(const VProb q, const C cam, bool huber, VWs w) {
       float r[2];
       cost = obs_cost(w.Sn, w.pn, q, cam, o, huber, r, nullptr, nullptr, nullptr);
     }
-  } else {
+  } else if (lead) {
     for (int k = threadIdx.x; k < q.K; k += kThreads) {
       if (!q.chain_valid[k]) continue;
       const int i = k > 0 ? k - 1 : 0;
@@ -626,39 +685,109 @@ __global__ void init_kernel(VWs w, float* cost_out) {
   *cost_out = INFINITY;
 }
 
+// one shard of a solve: its start states and points (overwritten with the
+// result), its problem, workspace, inlier mask and cost
+struct VShard {
+  float* S;
+  float* X;
+  VProb q;
+  VWs w;
+  bool* inl;
+  float* cost;
+};
+
 template <class C>
-int solve(float* S, float* X, const VProb q, const C cam, int n_iters, int cg_iters, bool huber,
-          float chi2_th, VWs w, void* inliers, void* cost_out, cudaStream_t st) {
-  const int K = q.K, P = q.P, O = q.O;
-  const long long nv = (long long)kD * K + 3LL * P;
-  init_kernel<<<1, 1, 0, st>>>(w, (float*)cost_out);
-  setup_kernel<<<n_blocks(K), kThreads, 0, st>>>(q, w);
-  cudaError_t e = build_lists(q.obs_kf, q.obs_mp, q.valid, K, P, O, w.L, st);
-  if (e != cudaSuccess) return (int)e;
-  const int nbP = n_blocks(P), nbO = n_blocks(O);
-  for (int it = 0; it < n_iters; ++it) {
-    build_kernel<C><<<nbO + 1, kThreads, 0, st>>>(S, X, q, cam, huber, w);
-    reduce_kernel<<<K + nbP, kThreads, 0, st>>>(q, w);
-    invert_kernel<<<n_blocks(K + P), kThreads, 0, st>>>(q, w);
-    for (int c = 0; c < cg_iters; ++c) {
-      hv_kernel<<<K + nbP, kThreads, 0, st>>>(q, w, c);
-      cg_a_kernel<<<n_blocks(nv), kThreads, 0, st>>>(q, w, c, cg_iters);
-      cg_b_kernel<<<n_blocks(K + P), kThreads, 0, st>>>(q, w, c, cg_iters);
-    }
-    retract_kernel<<<n_blocks(K + P), kThreads, 0, st>>>(S, X, q, w);
-    cost_kernel<C><<<nbO + 1, kThreads, 0, st>>>(q, cam, huber, w);
-    accept_kernel<<<n_blocks(K + P), kThreads, 0, st>>>(S, X, q, w, (float*)cost_out);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+int solve(int n, VShard* sh, ShardComm& cm, const C& cam, int n_iters, int cg_iters, bool huber,
+          float chi2_th) {
+  const int K = sh[0].q.K;
+  const bool split = n > 1;
+  cudaError_t e;
+  float* vis[kMaxShards];
+  double* c_old[kMaxShards];
+  double* c_new[kMaxShards];
+  double* dot[kMaxShards];
+  for (int s = 0; s < n; ++s) {
+    vis[s] = sh[s].w.vis;
+    c_old[s] = sh[s].w.sc;       // cost_old
+    c_new[s] = sh[s].w.sc + 1;   // cost_new
   }
-  finish_kernel<<<n_blocks(K), kThreads, 0, st>>>(S, X, q, chi2_th, (bool*)inliers);
-  classify_kernel<C><<<nbO, kThreads, 0, st>>>(S, X, q, cam, chi2_th, (bool*)inliers);
+// the statement for every shard, on its device and stream
+#define EACH(...)                                                     \
+  for (int s = 0; s < n; ++s) {                                       \
+    if ((e = use_shard(cm, s)) != cudaSuccess) return (int)e;         \
+    VShard& V = sh[s];                                                \
+    const bool lead = s == 0;                                         \
+    (void)lead;                                                       \
+    const cudaStream_t st = cm.st[s];                                 \
+    const int nbP = n_blocks(V.q.P), nbO = n_blocks(V.q.O);           \
+    const long long nv = (long long)kD * K + 3LL * V.q.P;             \
+    (void)nbP; (void)nbO; (void)nv;                                   \
+    __VA_ARGS__;                                                      \
+  }
+#define SUM(ptrs, count) \
+  if ((e = allreduce(cm, ptrs, count)) != cudaSuccess) return (int)e;
+// the scalar at sc + off on every shard, summed
+#define SUM_SC(off)                                          \
+  for (int s = 0; s < n; ++s) dot[s] = sh[s].w.sc + (off);  \
+  SUM(dot, 1)
+  EACH(init_kernel<<<1, 1, 0, st>>>(V.w, V.cost);
+       setup_kernel<<<n_blocks(K), kThreads, 0, st>>>(V.q, V.w);
+       if ((e = build_lists(V.q.obs_kf, V.q.obs_mp, V.q.valid, K, V.q.P, V.q.O, V.w.L, st)) !=
+           cudaSuccess) return (int)e)
+  for (int it = 0; it < n_iters; ++it) {
+    EACH(build_kernel<C><<<nbO + 1, kThreads, 0, st>>>(V.S, V.X, V.q, cam, huber, lead, V.w);
+         reduce_kernel<<<K + nbP, kThreads, 0, st>>>(V.q, V.w, split))
+    SUM(c_old, 1)
+    if (split) {
+      SUM(vis, 27LL * K)
+      EACH(state_kernel<<<K, kThreads, 0, st>>>(V.q, V.w))
+    }
+    EACH(invert_kernel<<<n_blocks(K + V.q.P), kThreads, 0, st>>>(V.q, V.w, lead))
+    SUM_SC(2)
+    for (int c = 0; c < cg_iters; ++c) {
+      EACH(hv_kernel<<<K + nbP, kThreads, 0, st>>>(V.q, V.w, c, split))
+      if (split) {
+        SUM(vis, 6LL * K)
+        EACH(hv_state_kernel<<<K, 32, 0, st>>>(V.q, V.w, c))
+      }
+      EACH(cg_a_kernel<<<n_blocks(nv), kThreads, 0, st>>>(V.q, V.w, c, cg_iters, lead))
+      SUM_SC(3 + cg_iters + c)
+      EACH(cg_b_kernel<<<n_blocks(K + V.q.P), kThreads, 0, st>>>(V.q, V.w, c, cg_iters, lead))
+      SUM_SC(2 + c + 1)
+    }
+    EACH(retract_kernel<<<n_blocks(K + V.q.P), kThreads, 0, st>>>(V.S, V.X, V.q, V.w);
+         cost_kernel<C><<<nbO + 1, kThreads, 0, st>>>(V.q, cam, huber, lead, V.w))
+    SUM(c_new, 1)
+    EACH(accept_kernel<<<n_blocks(K + V.q.P), kThreads, 0, st>>>(V.S, V.X, V.q, V.w, V.cost);
+         if ((e = cudaGetLastError()) != cudaSuccess) return (int)e)
+  }
+  EACH(finish_kernel<<<n_blocks(K), kThreads, 0, st>>>(V.S, V.X, V.q, chi2_th, V.inl);
+       classify_kernel<C><<<nbO, kThreads, 0, st>>>(V.S, V.X, V.q, cam, chi2_th, V.inl))
+#undef EACH
+#undef SUM
+#undef SUM_SC
+  if ((e = use_shard(cm, 0)) != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+int solve_cam(int n, VShard* sh, ShardComm& cm, float fx, float fy, float cx, float cy,
+              const float* kb8, int n_iters, int cg_iters, bool huber, float chi2_th) {
+  if (kb8 != nullptr)
+    return solve(n, sh, cm, CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, n_iters,
+                 cg_iters, huber, chi2_th);
+  return solve(n, sh, cm, Cam{fx, fy, cx, cy}, n_iters, cg_iters, huber, chi2_th);
 }
 
 }  // namespace
 
 extern "C" long long vi_ba_workspace_bytes(int K, int P, int O, int cg_iters) {
   return (long long)carve(nullptr, nullptr, K, P, O, cg_iters);
+}
+
+// K32's peer route: bytes of the n slots on shard 0's device (the largest
+// summed range: the visual sums, 27 floats a keyframe)
+extern "C" long long vi_ba_gather_bytes(int n, int K) {
+  return (long long)n * (long long)align16(sizeof(float) * 27 * (size_t)K);
 }
 
 // states (K,21) and pts (P,3): the start, overwritten with the result;
@@ -673,18 +802,61 @@ extern "C" int vi_ba_launch(void* states, void* pts, const void* chain, const vo
                             float chi2_th, void* ws, void* inliers, void* cost_out,
                             void* stream) {
   if (K <= 0 || P <= 0 || O <= 0 || n_iters < 0 || cg_iters < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  VWs w;
-  carve(&w, static_cast<uint8_t*>(ws), K, P, O, cg_iters);
-  const VProb q{(const int*)obs_kf, (const int*)obs_mp, (const float*)obs_uv, (const float*)isig,
-                (const bool*)valid, (const bool*)chain_valid, (const bool*)fixed_kf,
-                (const bool*)fixed_mp, (const float*)chain, (const float*)ext, K, P, O,
-                prior_g, prior_a};
-  const bool huber = use_huber != 0;
-  if (kb8 != nullptr)
-    return solve((float*)states, (float*)pts, q,
-                 CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, n_iters, cg_iters, huber,
-                 chi2_th, w, inliers, cost_out, st);
-  return solve((float*)states, (float*)pts, q, Cam{fx, fy, cx, cy}, n_iters, cg_iters, huber,
-               chi2_th, w, inliers, cost_out, st);
+  VShard sh;
+  sh.S = (float*)states;
+  sh.X = (float*)pts;
+  carve(&sh.w, static_cast<uint8_t*>(ws), K, P, O, cg_iters);
+  sh.q = VProb{(const int*)obs_kf, (const int*)obs_mp, (const float*)obs_uv, (const float*)isig,
+               (const bool*)valid, (const bool*)chain_valid, (const bool*)fixed_kf,
+               (const bool*)fixed_mp, (const float*)chain, (const float*)ext, K, P, O,
+               prior_g, prior_a};
+  sh.inl = (bool*)inliers;
+  sh.cost = (float*)cost_out;
+  ShardComm cm;
+  cm.st[0] = (cudaStream_t)stream;
+  return solve_cam(1, &sh, cm, fx, fy, cx, cy, kb8, n_iters, cg_iters, use_huber != 0, chi2_th);
+}
+
+// K32: n shards of Ps points and Os observations each.  devs (n,) the CUDA
+// device of each shard; tab (n, 15) host rows of pointers: states (K,21) (each
+// shard's copy of the start states), pts (Ps,3), chain (K,292), obs_kf, obs_mp
+// (local to the shard), obs_uv, isig, valid (Os), chain_valid, fixed_kf (K),
+// fixed_mp (Ps), ext (12), the shard's workspace (vi_ba_workspace_bytes(K, Ps,
+// Os, cg_iters)), its inlier mask (Os) and its stream.  gather:
+// vi_ba_gather_bytes(n, K) on devs[0] when the devices differ, else null.
+// The result: every shard's states (equal), pts and inliers; cost_out
+// (float32, on devs[0]) the last LM step's smaller cost, as K20's.  The
+// caller's current device is kept.
+extern "C" int vi_ba_sharded_launch(int n, const int* devs, const long long* tab, int K, int Ps,
+                                    int Os, float fx, float fy, float cx, float cy,
+                                    const float* kb8, float prior_g, float prior_a, int n_iters,
+                                    int cg_iters, int use_huber, float chi2_th, void* gather,
+                                    void* cost_out) {
+  if (n < 1 || n > kMaxShards || K <= 0 || Ps <= 0 || Os <= 0 || n_iters < 0 || cg_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  VShard sh[kMaxShards];
+  cudaStream_t sts[kMaxShards];
+  for (int s = 0; s < n; ++s) {
+    const long long* r = tab + 15 * (size_t)s;
+    sh[s].S = (float*)r[0];
+    sh[s].X = (float*)r[1];
+    sh[s].q = VProb{(const int*)r[3], (const int*)r[4], (const float*)r[5], (const float*)r[6],
+                    (const bool*)r[7], (const bool*)r[8], (const bool*)r[9], (const bool*)r[10],
+                    (const float*)r[2], (const float*)r[11], K, Ps, Os, prior_g, prior_a};
+    carve(&sh[s].w, (uint8_t*)r[12], K, Ps, Os, cg_iters);
+    sh[s].inl = (bool*)r[13];
+    sh[s].cost = s == 0 ? (float*)cost_out : sh[s].w.cst;
+    sts[s] = (cudaStream_t)r[14];
+  }
+  int prev;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  ShardComm cm;
+  e = comm_open(cm, n, devs, sts, gather, (size_t)vi_ba_gather_bytes(1, K));
+  int err = (int)e;
+  if (e == cudaSuccess)
+    err = solve_cam(n, sh, cm, fx, fy, cx, cy, kb8, n_iters, cg_iters, use_huber != 0, chi2_th);
+  comm_close(cm);
+  cudaSetDevice(prev);
+  return err;
 }

@@ -10,6 +10,8 @@ shard s's on ``mesh.devices[s]`` (``shard_kf_axis``).
 ``sharded_place_scores`` launches kernel K29 (``csrc/place_dense.cu``)
 once per shard whose block lies on a card, and runs
 ``place_scores_plain`` on a block on the CPU.
+``sharded_loop_candidate_match`` launches K34 (``csrc/kf_match.cu``) the
+same way, and ``candidate_match_plain`` on the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..frontend.matcher import TH_LOW
 from .mesh import Mesh
 
 
@@ -109,7 +112,87 @@ def all_gather_kf_blocks(mesh: Mesh, blocks, idx):
     return [got.to(dev) for dev in mesh.devices]
 
 
+_INF = 1 << 20   # the distance of a masked pair (JAX's)
+
+
+def _unpack_bits(desc: torch.Tensor) -> torch.Tensor:
+    """(..., 32) uint8 descriptors as (..., 256) float32 bits."""
+    shifts = torch.arange(8, device=desc.device, dtype=torch.uint8)
+    return ((desc[..., None] >> shifts) & 1).reshape(*desc.shape[:-1], 256).to(torch.float32)
+
+
+def candidate_match_plain(kf_desc, kf_valid, q_desc, q_valid, chunk: int = 64) -> torch.Tensor:
+    """Plain version of one shard's ``sharded_loop_candidate_match``: for
+    each keyframe the number of query descriptors whose best keyframe
+    descriptor also has them as its best (the lowest index wins a tie; a
+    masked pair is at distance 2^20), with distance <= TH_LOW.  The
+    Hamming distances are popcount(a) + popcount(b) - 2 a.b over the bits,
+    exact in float32.  ``kf_desc`` (Ks, N, 32) uint8, ``kf_valid`` (Ks, N)
+    bool, ``q_desc`` (Nq, 32) uint8, ``q_valid`` (Nq,) bool; returns
+    (Ks,) int32."""
+    qb = _unpack_bits(q_desc)                                       # (Nq, 256)
+    qn = qb.sum(-1)
+    ar = torch.arange(q_desc.shape[0], device=q_desc.device)
+    out = []
+    for k0 in range(0, kf_desc.shape[0], chunk):
+        kb = _unpack_bits(kf_desc[k0:k0 + chunk])                   # (c, N, 256)
+        dist = qn[None, :, None] + kb.sum(-1)[:, None, :] - 2.0 * (qb @ kb.transpose(1, 2))
+        ok_pair = q_valid[None, :, None] & kf_valid[k0:k0 + chunk, None, :]
+        dm = torch.where(ok_pair, dist.round().to(torch.int32), _INF)    # (c, Nq, N)
+        best12 = torch.argmin(dm, dim=2)
+        best21 = torch.argmin(dm, dim=1)
+        mutual = torch.gather(best21, 1, best12) == ar[None]
+        ok = mutual & (dm.min(dim=2).values <= TH_LOW) & q_valid[None]
+        out.append(ok.sum(1).to(torch.int32))
+    if not out:
+        return torch.zeros(0, dtype=torch.int32, device=q_desc.device)
+    return torch.cat(out)
+
+
+def candidate_match(kf_desc, kf_valid, q_desc, q_valid) -> torch.Tensor:
+    """One shard's mutual-best match counts: K34 on a card,
+    ``candidate_match_plain`` on the CPU."""
+    if not kf_desc.is_cuda:
+        return candidate_match_plain(kf_desc, kf_valid, q_desc, q_valid)
+    Ks, N = kf_desc.shape[0], kf_desc.shape[1]
+    Nq = q_desc.shape[0]
+    args = [kf_desc.to(torch.uint8).contiguous(), kf_valid.to(torch.bool).contiguous(),
+            q_desc.to(torch.uint8).contiguous(), q_valid.to(torch.bool).contiguous()]
+    kernels.require_cuda("kf_match", *args)
+    if args[0].shape != (Ks, N, 32) or args[1].shape != (Ks, N) or args[2].shape != (Nq, 32) \
+            or args[3].shape != (Nq,):
+        raise ValueError("kf_match: inconsistent shapes")
+    dev = kf_desc.device
+    counts = torch.empty(Ks, dtype=torch.int32, device=dev)
+    if Ks == 0:
+        return counts
+    lib = kernels.lib()
+    ws = torch.empty(int(lib.kf_match_workspace_bytes(Ks, N, Nq)), dtype=torch.uint8,
+                     device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kf_match_launch(*[a.data_ptr() for a in args], Ks, N, Nq, TH_LOW,
+                                  ws.data_ptr(), counts.data_ptr(), kernels.stream())
+    kernels.check(err, "kf_match")
+    kernels.LAUNCHES["kf_match"] += 1
+    return counts
+
+
 def sharded_loop_candidate_match(mesh: Mesh, kf_desc, kf_valid, q_desc, q_valid):
-    """Distributed mutual-best descriptor matching of a query against every
-    stored keyframe (JAX ``kf_blocks.py:98``).  No engine path calls it."""
-    raise NotImplementedError("sharded_loop_candidate_match is not ported (ROADMAP A.14.3)")
+    """Distributed descriptor matching of a query keyframe against every
+    stored keyframe (JAX ``kf_blocks.py:98``): on each shard, for each of
+    its keyframes, the number of mutual-best matches with Hamming distance
+    <= TH_LOW (``candidate_match``: K34 on a card).  ``kf_desc`` (K, N, 32)
+    uint8 and ``kf_valid`` (K, N) bool are KF-sharded (``shard_kf_axis``);
+    ``q_desc`` (Nq, 32) uint8 and ``q_valid`` (Nq,) bool are replicated
+    (moved to each shard's device here).  Returns the (Ks,) int32 counts
+    of each shard.  No engine path calls it."""
+    qd, qv = torch.as_tensor(q_desc), torch.as_tensor(q_valid)
+    return [candidate_match(d, v, qd.to(d.device), qv.to(d.device))
+            for d, v in zip(kf_desc, kf_valid)]
+
+
+def sharded_loop_candidate_match_plain(mesh: Mesh, kf_desc, kf_valid, q_desc, q_valid):
+    """Plain version of ``sharded_loop_candidate_match`` (same arguments)."""
+    qd, qv = torch.as_tensor(q_desc), torch.as_tensor(q_valid)
+    return [candidate_match_plain(d, v, qd.to(d.device), qv.to(d.device))
+            for d, v in zip(kf_desc, kf_valid)]

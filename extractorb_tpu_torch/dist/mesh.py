@@ -94,6 +94,28 @@ def shard_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def landmark_shards(p, n: int, what: str):
+    """The per-shard problems of a landmark-sharded layout: ``p``'s points
+    (``points``, ``fixed_mp``) and observations (``obs_*``, ``inv_sigma2``)
+    in n equal blocks, ``obs_mp`` made local to its shard; every other
+    field (poses or states, chain) is every shard's.  ``p`` is a BA or a VI
+    BA problem; raises unless both lengths are multiples of n."""
+    P, O = p.points.shape[0], p.obs_kf.shape[0]
+    if O % n or P % n:
+        raise ValueError(f"{what}: {P} points and {O} observations on {n} shards")
+    if n == 1:
+        return [p]
+    Ps, Os = P // n, O // n
+    out = []
+    for s in range(n):
+        o, q = slice(s * Os, (s + 1) * Os), slice(s * Ps, (s + 1) * Ps)
+        out.append(p._replace(points=p.points[q], obs_kf=p.obs_kf[o],
+                              obs_mp=p.obs_mp[o] - s * Ps, obs_uv=p.obs_uv[o],
+                              inv_sigma2=p.inv_sigma2[o], obs_valid=p.obs_valid[o],
+                              fixed_mp=p.fixed_mp[q]))
+    return out
+
+
 def cuda_ids(mesh: Mesh, what: str) -> np.ndarray:
     """The CUDA device index of each shard (int32), for a kernel launched
     over the mesh; raises on a shard that is not a card."""

@@ -33,8 +33,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9,
 # K10, K12, K17, K18, K24, K25's scoring, K26, K27 and K28 must round like their plain
-# PyTorch versions (K1, K3, K8, K11, K15 and K16 are integer code or copies; K4, K6,
-# K13, K14, K19-K23, K30 and K31 are bound by latency and K29 by bytes, not float
+# PyTorch versions (K1, K3, K8, K11, K15, K16 and K34 are integer code or copies; K4,
+# K6, K13, K14, K19-K23 and K30-K33 are bound by latency and K29 by bytes, not float
 # throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
@@ -126,8 +126,16 @@ _SIGNATURES = {
     # gather, cost
     "ba_schur_sharded_launch": (_I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _I, _I, _I, _F,
                                 _P, _P),
+    # n, devs (host int32 per shard), tab (host int64 (n, 13): R, t, pts, obs_kf, obs_mp,
+    # obs_uv, isig, valid, fixed_kf, fixed_mp, ws, inliers, stream), K, P, Os, fx, fy, cx,
+    # cy, kb8 (host float32 k1..k4; null: pinhole), n_iters, cg_iters, use_huber, chi2_th,
+    # gather, cost
+    "ba_pcg_sharded_launch": (_I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _I, _I, _I, _F,
+                              _P, _P),
     # hists, has, valid, q, K, W, scores, common, stream
     "place_dense_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _P),
+    # kf_desc, kf_valid, q_desc, q_valid, Ks, N, Nq, th_low, ws, counts, stream
+    "kf_match_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # img, flat, tables, tab(host ptr), stream
     "pyramid_launch": (_P, _P, _P, _P, _P),
     # keep, score, tab(host ptr), xy, resp, valid, stream
@@ -146,6 +154,12 @@ _SIGNATURES = {
     # prior_g, prior_a, n_iters, cg_iters, use_huber, chi2_th, ws, inliers, cost, stream
     "vi_ba_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _F, _F, _F, _F, _P, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P),
+    # n, devs (host int32 per shard), tab (host int64 (n, 15): states, pts, chain, obs_kf,
+    # obs_mp, obs_uv, isig, valid, chain_valid, fixed_kf, fixed_mp, ext, ws, inliers,
+    # stream), K, Ps, Os, fx, fy, cx, cy, kb8 (host float32 k1..k4; null: pinhole),
+    # prior_g, prior_a, n_iters, cg_iters, use_huber, chi2_th, gather, cost
+    "vi_ba_sharded_launch": (_I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _F, _F, _I, _I, _I,
+                             _F, _P, _P),
     # Rwb, twb, chain, valid, v0, bias0, Rwg_seed, K, prior_g, prior_a, fix_scale,
     # n_iters, ws, out, stream
     "inertial_init_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _I, _P, _P, _P),
@@ -179,6 +193,9 @@ _SIGNATURES = {
     "ba_schur_gather_bytes": (_I, _I),
     "pose_graph_gather_bytes": (_I, _I),
     "vi_ba_workspace_bytes": (_I, _I, _I, _I),
+    "vi_ba_gather_bytes": (_I, _I),
+    "ba_pcg_gather_bytes": (_I, _I, _I),
+    "kf_match_workspace_bytes": (_I, _I, _I),
     "inertial_init_workspace_bytes": (_I,),
 }
 # return types other than the launch status (an int cudaError_t)
@@ -186,7 +203,9 @@ _RESTYPES = {"two_view_workspace_bytes": _L, "ba_workspace_bytes": _L,
              "pose_graph_workspace_bytes": _L, "pose_graph_4dof_workspace_bytes": _L,
              "ba_schur_workspace_bytes": _L, "ba_schur_gather_bytes": _L,
              "pose_graph_gather_bytes": _L,
-             "vi_ba_workspace_bytes": _L, "inertial_init_workspace_bytes": _L}
+             "vi_ba_workspace_bytes": _L, "inertial_init_workspace_bytes": _L,
+             "vi_ba_gather_bytes": _L, "ba_pcg_gather_bytes": _L,
+             "kf_match_workspace_bytes": _L}
 
 _lib = None
 _lock = threading.Lock()

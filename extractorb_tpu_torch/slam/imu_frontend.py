@@ -412,12 +412,12 @@ def full_inertial_ba(mp, calib: ImuCalib, cam: Camera, prior_g: float = 1.0,
                      device=None, stats=None):
     """FullInertialBA (reference src/Optimizer.cc:420): the joint
     visual-inertial BA over the whole temporal chain, the first keyframe
-    fixed and the biases anchored by priors.  One device only: a mesh of
-    more than one shard (the sharded K20 of ``optimize_vi_sharded``) is
-    ROADMAP A.14.2."""
-    if mesh is not None and int(np.prod(list(mesh.shape.values()))) > 1:
-        raise NotImplementedError("full_inertial_ba on a mesh of more than one shard is not "
-                                  "ported (ROADMAP A.14.2)")
+    fixed and the biases anchored by priors.  On a ``mesh`` of more than
+    one shard the points are padded to a multiple of the mesh (fixed, at
+    z = 1), the observations regrouped by their point's shard
+    (``dist/sharded_ba.relayout_point_sharded``) and the problem solved by
+    ``optimize_vi_sharded`` (K32 on cards, its plain version on the CPU);
+    else by ``optimize_vi_ba`` (K20)."""
     device = kernels.resolve_device(device, "the full inertial BA")
     kids, Rwb, twb, preints, valids = _temporal_chain(mp, calib)
     K = len(kids)
@@ -441,10 +441,40 @@ def full_inertial_ba(mp, calib: ImuCalib, cam: Camera, prior_g: float = 1.0,
     fixed_kf[0] = True
     prob = _problem(mp, calib, kids, Rwb, twb, v, bg, ba, preints, valids, pt_ids, obs,
                     fixed_kf, prior_g, prior_a, device, pad_points_z=False)
-    res = sin.optimize_vi_ba(prob, cam, n_iters=n_iters, cg_iters=cg_iters)
+    n_dev = 1 if mesh is None else int(np.prod(list(mesh.shape.values())))
+    if n_dev > 1:
+        from ..dist import sharded_ba as dba
+
+        res = dba.optimize_vi_sharded(mesh, _relayout_vi(prob, n_dev), cam, n_iters=n_iters,
+                                      cg_iters=cg_iters)
+    else:
+        res = sin.optimize_vi_ba(prob, cam, n_iters=n_iters, cg_iters=cg_iters)
     if stats is not None:
         stats["vi_ba"] += 1
     _apply_result(mp, calib, kids, res, pt_ids)
+
+
+def _relayout_vi(prob: sin.VIBAProblem, n_dev: int) -> sin.VIBAProblem:
+    """``prob`` in the landmark-sharded layout of ``n_dev`` shards: its
+    (bucket-padded) points padded to a multiple of ``n_dev`` with fixed
+    points at z = 1, its observations regrouped by
+    ``relayout_point_sharded`` (host numpy, as the JAX module)."""
+    from ..dist import sharded_ba as dba
+
+    host = lambda a: a.detach().cpu().numpy()
+    P = prob.points.shape[0]
+    P_pad = -(-P // n_dev) * n_dev
+    pts = np.zeros((P_pad, 3), np.float32)
+    pts[:, 2] = 1.0
+    pts[:P] = host(prob.points)
+    fmp = np.ones(P_pad, bool)
+    fmp[:P] = host(prob.fixed_mp)
+    out = dba.relayout_point_sharded(host(prob.obs_kf), host(prob.obs_mp), host(prob.obs_uv),
+                                     host(prob.inv_sigma2), host(prob.obs_valid), P_pad, n_dev)
+    t = lambda a: torch.from_numpy(a).to(prob.points.device)
+    okf, omp, ouv, osig, oval = (t(a) for a in out)
+    return prob._replace(points=t(pts), obs_kf=okf, obs_mp=omp, obs_uv=ouv, inv_sigma2=osig,
+                         obs_valid=oval, fixed_mp=t(fmp))
 
 
 def local_inertial_ba(mp, calib: ImuCalib, cam: Camera, kf_id: int, n_window: int = 10,

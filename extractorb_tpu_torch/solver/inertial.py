@@ -284,120 +284,154 @@ def _rho(c2, use_huber: bool):
 
 
 def optimize_vi_ba_plain(p: VIBAProblem, cam: Camera, n_iters: int = 8, cg_iters: int = 50,
-                         use_huber: bool = True) -> VIBAResult:
+                         use_huber: bool = True, mesh=None) -> VIBAResult:
     """Plain version of ``optimize_vi_ba`` (same arguments); on the card its
-    sums run in PyTorch's deterministic order (``kernels.ordered_plain``)."""
+    sums run in PyTorch's deterministic order (``kernels.ordered_plain``).
+
+    With a ``mesh`` of n shards, ``p`` is in the landmark-sharded layout
+    (``dist/sharded_ba.relayout_point_sharded``) and the solve is JAX's
+    ``optimize_vi_sharded``: each shard linearizes its own observations;
+    the visual gradient and 6x6 blocks, the visual part of each Hessian
+    product, the landmark half of each PCG dot and the visual cost are
+    summed across shards by ``shard_sum``; the chain, the priors and the
+    state half are added once to those sums; the point blocks stay per
+    shard.  On one shard this is the one-device solve."""
+    from ..dist.mesh import landmark_shards
+
     with kernels.ordered_plain(p.points.is_cuda):
-        return _optimize_vi_ba_plain(p, cam, n_iters, cg_iters, use_huber)
+        shards = landmark_shards(p, 1 if mesh is None else mesh.size, "optimize_vi_sharded")
+        return _optimize_vi_ba_plain(p, shards, cam, n_iters, cg_iters, use_huber)
 
 
-def _optimize_vi_ba_plain(p: VIBAProblem, cam: Camera, n_iters: int, cg_iters: int,
+def _optimize_vi_ba_plain(p: VIBAProblem, shards, cam: Camera, n_iters: int, cg_iters: int,
                           use_huber: bool) -> VIBAResult:
-    K, P = p.Rwb.shape[0], p.points.shape[0]
+    from ..dist.mesh import shard_sum
+
+    K = p.Rwb.shape[0]
     dt, dev = p.points.dtype, p.points.device
     g = _gvec(dt, dev)
-    kf_i, mp_i = p.obs_kf.long(), p.obs_mp.long()
+    # per shard: its problem, observation -> keyframe / local point, free points, points
+    sh = [(q, q.obs_kf.long(), q.obs_mp.long(), (~q.fixed_mp).to(dt)[:, None],
+           q.points.shape[0]) for q in shards]
     free_kf = (~p.fixed_kf).to(dt)[:, None]
-    free_mp = (~p.fixed_mp).to(dt)[:, None]
     prior_diag = torch.zeros(K, 15, dtype=dt, device=dev)
     prior_diag[0, 9:12] = p.prior_g
     prior_diag[0, 12:15] = p.prior_a
     I15 = torch.eye(15, dtype=dt, device=dev)
     I3 = torch.eye(3, dtype=dt, device=dev)
+    seg = lambda vals, idx, n: torch.zeros((n,) + vals.shape[1:], dtype=dt,
+                                           device=dev).index_add_(0, idx, vals)
 
-    def total_cost(Rc, tc, vc, bgc, bac, pc):
-        rr2 = _vis_residual(Rc, tc, pc, p, cam)
-        c2 = torch.sum(rr2 * rr2, -1) * p.inv_sigma2
-        cvis = torch.sum(torch.where(p.obs_valid, _rho(c2, use_huber), 0.0))
+    def total_cost(Rc, tc, vc, bgc, bac, pcs):
+        parts = []
+        for (q, _, _, _, _), pc in zip(sh, pcs):
+            rr2 = _vis_residual(Rc, tc, pc, q, cam)
+            c2 = torch.sum(rr2 * rr2, -1) * q.inv_sigma2
+            parts.append(torch.sum(torch.where(q.obs_valid, _rho(c2, use_huber), 0.0)))
         re2 = _edge_residual_jac(Rc, tc, vc, bgc, bac, p.chain, g, with_jac=False)
-        return cvis + torch.sum(re2 * re2)
+        return shard_sum(parts) + torch.sum(re2 * re2)
 
-    Rwb, twb, v, bg, ba, points = p.Rwb, p.twb, p.v, p.bg, p.ba, p.points
+    Rwb, twb, v, bg, ba = p.Rwb, p.twb, p.v, p.bg, p.ba
+    pts = [q.points for q in shards]
     lam = torch.tensor(1e-4, dtype=dt, device=dev)
     cost = torch.tensor(float("inf"), dtype=dt, device=dev)
     for _ in range(n_iters):
-        r, Jp6, Jl = _vis_residual_jac(Rwb, twb, points, p, cam)
-        chi2 = torch.sum(r * r, -1) * p.inv_sigma2
-        w = huber_weight(chi2, DELTA_MONO) if use_huber else torch.ones_like(chi2)
-        w = w * p.inv_sigma2 * p.obs_valid.to(dt)
+        lin, g_vis, H_vis = [], [], []
+        for (q, kf_i, mp_i, free_mp, Ps), pq in zip(sh, pts):
+            r, Jp6, Jl = _vis_residual_jac(Rwb, twb, pq, q, cam)
+            chi2 = torch.sum(r * r, -1) * q.inv_sigma2
+            w = huber_weight(chi2, DELTA_MONO) if use_huber else torch.ones_like(chi2)
+            w = w * q.inv_sigma2 * q.obs_valid.to(dt)
+            Jpw6, Jlw = Jp6 * w[:, None, None], Jl * w[:, None, None]
+            g_vis.append(seg(torch.einsum("oif,oi->of", Jpw6, r), kf_i, K))
+            H_vis.append(seg(torch.einsum("oif,oig->ofg", Jpw6, Jp6), kf_i, K))
+            g_point = seg(torch.einsum("oif,oi->of", Jlw, r), mp_i, Ps) * free_mp
+            Ml = torch.linalg.inv(seg(torch.einsum("oif,oig->ofg", Jlw, Jl), mp_i, Ps)
+                                  + lam * I3)
+            lin.append((Jp6, Jl, w, g_point, Ml))
         (re, Ji, Jj), idx_i, idx_j = _edge_residual_jac(Rwb, twb, v, bg, ba, p.chain, g)
-        Jpw6, Jlw = Jp6 * w[:, None, None], Jl * w[:, None, None]
 
         g_state = torch.zeros(K, 15, dtype=dt, device=dev)
-        g_state[:, :6] += torch.zeros(K, 6, dtype=dt, device=dev).index_add_(
-            0, kf_i, torch.einsum("oif,oi->of", Jpw6, r))
+        g_state[:, :6] += shard_sum(g_vis)
         g_state = g_state.index_add(0, idx_i, torch.einsum("eif,ei->ef", Ji, re))
         g_state = g_state.index_add(0, idx_j, torch.einsum("eif,ei->ef", Jj, re))
         g_state = g_state * free_kf
-        g_point = torch.zeros(P, 3, dtype=dt, device=dev).index_add_(
-            0, mp_i, torch.einsum("oif,oi->of", Jlw, r)) * free_mp
 
         Hpp = torch.zeros(K, 15, 15, dtype=dt, device=dev)
-        Hpp[:, :6, :6] += torch.zeros(K, 6, 6, dtype=dt, device=dev).index_add_(
-            0, kf_i, torch.einsum("oif,oig->ofg", Jpw6, Jp6))
+        Hpp[:, :6, :6] += shard_sum(H_vis)
         Hpp = Hpp.index_add(0, idx_i, torch.einsum("eif,eig->efg", Ji, Ji))
         Hpp = Hpp.index_add(0, idx_j, torch.einsum("eif,eig->efg", Jj, Jj))
         Hpp = Hpp + torch.diag_embed(prior_diag)
-        Hll = torch.zeros(P, 3, 3, dtype=dt, device=dev).index_add_(
-            0, mp_i, torch.einsum("oif,oig->ofg", Jlw, Jl))
         Mp = torch.linalg.inv(Hpp + lam * I15)
-        Ml = torch.linalg.inv(Hll + lam * I3)
 
-        def hv(vp, vl):
-            vp, vl = vp * free_kf, vl * free_mp
-            u = (torch.einsum("oif,of->oi", Jp6, vp[kf_i, :6])
-                 + torch.einsum("oif,of->oi", Jl, vl[mp_i]))
-            uw = u * w[:, None]
+        def hv(vp, vls):
+            vp = vp * free_kf
+            hp_vis, hls = [], []
+            for (_, kf_i, mp_i, free_mp, Ps), (Jp6, Jl, w, _, _), vl in zip(sh, lin, vls):
+                vl = vl * free_mp
+                u = (torch.einsum("oif,of->oi", Jp6, vp[kf_i, :6])
+                     + torch.einsum("oif,of->oi", Jl, vl[mp_i]))
+                uw = u * w[:, None]
+                hp_vis.append(seg(torch.einsum("oif,oi->of", Jp6, uw), kf_i, K))
+                hl = seg(torch.einsum("oif,oi->of", Jl, uw), mp_i, Ps) * free_mp
+                hls.append(hl + lam * vl)
             hp = torch.zeros(K, 15, dtype=dt, device=dev)
-            hp[:, :6] += torch.zeros(K, 6, dtype=dt, device=dev).index_add_(
-                0, kf_i, torch.einsum("oif,oi->of", Jp6, uw))
+            hp[:, :6] += shard_sum(hp_vis)
             ue = (torch.einsum("eif,ef->ei", Ji, vp[idx_i])
                   + torch.einsum("eif,ef->ei", Jj, vp[idx_j]))
             hp = hp.index_add(0, idx_i, torch.einsum("eif,ei->ef", Ji, ue))
             hp = hp.index_add(0, idx_j, torch.einsum("eif,ei->ef", Jj, ue))
             hp = (hp + prior_diag * vp) * free_kf
-            hl = torch.zeros(P, 3, dtype=dt, device=dev).index_add_(
-                0, mp_i, torch.einsum("oif,oi->of", Jl, uw)) * free_mp
-            return hp + lam * vp, hl + lam * vl
+            return hp + lam * vp, hls
 
-        def precond(vp, vl):
+        def precond(vp, vls):
             return (torch.einsum("kfg,kg->kf", Mp, vp) * free_kf,
-                    torch.einsum("pfg,pg->pf", Ml, vl) * free_mp)
+                    [torch.einsum("pfg,pg->pf", l[4], vl) * s_[3]
+                     for l, vl, s_ in zip(lin, vls, sh)])
 
         def dot(a, b):
-            return torch.sum(a[0] * b[0]) + torch.sum(a[1] * b[1])
+            # the state half is every shard's; the landmark half is summed
+            return torch.sum(a[0] * b[0]) + shard_sum(
+                [torch.sum(x * y) for x, y in zip(a[1], b[1])])
 
-        x = (torch.zeros_like(g_state), torch.zeros_like(g_point))
-        rr = (g_state, g_point)
+        def axpy(alpha, x, y):   # x + alpha y, both halves
+            return (x[0] + alpha * y[0], [a + alpha * b for a, b in zip(x[1], y[1])])
+
+        x = (torch.zeros_like(g_state), [torch.zeros_like(l[3]) for l in lin])
+        rr = (g_state, [l[3] for l in lin])
         z = precond(*rr)
         pdir = z
         rz = dot(rr, z)
         for _ in range(cg_iters):
             Ap = hv(*pdir)
             alpha = rz / torch.clamp(dot(pdir, Ap), min=1e-20)
-            x = (x[0] + alpha * pdir[0], x[1] + alpha * pdir[1])
-            rr = (rr[0] - alpha * Ap[0], rr[1] - alpha * Ap[1])
+            x = axpy(alpha, x, pdir)
+            rr = axpy(-alpha, rr, Ap)
             z = precond(*rr)
             rz_new = dot(rr, z)
             beta = rz_new / torch.clamp(rz, min=1e-20)
-            pdir = (z[0] + beta * pdir[0], z[1] + beta * pdir[1])
+            pdir = axpy(beta, z, pdir)
             rz = rz_new
-        dp, dl = -x[0] * free_kf, -x[1] * free_mp
+        dp = -x[0] * free_kf
         Rn, tn, vn, bgn, ban = apply_delta(Rwb, twb, v, bg, ba, dp)
-        pn = points + dl
+        pn = [pq + (-xl * s_[3]) for pq, xl, s_ in zip(pts, x[1], sh)]
         c_new = total_cost(Rn, tn, vn, bgn, ban, pn)
-        c_old = total_cost(Rwb, twb, v, bg, ba, points)
+        c_old = total_cost(Rwb, twb, v, bg, ba, pts)
         better = c_new < c_old
         Rwb, twb, v = torch.where(better, Rn, Rwb), torch.where(better, tn, twb), \
             torch.where(better, vn, v)
         bg, ba = torch.where(better, bgn, bg), torch.where(better, ban, ba)
-        points = torch.where(better, pn, points)
+        pts = [torch.where(better, a, b) for a, b in zip(pn, pts)]
         lam = torch.where(better, lam * 0.5, lam * 4.0)
         cost = torch.minimum(c_new, c_old)
     Rwb = lie.orthonormalize(Rwb)
-    r = _vis_residual(Rwb, twb, points, p, cam)
-    chi2 = torch.sum(r * r, -1) * p.inv_sigma2
-    return VIBAResult(Rwb, twb, v, bg, ba, points, p.obs_valid & (chi2 <= CHI2_MONO), cost)
+    inls = []
+    for (q, _, _, _, _), pq in zip(sh, pts):
+        r = _vis_residual(Rwb, twb, pq, q, cam)
+        chi2 = torch.sum(r * r, -1) * q.inv_sigma2
+        inls.append(q.obs_valid & (chi2 <= CHI2_MONO))
+    cat = lambda a: a[0] if len(a) == 1 else torch.cat(a)
+    return VIBAResult(Rwb, twb, v, bg, ba, cat(pts), cat(inls), cost)
 
 
 def pack_preint(p, device=None) -> torch.Tensor:

@@ -34,6 +34,10 @@ from extractorb_tpu_torch.dist import mesh as dmesh
 from extractorb_tpu_torch.dist import sharded_ba, sharded_pose_graph
 from extractorb_tpu_torch.place.database import KeyFrameDatabase
 from extractorb_tpu_torch.slam import imu_frontend
+from extractorb_tpu_torch.slam.map import KeyFrame, SLAMMap
+import port_fixtures as pf
+from test_torch_inertial_loop import CALIB, integrator
+from test_torch_loop_closing import tfeats
 from test_torch_sim3 import CAM, gba_problem, jproject
 from test_torch_vocab import groups, vocabs  # noqa: F401  (pytest fixture)
 from torch_card import cuda_device, one_torch_thread  # noqa: F401  (pytest fixtures)
@@ -154,15 +158,36 @@ def test_database_device_backend(vocabs, mode):
     assert tdb._dev_arena[0][0].shape[0] == 3   # 17 entries padded to 24 rows on 8 shards
 
 
-def test_unported_refusals():
+def test_unported_refusals(monkeypatch):
+    """The three functions the mesh lacked run on 4 CPU shards (they are
+    held to JAX in tests/test_torch_dist_vi.py and
+    tests/test_torch_inertial_loop_mesh.py): the full inertial BA of a small
+    inertial map goes through ``optimize_vi_sharded``; the stereo residual
+    is still refused (ROADMAP B.21)."""
     with dmesh.use_devices([CPU] * 4):
         m = dmesh.make_mesh()
-        with pytest.raises(NotImplementedError, match="A.14.3"):
-            kfb.sharded_loop_candidate_match(m, None, None, None, None)
-        with pytest.raises(NotImplementedError, match="A.14.3"):
-            sharded_ba.optimize_sharded(m, gba_problem(), CAM)
-        with pytest.raises(NotImplementedError, match="A.14.2"):
-            imu_frontend.full_inertial_ba(None, None, CAM, mesh=m, device="cpu")
+        desc = np.random.default_rng(2).integers(0, 256, (8, 16, 32), np.uint8)
+        counts = kfb.sharded_loop_candidate_match(
+            m, kfb.shard_kf_axis(m, desc), kfb.shard_kf_axis(m, np.ones((8, 16), bool)),
+            torch.from_numpy(desc[5]), torch.ones(16, dtype=torch.bool))
+        assert int(np.argmax(kfb.gather_host(counts))) == 5
+        p = gba_problem()
+        p = p._replace(**{f: getattr(p, f)[:p.obs_kf.shape[0] // 4 * 4]
+                          for f in ("obs_kf", "obs_mp", "obs_uv", "inv_sigma2", "obs_valid")})
+        res = sharded_ba.optimize_sharded(m, p, CAM, n_iters=2, cg_iters=5)
+        assert bool(torch.isfinite(res.points).all()) and res.inliers.shape == p.obs_kf.shape
+        calls = []
+        real = sharded_ba.optimize_vi_sharded
+        monkeypatch.setattr(sharded_ba, "optimize_vi_sharded",
+                            lambda *a, **k: calls.append(a) or real(*a, **k))
+        mp = pf.build_looped_map(0, SLAMMap, KeyFrame, tfeats, n_kf=6, n_pts=80, inertial=True,
+                                 preintegrate=integrator("port"))[0]
+        imu_frontend.full_inertial_ba(mp, CALIB, CAM, n_iters=2, cg_iters=5, mesh=m,
+                                      device="cpu")
+        assert len(calls) == 1 and calls[0][0] is m and calls[0][1].points.shape[0] % 4 == 0
+        assert all(np.isfinite(kf.t).all() for kf in mp.keyframes.values())
+        with pytest.raises(NotImplementedError, match="B.21"):
+            sharded_ba.optimize_schur(p._replace(obs_ur=p.obs_uv[:, 0]), CAM, mesh=m)
 
 
 # ------------------------------------------------------ landmark-sharded GBA
