@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels (K1-K34) from
+Builds the hand-written CUDA kernels (K1-K36) from
 ``extractorb_tpu_torch/csrc``, checks each against its plain PyTorch
 version at the shapes of the main paths, counts the device kernels and
 host time of one extraction through the kernels and through the plain
@@ -82,8 +82,16 @@ landmark shards (K32 in place of K20); [mesh-api] calls the mesh's two
 functions no engine path calls, ``optimize_sharded`` (K33) on the [loop]
 map's problem and ``sharded_loop_candidate_match`` (K34) against its
 keyframes; [parity-mesh] holds K32 to its plain version and to K20, K33
-and K34 (also at 1024 keyframes x 1024 descriptors) to theirs; and [det]
-counts the distinct results of 20 calls of K13, K14, K14<KB8> and K30-K33.
+and K34 (also at 1024 keyframes x 1024 descriptors) to theirs.  Then the
+JAX programs no engine path calls: [ba-stereo] runs
+``ba.optimize`` at the window BA's padding (Kp 32 and Kp 64) with the
+stereo rows (K6 <stereo>, <stereo, CamKB8>) and ``solver="schur_dense"``
+(K35), mono and stereo, pinhole and KB8, each held to its plain version;
+[parity-marginal] runs ``condition``, ``marginalize`` and ``sparsify`` (K36)
+at n = 9, 30 and 45; [search-api] runs ``fuse_by_projection``,
+``search_by_projection_reloc`` and ``search_by_sim3`` (K3, K18) on the
+[system] map, bit-equal to the plain path; and [det] counts the distinct
+results of 20 calls of K13, K14, K14<KB8>, K30-K33, K35 and K36.
 On one card the shards' partial sums meet in one kernel; the peer route
 between cards runs only where there are several (``chip_peer.py``).
 Any failure raises:
@@ -144,6 +152,7 @@ from extractorb_tpu_torch.slam.tracking import TrackState  # noqa: E402
 from extractorb_tpu_torch.imu import preintegration as preint_mod  # noqa: E402
 from extractorb_tpu_torch.solver import ba, pnp, pose_graph, pose_opt  # noqa: E402
 from extractorb_tpu_torch.solver import inertial as sin  # noqa: E402
+from extractorb_tpu_torch.solver import marginal as mg  # noqa: E402
 from extractorb_tpu_torch.utils import packed_fetch  # noqa: E402
 
 WIDTH, HEIGHT = 640, 480
@@ -242,6 +251,12 @@ KERNELS.update({
     "ba_pcg_sharded": ("extractorb_tpu_torch/csrc/ba_pcg.cu + shard_sum.cuh",
                        "extractorb_tpu/dist/sharded_ba.py:40"),
     "kf_match": ("extractorb_tpu_torch/csrc/kf_match.cu", "extractorb_tpu/dist/kf_blocks.py:98"),
+    # the window BA's dense solver and the marginal toolbox (the [ba-stereo] and
+    # [parity-marginal] paths) add K35 and K36; K6 <stereo> is the ba_pcg row's
+    "ba_schur_dense": ("extractorb_tpu_torch/csrc/ba_schur_dense.cu",
+                       "extractorb_tpu/solver/ba.py:215"),
+    "marginal": ("extractorb_tpu_torch/csrc/marginal.cu",
+                 "extractorb_tpu/solver/marginal.py:23 (+ :52 condition, :63 sparsify)"),
 })
 # the [system] run: the rendered sequence of tests/test_slam_e2e.py's
 # planar test at 640x480 / 1000 features, 30 frames at speed 0.04
@@ -960,13 +975,15 @@ def init_pairs(frames, dev, k1: int = 0, k2: int = 2):
 
 
 def ba_problem(rng, dev, n_kf: int = 6, n_pts: int = 1000, Kp: int = 32, Pp: int = 2048,
-               Op: int = 8192, kb8=None) -> ba.BAProblem:
+               Op: int = 8192, kb8=None, stereo_bf=None) -> ba.BAProblem:
     """A BA problem padded like run_ba's init problem (Kp 32, Pp 2048, Op
     8192): n_kf keyframes (the first two fixed, so no gauge freedom is
     left), points 4-9 m away, pixel noise within +-0.5 px and 5% gross
     outliers (+40 px), so no residual lies near the chi2 threshold.  With
     ``kb8`` (fx, fy, cx, cy, k1..k4) the points spread to about 55 degrees
-    off the axis and project through the KB8 model."""
+    off the axis and project through the KB8 model.  With ``stereo_bf``
+    every other observation gets a right-image u, u - bf / z within +-0.5
+    px (``obs_ur``; -1 on the rest and the padding)."""
     K = pf.camera_matrix(WIDTH, HEIGHT)
     w = 3.0 if kb8 is not None else 1.0
     pts = np.stack([rng.uniform(-2 * w, 2 * w, n_pts), rng.uniform(-1.5 * w, 1.5 * w, n_pts),
@@ -983,6 +1000,11 @@ def ba_problem(rng, dev, n_kf: int = 6, n_pts: int = 1000, Kp: int = 32, Pp: int
         obs_uv.append(uv + rng.uniform(-0.5, 0.5, uv.shape))
     obs_kf, obs_mp, obs_uv = (np.concatenate(a) for a in (obs_kf, obs_mp, obs_uv))
     O = len(obs_kf)
+    ur = None
+    if stereo_bf is not None:
+        z = np.einsum("oj,oj->o", Rs[obs_kf][:, 2], pts[obs_mp]) + ts[obs_kf][:, 2]
+        ur = np.full(Op, -1.0)
+        ur[:O:2] = (obs_uv[:, 0] - stereo_bf / z + rng.uniform(-0.5, 0.5, O))[::2]
     obs_uv[rng.random(O) < 0.05] += 40.0
     R0, t0, p0 = Rs.copy(), ts.copy(), pts + rng.normal(0, 0.03, pts.shape)
     for k in range(2, n_kf):
@@ -1007,7 +1029,8 @@ def ba_problem(rng, dev, n_kf: int = 6, n_pts: int = 1000, Kp: int = 32, Pp: int
                         obs_kf=t(pad(obs_kf, Op, 0), i), obs_mp=t(pad(obs_mp, Op, 0), i),
                         obs_uv=t(pad(obs_uv, Op), f), inv_sigma2=t(isig, f),
                         obs_valid=t(pad(np.ones(O, bool), Op, False), b), fixed_kf=t(fk, b),
-                        fixed_mp=t(np.arange(Pp) >= n_pts, b))
+                        fixed_mp=t(np.arange(Pp) >= n_pts, b),
+                        obs_ur=None if ur is None else t(ur, f))
 
 
 def tri_inputs(frames, poses, dev, n_features: int = SYS_FEATURES, center: int = 4):
@@ -3580,6 +3603,305 @@ def phase_pipelined_vi(frames, dev):
 # ------------------------------------------------ determinism (C.7), KB8
 
 
+# ---------------------------------- the BA's stereo rows and dense solve,
+# the marginal toolbox and the searches no engine path calls
+# [ba-stereo]: the window BA's stereo rows (K6 <stereo>) and its dense
+# solver (K35), at the window BA's padding (local_mapping's ladders): Kp 32 /
+# Pp 2048 / Op 8192 with 6 keyframes, and schur_dense's largest window, Kp
+# 64 (12 keyframes, Op 16384); every other observation has a right-image u
+# at [stereo]'s bf (KB8: the fisheye rig's baseline)
+BA_ITERS, BA_CG = 10, 40
+
+
+def ba_stereo_cases(dev):
+    """(tag, problem, camera, bf, solver) of every [ba-stereo] solve."""
+    K = pf.camera_matrix(WIDTH, HEIGHT)
+    pin = track_device.pinhole_project(K[0, 0], K[1, 1], K[0, 2], K[1, 2])
+    kb8 = pf.kb8_camera(KB8_SIZE, KB8_SIZE)
+    cam8 = track_device.kb8_project(*kb8)
+    bf, bf8 = float(K[0, 0]) * STEREO_BASELINE, float(kb8[0]) * KB8_BASELINE
+    p32 = ba_problem(np.random.default_rng(21), dev, stereo_bf=bf)
+    # five observed points fixed: K6 masks their steps, K35 still eliminates
+    # them into S (JAX's ba.py:218, ROADMAP C.2)
+    p32 = p32._replace(fixed_mp=p32.fixed_mp.index_fill(0, torch.arange(5, device=dev), True))
+    p32k = ba_problem(np.random.default_rng(22), dev, kb8=kb8, stereo_bf=bf8)
+    p64 = ba_problem(np.random.default_rng(23), dev, n_kf=12, Kp=64, Op=16384, stereo_bf=bf)
+    return [("cg stereo Kp32", p32, pin, bf, "cg"),
+            ("schur_dense stereo Kp32", p32, pin, bf, "schur_dense"),
+            ("schur_dense mono Kp32", p32._replace(obs_ur=None), pin, 0.0, "schur_dense"),
+            ("cg stereo KB8 Kp32", p32k, cam8, bf8, "cg"),
+            ("schur_dense stereo KB8 Kp32", p32k, cam8, bf8, "schur_dense"),
+            ("cg stereo Kp64", p64, pin, bf, "cg"),
+            ("schur_dense stereo Kp64", p64, pin, bf, "schur_dense")]
+
+
+def _gate_flips(p, cam, bf, rk, rp) -> int:
+    """Observations whose inlier flag differs between two BA results, other
+    than those within 1e-3 (relative) of their chi2 gate in ``rp``."""
+    Rk, tk, pw = ba._gather(rp.R, rp.t, rp.points, p)
+    r = ba._residual(ba._camera_point(Rk, tk, pw), p, cam, bf)
+    chi2 = torch.sum(r * r, -1) * p.inv_sigma2
+    gate = ba._gates(p, ba.CHI2_MONO)[1]
+    edge = (chi2 - gate).abs() <= 1e-3 * gate
+    return int(((rk.inliers != rp.inliers) & ~edge).sum())
+
+
+def ba_work(p, solver: str, n_iters: int = BA_ITERS, cg_iters: int = BA_CG):
+    """Bytes (inputs read once, outputs written once) and float operations
+    of one BA call: per LM step ~150 a valid observation and row pair for
+    the residual, Jacobians and blocks, then the cg sweeps (~80 a valid
+    observation each) or K35's step: W and W C (~150 an observation), the
+    pairs of observations that share a point (~220 each, the S blocks; S is
+    symmetric, so c (c + 1) / 2 pairs at a point of c), the Cholesky n^3 / 3
+    and the two solves 2 n^2 at n = 6K."""
+    Ob, Pb, Kb = p.obs_kf.shape[0], p.points.shape[0], p.R.shape[0]
+    nv = int(p.obs_valid.sum())
+    rows = 3 if p.obs_ur is not None else 2
+    nbytes = (Ob * (4 + 4 + 8 + 4 + 1 + (4 if rows == 3 else 0)) + Pb * (12 + 1) + Kb * 49
+              + Kb * 48 + Pb * 12 + Ob + 4)
+    lin = nv * 75 * rows
+    if solver == "cg":
+        step = nv * 40 * rows * cg_iters
+    else:
+        per_point = torch.bincount(p.obs_mp[p.obs_valid].long(), minlength=Pb).double()
+        n = 6 * Kb
+        pairs = int((per_point * (per_point + 1) / 2).sum())
+        step = nv * 150 + pairs * 220 + n ** 3 // 3 + 2 * n * n
+    return nbytes, n_iters * (lin + step)
+
+
+def dense_system(p, cam, bf: float):
+    """S and b of the first LM step of ``schur_dense`` at lambda 1e-4, in the
+    plain version's arithmetic (for timing one library solve of it)."""
+    dt = p.points.dtype
+    free_kf = (~p.fixed_kf).to(dt)[:, None]
+    free_mp = (~p.fixed_mp).to(dt)[:, None]
+    delta_h, _ = ba._gates(p, ba.CHI2_MONO)
+    _, _, Jl, _, _, Jpw, bp, bl, Hpp, Hll = ba._linearize(p.R, p.t, p.points, p, cam, bf, delta_h,
+                                                          True, free_kf, free_mp)
+    lam = torch.tensor(1e-4, dtype=dt, device=p.points.device)
+    return ba._schur_dense_system(p, Jpw, Jl, Hpp, Hll, bp, bl, lam, free_kf)[:2]
+
+
+def k35_step_ms(p, cam, bf: float):
+    """Device ms of K35's passes per LM step and of its solve kernel, from a
+    ``torch.profiler`` trace of one call, over the solve launches the trace
+    holds (None where it holds none)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ba.optimize(p, cam, BA_ITERS, BA_CG, bf=bf, solver="schur_dense")
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+    ev = [e for e in prof.key_averages() if any(k in e.key for k in (
+        "point_kernel", "schur_kernel", "solve_kernel", "back_kernel"))]
+    total = sum(dev_us(e) for e in ev)
+    solve = sum(dev_us(e) for e in ev if "solve_kernel" in e.key)
+    steps = sum(e.count for e in ev if "solve_kernel" in e.key)
+    if total <= 0 or steps == 0:
+        return None, None
+    print(f"[ba-stereo] the trace holds {steps} of {BA_ITERS} K35 steps", flush=True)
+    return total / 1e3 / steps, solve / 1e3 / steps
+
+
+def phase_ba_stereo(dev):
+    """[ba-stereo]: ``ba.optimize`` on ``ba_stereo_cases`` through its entry
+    point (the counts cleared before and read after): cg and schur_dense,
+    mono and stereo, pinhole and KB8, at Kp 32 and Kp 64.  Each result is
+    held to the plain version on the card: poses within 1e-4, the same
+    inliers off the gate edges, cost rtol 1e-4.  Returns the launches and
+    the records of K6 <stereo>, K6 <stereo, CamKB8> and K35."""
+    cases = ba_stereo_cases(dev)
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.clear()
+    res = [ba.optimize(p, cam, BA_ITERS, BA_CG, bf=bf, solver=sv) for _, p, cam, bf, sv in cases]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = {"ba_pcg": 7, "ba_pcg_stereo": 6, "ba_schur_dense": 4, "ba_pcg_kb8": 2,
+            "ba_pcg_stereo_kb8": 2}
+    if launches != want:
+        raise AssertionError(f"[ba-stereo] launches {launches}, expected {want}")
+    stats = {}
+    for (tag, p, cam, bf, sv), rk in zip(cases, res):
+        rp, plain_ms = timed(lambda: ba.optimize_plain(p, cam, BA_ITERS, BA_CG, bf=bf, solver=sv))
+        d = max(float((rk.R - rp.R).abs().max()), float((rk.t - rp.t).abs().max()))
+        dp = float((rk.points - rp.points).abs().max())
+        flips = _gate_flips(p, cam, bf, rk, rp)
+        crel = abs(float(rk.cost) - float(rp.cost)) / max(abs(float(rp.cost)), 1e-30)
+        line = (f"[ba-stereo] {tag} K={p.R.shape[0]} P={p.points.shape[0]} O={p.obs_kf.shape[0]}"
+                f" {BA_ITERS} LM: poses within {d:.2e} (points {dp:.2e}), cost {float(rk.cost):.6g}"
+                f" (plain {float(rp.cost):.6g}, rel {crel:.1e}), {int(rk.inliers.sum())} inliers, "
+                f"{int((rk.inliers != rp.inliers).sum())} flips ({flips} off the gate edges)")
+        if d > 1e-4 or flips or crel > 1e-4:
+            raise AssertionError(line)
+        print(line, flush=True)
+        key = {"cg stereo Kp32": "ba_pcg_stereo", "cg stereo KB8 Kp32": "ba_pcg_stereo_kb8",
+               "schur_dense stereo Kp32": "ba_schur_dense",
+               "schur_dense stereo Kp64": "ba_schur_dense_kp64"}.get(tag)
+        if key is None:
+            continue
+        nbytes, ops = ba_work(p, sv)
+        lib_ms = None
+        if sv == "schur_dense":
+            S, b = dense_system(p, cam, bf)
+            lib_ms = cuda_ms(lambda: torch.linalg.solve(S, b))
+        stats[key] = record(d, cuda_ms(lambda: ba.optimize(p, cam, BA_ITERS, BA_CG, bf=bf,
+                                                            solver=sv), reps=5),
+                            plain_ms, nbytes + (16 if "kb8" in key else 0), ops, lib_ms)
+        if sv == "schur_dense":
+            step_ms, solve_ms = k35_step_ms(p, cam, bf)
+            stats[key].update(step_ms=step_ms, solve_ms=solve_ms, n=6 * p.R.shape[0])
+            print(f"[ba-stereo] {tag}: {stats[key]['ms']:.3f} ms a call ({BA_ITERS} LM steps), "
+                  f"K35 {step_ms} ms device a step (its solve kernel {solve_ms}), "
+                  f"torch.linalg.solve of the same ({6 * p.R.shape[0]})^2 S {lib_ms:.4f} ms",
+                  flush=True)
+    return launches, stats
+
+
+# [parity-marginal]: the marginal toolbox (K36) on information matrices of
+# the inertial sizes: n = 9 (the JAX test's), 30 (two 15-dim states) and 45
+MARGINAL_CASES = ((9, (3, 5), (6, 8)), (30, (0, 14), (15, 29)), (45, (15, 29), (30, 44)))
+
+
+def information(n: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n, n + 3)).astype(np.float32)
+    return torch.from_numpy(A @ A.T + 0.1 * np.eye(n, dtype=np.float32))
+
+
+def phase_parity_marginal(dev):
+    """[parity-marginal]: ``condition``, ``marginalize`` and ``sparsify``
+    through their entry points on ``MARGINAL_CASES`` (the counts cleared
+    before and read after: one K36 launch a call), then each against its
+    plain version on the card: condition bit-equal, marginalize and
+    sparsify within 1e-5 of max|H|.  Returns the launches and K36's record
+    (marginalize at n = 30, block 15; sparsify's time beside it)."""
+    Hs = [information(n, 30 + n).to(dev) for n, _, _ in MARGINAL_CASES]
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.clear()
+    outs = [(mg.condition(H, *b1), mg.marginalize(H, *b1), mg.sparsify(H, *b1, *b2))
+            for H, (_, b1, b2) in zip(Hs, MARGINAL_CASES)]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    k = len(MARGINAL_CASES)
+    want = {"marginal": 3 * k, "marginal_condition": k, "marginal_marginalize": k,
+            "marginal_sparsify": k}
+    if launches != want:
+        raise AssertionError(f"[parity-marginal] launches {launches}, expected {want}")
+    errs = {}
+    for H, (n, b1, b2), (c, m, sp) in zip(Hs, MARGINAL_CASES, outs):
+        scale = float(H.abs().max())
+        dm = float((m - mg.marginalize_plain(H, *b1)).abs().max()) / scale
+        ds = float((sp - mg.sparsify_plain(H, *b1, *b2)).abs().max()) / scale
+        line = (f"[parity-marginal] n={n} block {b1} (sparsify with {b2}): condition bit-equal "
+                f"{torch.equal(c, mg.condition_plain(H, *b1))}, marginalize {dm:.2e}, sparsify "
+                f"{ds:.2e} of max|H|")
+        if not torch.equal(c, mg.condition_plain(H, *b1)) or dm > 1e-5 or ds > 1e-5:
+            raise AssertionError(line)
+        print(line, flush=True)
+        errs[n] = dm * scale
+    H, (n, b1, b2) = Hs[1], MARGINAL_CASES[1]
+    b = b1[1] - b1[0] + 1
+    # one marginalisation: H read, H' written; a symmetric b x b eigen-solve
+    # (~9 b^3 float64 operations) and T, H' (2 n^2 b)
+    ops64 = 9 * b ** 3 + 2 * n * n * b
+    st = record(errs[n], cuda_ms(lambda: mg.marginalize(H, *b1)),
+                cuda_ms(lambda: mg.marginalize_plain(H, *b1)), 8 * n * n, 0, None, ops64)
+    st.update(sparsify_ms=cuda_ms(lambda: mg.sparsify(H, *b1, *b2)),
+              sparsify_plain_ms=cuda_ms(lambda: mg.sparsify_plain(H, *b1, *b2)),
+              condition_ms=cuda_ms(lambda: mg.condition(H, *b1)))
+    print(f"[parity-marginal] n={n}: marginalize {st['ms']:.4f} ms (plain {st['plain_ms']:.4f}),"
+          f" sparsify {st['sparsify_ms']:.4f} ms (plain {st['sparsify_plain_ms']:.4f}), "
+          f"condition {st['condition_ms']:.4f} ms", flush=True)
+    return launches, {"marginal": st}
+
+
+@contextlib.contextmanager
+def plain_matcher():
+    """The searches through K3's and K18's plain versions (on the card)."""
+    saved = matcher.hamming_best2, matcher.match_epilogue
+    matcher.hamming_best2 = matcher.hamming_best2_plain
+    matcher.match_epilogue = matcher.match_epilogue_plain
+    try:
+        yield
+    finally:
+        matcher.hamming_best2, matcher.match_epilogue = saved
+
+
+def search_api_inputs(sys_, dev):
+    """The three searches' arguments from a System's map: every valid map
+    point against the last keyframe's keypoints (fuse), the previous
+    keyframe's points with their octaves and angles there (reloc, at the
+    last keyframe's pose), and the two keyframes' points in their own
+    camera frames (Sim3, S12 their relative pose, scale 1)."""
+    tr = sys_.tracker
+    mp = tr.atlas.current
+    kids = sorted(mp.keyframes)
+    k1, k2 = mp.keyframes[kids[-1]], mp.keyframes[kids[-2]]
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    u8 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.uint8), device=dev)
+    i = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    b = lambda a: torch.as_tensor(np.asarray(a, bool), device=dev)
+    n_mp = mp._next_mp
+    pts = dict(mp_pos=f(mp.mp_pos[:n_mp]), mp_desc=u8(mp.mp_desc[:n_mp]),
+               mp_valid=b(mp.mp_valid[:n_mp]), mp_normal=f(mp.mp_normal[:n_mp]),
+               mp_max_dist=f(mp.mp_max_dist[:n_mp]))
+    kp = dict(kp_xy=f(k1.xy_un), kp_desc=u8(k1.desc), kp_octave=i(k1.octave), kp_valid=b(k1.valid))
+    common = (tr.cam, tr.scale_factors, tr.img_wh)
+    fuse = ((pts["mp_pos"], pts["mp_desc"], pts["mp_valid"], pts["mp_normal"],
+             pts["mp_max_dist"], f(k1.R), f(k1.t), kp["kp_xy"], kp["kp_desc"], kp["kp_octave"],
+             kp["kp_valid"]) + common, {})
+    sel = np.nonzero(k2.kp_mp >= 0)[0]
+    ids = k2.kp_mp[sel]
+    reloc = ((f(mp.mp_pos[ids]), u8(mp.mp_desc[ids]), b(mp.mp_valid[ids]), i(k2.octave[sel]),
+              f(k2.angle[sel]), f(mp.mp_max_dist[ids]), f(k1.R), f(k1.t), kp["kp_xy"],
+              kp["kp_desc"], kp["kp_octave"], f(k1.angle), kp["kp_valid"]) + common, {})
+
+    def side(kf):
+        sel = np.nonzero(kf.kp_mp >= 0)[0]
+        ids = kf.kp_mp[sel]
+        pc = mp.mp_pos[ids] @ kf.R.T + kf.t
+        return (f(pc), u8(mp.mp_desc[ids]), b(mp.mp_valid[ids]), f(kf.xy_un[sel]),
+                i(kf.octave[sel]), f(mp.mp_max_dist[ids]))
+
+    p1, d1, v1, xy1, o1, m1 = side(k1)
+    p2, d2, v2, xy2, o2, m2 = side(k2)
+    R12 = k1.R @ k2.R.T
+    t12 = k1.t - R12 @ k2.t
+    sim3 = ((p1, d1, v1, p2, d2, v2, 1.0, f(R12), f(t12),
+             torch.zeros(p1.shape[0], dtype=torch.bool, device=dev), tr.cam, tr.scale_factors),
+            dict(kp_xy1=xy1, kp_xy2=xy2, kp_octave1=o1, kp_octave2=o2, max_dist1=m1,
+                 max_dist2=m2, img_wh=tr.img_wh))
+    return {"fuse_by_projection": fuse, "search_by_projection_reloc": reloc,
+            "search_by_sim3": sim3}, (len(kids), n_mp, int(k1.valid.sum()))
+
+
+def phase_search_api(sys_, dev):
+    """[search-api]: ``fuse_by_projection``, ``search_by_projection_reloc``
+    and ``search_by_sim3`` through their entry points on the [system] map
+    (the counts cleared before and read after: K3 once, once and twice, K18
+    once, for the reloc search), each bit-equal to the searches through
+    K3's and K18's plain versions on the card.  Returns the launches."""
+    inputs, (n_kf, n_mp, n_kp) = search_api_inputs(sys_, dev)
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.clear()
+    got = {name: getattr(matcher, name)(*a, **kw) for name, (a, kw) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = {"hamming_best2": 4, "match_epilogue": 1}
+    if launches != want:
+        raise AssertionError(f"[search-api] launches {launches}, expected {want}")
+    with plain_matcher():
+        plain = {name: getattr(matcher, name)(*a, **kw) for name, (a, kw) in inputs.items()}
+    for name, out in got.items():
+        line = (f"[search-api] {name} on the [system] map ({n_kf} keyframes, {n_mp} points; "
+                f"{n_kp} keypoints): {int((out >= 0).sum())} matches of {out.shape[0]}, "
+                f"bit-equal to the plain path {torch.equal(out, plain[name])}")
+        if not torch.equal(out, plain[name]) or int((out >= 0).sum()) == 0:
+            raise AssertionError(line)
+        print(line, flush=True)
+    return launches
+
+
 def _distinct(results) -> int:
     """The number of distinct results among calls (bytes of every output)."""
     return len({b"".join(t.detach().cpu().contiguous().numpy().tobytes() for t in r)
@@ -3592,9 +3914,10 @@ def phase_det(dev, vi_call) -> dict:
     shards of the card K30 on the [loop] map's problem and K31 on the
     essential graph, then K32 on [vi-loop-mesh]'s GBA call (``vi_call``, its
     one-view points fixed) over its shards and K33 on the [loop] map's
-    problem with its observations sharded, ``DET_CALLS`` calls each on one
-    input: they sum in a fixed order (the shards in shard order), so each
-    gives one result."""
+    problem with its observations sharded, K35 on [ba-stereo]'s Kp 32
+    stereo problem and K36 (marginalize and sparsify at n = 30),
+    ``DET_CALLS`` calls each on one input: they sum in a fixed order (the
+    shards in shard order), so each gives one result."""
     prob = pose_graph_problem(np.random.default_rng(8), dev)
     pg = [pose_graph.optimize_pose_graph(prob, n_iters=15) for _ in range(DET_CALLS)]
     mesh = dmesh.Mesh([dev] * MESH_SHARDS)
@@ -3615,11 +3938,16 @@ def phase_det(dev, vi_call) -> dict:
     vprob = one_view_fixed(vprob)
     vis = [tuple(sharded_ba.optimize_vi_sharded(vmesh, vprob, vcam, **vkw))
            for _ in range(DET_CALLS)]
+    _, p, cam, bf, sv = ba_stereo_cases(dev)[1]   # schur_dense, stereo, Kp 32
+    dns = [tuple(ba.optimize(p, cam, BA_ITERS, BA_CG, bf=bf, solver=sv)) for _ in range(DET_CALLS)]
+    H = information(30, 60).to(dev)
+    mgs = [(mg.marginalize(H, 0, 14), mg.sparsify(H, 0, 14, 15, 29)) for _ in range(DET_CALLS)]
     torch.cuda.synchronize()
     out = {}
     for name, res in (("pose_graph", pg), ("ba_schur", sb[False]), ("ba_schur_kb8", sb[True]),
                       ("ba_schur_sharded", sbs), ("pose_graph_sharded", pgs),
-                      ("vi_ba_sharded", vis), ("ba_pcg_sharded", pcs)):
+                      ("vi_ba_sharded", vis), ("ba_pcg_sharded", pcs), ("ba_schur_dense", dns),
+                      ("marginal", mgs)):
         n = _distinct(res)
         print(f"[det] {name}: {n} distinct result(s) over {DET_CALLS} calls on one input",
               flush=True)
@@ -4489,6 +4817,14 @@ def main() -> int:
     paths["vi_loop_mesh"], vi_mesh_call = phase_vi_loop_mesh(dev)
     paths["mesh_api"] = phase_mesh_api(dev)
     stats.update(phase_parity_mesh_rest(vi_mesh_call, dev))
+    t_last = time.perf_counter()
+    paths["ba_stereo"], st = phase_ba_stereo(dev)
+    stats.update(st)
+    paths["marginal"], st = phase_parity_marginal(dev)
+    stats.update(st)
+    paths["search_api"] = phase_search_api(card_sys, dev)
+    print(f"[search-api] [ba-stereo], [parity-marginal] and [search-api] in "
+          f"{time.perf_counter() - t_last:.1f} s", flush=True)
     det = phase_det(dev, vi_mesh_call)
     print(f"[parity-mesh] the mesh phases and [det] in {time.perf_counter() - t_mesh:.1f} s",
           flush=True)
@@ -4499,6 +4835,16 @@ def main() -> int:
         row = dict(name=n, route="cuda", source=src, replaces=rep,
                    launches=sum(by_path.values()), launches_by_path=by_path)
         row.update({k: v for k, v in stats[n].items() if k not in ("bytes", "ops")})
+        if n == "ba_pcg":   # K6 <stereo> and <stereo, CamKB8> beside the mono rows
+            for tag, key in (("stereo", "ba_pcg_stereo"), ("stereo_kb8", "ba_pcg_stereo_kb8")):
+                st = stats[key]
+                row.update({f"{tag}_launches": sum(count(key).values()), f"{tag}_ms": st["ms"],
+                            f"{tag}_plain_ms": st["plain_ms"], f"{tag}_bound_ms": st["bound_ms"],
+                            f"{tag}_bound_by": st["bound_by"],
+                            f"{tag}_max_abs_err": st["max_abs_err"]})
+        if n == "ba_schur_dense":   # schur_dense's largest window beside Kp 32
+            st = stats["ba_schur_dense_kp64"]
+            row.update({f"kp64_{k}": v for k, v in st.items() if k not in ("bytes", "ops")})
         if n == "pose_lm":
             st = stats["pose_lm_stereo"]
             row.update(stereo_launches=sum(count("pose_lm_stereo").values()),

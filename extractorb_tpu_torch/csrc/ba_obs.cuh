@@ -1,13 +1,19 @@
-// Device code shared by K6 (ba_pcg.cu, the window BA) and K14 (ba_schur.cu,
-// the global BA): the mono reprojection observation -- the residual
-// r = obs - pi(R p + t) and its Jacobians for the right perturbation
-// R Exp(delta), delta = (rho, phi): with A = J_pi R (the camera's a_rows,
-// camera_t.cuh), J_pose = [-A | A hat(p)] and J_point = -A (the JAX
-// package's solver/ba.py:_obs_residual_jac takes them with jacfwd) -- its
-// chi2 and Huber weight, the damped block inverses, the pose retraction,
-// the LM accept rule and the final re-orthonormalization.  The observation
-// functions take the camera as a template parameter (Cam: pinhole; CamKB8).
-// Each file includes it inside its own anonymous namespace, after dual.cuh.
+// Device code shared by K6 (ba_pcg.cu, the window BA), K14 (ba_schur.cu,
+// the global BA) and K35 (ba_schur_dense.cu): the reprojection observation
+// -- the residual r = obs - pi(R p + t) and its Jacobians for the right
+// perturbation R Exp(delta), delta = (rho, phi): with A = J_pi R (the
+// camera's a_rows, camera_t.cuh), J_pose = [-A | A hat(p)] and
+// J_point = -A (the JAX package's solver/ba.py:_obs_residual_jac takes
+// them with jacfwd) -- its chi2 and Huber weight, the damped block
+// inverses, the pose retraction, the LM accept rule and the final
+// re-orthonormalization.  The observation functions take the camera as a
+// template parameter (Cam: pinhole; CamKB8).  The stereo variants (kS, K6
+// <stereo>) add the third row of an observation with ur >= 0,
+// r2 = ur - (u - bf / z) (reference EdgeStereo, JAX ba.py:82-84), whose
+// row of A is A's first row plus (bf / z^2) times R's third row (K4's
+// stereo row, pose_lm.cu, through any camera); a mono observation (ur < 0)
+// keeps a zero third row.  Each file includes it inside its own anonymous
+// namespace, after dual.cuh.
 #pragma once
 
 #include "camera_t.cuh"
@@ -21,6 +27,8 @@ struct Prob {
   const bool* fixed_kf;
   const bool* fixed_mp;
   int K, P, O;
+  const float* ur = nullptr;  // (O,) right-image u (< 0: mono); read by the stereo variants
+  float bf = 0.f;             // fx * baseline
 };
 
 // the per-observation point and its camera-frame coordinates; invalid slots
@@ -47,26 +55,55 @@ __device__ __forceinline__ float rho(float c2, bool huber, float delta) {
   return c2 <= d2 ? c2 : 2.f * delta * sqrtf(c2) - d2;
 }
 
-// residual (r0, r1) and Jacobian rows J[row] = [pose 6 | point 3] of
-// observation o, with the pose (Rk, tk)
-template <class C>
-__device__ void obs_residual_jac(const float* Rk, const float* tk, const float* pts, const Prob& q,
-                                 const C& cam, int o, float& r0, float& r1, float (&J)[2][9]) {
+// the Huber threshold on chi2 of a mono observation (sqrt of chi2_mono)
+__device__ __forceinline__ float huber_delta() { return sqrtf(5.991f); }
+
+// rows of an observation's residual: 2, or 3 with the stereo row
+template <bool kS>
+constexpr int kRows = kS ? 3 : 2;
+
+// the Huber delta and chi2 gate of observation o: the stereo ones
+// (sqrt(7.815), 7.815) on a stereo row, else the mono delta and chi2_th
+template <bool kS>
+__device__ __forceinline__ bool stereo_row(const Prob& q, int o) {
+  if constexpr (kS) return q.ur[o] >= 0.f;
+  return false;
+}
+template <bool kS>
+__device__ __forceinline__ float obs_delta(const Prob& q, int o) {
+  return stereo_row<kS>(q, o) ? sqrtf(7.815f) : huber_delta();
+}
+template <bool kS>
+__device__ __forceinline__ float obs_gate(const Prob& q, int o, float chi2_th) {
+  return stereo_row<kS>(q, o) ? 7.815f : chi2_th;
+}
+
+// residual r[kRows] and Jacobian rows J[row] = [pose 6 | point 3] of
+// observation o with the pose (Rk, tk)
+template <bool kS, class C>
+__device__ void obs_rows(const float* Rk, const float* tk, const float* pts, const Prob& q,
+                         const C& cam, int o, float* r, float (*J)[9]) {
+  constexpr int kR = kRows<kS>;
   float pw[3], pc[3];
   obs_point(Rk, tk, pts, q, o, pw, pc);
   float u, v;
   cam.project(pc[0], pc[1], pc[2], u, v);
-  r0 = q.obs_uv[2 * o] - u;
-  r1 = q.obs_uv[2 * o + 1] - v;
-  float a0[3], a1[3];
-  cam.a_rows(pc[0], pc[1], pc[2], Rk, a0, a1);
-  for (int c = 0; c < 3; ++c) {
-    J[0][c] = -a0[c];
-    J[1][c] = -a1[c];
-    J[0][6 + c] = -a0[c];
-    J[1][6 + c] = -a1[c];
+  r[0] = q.obs_uv[2 * o] - u;
+  r[1] = q.obs_uv[2 * o + 1] - v;
+  float a[3][3];
+  cam.a_rows(pc[0], pc[1], pc[2], Rk, a[0], a[1]);
+  if constexpr (kS) {
+    const bool st = q.ur[o] >= 0.f;
+    r[2] = st ? q.ur[o] - (u - q.bf / pc[2]) : 0.f;
+    const float s = q.bf / (pc[2] * pc[2]);
+    for (int c = 0; c < 3; ++c) a[2][c] = st ? a[0][c] + s * Rk[6 + c] : 0.f;
   }
-  for (int rr = 0; rr < 2; ++rr) {  // A x p with a = -J[rr][0..2]
+  for (int rr = 0; rr < kR; ++rr)
+    for (int c = 0; c < 3; ++c) {
+      J[rr][c] = -a[rr][c];
+      J[rr][6 + c] = -a[rr][c];
+    }
+  for (int rr = 0; rr < kR; ++rr) {  // A x p with a = -J[rr][0..2]
     const float a0 = -J[rr][0], a1 = -J[rr][1], a2 = -J[rr][2];
     J[rr][3] = a1 * pw[2] - a2 * pw[1];
     J[rr][4] = a2 * pw[0] - a0 * pw[2];
@@ -74,38 +111,46 @@ __device__ void obs_residual_jac(const float* Rk, const float* tk, const float* 
   }
 }
 
-// chi2 of observation o with the pose (Rk, tk)
-template <class C>
-__device__ __forceinline__ float obs_chi2(const float* Rk, const float* tk, const float* pts,
-                                          const Prob& q, const C& cam, int o) {
+// chi2 of observation o with the pose (Rk, tk), its stereo row included
+template <bool kS, class C>
+__device__ __forceinline__ float obs_chi2_rows(const float* Rk, const float* tk, const float* pts,
+                                               const Prob& q, const C& cam, int o) {
   float pw[3], pc[3];
   obs_point(Rk, tk, pts, q, o, pw, pc);
   float u, v;
   cam.project(pc[0], pc[1], pc[2], u, v);
   const float r0 = q.obs_uv[2 * o] - u;
   const float r1 = q.obs_uv[2 * o + 1] - v;
+  if constexpr (kS) {
+    const float r2 = q.ur[o] >= 0.f ? q.ur[o] - (u - q.bf / pc[2]) : 0.f;
+    return (r0 * r0 + r1 * r1 + r2 * r2) * q.isig[o];
+  }
   return (r0 * r0 + r1 * r1) * q.isig[o];
 }
 
-// the Huber threshold on chi2 of a mono observation (sqrt of chi2_mono)
-__device__ __forceinline__ float huber_delta() { return sqrtf(5.991f); }
-
-// one valid observation's linearization: residual, Jacobian rows (stored
-// as (O,18): pose 2x6 then point 2x3) and IRLS weight (stored as (O,)),
-// and its robust cost
-template <class C>
-__device__ void obs_linearize(const float* Rk, const float* tk, const float* pts, const Prob& q,
-                              const C& cam, bool huber, int o, float* Jstore, float* wstore,
-                              float& r0, float& r1, float (&J)[2][9], float& wt, float& cost) {
-  obs_residual_jac(Rk, tk, pts, q, cam, o, r0, r1, J);
+// one valid observation's linearization with kRows rows: residual (stored
+// as (O, kR)), Jacobian rows (stored as (O, 9 kR): pose kR x 6, then point
+// kR x 3), IRLS weight (stored as (O,)) and its robust cost
+template <bool kS, class C>
+__device__ void obs_linearize_rows(const float* Rk, const float* tk, const float* pts,
+                                   const Prob& q, const C& cam, bool huber, int o, float* Jstore,
+                                   float* wstore, float* rstore, float& cost) {
+  constexpr int kR = kRows<kS>;
+  float r[3], J[3][9];
+  obs_rows<kS>(Rk, tk, pts, q, cam, o, r, J);
   const float is = q.isig[o];
-  const float chi2 = (r0 * r0 + r1 * r1) * is;
-  const float delta = huber_delta();
-  wt = (huber ? fminf(delta / sqrtf(fmaxf(chi2, 1e-12f)), 1.f) : 1.f) * is;
+  float chi2 = r[0] * r[0] + r[1] * r[1];
+  if constexpr (kS) chi2 += r[2] * r[2];
+  chi2 *= is;
+  const float delta = obs_delta<kS>(q, o);
+  const float wt = (huber ? fminf(delta / sqrtf(fmaxf(chi2, 1e-12f)), 1.f) : 1.f) * is;
   cost = rho(chi2, huber, delta);
-  float* Jo = Jstore + (size_t)18 * o;
-  for (int c = 0; c < 6; ++c) { Jo[c] = J[0][c]; Jo[6 + c] = J[1][c]; }
-  for (int c = 0; c < 3; ++c) { Jo[12 + c] = J[0][6 + c]; Jo[15 + c] = J[1][6 + c]; }
+  float* Jo = Jstore + (size_t)9 * kR * o;
+  for (int rr = 0; rr < kR; ++rr) {
+    for (int c = 0; c < 6; ++c) Jo[6 * rr + c] = J[rr][c];
+    for (int c = 0; c < 3; ++c) Jo[6 * kR + 3 * rr + c] = J[rr][6 + c];
+    rstore[(size_t)kR * o + rr] = r[rr];
+  }
   wstore[o] = wt;
 }
 

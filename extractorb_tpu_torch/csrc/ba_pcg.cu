@@ -26,6 +26,15 @@
 //
 // The camera is a template parameter (camera_t.cuh): the pinhole Cam, or
 // CamKB8, whose Jacobians come in forward mode through its projection.
+// So is the stereo residual (K6 <stereo>, obs_ur not null): an observation
+// with ur >= 0 has the third row ur - (u - bf / z), Huber delta sqrt(7.815)
+// and the chi2 gate 7.815 (ba_obs.cuh:obs_rows); the build, reduce,
+// product, cost and classify passes then run over three rows.
+//
+// With a dense workspace (solver "schur_dense"), K35 (ba_schur_dense.cu)
+// replaces the PCG sweeps: after the reduce pass it eliminates the points,
+// assembles and solves the dense reduced camera system and
+// back-substitutes into x, which the retraction reads as PCG's solution.
 //
 // Every sum runs in a fixed order (no float atomics), so a solve gives one
 // result per input: the blocks over the index-ordered lists, the scalars by
@@ -56,6 +65,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ba_schur_dense.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -69,9 +80,9 @@ struct Ws {
   float* Rn;    // (K,9) candidate poses / points
   float* tn;    // (K,3)
   float* pn;    // (P,3)
-  float* J;     // (O,18): pose Jacobian 2x6, then point Jacobian 2x3
+  float* J;     // (O,9R): pose Jacobian Rx6, then point Jacobian Rx3 (R = 2, or 3 stereo)
   float* w;     // (O,)
-  float* r;     // (O,2) residuals
+  float* r;     // (O,R) residuals
   float* g;     // (6K+3P) gradient b = J^T W r
   float* Hpp;   // (K,21) upper triangles
   float* Hll;   // (P,6)
@@ -93,7 +104,9 @@ struct Ws {
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-__host__ __device__ inline size_t carve(Ws* w, uint8_t* base, int K, int P, int O, int cg) {
+// rows: 2, or 3 for the stereo residual (K6 <stereo>)
+__host__ __device__ inline size_t carve(Ws* w, uint8_t* base, int K, int P, int O, int cg,
+                                        int rows) {
   const size_t nv = (size_t)6 * K + (size_t)3 * P;
   size_t o = 0;
   auto take = [&](size_t bytes) {
@@ -105,9 +118,9 @@ __host__ __device__ inline size_t carve(Ws* w, uint8_t* base, int K, int P, int 
   q = take(sizeof(float) * 9 * K);  if (w) w->Rn = (float*)q;
   q = take(sizeof(float) * 3 * K);  if (w) w->tn = (float*)q;
   q = take(sizeof(float) * 3 * P);  if (w) w->pn = (float*)q;
-  q = take(sizeof(float) * 18 * (size_t)O); if (w) w->J = (float*)q;
+  q = take(sizeof(float) * 9 * rows * (size_t)O); if (w) w->J = (float*)q;
   q = take(sizeof(float) * (size_t)O); if (w) w->w = (float*)q;
-  q = take(sizeof(float) * 2 * (size_t)O); if (w) w->r = (float*)q;
+  q = take(sizeof(float) * rows * (size_t)O); if (w) w->r = (float*)q;
   q = take(sizeof(float) * nv);     if (w) w->g = (float*)q;
   q = take(sizeof(float) * 21 * K); if (w) w->Hpp = (float*)q;
   q = take(sizeof(float) * 6 * P);  if (w) w->Hll = (float*)q;
@@ -144,7 +157,7 @@ __device__ __forceinline__ double* cost_new(const Ws& w) { return w.sc + 1; }
 __device__ __forceinline__ double* rz(const Ws& w, int it) { return w.sc + 2 + it; }
 __device__ __forceinline__ double* pAp(const Ws& w, int it, int cg) { return w.sc + 3 + cg + it; }
 
-template <class C>
+template <bool kS, class C>
 __global__ void __launch_bounds__(kThreads)
 build_kernel(const float* __restrict__ R, const float* __restrict__ t, const float* __restrict__ pts,
              const Prob q, const C cam, bool huber, Ws w) {
@@ -153,10 +166,7 @@ build_kernel(const float* __restrict__ R, const float* __restrict__ t, const flo
   if (o < q.O) {
     if (q.valid[o]) {
       const int kf = q.obs_kf[o];
-      float r0, r1, J[2][9], wt;
-      obs_linearize(R + 9 * kf, t + 3 * kf, pts, q, cam, huber, o, w.J, w.w, r0, r1, J, wt, cost);
-      w.r[2 * o] = r0;
-      w.r[2 * o + 1] = r1;
+      obs_linearize_rows<kS>(R + 9 * kf, t + 3 * kf, pts, q, cam, huber, o, w.J, w.w, w.r, cost);
     } else {
       w.w[o] = 0.f;
     }
@@ -166,6 +176,7 @@ build_kernel(const float* __restrict__ R, const float* __restrict__ t, const flo
 
 // the gradient and diagonal blocks: blocks [0, K) are one CTA per keyframe
 // over its observation list, the rest one thread per point over its list
+template <int kR>
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(const Prob q, Ws w) {
   __shared__ float red[27 * kThreads / 32];
@@ -175,12 +186,19 @@ reduce_kernel(const Prob q, Ws w) {
     for (int i = 0; i < 27; ++i) v[i] = 0.f;
     for (int j = w.L.off_kf[k] + threadIdx.x; j < w.L.off_kf[k + 1]; j += kThreads) {
       const int o = w.L.list_kf[j];
-      const float* J = w.J + (size_t)18 * o;
-      const float wt = w.w[o], r0 = w.r[2 * o], r1 = w.r[2 * o + 1];
+      const float* J = w.J + (size_t)9 * kR * o;
+      const float* r = w.r + (size_t)kR * o;
+      const float wt = w.w[o];
       int n = 6;
       for (int a = 0; a < 6; ++a) {
-        v[a] += wt * (J[a] * r0 + J[6 + a] * r1);
-        for (int b2 = a; b2 < 6; ++b2) v[n++] += wt * (J[a] * J[b2] + J[6 + a] * J[6 + b2]);
+        float g = J[a] * r[0] + J[6 + a] * r[1];
+        if (kR == 3) g += J[12 + a] * r[2];
+        v[a] += wt * g;
+        for (int b2 = a; b2 < 6; ++b2) {
+          float h = J[a] * J[b2] + J[6 + a] * J[6 + b2];
+          if (kR == 3) h += J[12 + a] * J[12 + b2];
+          v[n++] += wt * h;
+        }
       }
     }
     block_sum_fixed<27>(v, red);
@@ -195,12 +213,19 @@ reduce_kernel(const Prob q, Ws w) {
   float g[3] = {0.f, 0.f, 0.f}, H[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int j = w.L.off_mp[m]; j < w.L.off_mp[m + 1]; ++j) {
     const int o = w.L.list_mp[j];
-    const float* J = w.J + (size_t)18 * o + 12;
-    const float wt = w.w[o], r0 = w.r[2 * o], r1 = w.r[2 * o + 1];
+    const float* J = w.J + (size_t)9 * kR * o + 6 * kR;
+    const float* r = w.r + (size_t)kR * o;
+    const float wt = w.w[o];
     int n = 0;
     for (int a = 0; a < 3; ++a) {
-      g[a] += wt * (J[a] * r0 + J[3 + a] * r1);
-      for (int b2 = a; b2 < 3; ++b2) H[n++] += wt * (J[a] * J[b2] + J[3 + a] * J[3 + b2]);
+      float ga = J[a] * r[0] + J[3 + a] * r[1];
+      if (kR == 3) ga += J[6 + a] * r[2];
+      g[a] += wt * ga;
+      for (int b2 = a; b2 < 3; ++b2) {
+        float h = J[a] * J[b2] + J[3 + a] * J[3 + b2];
+        if (kR == 3) h += J[6 + a] * J[6 + b2];
+        H[n++] += wt * h;
+      }
     }
   }
   for (int a = 0; a < 3; ++a) w.g[(size_t)6 * q.K + 3 * m + a] = g[a];
@@ -267,6 +292,7 @@ __device__ __forceinline__ float beta_of(const Ws& w, int it) {
 }
 
 // u = w_o J_o (vp, vl) of observation o, p = z + beta p built on the fly
+template <int kR>
 __device__ __forceinline__ void obs_u(const Prob& q, const Ws& w, int o, float beta, float* u) {
   const int kf = q.obs_kf[o], m = q.obs_mp[o];
   const bool fk = !q.fixed_kf[kf], fm = !q.fixed_mp[m];
@@ -274,16 +300,17 @@ __device__ __forceinline__ void obs_u(const Prob& q, const Ws& w, int o, float b
   float vp[6], vl[3];
   for (int i = 0; i < 6; ++i) vp[i] = fk ? w.z[pb + i] + beta * w.p[pb + i] : 0.f;
   for (int i = 0; i < 3; ++i) vl[i] = fm ? w.z[lb + i] + beta * w.p[lb + i] : 0.f;
-  const float* J = w.J + (size_t)18 * o;
-  for (int rr = 0; rr < 2; ++rr) {
+  const float* J = w.J + (size_t)9 * kR * o;
+  for (int rr = 0; rr < kR; ++rr) {
     float s = 0.f;
     for (int i = 0; i < 6; ++i) s += J[6 * rr + i] * vp[i];
-    for (int i = 0; i < 3; ++i) s += J[12 + 3 * rr + i] * vl[i];
+    for (int i = 0; i < 3; ++i) s += J[6 * kR + 3 * rr + i] * vl[i];
     u[rr] = s * w.w[o];
   }
 }
 
 // h = J^T W J p: a CTA per keyframe and a thread per point, over their lists
+template <int kR>
 __global__ void __launch_bounds__(kThreads)
 hv_kernel(const Prob q, Ws w, int it) {
   __shared__ float red[6 * kThreads / 32];
@@ -293,10 +320,14 @@ hv_kernel(const Prob q, Ws w, int it) {
     float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int j = w.L.off_kf[k] + threadIdx.x; j < w.L.off_kf[k + 1]; j += kThreads) {
       const int o = w.L.list_kf[j];
-      float u[2];
-      obs_u(q, w, o, beta, u);
-      const float* J = w.J + (size_t)18 * o;
-      for (int i = 0; i < 6; ++i) v[i] += J[i] * u[0] + J[6 + i] * u[1];
+      float u[3];
+      obs_u<kR>(q, w, o, beta, u);
+      const float* J = w.J + (size_t)9 * kR * o;
+      for (int i = 0; i < 6; ++i) {
+        float s = J[i] * u[0] + J[6 + i] * u[1];
+        if (kR == 3) s += J[12 + i] * u[2];
+        v[i] += s;
+      }
     }
     block_sum_fixed<6>(v, red);
     if (threadIdx.x == 0)
@@ -308,10 +339,14 @@ hv_kernel(const Prob q, Ws w, int it) {
   float hl[3] = {0.f, 0.f, 0.f};
   for (int j = w.L.off_mp[m]; j < w.L.off_mp[m + 1]; ++j) {
     const int o = w.L.list_mp[j];
-    float u[2];
-    obs_u(q, w, o, beta, u);
-    const float* J = w.J + (size_t)18 * o;
-    for (int i = 0; i < 3; ++i) hl[i] += J[12 + i] * u[0] + J[15 + i] * u[1];
+    float u[3];
+    obs_u<kR>(q, w, o, beta, u);
+    const float* J = w.J + (size_t)9 * kR * o + 6 * kR;
+    for (int i = 0; i < 3; ++i) {
+      float s = J[i] * u[0] + J[3 + i] * u[1];
+      if (kR == 3) s += J[6 + i] * u[2];
+      hl[i] += s;
+    }
   }
   for (int i = 0; i < 3; ++i) w.h[(size_t)6 * q.K + 3 * m + i] = hl[i];
 }
@@ -377,14 +412,15 @@ retract_kernel(const float* __restrict__ R, const float* __restrict__ t,
   }
 }
 
-template <class C>
+template <bool kS, class C>
 __global__ void __launch_bounds__(kThreads)
 cost_kernel(const Prob q, const C cam, bool huber, Ws w) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   float cost = 0.f;
   if (o < q.O && q.valid[o]) {
     const int kf = q.obs_kf[o];
-    cost = rho(obs_chi2(w.Rn + 9 * kf, w.tn + 3 * kf, w.pn, q, cam, o), huber, huber_delta());
+    cost = rho(obs_chi2_rows<kS>(w.Rn + 9 * kf, w.tn + 3 * kf, w.pn, q, cam, o), huber,
+               obs_delta<kS>(q, o));
   }
   reduce_store((double)cost, w.part, w.ticket, cost_new(w));
 }
@@ -398,9 +434,9 @@ accept_kernel(float* __restrict__ R, float* __restrict__ t, float* __restrict__ 
   lm_accept(w.sc, w.lam, e, q.K, q.P, w.Rn, w.tn, w.pn, R, t, pts);
 }
 
-// inliers (chi2 <= chi2_th); with sum_chi2 (K33) also the sum of chi2 over
-// the valid observations, into cost_new
-template <class C>
+// inliers (chi2 <= chi2_th, 7.815 on a stereo row); with sum_chi2 (K33)
+// also the sum of chi2 over the valid observations, into cost_new
+template <bool kS, class C>
 __global__ void __launch_bounds__(kThreads)
 classify_kernel(const float* __restrict__ R, const float* __restrict__ t,
                 const float* __restrict__ pts, const Prob q, const C cam, float chi2_th,
@@ -412,8 +448,8 @@ classify_kernel(const float* __restrict__ R, const float* __restrict__ t,
       inl[o] = false;
     } else {
       const int kf = q.obs_kf[o];
-      c = obs_chi2(R + 9 * kf, t + 3 * kf, pts, q, cam, o);
-      inl[o] = c <= chi2_th;
+      c = obs_chi2_rows<kS>(R + 9 * kf, t + 3 * kf, pts, q, cam, o);
+      inl[o] = c <= obs_gate<kS>(q, o, chi2_th);
     }
   }
   if (sum_chi2) reduce_store((double)c, w.part, w.ticket, cost_new(w));
@@ -442,10 +478,12 @@ struct Shard {
 };
 
 // sharded (K33): the final sum of chi2 into sh[0].cost, else (K6) the last
-// LM step's smaller cost
-template <class C>
+// LM step's smaller cost.  dense (one shard): K35's workspace, whose solve
+// replaces the PCG sweeps.
+template <bool kS, class C>
 int solve(int n, Shard* sh, ShardComm& cm, const C& cam, int n_iters, int cg_iters, bool huber,
-          float chi2_th, bool sharded) {
+          float chi2_th, bool sharded, void* dense) {
+  constexpr int kR = kRows<kS>;
   const int K = sh[0].q.K, P = sh[0].q.P;
   const long long nv = 6LL * K + 3LL * P;
   const int nbP = blocks(P);
@@ -475,29 +513,38 @@ int solve(int n, Shard* sh, ShardComm& cm, const C& cam, int n_iters, int cg_ite
        if ((e = build_lists(S.q.obs_kf, S.q.obs_mp, S.q.valid, K, P, S.q.O, S.w.L, st)) !=
            cudaSuccess) return (int)e)
   for (int it = 0; it < n_iters; ++it) {
-    EACH(build_kernel<C><<<blocks(S.q.O), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, cam, huber,
-                                                               S.w);
-         reduce_kernel<<<K + nbP, kThreads, 0, st>>>(S.q, S.w))
+    EACH(build_kernel<kS, C><<<blocks(S.q.O), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, cam,
+                                                                   huber, S.w);
+         reduce_kernel<kR><<<K + nbP, kThreads, 0, st>>>(S.q, S.w))
     SUM(g, nv)
     SUM(Hp, 21LL * K)
     SUM(Hl, 6LL * P)
     SUM(c_old, 1)
-    EACH(invert_kernel<<<blocks(K + P), kThreads, 0, st>>>(S.q, S.w))
-    for (int c = 0; c < cg_iters; ++c) {
-      EACH(hv_kernel<<<K + nbP, kThreads, 0, st>>>(S.q, S.w, c))
-      SUM(h, nv)
-      EACH(cg_a_kernel<<<blocks(nv), kThreads, 0, st>>>(S.q, S.w, c, cg_iters);
-           cg_b_kernel<<<blocks(K + P), kThreads, 0, st>>>(S.q, S.w, c, cg_iters))
+    if (dense != nullptr) {
+      const Ws& W = sh[0].w;
+      const SchurDenseArgs a{W.J, W.w, W.g, W.Hpp, W.Hll, W.lam, W.L.off_kf, W.L.list_kf,
+                             W.L.off_mp, W.L.list_mp, sh[0].q.obs_kf, sh[0].q.obs_mp,
+                             sh[0].q.fixed_kf, sh[0].q.fixed_mp, K, P, sh[0].q.O, kR, dense,
+                             W.x};
+      if ((e = (cudaError_t)ba_schur_dense_step(a, cm.st[0])) != cudaSuccess) return (int)e;
+    } else {
+      EACH(invert_kernel<<<blocks(K + P), kThreads, 0, st>>>(S.q, S.w))
+      for (int c = 0; c < cg_iters; ++c) {
+        EACH(hv_kernel<kR><<<K + nbP, kThreads, 0, st>>>(S.q, S.w, c))
+        SUM(h, nv)
+        EACH(cg_a_kernel<<<blocks(nv), kThreads, 0, st>>>(S.q, S.w, c, cg_iters);
+             cg_b_kernel<<<blocks(K + P), kThreads, 0, st>>>(S.q, S.w, c, cg_iters))
+      }
     }
     EACH(retract_kernel<<<blocks(K + P), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, S.w);
-         cost_kernel<C><<<blocks(S.q.O), kThreads, 0, st>>>(S.q, cam, huber, S.w))
+         cost_kernel<kS, C><<<blocks(S.q.O), kThreads, 0, st>>>(S.q, cam, huber, S.w))
     SUM(c_new, 1)
     EACH(accept_kernel<<<blocks(K + P), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, S.w, S.cost);
          if ((e = cudaGetLastError()) != cudaSuccess) return (int)e)
   }
   EACH(orthonormalize_kernel<<<blocks(K), kThreads, 0, st>>>(S.R, K);
-       classify_kernel<C><<<blocks(S.q.O), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, cam, chi2_th,
-                                                              S.inl, sharded, S.w))
+       classify_kernel<kS, C><<<blocks(S.q.O), kThreads, 0, st>>>(S.R, S.t, S.pts, S.q, cam,
+                                                                  chi2_th, S.inl, sharded, S.w))
   if (sharded) {
     SUM(c_new, 1)
     if ((e = use_shard(cm, 0)) != cudaSuccess) return (int)e;
@@ -509,19 +556,22 @@ int solve(int n, Shard* sh, ShardComm& cm, const C& cam, int n_iters, int cg_ite
   return (int)cudaGetLastError();
 }
 
+template <bool kS>
 int solve_cam(int n, Shard* sh, ShardComm& cm, float fx, float fy, float cx, float cy,
               const float* kb8, int n_iters, int cg_iters, bool huber, float chi2_th,
-              bool sharded) {
+              bool sharded, void* dense) {
   if (kb8 != nullptr)
-    return solve(n, sh, cm, CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, n_iters,
-                 cg_iters, huber, chi2_th, sharded);
-  return solve(n, sh, cm, Cam{fx, fy, cx, cy}, n_iters, cg_iters, huber, chi2_th, sharded);
+    return solve<kS>(n, sh, cm, CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, n_iters,
+                     cg_iters, huber, chi2_th, sharded, dense);
+  return solve<kS>(n, sh, cm, Cam{fx, fy, cx, cy}, n_iters, cg_iters, huber, chi2_th, sharded,
+                   dense);
 }
 
 }  // namespace
 
-extern "C" long long ba_workspace_bytes(int K, int P, int O, int cg_iters) {
-  return (long long)carve(nullptr, nullptr, K, P, O, cg_iters);
+// stereo: 1 with obs_ur (three residual rows), else 0
+extern "C" long long ba_workspace_bytes(int K, int P, int O, int cg_iters, int stereo) {
+  return (long long)carve(nullptr, nullptr, K, P, O, cg_iters, stereo ? 3 : 2);
 }
 
 // K33's peer route: bytes of the n slots on shard 0's device (the largest
@@ -535,27 +585,36 @@ extern "C" long long ba_pcg_gather_bytes(int n, int K, int P) {
 }
 
 // R (K,9), t (K,3), pts (P,3): the start state, overwritten with the result.
-// kb8 null: the pinhole camera; else a host array k1..k4 of the KB8 camera.
+// obs_ur null: mono (K6); else (O,) right-image u, < 0 for a mono
+// observation, with bf = fx * baseline (K6 <stereo>).  kb8 null: the pinhole
+// camera; else a host array k1..k4 of the KB8 camera.  dense_ws null: PCG
+// (solver "cg"); else ba_schur_dense_workspace_bytes(K, P, O) for K35
+// (solver "schur_dense").
 extern "C" int ba_pcg_launch(void* R, void* t, void* pts, const void* obs_kf, const void* obs_mp,
                              const void* obs_uv, const void* isig, const void* valid,
-                             const void* fixed_kf, const void* fixed_mp, int K, int P, int O,
-                             float fx, float fy, float cx, float cy, const float* kb8,
-                             int n_iters, int cg_iters, int use_huber, float chi2_th, void* ws,
-                             void* inliers, void* cost_out, void* stream) {
+                             const void* fixed_kf, const void* fixed_mp, const void* obs_ur,
+                             float bf, int K, int P, int O, float fx, float fy, float cx,
+                             float cy, const float* kb8, int n_iters, int cg_iters, int use_huber,
+                             float chi2_th, void* ws, void* dense_ws, void* inliers,
+                             void* cost_out, void* stream) {
   if (K <= 0 || P <= 0 || O <= 0 || n_iters < 0 || cg_iters < 0) return (int)cudaErrorInvalidValue;
   Shard sh;
   sh.R = (float*)R;
   sh.t = (float*)t;
   sh.pts = (float*)pts;
   sh.q = Prob{(const int*)obs_kf, (const int*)obs_mp, (const float*)obs_uv, (const float*)isig,
-              (const bool*)valid, (const bool*)fixed_kf, (const bool*)fixed_mp, K, P, O};
-  carve(&sh.w, static_cast<uint8_t*>(ws), K, P, O, cg_iters);
+              (const bool*)valid, (const bool*)fixed_kf, (const bool*)fixed_mp, K, P, O,
+              (const float*)obs_ur, bf};
+  carve(&sh.w, static_cast<uint8_t*>(ws), K, P, O, cg_iters, obs_ur != nullptr ? 3 : 2);
   sh.inl = (bool*)inliers;
   sh.cost = (float*)cost_out;
   ShardComm cm;
   cm.st[0] = (cudaStream_t)stream;
-  return solve_cam(1, &sh, cm, fx, fy, cx, cy, kb8, n_iters, cg_iters, use_huber != 0, chi2_th,
-                   false);
+  if (obs_ur != nullptr)
+    return solve_cam<true>(1, &sh, cm, fx, fy, cx, cy, kb8, n_iters, cg_iters, use_huber != 0,
+                           chi2_th, false, dense_ws);
+  return solve_cam<false>(1, &sh, cm, fx, fy, cx, cy, kb8, n_iters, cg_iters, use_huber != 0,
+                          chi2_th, false, dense_ws);
 }
 
 // K33: n shards of Os observations each, the poses and points on every
@@ -563,7 +622,7 @@ extern "C" int ba_pcg_launch(void* R, void* t, void* pts, const void* obs_kf, co
 // pointers: R (K,9), t (K,3), pts (P,3) (each shard's copy of the start
 // state), obs_kf, obs_mp (global), obs_uv, isig, valid (Os), fixed_kf (K),
 // fixed_mp (P), the shard's workspace (ba_workspace_bytes(K, P, Os,
-// cg_iters)), its inlier mask (Os) and its stream.  gather:
+// cg_iters, 0)), its inlier mask (Os) and its stream.  gather:
 // ba_pcg_gather_bytes(n, K, P) on devs[0] when the devices differ, else
 // null.  The result: every shard's R, t and pts (equal) and inliers;
 // cost_out (float32, on devs[0]) the final sum of chi2 over every shard.
@@ -583,7 +642,7 @@ extern "C" int ba_pcg_sharded_launch(int n, const int* devs, const long long* ta
     sh[s].pts = (float*)r[2];
     sh[s].q = Prob{(const int*)r[3], (const int*)r[4], (const float*)r[5], (const float*)r[6],
                    (const bool*)r[7], (const bool*)r[8], (const bool*)r[9], K, P, Os};
-    carve(&sh[s].w, (uint8_t*)r[10], K, P, Os, cg_iters);
+    carve(&sh[s].w, (uint8_t*)r[10], K, P, Os, cg_iters, 2);
     sh[s].inl = (bool*)r[11];
     sh[s].cost = s == 0 ? (float*)cost_out : sh[s].w.cst;
     sts[s] = (cudaStream_t)r[12];
@@ -595,8 +654,8 @@ extern "C" int ba_pcg_sharded_launch(int n, const int* devs, const long long* ta
   e = comm_open(cm, n, devs, sts, gather, (size_t)ba_pcg_gather_bytes(1, K, P));
   int err = (int)e;
   if (e == cudaSuccess)
-    err = solve_cam(n, sh, cm, fx, fy, cx, cy, kb8, n_iters, cg_iters, use_huber != 0, chi2_th,
-                    true);
+    err = solve_cam<false>(n, sh, cm, fx, fy, cx, cy, kb8, n_iters, cg_iters, use_huber != 0,
+                           chi2_th, true, nullptr);
   comm_close(cm);
   cudaSetDevice(prev);
   return err;

@@ -162,10 +162,7 @@ build_kernel(const float* __restrict__ R, const float* __restrict__ t, const flo
   if (o < q.O) {
     if (q.valid[o]) {
       const int kf = q.obs_kf[o];
-      float r0, r1, J[2][9], wt;
-      obs_linearize(R + 9 * kf, t + 3 * kf, pts, q, cam, huber, o, w.J, w.w, r0, r1, J, wt, cost);
-      w.r[2 * o] = r0;
-      w.r[2 * o + 1] = r1;
+      obs_linearize_rows<false>(R + 9 * kf, t + 3 * kf, pts, q, cam, huber, o, w.J, w.w, w.r, cost);
     } else {
       w.w[o] = 0.f;
     }
@@ -410,7 +407,8 @@ cost_kernel(const Prob q, const C cam, bool huber, Ws w) {
   float cost = 0.f;
   if (o < q.O && q.valid[o]) {
     const int kf = q.obs_kf[o];
-    cost = rho(obs_chi2(w.Rn + 9 * kf, w.tn + 3 * kf, w.pn, q, cam, o), huber, huber_delta());
+    cost = rho(obs_chi2_rows<false>(w.Rn + 9 * kf, w.tn + 3 * kf, w.pn, q, cam, o), huber,
+               huber_delta());
   }
   reduce_store((double)cost, w.part, w.ticket, cost_new(w));
 }
@@ -435,7 +433,7 @@ classify_kernel(const float* __restrict__ R, const float* __restrict__ t,
       inl[o] = false;
     } else {
       const int kf = q.obs_kf[o];
-      c = obs_chi2(R + 9 * kf, t + 3 * kf, pts, q, cam, o);
+      c = obs_chi2_rows<false>(R + 9 * kf, t + 3 * kf, pts, q, cam, o);
       inl[o] = c <= chi2_th;
     }
   }

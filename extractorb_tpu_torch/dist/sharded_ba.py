@@ -27,6 +27,11 @@
   poses and points on every shard.  K33 (``csrc/ba_pcg.cu``, K6's passes
   per shard).  No engine path calls it.
 
+``optimize_schur`` and ``optimize_sharded`` solve a problem's mono part
+and ignore ``obs_ur``, as the JAX functions do: they rebuild the shard
+problems from the mono fields (``extractorb_tpu/dist/sharded_ba.py:63-74``,
+``:288-295``, ``:331-335``; ROADMAP C.2).
+
 On one shard each is its single-device program.  They project through the
 camera (``core.camera.Camera``: the pinhole or the KB8 fisheye), launch
 their kernel (its ``Cam`` or ``CamKB8`` instantiation) on CUDA tensors and
@@ -56,7 +61,9 @@ def _n_shards(mesh) -> int:
 def optimize_schur_plain(p: BAProblem, cam: Camera, n_iters: int = 10, cg_iters: int = 20,
                          use_huber: bool = True, mesh: Mesh = None) -> BAResult:
     """Plain version of ``optimize_schur`` (same arguments): per-shard
-    partials summed by ``shard_sum``, all on ``p``'s device."""
+    partials summed by ``shard_sum``, all on ``p``'s device; ``obs_ur`` is
+    ignored, as JAX does."""
+    p = p._replace(obs_ur=None)
     shards = landmark_shards(p, _n_shards(mesh), "optimize_schur")
     K = p.R.shape[0]
     dt = p.points.dtype
@@ -74,7 +81,7 @@ def optimize_schur_plain(p: BAProblem, cam: Camera, n_iters: int = 10, cg_iters:
         parts = []
         for (q, _, _, _, _), pc_ in zip(sh, pts):
             Rk, tk, pw = _gather(Rc, tc, pc_, q)
-            r2 = _residual(_camera_point(Rk, tk, pw), q.obs_uv, cam)
+            r2 = _residual(_camera_point(Rk, tk, pw), q, cam)
             c2 = torch.sum(r2 * r2, -1) * q.inv_sigma2
             parts.append(torch.sum(torch.where(q.obs_valid, _rho(c2, use_huber), 0.0)))
         return shard_sum(parts)
@@ -154,7 +161,7 @@ def optimize_schur_plain(p: BAProblem, cam: Camera, n_iters: int = 10, cg_iters:
     inls, chis = [], []
     for (q, _, _, _, _), pq in zip(sh, pts):
         Rk, tk, pw = _gather(R, t, pq, q)
-        r = _residual(_camera_point(Rk, tk, pw), q.obs_uv, cam)
+        r = _residual(_camera_point(Rk, tk, pw), q, cam)
         chi2 = torch.sum(r * r, -1) * q.inv_sigma2
         inls.append(q.obs_valid & (chi2 <= CHI2_MONO))
         chis.append(torch.sum(torch.where(q.obs_valid, chi2, 0.0)))
@@ -257,9 +264,6 @@ def optimize_schur(p: BAProblem, cam: Camera, n_iters: int = 10, cg_iters: int =
     host synchronisation (alpha, beta, the costs and lambda stay on the
     cards).  On the CPU it runs ``optimize_schur_plain``.  ``cam`` is a
     ``Pinhole`` or a ``KannalaBrandt8``."""
-    if p.obs_ur is not None:
-        raise NotImplementedError("optimize_schur: the stereo residual is not ported "
-                                  "(ROADMAP B.21)")
     if not p.points.is_cuda:
         return optimize_schur_plain(p, cam, n_iters, cg_iters, use_huber, mesh)
     if _n_shards(mesh) == 1:
@@ -283,7 +287,9 @@ def _obs_shards(p: BAProblem, n: int):
 def optimize_sharded_plain(mesh: Mesh, p: BAProblem, cam: Camera, n_iters: int = 10,
                            cg_iters: int = 40, use_huber: bool = True) -> BAResult:
     """Plain version of ``optimize_sharded`` (same arguments): per-shard
-    partials summed by ``shard_sum``, all on ``p``'s device."""
+    partials summed by ``shard_sum``, all on ``p``'s device; ``obs_ur`` is
+    ignored, as JAX does."""
+    p = p._replace(obs_ur=None)
     with kernels.ordered_plain(p.points.is_cuda):
         return _optimize_sharded_plain(_obs_shards(p, mesh.size), p, cam, n_iters, cg_iters,
                                        use_huber)
@@ -305,7 +311,7 @@ def _optimize_sharded_plain(shards, p: BAProblem, cam: Camera, n_iters: int, cg_
         parts = []
         for q, _, _ in sh:
             Rk, tk, pw = _gather(Rc, tc, pc, q)
-            r2 = _residual(_camera_point(Rk, tk, pw), q.obs_uv, cam)
+            r2 = _residual(_camera_point(Rk, tk, pw), q, cam)
             c2 = torch.sum(r2 * r2, -1) * q.inv_sigma2
             parts.append(torch.sum(torch.where(q.obs_valid, _rho(c2, use_huber), 0.0)))
         return shard_sum(parts)
@@ -375,7 +381,7 @@ def _optimize_sharded_plain(shards, p: BAProblem, cam: Camera, n_iters: int, cg_
     inls, chis = [], []
     for q, _, _ in sh:
         Rk, tk, pw = _gather(R, t, points, q)
-        r = _residual(_camera_point(Rk, tk, pw), q.obs_uv, cam)
+        r = _residual(_camera_point(Rk, tk, pw), q, cam)
         chi2 = torch.sum(r * r, -1) * q.inv_sigma2
         inls.append(q.obs_valid & (chi2 <= CHI2_MONO))
         chis.append(torch.sum(torch.where(q.obs_valid, chi2, 0.0)))
@@ -391,7 +397,7 @@ def _optimize_sharded_kernel(mesh: Mesh, p: BAProblem, cam: Camera, n_iters: int
     shards = _obs_shards(p, n)
     Os = shards[0].obs_kf.shape[0]
     lib = kernels.lib()
-    ws_bytes = int(lib.ba_workspace_bytes(K, P, Os, cg_iters))
+    ws_bytes = int(lib.ba_workspace_bytes(K, P, Os, cg_iters, 0))
     rows = []
     for q, dev in zip(shards, mesh.devices):
         f32 = lambda a: a.to(device=dev, dtype=torch.float32).contiguous()
@@ -434,9 +440,6 @@ def optimize_sharded(mesh: Mesh, p: BAProblem, cam: Camera, n_iters: int = 10,
     shard order and the final sum of chi2 (JAX's).  On CUDA tensors this
     launches K33 (``csrc/ba_pcg.cu``, K6's passes per shard); on the CPU it
     runs ``optimize_sharded_plain``.  No engine path calls it."""
-    if p.obs_ur is not None:
-        raise NotImplementedError("optimize_sharded: the stereo residual is not ported "
-                                  "(ROADMAP B.21)")
     if not p.points.is_cuda:
         return optimize_sharded_plain(mesh, p, cam, n_iters, cg_iters, use_huber)
     return _optimize_sharded_kernel(mesh, p, cam, n_iters, cg_iters, use_huber)

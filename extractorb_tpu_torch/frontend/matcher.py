@@ -1,7 +1,7 @@
-"""Descriptor matching (port of ``extractorb_tpu/frontend/matcher.py``, the
-tracking and local-mapping subset).
+"""Descriptor matching (port of ``extractorb_tpu/frontend/matcher.py``).
 
-The four tracking searches reduce to one primitive, kernel K3
+The projection searches (tracking, relocalization, fusion, the Sim3
+searches of loop closing) reduce to one primitive, kernel K3
 ``hamming_best2``:
 for every query row, the best and second-best 256-bit Hamming distance
 over the candidate columns that pass a per-row gate (a strict box
@@ -316,6 +316,14 @@ def _in_image(uv, img_wh):
     return (uv[:, 0] >= 0) & (uv[:, 0] < img_wh[0]) & (uv[:, 1] >= 0) & (uv[:, 1] < img_wh[1])
 
 
+def _predict_scale(dist3, max_dist, scales):
+    """MapPoint::PredictScale (reference inc/MapPoint.h:172-173):
+    ceil(log(max_dist / dist) / log(scale[1])), clipped to the levels."""
+    ratio = max_dist / dist3.clamp(min=1e-9)
+    pred = torch.ceil(torch.log(ratio) / torch.log(scales[1])).to(torch.int32)
+    return pred.clamp(0, scales.shape[0] - 1)
+
+
 def search_by_projection_last_frame(
     mp_pos, mp_desc, mp_valid, mp_octave, mp_angle, R, t,
     kp_xy, kp_desc, kp_octave, kp_angle, kp_valid_and_free,
@@ -352,7 +360,6 @@ def search_by_projection_local_map(
     N = kp_xy.shape[0]
     n_levels = len(scale_factors)
     scales = _scales_on(tuple(float(s) for s in scale_factors), mp_pos.device)
-    log_scale = torch.log(scales[1])
     pc, uv = _project(cam, R, t, mp_pos)
 
     Ow = -(R.T @ t)  # camera centre in world
@@ -361,8 +368,7 @@ def search_by_projection_local_map(
     view_cos = torch.sum(view * mp_normal, -1) / dist3.clamp(min=1e-9)
     min_dist = mp_max_dist / scales[n_levels - 1]
     dist_ok = (dist3 >= 0.8 * min_dist) & (dist3 <= 1.2 * mp_max_dist)
-    ratio = mp_max_dist / dist3.clamp(min=1e-9)
-    pred = torch.ceil(torch.log(ratio) / log_scale).to(torch.int32).clamp(0, n_levels - 1)
+    pred = _predict_scale(dist3, mp_max_dist, scales)
     radius = torch.where(view_cos > 0.998, 2.5, 4.0) * scales[pred.long()] * th
     row_ok = mp_valid & (pc[:, 2] > 0) & _in_image(uv, img_wh) & (view_cos >= 0.5) & dist_ok
 
@@ -572,7 +578,7 @@ def search_by_projection_sim3(mp_pos, mp_desc, mp_valid, mp_normal, mp_max_dist,
     cos >= 0.5, radius th * scale[pred] over levels [pred-1, pred+1] (K3's
     box and level gate), best <= TH_LOW, first-come claims, no rotation
     check.  Returns (M,) int32 keypoint index per map point or -1."""
-    scales = torch.as_tensor(scale_factors, dtype=torch.float32, device=mp_pos.device)
+    scales = _scales_on(tuple(float(f) for f in scale_factors), mp_pos.device)
     n_levels = len(scale_factors)
     pc = s * (mp_pos @ R.T) + t[None]
     uv = cam.project(pc)
@@ -582,9 +588,7 @@ def search_by_projection_sim3(mp_pos, mp_desc, mp_valid, mp_normal, mp_max_dist,
     min_dist = mp_max_dist / scales[n_levels - 1]
     dist_ok = (dist3 >= min_dist) & (dist3 <= mp_max_dist)
     view_cos = torch.sum(view * mp_normal, -1) / torch.clamp(dist3, min=1e-9)
-    ratio = mp_max_dist / torch.clamp(dist3, min=1e-9)
-    pred = torch.ceil(torch.log(ratio) / torch.log(scales[1])).to(torch.int32).clamp(
-        0, n_levels - 1)
+    pred = _predict_scale(dist3, mp_max_dist, scales)
     radius = th * scales[pred.long()]
     row_ok = mp_valid & (pc[:, 2] > 0) & _in_image(uv, img_wh) & dist_ok & (view_cos >= 0.5)
     gate = Gate(uv[:, 0], uv[:, 1], radius, pred - 1, pred + 1,
@@ -592,3 +596,91 @@ def search_by_projection_sim3(mp_pos, mp_desc, mp_valid, mp_normal, mp_max_dist,
     r = hamming_best2(mp_desc, row_ok, kp_desc, kp_valid_and_free, gate)
     accept = (r.best <= TH_LOW) & row_ok
     return match_epilogue(r.best, r.best_idx, accept, kp_xy.shape[0], False)
+
+
+def fuse_by_projection(mp_pos, mp_desc, mp_valid, mp_normal, mp_max_dist, R, t,
+                       kp_xy, kp_desc, kp_octave, kp_valid,
+                       cam: Camera, scale_factors: Sequence[float], img_wh, th: float = 3.0):
+    """ORBmatcher::Fuse (reference ORBmatcher.cc:1399): project map points
+    into a keyframe; depth inside the scale-invariance range, view cos >=
+    0.5, radius th * scale[pred] over levels [pred-1, pred+1] (K3's box and
+    level gate), best <= TH_LOW.  No claims: several map points may take
+    one keypoint (the caller decides replace or add).  Returns (M,) int32
+    keypoint index per map point or -1."""
+    scales = _scales_on(tuple(float(f) for f in scale_factors), mp_pos.device)
+    pc, uv = _project(cam, R, t, mp_pos)
+    Ow = -(R.T @ t)
+    view = mp_pos - Ow[None]
+    dist3 = torch.linalg.vector_norm(view, dim=-1)
+    min_dist = mp_max_dist / scales[len(scale_factors) - 1]
+    dist_ok = (dist3 >= min_dist) & (dist3 <= mp_max_dist)
+    view_cos = torch.sum(view * mp_normal, -1) / torch.clamp(dist3, min=1e-9)
+    pred = _predict_scale(dist3, mp_max_dist, scales)
+    row_ok = mp_valid & (pc[:, 2] > 0) & _in_image(uv, img_wh) & dist_ok & (view_cos >= 0.5)
+    gate = Gate(uv[:, 0], uv[:, 1], th * scales[pred.long()], pred - 1, pred + 1,
+                kp_xy[:, 0], kp_xy[:, 1], kp_octave)
+    r = hamming_best2(mp_desc, row_ok, kp_desc, kp_valid, gate)
+    return torch.where((r.best <= TH_LOW) & row_ok, r.best_idx, -1)
+
+
+def search_by_projection_reloc(mp_pos, mp_desc, mp_valid, mp_octave, mp_angle, mp_max_dist,
+                               R, t, kp_xy, kp_desc, kp_octave, kp_angle, kp_valid_and_free,
+                               cam: Camera, scale_factors: Sequence[float], img_wh,
+                               th: float = 10.0, orb_dist: int = 100):
+    """SearchByProjection, relocalization variant (reference
+    ORBmatcher.cc:2179): project the candidate keyframe's map points with
+    the PnP pose, radius th * scale[pred] over levels [pred-1, pred+1]
+    (K3), best <= orb_dist, first-come claims and the rotation filter over
+    the accepted rows (K18).  ``mp_octave`` is unused, as in JAX.  Returns
+    (M,) int32 keypoint index per map point or -1."""
+    scales = _scales_on(tuple(float(f) for f in scale_factors), mp_pos.device)
+    pc, uv = _project(cam, R, t, mp_pos)
+    Ow = -(R.T @ t)
+    dist3 = torch.linalg.vector_norm(mp_pos - Ow[None], dim=-1)
+    pred = _predict_scale(dist3, mp_max_dist, scales)
+    row_ok = mp_valid & (pc[:, 2] > 0) & _in_image(uv, img_wh)
+    gate = Gate(uv[:, 0], uv[:, 1], th * scales[pred.long()], pred - 1, pred + 1,
+                kp_xy[:, 0], kp_xy[:, 1], kp_octave)
+    r = hamming_best2(mp_desc, row_ok, kp_desc, kp_valid_and_free, gate)
+    accept = (r.best <= orb_dist) & row_ok
+    return match_epilogue(r.best, r.best_idx, accept, kp_xy.shape[0], False, mp_angle, kp_angle)
+
+
+def search_by_sim3(pos1, desc1, valid1, pos2, desc2, valid2, s12, R12, t12, already,
+                   cam: Camera, scale_factors: Sequence[float],
+                   kp_xy1=None, kp_xy2=None, kp_octave1=None, kp_octave2=None,
+                   max_dist1=None, max_dist2=None, img_wh=(640.0, 480.0), th: float = 7.5):
+    """ORBmatcher::SearchBySim3 (reference ORBmatcher.cc:1735): each side's
+    map points (in their own camera frames) projected into the other image
+    through S12 / S21, distance (of the transformed point) inside the
+    scale-invariance range, radius th * scale[pred] over levels
+    [pred-1, pred+1] (two K3 launches), best <= TH_HIGH, set 1's rows masked
+    by ``valid1 & ~already``; then only mutually agreeing pairs.  Returns
+    (N1,) int32 index into set 2 or -1."""
+    dev = pos1.device
+    scales = _scales_on(tuple(float(f) for f in scale_factors), dev)
+    n_levels = len(scale_factors)
+    s12 = torch.as_tensor(s12, dtype=torch.float32, device=dev)
+    s21 = 1.0 / torch.clamp(s12, min=1e-12)
+    R21 = R12.T
+    t21 = -s21 * (R12.T @ t12)
+
+    def gated_best(pos, desc, valid, max_dist, s, R, t, kp_xy, kp_oct, desc_dst, valid_dst):
+        pc = s * (pos @ R.T) + t[None]
+        uv = cam.project(pc)
+        dist3 = torch.linalg.vector_norm(pc, dim=-1)
+        dist_ok = (dist3 >= max_dist / scales[n_levels - 1]) & (dist3 <= max_dist)
+        pred = _predict_scale(dist3, max_dist, scales)
+        row_ok = valid & (pc[:, 2] > 0) & _in_image(uv, img_wh) & dist_ok
+        gate = Gate(uv[:, 0], uv[:, 1], th * scales[pred.long()], pred - 1, pred + 1,
+                    kp_xy[:, 0], kp_xy[:, 1], kp_oct)
+        r = hamming_best2(desc, row_ok, desc_dst, valid_dst, gate)
+        return torch.where((r.best <= TH_HIGH) & row_ok, r.best_idx, -1)
+
+    m12 = gated_best(pos1, desc1, valid1 & ~already, max_dist1, s21, R21, t21, kp_xy2,
+                     kp_octave2, desc2, valid2)
+    m21 = gated_best(pos2, desc2, valid2, max_dist2, s12, R12, t12, kp_xy1, kp_octave1,
+                     desc1, valid1)
+    i1 = torch.arange(pos1.shape[0], dtype=torch.int32, device=dev)
+    mutual = (m12 >= 0) & (m21[m12.clamp(0, pos2.shape[0] - 1).long()] == i1)
+    return torch.where(mutual, m12, -1)

@@ -34,8 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # No --use_fast_math, and no contraction of a*b+c into FMAs: K2, K5, K7, K9,
 # K10, K12, K17, K18, K24, K25's scoring, K26, K27 and K28 must round like their plain
 # PyTorch versions (K1, K3, K8, K11, K15, K16 and K34 are integer code or copies; K4,
-# K6, K13, K14, K19-K23 and K30-K33 are bound by latency and K29 by bytes, not float
-# throughput).
+# K6, K13, K14, K19-K23, K30-K33, K35 and K36 are bound by latency and K29 by bytes, not
+# float throughput).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
@@ -68,11 +68,12 @@ _SIGNATURES = {
     # success, R21, t21, points, tri, used_h, stream
     "two_view_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P,
                         _P, _P, _P, _P, _P, _P, _P),
-    # R, t, pts, obs_kf, obs_mp, obs_uv, isig, valid, fixed_kf, fixed_mp, K, P, O,
-    # fx, fy, cx, cy, kb8 (host float32 k1..k4; null: pinhole), n_iters, cg_iters,
-    # use_huber, chi2_th, ws, inliers, cost, stream
-    "ba_pcg_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _F, _F, _F, _F, _P, _I, _I, _I, _F, _P, _P, _P, _P),
+    # R, t, pts, obs_kf, obs_mp, obs_uv, isig, valid, fixed_kf, fixed_mp, obs_ur (null:
+    # mono), bf, K, P, O, fx, fy, cx, cy, kb8 (host float32 k1..k4; null: pinhole),
+    # n_iters, cg_iters, use_huber, chi2_th, ws, dense_ws (null: PCG; else K35),
+    # inliers, cost, stream
+    "ba_pcg_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
+                      _F, _F, _F, _F, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P),
     # desc1, xy1, oct1, free1, N1, desc2, xy2, oct2, free2, N2, B, F12, sigma2,
     # n_lvl, geom_f, geom_b, fx, fy, cx, cy, factor, ws, m12, X, ok, stream
     "tri_search_launch": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
@@ -184,9 +185,12 @@ _SIGNATURES = {
     "grid_area_launch": (_P, _P, _P, _I, _F, _F, _F, _I, _I, _P, _P),
     # a kept cudaGraph_t, out: all nodes; returns its kernel nodes
     "graph_kernel_nodes": (_P, _P),
+    # H, n, mode (0 condition, 1 marginalize, 2 sparsify), s1, e1, s2, e2, ws, out, stream
+    "marginal_launch": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # workspace sizes in bytes
     "two_view_workspace_bytes": (_I, _I),
-    "ba_workspace_bytes": (_I, _I, _I, _I),
+    "ba_workspace_bytes": (_I, _I, _I, _I, _I),
+    "ba_schur_dense_workspace_bytes": (_I, _I, _I),
     "pose_graph_workspace_bytes": (_I, _I, _I),
     "pose_graph_4dof_workspace_bytes": (_I, _I),
     "ba_schur_workspace_bytes": (_I, _I, _I, _I),
@@ -197,15 +201,17 @@ _SIGNATURES = {
     "ba_pcg_gather_bytes": (_I, _I, _I),
     "kf_match_workspace_bytes": (_I, _I, _I),
     "inertial_init_workspace_bytes": (_I,),
+    "marginal_workspace_bytes": (_I,),
 }
 # return types other than the launch status (an int cudaError_t)
 _RESTYPES = {"two_view_workspace_bytes": _L, "ba_workspace_bytes": _L,
+             "ba_schur_dense_workspace_bytes": _L,
              "pose_graph_workspace_bytes": _L, "pose_graph_4dof_workspace_bytes": _L,
              "ba_schur_workspace_bytes": _L, "ba_schur_gather_bytes": _L,
              "pose_graph_gather_bytes": _L,
              "vi_ba_workspace_bytes": _L, "inertial_init_workspace_bytes": _L,
              "vi_ba_gather_bytes": _L, "ba_pcg_gather_bytes": _L,
-             "kf_match_workspace_bytes": _L}
+             "kf_match_workspace_bytes": _L, "marginal_workspace_bytes": _L}
 
 _lib = None
 _lock = threading.Lock()

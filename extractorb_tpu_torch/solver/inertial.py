@@ -750,7 +750,7 @@ def optimize_pose_inertial_last_frame_plain(Rwb0, twb0, v0, bg0, ba0, prev_state
     Jv, Ji, Jp = jac(z30, st, pts, ctx)
     wf = inv_sigma2 * active.to(dt)
     H30 = (torch.einsum("nio,nij->oj", Jv * wf[:, None, None], Jv) + Ji.T @ Ji + Jp.T @ Jp)
-    H_marg = mg.marginalize(H30, 0, 14)[15:, 15:]
+    H_marg = mg.marginalize_plain(H30, 0, 14)[15:, 15:]
     H_marg = 0.5 * (H_marg + H_marg.T)
     return PoseInertialResult(Rwb=st[5], twb=st[6], v=st[7], bg=st[8], ba=st[9], inliers=active,
                               n_inliers=torch.sum(active.to(torch.int32)), H=H_marg)
@@ -827,8 +827,9 @@ def optimize_pose_inertial_last_frame(Rwb0, twb0, v0, bg0, ba0, prev_state, prei
     previous one is anchored by its prior ``prior`` = (H15, state) (else
     1e4 I at ``prev_state``), whose square root comes from eigh with the
     spectrum clamped to [0, 1e7].  After convergence the previous state is
-    marginalised out of the joint 30x30 Hessian (``marginal.marginalize``)
-    into the current frame's prior for the next call.
+    marginalised out of the joint 30x30 Hessian (``marginal.marginalize``;
+    the plain version calls ``marginal.marginalize_plain``) into the current
+    frame's prior for the next call.
 
     Replaces ``extractorb_tpu/solver/inertial.py:optimize_pose_inertial_last_frame``
     and, inside it, ``solver/marginal.py:marginalize``.  On CUDA tensors

@@ -85,12 +85,29 @@ def test_optimize_matches_jax(seed, n_kf, n_iters, cg_iters):
 
 
 def test_unported_options_raise():
-    arrs = padded_problem(0, 3)
-    prob = ba.BAProblem(**{k: torch.from_numpy(v) for k, v in arrs.items()})
-    with pytest.raises(NotImplementedError, match="B.21"):
-        ba.optimize(prob, CAM, solver="schur_dense")
-    with pytest.raises(NotImplementedError, match="stereo residual.*B.21"):
-        ba.optimize(prob._replace(obs_ur=torch.zeros(OP)), CAM)
+    """The options the port once refused now run and hold to JAX: the
+    stereo rows (every valid observation's ur at bf 40, cg) and
+    ``schur_dense`` (mono), on the init-budget problem.  ``schur_dense``
+    runs in float64 on both sides: in float32 XLA's and LAPACK's dense LU
+    round differently.  (Their cases with KB8 and fixed points are in
+    tests/test_torch_ba_stereo.py.)"""
+    arrs = padded_problem(0, 4)
+    z = np.einsum("oij,oj->oi", arrs["R"][arrs["obs_kf"]], arrs["points"][arrs["obs_mp"]])[:, 2] \
+        + arrs["t"][arrs["obs_kf"]][:, 2]
+    ur = np.where(arrs["obs_valid"], arrs["obs_uv"][:, 0] - 40.0 / z, -1.0).astype(np.float32)
+    f64 = lambda a: {k: v.astype(np.float64) if v.dtype == np.float32 else v for k, v in a.items()}
+    for a, kw in (({**arrs, "obs_ur": ur}, dict(bf=40.0)), (f64(arrs), dict(solver="schur_dense"))):
+        with jax.enable_x64(a["R"].dtype == np.float64):
+            j = jba.optimize(jba.BAProblem(**{k: jnp.asarray(v) for k, v in a.items()}), project,
+                             n_iters=12, cg_iters=40, **kw)
+            j = jax.tree_util.tree_map(np.asarray, j)
+        p = ba.optimize(ba.BAProblem(**{k: torch.from_numpy(v) for k, v in a.items()}), CAM,
+                        n_iters=12, cg_iters=40, **kw)
+        for f in ("R", "t", "points"):
+            np.testing.assert_allclose(getattr(p, f).numpy(), np.asarray(getattr(j, f)),
+                                       atol=1e-3, rtol=0, err_msg=f)
+        assert (p.inliers.numpy() == np.asarray(j.inliers)).mean() >= 0.995
+        np.testing.assert_allclose(float(p.cost), float(j.cost), rtol=1e-4)
 
 
 @pytest.mark.gpu

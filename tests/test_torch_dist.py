@@ -162,8 +162,10 @@ def test_unported_refusals(monkeypatch):
     """The three functions the mesh lacked run on 4 CPU shards (they are
     held to JAX in tests/test_torch_dist_vi.py and
     tests/test_torch_inertial_loop_mesh.py): the full inertial BA of a small
-    inertial map goes through ``optimize_vi_sharded``; the stereo residual
-    is still refused (ROADMAP B.21)."""
+    inertial map goes through ``optimize_vi_sharded``.  The sharded BAs
+    once refused the stereo residual: ``optimize_sharded`` and
+    ``optimize_schur`` now ignore ``obs_ur`` as JAX does (ROADMAP C.2),
+    bit for bit their results without it."""
     with dmesh.use_devices([CPU] * 4):
         m = dmesh.make_mesh()
         desc = np.random.default_rng(2).integers(0, 256, (8, 16, 32), np.uint8)
@@ -176,6 +178,9 @@ def test_unported_refusals(monkeypatch):
                           for f in ("obs_kf", "obs_mp", "obs_uv", "inv_sigma2", "obs_valid")})
         res = sharded_ba.optimize_sharded(m, p, CAM, n_iters=2, cg_iters=5)
         assert bool(torch.isfinite(res.points).all()) and res.inliers.shape == p.obs_kf.shape
+        ps = p._replace(obs_ur=p.obs_uv[:, 0] - 5.0)
+        st = sharded_ba.optimize_sharded(m, ps, CAM, n_iters=2, cg_iters=5)
+        assert all(torch.equal(a, b) for a, b in zip(st, res))
         calls = []
         real = sharded_ba.optimize_vi_sharded
         monkeypatch.setattr(sharded_ba, "optimize_vi_sharded",
@@ -186,8 +191,9 @@ def test_unported_refusals(monkeypatch):
                                       device="cpu")
         assert len(calls) == 1 and calls[0][0] is m and calls[0][1].points.shape[0] % 4 == 0
         assert all(np.isfinite(kf.t).all() for kf in mp.keyframes.values())
-        with pytest.raises(NotImplementedError, match="B.21"):
-            sharded_ba.optimize_schur(p._replace(obs_ur=p.obs_uv[:, 0]), CAM, mesh=m)
+        mono = sharded_ba.optimize_schur(p, CAM, n_iters=2, cg_iters=5)
+        st = sharded_ba.optimize_schur(ps, CAM, n_iters=2, cg_iters=5)
+        assert all(torch.equal(a, b) for a, b in zip(st, mono))
 
 
 # ------------------------------------------------------ landmark-sharded GBA
@@ -223,6 +229,10 @@ def schur4():
 def test_sharded_schur_matches_jax(schur4):
     p, r = schur4
     jr = jsba.optimize_schur_sharded(jmesh.make_mesh(4), jprob(p), jproject)
+    # JAX rebuilds the shard problems without obs_ur: a stereo column changes nothing
+    jst = jsba.optimize_schur_sharded(jmesh.make_mesh(4), jprob(p)._replace(
+        obs_ur=j(p.obs_uv[:, 0] - 5.0)), jproject)
+    assert all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(jst, jr))
     for name in ("R", "t", "points"):
         np.testing.assert_allclose(getattr(r, name).numpy(), np.asarray(getattr(jr, name)),
                                    atol=1e-3, err_msg=name)

@@ -182,6 +182,12 @@ def test_plain_sharded_ba_matches_jax():
     prob, tp = ba_problem(2)
     jr = jsba.optimize_sharded(jmesh.make_mesh(8), prob, project)
     tr = port_sharded(tp)
+    # both ignore obs_ur (JAX rebuilds the shard problems without it; ROADMAP C.2)
+    ur = prob.obs_uv[:, 0] - 5.0
+    jst = jsba.optimize_sharded(jmesh.make_mesh(8), prob._replace(obs_ur=ur), project)
+    assert all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(jst, jr))
+    tst = port_sharded(tp._replace(obs_ur=torch.from_numpy(np.asarray(ur))))
+    assert all(torch.equal(a, b) for a, b in zip(tst, tr))
     for f in ("R", "t", "points"):
         np.testing.assert_allclose(getattr(tr, f).numpy(), np.asarray(getattr(jr, f)), atol=1e-4,
                                    err_msg=f)

@@ -1,9 +1,10 @@
 """Matcher of the PyTorch port (plain path) against the JAX package.
 
 Random descriptors and geometry from a numpy seed go through each of the
-searches of both packages on the CPU (the tracking step's four, and the
-loop closer's word-gated ``search_by_bow`` and Sim3
-``search_by_projection_sim3``); the match index arrays must be identical.  Edge cases of the best/second-best primitive (ties, rows
+searches of both packages on the CPU (the tracking step's four, the loop
+closer's word-gated ``search_by_bow`` and Sim3 ``search_by_projection_sim3``,
+and ``fuse_by_projection``, ``search_by_projection_reloc`` and the mutual
+``search_by_sim3``); the match index arrays must be identical.  Edge cases of the best/second-best primitive (ties, rows
 without a candidate) and of the rotation histogram (tied bins) are held
 to the JAX semantics as well.
 """
@@ -151,6 +152,93 @@ def test_search_by_projection_sim3(seed, scale, th):
         *map(J, args), j_pinhole(FX, FX, CX, CY), SCALES, (float(W), float(H)), th))
     p = fm.search_by_projection_sim3(*map(T, args), CAM, SCALES, (float(W), float(H)), th)
     assert (j >= 0).sum() > 10
+    np.testing.assert_array_equal(p.numpy(), j)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("th", [3.0, 6.0])
+def test_fuse_by_projection(seed, th):
+    """Fuse: no claims, so a keypoint may take several map points."""
+    s = _scene(seed)
+    args = [s[k] for k in ("mp_pos", "mp_desc", "mp_valid", "normal", "maxd", "R", "t",
+                           "kp_xy", "kp_desc", "kp_oct", "kp_valid")]
+    j = np.asarray(jfm.fuse_by_projection(
+        *map(J, args), j_pinhole(FX, FX, CX, CY), SCALES, (float(W), float(H)), th))
+    p = fm.fuse_by_projection(*map(T, args), CAM, SCALES, (float(W), float(H)), th)
+    assert (j >= 0).sum() > 10
+    np.testing.assert_array_equal(p.numpy(), j)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("th,orb_dist", [(10.0, 100), (20.0, 50)])
+def test_search_by_projection_reloc(seed, th, orb_dist):
+    s = _scene(seed)
+    free = s["kp_valid"] & (np.random.default_rng(seed).random(len(s["kp_valid"])) < 0.9)
+    args = [s[k] for k in ("mp_pos", "mp_desc", "mp_valid", "mp_oct", "mp_ang", "maxd", "R",
+                           "t", "kp_xy", "kp_desc", "kp_oct", "kp_ang")] + [free]
+    j = np.asarray(jfm.search_by_projection_reloc(
+        *map(J, args), j_pinhole(FX, FX, CX, CY), SCALES, (float(W), float(H)), th, orb_dist))
+    p = fm.search_by_projection_reloc(*map(T, args), CAM, SCALES, (float(W), float(H)), th,
+                                      orb_dist)
+    assert (j >= 0).sum() > 20
+    np.testing.assert_array_equal(p.numpy(), j)
+
+
+def _rodrigues(w):
+    th = np.linalg.norm(w)
+    k = w / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+
+
+def _sim3_sets(seed, s12, N1=300, N2=260, n_common=180):
+    """Two keyframes' map points in their own camera frames, the first
+    n_common the same points (p1 = s12 R12 p2 + t12, 1 cm of noise) with
+    their descriptors 10 bits apart, and each set's keypoints (pixels 1 px
+    off the projections, levels, scale-invariance distances)."""
+    rng = np.random.default_rng(seed)
+
+    def unproject(n):
+        z = rng.uniform(2, 8, n)
+        uv = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], -1)
+        return np.stack([(uv[:, 0] - CX) / FX * z, (uv[:, 1] - CY) / FX * z, z], -1)
+
+    def project(p):
+        return np.stack([FX * p[:, 0] / p[:, 2] + CX, FX * p[:, 1] / p[:, 2] + CY], -1)
+
+    R12 = _rodrigues(np.array([0.02, -0.03, 0.01]))
+    t12 = np.array([0.05, -0.02, 0.03])
+    pos1 = unproject(N1)
+    pos2 = unproject(N2)
+    pos2[:n_common] = (pos1[:n_common] - t12) @ R12 / s12 + rng.normal(0, 0.01, (n_common, 3))
+    desc1 = rng.integers(0, 256, (N1, 32)).astype(np.uint8)
+    desc2 = rng.integers(0, 256, (N2, 32)).astype(np.uint8)
+    desc2[:n_common] = _flip_bits(rng, desc1[:n_common], 10)
+    oct1 = rng.integers(0, 8, N1).astype(np.int32)
+    oct2 = rng.integers(0, 8, N2).astype(np.int32)
+    oct2[:n_common] = np.clip(oct1[:n_common] + rng.integers(-1, 2, n_common), 0, 7)
+    f32 = lambda a: np.asarray(a, np.float32)
+    out = dict(pos1=f32(pos1), desc1=desc1, valid1=rng.random(N1) < 0.95, pos2=f32(pos2),
+               desc2=desc2, valid2=rng.random(N2) < 0.95, s12=np.float32(s12), R12=f32(R12),
+               t12=f32(t12), already=rng.random(N1) < 0.1)
+    kw = dict(kp_xy1=f32(project(pos1) + rng.normal(0, 1, (N1, 2))),
+              kp_xy2=f32(project(pos2) + rng.normal(0, 1, (N2, 2))), kp_octave1=oct1,
+              kp_octave2=oct2,
+              max_dist1=f32(np.linalg.norm(pos1, axis=1) * 1.2 ** oct1 * rng.uniform(0.9, 1.1, N1)),
+              max_dist2=f32(np.linalg.norm(pos2, axis=1) * 1.2 ** oct2 * rng.uniform(0.9, 1.1, N2)))
+    return out, kw
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("s12", [1.0, 1.25])
+def test_search_by_sim3(seed, s12):
+    sets, kw = _sim3_sets(seed, s12)
+    wh = (float(W), float(H))
+    j = np.asarray(jfm.search_by_sim3(*map(J, sets.values()), j_pinhole(FX, FX, CX, CY), SCALES,
+                                      **{k: J(v) for k, v in kw.items()}, img_wh=wh))
+    p = fm.search_by_sim3(*map(T, sets.values()), CAM, SCALES,
+                          **{k: T(v) for k, v in kw.items()}, img_wh=wh)
+    assert (j >= 0).sum() > 20
     np.testing.assert_array_equal(p.numpy(), j)
 
 
