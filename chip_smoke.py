@@ -72,7 +72,7 @@ each with the launch counts set to 0 before it and checked after it.
 Last, loop closing over a device mesh (one process driving an ordered list
 of devices, ``dist/mesh.py``): [loop-mesh] runs [loop] over 4 shards of
 the card (the visible cards when there are more than one) with the
-keyframe database's dense backend (K29 per shard and query), the essential
+keyframe database's dense backend (K29 once per card and query), the essential
 graph edge-sharded (K31) and the GBA over landmark shards (K30), and holds
 the loop and the corrected keyframes to [loop]'s one-shard run;
 [parity-mesh] holds K29 (also at 1024 keyframes x 65536 words), K30 and
@@ -91,7 +91,7 @@ stereo rows (K6 <stereo>, <stereo, CamKB8>) and ``solver="schur_dense"``
 at n = 9, 30 and 45; [search-api] runs ``fuse_by_projection``,
 ``search_by_projection_reloc`` and ``search_by_sim3`` (K3, K18) on the
 [system] map, bit-equal to the plain path; and [det] counts the distinct
-results of 20 calls of K13, K14, K14<KB8>, K30-K33, K35 and K36.
+results of 20 calls of K13, K14, K14<KB8>, K29-K33, K35 and K36.
 On one card the shards' partial sums meet in one kernel; the peer route
 between cards runs only where there are several (``chip_peer.py``).
 Any failure raises:
@@ -312,7 +312,7 @@ KB8_TH_DEPTH = 35.0
 # [vi-stereo-kb8] and [vi-kb8]: [vi]'s trajectory, shortened to the frames
 # that reach the monocular IMU initialisation (2 s) and a second after it
 VI_KB8_FRAMES = 32
-# the [det] phase: calls of K13, K14 and K30-K33 on one input
+# the [det] phase: calls of K13, K14, K29-K33, K35 and K36 on one input
 DET_CALLS = 20
 # [parity-mesh] / [loop-mesh]: the shards of one card (or the visible cards,
 # when there are more than one); K29 also at an ORBvoc-scale dense block of
@@ -2349,11 +2349,13 @@ def graph_f64(p):
 
 def phase_parity_mesh(loop_graph, dev) -> dict:
     """[parity-mesh]: K29, K30 and K31 over ``MESH_SHARDS`` shards of ``dev``
-    against their plain versions on the same inputs.  K29 at the test size
-    and at 1024 keyframes x 65536 words (scores within 1e-5, counts and
-    invalid rows equal), with ``torch.cdist`` and a matvec as the library
-    call; K30 on the [loop] map's global problem and on a noisy one of its K
-    (within 1e-3, inliers equal, the noisy cost within 1e-3), and against
+    against their plain versions on the same inputs.  K29 (one launch a
+    query) at the test size, at 37 x 1003 (W % 16 != 0: the rows on plain
+    loads) and at 1024 keyframes x 65536 words (scores within 1e-5, counts
+    and invalid rows equal), timed with q's host copy and with q on the
+    card, with ``torch.cdist`` and a matvec as the library call; K30 on the [loop]
+    map's global problem and on a noisy one of its K (within 1e-3, inliers
+    equal, the noisy cost within 1e-3), and against
     K14 on the noisy problem; K31 on a 200-keyframe graph (both
     ``fix_scale``) and on [loop-mesh]'s essential graph ``loop_graph``,
     against the float64 plain solve (within 1e-4)."""
@@ -2365,6 +2367,7 @@ def phase_parity_mesh(loop_graph, dev) -> dict:
     # K29
     d29 = 0.0
     for name, (K, W, nnz) in (("test size", (24, 64, None)),
+                              ("37 x 1003 (the plain-load rows)", (37, 1003, None)),
                               (f"{PLACE_K} x {PLACE_W}", (PLACE_K, PLACE_W, PLACE_NNZ))):
         h, w, v, q = place_problem(rng, K, W, nnz)
         blocks = [kfb.shard_kf_axis(mesh, kfb.pad_to_mesh(a, n)) for a in (h, w, v)]
@@ -2383,13 +2386,19 @@ def phase_parity_mesh(loop_graph, dev) -> dict:
     hd, qd = torch.from_numpy(h).to(dev), qt.to(dev)
     wd = torch.from_numpy(w).to(dev).float()
     lib_ms = cuda_ms(lambda: (torch.cdist(hd, qd[None], p=1), wd @ (qd > 0).float()))
+    ms = cuda_ms(lambda: kfb.sharded_place_scores(mesh, *blocks, qt))
+    kernel_ms = cuda_ms(lambda: kfb.sharded_place_scores(mesh, *blocks, qd))
     # a query: the block read once (4 + 1 bytes a word), q, valid, the scores
     # and counts written; per word a subtract, an absolute value and an add,
     # and the count's compare, and and add
     stats["place_dense"] = record(
-        d29, cuda_ms(lambda: kfb.sharded_place_scores(mesh, *blocks, qt)),
-        cuda_ms(lambda: kfb.sharded_place_scores_plain(mesh, *blocks, qt), reps=5),
+        d29, ms, cuda_ms(lambda: kfb.sharded_place_scores_plain(mesh, *blocks, qt), reps=5),
         K * W * 5 + W * 4 + K + K * 8, K * W * 6, library_ms=lib_ms)
+    stats["place_dense"]["q_on_card_ms"] = kernel_ms
+    print(f"[parity-mesh] place_dense {K} x {W} on {n} shards of one card, one launch: "
+          f"{ms:.4f} ms a query with q's host copy, {kernel_ms:.4f} with q on the card, bound "
+          f"{stats['place_dense']['bound_ms']:.4f}; torch.cdist + a matvec {lib_ms:.4f}",
+          flush=True)
     del hd, wd, blocks
 
     # K30: the [loop] map's problem on n landmark shards (self-consistent: its
@@ -2698,7 +2707,7 @@ def phase_loop_mesh(dev):
     loop closes at the keyframe pair of [loop]'s one-shard run, the
     keyframes at the loop event (the essential graph applied, the GBA not
     yet) stay within 2e-3 of that run's, the GBA is applied at ``finish``,
-    and K29 (once per shard and query), K30 and K31 (once each) run in
+    and K29 (once per card and query), K30 and K31 (once each) run in
     place of K14 and K13.  Each query's dense scores are held to the host
     pass's (within 1e-5) and their near-ties printed; the loop event's host
     ms, and its device ms from a profiled run (the union of its device
@@ -2714,8 +2723,8 @@ def phase_loop_mesh(dev):
         mp, closer, loops, ms, centres, n_gba = run_loop(dev, devices=devs, keep=keep)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    n_q, n_sh = len(rec.calls["place_dense"]), len(devs)
-    want = {"place_dense": n_q * n_sh, "ba_schur_sharded": 1, "pose_graph_sharded": 1,
+    n_q, n_sh, n_cards = len(rec.calls["place_dense"]), len(devs), len(set(devs))
+    want = {"place_dense": n_q * n_cards, "ba_schur_sharded": 1, "pose_graph_sharded": 1,
             "ba_schur": 0, "pose_graph": 0}
     bad = {k: launches.get(k, 0) for k, v in want.items() if launches.get(k, 0) != v}
     same_kfs = set(keep["before"]) == set(keep1["before"])
@@ -3683,20 +3692,26 @@ def dense_system(p, cam, bf: float):
     return ba._schur_dense_system(p, Jpw, Jl, Hpp, Hll, bp, bl, lam, free_kf)[:2]
 
 
+# the device kernels of K35's solve (both instantiations of the cluster
+# kernel: tiles in the cluster's shared memory or in L2), and of its step
+K35_SOLVE_KERNELS = ("solve_cluster_kernel",)
+K35_STEP_KERNELS = ("point_kernel", "schur_kernel", "back_kernel") + K35_SOLVE_KERNELS
+
+
 def k35_step_ms(p, cam, bf: float):
-    """Device ms of K35's passes per LM step and of its solve kernel, from a
-    ``torch.profiler`` trace of one call, over the solve launches the trace
-    holds (None where it holds none)."""
+    """Device ms of K35's passes per LM step and of its solve (every kernel
+    of ``K35_SOLVE_KERNELS``), from a ``torch.profiler`` trace of one call,
+    over the solves the trace holds (None where it holds none)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         ba.optimize(p, cam, BA_ITERS, BA_CG, bf=bf, solver="schur_dense")
         torch.cuda.synchronize()
     dev_us = lambda e: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-    ev = [e for e in prof.key_averages() if any(k in e.key for k in (
-        "point_kernel", "schur_kernel", "solve_kernel", "back_kernel"))]
+    is_solve = lambda e: any(k in e.key for k in K35_SOLVE_KERNELS)
+    ev = [e for e in prof.key_averages() if any(k in e.key for k in K35_STEP_KERNELS)]
     total = sum(dev_us(e) for e in ev)
-    solve = sum(dev_us(e) for e in ev if "solve_kernel" in e.key)
-    steps = sum(e.count for e in ev if "solve_kernel" in e.key)
+    solve = sum(dev_us(e) for e in ev if is_solve(e))
+    steps = sum(e.count for e in ev if is_solve(e))   # one solve launch a step
     if total <= 0 or steps == 0:
         return None, None
     print(f"[ba-stereo] the trace holds {steps} of {BA_ITERS} K35 steps", flush=True)
@@ -3751,7 +3766,7 @@ def phase_ba_stereo(dev):
             step_ms, solve_ms = k35_step_ms(p, cam, bf)
             stats[key].update(step_ms=step_ms, solve_ms=solve_ms, n=6 * p.R.shape[0])
             print(f"[ba-stereo] {tag}: {stats[key]['ms']:.3f} ms a call ({BA_ITERS} LM steps), "
-                  f"K35 {step_ms} ms device a step (its solve kernel {solve_ms}), "
+                  f"K35 {step_ms} ms device a step (its solve {solve_ms}), "
                   f"torch.linalg.solve of the same ({6 * p.R.shape[0]})^2 S {lib_ms:.4f} ms",
                   flush=True)
     return launches, stats
@@ -3915,7 +3930,8 @@ def phase_det(dev, vi_call) -> dict:
     essential graph, then K32 on [vi-loop-mesh]'s GBA call (``vi_call``, its
     one-view points fixed) over its shards and K33 on the [loop] map's
     problem with its observations sharded, K35 on [ba-stereo]'s Kp 32
-    stereo problem and K36 (marginalize and sparsify at n = 30),
+    stereo problem, K36 (marginalize and sparsify at n = 30) and K29 on
+    [parity-mesh]'s ``PLACE_K`` x ``PLACE_W`` block over the shards,
     ``DET_CALLS`` calls each on one input: they sum in a fixed order (the
     shards in shard order), so each gives one result."""
     prob = pose_graph_problem(np.random.default_rng(8), dev)
@@ -3940,6 +3956,12 @@ def phase_det(dev, vi_call) -> dict:
            for _ in range(DET_CALLS)]
     _, p, cam, bf, sv = ba_stereo_cases(dev)[1]   # schur_dense, stereo, Kp 32
     dns = [tuple(ba.optimize(p, cam, BA_ITERS, BA_CG, bf=bf, solver=sv)) for _ in range(DET_CALLS)]
+    *pa, qp = place_problem(np.random.default_rng(15), PLACE_K, PLACE_W, PLACE_NNZ)
+    pblocks = [kfb.shard_kf_axis(mesh, kfb.pad_to_mesh(a, mesh.size)) for a in pa]
+    qp = torch.from_numpy(qp).to(dev)
+    pls = [tuple(torch.cat(x) for x in kfb.sharded_place_scores(mesh, *pblocks, qp))
+           for _ in range(DET_CALLS)]
+    del pblocks
     H = information(30, 60).to(dev)
     mgs = [(mg.marginalize(H, 0, 14), mg.sparsify(H, 0, 14, 15, 29)) for _ in range(DET_CALLS)]
     torch.cuda.synchronize()
@@ -3947,7 +3969,7 @@ def phase_det(dev, vi_call) -> dict:
     for name, res in (("pose_graph", pg), ("ba_schur", sb[False]), ("ba_schur_kb8", sb[True]),
                       ("ba_schur_sharded", sbs), ("pose_graph_sharded", pgs),
                       ("vi_ba_sharded", vis), ("ba_pcg_sharded", pcs), ("ba_schur_dense", dns),
-                      ("marginal", mgs)):
+                      ("marginal", mgs), ("place_dense", pls)):
         n = _distinct(res)
         print(f"[det] {name}: {n} distinct result(s) over {DET_CALLS} calls on one input",
               flush=True)

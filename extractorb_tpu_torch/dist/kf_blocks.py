@@ -8,14 +8,16 @@ from whatever shard holds them.  A KF-sharded tensor is a list of blocks,
 shard s's on ``mesh.devices[s]`` (``shard_kf_axis``).
 
 ``sharded_place_scores`` launches kernel K29 (``csrc/place_dense.cu``)
-once per shard whose block lies on a card, and runs
-``place_scores_plain`` on a block on the CPU.
-``sharded_loop_candidate_match`` launches K34 (``csrc/kf_match.cu``) the
-same way, and ``candidate_match_plain`` on the CPU.
+once per card and query, over every shard whose block lies on that card,
+and runs ``place_scores_plain`` on a block on the CPU.
+``sharded_loop_candidate_match`` launches K34 (``csrc/kf_match.cu``) once
+per shard whose block lies on a card, and ``candidate_match_plain`` on the
+CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -59,26 +61,60 @@ def place_scores_plain(hists, has_word, valid, q_hist) -> Tuple[torch.Tensor, to
     return torch.where(valid, scores, -torch.inf), common
 
 
-def place_scores(hists, has_word, valid, q_hist) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One shard's L1 BoW scores and shared-word counts: K29 on a card,
-    ``place_scores_plain`` on the CPU."""
-    if not hists.is_cuda:
-        return place_scores_plain(hists, has_word, valid, q_hist)
-    K, W = hists.shape
-    args = [hists.to(torch.float32).contiguous(), has_word.to(torch.bool).contiguous(),
-            valid.to(torch.bool).contiguous(), q_hist.to(torch.float32).contiguous()]
-    kernels.require_cuda("place_dense", *args)
-    if args[1].shape != (K, W) or args[2].shape != (K,) or args[3].shape != (W,):
-        raise ValueError("place_dense: inconsistent shapes")
-    scores = torch.empty(K, dtype=torch.float32, device=hists.device)
-    common = torch.empty(K, dtype=torch.int32, device=hists.device)
-    with torch.cuda.device(hists.device):
-        err = kernels.lib().place_dense_launch(*[a.data_ptr() for a in args], K, W,
-                                               scores.data_ptr(), common.data_ptr(),
-                                               kernels.stream())
+# the blocks one K29 launch takes (csrc/place_dense.cu kMaxShards)
+PLACE_MAX_SHARDS = 64
+
+
+def place_launch_plan(devices: Sequence[torch.device], rows: Sequence[int]):
+    """K29's launches for KF-sharded blocks of ``rows`` rows on ``devices``
+    (one of each per shard): one launch per device, in the order in which
+    the devices first appear, as (device, [(shard, row0)], total rows) with
+    the device's shards in shard order and row0 each block's first row in
+    the launch's outputs.  A device with more than ``PLACE_MAX_SHARDS``
+    shards takes one launch per group of that many."""
+    plan, open_ = [], {}
+    for s, (dev, k) in enumerate(zip(devices, rows)):
+        dev = torch.device(dev)
+        i = open_.get(dev)
+        if i is None or len(plan[i][1]) == PLACE_MAX_SHARDS:
+            open_[dev] = i = len(plan)
+            plan.append((dev, [], 0))
+        d, items, total = plan[i]
+        plan[i] = (d, items + [(s, total)], total + int(k))
+    return plan
+
+
+def _on_card(t: torch.Tensor, dtype, dev: torch.device) -> torch.Tensor:
+    """``t`` as a contiguous ``dtype`` tensor; raises unless it is on ``dev``."""
+    if t.device != dev:
+        raise ValueError(f"place_dense: a block on {t.device}, expected {dev}")
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
+def _place_dense(blocks, q, total: int):
+    """One K29 launch over ``blocks`` [(hists, has_word, valid)] on one
+    card, against ``q`` on that card: scores and counts in one allocation,
+    the blocks' rows one after another; returns them split by block."""
+    dev, W = q.device, q.shape[0]
+    q = _on_card(q, torch.float32, dev)
+    vals, rows = [], []
+    for h, w, v in blocks:
+        h, w, v = (_on_card(h, torch.float32, dev), _on_card(w, torch.bool, dev),
+                   _on_card(v, torch.bool, dev))
+        k = h.shape[0]
+        if h.shape != (k, W) or w.shape != (k, W) or v.shape != (k,):
+            raise ValueError("place_dense: inconsistent shapes")
+        vals += (h.data_ptr(), w.data_ptr(), v.data_ptr(), k)
+        rows.append(k)
+    tab = (ctypes.c_longlong * len(vals))(*vals)
+    out = torch.empty(2 * total, dtype=torch.float32, device=dev)
+    scores, common = out[:total], out[total:].view(torch.int32)
+    with torch.cuda.device(dev):
+        err = kernels.lib().place_dense_launch(len(rows), tab, W, q.data_ptr(), scores.data_ptr(),
+                                               common.data_ptr(), kernels.stream())
     kernels.check(err, "place_dense")
     kernels.LAUNCHES["place_dense"] += 1
-    return scores, common
+    return scores.split(rows), common.split(rows)
 
 
 def sharded_place_scores(mesh: Mesh, hists, has_word, valid, q_hist):
@@ -87,11 +123,27 @@ def sharded_place_scores(mesh: Mesh, hists, has_word, valid, q_hist):
     counts, shard by shard (no cross-shard traffic: the outputs stay
     sharded).  ``hists`` (K, W) float32, ``has_word`` (K, W) bool and
     ``valid`` (K,) bool are KF-sharded; ``q_hist`` (W,) is replicated
-    (moved to each shard's device here).  Returns (scores, common_words),
-    KF-sharded; invalid rows score -inf."""
+    (copied once to each device that holds a shard and lacks it).  On a
+    card one K29 launch scores every shard there (``place_launch_plan``),
+    into one allocation; on the CPU each shard runs ``place_scores_plain``.
+    Returns (scores, common_words), KF-sharded (views of the card's
+    allocation); invalid rows score -inf."""
     q = torch.as_tensor(q_hist)
-    out = [place_scores(h, w, v, q.to(h.device)) for h, w, v in zip(hists, has_word, valid)]
-    return [s for s, _ in out], [c for _, c in out]
+    scores, common = [None] * len(hists), [None] * len(hists)
+    on_dev = {}
+    for dev, items, total in place_launch_plan([h.device for h in hists],
+                                               [h.shape[0] for h in hists]):
+        qd = on_dev.get(dev)
+        if qd is None:
+            qd = on_dev[dev] = q if q.device == dev else q.to(dev)
+        if dev.type != "cuda":
+            for s, _ in items:
+                scores[s], common[s] = place_scores_plain(hists[s], has_word[s], valid[s], qd)
+            continue
+        sc, cm = _place_dense([(hists[s], has_word[s], valid[s]) for s, _ in items], qd, total)
+        for (s, _), a, b in zip(items, sc, cm):
+            scores[s], common[s] = a, b
+    return scores, common
 
 
 def sharded_place_scores_plain(mesh: Mesh, hists, has_word, valid, q_hist):

@@ -133,8 +133,8 @@ _SIGNATURES = {
     # gather, cost
     "ba_pcg_sharded_launch": (_I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _I, _I, _I, _F,
                               _P, _P),
-    # hists, has, valid, q, K, W, scores, common, stream
-    "place_dense_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _P),
+    # n, tab (host int64 (n, 4): hists, has, valid, rows), W, q, scores, common, stream
+    "place_dense_launch": (_I, _P, _I, _P, _P, _P, _P),
     # kf_desc, kf_valid, q_desc, q_valid, Ks, N, Nq, th_low, ws, counts, stream
     "kf_match_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # img, flat, tables, tab(host ptr), stream

@@ -29,6 +29,7 @@ from extractorb_tpu.dist import sharded_pose_graph as jspg
 from extractorb_tpu.place.database import KeyFrameDatabase as JDatabase
 from extractorb_tpu.solver import ba as jba
 from extractorb_tpu.solver import pose_graph as jpg
+from extractorb_tpu_torch import kernels
 from extractorb_tpu_torch.dist import kf_blocks as kfb
 from extractorb_tpu_torch.dist import mesh as dmesh
 from extractorb_tpu_torch.dist import sharded_ba, sharded_pose_graph
@@ -105,6 +106,32 @@ def test_place_scores_match_jax(K):
     assert tc[7] == 0 and tc.dtype == np.int32
     assert np.array_equal(kfb.gather_host(ps), ts) and np.array_equal(kfb.gather_host(pc), tc)
     assert int(np.argmax(ts)) == 5
+
+
+def test_place_launch_plan():
+    """K29's launches: one per device, its shards in shard order with their
+    rows' offsets into one allocation; more than 64 shards of one device in
+    groups of 64.  On a mesh of CPU devices the plan is one entry, and the
+    scores come back per shard as the plain version's."""
+    with dmesh.use_devices(CPU8):
+        m = dmesh.make_mesh()
+        assert kfb.place_launch_plan(m.devices, [3] * 8) == [
+            (CPU, [(s, 3 * s) for s in range(8)], 24)]
+        hists, has_word, valid, q = place_inputs()
+        blocks = [kfb.shard_kf_axis(m, a) for a in (hists, has_word, valid)]
+        ts, tc = kfb.sharded_place_scores(m, *blocks, torch.from_numpy(q))
+    assert [t.shape[0] for t in ts] == [c.shape[0] for c in tc] == [3] * 8
+    for s in range(8):
+        ps, pc = kfb.place_scores_plain(blocks[0][s], blocks[1][s], blocks[2][s],
+                                        torch.from_numpy(q))
+        assert torch.equal(ts[s], ps) and torch.equal(tc[s], pc)
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    assert kfb.place_launch_plan([c0, c1, c0, CPU, c1], [4, 4, 5, 4, 0]) == [
+        (c0, [(0, 0), (2, 4)], 9), (c1, [(1, 0), (4, 4)], 4), (CPU, [(3, 0)], 4)]
+    plan = kfb.place_launch_plan([c0] * 130, [2] * 130)
+    assert [(d, len(items), total) for d, items, total in plan] == [
+        (c0, 64, 128), (c0, 64, 128), (c0, 2, 4)]
+    assert plan[1][1][:2] == [(64, 0), (65, 2)] and plan[2][1] == [(128, 0), (129, 2)]
 
 
 def test_all_gather_kf_blocks_bit_equal():
@@ -279,17 +306,44 @@ def test_sharded_pose_graph_matches_jax(fix_scale):
 # ------------------------------------------------------ card (K29-K31)
 
 
+# K29's card cases: (keyframes, words); "ragged-rows" gives some CTAs 9
+# rows (the grid is one CTA a multiple-processor, the tile 8 rows), and a
+# CTA rows of two shards
+PLACE_CASES = {"test-size": (24, 64), "odd-width": (24, 1003), "ragged-rows": (1101, 256),
+               "two-devices": (24, 64), "20-calls": (1101, 8192)}
+
+
 @pytest.mark.gpu
-def test_place_kernel_matches_plain(cuda_device):
-    hists, has_word, valid, q = place_inputs()
-    with dmesh.use_devices([cuda_device] * 4):
+@pytest.mark.parametrize("case", list(PLACE_CASES))
+def test_place_kernel_matches_plain(cuda_device, case):
+    """K29 against its plain version on 4 shards, one launch per card and
+    query: at the test size, with W % 16 != 0 (every row and q on the plain
+    loads), with rows that do not fill the tiles, with the shards split over
+    two devices of a mesh (the card and a second card, else the CPU), and
+    20 calls on one input giving one result."""
+    K, W = PLACE_CASES[case]
+    if case == "test-size":
+        hists, has_word, valid, q = place_inputs()
+    else:
+        hists, has_word, valid, q = chip_smoke.place_problem(np.random.default_rng(2), K, W)
+    other = torch.device("cuda", 1) if torch.cuda.device_count() > 1 else CPU
+    devs = [cuda_device, other] * 2 if case == "two-devices" else [cuda_device] * 4
+    with dmesh.use_devices(devs):
         m = dmesh.make_mesh()
         blocks = [kfb.shard_kf_axis(m, kfb.pad_to_mesh(a, 4)) for a in (hists, has_word, valid)]
+        n0 = kernels.LAUNCHES["place_dense"]
         ks, kc = kfb.sharded_place_scores(m, *blocks, torch.from_numpy(q))
+        assert kernels.LAUNCHES["place_dense"] - n0 == len({d for d in devs if d.type == "cuda"})
+        assert [s.device for s in ks] == [c.device for c in kc] == list(m.devices)
         ps, pc = kfb.sharded_place_scores_plain(m, *blocks, torch.from_numpy(q))
+        for _ in range(19 if case == "20-calls" else 0):
+            s2, c2 = kfb.sharded_place_scores(m, *blocks, torch.from_numpy(q))
+            assert all(torch.equal(a, b) for a, b in zip(s2 + c2, ks + kc))
+    ok = kfb.gather_host(blocks[2])
     ks, ps = kfb.gather_host(ks), kfb.gather_host(ps)
     np.testing.assert_array_equal(np.isinf(ks), np.isinf(ps))
-    np.testing.assert_allclose(ks[valid], ps[valid], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(np.isinf(ks), ~ok)
+    np.testing.assert_allclose(ks[ok], ps[ok], rtol=0, atol=1e-5)
     np.testing.assert_array_equal(kfb.gather_host(kc), kfb.gather_host(pc))
 
 
