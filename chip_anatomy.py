@@ -1,4 +1,5 @@
-"""Where the time of K29's query and K35's dense solve goes, on the card.
+"""Where the time of K29's query, K35's dense solve, K6's cluster solve and K8's
+map update goes, on the card.
 
     python3 chip_anatomy.py
 
@@ -21,8 +22,21 @@ CUDA-event times, and the mean cycles of each phase of a panel in CTA 0
 (write-back, copy, triangular solves, trailing update, cluster barrier
 wait). Then, for the test's problems, ``ba.optimize`` through K35 and the
 plain version (float32 and float64) after 1, 2 and 10 LM steps: the largest
-pose difference between each pair. Needs one CUDA card; exits non-zero
-without one.
+pose difference between each pair.
+
+Then K6's cluster solve: copies of ``csrc/ba_pcg.cu`` built into
+``build/k6_cluster/``, one per cluster size (8 and 16 CTAs), CTA 0 adding up
+``clock64()`` per phase kind (the lists, build, reduce, invert, the Hessian
+product, the two CG updates, retract, cost, accept, the final pass) with
+the cluster-barrier wait apart. On [parity]'s problems (Kp 32 / Pp 2048 /
+Op 8192 at 12 x 40 and 5 x 25) and run_ba's largest bucket (Pp 8192, Op
+32768, 10 x 40) it prints each copy's CUDA-event time, the cycles per phase
+kind and per barrier, and the library's own call. Last K8's map update:
+the record scatter that ``MapMirror.sync`` launches (the kernel reading its
+page-locked record in place) against one ``cudaMemcpyAsync`` of the record
+to the card before the launch, ``mirror_scatter`` on device inputs against
+two ``index_put_`` calls, and the host time to enqueue each. Needs one CUDA
+card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -110,6 +124,158 @@ def build_solve() -> ctypes.CDLL:
     return lib
 
 
+K6_OUT = Path(__file__).resolve().parent / "build" / "k6_cluster"
+# K6's phase kinds (ba_pcg.cu's Phase), the stamp slots CTA 0 adds to
+K6_PHASES = ("lists", "build", "reduce", "invert", "hv keyframes", "cg_a", "cg_b", "retract",
+             "cost", "accept", "final", "barrier wait", "cluster sums", "hv points")
+K6_WRAP = r'''
+__device__ long long* g_k6;   // [0, 16) cycles, [16, 32) counts per phase kind, [40] the last clock
+#define K6_STAMP(k) do { if (rank == 0 && threadIdx.x == 0) { const long long now_ = clock64(); \
+  g_k6[(k)] += now_ - g_k6[40]; g_k6[16 + (k)] += 1; g_k6[40] = now_; } } while (0)
+#define K6_CLUSTER %d
+#include "ba_pcg.cu"
+extern "C" int k6_set_stamps(long long* p) { return (int)cudaMemcpyToSymbol(g_k6, &p, sizeof(p)); }
+'''
+
+
+def build_k6(clusters):
+    """Copies of K6 (with K35's source, which it links), one per cluster
+    size, CTA 0 stamping its phases; built by nvcc, all at once."""
+    K6_OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for cluster in clusters:
+        src = K6_OUT / f"k6_c{cluster}.cu"
+        src.write_text(K6_WRAP % cluster)
+        procs[cluster] = (src.with_suffix(".so"), subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
+             str(src.with_suffix(".so")), str(src), str(kernels.CSRC / "ba_schur_dense.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"chip_anatomy: nvcc failed on {path.name}:\n{log}")
+        lib = ctypes.CDLL(str(path))
+        for name in ("ba_pcg_launch", "ba_workspace_bytes"):
+            getattr(lib, name).argtypes = list(kernels._SIGNATURES[name])
+        lib.ba_workspace_bytes.restype = ctypes.c_longlong
+        lib.k6_set_stamps.argtypes = [ctypes.c_void_p]
+        libs[key] = lib
+    return libs
+
+
+def k6_call(lib, p, cam, n_iters, cg_iters):
+    """``ba.optimize``'s launch of K6 through ``lib`` (the mono pinhole
+    problem p): returns a function that solves p afresh."""
+    dev = p.points.device
+    K, P, O = p.R.shape[0], p.points.shape[0], p.obs_kf.shape[0]
+    ws = torch.empty(int(lib.ba_workspace_bytes(K, P, O, cg_iters, 0)), dtype=torch.uint8,
+                     device=dev)
+    args = [a.contiguous() for a in (p.obs_kf, p.obs_mp, p.obs_uv, p.inv_sigma2, p.obs_valid,
+                                     p.fixed_kf, p.fixed_mp)]
+    inl = torch.empty(O, dtype=torch.bool, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+
+    def call():
+        R, t, pts = p.R.clone(), p.t.clone(), p.points.clone()
+        err = lib.ba_pcg_launch(R.data_ptr(), t.data_ptr(), pts.data_ptr(),
+                                *[a.data_ptr() for a in args], None, 0.0, K, P, O, cam.fx,
+                                cam.fy, cam.cx, cam.cy, None, n_iters, cg_iters, 1, 5.991,
+                                ws.data_ptr(), None, inl.data_ptr(), cost.data_ptr(),
+                                kernels.stream())
+        if err:
+            raise RuntimeError(f"chip_anatomy: K6 did not launch ({err})")
+        return R, t, pts, inl
+    return call
+
+
+def k6_anatomy(dev) -> None:
+    """K6's cluster solve per phase kind, for 8 and 16 CTAs."""
+    K = cs.pf.camera_matrix(cs.WIDTH, cs.HEIGHT)
+    cam = cs.track_device.pinhole_project(K[0, 0], K[1, 1], K[0, 2], K[1, 2])
+    init = cs.ba_problem(np.random.default_rng(1), dev)
+    big = cs.ba_problem(np.random.default_rng(6), dev, n_kf=10, n_pts=3000, Pp=8192, Op=32768)
+    cases = (("[parity] 12 x 40", init, 12, 40), ("[parity] 5 x 25", init, 5, 25),
+             ("Pp 8192 / Op 32768, 10 x 40", big, 10, 40))
+    stamps = torch.zeros(64, dtype=torch.int64, device=dev)
+    for cluster, lib in build_k6((8, 16)).items():
+        if lib.k6_set_stamps(stamps.data_ptr()):
+            raise RuntimeError("chip_anatomy: cudaMemcpyToSymbol failed")
+        for name, p, n_iters, cg_iters in cases:
+            call = k6_call(lib, p, cam, n_iters, cg_iters)
+            ref = ba.optimize(p, cam, n_iters, cg_iters)
+            stamps.zero_()
+            out = call()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(out, (ref.R, ref.t, ref.points,
+                                                               ref.inliers)))
+            t = stamps.cpu().numpy()
+            total = int(t[:len(K6_PHASES)].sum())
+            parts = ", ".join(f"{k} {int(t[i])} ({int(t[16 + i])}x)"
+                              for i, k in enumerate(K6_PHASES) if t[16 + i])
+            ms = cs.cuda_ms(call, reps=10)
+            lib_ms = cs.cuda_ms(lambda: ba.optimize(p, cam, n_iters, cg_iters), reps=10)
+            print(f"K6 {cluster} CTAs, {name}: {ms:.4f} ms (the library's call {lib_ms:.4f}), "
+                  f"bit-equal to it {same}; CTA 0 cycles {total}: {parts}; a barrier wait "
+                  f"{t[11] / max(t[27], 1):.0f} cycles", flush=True)
+
+
+def k8_anatomy(dev) -> None:
+    """K8's map update of 256 rows (200 in range) into a 32768-row mirror."""
+    rng = np.random.default_rng(2)
+    cap, b = cs.track_device.MapMirror.LADDER[0], 256
+    rows = np.concatenate([rng.choice(cap, 200, replace=False), np.full(56, cap)]).astype(np.int32)
+    new_pos = rng.normal(size=(b, 3)).astype(np.float32)
+    new_valid = rng.random(b) < 0.5
+    td = cs.track_device
+    mir = td.MapMirror(dev)
+    mir.pos = torch.from_numpy(rng.normal(size=(cap, 3)).astype(np.float32)).to(dev)
+    mir.valid = torch.from_numpy(rng.random(cap) < 0.5).to(dev)
+    mir.cap = cap
+    rec = torch.empty(td.record_offsets(b)[2], dtype=torch.uint8, pin_memory=True)
+    for a, v in zip(td.record_views(rec.numpy(), b), (rows, new_pos, new_valid)):
+        a[:] = v
+    o_pos, o_val, n = td.record_offsets(b)
+    stage = torch.empty(n, dtype=torch.uint8, device=dev)
+    views = (stage[:4 * b].view(torch.int32), stage[o_pos:o_pos + 12 * b].view(torch.float32)
+             .view(b, 3), stage[o_val:o_val + b].view(torch.bool))
+
+    def copied():   # one cudaMemcpyAsync of the record, then the kernel on its copy
+        stage.copy_(rec, non_blocking=True)
+        td.mirror_scatter(mir.pos, mir.valid, *views)
+
+    def index_put(r, p_, v):   # the in-range rows, as index_put_ rejects the others
+        keep = r < cap
+        mir.pos.index_put_((r[keep].long(),), p_[keep])
+        mir.valid.index_put_((r[keep].long(),), v[keep])
+
+    on_card = [torch.from_numpy(a).to(dev) for a in (rows, new_pos, new_valid)]
+    keep = on_card[0] < cap
+    kr, kp, kv = on_card[0][keep].long(), on_card[1][keep], on_card[2][keep]
+    runs = {
+        "record read in place (MapMirror.sync's upload)":
+            lambda: td.mirror_scatter_record(mir.pos, mir.valid, rec, b),
+        "record copied, then the kernel": copied,
+        "upload_rows (pack + record scatter)": lambda: mir.upload_rows(rows, new_pos, new_valid),
+        "three .to(device) copies + index_put_ x2": lambda: index_put(
+            *(torch.from_numpy(a).to(dev) for a in (rows, new_pos, new_valid))),
+        "mirror_scatter, device inputs": lambda: td.mirror_scatter(mir.pos, mir.valid, *on_card),
+        "index_put_ x2, device inputs (in-range rows)": lambda: (
+            mir.pos.index_put_((kr,), kp), mir.valid.index_put_((kr,), kv)),
+    }
+    for rep in range(2):
+        for name, fn in runs.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            print(f"K8 (round {rep}) {name}: {cs.cuda_ms(fn, reps=50):.4f} ms, "
+                  f"{host_us:.1f} us of host time to enqueue", flush=True)
+
+
 def problems(dev):
     """(name, problem, camera, bf) of the systems this script solves."""
     K = cs.pf.camera_matrix(cs.WIDTH, cs.HEIGHT)
@@ -172,6 +338,8 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
     kernels.lib()
+    k6_anatomy(dev)
+    k8_anatomy(dev)
     place_query(dev)
     lib = build_solve()
     stamps = torch.zeros(1024, dtype=torch.int64, device=dev)

@@ -1,6 +1,6 @@
 """Frame times and device idle share of the port's System on one card.
 
-    python3 chip_profile.py [--out profile.json]
+    python3 chip_profile.py [--out profile.json] [--runs system,kb8]
 
 Runs ``System.track_monocular``, ``track_stereo`` and ``track_rgbd``
 from a cold map over the 30 rendered 640x480 frames of ``chip_smoke.py``
@@ -36,8 +36,10 @@ Last, the loop event of [loop] and [loop-kb8] and the merge frame of
 sweep, pinhole and through TUM-VI's KB8 camera): host ms unprofiled,
 device ms profiled, idle share.
 Prints one summary line per run and, with ``--out``, writes the per-frame
-times and the largest kernels there as JSON.  Needs a card; fails without
-one.
+times and the largest kernels there as JSON.  ``--runs`` names the sensor
+runs to make (default all nine, then the pipelined and event runs; with
+the option only those, both ways: a short comparison of two trees in one
+call).  Needs a card; fails without one.
 """
 
 from __future__ import annotations
@@ -312,6 +314,7 @@ def summarise(host, kf, device):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="JSON file for the per-frame times and kernel sums")
+    ap.add_argument("--runs", help="comma-separated sensor runs (e.g. system,kb8); only those")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_profile.py runs on a card only")
@@ -336,6 +339,11 @@ def main() -> int:
             "stereo-kb8": (cs.kb8_rig_config(), rig_l, rig_r),
             "vi-stereo-kb8": (cs.kb8_rig_config("imu-stereo"), vk_l, vk_r),
             "vi-kb8": (cs.vi_kb8_config(), vk_l, None)}
+    if args.runs:
+        unknown = set(args.runs.split(",")) - set(runs)
+        if unknown:
+            raise ValueError(f"chip_profile.py: no run {sorted(unknown)}; the runs: {list(runs)}")
+        runs = {k: v for k, v in runs.items() if k in args.runs.split(",")}
     result = dict(card=smi, frames=cs.SYS_FRAMES, vi_frames=cs.VI_FRAMES,
                   vi_stereo_frames=len(vi_left))
     track_all(cs.system_config(), frames[:3], None, dev)   # warm-up: build and first launches
@@ -369,8 +377,9 @@ def main() -> int:
                   f"{s['device_ms_keyframe']:.3f} ms, idle {s['idle_keyframe']:.4f} "
                   f"({n_ev} device events)", flush=True)
         del prof
-    result["pipelined"] = pipeline_runs(frames, rights, depths, dev)
-    result["events"] = event_runs(dev)
+    if not args.runs:
+        result["pipelined"] = pipeline_runs(frames, rights, depths, dev)
+        result["events"] = event_runs(dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

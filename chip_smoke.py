@@ -117,6 +117,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -393,6 +394,25 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def paired_ms(fa, fb, reps: int = 50):
+    """Median CUDA-event times of ``fa`` and ``fb``, timed in turns (a, b, b,
+    a, ...) after a warm-up of each, so drifts of the host's speed fall on
+    both alike."""
+    for fn in (fa, fb):
+        fn()
+        fn()
+    times = ([], [])
+    for i in range(reps):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            (fa, fb)[j]()
+            b.record()
+            b.synchronize()
+            times[j].append(a.elapsed_time(b))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
 def timed(fn):
     """``fn()``'s result and the CUDA-event time of that one call (no
     warm-up: for plain versions that take seconds)."""
@@ -550,6 +570,20 @@ def extract_plain_glue(ex: ORBExtractor, img: torch.Tensor):
     return brief.orb_describe(pyr, ex.desc_plan, sel.xy, sel.octave, sel.valid)
 
 
+def device_events(fn):
+    """The names of the device events of one call of ``fn`` (after a warm-up
+    call) in a ``torch.profiler`` trace, and how many are kernels (copies
+    and fills apart)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names, sum(1 for e in names if not e.startswith(("Memcpy", "Memset")))
+
+
 def phase_extract_launches(ex: ORBExtractor, frame: np.ndarray, dev) -> dict:
     """The device kernels of one 640x480 extraction (torch.profiler's device
     events, copies and fills apart) and its host-clock median over 20 calls
@@ -558,15 +592,7 @@ def phase_extract_launches(ex: ORBExtractor, frame: np.ndarray, dev) -> dict:
     runs = {"plain glue": lambda: extract_plain_glue(ex, img), "kernels": lambda: ex(img)}
     out = {}
     for name, fn in runs.items():
-        fn()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        dev_ev = [e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        n_kern = sum(1 for e in dev_ev if not e.startswith(("Memcpy", "Memset")))
+        dev_ev, n_kern = device_events(fn)
         host = []
         for _ in range(20):
             torch.cuda.synchronize()
@@ -1097,28 +1123,51 @@ def phase_parity_k5_k8(frames, poses, dev) -> dict:
           f"triangulated mask equal ({int(rk.is_triangulated.sum())} points), "
           f"max |dR|,|dt| {d:.2e}", flush=True)
 
-    # K6: a padded init-shaped problem, 12 LM x 40 PCG; within 1e-4, inliers equal
+    # K6: a padded init-shaped problem at 12 LM x 40 PCG (the init BA) and at 5 x 25 (the
+    # window BA): within 1e-4 of plain with the inliers equal, bit-equal to K6's passes
+    # launched one by one (K33's route on one shard), one device kernel a call
     prob = ba_problem(np.random.default_rng(1), dev)
     K = pf.camera_matrix(WIDTH, HEIGHT)
     cam = track_device.pinhole_project(K[0, 0], K[1, 1], K[0, 2], K[1, 2])
-    bk = ba.optimize(prob, cam, n_iters=12, cg_iters=40)
-    bp = ba.optimize_plain(prob, cam, n_iters=12, cg_iters=40)
-    d = max(float((bk.R - bp.R).abs().max()), float((bk.t - bp.t).abs().max()),
-            float((bk.points - bp.points).abs().max()))
-    if d > 1e-4 or not torch.equal(bk.inliers, bp.inliers):
-        raise AssertionError(f"ba_pcg: max deviation {d:.2e}, inliers equal "
-                             f"{torch.equal(bk.inliers, bp.inliers)}")
-    # work per LM iteration (12) and valid observation: ~150 ops of
-    # residual and Jacobians, ~80 ops per PCG iteration (40)
-    Ob, Pb, Kb = prob.obs_kf.shape[0], prob.points.shape[0], prob.R.shape[0]
-    stats["ba_pcg"] = record(
-        d, cuda_ms(lambda: ba.optimize(prob, cam, 12, 40), reps=5),
-        cuda_ms(lambda: ba.optimize_plain(prob, cam, 12, 40), reps=2),
-        Ob * (4 + 4 + 8 + 4 + 1) + Pb * (12 + 1) + Kb * (48 + 1) + Kb * 48 + Pb * 12 + Ob + 4,
-        12 * int(prob.obs_valid.sum()) * (150 + 40 * 80))
-    print(f"[parity] ba_pcg K={prob.R.shape[0]} P={prob.points.shape[0]} "
-          f"O={prob.obs_kf.shape[0]}: poses and points within {d:.2e}, inliers equal "
-          f"({int(bk.inliers.sum())})", flush=True)
+    one_shard = dmesh.Mesh([dev])
+    for n_iters, cg_iters, pre in ((12, 40, ""), (5, 25, "window_")):
+        solve = lambda: ba.optimize(prob, cam, n_iters=n_iters, cg_iters=cg_iters)
+        passes = lambda: sharded_ba.optimize_sharded(one_shard, prob, cam, n_iters, cg_iters)
+        bk, bp = solve(), ba.optimize_plain(prob, cam, n_iters=n_iters, cg_iters=cg_iters)
+        d = max(float((bk.R - bp.R).abs().max()), float((bk.t - bp.t).abs().max()),
+                float((bk.points - bp.points).abs().max()))
+        if d > 1e-4 or not torch.equal(bk.inliers, bp.inliers):
+            raise AssertionError(f"ba_pcg {n_iters} x {cg_iters}: max deviation {d:.2e}, "
+                                 f"inliers equal {torch.equal(bk.inliers, bp.inliers)}")
+        bm = passes()
+        if not all(torch.equal(getattr(bm, f), getattr(bk, f))
+                   for f in ("R", "t", "points", "inliers")):
+            raise AssertionError(f"ba_pcg {n_iters} x {cg_iters}: the cluster solve differs from "
+                                 "K6's passes launched one by one")
+        names, n_kern = device_events(solve)
+        _, n_passes = device_events(passes)
+        parent = 7 + n_iters * (6 + 3 * cg_iters) + 2   # the parent's launches a call
+        if n_kern != 1:
+            raise AssertionError(f"ba_pcg {n_iters} x {cg_iters}: {n_kern} device kernels a "
+                                 f"call ({names})")
+        nbytes, ops = ba_work(prob, "cg", n_iters, cg_iters)
+        rec = record(d, cuda_ms(solve, reps=5),
+                     cuda_ms(lambda: ba.optimize_plain(prob, cam, n_iters, cg_iters), reps=2),
+                     nbytes, ops)
+        rec.update(kernels_per_call=n_kern, parent_launches_per_call=parent,
+                   passes_ms=cuda_ms(passes, reps=5), passes_kernels_per_call=n_passes)
+        if pre:
+            stats["ba_pcg"].update({pre + k: v for k, v in rec.items()
+                                    if k not in ("bytes", "ops", "library_ms")})
+        else:
+            stats["ba_pcg"] = rec
+        print(f"[parity] ba_pcg K={prob.R.shape[0]} P={prob.points.shape[0]} "
+              f"O={prob.obs_kf.shape[0]}, {n_iters} LM x {cg_iters} PCG: poses and points within "
+              f"{d:.2e} of plain, inliers equal ({int(bk.inliers.sum())}), bit-equal to the "
+              f"passes launched one by one; {n_kern} device kernel a call (the parent: {parent} "
+              f"launches; the passes one by one {n_passes}), {rec['ms']:.4f} ms against the "
+              f"passes' {rec['passes_ms']:.4f}", flush=True)
+    bk = ba.optimize(prob, cam, 12, 40)
     n_diff = sum(not all(torch.equal(getattr(ba.optimize(prob, cam, 12, 40), f), getattr(bk, f))
                          for f in ba.BAResult._fields) for _ in range(50))
     if n_diff:
@@ -1151,40 +1200,84 @@ def phase_parity_k5_k8(frames, poses, dev) -> dict:
     # K8: the mirror scatter at cap 32768 / 256 rows, a confirmation-sized pack
     rng = np.random.default_rng(2)
     cap = track_device.MapMirror.LADDER[0]
-    pos = t(rng.normal(size=(cap, 3)), torch.float32)
-    val = t(rng.random(cap) < 0.5, torch.bool)
-    rows = t(np.concatenate([rng.choice(cap, 200, replace=False), np.full(56, cap)]), torch.int32)
-    new_pos, new_val = t(rng.normal(size=(256, 3)), torch.float32), t(rng.random(256) < 0.5,
-                                                                      torch.bool)
+    rows_h = np.concatenate([rng.choice(cap, 200, replace=False), np.full(56, cap)])
+    pos_h, new_pos_h = rng.normal(size=(cap, 3)), rng.normal(size=(256, 3))
+    val_h, new_val_h = rng.random(cap) < 0.5, rng.random(256) < 0.5
+    pos, val = t(pos_h, torch.float32), t(val_h, torch.bool)
+    rows, new_pos, new_val = t(rows_h, torch.int32), t(new_pos_h, torch.float32), t(new_val_h,
+                                                                                  torch.bool)
     pk, vk, pp_, vp = pos.clone(), val.clone(), pos.clone(), val.clone()
     track_device.mirror_scatter(pk, vk, rows, new_pos, new_val)
     track_device.mirror_scatter_plain(pp_, vp, rows, new_pos, new_val)
+    # MapMirror's own upload: the same rows from host arrays, one record in its
+    # page-locked staging buffer read by the kernel in place; no pageable copy
+    rows_h, new_pos_h = rows_h.astype(np.int32), new_pos_h.astype(np.float32)
+    mirrors = []
+
+    def sync_twice():   # a full upload, then an update of the 256 rows through sync
+        host_map = types.SimpleNamespace(mid=0, version=1, _next_mp=cap,
+                                         mp_pos=pos_h.astype(np.float32), mp_valid=val_h.copy())
+        mirrors.append(track_device.MapMirror(dev))
+        mirrors[-1].sync(host_map)
+        keep_h = rows_h < cap
+        host_map.mp_pos[rows_h[keep_h]] = new_pos_h[keep_h]
+        host_map.mp_valid[rows_h[keep_h]] = new_val_h[keep_h]
+        host_map.version = 2
+        mirrors[-1].sync(host_map)
+
+    names, _ = device_events(sync_twice)
+    mir = mirrors[-1]
+    if any("Pageable" in n for n in names) or mir.n_scatter != 1:
+        raise AssertionError(f"MapMirror.sync: device events {names}, {mir.n_scatter} scatters")
     leaves = [t(rng.normal(size=(3, 3)), torch.float32), t(rng.integers(-5, 5, 1128), torch.int32),
               t(rng.random(4096) < 0.5, torch.bool), t(rng.integers(0, 256, (1128, 32)),
                                                        torch.uint8),
               t(7, torch.int64), t(rng.integers(-100, 100, 64), torch.int8)]
-    same = (torch.equal(pk, pp_) and torch.equal(vk, vp) and torch.equal(
-        packed_fetch.pack_i32(leaves), packed_fetch.pack_i32_plain(leaves)))
+    same = (torch.equal(pk, pp_) and torch.equal(vk, vp) and torch.equal(mir.pos, pp_)
+            and torch.equal(mir.valid, vp) and torch.equal(
+                packed_fetch.pack_i32(leaves), packed_fetch.pack_i32_plain(leaves)))
     back = packed_fetch.pack_fetch(leaves)
     same = same and all(np.array_equal(b, a.cpu().numpy()) and b.dtype == a.cpu().numpy().dtype
                         for a, b in zip(leaves, back))
     if not same:
-        raise AssertionError("map_io: mirror_scatter or pack_i32 differs from the plain version")
+        raise AssertionError("map_io: mirror_scatter, MapMirror.sync or pack_i32 differs from the "
+                             "plain version")
     # the library yardstick: index_put_ of the in-range rows (the kernel
-    # also drops the out-of-range ones, which index_put_ would reject)
+    # also drops the out-of-range ones, which index_put_ would reject); for
+    # the upload from host arrays, three .to(device) copies before it
     keep = rows < cap
     kr, kp, kv = rows[keep].long(), new_pos[keep], new_val[keep]
+
+    def copies_index_put():
+        r, p_, v = (torch.from_numpy(a).to(dev) for a in (rows_h, new_pos_h, new_val_h))
+        k = r < cap
+        r = r[k].long()
+        pk.index_put_((r,), p_[k])
+        vk.index_put_((r,), v[k])
+
+    ms, lib_ms = paired_ms(lambda: track_device.mirror_scatter(pk, vk, rows, new_pos, new_val),
+                           lambda: (pk.index_put_((kr,), kp), vk.index_put_((kr,), kv)))
     stats["mirror_scatter"] = record(
-        0.0, cuda_ms(lambda: track_device.mirror_scatter(pk, vk, rows, new_pos, new_val)),
-        cuda_ms(lambda: track_device.mirror_scatter_plain(pp_, vp, rows, new_pos, new_val)),
-        rows.numel() * (4 + 12 + 1) + int(keep.sum()) * 13, 0,
-        library_ms=cuda_ms(lambda: (pk.index_put_((kr,), kp), vk.index_put_((kr,), kv))))
+        0.0, ms, cuda_ms(lambda: track_device.mirror_scatter_plain(pp_, vp, rows, new_pos,
+                                                                   new_val)),
+        rows.numel() * (4 + 12 + 1) + int(keep.sum()) * 13, 0, library_ms=lib_ms)
+    up_ms, up_lib_ms = paired_ms(lambda: mir.upload_rows(rows_h, new_pos_h, new_val_h),
+                                 copies_index_put)
+    stats["mirror_scatter"].update(upload_ms=up_ms, upload_library_ms=up_lib_ms)
+    st = stats["mirror_scatter"]
+    if st["ms"] > st["library_ms"]:
+        raise AssertionError(f"mirror_scatter {st['ms']:.4f} ms, slower than two index_put_ "
+                             f"calls' {st['library_ms']:.4f}")
     words = packed_fetch.pack_i32_plain(leaves).numel()
     stats["pack_i32"] = record(0.0, cuda_ms(lambda: packed_fetch.pack_i32(leaves)),
                                cuda_ms(lambda: packed_fetch.pack_i32_plain(leaves)),
                                sum(a.numel() * a.element_size() for a in leaves) + 4 * words, 0)
     print("[parity] mirror_scatter (32768 rows, 256 updates) and pack_i32 "
-          f"({sum(a.numel() for a in leaves)} words): bit-equal, exact round trip", flush=True)
+          f"({sum(a.numel() for a in leaves)} words): bit-equal, exact round trip; "
+          f"mirror_scatter {st['ms']:.4f} ms against index_put_ x2 {st['library_ms']:.4f}; "
+          f"MapMirror's upload of the rows from host arrays {st['upload_ms']:.4f} ms against "
+          f"three .to(device) copies + index_put_ x2 {st['upload_library_ms']:.4f}; its sync "
+          f"made no pageable copy ({len(names)} device events)", flush=True)
     return stats
 
 

@@ -270,12 +270,11 @@ __device__ bool lm_accept(const double* sc, double* lam, int e, int K, int P, co
   return true;
 }
 
-// two Newton-Schulz steps R <- R (1.5 I - 0.5 R^T R)
-__global__ void orthonormalize_kernel(float* __restrict__ R, int K) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= K) return;
+// two Newton-Schulz steps R <- R (1.5 I - 0.5 R^T R) of one rotation, Rin
+// into Rout (which may be Rin)
+__device__ void orthonormalize_rot(const float* Rin, float* Rout) {
   float Rm[9];
-  for (int k = 0; k < 9; ++k) Rm[k] = R[9 * e + k];
+  for (int k = 0; k < 9; ++k) Rm[k] = Rin[k];
   for (int rep = 0; rep < 2; ++rep) {
     float RtR[9], M[9], Rn[9];
     for (int i = 0; i < 3; ++i)
@@ -287,5 +286,10 @@ __global__ void orthonormalize_kernel(float* __restrict__ R, int K) {
         Rn[3 * i + j] = Rm[3 * i] * M[j] + Rm[3 * i + 1] * M[3 + j] + Rm[3 * i + 2] * M[6 + j];
     for (int k = 0; k < 9; ++k) Rm[k] = Rn[k];
   }
-  for (int k = 0; k < 9; ++k) R[9 * e + k] = Rm[k];
+  for (int k = 0; k < 9; ++k) Rout[k] = Rm[k];
+}
+
+__global__ void orthonormalize_kernel(float* __restrict__ R, int K) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < K) orthonormalize_rot(R + 9 * e, R + 9 * e);
 }

@@ -10,7 +10,9 @@
 // * Block sums: a fixed xor-shuffle tree in each warp, then the warps in
 //   order.
 // * Scalars (costs, CG dots): each CTA stores its partial, and the last CTA
-//   to finish (an integer ticket) sums the partials in block order.
+//   to finish (an integer ticket) sums the partials in block order.  K6's
+//   cluster solve keeps each partial in its CTA's shared memory instead,
+//   and every CTA sums them all in block order (ba_pcg.cu): the same sum.
 //
 // Each file includes it inside its own anonymous namespace, after
 // ba_obs.cuh (for warp_sum_d), with kThreads defined.
@@ -26,26 +28,34 @@ struct Lists {
   int* list_mp;  // (O,) grouped by point, in index order
 };
 
-__global__ void __launch_bounds__(kThreads)
-lists_count(const int* __restrict__ obs_kf, const int* __restrict__ obs_mp,
-            const bool* __restrict__ valid, int O, Lists L) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+// Each pass is a device function of one observation, point or keyframe,
+// launched by the kernels below (build_lists) or looped over by a
+// persistent kernel (K6's cluster solve), which zeroes the counters itself.
+__device__ __forceinline__ void lists_count_obs(const int* obs_kf, const int* obs_mp,
+                                                const bool* valid, int O, Lists L, int o) {
   if (o >= O || !valid[o]) return;
   atomicAdd(L.cnt_kf + obs_kf[o], 1);
   atomicAdd(L.cnt_mp + obs_mp[o], 1);
 }
 
-// exclusive scan of cnt (n) into off (n+1) by one CTA of kScanThreads
+__global__ void __launch_bounds__(kThreads)
+lists_count(const int* __restrict__ obs_kf, const int* __restrict__ obs_mp,
+            const bool* __restrict__ valid, int O, Lists L) {
+  lists_count_obs(obs_kf, obs_mp, valid, O, L, blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+// exclusive scan of cnt (n) into off (n+1) by one CTA of kN threads
 constexpr int kScanThreads = 1024;
 
+template <int kN = kScanThreads>
 __device__ void block_scan_into(const int* cnt, int n, int* off, int* sh) {
-  const int chunk = (n + kScanThreads - 1) / kScanThreads;
+  const int chunk = (n + kN - 1) / kN;
   const int a = min(n, (int)threadIdx.x * chunk), b = min(n, a + chunk);
   int s = 0;
   for (int i = a; i < b; ++i) s += cnt[i];
   sh[threadIdx.x] = s;
   __syncthreads();
-  for (int d = 1; d < kScanThreads; d <<= 1) {  // Hillis-Steele inclusive scan
+  for (int d = 1; d < kN; d <<= 1) {  // Hillis-Steele inclusive scan
     const int v = threadIdx.x >= d ? sh[threadIdx.x - d] : 0;
     __syncthreads();
     sh[threadIdx.x] += v;
@@ -56,7 +66,7 @@ __device__ void block_scan_into(const int* cnt, int n, int* off, int* sh) {
     off[i] = run;
     run += cnt[i];
   }
-  if (threadIdx.x == kScanThreads - 1) off[n] = sh[kScanThreads - 1];
+  if (threadIdx.x == kN - 1) off[n] = sh[kN - 1];
   __syncthreads();
 }
 
@@ -66,12 +76,11 @@ __global__ void __launch_bounds__(kScanThreads) lists_scan(int K, int P, Lists L
   block_scan_into(L.cnt_mp, P, L.off_mp, sh);
 }
 
-// one CTA per keyframe: its valid observations, in index order
-__global__ void __launch_bounds__(kThreads)
-lists_fill_kf(const int* __restrict__ obs_kf, const bool* __restrict__ valid, int O, Lists L) {
+// one CTA per keyframe k: its valid observations, in index order.  All
+// threads of the CTA must call it.
+__device__ void lists_fill_kf_block(const int* obs_kf, const bool* valid, int O, Lists L, int k) {
   __shared__ int warp_cnt[kThreads / 32];
   __shared__ int base;
-  const int k = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) base = L.off_kf[k];
   __syncthreads();
@@ -94,16 +103,24 @@ lists_fill_kf(const int* __restrict__ obs_kf, const bool* __restrict__ valid, in
 }
 
 __global__ void __launch_bounds__(kThreads)
-lists_fill_mp(const int* __restrict__ obs_mp, const bool* __restrict__ valid, int O, Lists L) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+lists_fill_kf(const int* __restrict__ obs_kf, const bool* __restrict__ valid, int O, Lists L) {
+  lists_fill_kf_block(obs_kf, valid, O, L, blockIdx.x);
+}
+
+__device__ __forceinline__ void lists_fill_mp_obs(const int* obs_mp, const bool* valid, int O,
+                                                  Lists L, int o) {
   if (o >= O || !valid[o]) return;
   const int m = obs_mp[o];
   L.list_mp[L.off_mp[m] + atomicAdd(L.cur_mp + m, 1)] = o;
 }
 
-// each point's few entries in index order (insertion sort)
-__global__ void __launch_bounds__(kThreads) lists_sort_mp(int P, Lists L) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kThreads)
+lists_fill_mp(const int* __restrict__ obs_mp, const bool* __restrict__ valid, int O, Lists L) {
+  lists_fill_mp_obs(obs_mp, valid, O, L, blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+// point m's few entries in index order (insertion sort)
+__device__ __forceinline__ void lists_sort_mp_point(int P, Lists L, int m) {
   if (m >= P) return;
   int* a = L.list_mp + L.off_mp[m];
   const int n = L.off_mp[m + 1] - L.off_mp[m];
@@ -116,6 +133,10 @@ __global__ void __launch_bounds__(kThreads) lists_sort_mp(int P, Lists L) {
     }
     a[j + 1] = x;
   }
+}
+
+__global__ void __launch_bounds__(kThreads) lists_sort_mp(int P, Lists L) {
+  lists_sort_mp_point(P, L, blockIdx.x * blockDim.x + threadIdx.x);
 }
 
 __host__ __device__ inline int n_blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }

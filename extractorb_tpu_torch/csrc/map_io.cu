@@ -13,11 +13,16 @@
 // rows[i] of the (cap,3) f32 positions and (cap,) bool validity take
 // new_pos[i] / new_valid[i]; rows outside [0, cap) are dropped (the padding
 // of the row bucket).  It writes in place: every reader of the mirror runs
-// on the same stream, so stream order keeps earlier readers correct.
+// on the same stream, so stream order keeps earlier readers correct.  The
+// map's own updates (MapMirror.sync) come as one record in page-locked host
+// memory -- rows, positions, validity at 16-byte aligned offsets -- which
+// the kernel reads in place over the bus (its device address under UVA),
+// so an update is one launch and no copy.
 //
-// Bound on the H100: launch latency.  The payloads are kilobytes (a few
-// thousand words per fetch, at most 16384 rows per scatter), far below what
-// moves memory bandwidth; one launch each keeps the cost at one launch.
+// Bound on the H100: launch latency and the host work around it.  The
+// payloads are kilobytes (a few thousand words per fetch, at most 16384 rows
+// per scatter), far below what moves memory bandwidth; one launch each keeps
+// the cost at one launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,5 +118,29 @@ extern "C" int mirror_scatter_launch(void* pos, void* valid, int cap, const void
         static_cast<float*>(pos), static_cast<bool*>(valid), cap, static_cast<const int*>(rows),
         static_cast<const float*>(new_pos), static_cast<const bool*>(new_valid), b);
   }
+  return (int)cudaGetLastError();
+}
+
+// rows (b,) int32, then new_pos (b,3) float32 and new_valid (b,) bool, each
+// at a 16-byte aligned offset, in one record of page-locked host memory
+// (MapMirror's staging buffer), which the kernel reads in place.  (One
+// cudaMemcpyAsync of the record to the card before the launch was slower:
+// chip_anatomy.py times both.)  A record the card cannot address is
+// refused (cudaErrorInvalidValue).
+extern "C" int mirror_scatter_record_launch(void* pos, void* valid, int cap, const void* record,
+                                            int b, void* stream) {
+  if (b < 0 || cap < 0) return (int)cudaErrorInvalidValue;
+  if (b == 0) return (int)cudaGetLastError();
+  const size_t o_pos = (4 * (size_t)b + 15) & ~(size_t)15;
+  const size_t o_val = o_pos + ((12 * (size_t)b + 15) & ~(size_t)15);
+  cudaPointerAttributes at;
+  cudaError_t e = cudaPointerGetAttributes(&at, record);
+  if (e != cudaSuccess) return (int)e;
+  if (at.type != cudaMemoryTypeHost || at.devicePointer == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* src = static_cast<const uint8_t*>(at.devicePointer);
+  mirror_scatter_kernel<<<(b + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<float*>(pos), static_cast<bool*>(valid), cap, (const int*)src,
+      (const float*)(src + o_pos), (const bool*)(src + o_val), b);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 """Rotated-BRIEF 256-bit descriptors (port of ``extractorb_tpu/frontend/brief.py``)
 and kernel K2, ``orb_describe`` (orientation + blur + BRIEF, fused).
 
-The 512-point pattern is OpenCV's bit_pattern_31_, read from the JAX
-package's data file by path (no import of that package).
+The 512-point pattern is OpenCV's bit_pattern_31_, read from the port's
+own copy of it (``extractorb_tpu_torch/data/orb_pattern.npy``, the same
+bytes as the JAX package's data file).
 
 Rounding follows the JAX function as XLA:CPU compiles it: the sample
 offsets are ``rint(fma(px, sin, py*cos))`` and
@@ -27,7 +28,7 @@ from .blur import blur_level
 from .orientation import UMAX, _fma, ic_angle
 from .pyramid import EDGE_THRESHOLD, Pyramid
 
-PATTERN_FILE = Path(__file__).resolve().parents[2] / "extractorb_tpu" / "data" / "orb_pattern.npy"
+PATTERN_FILE = Path(__file__).resolve().parents[1] / "data" / "orb_pattern.npy"
 _DEG2RAD = float(np.float32(np.pi / 180.0))
 PATCH_RADIUS = 18  # rotated samples stay within radius 18.4
 

@@ -26,6 +26,7 @@ import subprocess
 import threading
 import warnings
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -87,6 +88,8 @@ _SIGNATURES = {
                             _F, _F, _I, _P, _P, _P, _P, _P),
     # pos, valid, cap, rows, new_pos, new_valid, b, stream
     "mirror_scatter_launch": (_P, _P, _I, _P, _P, _P, _I, _P),
+    # pos, valid, cap, record (page-locked host: rows, new_pos, new_valid), b, stream
+    "mirror_scatter_record_launch": (_P, _P, _I, _P, _I, _P),
     # p3d, xy, valid, sets, N, H, solver, th, min_inliers, Rs, ts, counts,
     # R, t, inliers, n_inliers, ok, stream
     "pnp_ransac_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -288,6 +291,18 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+_entries: dict = {}
+
+
+def entry(name: str):
+    """The library's C entry point ``name`` (the library built and loaded on
+    first use), fetched once: a wrapper whose host time counts calls this."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(lib(), name)
+    return fn
+
+
 def resolve_device(device, what: str) -> torch.device:
     """``device``, or with None the card (cuda:0): the port's entry points
     run on the card unless the caller asks for the CPU.  Raises without a
@@ -300,8 +315,11 @@ def resolve_device(device, what: str) -> torch.device:
     return torch.device(device)
 
 
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream(index: Optional[int] = None) -> int:
+    """The handle of the current CUDA stream of device ``index`` (None: the
+    current device), the one PyTorch enqueues on."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def check(err: int, name: str) -> None:

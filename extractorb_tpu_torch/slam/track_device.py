@@ -39,7 +39,8 @@ that is K4 x1 and K22 x1, plus the K19 launch of the frame's window.
 
 ``MapMirror`` keeps the device copy of the map's point positions and
 validity that the step reads; it updates only the rows that changed
-since its last sync, with kernel K8 ``mirror_scatter``.
+since its last sync, with kernel K8 ``mirror_scatter`` reading them from
+the mirror's page-locked staging buffer.
 ``build_local_block`` gathers the local-map point block on the host.
 
 """
@@ -556,22 +557,64 @@ def mirror_scatter_plain(pos, valid, rows, new_pos, new_valid) -> None:
     valid[r] = new_valid[keep]
 
 
+def _as(a: torch.Tensor, dtype) -> torch.Tensor:
+    """``a`` as a contiguous tensor of ``dtype``, converted only if it is not."""
+    return a if a.dtype == dtype and a.is_contiguous() else a.to(dtype).contiguous()
+
+
 def mirror_scatter(pos, valid, rows, new_pos, new_valid) -> None:
     """In place: ``pos[rows[i]] = new_pos[i]``, ``valid[rows[i]] =
     new_valid[i]``; rows outside [0, len(pos)) are dropped.  pos (cap,3)
-    f32, valid (cap,) bool, rows (b,) int32, new_pos (b,3), new_valid (b,).
-    On CUDA tensors this launches K8 ``mirror_scatter``; on the CPU it
-    runs the plain version."""
+    f32, valid (cap,) bool, rows (b,) int32, new_pos (b,3), new_valid (b,),
+    all on one device.  On CUDA tensors this launches K8 ``mirror_scatter``;
+    on the CPU it runs the plain version."""
     if not pos.is_cuda:
         return mirror_scatter_plain(pos, valid, rows, new_pos, new_valid)
-    args = [rows.to(torch.int32).contiguous(), new_pos.to(torch.float32).contiguous(),
-            new_valid.contiguous()]
-    kernels.require_cuda("mirror_scatter", pos, valid, *args)
-    if pos.dtype != torch.float32 or valid.dtype != torch.bool:
+    rows, new_pos, new_valid = _as(rows, torch.int32), _as(new_pos, torch.float32), \
+        _as(new_valid, torch.bool)
+    if pos.dtype != torch.float32 or valid.dtype != torch.bool or not (
+            pos.is_contiguous() and valid.is_contiguous()):
         raise TypeError("mirror_scatter: the mirror is (cap,3) float32 and (cap,) bool")
-    err = kernels.lib().mirror_scatter_launch(
-        pos.data_ptr(), valid.data_ptr(), pos.shape[0], args[0].data_ptr(),
-        args[1].data_ptr(), args[2].data_ptr(), args[0].shape[0], kernels.stream())
+    dev = pos.get_device()
+    if not valid.get_device() == rows.get_device() == new_pos.get_device() \
+            == new_valid.get_device() == dev:
+        raise ValueError(f"mirror_scatter: every argument must be on {pos.device}")
+    err = kernels.entry("mirror_scatter_launch")(
+        pos.data_ptr(), valid.data_ptr(), pos.shape[0], rows.data_ptr(), new_pos.data_ptr(),
+        new_valid.data_ptr(), rows.shape[0], kernels.stream(dev))
+    kernels.check(err, "mirror_scatter")
+    kernels.LAUNCHES["mirror_scatter"] += 1
+
+
+def record_offsets(b: int):
+    """Byte offsets of new_pos and new_valid in a scatter record of b rows,
+    and its length: rows (b,) int32 at 0, new_pos (b,3) float32 and
+    new_valid (b,) bool each at a 16-byte aligned offset (``csrc/map_io.cu``)."""
+    o_pos = (4 * b + 15) & ~15
+    o_val = o_pos + ((12 * b + 15) & ~15)
+    return o_pos, o_val, o_val + b
+
+
+def record_views(record: np.ndarray, b: int):
+    """rows, new_pos and new_valid: numpy views into a uint8 record of b rows."""
+    o_pos, o_val, _ = record_offsets(b)
+    return (record[:4 * b].view(np.int32), record[o_pos:o_pos + 12 * b].view(np.float32)
+            .reshape(b, 3), record[o_val:o_val + b].view(np.bool_))
+
+
+def mirror_scatter_record(pos, valid, record: torch.Tensor, b: int) -> None:
+    """``mirror_scatter`` of b rows given as one record (``record_offsets``)
+    in a uint8 host tensor, which on a card must be page-locked: K8 reads it
+    there in place, with no copy.  ``pos`` and ``valid`` are a mirror's own
+    tensors (``MapMirror`` allocates them, (cap,3) float32 and (cap,) bool,
+    contiguous on one device), so they are not checked here.  On the CPU it
+    runs the plain version on the record's views."""
+    if not pos.is_cuda:
+        rows, new_pos, new_valid = (torch.from_numpy(a) for a in record_views(record.numpy(), b))
+        return mirror_scatter_plain(pos, valid, rows, new_pos, new_valid)
+    err = kernels.entry("mirror_scatter_record_launch")(
+        pos.data_ptr(), valid.data_ptr(), pos.shape[0], record.data_ptr(), b,
+        kernels.stream(pos.get_device()))
     kernels.check(err, "mirror_scatter")
     kernels.LAUNCHES["mirror_scatter"] += 1
 
@@ -582,11 +625,15 @@ class MapMirror:
     Updated only when the map version changes (keyframe events), so
     ordinary frames move no map data; updates are incremental (only the
     rows that changed since the last sync are uploaded, through
-    ``mirror_scatter``; the JAX module pads them to a row bucket for its
-    compiled programs, which eager PyTorch does not need).  The capacity
-    is padded to a static ladder, so a tracking step is rebuilt only when
-    the map outgrows a rung.  ``n_scatter`` counts the incremental
-    updates."""
+    ``mirror_scatter_record``; the JAX module pads them to a row bucket for
+    its compiled programs, which eager PyTorch does not need).  Host data
+    reaches the card only through the mirror's staging buffer, page-locked
+    on a card and grown on demand: a sync packs the changed rows into it as
+    one record, which K8 reads in place, or the whole block, copied without
+    blocking.  An event recorded after each such read guards the buffer, and
+    the next sync waits on it before writing.  The capacity is padded to a
+    static ladder, so a tracking step is rebuilt only when the map outgrows
+    a rung.  ``n_scatter`` counts the incremental updates."""
 
     LADDER = (32768, 65536, 131072, 262144)
 
@@ -598,6 +645,9 @@ class MapMirror:
         self.valid = None
         self._h_pos = None     # host shadow of the device state
         self._h_valid = None
+        self._stage = None     # the staging buffer (uint8)
+        self._read = torch.cuda.Event() if self.device.type == "cuda" else None
+        self._pending = False  # the card may still read the staging buffer
         self.n_scatter = 0
 
     @staticmethod
@@ -607,22 +657,55 @@ class MapMirror:
                 return c
         return int(np.ceil(n / MapMirror.LADDER[-1])) * MapMirror.LADDER[-1]
 
+    def _staging(self, nbytes: int) -> torch.Tensor:
+        """The staging buffer, at least nbytes, once the card has read it."""
+        if self._pending:
+            self._read.synchronize()
+            self._pending = False
+        if self._stage is None or self._stage.numel() < nbytes:
+            size = max(nbytes, 2 * (0 if self._stage is None else self._stage.numel()), 1 << 16)
+            self._stage = torch.empty(size, dtype=torch.uint8,
+                                      pin_memory=self.device.type == "cuda")
+        return self._stage
+
+    def _read_after(self) -> None:
+        """Mark the staging buffer as read by the work just enqueued."""
+        if self._read is not None:
+            self._read.record()
+            self._pending = True
+
     def _full_upload(self, mp, cap: int):
-        pos = np.zeros((cap, 3), np.float32)
-        valid = np.zeros((cap,), bool)
+        buf = self._staging(13 * cap)
+        pos = buf[:12 * cap].view(torch.float32).view(cap, 3)
+        valid = buf[12 * cap:13 * cap].view(torch.bool)
         n = mp._next_mp
-        pos[: len(mp.mp_pos)] = mp.mp_pos
-        valid[:n] = mp.mp_valid[:n]
-        if cap == self.cap:
-            # the same tensors: a captured tracking step reads them in place
-            self.pos.copy_(torch.from_numpy(pos))
-            self.valid.copy_(torch.from_numpy(valid))
-        else:
-            self.pos = torch.from_numpy(pos).to(self.device)
-            self.valid = torch.from_numpy(valid).to(self.device)
-        self._h_pos = pos
-        self._h_valid = valid
+        h_pos, h_valid = pos.numpy(), valid.numpy()
+        h_pos[:] = 0.0
+        h_pos[: len(mp.mp_pos)] = mp.mp_pos
+        h_valid[:] = False
+        h_valid[:n] = mp.mp_valid[:n]
+        if cap != self.cap:
+            self.pos = torch.empty((cap, 3), dtype=torch.float32, device=self.device)
+            self.valid = torch.empty((cap,), dtype=torch.bool, device=self.device)
+        # the same tensors at the same capacity: a captured tracking step
+        # reads them in place
+        self.pos.copy_(pos, non_blocking=True)
+        self.valid.copy_(valid, non_blocking=True)
+        self._read_after()
+        self._h_pos = h_pos.copy()
+        self._h_valid = h_valid.copy()
         self.cap = cap
+
+    def upload_rows(self, rows: np.ndarray, new_pos: np.ndarray, new_valid: np.ndarray) -> None:
+        """``pos[rows[i]] = new_pos[i]``, ``valid[rows[i]] = new_valid[i]``
+        from host arrays (rows outside [0, cap) dropped): one record in the
+        staging buffer, scattered by ``mirror_scatter_record``."""
+        b = len(rows)
+        buf = self._staging(record_offsets(b)[2])
+        r, p_, v = record_views(buf.numpy(), b)
+        r[:], p_[:], v[:] = rows, new_pos, new_valid
+        mirror_scatter_record(self.pos, self.valid, buf, b)
+        self._read_after()
 
     def sync(self, mp) -> None:
         key = (mp.mid, mp.version)
@@ -646,9 +729,7 @@ class MapMirror:
             return
         if not len(rows):
             return
-        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-        mirror_scatter(self.pos, self.valid, to_dev(rows.astype(np.int32)),
-                       to_dev(mp.mp_pos[rows]), to_dev(mp.mp_valid[rows]))
+        self.upload_rows(rows, mp.mp_pos[rows], mp.mp_valid[rows])
         self.n_scatter += 1
         self._h_pos[rows] = mp.mp_pos[rows]
         self._h_valid[rows] = mp.mp_valid[rows]

@@ -18,9 +18,11 @@ EdgeStereo), whose row of A is A's first row plus (bf / z^2) times R's
 third row; it is zero where ur < 0.
 
 ``optimize`` launches kernel K6 (``csrc/ba_pcg.cu``, with the camera and
-the stereo rows as template parameters) on CUDA tensors, and with
-``schur_dense`` kernel K35 (``csrc/ba_schur_dense.cu``) between K6's
-linearization and its retraction; on the CPU it runs ``optimize_plain``.
+the stereo rows as template parameters) on CUDA tensors: with ``cg`` the
+whole solve is one launch of one thread-block cluster; with
+``schur_dense`` K6's passes are launched one by one around kernel K35
+(``csrc/ba_schur_dense.cu``), between the linearization and the
+retraction.  On the CPU it runs ``optimize_plain``.
 """
 
 from __future__ import annotations
@@ -322,10 +324,11 @@ def optimize(p: BAProblem, cam: Camera, n_iters: int = 10, cg_iters: int = 40,
     ur >= 0 is a stereo edge: the 3-row residual, Huber delta sqrt(7.815)
     and the chi2 gate 7.815.  ``solver`` is "cg" (matrix-free PCG) or
     "schur_dense" (the dense reduced camera system, for window problems).
-    On CUDA tensors this launches K6 (``<stereo>`` with ``obs_ur``), and
-    with "schur_dense" K35 in each LM step: every step is enqueued without
-    a host synchronisation (alpha, beta, the cost and lambda stay on the
-    card).  ``cam`` is a ``Pinhole`` or a ``KannalaBrandt8``.  On the CPU
+    On CUDA tensors this launches K6 (``<stereo>`` with ``obs_ur``): with
+    "cg" one cluster launch runs the whole solve; with "schur_dense" K6's
+    passes and K35 are launched step by step.  Nothing waits on the host
+    (alpha, beta, the cost and lambda stay on the card), and a cluster
+    the card cannot place raises.  ``cam`` is a ``Pinhole`` or a ``KannalaBrandt8``.  On the CPU
     it runs ``optimize_plain``."""
     _check_solver(solver)
     if not p.points.is_cuda:

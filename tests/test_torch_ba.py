@@ -110,12 +110,66 @@ def test_unported_options_raise():
         np.testing.assert_allclose(float(p.cost), float(j.cost), rtol=1e-4)
 
 
+# K6's cases on the card: (problem, camera name, n_iters, cg_iters, stereo).
+# The engine's calls: the init BA (run_ba's init shape, 12 x 40), the weld
+# (run_ba's defaults, 10 x 40), the window BA (5 x 25), run_ba's largest
+# bucket (Pp 8192, Op 32768); KB8 and the stereo rows at Kp 32.  Through
+# KB8 the poses are held to 1e-4 and the points are not, as in
+# [parity-kb8] and tests/test_torch_kb8.py: the problem's far points at
+# wide angles, weak in depth, part by up to ~4e-4 between the kernel's
+# closed-form KB8 Jacobian and the plain version's (the same before the
+# solve became one launch).
+KERNEL_CASES = {
+    "scene-12x40": (None, "pinhole", 12, 40, False),
+    "init-12x40": (dict(seed=1), "pinhole", 12, 40, False),
+    "weld-10x40": (dict(seed=4, n_kf=8), "pinhole", 10, 40, False),
+    "window-5x25": (dict(seed=5, n_kf=10, Op=16384), "pinhole", 5, 25, False),
+    "Pp8192-Op32768": (dict(seed=6, n_kf=10, n_pts=3000, Pp=8192, Op=32768), "pinhole", 10, 40,
+                       False),
+    "kb8-Kp32": (dict(seed=1), "kb8", 12, 40, False),
+    "stereo-Kp32": (dict(seed=3), "pinhole", 10, 40, True),
+}
+
+
 @pytest.mark.gpu
-def test_optimize_kernel_matches_plain(cuda_device):
-    arrs = padded_problem(0, 6)
-    prob = ba.BAProblem(**{k: torch.from_numpy(v).to(cuda_device) for k, v in arrs.items()})
-    k = ba.optimize(prob, CAM, n_iters=12, cg_iters=40)
-    p = ba.optimize_plain(prob, CAM, n_iters=12, cg_iters=40)
-    for a, b in ((k.R, p.R), (k.t, p.t), (k.points, p.points)):
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_optimize_kernel_matches_plain(case, cuda_device):
+    """K6 (one cluster launch a call) within 1e-4 of the plain version with
+    the inliers equal, 20 calls one result, and (mono) bit-equal to K6's
+    passes launched one by one (K33's route on one shard)."""
+    import chip_smoke
+    import port_fixtures as pf
+    from extractorb_tpu_torch import kernels
+    from extractorb_tpu_torch.core.camera import KannalaBrandt8
+    from extractorb_tpu_torch.dist import mesh as dmesh
+    from extractorb_tpu_torch.dist import sharded_ba
+
+    spec, camera, n_iters, cg_iters, stereo = KERNEL_CASES[case]
+    Kc = pf.camera_matrix(chip_smoke.WIDTH, chip_smoke.HEIGHT)
+    bf = float(Kc[0, 0]) * chip_smoke.STEREO_BASELINE if stereo else 0.0
+    if spec is None:
+        arrs = padded_problem(0, 6)
+        prob = ba.BAProblem(**{k: torch.from_numpy(v).to(cuda_device) for k, v in arrs.items()})
+        cam = CAM
+    else:
+        spec = dict(spec)
+        kb8 = pf.KB8_TUMVI if camera == "kb8" else None
+        prob = chip_smoke.ba_problem(np.random.default_rng(spec.pop("seed")), cuda_device,
+                                     kb8=kb8, stereo_bf=bf if stereo else None, **spec)
+        cam = (KannalaBrandt8(*kb8) if kb8 is not None
+               else Pinhole(float(Kc[0, 0]), float(Kc[1, 1]), float(Kc[0, 2]), float(Kc[1, 2])))
+    before = kernels.LAUNCHES["ba_pcg"]
+    k = ba.optimize(prob, cam, n_iters=n_iters, cg_iters=cg_iters, bf=bf)
+    assert kernels.LAUNCHES["ba_pcg"] == before + 1
+    p = ba.optimize_plain(prob, cam, n_iters=n_iters, cg_iters=cg_iters, bf=bf)
+    held = ((k.R, p.R), (k.t, p.t)) + (((k.points, p.points),) if camera != "kb8" else ())
+    for a, b in held:
         assert float((a - b).abs().max()) <= 1e-4
     assert torch.equal(k.inliers, p.inliers)
+    for _ in range(20):
+        again = ba.optimize(prob, cam, n_iters=n_iters, cg_iters=cg_iters, bf=bf)
+        assert all(torch.equal(getattr(again, f), getattr(k, f)) for f in ba.BAResult._fields)
+    if not stereo:
+        m = sharded_ba.optimize_sharded(dmesh.Mesh([cuda_device]), prob, cam, n_iters, cg_iters)
+        for f in ("R", "t", "points", "inliers"):
+            assert torch.equal(getattr(m, f), getattr(k, f)), f

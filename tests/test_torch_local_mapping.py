@@ -32,7 +32,7 @@ from extractorb_tpu.slam import map as jmap
 from extractorb_tpu.slam import track_device as jtd
 from extractorb_tpu.slam.system import System as JSystem
 from extractorb_tpu.utils.packed_fetch import pack_fetch as j_pack_fetch
-from extractorb_tpu_torch import interop
+from extractorb_tpu_torch import interop, kernels
 from extractorb_tpu_torch.core.camera import Pinhole
 from extractorb_tpu_torch.frontend import matcher
 from extractorb_tpu_torch.slam import local_mapping as lm
@@ -272,6 +272,47 @@ def test_map_mirror_sync_matches_jax(captured):
     assert pmir.n_scatter == 2
 
 
+def test_mirror_staging_matches_jax():
+    """``MapMirror`` moves host rows only through its staging buffer (one
+    record, ``record_offsets``): a sync after an edit, then an update of
+    rows padded with out-of-range indices (JAX's row bucket, dropped),
+    leave the mirror bit-equal to JAX's ``_mirror_update_prog``."""
+    import types
+
+    rng = np.random.default_rng(7)
+    n, cap = 3000, td.MapMirror.LADDER[0]
+    mp = types.SimpleNamespace(mid=0, version=1, _next_mp=n,
+                               mp_pos=rng.normal(size=(n, 3)).astype(np.float32),
+                               mp_valid=rng.random(n) < 0.7)
+    jmir, pmir = jtd.MapMirror(), td.MapMirror("cpu")
+    for step in range(2):
+        jmir.sync(mp)
+        pmir.sync(mp)
+        np.testing.assert_array_equal(pmir.pos.numpy(), np.asarray(jmir.pos))
+        np.testing.assert_array_equal(pmir.valid.numpy(), np.asarray(jmir.valid))
+        rows = rng.choice(n, 50, replace=False)
+        mp.mp_pos[rows] += rng.normal(0, 0.01, (50, 3)).astype(np.float32)
+        mp.mp_valid[rows[:7]] = ~mp.mp_valid[rows[:7]]
+        mp.version += 1
+    assert pmir.n_scatter == 1 and pmir._stage is not None
+    rows = np.full(256, cap, np.int32)
+    rows[:200] = rng.choice(cap, 200, replace=False)
+    rows[200:210] = cap + 5
+    new_pos = rng.normal(size=(256, 3)).astype(np.float32)
+    new_valid = rng.random(256) < 0.5
+    jpos, jvalid = jtd._mirror_update_prog(256)(jmir.pos, jmir.valid, jnp.asarray(rows),
+                                                jnp.asarray(new_pos), jnp.asarray(new_valid))
+    pos_obj = pmir.pos
+    pmir.upload_rows(rows, new_pos, new_valid)
+    assert pmir.pos is pos_obj   # updated in place
+    np.testing.assert_array_equal(pmir.pos.numpy(), np.asarray(jpos))
+    np.testing.assert_array_equal(pmir.valid.numpy(), np.asarray(jvalid))
+    r, p_, v = td.record_views(pmir._stage.numpy(), 256)
+    np.testing.assert_array_equal(r, rows)
+    np.testing.assert_array_equal(p_, new_pos)
+    np.testing.assert_array_equal(v, new_valid)
+
+
 def test_pack_fetch_round_trip():
     rng = np.random.default_rng(0)
     leaves = [rng.normal(size=(3, 3)).astype(np.float32), rng.integers(-9, 9, 50).astype(np.int32),
@@ -321,5 +362,14 @@ def test_map_io_kernels_match_plain(cuda_device):
     td.mirror_scatter(*a, rows, new_pos, new_val)
     td.mirror_scatter_plain(*b, rows, new_pos, new_val)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    # the pinned-record scatter (MapMirror's staging path), in place
+    mir = td.MapMirror(cuda_device)
+    mir.pos, mir.valid, mir.cap = pos.clone(), val.clone(), 1000
+    before = kernels.LAUNCHES["mirror_scatter"]
+    mir.upload_rows(rows.cpu().numpy(), new_pos.cpu().numpy(), new_val.cpu().numpy())
+    assert kernels.LAUNCHES["mirror_scatter"] == before + 1 and mir._stage.is_pinned()
+    assert torch.equal(mir.pos, b[0]) and torch.equal(mir.valid, b[1])
+    with pytest.raises(RuntimeError, match="cudaError"):   # a pageable record is refused
+        td.mirror_scatter_record(a[0], a[1], torch.zeros(4096, dtype=torch.uint8), 256)
     leaves = [pos, val, t(rng.integers(0, 256, (9, 32)), torch.uint8), t(3, torch.int64)]
     assert torch.equal(packed_fetch.pack_i32(leaves), packed_fetch.pack_i32_plain(leaves))

@@ -5,6 +5,7 @@ JAX package or a CUDA toolkit, build nothing at import time, and its
 card-only tests must skip cleanly on a machine without a card.
 """
 
+import ast
 import os
 import pkgutil
 import re
@@ -12,6 +13,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -66,6 +68,45 @@ def test_source_has_no_forbidden_import(path):
     assert not bad, bad
     # triton and the kernel build are imported or run lazily only
     assert not re.search(r"^(?:import|from)\s+triton", src, flags=re.M)
+
+
+def _string_constants(tree: ast.AST):
+    """The string constants of a module other than its docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            first = node.body[0] if node.body else None
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_source_names_no_path_into_the_jax_package():
+    """No string of the port's code names a path into ``extractorb_tpu/``
+    (a path component ``extractorb_tpu``, not ``extractorb_tpu_torch``):
+    the port reads nothing of the JAX package, not even a data file."""
+    component = re.compile(r"(?:^|[/\\])extractorb_tpu(?:$|[/\\])")
+    bad = [f"{p.relative_to(ROOT)}:{n.lineno}: {n.value!r}"
+           for p in sorted(PKG.rglob("*.py"))
+           for n in _string_constants(ast.parse(p.read_text()))
+           if component.search(n.value)]
+    assert not bad, bad
+    # the rule catches the form the BRIEF pattern's path once had
+    old = ast.parse('P = Path(__file__).parents[2] / "extractorb_tpu" / "data" / "x.npy"')
+    assert any(component.search(n.value) for n in _string_constants(old))
+
+
+def test_orb_pattern_is_the_port_copy():
+    """The BRIEF pattern is read from the port's own file, which holds the
+    JAX package's bytes."""
+    from extractorb_tpu_torch.frontend import brief
+
+    own = PKG / "data" / "orb_pattern.npy"
+    assert brief.PATTERN_FILE == own
+    assert own.read_bytes() == (ROOT / "extractorb_tpu" / "data" / "orb_pattern.npy").read_bytes()
+    pat = brief._pattern()[0]
+    assert pat.shape == (256, 4) and pat.dtype == np.int8
 
 
 _TUM1_YAML = """%YAML:1.0
