@@ -1,7 +1,22 @@
-"""Where the time of K29's query, K35's dense solve, K6's cluster solve and K8's
-map update goes, on the card.
+"""Where the time of K4's pose LM, K20's and K6's cluster solves, K8's map
+update, K29's query and K35's dense solve goes, on the card.
 
-    python3 chip_anatomy.py
+    python3 chip_anatomy.py [k4,k20,k6,k8,k29,k35]
+
+K4 and K20 first, against the parent commit's kernels: their sources from
+``build/parent/`` (``git archive <parent> extractorb_tpu_torch/csrc``
+unpacked there), built with the current ones into ``build/k20_cluster/``,
+each stamping ``clock64()`` per phase. K4 (CTA 0's thread 0: linearise,
+reduction, solve, candidate, classify) on [parity]'s mono problems, with the
+stereo rows and through KB8: the CUDA-event ms of a call, its device ms
+from a ``torch.profiler`` trace, and the outputs of the two bit-equal.
+K20 on the [vi-loop] map's local window (6 x 40), its FullInertialBA at 25 x
+40 and at 7 x 40 with the one-view points fixed, and the [vi-loop-kb8]
+map's at 25 x 40, as the engine builds them: the parent's kernels one by
+one (device ms per kernel name), the library's call against the parent and
+the passes one by one on one shard (bit-equal), and copies at 8 and 16 CTAs
+with each CTA adding up its cycles per phase kind (barrier waits and
+cluster sums apart).
 
 K29 first, while the process's profiler traces every kernel: a query of
 [parity-mesh]'s 1024 x 65536 block on 4 shards of the card, through
@@ -55,7 +70,8 @@ import chip_smoke as cs
 from extractorb_tpu_torch import kernels
 from extractorb_tpu_torch.dist import kf_blocks as kfb
 from extractorb_tpu_torch.dist import mesh as dmesh
-from extractorb_tpu_torch.solver import ba
+from extractorb_tpu_torch.solver import ba, pose_opt
+from extractorb_tpu_torch.solver import inertial as sin
 
 OUT = Path(__file__).resolve().parent / "build" / "k35_solve"
 # the phases CTA 0 stamps: after the prologue, its barrier, and per panel p
@@ -220,6 +236,326 @@ def k6_anatomy(dev) -> None:
                   f"{t[11] / max(t[27], 1):.0f} cycles", flush=True)
 
 
+PARENT = Path(__file__).resolve().parent / "build" / "parent"
+PARENT_CSRC = PARENT / "extractorb_tpu_torch" / "csrc"
+V20_OUT = Path(__file__).resolve().parent / "build" / "k20_cluster"
+# K20's phase kinds (vi_ba.cu's Phase), the stamp slots each CTA adds to
+V20_PHASES = ("setup and lists", "build rows", "build edges", "reduce", "invert",
+              "hv keyframes", "hv points", "cg_a", "cg_b", "retract", "cost", "accept", "final",
+              "barrier wait", "cluster sums", "hv observations")
+V20_WRAP = r"""
+__device__ long long* g_v20;   // CTA r: [64 r, 64 r + 20) cycles, [64 r + 20, 64 r + 40) counts, 64 r + 60 the last clock
+#define V20_STAMP(k) do { if (threadIdx.x == 0) { long long* g_ = g_v20 + 64 * rank; \
+  const long long now_ = clock64(); g_[(k)] += now_ - g_[60]; g_[20 + (k)] += 1; \
+  g_[60] = now_; } } while (0)
+#define V20_CLUSTER %d
+#include "vi_ba.cu"
+extern "C" int v20_set_stamps(long long* p) { return (int)cudaMemcpyToSymbol(g_v20, &p, sizeof(p)); }
+"""
+K4_PHASES = ("linearise", "reduction", "solve", "candidate", "classify")
+K4_STAMP_DEF = r"""
+__device__ long long* g_k4;   // [0, 8) cycles, [8, 16) counts per phase kind, [20] the last clock
+#define K4_STAMP(k) do { if (blockIdx.x == 0 && threadIdx.x == 0) { const long long now_ = \
+  clock64(); g_k4[(k)] += now_ - g_k4[20]; g_k4[8 + (k)] += 1; g_k4[20] = now_; } } while (0)
+"""
+K4_SET = r"""
+extern "C" int k4_set_stamps(long long* p) { return (int)cudaMemcpyToSymbol(g_k4, &p, sizeof(p)); }
+"""
+# the parent's K4 (fadea60): its phases, stamped at these anchors (0
+# linearise, 1 reduction, 2 solve, 3 candidate, 4 classify; 5 the start)
+K4_PARENT_STAMPS = (
+    ("  __syncthreads();\n\n  for (int rnd = 0;", "  K4_STAMP(5);\n", True),
+    ("      block_sum(acc, s_red);\n", "      K4_STAMP(0);\n", True),
+    ("      block_sum(acc, s_red);\n", "      K4_STAMP(1);\n", False),
+    ("      __syncthreads();\n      float c_new[1] = {0.f};", "      K4_STAMP(2);\n", True),
+    ("      block_sum(c_new, s_red);\n", "      K4_STAMP(3);\n", True),
+    ("      block_sum(c_new, s_red);\n", "      K4_STAMP(1);\n", False),
+    ("      s_active[i] = ok && chi2 <=", None, None),
+)
+
+
+def _nvcc_all(jobs):
+    """Build each (source, output .so, include dir) with nvcc, all at once."""
+    procs = [(out, subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(inc), "-o",
+                                     str(out), str(src)], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for src, out, inc in jobs]
+    for out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"chip_anatomy: nvcc failed on {out.name}:\n{log}")
+    return [ctypes.CDLL(str(out)) for out, _ in procs]
+
+
+def _k4_parent_source() -> str:
+    src = (PARENT_CSRC / "pose_lm.cu").read_text()
+    for anchor, stamp, before in K4_PARENT_STAMPS:
+        if anchor not in src:
+            raise RuntimeError(f"chip_anatomy: no anchor {anchor!r} in the parent's K4")
+        if stamp is None:   # the re-classification loop's end
+            i = src.index(anchor)
+            j = src.index("    __syncthreads();\n", i)
+            src = src[:j] + "    K4_STAMP(4);\n" + src[j:]
+        elif before:
+            src = src.replace(anchor, stamp + anchor, 1)
+        else:
+            i = src.index(anchor) + len(anchor)
+            src = src[:i] + stamp + src[i:]
+    return src
+
+
+def build_k20_k4():
+    """The parent's K20 and K4 (from ``build/parent/``, a ``git archive`` of
+    the parent commit's csrc), K20 clusters of 8 and 16 CTAs and K4, each
+    stamping its phases; all built at once.  Returns (parent K20, {G: K20},
+    parent K4, K4)."""
+    if not (PARENT_CSRC / "vi_ba.cu").exists():
+        raise RuntimeError(f"chip_anatomy: no parent sources in {PARENT_CSRC}")
+    V20_OUT.mkdir(parents=True, exist_ok=True)
+    jobs = [(PARENT_CSRC / "vi_ba.cu", V20_OUT / "k20_parent.so", PARENT_CSRC)]
+    for cluster in (8, 16):
+        src = V20_OUT / f"k20_c{cluster}.cu"
+        src.write_text(V20_WRAP % cluster)
+        jobs.append((src, src.with_suffix(".so"), kernels.CSRC))
+    src = V20_OUT / "k4_parent.cu"
+    src.write_text(K4_STAMP_DEF + _k4_parent_source() + K4_SET)
+    jobs.append((src, src.with_suffix(".so"), PARENT_CSRC))
+    src = V20_OUT / "k4_new.cu"
+    src.write_text(K4_STAMP_DEF + '#include "pose_lm.cu"\n' + K4_SET)
+    jobs.append((src, src.with_suffix(".so"), kernels.CSRC))
+    libs = _nvcc_all(jobs)
+    for lib in libs[:3]:
+        for name in ("vi_ba_launch", "vi_ba_workspace_bytes"):
+            getattr(lib, name).argtypes = list(kernels._SIGNATURES[name])
+        lib.vi_ba_workspace_bytes.restype = ctypes.c_longlong
+    for lib in libs[1:3]:
+        lib.v20_set_stamps.argtypes = [ctypes.c_void_p]
+    for lib in libs[3:]:
+        lib.pose_lm_launch.argtypes = list(kernels._SIGNATURES["pose_lm_launch"])
+        lib.k4_set_stamps.argtypes = [ctypes.c_void_p]
+    return libs[0], {8: libs[1], 16: libs[2]}, libs[3], libs[4]
+
+
+def vi_call(lib, p, cam, n_iters, cg_iters):
+    """``optimize_vi_ba``'s launch of K20 through ``lib`` on problem p:
+    returns a function that solves p afresh."""
+    dev = p.points.device
+    K, P, O = p.Rwb.shape[0], p.points.shape[0], p.obs_kf.shape[0]
+    f32 = lambda a: a.to(torch.float32)
+    state0 = torch.cat([f32(p.Rwb).reshape(-1, 9), f32(p.twb), f32(p.v), f32(p.bg), f32(p.ba)],
+                       1).contiguous()
+    chain = sin.pack_preint(p.chain, dev)
+    obs = [p.obs_kf.int().contiguous(), p.obs_mp.int().contiguous(), f32(p.obs_uv).contiguous(),
+           f32(p.inv_sigma2).contiguous(), p.obs_valid.contiguous()]
+    masks = [p.chain.valid.contiguous(), p.fixed_kf.contiguous(), p.fixed_mp.contiguous()]
+    ext = torch.cat([p.Rcb.reshape(-1), p.tcb.reshape(-1)]).float().contiguous()
+    ws = torch.empty(int(lib.vi_ba_workspace_bytes(K, P, O, cg_iters)), dtype=torch.uint8,
+                     device=dev)
+    inl = torch.empty(O, dtype=torch.bool, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    kb8 = cam.kernel_params()
+
+    def call():
+        state, pts = state0.clone(), f32(p.points).clone().contiguous()
+        err = lib.vi_ba_launch(
+            state.data_ptr(), pts.data_ptr(), chain.data_ptr(), *[a.data_ptr() for a in obs],
+            *[a.data_ptr() for a in masks], ext.data_ptr(), K, P, O, cam.fx, cam.fy, cam.cx,
+            cam.cy, None if kb8 is None else kb8.ctypes.data, float(p.prior_g),
+            float(p.prior_a), n_iters, cg_iters, 1, float(sin.CHI2_MONO), ws.data_ptr(),
+            inl.data_ptr(), cost.data_ptr(), kernels.stream())
+        if err:
+            raise RuntimeError(f"chip_anatomy: K20 did not launch ({err})")
+        return state, pts, inl.clone(), cost.clone()
+    return call
+
+
+def vi_problems(dev):
+    """(name, problem, camera, n_iters, cg_iters) of the VI BA probe: the
+    [vi-loop] map's local window (6 x 40), its FullInertialBA at the init's
+    25 x 40 and the post-loop 7 x 40 (the one-view points fixed), and the
+    [vi-loop-kb8] map's FullInertialBA at 25 x 40, each problem as the
+    engine builds it (``imu_frontend``)."""
+    calib = cs.ImuCalib.from_config(cs.vi_config().imu)
+    out = []
+    for kb8 in (False, True):
+        mp = cs.inertial_looped_map(dev, calib, kb8=kb8)[0]
+        cam = cs.loop_camera(kb8)
+        probs, real = [], sin.optimize_vi_ba
+
+        def spy(prob, cam_, **kw):
+            probs.append(prob)
+            return real(prob, cam_, **kw)
+        sin.optimize_vi_ba = spy
+        try:
+            if not kb8:
+                cs.imu_frontend.local_inertial_ba(mp, calib, cam, max(mp.keyframes), device=dev)
+            cs.imu_frontend.full_inertial_ba(mp, calib, cam, n_iters=1, device=dev)
+        finally:
+            sin.optimize_vi_ba = real
+        tag = "[vi-loop-kb8] map" if kb8 else "[vi-loop] map"
+        if not kb8:
+            out.append((f"{tag} local window", probs[0], cam, 6, 40))
+            full = probs[1]
+            out.append((f"{tag} FullInertialBA", full, cam, 25, 40))
+            out.append((f"{tag} FullInertialBA, one-view points fixed", cs.one_view_fixed(full),
+                        cam, 7, 40))
+        else:
+            out.append((f"{tag} FullInertialBA", probs[0], cam, 25, 40))
+    return out
+
+
+def _device_kernels(fn):
+    """{kernel name: (device ms, count)} of one call of fn, from a profiler
+    trace (after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+        if t and e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key] = (t / 1e3, e.count)
+    return out
+
+
+def k20_anatomy(dev, parent, clusters) -> None:
+    """K20 per pass: the parent's kernels one by one (device ms per kernel
+    from a profiler trace), and the cluster at 8 and 16 CTAs (each CTA's
+    clock64 per phase kind, barrier wait and cluster sums apart), bit-equal
+    to the parent and to the library's call."""
+    stamps = torch.zeros(64 * 16, dtype=torch.int64, device=dev)
+    for lib in clusters.values():
+        if lib.v20_set_stamps(stamps.data_ptr()):
+            raise RuntimeError("chip_anatomy: cudaMemcpyToSymbol failed")
+    for name, p, cam, n_iters, cg_iters in vi_problems(dev):
+        K, P, O = p.Rwb.shape[0], p.points.shape[0], p.obs_kf.shape[0]
+        head = f"K20 {name} K={K} P={P} O={O} ({int(p.obs_valid.sum())} valid), {n_iters} x {cg_iters}"
+        pc = vi_call(parent, p, cam, n_iters, cg_iters)
+        ref = pc()
+        ker = _device_kernels(pc)
+        tot = sum(v[0] for v in ker.values())
+        launches = sum(v[1] for v in ker.values())
+        parts = ", ".join(f"{k.split('(')[0]} {v[0]:.3f} ms ({v[1]}x)" for k, v in
+                          sorted(ker.items(), key=lambda kv: -kv[1][0]))
+        print(f"{head}: the parent {cs.cuda_ms(pc, reps=5):.3f} ms, {launches} device kernels "
+              f"a call, {tot:.3f} device ms in all: {parts}", flush=True)
+        lib_call = lambda: sin.optimize_vi_ba(p, cam, n_iters=n_iters, cg_iters=cg_iters)
+        lk = lib_call()
+        got = (lk.Rwb.reshape(K, 9), lk.twb, lk.v, lk.bg, lk.ba, lk.points, lk.inliers, lk.cost)
+        want = (ref[0][:, :9], ref[0][:, 9:12], ref[0][:, 12:15], ref[0][:, 15:18],
+                ref[0][:, 18:21], ref[1], ref[2], ref[3])
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        dmax = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got[:6], want[:6]))
+        one = cs.sharded_ba.optimize_vi_sharded(cs.dmesh.Mesh([dev]), p, cam, n_iters=n_iters,
+                                                cg_iters=cg_iters)
+        same1 = all(torch.equal(getattr(one, f), getattr(lk, f)) for f in sin.VIBAResult._fields)
+        print(f"{head}: the library's call {cs.cuda_ms(lib_call, reps=5):.3f} ms "
+              f"({len(_device_kernels(lib_call))} device kernel), bit-equal to the parent "
+              f"{same} (largest difference {dmax:.3e}), to the passes one by one on one shard "
+              f"{same1}", flush=True)
+        for cluster, lib in clusters.items():
+            call = vi_call(lib, p, cam, n_iters, cg_iters)
+            stamps.zero_()
+            out = call()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            t = stamps.cpu().numpy().reshape(16, 64)
+            rows = []
+            for r in range(cluster):
+                total = int(t[r, :len(V20_PHASES)].sum())
+                ph = ", ".join(f"{k} {int(t[r, i])} ({int(t[r, 20 + i])}x)"
+                               for i, k in enumerate(V20_PHASES) if t[r, 20 + i])
+                rows.append(f"CTA {r} cycles {total}, barrier wait {int(t[r, 13])}: {ph}")
+            ms = cs.cuda_ms(call, reps=5)
+            print(f"{head}, {cluster} CTAs: {ms:.3f} ms, bit-equal to the parent {same}; "
+                  f"a barrier wait {t[0, 13] / max(t[0, 33], 1):.0f} cycles in CTA 0", flush=True)
+            # CTA 0, the CTA with the edges' block, and the CTA that waited least
+            least = int(np.argmin(t[:cluster, 13]))
+            for row in (rows[:1] + [r_ for r_ in rows[1:] if "build edges" in r_][:1]
+                        + [rows[least]]):
+                print("  " + row, flush=True)
+
+
+def k4_call(lib, args, cam, obs_ur=None, bf=0.0):
+    """``optimize_pose``'s launch of K4 through ``lib``."""
+    R0, t0, pts, obs, isig, val = args
+    B, N = pts.shape[0], pts.shape[1]
+    dev = R0.device
+    R = torch.empty(B, 3, 3, dtype=torch.float32, device=dev)
+    t = torch.empty(B, 3, dtype=torch.float32, device=dev)
+    inl = torch.empty(B, N, dtype=torch.bool, device=dev)
+    n_inl = torch.empty(B, dtype=torch.int32, device=dev)
+    kb8 = cam.kernel_params()
+
+    def call():
+        err = lib.pose_lm_launch(R0.data_ptr(), t0.data_ptr(), pts.data_ptr(), obs.data_ptr(),
+                                 None if obs_ur is None else obs_ur.data_ptr(), isig.data_ptr(),
+                                 val.data_ptr(), B, N, cam.fx, cam.fy, cam.cx, cam.cy,
+                                 None if kb8 is None else kb8.ctypes.data, float(bf), 4, 10,
+                                 R.data_ptr(), t.data_ptr(), inl.data_ptr(), n_inl.data_ptr(),
+                                 kernels.stream())
+        if err:
+            raise RuntimeError(f"chip_anatomy: K4 did not launch ({err})")
+        return R.clone(), t.clone(), inl.clone(), n_inl.clone()
+    return call
+
+
+def k4_anatomy(dev, parent, new) -> None:
+    """K4, the parent's and this one's: CTA 0's thread 0 clock64 per phase
+    (linearise, reduction, solve, candidate, classify), the device ms of a
+    call from a profiler trace and the CUDA-event ms of the call, and the
+    outputs of the two bit-equal, on [parity]'s mono problems, stereo rows
+    and [parity-kb8]'s KB8 problems."""
+    rng = np.random.default_rng(0)
+    K = cs.pf.camera_matrix(cs.WIDTH, cs.HEIGHT)
+    pin = cs.track_device.pinhole_project(K[0, 0], K[1, 1], K[0, 2], K[1, 2])
+    T = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), device=dev).to(dt).contiguous()
+    cases = []
+    R0, t0, pts, obs, isig, val, (Rt, tt) = cs.pf.synthetic_pose_problems(
+        rng, 2, 1128, pin.fx, pin.fy, pin.cx, pin.cy)
+    mono = [T(a) for a in (R0, t0, pts, obs, isig)] + [T(val, torch.bool)]
+    cases.append(("mono B=2 N=1128", mono, pin, None, 0.0))
+    # two of three observations with a right u at a 0.1 m baseline
+    bf = float(pin.fx) * cs.STEREO_BASELINE
+    z = np.einsum("bij,bnj->bni", Rt, pts)[..., 2] + tt[:, None, 2]
+    ur = np.where(np.arange(1128) % 3 != 0, obs[..., 0] - bf / z, -1.0)
+    cases.append(("stereo rows B=2 N=1128", mono, pin, T(ur), bf))
+    kb8 = cs.pf.kb8_camera()
+    kb = cs.KannalaBrandt8(*kb8)
+    R0, t0, pts, obs, isig, val, _ = cs.pf.synthetic_pose_problems(rng, 2, 1628, *kb8[:4],
+                                                                   kb8=kb8)
+    cases.append(("KB8 B=2 N=1628", [T(a) for a in (R0, t0, pts, obs, isig)] +
+                  [T(val, torch.bool)], kb, None, 0.0))
+    stamps = torch.zeros(32, dtype=torch.int64, device=dev)
+    for lib in (parent, new):
+        if lib.k4_set_stamps(stamps.data_ptr()):
+            raise RuntimeError("chip_anatomy: cudaMemcpyToSymbol failed")
+    for name, args, cam, ur_t, bf in cases:
+        res = {}
+        for tag, lib in (("parent", parent), ("new", new)):
+            call = k4_call(lib, args, cam, ur_t, bf)
+            stamps.zero_()
+            res[tag] = call()
+            torch.cuda.synchronize()
+            t = stamps.cpu().numpy()
+            ph = ", ".join(f"{k} {int(t[i])} ({int(t[8 + i])}x)" for i, k in enumerate(K4_PHASES))
+            ker = _device_kernels(call)
+            dms = sum(v[0] for v in ker.values())
+            print(f"K4 {name} {tag}: {cs.cuda_ms(call, reps=20):.4f} ms a call (CUDA events), "
+                  f"{dms:.4f} device ms ({sum(v[1] for v in ker.values())} kernel); CTA 0 "
+                  f"thread 0 cycles {int(t[:5].sum())}: {ph}", flush=True)
+        same = all(torch.equal(a, b) for a, b in zip(res["parent"], res["new"]))
+        lib_call = lambda: pose_opt.optimize_pose(*args, cam, obs_ur=ur_t, bf=bf)
+        lk = lib_call()
+        same_lib = all(torch.equal(a, b) for a, b in zip(
+            (lk.R, lk.t, lk.inliers, lk.n_inliers), res["new"]))
+        print(f"K4 {name}: bit-equal to the parent {same}, the library's call the same {same_lib} "
+              f"({cs.cuda_ms(lib_call, reps=20):.4f} ms)", flush=True)
+
+
 def k8_anatomy(dev) -> None:
     """K8's map update of 256 rows (200 in range) into a 32768-row mirror."""
     rng = np.random.default_rng(2)
@@ -338,9 +674,22 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
     kernels.lib()
-    k6_anatomy(dev)
-    k8_anatomy(dev)
-    place_query(dev)
+    parts = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else {"k20", "k4", "k6", "k8",
+                                                                     "k29", "k35"}
+    if parts & {"k20", "k4"}:
+        k20_parent, k20_clusters, k4_parent, k4_new = build_k20_k4()
+        if "k4" in parts:
+            k4_anatomy(dev, k4_parent, k4_new)
+        if "k20" in parts:
+            k20_anatomy(dev, k20_parent, k20_clusters)
+    if "k6" in parts:
+        k6_anatomy(dev)
+    if "k8" in parts:
+        k8_anatomy(dev)
+    if "k29" in parts:
+        place_query(dev)
+    if "k35" not in parts:
+        return 0
     lib = build_solve()
     stamps = torch.zeros(1024, dtype=torch.int64, device=dev)
     if lib.k35_set_stamps(stamps.data_ptr()):

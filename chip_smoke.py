@@ -584,15 +584,105 @@ def device_events(fn):
     return names, sum(1 for e in names if not e.startswith(("Memcpy", "Memset")))
 
 
-def phase_extract_launches(ex: ORBExtractor, frame: np.ndarray, dev) -> dict:
-    """The device kernels of one 640x480 extraction (torch.profiler's device
-    events, copies and fills apart) and its host-clock median over 20 calls
-    ending in a synchronise: through the plain glue and through the kernels."""
-    img = torch.from_numpy(frame).to(dev)
-    runs = {"plain glue": lambda: extract_plain_glue(ex, img), "kernels": lambda: ex(img)}
+# the calls trace_fresh can make, by name: (args, kwargs) -> the call
+TRACE_CALLS = {
+    "vi_ba": lambda prob, cam, it, cg: sin.optimize_vi_ba(prob, cam, n_iters=it, cg_iters=cg),
+    "vi_ba_passes": lambda prob, cam, it, cg: sharded_ba.optimize_vi_sharded(
+        dmesh.Mesh([prob.points.device]), prob, cam, n_iters=it, cg_iters=cg),
+    "pose_lm": lambda *args, **kw: pose_opt.optimize_pose(*args, **kw),
+    "ba_pcg": lambda prob, cam, it, cg: ba.optimize(prob, cam, n_iters=it, cg_iters=cg),
+    "ba_pcg_passes": lambda prob, cam, it, cg: sharded_ba.optimize_sharded(
+        dmesh.Mesh([prob.points.device]), prob, cam, it, cg),
+    "extract_glue": lambda ex, img: extract_plain_glue(ex, img),
+    "extract_kernels": lambda ex, img: ex(img),
+}
+
+
+def port_kernel(name: str) -> bool:
+    """A device event of one of the port's own kernels (csrc/*.cu): not a
+    copy, a fill or one of PyTorch's kernels (the wrappers' glue)."""
+    return not name.startswith(("Memcpy", "Memset")) and "at::" not in name
+
+
+def trace_main(path: str) -> int:
+    """``chip_smoke.py --trace PATH``: each call of the dict saved at PATH
+    ({label: (TRACE_CALLS name, args, kwargs)}) once to warm up, then once
+    in each of four ``torch.profiler`` traces.  The profiler on the card
+    drops a device event now and then, never adds one, so the trace with
+    the most device events stands for the call.  Prints one JSON object
+    {label: [the port's kernels of the call, their device ms, the other
+    device events, the kernels (copies and fills apart), the device
+    events]}."""
+    calls = torch.load(path, weights_only=False)
     out = {}
-    for name, fn in runs.items():
-        dev_ev, n_kern = device_events(fn)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for label, (name, args, kw) in calls.items():
+        fn = lambda: TRACE_CALLS[name](*args, **kw)
+        fn()
+        torch.cuda.synchronize()
+        best = None
+        for _ in range(4):
+            with torch.profiler.profile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            mine = [e for e in evs if port_kernel(e.name)]
+            kern = [e for e in evs if not e.name.startswith(("Memcpy", "Memset"))]
+            ms = sum(getattr(e, "device_time", getattr(e, "cuda_time", 0.0)) for e in mine) / 1e3
+            rec = [len(mine), ms, len(evs) - len(mine), len(kern), len(evs)]
+            if best is None or rec[4] > best[4]:
+                best = rec
+        out[label] = best
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+# the calls the run traces at its end: (label, call, what to do with its
+# trace_main record)
+PENDING_TRACES = []
+
+
+def trace_later(label: str, call: tuple, on_result) -> None:
+    PENDING_TRACES.append((label, call, on_result))
+
+
+def run_traces() -> None:
+    """Every pending call traced by one fresh process (trace_fresh), each
+    result handed to its callback."""
+    out = trace_fresh({label: call for label, call, _ in PENDING_TRACES})
+    for label, _, on_result in PENDING_TRACES:
+        on_result(out[label])
+    PENDING_TRACES.clear()
+
+
+def trace_fresh(calls: dict) -> dict:
+    """``trace_main`` on ``calls`` in a fresh process on the same card: a
+    profiler in this long process drops device events (chip_anatomy.py's
+    K29 note), a new one sees them all.  Returns {label: trace_main's
+    record}; raises if a trace saw no device event."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "calls.pt")
+        torch.save(calls, path)
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace", path],
+                           capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        raise RuntimeError(f"trace_fresh: the tracing process failed:\n{r.stderr[-3000:]}")
+    out = {k: tuple(v) for k, v in json.loads(r.stdout.strip().splitlines()[-1]).items()}
+    if not all(v[4] > 0 for v in out.values()):
+        raise AssertionError(f"trace_fresh: a call with no device event traced: {out}")
+    return out
+
+
+def phase_extract_launches(ex: ORBExtractor, frame: np.ndarray, dev) -> dict:
+    """The host-clock median of one 640x480 extraction over 20 calls ending
+    in a synchronise, and at the run's end its device kernels (a fresh
+    process's profiler trace, copies and fills apart): through the plain
+    glue and through the kernels."""
+    img = torch.from_numpy(frame).to(dev)
+    runs = {"plain glue": ("extract_glue", lambda: extract_plain_glue(ex, img)),
+            "kernels": ("extract_kernels", lambda: ex(img))}
+    out = {}
+    for name, (call, fn) in runs.items():
         host = []
         for _ in range(20):
             torch.cuda.synchronize()
@@ -600,13 +690,17 @@ def phase_extract_launches(ex: ORBExtractor, frame: np.ndarray, dev) -> dict:
             fn()
             torch.cuda.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
-        out[name] = dict(kernels=n_kern, device_events=len(dev_ev),
-                         host_ms=statistics.median(host), events_ms=cuda_ms(fn))
-        print(f"[extract] {name}: {n_kern} device kernels ({len(dev_ev)} device events) per "
-              f"extraction, host clock median {out[name]['host_ms']:.3f} ms, CUDA events "
-              f"{out[name]['events_ms']:.3f} ms", flush=True)
-    if out["kernels"]["kernels"] >= out["plain glue"]["kernels"]:
-        raise AssertionError(f"extraction launches {out}")
+        out[name] = dict(host_ms=statistics.median(host), events_ms=cuda_ms(fn))
+        print(f"[extract] {name}: host clock median {out[name]['host_ms']:.3f} ms, CUDA events "
+              f"{out[name]["events_ms"]:.3f} ms an extraction", flush=True)
+
+        def counted(trace, name=name):
+            out[name].update(kernels=trace[3], device_events=trace[4])
+            print(f"[extract] {name}: {trace[3]:g} device kernels ({trace[4]:g} device events) "
+                  "per extraction", flush=True)
+            if name == "kernels" and out["kernels"]["kernels"] >= out["plain glue"]["kernels"]:
+                raise AssertionError(f"extraction launches {out}")
+        trace_later(f"extract {name}", (call, (ex, img), {}), counted)
     return out
 
 
@@ -734,7 +828,10 @@ def phase_kernel_parity(step: TrackStep, frame: np.ndarray, dev) -> dict:
     stats["pose_lm"] = record(d, cuda_ms(lambda: pose_opt.optimize_pose(*args, step.cam)),
                               cuda_ms(lambda: pose_opt.optimize_pose_plain(*args, step.cam)),
                               *pose_lm_work(B, N, int(val.sum()), stereo_rows=False))
-    print(f"[parity] pose_lm B={B} N={N}: max |dR|,|dt| {d:.2e}, inliers equal", flush=True)
+    print(f"[parity] pose_lm B={B} N={N}: max |dR|,|dt| {d:.2e}, inliers equal; "
+          f"{stats['pose_lm']['ms']:.4f} ms a call (CUDA events)", flush=True)
+    trace_later("pose_lm", ("pose_lm", (*args, step.cam), {}), lambda r: device_note(
+        stats["pose_lm"], r, f"pose_lm B={B} N={N}"))
     return stats
 
 
@@ -816,7 +913,10 @@ def phase_parity_stereo(left, right, depth0, dev) -> dict:
         cuda_ms(lambda: pose_opt.optimize_pose_plain(*pargs, cam, obs_ur=ur, bf=bf)),
         *pose_lm_work(2, NL, 2 * int(fl.valid.sum()), stereo_rows=True))
     print(f"[parity] pose_lm stereo B=2 N={NL} ({int((rk.u_right >= 0).sum())} stereo "
-          f"observations): max |dR|,|dt| {d:.2e}, inliers equal", flush=True)
+          f"observations): max |dR|,|dt| {d:.2e}, inliers equal; "
+          f"{stats['pose_lm_stereo']['ms']:.4f} ms a call", flush=True)
+    trace_later("pose_lm_stereo", ("pose_lm", (*pargs, cam), dict(obs_ur=ur, bf=bf)),
+                lambda r: device_note(stats["pose_lm_stereo"], r, f"pose_lm stereo B=2 N={NL}"))
     return stats
 
 
@@ -1144,18 +1244,12 @@ def phase_parity_k5_k8(frames, poses, dev) -> dict:
                    for f in ("R", "t", "points", "inliers")):
             raise AssertionError(f"ba_pcg {n_iters} x {cg_iters}: the cluster solve differs from "
                                  "K6's passes launched one by one")
-        names, n_kern = device_events(solve)
-        _, n_passes = device_events(passes)
         parent = 7 + n_iters * (6 + 3 * cg_iters) + 2   # the parent's launches a call
-        if n_kern != 1:
-            raise AssertionError(f"ba_pcg {n_iters} x {cg_iters}: {n_kern} device kernels a "
-                                 f"call ({names})")
         nbytes, ops = ba_work(prob, "cg", n_iters, cg_iters)
         rec = record(d, cuda_ms(solve, reps=5),
                      cuda_ms(lambda: ba.optimize_plain(prob, cam, n_iters, cg_iters), reps=2),
                      nbytes, ops)
-        rec.update(kernels_per_call=n_kern, parent_launches_per_call=parent,
-                   passes_ms=cuda_ms(passes, reps=5), passes_kernels_per_call=n_passes)
+        rec.update(parent_launches_per_call=parent, passes_ms=cuda_ms(passes, reps=5))
         if pre:
             stats["ba_pcg"].update({pre + k: v for k, v in rec.items()
                                     if k not in ("bytes", "ops", "library_ms")})
@@ -1164,9 +1258,24 @@ def phase_parity_k5_k8(frames, poses, dev) -> dict:
         print(f"[parity] ba_pcg K={prob.R.shape[0]} P={prob.points.shape[0]} "
               f"O={prob.obs_kf.shape[0]}, {n_iters} LM x {cg_iters} PCG: poses and points within "
               f"{d:.2e} of plain, inliers equal ({int(bk.inliers.sum())}), bit-equal to the "
-              f"passes launched one by one; {n_kern} device kernel a call (the parent: {parent} "
-              f"launches; the passes one by one {n_passes}), {rec['ms']:.4f} ms against the "
-              f"passes' {rec['passes_ms']:.4f}", flush=True)
+              f"passes launched one by one (the parent: {parent} launches a call), "
+              f"{rec['ms']:.4f} ms against the passes' {rec['passes_ms']:.4f}", flush=True)
+
+        def solved(trace, it=n_iters, cg=cg_iters, pre=pre):
+            if trace[3] != 1:
+                raise AssertionError(f"ba_pcg {it} x {cg}: {trace[3]:g} device kernels a call")
+            stats["ba_pcg"][pre + "kernels_per_call"] = trace[3]
+            print(f"[parity] ba_pcg {it} x {cg}: {trace[3]:g} device kernel a call (a fresh "
+                  "process's profiler trace)", flush=True)
+
+        def passed(trace, it=n_iters, cg=cg_iters, pre=pre):
+            stats["ba_pcg"][pre + "passes_kernels_per_call"] = trace[3]
+            print(f"[parity] ba_pcg {it} x {cg}, the passes one by one: {trace[3]:g} device "
+                  "kernels a call", flush=True)
+        trace_later(f"ba_pcg {n_iters} x {cg_iters}", ("ba_pcg", (prob, cam, n_iters, cg_iters),
+                                                       {}), solved)
+        trace_later(f"ba_pcg passes {n_iters} x {cg_iters}",
+                    ("ba_pcg_passes", (prob, cam, n_iters, cg_iters), {}), passed)
     bk = ba.optimize(prob, cam, 12, 40)
     n_diff = sum(not all(torch.equal(getattr(ba.optimize(prob, cam, 12, 40), f), getattr(bk, f))
                          for f in ba.BAResult._fields) for _ in range(50))
@@ -2928,6 +3037,52 @@ def _largest(calls, size):
     return max(calls, key=size)
 
 
+def device_note(rec: dict, trace, tag: str) -> None:
+    """A kernel's record gets its device ms and kernels a call from a
+    fresh process's profiler trace (run_traces)."""
+    n_kern, dms, glue = trace[:3]
+    rec.update(device_ms=dms, kernels_per_call=n_kern)
+    print(f"[parity] {tag}: {dms:.4f} device ms a call, {n_kern:g} of the port's kernels "
+          f"({glue:g} other device events; a fresh process's profiler trace)", flush=True)
+
+
+def vi_cluster_record(prob, cam, it: int, cg: int, vk, tag: str, rec: dict) -> None:
+    """K20, one cluster launch a call, against K32's passes launched one by
+    one on one shard (the parent's route, ~9 + it (6 + 3 cg) + 2 launches a
+    call): bit-equal to them on ``prob`` (vk: K20's result) and timed in
+    turns; at the run's end one of the port's kernels a call in a fresh
+    process's profiler trace (the wrapper's PyTorch glue apart), and K20's
+    device ms beside its CUDA-event ms.  Into rec."""
+    one_shard = dmesh.Mesh([prob.points.device])
+    solve = lambda: sin.optimize_vi_ba(prob, cam, n_iters=it, cg_iters=cg)
+    passes = lambda: sharded_ba.optimize_vi_sharded(one_shard, prob, cam, n_iters=it,
+                                                    cg_iters=cg)
+    vm = passes()
+    if not all(torch.equal(getattr(vm, f), getattr(vk, f)) for f in sin.VIBAResult._fields):
+        raise AssertionError(f"{tag} {it} x {cg}: the cluster solve differs from the passes "
+                             "launched one by one")
+    ms, passes_ms = paired_ms(solve, passes, reps=6)
+    parent = 9 + it * (6 + 3 * cg) + 2
+    rec.update(parent_launches_per_call=parent, passes_ms=passes_ms, cluster_ms=ms)
+    print(f"[parity] {tag} {it} x {cg}: bit-equal to the passes launched one by one; "
+          f"{ms:.4f} ms against the passes' {passes_ms:.4f} (in turns); the parent: {parent} "
+          f"launches a call", flush=True)
+
+    def solved(trace):
+        if trace[0] != 1:
+            raise AssertionError(f"{tag} {it} x {cg}: {trace[0]} of the port's device kernels "
+                                 "a call")
+        device_note(rec, trace, f"{tag} {it} x {cg}")
+
+    def passed(trace):
+        rec["passes_kernels_per_call"] = trace[0]
+        print(f"[parity] {tag} {it} x {cg}, the passes one by one: {trace[0]:g} device "
+              "kernels a call", flush=True)
+
+    trace_later(f"{tag} solve", ("vi_ba", (prob, cam, it, cg), {}), solved)
+    trace_later(f"{tag} passes", ("vi_ba_passes", (prob, cam, it, cg), {}), passed)
+
+
 def phase_parity_inertial(rec, dev) -> dict:
     """K19-K22 against their plain versions on the card, on the [vi] run's
     own inputs (its largest call of each), with their times and bounds."""
@@ -2975,6 +3130,7 @@ def phase_parity_inertial(rec, dev) -> dict:
         cuda_ms(lambda: sin.optimize_vi_ba_plain(prob, cam, n_iters=it, cg_iters=cg), reps=1),
         K * (84 + 1168 + 3) + P * 13 + O * 21 + 48 + K * 84 + P * 12 + O + 4,
         it * (ov * (150 + cg * 80) + K * (2 * 16 * 2500 + cg * 2 * 15 * 30 * 2) + P * cg * 30))
+    vi_cluster_record(prob, cam, it, cg, vk, "vi_ba", stats["vi_ba"])
     print(f"[parity] vi_ba K={K} P={P} O={O} ({it} LM x {cg} PCG): states and points within "
           f"{d:.2e}, inliers equal ({int(vk.inliers.sum())}); 5 calls bit-identical", flush=True)
 
@@ -4331,8 +4487,10 @@ def phase_parity_kb8(dev) -> dict:
     stats["pose_lm_kb8"] = record(d, cuda_ms(lambda: pose_opt.optimize_pose(*args, cam)),
                                   cuda_ms(lambda: pose_opt.optimize_pose_plain(*args, cam)),
                                   nbytes + 16, ops + 40 * 150 * int(val.sum()))
-    print(f"[parity-kb8] pose_lm<KB8> B=2 N={N}: max |dR|,|dt| {d:.2e}, inliers equal",
-          flush=True)
+    print(f"[parity-kb8] pose_lm<KB8> B=2 N={N}: max |dR|,|dt| {d:.2e}, inliers equal; "
+          f"{stats['pose_lm_kb8']['ms']:.4f} ms a call", flush=True)
+    trace_later("pose_lm_kb8", ("pose_lm", (*args, cam), {}),
+                lambda r: device_note(stats["pose_lm_kb8"], r, f"pose_lm<KB8> B=2 N={N}"))
 
     # K6<KB8>: run_ba's init-shaped problem, 12 LM x 40 PCG
     prob = ba_problem(np.random.default_rng(1), dev, kb8=kb8)
@@ -4668,6 +4826,7 @@ def _parity_inertial_kb8(tag, rec, stats):
                 K * (84 + 1168 + 3) + P * 13 + O * 21 + 48 + K * 84 + P * 12 + O + 4 + 16,
                 it * (ov * (150 + 2 * 150 + cg * 80) + K * (2 * 16 * 2500 + cg * 2 * 15 * 30 * 2)
                       + P * cg * 30))
+            vi_cluster_record(q, cam, it, cg, vk, f"{tag} vi_ba<KB8>", stats["vi_ba_kb8"])
         out.append(f"vi_ba<KB8> K={K} P={P} O={O} ({it} LM x {cg} PCG), the "
                    f"{int((n_obs == 1).sum())} one-view points fixed: states within {d:.2e}, "
                    f"inliers equal, the {int(m3.sum())} points seen by 3+ keyframes within "
@@ -4943,6 +5102,15 @@ def main() -> int:
     det = phase_det(dev, vi_mesh_call)
     print(f"[parity-mesh] the mesh phases and [det] in {time.perf_counter() - t_mesh:.1f} s",
           flush=True)
+    run_traces()
+    # K4 stages each problem in a CTA's shared memory: the largest N any
+    # path gave it, mono and with the stereo u, against what fits
+    limits = {st: pose_opt.pose_lm_max_n(st, dev) for st in (False, True)}
+    print(f"[parity] pose_lm: the largest N of the run {dict(pose_opt.LARGEST_N)} (mono, "
+          f"stereo), the staging limits {limits}", flush=True)
+    if not all(0 < pose_opt.LARGEST_N[st] <= limits[st] for st in (False, True)):
+        raise AssertionError(f"pose_lm: the largest N {dict(pose_opt.LARGEST_N)} against the "
+                             f"staging limits {limits}")
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():
@@ -4971,6 +5139,15 @@ def main() -> int:
             row.update(kb8_launches=sum(count(f"{n}_kb8").values()), kb8_ms=st["ms"],
                        kb8_plain_ms=st["plain_ms"], kb8_bound_ms=st["bound_ms"],
                        kb8_bound_by=st["bound_by"], kb8_max_abs_err=st["max_abs_err"])
+        if n == "vi_ba":   # the cluster against the passes one by one, KB8 beside
+            for pre, key in (("", "vi_ba"), ("kb8_", "vi_ba_kb8")):
+                row.update({pre + k: stats[key][k] for k in (
+                    "kernels_per_call", "parent_launches_per_call", "passes_kernels_per_call",
+                    "passes_ms", "device_ms")})
+        if n == "pose_lm":   # device ms from a profiler trace beside each wrapper ms
+            row.update(stereo_device_ms=stats["pose_lm_stereo"]["device_ms"],
+                       kb8_device_ms=stats["pose_lm_kb8"]["device_ms"],
+                       largest_n=dict(pose_opt.LARGEST_N), staging_limit=limits)
         if n in det:
             row.update(distinct_results=det[n], distinct_results_calls=DET_CALLS)
         if f"{n}_kb8" in det:
@@ -4996,4 +5173,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--trace":
+        sys.exit(trace_main(sys.argv[2]))
     sys.exit(main())

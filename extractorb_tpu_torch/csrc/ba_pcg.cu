@@ -94,6 +94,7 @@ constexpr int kThreads = 256;
 #include "ba_obs.cuh"
 #include "det_reduce.cuh"
 #include "shard_sum.cuh"
+#include "cluster.cuh"
 
 struct Ws {
   float* Rn;    // (K,9) candidate poses / points
@@ -594,16 +595,10 @@ struct Shard {
 
 // ---------------------------------------------------------------- K6: the
 // whole solve in one cluster of G CTAs of kThreads (G = kClusterMax, or 8
-// where that many do not fit on the card).  Pass by pass, CTA rank runs the
-// multi-launch grid's CTAs as virtual blocks b = rank, rank + G, ..., and a
-// cluster barrier stands where a kernel boundary stood.  A scalar's block
-// partial (the same warp tree) is written through DSMEM into slot b of the
-// scalar's region in every CTA's shared memory, and after the barrier each
-// CTA sums its copy in block order, as reduce_store's last CTA does: every
+// where that many do not fit on the card), as cluster.cuh sets out: every
 // CTA holds the same alpha, beta, costs and lambda, and the solve is
-// bit-equal to the multi-launch sequence whatever G is.  The
-// candidate and the state swap buffers at an accepted step instead of
-// being copied.
+// bit-equal to the multi-launch sequence whatever G is.  The candidate and
+// the state swap buffers at an accepted step instead of being copied.
 
 // CTA 0's clock64 per phase kind, in a build of chip_anatomy.py only
 #ifndef K6_STAMP
@@ -617,39 +612,6 @@ enum Phase : int { kLists = 0, kBuild, kReduce, kInvert, kHv, kCgA, kCgB, kRetra
                    kAccept, kFinal, kWait, kSum, kHvPoints, kPhases };
 // the scalars' regions of slots in each CTA's shared memory
 enum Region : int { kCostOld = 0, kCostNew, kRz, kPAp, kRegions };
-
-// virtual block b's partial of v (the warp tree, then the warps in order,
-// as reduce_store) into slot b of region in each of the cluster's G CTAs.
-// All threads must call it.
-__device__ void block_partial(cg::cluster_group& cl, int G, double v, double* region, int b) {
-  __shared__ double red[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum_d(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double s = 0.0;
-    for (int w2 = 0; w2 < kThreads / 32; ++w2) s += red[w2];
-    for (int r = 0; r < G; ++r) *cl.map_shared_rank(region + b, r) = s;
-  }
-  __syncthreads();
-}
-
-// the sum in block order of this CTA's copy of nb partials; every thread
-// sums them itself (eight loads issued ahead of their adds)
-__device__ double region_sum(const double* region, int nb) {
-  double s = 0.0;
-  int b = 0;
-  for (; b + 8 <= nb; b += 8) {
-    double x[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = region[b + i];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s += x[i];
-  }
-  for (; b < nb; ++b) s += region[b];
-  return s;
-}
 
 // R, t, pts: the start state, overwritten with the result; n_slots slots a
 // region (the largest pass's blocks)
@@ -787,43 +749,6 @@ solve_cluster_kernel(float* R, float* t, float* pts, const Prob q, const C cam, 
 #undef ELEM
 }
 
-// the cluster size for dynamic shared memory smem: kClusterMax CTAs where
-// the card can place such a cluster, else 8; raises (an error) where
-// neither fits.  cache keeps the largest smem asked for and the answer.
-template <class F>
-cudaError_t pick_cluster(F kernel, size_t smem, std::atomic<long long>& cache, int* G) {
-  cudaError_t e;
-  if (kClusterMax > 8 &&
-      (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
-          cudaSuccess)
-    return e;
-  const long long c = cache.load();   // smem << 8 | G
-  if ((c & 0xff) != 0 && (size_t)(c >> 8) >= smem) {
-    *G = (int)(c & 0xff);
-    return cudaSuccess;
-  }
-  *G = 0;
-  for (int g = kClusterMax; g >= 8 && *G == 0; g /= 2) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(g);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = g;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int n = 0;
-    if ((e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) != cudaSuccess) return e;
-    if (n >= 1) *G = g;
-  }
-  if (*G == 0) return cudaErrorInvalidConfiguration;  // not even 8 CTAs fit
-  cache.store((long long)smem << 8 | *G);
-  return cudaSuccess;
-}
-
 template <bool kS, class C>
 int solve_cluster(Shard& S, const C& cam, int n_iters, int cg_iters, bool huber, float chi2_th,
                   cudaStream_t st) {
@@ -837,25 +762,10 @@ int solve_cluster(Shard& S, const C& cam, int n_iters, int cg_iters, bool huber,
   const size_t smem = sizeof(double) * kRegions * (size_t)n_slots;
   static std::atomic<long long> cache{0};
   int G;
-  cudaError_t e = pick_cluster(kernel, smem, cache, &G);
+  cudaError_t e = pick_cluster(kernel, smem, kClusterMax, cache, &G);
   if (e != cudaSuccess) return (int)e;
-  if (smem > 48 * 1024 &&
-      (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem)) != cudaSuccess)
-    return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(G);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = G;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, S.R, S.t, S.pts, S.q, cam, n_iters, cg_iters, huber,
+  ClusterCfg lc(G, smem, st);
+  e = cudaLaunchKernelEx(&lc.cfg, kernel, S.R, S.t, S.pts, S.q, cam, n_iters, cg_iters, huber,
                          chi2_th, S.w, S.inl, S.cost, n_slots);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -65,6 +65,8 @@ _SIGNATURES = {
     # n_inliers, stream
     "pose_lm_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _F,
                        _I, _I, _P, _P, _P, _P, _P),
+    # stereo (1: with obs_ur); the largest N of a problem on the current device
+    "pose_lm_max_n": (_I,),
     # xn1, xn2, x1, x2, valid, sets, mats, S, N, fx, fy, cx, cy, ws,
     # success, R21, t21, points, tri, used_h, stream
     "two_view_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P,

@@ -123,6 +123,21 @@ def optimize_pose_plain(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Camera,
     return PoseOptResult(R, t, active, torch.sum(active.to(torch.int32), -1))
 
 
+_MAX_N: dict = {}
+# the most observations of a problem K4 was given, without and with the stereo u
+LARGEST_N = {False: 0, True: 0}
+
+
+def pose_lm_max_n(stereo: bool, device: torch.device) -> int:
+    """The most observations of one problem that K4 stages in a CTA's shared
+    memory on ``device`` (a card), with the stereo u or without."""
+    key = (bool(stereo), device.index)
+    if key not in _MAX_N:
+        with torch.cuda.device(device):
+            _MAX_N[key] = int(kernels.lib().pose_lm_max_n(int(stereo)))
+    return _MAX_N[key]
+
+
 def optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Camera,
                   n_rounds: int = 4, n_iters: int = 10,
                   obs_ur: Optional[torch.Tensor] = None, bf: float = 0.0
@@ -150,6 +165,11 @@ def optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Camera,
             raise ValueError(f"pose_lm: obs_ur is {tuple(obs_ur.shape)}, expected {(B, N)}")
         args.append(f32(obs_ur))
     kernels.require_cuda("pose_lm", *args)
+    limit = pose_lm_max_n(obs_ur is not None, R0.device)
+    LARGEST_N[obs_ur is not None] = max(LARGEST_N[obs_ur is not None], N)
+    if N > limit:
+        raise ValueError(f"pose_lm: {N} observations a problem, more than the {limit} a CTA "
+                         "stages in shared memory")
     R = torch.empty(B, 3, 3, dtype=torch.float32, device=R0.device)
     t = torch.empty(B, 3, dtype=torch.float32, device=R0.device)
     inl = torch.empty(B, N, dtype=torch.bool, device=R0.device)

@@ -234,19 +234,98 @@ def test_inertial_init_kernel_matches_plain(cuda_device):
         assert (getattr(k, f) - getattr(p, f)).abs().max().item() < 1e-4, f
 
 
-@pytest.mark.gpu
-def test_vi_ba_kernel_matches_plain(cuda_device):
-    rng = np.random.default_rng(3)
-    prob, _, truth = _vi_problem(rng, perturb=1.0)
-    prob = viba_to_torch(fix_frames(prob, truth, (0, 2)), cuda_device)
-    k = vi.optimize_vi_ba(prob, NORM, n_iters=6, cg_iters=40)
-    p = vi.optimize_vi_ba_plain(prob, NORM, n_iters=6, cg_iters=40)
+class _Captured(Exception):
+    pass
+
+
+def engine_vi_problems(dev, kb8: bool = False) -> dict:
+    """K20's problems as the engine builds them (``slam/imu_frontend.py``),
+    by case: on ``chip_smoke``'s [vi-loop] map (or [vi-loop-kb8]'s) the
+    local window at 6 x 40, the FullInertialBA at the init's 25 x 40 and
+    at the post-loop 7 x 40; and the first K20 call of ``chip_smoke``'s
+    stereo-inertial run (mono maps only); each with the points seen by one
+    keyframe fixed.  Each value is (problem, camera, n_iters, cg_iters)."""
+    import chip_smoke as cs
+
+    calib = cs.ImuCalib.from_config(cs.vi_config().imu)
+    mp = cs.inertial_looped_map(dev, calib, kb8=kb8)[0]
+    cam = cs.loop_camera(kb8)
+    probs, real = [], vi.optimize_vi_ba
+
+    def spy(prob, cam_, **kw):
+        probs.append((prob, cam_))
+        if len(probs) == want:
+            raise _Captured
+        return real(prob, cam_, **kw)
+
+    vi.optimize_vi_ba = spy
+    try:
+        want = 2
+        with pytest.raises(_Captured):
+            cs.imu_frontend.local_inertial_ba(mp, calib, cam, max(mp.keyframes), device=dev)
+            cs.imu_frontend.full_inertial_ba(mp, calib, cam, n_iters=1, device=dev)
+        # the points seen by one keyframe fixed: on the constructed maps their
+        # rank-2 blocks break a float32 PCG down (chip_smoke's [vi-loop] GBA)
+        fix = cs.one_view_fixed
+        out = {"window-6x40": (fix(probs[0][0]), cam, 6, 40),
+               "init-25x40": (fix(probs[1][0]), cam, 25, 40),
+               "post-loop-7x40": (fix(probs[1][0]), cam, 7, 40)}
+        if not kb8:
+            want = 3
+            left, right = cs.vi_stereo_frames(n=cs.VI_STEREO_FRAMES)
+            with pytest.raises(_Captured):
+                cs.run_vi(left, dev, rights=right)
+            out["stereo-inertial"] = (fix(probs[2][0]), probs[2][1], 6, 40)
+    finally:
+        vi.optimize_vi_ba = real
+    return out
+
+
+_ENGINE = {}
+
+
+def engine_vi_problem(dev, case: str, kb8: bool = False):
+    if kb8 not in _ENGINE:
+        _ENGINE[kb8] = engine_vi_problems(dev, kb8)
+    return _ENGINE[kb8][case]
+
+
+def check_vi_ba_kernel(prob, cam, n_iters, cg_iters, dev):
+    """K20 within 1e-4 of its plain version (states and points) with the
+    inliers equal, bit-equal to K32's passes launched one by one on one
+    shard, and 20 calls on one input bit-identical."""
+    from extractorb_tpu_torch.dist import mesh as dmesh
+    from extractorb_tpu_torch.dist import sharded_ba
+
+    k = vi.optimize_vi_ba(prob, cam, n_iters=n_iters, cg_iters=cg_iters)
+    p = vi.optimize_vi_ba_plain(prob, cam, n_iters=n_iters, cg_iters=cg_iters)
     torch.cuda.synchronize()
     for f in ("Rwb", "twb", "v", "bg", "ba", "points"):
         assert (getattr(k, f) - getattr(p, f)).abs().max().item() < 1e-4, f
     assert torch.equal(k.inliers, p.inliers)
-    again = vi.optimize_vi_ba(prob, NORM, n_iters=6, cg_iters=40)
-    assert all(torch.equal(getattr(again, f), getattr(k, f)) for f in vi.VIBAResult._fields)
+    one = sharded_ba.optimize_vi_sharded(dmesh.Mesh([dev]), prob, cam, n_iters=n_iters,
+                                         cg_iters=cg_iters)
+    assert all(torch.equal(getattr(one, f), getattr(k, f)) for f in vi.VIBAResult._fields)
+    for _ in range(20):
+        again = vi.optimize_vi_ba(prob, cam, n_iters=n_iters, cg_iters=cg_iters)
+        assert all(torch.equal(getattr(again, f), getattr(k, f)) for f in vi.VIBAResult._fields)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["simulator-6x40", "window-6x40", "init-25x40",
+                                  "post-loop-7x40", "stereo-inertial"])
+def test_vi_ba_kernel_matches_plain(cuda_device, case):
+    """K20, one cluster launch a call, on the JAX tests' simulator problem
+    and on the engine's own problems: [vi]'s local window, the init's
+    FullInertialBA, the post-loop GBA (its well-posed part) and a
+    stereo-inertial run's."""
+    if case == "simulator-6x40":
+        rng = np.random.default_rng(3)
+        prob, _, truth = _vi_problem(rng, perturb=1.0)
+        prob = viba_to_torch(fix_frames(prob, truth, (0, 2)), cuda_device)
+        check_vi_ba_kernel(prob, NORM, 6, 40, cuda_device)
+        return
+    check_vi_ba_kernel(*engine_vi_problem(cuda_device, case), cuda_device)
 
 
 @pytest.mark.gpu

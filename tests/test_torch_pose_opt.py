@@ -128,21 +128,60 @@ def _stereo_ur(R0, t0, pts, obs, seed, bf=40.0):
     return ur
 
 
+KB8 = pf.kb8_camera()
+
+
 @pytest.mark.gpu
-def test_pose_lm_kernel_matches_plain(cuda_device):
-    """K4 against its plain version, mono and with the stereo rows."""
-    probs = _problems(0, B=4)
+@pytest.mark.parametrize("case", ["mono", "stereo", "kb8", "largest"])
+def test_pose_lm_kernel_matches_plain(cuda_device, case):
+    """K4 against its plain version: mono, with the stereo rows, through
+    the KB8 camera, and at the largest N an engine path gives it (2048, in
+    chip_smoke.py's run) with the stereo rows; within 1e-4, inliers equal,
+    20 calls bit-identical."""
+    from extractorb_tpu_torch.core.camera import KannalaBrandt8
+
+    cam, kw, counter = CAM, {}, "pose_lm"
+    if case == "kb8":
+        cam, counter = KannalaBrandt8(*KB8), "pose_lm_kb8"
+        probs = pf.synthetic_pose_problems(np.random.default_rng(4), 2, 1128, *KB8[:4], kb8=KB8)
+    else:
+        probs = (_problems(0, B=4) if case != "largest" else
+                 pf.synthetic_pose_problems(np.random.default_rng(5), 2, 2048, FX, FX, CX, CY))
     args = [torch.from_numpy(a).to(cuda_device) for a in probs[:6]]
-    got = pose_opt.optimize_pose(*args, CAM)
-    want = pose_opt.optimize_pose_plain(*args, CAM)
+    if case in ("stereo", "largest"):
+        ur = _stereo_ur(*probs[:4], seed=7)
+        kw, counter = dict(obs_ur=torch.from_numpy(ur).to(cuda_device), bf=40.0), "pose_lm_stereo"
+    before = kernels.LAUNCHES[counter]
+    got = pose_opt.optimize_pose(*args, cam, **kw)
+    assert kernels.LAUNCHES[counter] == before + 1
+    want = pose_opt.optimize_pose_plain(*args, cam, **kw)
     assert float((got.R - want.R).abs().max()) <= 1e-4
     assert float((got.t - want.t).abs().max()) <= 1e-4
     assert torch.equal(got.inliers, want.inliers)
-    ur = torch.from_numpy(_stereo_ur(*probs[:4], seed=7)).to(cuda_device)
-    before = kernels.LAUNCHES["pose_lm_stereo"]
-    got = pose_opt.optimize_pose(*args, CAM, obs_ur=ur, bf=40.0)
-    assert kernels.LAUNCHES["pose_lm_stereo"] == before + 1
-    want = pose_opt.optimize_pose_plain(*args, CAM, obs_ur=ur, bf=40.0)
-    assert float((got.R - want.R).abs().max()) <= 1e-4
-    assert float((got.t - want.t).abs().max()) <= 1e-4
-    assert torch.equal(got.inliers, want.inliers)
+    assert torch.equal(got.n_inliers, want.n_inliers.to(got.n_inliers.dtype))
+    for _ in range(20):
+        again = pose_opt.optimize_pose(*args, cam, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stereo", [False, True])
+def test_pose_lm_refuses_an_unstaged_problem(cuda_device, stereo):
+    """K4 stages a problem in one CTA's shared memory: one observation more
+    than fits raises, and the most that fit run."""
+    limit = pose_opt.pose_lm_max_n(stereo, cuda_device)
+    assert limit > 2048
+    for n, ok in ((limit, True), (limit + 1, False)):
+        probs = pf.synthetic_pose_problems(np.random.default_rng(6), 1, n, FX, FX, CX, CY)
+        args = [torch.from_numpy(a).to(cuda_device) for a in probs[:6]]
+        kw = {}
+        if stereo:
+            kw = dict(obs_ur=torch.from_numpy(_stereo_ur(*probs[:4], seed=8)).to(cuda_device),
+                      bf=40.0)
+        if ok:
+            r = pose_opt.optimize_pose(*args, CAM, **kw)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(r.R).all())
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                pose_opt.optimize_pose(*args, CAM, **kw)
