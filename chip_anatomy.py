@@ -1,15 +1,29 @@
-"""Where the time of K4's pose LM, K20's and K6's cluster solves, K8's map
-update, K29's query and K35's dense solve goes, on the card.
+"""Where the time of K22's pose-inertial solves, K16's keypoint collection,
+K4's pose LM, K20's and K6's cluster solves, K8's map update, K29's query
+and K35's dense solve goes, on the card.
 
-    python3 chip_anatomy.py [k4,k20,k6,k8,k29,k35]
+    python3 chip_anatomy.py [k22,k16,k4,k20,k6,k8,k29,k35]
 
-K4 and K20 first, against the parent commit's kernels: their sources from
-``build/parent/`` (``git archive <parent> extractorb_tpu_torch/csrc``
-unpacked there), built with the current ones into ``build/k20_cluster/``,
-each stamping ``clock64()`` per phase. K4 (CTA 0's thread 0: linearise,
+K22, K16, K4 and K20 against the parent commit's kernels: their sources
+from ``build/parent/`` (``git archive <parent> extractorb_tpu_torch/csrc``
+unpacked there), built with the current ones (K22 and K16 into
+``build/k22_k16/``, K4 and K20 into ``build/k20_cluster/``), the current
+ones stamping ``clock64()`` per phase.  K16 (the first CTA's thread 0:
+histogram, merge and cut, numbering, place; also built at 1024
+threads a CTA) at 640x480 / 1000 features and 512x512 / 1500 on a
+rendered, a noise and a black frame: bit-equal to the parent and to the
+plain version, the cluster size, the CUDA-event ms in turns and the device
+ms.  K22 (thread 0: setup, visual, the wait for the Jacobian warps,
+assemble, solve, apply, classify, final, marginalise; warp 8's and warp 9's
+forward passes timed alone) on the largest calls of each variant in [vi]'s,
+[vi-kb8]'s and [vi-stereo]'s runs and on [vi]'s joint problem tiled above
+the staging limit: bit-equal to the parent, the ms in turns and the device
+ms.  K4 (CTA 0's thread 0: linearise,
 reduction, solve, candidate, classify) on [parity]'s mono problems, with the
 stereo rows and through KB8: the CUDA-event ms of a call, its device ms
-from a ``torch.profiler`` trace, and the outputs of the two bit-equal.
+from a ``torch.profiler`` trace, the outputs of the two bit-equal and the
+global route bit-equal to the staged one; then above the staging limit,
+mono and stereo, against the plain version.
 K20 on the [vi-loop] map's local window (6 x 40), its FullInertialBA at 25 x
 40 and at 7 x 40 with the one-view points fixed, and the [vi-loop-kb8]
 map's at 25 x 40, as the engine builds them: the parent's kernels one by
@@ -261,19 +275,6 @@ __device__ long long* g_k4;   // [0, 8) cycles, [8, 16) counts per phase kind, [
 K4_SET = r"""
 extern "C" int k4_set_stamps(long long* p) { return (int)cudaMemcpyToSymbol(g_k4, &p, sizeof(p)); }
 """
-# the parent's K4 (fadea60): its phases, stamped at these anchors (0
-# linearise, 1 reduction, 2 solve, 3 candidate, 4 classify; 5 the start)
-K4_PARENT_STAMPS = (
-    ("  __syncthreads();\n\n  for (int rnd = 0;", "  K4_STAMP(5);\n", True),
-    ("      block_sum(acc, s_red);\n", "      K4_STAMP(0);\n", True),
-    ("      block_sum(acc, s_red);\n", "      K4_STAMP(1);\n", False),
-    ("      __syncthreads();\n      float c_new[1] = {0.f};", "      K4_STAMP(2);\n", True),
-    ("      block_sum(c_new, s_red);\n", "      K4_STAMP(3);\n", True),
-    ("      block_sum(c_new, s_red);\n", "      K4_STAMP(1);\n", False),
-    ("      s_active[i] = ok && chi2 <=", None, None),
-)
-
-
 def _nvcc_all(jobs):
     """Build each (source, output .so, include dir) with nvcc, all at once."""
     procs = [(out, subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(inc), "-o",
@@ -285,23 +286,6 @@ def _nvcc_all(jobs):
         if proc.returncode:
             raise RuntimeError(f"chip_anatomy: nvcc failed on {out.name}:\n{log}")
     return [ctypes.CDLL(str(out)) for out, _ in procs]
-
-
-def _k4_parent_source() -> str:
-    src = (PARENT_CSRC / "pose_lm.cu").read_text()
-    for anchor, stamp, before in K4_PARENT_STAMPS:
-        if anchor not in src:
-            raise RuntimeError(f"chip_anatomy: no anchor {anchor!r} in the parent's K4")
-        if stamp is None:   # the re-classification loop's end
-            i = src.index(anchor)
-            j = src.index("    __syncthreads();\n", i)
-            src = src[:j] + "    K4_STAMP(4);\n" + src[j:]
-        elif before:
-            src = src.replace(anchor, stamp + anchor, 1)
-        else:
-            i = src.index(anchor) + len(anchor)
-            src = src[:i] + stamp + src[i:]
-    return src
 
 
 def build_k20_k4():
@@ -318,7 +302,7 @@ def build_k20_k4():
         src.write_text(V20_WRAP % cluster)
         jobs.append((src, src.with_suffix(".so"), kernels.CSRC))
     src = V20_OUT / "k4_parent.cu"
-    src.write_text(K4_STAMP_DEF + _k4_parent_source() + K4_SET)
+    src.write_text(K4_STAMP_DEF + '#include "pose_lm.cu"\n' + K4_SET)
     jobs.append((src, src.with_suffix(".so"), PARENT_CSRC))
     src = V20_OUT / "k4_new.cu"
     src.write_text(K4_STAMP_DEF + '#include "pose_lm.cu"\n' + K4_SET)
@@ -330,8 +314,13 @@ def build_k20_k4():
         lib.vi_ba_workspace_bytes.restype = ctypes.c_longlong
     for lib in libs[1:3]:
         lib.v20_set_stamps.argtypes = [ctypes.c_void_p]
+    # the parent's pose_lm_launch has no workspace argument
+    libs[3].pose_lm_launch.argtypes = list(kernels._SIGNATURES["pose_lm_launch"][:-2]) + [
+        ctypes.c_void_p]
+    for name in ("pose_lm_launch", "pose_lm_global_launch", "pose_lm_global_bytes"):
+        getattr(libs[4], name).argtypes = list(kernels._SIGNATURES[name])
+    libs[4].pose_lm_global_bytes.restype = ctypes.c_longlong
     for lib in libs[3:]:
-        lib.pose_lm_launch.argtypes = list(kernels._SIGNATURES["pose_lm_launch"])
         lib.k4_set_stamps.argtypes = [ctypes.c_void_p]
     return libs[0], {8: libs[1], 16: libs[2]}, libs[3], libs[4]
 
@@ -479,8 +468,10 @@ def k20_anatomy(dev, parent, clusters) -> None:
                 print("  " + row, flush=True)
 
 
-def k4_call(lib, args, cam, obs_ur=None, bf=0.0):
-    """``optimize_pose``'s launch of K4 through ``lib``."""
+def k4_call(lib, args, cam, obs_ur=None, bf=0.0, route=None):
+    """``optimize_pose``'s launch of K4 through ``lib``: route None the
+    parent's entry (no workspace), "auto" the new one (the global route
+    above the staging limit), "global" the new global route at any N."""
     R0, t0, pts, obs, isig, val = args
     B, N = pts.shape[0], pts.shape[1]
     dev = R0.device
@@ -489,14 +480,18 @@ def k4_call(lib, args, cam, obs_ur=None, bf=0.0):
     inl = torch.empty(B, N, dtype=torch.bool, device=dev)
     n_inl = torch.empty(B, dtype=torch.int32, device=dev)
     kb8 = cam.kernel_params()
+    ws = None if route is None else torch.empty(
+        int(lib.pose_lm_global_bytes(B, N, int(obs_ur is not None))), dtype=torch.uint8,
+        device=dev)
+    fn = lib.pose_lm_global_launch if route == "global" else lib.pose_lm_launch
 
     def call():
-        err = lib.pose_lm_launch(R0.data_ptr(), t0.data_ptr(), pts.data_ptr(), obs.data_ptr(),
-                                 None if obs_ur is None else obs_ur.data_ptr(), isig.data_ptr(),
-                                 val.data_ptr(), B, N, cam.fx, cam.fy, cam.cx, cam.cy,
-                                 None if kb8 is None else kb8.ctypes.data, float(bf), 4, 10,
-                                 R.data_ptr(), t.data_ptr(), inl.data_ptr(), n_inl.data_ptr(),
-                                 kernels.stream())
+        head = (R0.data_ptr(), t0.data_ptr(), pts.data_ptr(), obs.data_ptr(),
+                None if obs_ur is None else obs_ur.data_ptr(), isig.data_ptr(), val.data_ptr(),
+                B, N, cam.fx, cam.fy, cam.cx, cam.cy, None if kb8 is None else kb8.ctypes.data,
+                float(bf), 4, 10, R.data_ptr(), t.data_ptr(), inl.data_ptr(), n_inl.data_ptr())
+        err = fn(*head, kernels.stream()) if route is None else fn(*head, ws.data_ptr(),
+                                                                   kernels.stream())
         if err:
             raise RuntimeError(f"chip_anatomy: K4 did not launch ({err})")
         return R.clone(), t.clone(), inl.clone(), n_inl.clone()
@@ -506,9 +501,12 @@ def k4_call(lib, args, cam, obs_ur=None, bf=0.0):
 def k4_anatomy(dev, parent, new) -> None:
     """K4, the parent's and this one's: CTA 0's thread 0 clock64 per phase
     (linearise, reduction, solve, candidate, classify), the device ms of a
-    call from a profiler trace and the CUDA-event ms of the call, and the
-    outputs of the two bit-equal, on [parity]'s mono problems, stereo rows
-    and [parity-kb8]'s KB8 problems."""
+    call from a profiler trace and the CUDA-event ms of the call (parent and
+    new timed in turns), and the outputs of the two bit-equal, on
+    [parity]'s mono problems, stereo rows and [parity-kb8]'s KB8 problems;
+    there the global route (the problem staged in device memory) bit-equal
+    to the staged one.  Then one problem above the staging limit, mono and
+    stereo: the global route against the plain version."""
     rng = np.random.default_rng(0)
     K = cs.pf.camera_matrix(cs.WIDTH, cs.HEIGHT)
     pin = cs.track_device.pinhole_project(K[0, 0], K[1, 1], K[0, 2], K[1, 2])
@@ -534,9 +532,9 @@ def k4_anatomy(dev, parent, new) -> None:
         if lib.k4_set_stamps(stamps.data_ptr()):
             raise RuntimeError("chip_anatomy: cudaMemcpyToSymbol failed")
     for name, args, cam, ur_t, bf in cases:
-        res = {}
-        for tag, lib in (("parent", parent), ("new", new)):
-            call = k4_call(lib, args, cam, ur_t, bf)
+        res, calls = {}, {}
+        for tag, lib, route in (("parent", parent, None), ("new", new, "auto")):
+            call = calls[tag] = k4_call(lib, args, cam, ur_t, bf, route)
             stamps.zero_()
             res[tag] = call()
             torch.cuda.synchronize()
@@ -544,16 +542,282 @@ def k4_anatomy(dev, parent, new) -> None:
             ph = ", ".join(f"{k} {int(t[i])} ({int(t[8 + i])}x)" for i, k in enumerate(K4_PHASES))
             ker = _device_kernels(call)
             dms = sum(v[0] for v in ker.values())
-            print(f"K4 {name} {tag}: {cs.cuda_ms(call, reps=20):.4f} ms a call (CUDA events), "
-                  f"{dms:.4f} device ms ({sum(v[1] for v in ker.values())} kernel); CTA 0 "
-                  f"thread 0 cycles {int(t[:5].sum())}: {ph}", flush=True)
+            print(f"K4 {name} {tag}: {dms:.4f} device ms ({sum(v[1] for v in ker.values())} "
+                  f"kernel); CTA 0 thread 0 cycles {int(t[:5].sum())}: {ph}", flush=True)
+        ms_p, ms_n = cs.paired_ms(calls["parent"], calls["new"], reps=20)
+        glob = k4_call(new, args, cam, ur_t, bf, "global")
         same = all(torch.equal(a, b) for a, b in zip(res["parent"], res["new"]))
+        same_g = all(torch.equal(a, b) for a, b in zip(glob(), res["new"]))
+        ms_g = cs.cuda_ms(glob, reps=20)
         lib_call = lambda: pose_opt.optimize_pose(*args, cam, obs_ur=ur_t, bf=bf)
         lk = lib_call()
         same_lib = all(torch.equal(a, b) for a, b in zip(
             (lk.R, lk.t, lk.inliers, lk.n_inliers), res["new"]))
-        print(f"K4 {name}: bit-equal to the parent {same}, the library's call the same {same_lib} "
-              f"({cs.cuda_ms(lib_call, reps=20):.4f} ms)", flush=True)
+        print(f"K4 {name}: parent {ms_p:.4f} ms, new {ms_n:.4f} ms a call (CUDA events, in "
+              f"turns); bit-equal to the parent {same}; the global route bit-equal to the "
+              f"staged {same_g} ({ms_g:.4f} ms); the library's call the same {same_lib}",
+              flush=True)
+    for stereo in (False, True):
+        limit = pose_opt.pose_lm_max_n(stereo, dev)
+        n = limit + 500
+        R0, t0, pts, obs, isig, val, (Rt, tt) = cs.pf.synthetic_pose_problems(
+            np.random.default_rng(6), 1, n, pin.fx, pin.fy, pin.cx, pin.cy)
+        args = [T(a) for a in (R0, t0, pts, obs, isig)] + [T(val, torch.bool)]
+        kw = {}
+        if stereo:
+            z = np.einsum("bij,bnj->bni", Rt, pts)[..., 2] + tt[:, None, 2]
+            kw = dict(obs_ur=T(np.where(np.arange(n) % 3 != 0, obs[..., 0] - bf / z, -1.0)),
+                      bf=bf)
+        before = kernels.LAUNCHES["pose_lm_global"]
+        got = pose_opt.optimize_pose(*args, pin, **kw)
+        want = pose_opt.optimize_pose_plain(*args, pin, **kw)
+        d = max(float((got.R - want.R).abs().max()), float((got.t - want.t).abs().max()))
+        ms = cs.cuda_ms(lambda: pose_opt.optimize_pose(*args, pin, **kw), reps=10)
+        print(f"K4 {'stereo' if stereo else 'mono'} N={n} (staging limit {limit}): the global "
+              f"route ({kernels.LAUNCHES['pose_lm_global'] - before} launch) within {d:.2e} of "
+              f"plain, inliers equal {torch.equal(got.inliers, want.inliers)}; {ms:.4f} ms a "
+              f"call", flush=True)
+
+
+# K22's phase kinds (pose_inertial.cu's Phase): thread 0's timeline, then
+# warp 8's and warp 9's forward passes timed alone
+K22_PHASES = ("setup", "visual", "join wait", "assemble", "elimination", "apply", "classify",
+              "final", "marginalise", "edge Jacobians (warp 8)", "prior Jacobian (warp 9)",
+              "back substitution", "elimination: pivot", "swap", "factors",
+              "update and barriers")
+K22_STAMP_DEF = r"""
+__device__ long long* g_k22;   // [0, 20) cycles, [20, 40) counts per phase kind, [60] the last clock
+#define K22_STAMP(k) do { if (threadIdx.x == 0) { const long long now_ = clock64(); \
+  g_k22[(k)] += now_ - g_k22[60]; g_k22[20 + (k)] += 1; g_k22[60] = now_; } } while (0)
+#define K22_CLOCK() clock64()
+#define K22_SPAN(k, t0) do { g_k22[(k)] += clock64() - (t0); g_k22[20 + (k)] += 1; } while (0)
+// the elimination's column parts, kept in thread 0's registers and added once a solve
+#define K22_LAP_INIT() long long lap_[4] = {0, 0, 0, 0}, lt_ = clock64()
+#define K22_LAP(i) do { const long long t_ = clock64(); lap_[i] += t_ - lt_; lt_ = t_; } while (0)
+#define K22_LAP_DONE() do { if (threadIdx.x == 0) for (int i_ = 0; i_ < 4; ++i_) { \
+  g_k22[12 + i_] += lap_[i_]; g_k22[32 + i_] += 1; } } while (0)
+#include "pose_inertial.cu"
+extern "C" int k22_set_stamps(long long* p) { return (int)cudaMemcpyToSymbol(g_k22, &p, sizeof(p)); }
+"""
+K16_PHASES = ("histogram + barrier", "merge and cut", "numbering", "place + barrier")
+K16_STAMP_DEF = r"""
+__device__ long long* g_k16;   // [0, 8) cycles, [8, 16) counts per phase kind, [20] the last clock
+#define K16_STAMP(k) do { if (blockIdx.x == 0 && threadIdx.x == 0) { const long long now_ = \
+  clock64(); g_k16[(k)] += now_ - g_k16[20]; g_k16[8 + (k)] += 1; g_k16[20] = now_; } } while (0)
+%s
+#include "kp_collect.cu"
+extern "C" int k16_set_stamps(long long* p) { return (int)cudaMemcpyToSymbol(g_k16, &p, sizeof(p)); }
+"""
+K22K16_OUT = Path(__file__).resolve().parent / "build" / "k22_k16"
+
+
+def build_k22_k16():
+    """The parent's K22 and K16 (from ``build/parent/``) and this tree's, the
+    latter stamping their phases, K16 also at 1024 threads a CTA; all built
+    at once.  Returns (parent K22, K22, parent K16, K16, K16 at 1024)."""
+    if not (PARENT_CSRC / "pose_inertial.cu").exists():
+        raise RuntimeError(f"chip_anatomy: no parent sources in {PARENT_CSRC}")
+    K22K16_OUT.mkdir(parents=True, exist_ok=True)
+    jobs = [(PARENT_CSRC / "pose_inertial.cu", K22K16_OUT / "k22_parent.so", PARENT_CSRC)]
+    src = K22K16_OUT / "k22_new.cu"
+    src.write_text(K22_STAMP_DEF)
+    jobs.append((src, src.with_suffix(".so"), kernels.CSRC))
+    jobs.append((PARENT_CSRC / "kp_collect.cu", K22K16_OUT / "k16_parent.so", PARENT_CSRC))
+    for name, extra in (("k16_new", ""), ("k16_1024", "#define K16_THREADS 1024")):
+        src = K22K16_OUT / f"{name}.cu"
+        src.write_text(K16_STAMP_DEF % extra)
+        jobs.append((src, src.with_suffix(".so"), kernels.CSRC))
+    libs = _nvcc_all(jobs)
+    for lib in libs[:2]:
+        lib.pose_inertial_launch.argtypes = list(kernels._SIGNATURES["pose_inertial_launch"])
+    libs[1].k22_set_stamps.argtypes = [ctypes.c_void_p]
+    for lib in libs[2:]:
+        lib.kp_collect_launch.argtypes = list(kernels._SIGNATURES["kp_collect_launch"])
+    for lib in libs[3:]:
+        lib.kp_collect_cluster.argtypes = list(kernels._SIGNATURES["kp_collect_cluster"])
+        lib.k16_set_stamps.argtypes = [ctypes.c_void_p]
+    return tuple(libs)
+
+
+def k22_call(lib, joint, args, kw):
+    """K22's launch through ``lib`` on a recorded wrapper call (args, kw):
+    returns a function that solves it afresh."""
+    (R0, t0, v0, bg0, ba0, prev, preint, pts, uv, isig, valid, Rcb, tcb, cam) = args[:14]
+    n_rounds, n_iters = kw.get("n_rounds", 4), kw.get("n_iters", 10)
+    state, obs = sin.pose_inertial_inputs(joint, R0, t0, v0, bg0, ba0, prev, preint, pts, uv,
+                                          isig, valid, Rcb, tcb, kw.get("prior"))
+    dev, N = t0.device, pts.shape[0]
+    out = torch.empty(246, dtype=torch.float32, device=dev)
+    inl = torch.empty(N, dtype=torch.bool, device=dev)
+    n_inl = torch.empty((), dtype=torch.int32, device=dev)
+    kb8 = cam.kernel_params()
+
+    def call():
+        err = lib.pose_inertial_launch(
+            state.data_ptr(), *[a.data_ptr() for a in obs], N, cam.fx, cam.fy, cam.cx, cam.cy,
+            None if kb8 is None else kb8.ctypes.data, int(joint), n_rounds, n_iters,
+            out.data_ptr(), inl.data_ptr(), n_inl.data_ptr(), kernels.stream())
+        if err:
+            raise RuntimeError(f"chip_anatomy: K22 did not launch ({err})")
+        return out.clone(), inl.clone(), n_inl.clone()
+    return call
+
+
+K22_CACHE = Path(__file__).resolve().parent / "build" / "k22_problems.pt"
+
+
+def k22_problems(dev):
+    """(name, joint, args, kw) of the largest K22 call of each kind in
+    [vi]'s, [vi-kb8]'s and [vi-stereo]'s runs (recorded as chip_smoke.py
+    does), and [vi]'s joint problem with its points tiled 8 times: above
+    the staging limit.  Read from ``build/k22_problems.pt`` where an earlier
+    run left them (it saves them to ``chiprun_out/k22_problems.pt``)."""
+    if K22_CACHE.exists():
+        return [(name, joint, tuple(a.to(dev) if torch.is_tensor(a) else a for a in args), kw)
+                for name, joint, args, kw in torch.load(K22_CACHE, map_location=dev,
+                                                        weights_only=False)]
+    vi_frames, _ = cs.vi_frames()
+    vi_left, vi_right = cs.vi_stereo_frames()
+    vk_l, _, _ = cs.vi_rig_frames()
+    out = []
+    for tag, cfg, frames, rights in (("[vi]", cs.vi_config(), vi_frames, None),
+                                     ("[vi-kb8]", cs.vi_kb8_config(), vk_l, None),
+                                     ("[vi-stereo]", cs.vi_stereo_config(), vi_left, vi_right)):
+        with cs._InertialRecorder() as rec:
+            cs.run_vi(frames, dev, cfg=cfg, rights=rights)[0].flush()
+        torch.cuda.synchronize()
+        for key, joint in (("pose_inertial_joint", True), ("pose_inertial", False)):
+            if rec.calls[key]:
+                args, kw = cs._largest(rec.calls[key], lambda c: int(c[0][10].sum()))
+                out.append((f"{tag} {'<true>' if joint else '<false>'} N={args[7].shape[0]} "
+                            f"({int(args[10].sum())} valid)", joint, args, kw))
+    name, joint, args, kw = next(c for c in out if c[1])
+    tile = lambda a: torch.cat([a] * 8)
+    big = args[:7] + tuple(tile(a) for a in args[7:11]) + args[11:]
+    out.append((f"[vi] <true> tiled 8x N={big[7].shape[0]}", True, big, kw))
+    save = Path(__file__).resolve().parent / "chiprun_out" / "k22_problems.pt"
+    save.parent.mkdir(exist_ok=True)
+    torch.save(out, save)
+    return out
+
+
+def k22_anatomy(dev, parent, new) -> None:
+    """K22, the parent's and this one's, on [vi]'s, [vi-kb8]'s and
+    [vi-stereo]'s largest calls and above the staging limit: bit-equal,
+    the CUDA-event ms of a call in turns and the device ms from a profiler
+    trace, and the new kernel's thread 0 cycles per phase."""
+    stamps = torch.zeros(64, dtype=torch.int64, device=dev)
+    if new.k22_set_stamps(stamps.data_ptr()):
+        raise RuntimeError("chip_anatomy: cudaMemcpyToSymbol failed")
+    for name, joint, args, kw in k22_problems(dev):
+        cp, cn = k22_call(parent, joint, args, kw), k22_call(new, joint, args, kw)
+        rp = cp()
+        stamps.zero_()
+        rn = cn()
+        torch.cuda.synchronize()
+        t = stamps.cpu().numpy()
+        same = all(torch.equal(a, b) for a, b in zip(rp, rn))
+        dmax = float((rp[0] - rn[0]).abs().max())
+        fn = sin.optimize_pose_inertial_last_frame if joint else sin.optimize_pose_inertial
+        lk = fn(*args, **kw)
+        lib_same = torch.equal(lk.H.reshape(-1), rn[0][21:]) and torch.equal(lk.inliers, rn[1])
+        ms_p, ms_n = cs.paired_ms(cp, cn, reps=10)
+        dp = sum(v[0] for v in _device_kernels(cp).values())
+        dn = sum(v[0] for v in _device_kernels(cn).values())
+        total = int(t[:9].sum() + t[11])
+        ph = ", ".join(f"{k} {int(t[i])} ({int(t[20 + i])}x)" for i, k in enumerate(K22_PHASES)
+                       if t[20 + i])
+        print(f"K22 {name}: parent {ms_p:.4f} ms, new {ms_n:.4f} ms a call (CUDA events, in "
+              f"turns); device ms parent {dp:.4f}, new {dn:.4f}; bit-equal to the parent {same} "
+              f"(largest difference {dmax:.3e}); the library's call the same {lib_same}",
+              flush=True)
+        print(f"  new thread 0 cycles {total}: {ph}", flush=True)
+
+
+def k16_parent_table(plan) -> np.ndarray:
+    """The parent K16's launch table: n_levels, sort_n, then per level
+    plane_off, W, H, k, out_off."""
+    sort_n = 1 << (max(plan.k_levels) - 1).bit_length()
+    rows = [[off, W, H, k, o] for off, (H, W), k, o in
+            zip(plan.plane_offsets, plan.inner, plan.k_levels, plan.slot_offsets)]
+    return np.ascontiguousarray(np.concatenate([[len(rows), sort_n], np.asarray(rows).reshape(-1)]
+                                               ).astype(np.int32))
+
+
+def k16_call(lib, keeps, scores, plan, table):
+    dev = keeps[0].device
+    xy = torch.empty(plan.total, 2, dtype=torch.int32, device=dev)
+    resp = torch.empty(plan.total, dtype=torch.int32, device=dev)
+    valid = torch.empty(plan.total, dtype=torch.bool, device=dev)
+
+    def call():
+        err = lib.kp_collect_launch(keeps[0].data_ptr(), scores[0].data_ptr(), table.ctypes.data,
+                                    xy.data_ptr(), resp.data_ptr(), valid.data_ptr(),
+                                    kernels.stream())
+        if err:
+            raise RuntimeError(f"chip_anatomy: K16 did not launch ({err})")
+        return xy.clone(), resp.clone(), valid.clone()
+    return call
+
+
+def k16_anatomy(dev, parent, new, new1024) -> None:
+    """K16, the parent's and this one's (512 and 1024 threads a CTA), at
+    640x480 / 1000 features and 512x512 / 1500 on a rendered, a noise and a
+    black frame: bit-equal to each other and to the plain version; the
+    CUDA-event ms in turns and the device ms from a profiler trace on the
+    rendered frame; the cluster size and the first CTA's cycles per phase."""
+    from extractorb_tpu_torch.frontend import fast
+    from extractorb_tpu_torch.frontend.extractor import ORBExtractor
+    from extractorb_tpu_torch.frontend.pyramid import compute_pyramid
+    stamps = torch.zeros(32, dtype=torch.int64, device=dev)
+    for lib in (new, new1024):
+        if lib.k16_set_stamps(stamps.data_ptr()):
+            raise RuntimeError("chip_anatomy: cudaMemcpyToSymbol failed")
+    rng = np.random.default_rng(5)
+    for (W, H), cfg in (((cs.WIDTH, cs.HEIGHT), cs.system_config()),
+                        ((cs.KB8_SIZE, cs.KB8_SIZE), cs.kb8_config())):
+        ex = ORBExtractor(cfg.orb, (H, W), dev)
+        plan = ex.collect_plan
+        frame = cs.pf.render_sequence(cs.pf.procedural_texture(), 1, width=W, height=H)[0][0]
+        images = {"rendered": frame, "noise": rng.integers(0, 256, (H, W)).astype(np.uint8),
+                  "black": np.zeros((H, W), np.uint8)}
+        ptab = k16_parent_table(plan)
+        G = {}
+        for tag, lib in (("new", new), ("1024", new1024)):
+            out = np.zeros(3, np.int32)
+            if lib.kp_collect_cluster(len(plan.k_levels), plan.list_n, out.ctypes.data):
+                raise RuntimeError("chip_anatomy: kp_collect_cluster failed")
+            G[tag] = tuple(int(v) for v in out)
+        for name, im in images.items():
+            pyr = compute_pyramid(torch.from_numpy(im).to(dev), ex.pyr_plan)
+            keeps, scores = fast.fast_detect(pyr, ex.fast_plan)
+            plain = fast.collect_levels_plain(keeps, scores, plan)
+            cp = k16_call(parent, keeps, scores, plan, ptab)
+            cn = k16_call(new, keeps, scores, plan, plan.table(G["new"][0]))
+            c5 = k16_call(new1024, keeps, scores, plan, plan.table(G["1024"][0]))
+            rp = cp()
+            stamps.zero_()
+            rn = cn()
+            torch.cuda.synchronize()
+            t = stamps.cpu().numpy()
+            r5 = c5()
+            eq = lambda x: all(torch.equal(a, b) for a, b in zip(x, plain))
+            print(f"K16 {W}x{H} {name} ({int(plain[2].sum())} valid of {plan.total}): parent "
+                  f"bit-equal to plain {eq(rp)}, new {eq(rn)}, new at 1024 threads {eq(r5)}; "
+                  f"clusters of {G['new'][0]} ({G['new'][1]} held at once, {G['new'][2]} of 16; "
+                  f"1024 threads: {G['1024'][0]}, {G['1024'][1]}, {G['1024'][2]})", flush=True)
+            if name != "rendered":
+                continue
+            ms_p, ms_n = cs.paired_ms(cp, cn, reps=50)
+            ms_5 = cs.cuda_ms(c5, reps=50)
+            dev_ms = [sum(v[0] for v in _device_kernels(c).values()) for c in (cp, cn, c5)]
+            lib_ms = cs.cuda_ms(lambda: fast.collect_levels(keeps, scores, plan), reps=50)
+            total = int(t[:len(K16_PHASES)].sum())
+            ph = ", ".join(f"{k} {int(t[i])}" for i, k in enumerate(K16_PHASES))
+            print(f"K16 {W}x{H}: parent {ms_p:.4f} ms, new {ms_n:.4f} ms a call (CUDA events, "
+                  f"in turns), 1024 threads {ms_5:.4f}; device ms parent {dev_ms[0]:.4f}, new "
+                  f"{dev_ms[1]:.4f}, 1024 threads {dev_ms[2]:.4f}; the wrapper {lib_ms:.4f} ms; "
+                  f"CTA 0 thread 0 cycles {total}: {ph}", flush=True)
 
 
 def k8_anatomy(dev) -> None:
@@ -674,8 +938,14 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
     kernels.lib()
-    parts = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else {"k20", "k4", "k6", "k8",
-                                                                     "k29", "k35"}
+    parts = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else {
+        "k22", "k16", "k20", "k4", "k6", "k8", "k29", "k35"}
+    if parts & {"k22", "k16"}:
+        k22_parent, k22_new, k16_parent, k16_new, k16_1024 = build_k22_k16()
+        if "k16" in parts:
+            k16_anatomy(dev, k16_parent, k16_new, k16_1024)
+        if "k22" in parts:
+            k22_anatomy(dev, k22_parent, k22_new)
     if parts & {"k20", "k4"}:
         k20_parent, k20_clusters, k4_parent, k4_new = build_k20_k4()
         if "k4" in parts:

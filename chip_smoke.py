@@ -508,8 +508,8 @@ def parity_extract_glue(ex: ORBExtractor, frame: np.ndarray, dev) -> dict:
                               img.numel() + px, 20 * px)
     # K16: keep + score planes in (3 bytes a pixel), xy/resp/valid out; three
     # passes of ~8 operations a pixel (the order of the k taken keys is the
-    # kernel's sort, not counted).  The library yardstick: torch.topk of
-    # every level's key (built beforehand)
+    # kernel's placement by rank, not counted).  The library yardstick:
+    # torch.topk of every level's key (built beforehand)
     plan = ex.collect_plan
     n_inner = sum(k.numel() for k in keeps)
     keys = [torch.where(k, s.to(torch.int32), -1).reshape(-1) * (1 << 21)
@@ -843,6 +843,43 @@ def pose_lm_work(B: int, N: int, n_valid: int, stereo_rows: bool):
     stereo row)."""
     nbytes = B * (48 + 4 + 48) + B * N * (12 + 8 + 4 + 1 + 1 + (4 if stereo_rows else 0))
     return nbytes, 40 * (260 if stereo_rows else 200) * n_valid
+
+
+def phase_pose_lm_global(dev) -> dict:
+    """K4 above its staging limit, one problem mono and one with the stereo
+    u: the global route (the problem staged in device memory) against the
+    plain version, within 1e-4 with the inliers equal, one launch each."""
+    stats = {}
+    K = pf.camera_matrix(WIDTH, HEIGHT)
+    cam = track_device.pinhole_project(K[0, 0], K[1, 1], K[0, 2], K[1, 2])
+    bf = float(cam.fx) * STEREO_BASELINE
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), device=dev).to(dt)
+    for stereo in (False, True):
+        n = pose_opt.pose_lm_max_n(stereo, dev) + 500
+        R0, t0, pts, obs, isig, val, (Rt, tt) = pf.synthetic_pose_problems(
+            np.random.default_rng(6), 1, n, cam.fx, cam.fy, cam.cx, cam.cy)
+        args = [t(a) for a in (R0, t0, pts, obs, isig)] + [t(val, torch.bool)]
+        kw = {}
+        if stereo:
+            z = np.einsum("bij,bnj->bni", Rt, pts)[..., 2] + tt[:, None, 2]
+            kw = dict(obs_ur=t(np.where(np.arange(n) % 3 != 0, obs[..., 0] - bf / z, -1.0)),
+                      bf=bf)
+        before = kernels.LAUNCHES["pose_lm_global"]
+        gk = pose_opt.optimize_pose(*args, cam, **kw)
+        launched = kernels.LAUNCHES["pose_lm_global"] - before
+        gp = pose_opt.optimize_pose_plain(*args, cam, **kw)
+        d = max(float((gk.R - gp.R).abs().max()), float((gk.t - gp.t).abs().max()))
+        tag = "stereo" if stereo else "mono"
+        if d > 1e-4 or not torch.equal(gk.inliers, gp.inliers) or launched != 1:
+            raise AssertionError(f"pose_lm global route {tag} N={n}: pose error {d:.2e}, inliers "
+                                 f"equal {torch.equal(gk.inliers, gp.inliers)}, {launched} "
+                                 "launches of the route")
+        stats[tag] = dict(n=n, max_abs_err=d, ms=cuda_ms(
+            lambda: pose_opt.optimize_pose(*args, cam, **kw), reps=5))
+        print(f"[parity] pose_lm {tag} B=1 N={n}, above the staging limit: the global route "
+              f"within {d:.2e} of plain, inliers equal ({int(gk.n_inliers[0])}); "
+              f"{stats[tag]['ms']:.4f} ms a call", flush=True)
+    return stats
 
 
 def phase_parity_stereo(left, right, depth0, dev) -> dict:
@@ -3108,6 +3145,15 @@ def phase_parity_inertial(rec, dev) -> dict:
                              B * T * 29 + B * 24 + B * 286 * 4, nv * 4700)
     print(f"[parity] preint B={B} T={T} ({nv} samples): fields within {max(rel.values()):.2e} "
           f"of their largest entry (C {rel['C']:.2e})", flush=True)
+    # and at its per-frame window: the run's median call by samples
+    calls = sorted(rec.calls["preint"], key=lambda c: int(c[0][3].sum()))
+    args, _ = calls[len(calls) // 2]
+    B, T, nv = args[1].shape[0], args[1].shape[1], int(args[3].sum())
+    stats["preint"].update(frame_window=dict(
+        B=B, T=T, samples=nv, calls=len(calls), ms=cuda_ms(lambda: preint_mod.integrate_batch(*args)),
+        plain_ms=cuda_ms(lambda: preint_mod.integrate_batch_plain(*args), reps=3)))
+    print(f"[parity] preint at the median window of the run's {len(calls)} calls: B={B} T={T} "
+          f"({nv} samples) {stats['preint']['frame_window']['ms']:.4f} ms", flush=True)
 
     # K20: the largest VI BA (states and points within 1e-4, as K6; inliers
     # equal), and one result per input over 5 calls
@@ -5103,14 +5149,16 @@ def main() -> int:
     print(f"[parity-mesh] the mesh phases and [det] in {time.perf_counter() - t_mesh:.1f} s",
           flush=True)
     run_traces()
-    # K4 stages each problem in a CTA's shared memory: the largest N any
-    # path gave it, mono and with the stereo u, against what fits
+    # K4 stages each problem in a CTA's shared memory up to its limit: the
+    # largest N any path gave it, mono and with the stereo u, against what
+    # fits; then its global route above the limit
     limits = {st: pose_opt.pose_lm_max_n(st, dev) for st in (False, True)}
-    print(f"[parity] pose_lm: the largest N of the run {dict(pose_opt.LARGEST_N)} (mono, "
-          f"stereo), the staging limits {limits}", flush=True)
-    if not all(0 < pose_opt.LARGEST_N[st] <= limits[st] for st in (False, True)):
-        raise AssertionError(f"pose_lm: the largest N {dict(pose_opt.LARGEST_N)} against the "
-                             f"staging limits {limits}")
+    largest = dict(pose_opt.LARGEST_N)
+    print(f"[parity] pose_lm: the largest N of the run {largest} (mono, stereo), the staging "
+          f"limits {limits}", flush=True)
+    if not all(0 < largest[st] for st in (False, True)):
+        raise AssertionError(f"pose_lm: the largest N {largest}: a kind was never launched")
+    k4_global = phase_pose_lm_global(dev)
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():
@@ -5147,7 +5195,7 @@ def main() -> int:
         if n == "pose_lm":   # device ms from a profiler trace beside each wrapper ms
             row.update(stereo_device_ms=stats["pose_lm_stereo"]["device_ms"],
                        kb8_device_ms=stats["pose_lm_kb8"]["device_ms"],
-                       largest_n=dict(pose_opt.LARGEST_N), staging_limit=limits)
+                       largest_n=largest, staging_limit=limits, global_route=k4_global)
         if n in det:
             row.update(distinct_results=det[n], distinct_results_calls=DET_CALLS)
         if f"{n}_kb8" in det:

@@ -7,7 +7,7 @@
 // CTA runs the whole call:
 //   condition:   a masked copy (the block's rows and columns zero); bit-equal;
 //   marginalize: thread 0 takes the block's pseudo-inverse from a float64
-//                cyclic Jacobi eigen-solve (small_linalg.cuh, K22's, the
+//                cyclic Jacobi eigen-solve (small_linalg.cuh jacobi_eig, the
 //                block zero-padded to 15: padded entries are never rotated,
 //                so the block's rotations are those of its own size), keeping
 //                |lambda| > 1e-6 -- exactly the singular values JAX's SVD

@@ -8,26 +8,47 @@
 // and the current state solved together, the previous one anchored by its
 // prior, then marginalised out of the 30x30 Hessian into the next prior).
 // The TPU runs each as a lax.scan of 4 chi2 rounds x 10 iterations over
-// jacfwd Jacobians of every residual.  Here, per iteration:
-//   - every thread sums the 6x6 + 6 normal equations of its visual unary
-//     edges (Jacobians on the current pose, imu_t.cuh vis_rj, through the
-//     camera template parameter: the pinhole's closed form or CamKB8's
-//     Dual<3> projection Jacobian; Huber in the first three rounds), and the
-//     block reduces them in a fixed order;
-//   - one thread each takes the inertial edge's Jacobian wrt the current
-//     state and (joint) wrt the previous state, and the prior residual's, by
-//     Dual<15> forward passes of imu_t.cuh's residuals;
-//   - the CTA assembles the 15x15 or 30x30 system and warp 0 solves
-//     (H + 1e-8 I) d = -b by Gaussian elimination with partial pivoting.
+// jacfwd Jacobians of every residual.  Here, per iteration, two halves run
+// side by side:
+//   - warps 0-7 (the visual group, its own named barrier) sum the 6x6 + 6
+//     normal equations of the visual unary edges, a thread's points i =
+//     tid, tid + 256, ... (Jacobians on the current pose, imu_t.cuh vis_rj,
+//     through the camera template parameter: the pinhole's closed form or
+//     CamKB8's Dual<3> projection Jacobian; Huber in the first three
+//     rounds), then a warp tree and the warps in order;
+//   - warp 8 takes the inertial edge's Jacobians, lane l < 30 the tangent
+//     l % 15 of state l / 15 (the previous, the current) as a Dual<1>
+//     forward pass of imu_t.cuh's residual (legacy: lanes 0-14, the current
+//     state only), as K20's edge_lin does; warp 9 the prior residual's (joint),
+//     a lane a tangent.  Each lane's operations are those of its tangent in
+//     a Dual<15> pass, so the Jacobians are the one-thread pass's bits.
+// Then the CTA assembles the 15x15 or 30x30 system (an element a thread)
+// and solves (H + 1e-8 I) d = -b by Gaussian elimination with partial
+// pivoting: per column the pivot, the first row of the strictly largest
+// |a|, by a max-reduction and a ballot on warp 0, then the update a row a
+// warp and a column a lane; the back substitution on thread 0 with d and
+// each row's operands in registers.  Per column the pivot's reduction, the
+// factors' divisions and the two barriers take ~250-300 cycles each, so
+// the solve is about half of a call (chip_anatomy.py k22 stamps it).
 // The prior's square root enters as Lp Lp^T = V diag(clip(w, 0, 1e7)) V^T of
 // a float64 Jacobi eigendecomposition of the symmetrised prior (the JAX
 // module's eigh, inertial.py:719-730).  The marginalisation takes the
 // pseudo-inverse of the previous-state block by the same eigendecomposition
-// (|lambda| > 1e-6), in float64, and symmetrises the result.
+// (|lambda| > 1e-6), in float64, and symmetrises the result.  The Jacobi
+// runs on warp 0 (small_linalg.cuh jacobi_eig_warp: a lane a k of each
+// rotation, in the cyclic order), and V f V^T and the marginalisation's
+// 15x15x15 products an output a thread, each sum in the one-thread order.
+// The problem's points, pixels, inverse sigmas and inlier flags are staged
+// once in dynamic shared memory (25 bytes a point) for the 41 visual
+// passes; a problem larger than a CTA's shared memory holds reads them from
+// global memory instead, through the same code.  Every value keeps the
+// arithmetic of the one-thread design it replaces.
 //
-// Bound on the H100: latency.  ~1000-2000 points and 40 dependent
-// iterations of a block reduction, a serial forward pass and a 30x30 solve;
-// the arithmetic is microseconds per iteration.
+// Bound on the H100: latency.  ~1000-2000 points and 41 dependent
+// iterations of a visual pass, a forward pass and a 30x30 solve; the
+// arithmetic is microseconds per iteration.  The joint variant's two 15x15
+// float64 Jacobi solves (a rotation's angle a chain of divisions and square
+// roots) come on top (chip_anatomy.py k22 stamps the phases).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,7 +56,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kVis = 256;              // the visual group: warps 0-7
+constexpr int kThreads = kVis + 64;    // + warp 8 (edge Jacobians), warp 9 (prior's)
+constexpr int kVisWarps = kVis / 32;
+constexpr int kMaxDevices = 64;
 constexpr float kChi2 = 5.991f;
 
 #include "dual.cuh"
@@ -43,7 +67,27 @@ constexpr float kChi2 = 5.991f;
 #include "imu_t.cuh"
 #include "small_linalg.cuh"
 #include "ba_obs.cuh"
-#include "det_reduce.cuh"
+
+using D1 = Dual<1, float>;
+template <>
+__device__ __forceinline__ D1 cst<D1>(double v) { return dconst<1, float>((float)v); }
+
+// the phase kinds of chip_anatomy.py's build, which stamps clock64() in
+// thread 0 (K22_STAMP), times warp 8's and warp 9's forward passes
+// (K22_SPAN) and adds up the elimination's column parts in thread 0's
+// registers (K22_LAP); nothing otherwise
+#ifndef K22_STAMP
+#define K22_STAMP(kind)
+#define K22_CLOCK() 0ll
+#define K22_SPAN(kind, t0)
+#define K22_LAP_INIT()
+#define K22_LAP(i)
+#define K22_LAP_DONE()
+#endif
+enum Phase : int {
+  kSetup = 0, kVisual, kJoin, kAssemble, kSolve, kApply, kClassify, kFinal, kMarg,
+  kEdgeJac, kPriorJac, kBack, kPivot, kSwap, kFactor, kUpdate, kPhases
+};
 
 // the packed input of inertial.py:_pose_inertial_launch
 struct In {
@@ -88,60 +132,6 @@ __device__ void prior_raw(const float* prev, const float* prs, const T* d, T* r)
   }
 }
 
-// residual (15) and Jacobian (15x15, row-major) of the inertial edge wrt the
-// previous (which = 0) or the current (1) state
-__device__ void edge_jac(const float* prev, const float* cur, const Pk& pk, const float* Lr,
-                         const float* Lb, int which, float* r, float* J) {
-  D15 d0[15], d1[15];
-  for (int a = 0; a < 15; ++a) {
-    d0[a] = dconst<15, float>(0.f);
-    d1[a] = dconst<15, float>(0.f);
-    (which == 0 ? d0 : d1)[a].d[a] = 1.f;
-  }
-  St<D15> A, B;
-  apply_delta_t(prev, d0, A);
-  apply_delta_t(cur, d1, B);
-  D15 rr[15];
-  edge_r15(pk, Lr, Lb, A, B, rr);
-  for (int a = 0; a < 15; ++a) {
-    r[a] = rr[a].v;
-    for (int b = 0; b < 15; ++b) J[15 * a + b] = rr[a].d[b];
-  }
-}
-
-__device__ void prior_jac(const float* prev, const float* prs, float* r, float* J) {
-  D15 d[15], rr[15];
-  for (int a = 0; a < 15; ++a) {
-    d[a] = dconst<15, float>(0.f);
-    d[a].d[a] = 1.f;
-  }
-  prior_raw(prev, prs, d, rr);
-  for (int a = 0; a < 15; ++a) {
-    r[a] = rr[a].v;
-    for (int b = 0; b < 15; ++b) J[15 * a + b] = rr[a].d[b];
-  }
-}
-
-// S = V diag(f(w)) V^T of the symmetric 15x15 A (float64 Jacobi): f clamps
-// to [0, 1e7] (mode 0, the prior's square-root product) or inverts |w| >
-// 1e-6 (mode 1, the pseudo-inverse)
-__device__ void eig_apply(const double* A, int mode, double* S) {
-  double E[225], V[225];
-  for (int i = 0; i < 225; ++i) E[i] = A[i];
-  jacobi_eig<15>(E, V);
-  double f[15];
-  for (int i = 0; i < 15; ++i) {
-    const double wv = E[16 * i];
-    f[i] = mode == 0 ? fmin(fmax(wv, 0.0), 1e7) : (fabs(wv) > 1e-6 ? 1.0 / wv : 0.0);
-  }
-  for (int r = 0; r < 15; ++r)
-    for (int c = 0; c < 15; ++c) {
-      double s = 0.0;
-      for (int k = 0; k < 15; ++k) s += V[15 * r + k] * f[k] * V[15 * c + k];
-      S[15 * r + c] = s;
-    }
-}
-
 struct Sh {
   float cur[21], prev[21], prs[21], pk[kPk], Rcb[9], tcb[3];
   float Lr[81], Lb[36], Hc[225];
@@ -150,8 +140,88 @@ struct Sh {
   float A[30 * 31];                  // augmented system
   float vis[27];
   float d[30];
-  float red[27 * kThreads / 32];
+  float f[30];                       // the elimination's factors of a column
+  float red[27 * kVisWarps];
+  double E[225], V[225], S[225];     // float64 work of the prior and the marginalisation
 };
+
+// the problem's visual inputs: staged in shared memory or read in place
+struct Vis {
+  const float* p;   // (N, 3)
+  const float* uv;  // (N, 2)
+  const float* is;  // (N,)
+  bool* act;        // (N,) the current inliers
+
+  static constexpr int kBytes = 25;  // a point
+};
+
+// the edge's residual and Jacobians wrt the current state (into re, Jc)
+// and, joint, the previous (Jpv) at (s.prev, s.cur), by warp 8: lane l < 30
+// (legacy: l < 15) the tangent l % 15 of state l / 15 (legacy: the current
+// state's tangent l).  All lanes of the warp call it.
+template <bool joint>
+__device__ void edge_jac_warp(Sh& s, int lane) {
+  constexpr int kLanes = joint ? 30 : 15;
+  if (lane >= kLanes) return;
+  const int which = joint ? lane / 15 : 1, dir = lane % 15;
+  D1 d0[15], d1[15];
+#pragma unroll
+  for (int a = 0; a < 15; ++a) {
+    d0[a] = dconst<1, float>(0.f);
+    d1[a] = dconst<1, float>(0.f);
+    d0[a].d[0] = which == 0 && a == dir ? 1.f : 0.f;
+    d1[a].d[0] = which == 1 && a == dir ? 1.f : 0.f;
+  }
+  St<D1> A, B;
+  apply_delta_t(s.prev, d0, A);
+  apply_delta_t(s.cur, d1, B);
+  D1 rr[15];
+  edge_r15(Pk{s.pk}, s.Lr, s.Lb, A, B, rr);
+  float* J = which == 0 ? s.Jpv : s.Jc;
+#pragma unroll
+  for (int a = 0; a < 15; ++a) J[15 * a + dir] = rr[a].d[0];
+  if (lane == 0)
+#pragma unroll
+    for (int a = 0; a < 15; ++a) s.re[a] = rr[a].v;
+}
+
+// the prior's raw residual (rp) and its Jacobian (Jpr) at s.prev, by warp
+// 9: lane l < 15 the tangent l.  All lanes of the warp call it.
+__device__ void prior_jac_warp(Sh& s, int lane) {
+  if (lane >= 15) return;
+  D1 d[15], rr[15];
+#pragma unroll
+  for (int a = 0; a < 15; ++a) {
+    d[a] = dconst<1, float>(0.f);
+    d[a].d[0] = a == lane ? 1.f : 0.f;
+  }
+  prior_raw(s.prev, s.prs, d, rr);
+#pragma unroll
+  for (int a = 0; a < 15; ++a) s.Jpr[15 * a + lane] = rr[a].d[0];
+  if (lane == 0)
+#pragma unroll
+    for (int a = 0; a < 15; ++a) s.rp[a] = rr[a].v;
+}
+
+// S = V diag(f(w)) V^T of the symmetric 15x15 in s.E (destroyed; float64
+// Jacobi by warp 0, then an output a thread): f clamps to [0, 1e7] (mode 0,
+// the prior's square-root product) or inverts |w| > 1e-6 (mode 1, the
+// pseudo-inverse).  All threads call it; S is valid after the caller's next
+// barrier.
+__device__ void eig_apply(Sh& s, int mode) {
+  if (threadIdx.x < 32) jacobi_eig_warp<15>(s.E, s.V, threadIdx.x);
+  __syncthreads();
+  for (int e = threadIdx.x; e < 225; e += kThreads) {
+    const int r = e / 15, c = e % 15;
+    double acc = 0.0;
+    for (int k = 0; k < 15; ++k) {
+      const double wv = s.E[16 * k];
+      const double f = mode == 0 ? fmin(fmax(wv, 0.0), 1e7) : (fabs(wv) > 1e-6 ? 1.0 / wv : 0.0);
+      acc += s.V[15 * r + k] * f * s.V[15 * c + k];
+    }
+    s.S[e] = acc;
+  }
+}
 
 template <bool joint>
 __device__ void assemble(Sh& s, bool with_b) {
@@ -211,42 +281,69 @@ __device__ void assemble(Sh& s, bool with_b) {
   }
 }
 
-// warp 0: (A + 1e-8 I) d = rhs, Gaussian elimination with partial pivoting
+// (A + 1e-8 I) d = rhs by Gaussian elimination with partial pivoting on A
+// in shared memory, by the CTA.  Per column c, warp 0 finds the pivot, the
+// first row of the strictly largest |a| (a NaN never wins, and a NaN at
+// row c keeps row c), by one max-reduction and one ballot over a lane a
+// row, swaps the two rows a lane a column and takes each row's factor
+// before its column c changes; then warp w updates rows c + 1 + w, c + 11
+// + w, ..., lane l column c + l.  Lane 0 substitutes back, the loops
+// unrolled so that d and each row's operands stay in registers.  Each
+// value takes the one-thread elimination's operations in its order.  All
+// threads call it; d is valid after the caller's next barrier.
 template <int n>
-__device__ void solve_warp(Sh& s) {
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
+__device__ void solve(Sh& s) {
+  static_assert(n <= 31, "a lane a row and a column");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int kWarps = kThreads / 32;
   float* A = s.A;
   constexpr int m = n + 1;
-  for (int i = lane; i < n; i += 32) A[m * i + i] += 1e-8f;
-  __syncwarp();
+  for (int i = tid; i < n; i += kThreads) A[m * i + i] += 1e-8f;
+  __syncthreads();
+  K22_LAP_INIT();
   for (int c = 0; c < n; ++c) {
-    int piv = c;
-    if (lane == 0) {
-      for (int r = c + 1; r < n; ++r)
-        if (fabsf(A[m * r + c]) > fabsf(A[m * piv + c])) piv = r;
-    }
-    piv = __shfl_sync(0xffffffffu, piv, 0);
-    if (piv != c)
-      for (int k = lane; k < m; k += 32) {
-        const float t = A[m * c + k];
-        A[m * c + k] = A[m * piv + k];
-        A[m * piv + k] = t;
+    if (warp == 0) {
+      unsigned key = 0;  // |a| + 1 as an integer where the lane's row may pivot
+      if (lane >= c && lane < n) {
+        const float v = fabsf(A[m * lane + c]);
+        key = isnan(v) ? (lane == c ? 0xffffffffu : 0u) : __float_as_uint(v) + 1u;
       }
-    __syncwarp();
-    for (int r = c + 1 + lane; r < n; r += 32) {
-      const float f = A[m * r + c] / A[m * c + c];
-      for (int k = c; k < m; ++k) A[m * r + k] -= f * A[m * c + k];
+      const unsigned top = __reduce_max_sync(kAll, key);
+      const int piv = __ffs(__ballot_sync(kAll, key == top)) - 1;
+      K22_LAP(0);
+      if (piv != c && lane < m) {
+        const float t = A[m * c + lane];
+        A[m * c + lane] = A[m * piv + lane];
+        A[m * piv + lane] = t;
+      }
+      __syncwarp();
+      K22_LAP(1);
+      if (lane > c && lane < n) s.f[lane] = A[m * lane + c] / A[m * c + c];
+      K22_LAP(2);
     }
-    __syncwarp();
+    __syncthreads();
+    const int k = c + lane;
+    if (k < m) {
+      const float top = A[m * c + k];
+      for (int r = c + 1 + warp; r < n; r += kWarps) A[m * r + k] -= s.f[r] * top;
+    }
+    __syncthreads();
+    K22_LAP(3);
   }
-  if (lane == 0)
-    for (int r = n - 1; r >= 0; --r) {
-      float acc = A[m * r + n];
-      for (int k = r + 1; k < n; ++k) acc -= A[m * r + k] * s.d[k];
-      s.d[r] = acc / A[m * r + r];
-    }
-  __syncwarp();
+  K22_LAP_DONE();
+  K22_STAMP(kSolve);
+  if (tid != 0) return;
+  float d[n];
+#pragma unroll
+  for (int r = n - 1; r >= 0; --r) {
+    const float* Ar = A + m * r;
+    float acc = Ar[n];
+#pragma unroll
+    for (int k2 = r + 1; k2 < n; ++k2) acc -= Ar[k2] * d[k2];
+    d[r] = acc / Ar[r];
+    s.d[r] = d[r];
+  }
 }
 
 __device__ void apply_to(float* S, const float* d) {
@@ -261,17 +358,39 @@ __device__ void apply_to(float* S, const float* d) {
   }
 }
 
-// the 27 visual sums of this thread's points at the current state into s.vis
+// the visual group's barrier (warps 0-7), apart from warps 8 and 9
+__device__ __forceinline__ void vis_sync() { asm volatile("bar.sync 1, %0;" ::"n"(kVis)); }
+
+// the sum of n floats a thread over the visual group: the warp tree, then
+// the warps in order (det_reduce.cuh's block_sum_fixed over 256 threads),
+// thread i < n summing value i into out[i]; valid after the next CTA
+// barrier.  The visual group's threads call it.
+template <int n>
+__device__ void vis_sum(float (&v)[n], float* red, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+    for (int o = 16; o > 0; o >>= 1) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  if (lane == 0)
+    for (int i = 0; i < n; ++i) red[warp * n + i] = v[i];
+  vis_sync();
+  if (threadIdx.x < n) {
+    float s = 0.f;
+    for (int w = 0; w < kVisWarps; ++w) s += red[w * n + threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+}
+
+// the 27 visual sums at the current state into s.vis, by the visual group
 template <class C>
-__device__ void visual_sums(Sh& s, const float* pts, const float* uv, const float* isig,
-                            const bool* active, int N, bool huber, const C& cam) {
+__device__ void visual_sums(Sh& s, const Vis& q, int N, bool huber, const C& cam) {
   float v[27];
   for (int i = 0; i < 27; ++i) v[i] = 0.f;
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    if (!active[i]) continue;
+  for (int i = threadIdx.x; i < N; i += kVis) {
+    if (!q.act[i]) continue;
     float r[2], Jp[2][6];
-    vis_rj(s.cur, s.cur + 9, pts + 3 * i, uv + 2 * i, s.Rcb, s.tcb, cam, r, Jp, nullptr);
-    const float is = isig[i];
+    vis_rj(s.cur, s.cur + 9, q.p + 3 * i, q.uv + 2 * i, s.Rcb, s.tcb, cam, r, Jp, nullptr);
+    const float is = q.is[i];
     const float chi2 = (r[0] * r[0] + r[1] * r[1]) * is;
     const float wt = (huber ? fminf(huber_delta() / sqrtf(fmaxf(chi2, 1e-12f)), 1.f) : 1.f) * is;
     int n = 6;
@@ -280,23 +399,28 @@ __device__ void visual_sums(Sh& s, const float* pts, const float* uv, const floa
       for (int b = a; b < 6; ++b) v[n++] += wt * (Jp[0][a] * Jp[0][b] + Jp[1][a] * Jp[1][b]);
     }
   }
-  block_sum_fixed<27>(v, s.red);
-  if (threadIdx.x == 0)
-    for (int i = 0; i < 27; ++i) s.vis[i] = v[i];
+  vis_sum<27>(v, s.red, s.vis);
 }
 
-// the inertial edge's (and, joint, the prior's) residuals and Jacobians
-template <bool joint>
-__device__ void inertial_terms(Sh& s) {
-  const Pk pk{s.pk};
-  if (threadIdx.x == 0) edge_jac(s.prev, s.cur, pk, s.Lr, s.Lb, 1, s.re, s.Jc);
-  if (joint && threadIdx.x == 32) {
-    float r[15];
-    edge_jac(s.prev, s.cur, pk, s.Lr, s.Lb, 0, r, s.Jpv);
+// one linearisation: the visual sums by warps 0-7 beside the inertial
+// Jacobians by warps 8 and 9, joined by a CTA barrier.  All threads call it.
+template <bool joint, class C>
+__device__ void linearize(Sh& s, const Vis& q, int N, bool huber, const C& cam) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < kVisWarps) {
+    visual_sums(s, q, N, huber, cam);
+    K22_STAMP(kVisual);
+  } else if (warp == kVisWarps) {
+    const long long t0 = K22_CLOCK();
+    edge_jac_warp<joint>(s, lane);
+    if (lane == 0) K22_SPAN(kEdgeJac, t0);
+  } else if (joint) {
+    const long long t0 = K22_CLOCK();
+    prior_jac_warp(s, lane);
+    if (lane == 0) K22_SPAN(kPriorJac, t0);
   }
-  if (!joint && threadIdx.x == 32)
-    for (int i = 0; i < 225; ++i) s.Jpv[i] = 0.f;
-  if (joint && threadIdx.x == 64) prior_jac(s.prev, s.prs, s.rp, s.Jpr);
+  __syncthreads();
+  K22_STAMP(kJoin);
 }
 
 template <bool joint, class C>
@@ -304,10 +428,12 @@ __global__ void __launch_bounds__(kThreads)
 pose_inertial_kernel(const float* __restrict__ state, const float* __restrict__ pts,
                      const float* __restrict__ uv, const float* __restrict__ isig,
                      const bool* __restrict__ valid, int N, const C cam, int n_rounds,
-                     int n_iters, float* __restrict__ out, bool* __restrict__ active,
+                     int n_iters, bool staged, float* __restrict__ out, bool* __restrict__ active,
                      int* __restrict__ n_inl) {
   constexpr int n = joint ? 30 : 15;
   __shared__ Sh s;
+  extern __shared__ float4 s_raw[];
+  K22_STAMP(kPhases);  // the start
   const In in = unpack(state);
   for (int i = threadIdx.x; i < kPk; i += kThreads) s.pk[i] = in.pk[i];
   if (threadIdx.x < 21) {
@@ -317,102 +443,151 @@ pose_inertial_kernel(const float* __restrict__ state, const float* __restrict__ 
   }
   if (threadIdx.x < 9) s.Rcb[threadIdx.x] = in.Rcb[threadIdx.x];
   if (threadIdx.x < 3) s.tcb[threadIdx.x] = in.tcb[threadIdx.x];
-  for (int i = threadIdx.x; i < N; i += kThreads) active[i] = valid[i];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    info_sqrt_blk<9>(s.pk + 61, 0, s.Lr);
-    info_sqrt_blk<6>(s.pk + 61, 9, s.Lb);
+  Vis q;
+  if (staged) {
+    float* base = reinterpret_cast<float*>(s_raw);
+    float* p = base;
+    float* o = p + 3 * N;
+    float* is = o + 2 * N;
+    bool* act = reinterpret_cast<bool*>(is + N);
+    for (int i = threadIdx.x; i < N; i += kThreads) {
+      p[3 * i] = pts[3 * i];
+      p[3 * i + 1] = pts[3 * i + 1];
+      p[3 * i + 2] = pts[3 * i + 2];
+      o[2 * i] = uv[2 * i];
+      o[2 * i + 1] = uv[2 * i + 1];
+      is[i] = isig[i];
+      act[i] = valid[i];
+    }
+    q = Vis{p, o, is, act};
+  } else {
+    for (int i = threadIdx.x; i < N; i += kThreads) active[i] = valid[i];
+    q = Vis{pts, uv, isig, active};
   }
-  if (joint && threadIdx.x == 32) {
-    double A[225], S[225];
-    for (int r = 0; r < 15; ++r)
-      for (int c = 0; c < 15; ++c) A[15 * r + c] = 0.5 * ((double)in.Hp[15 * r + c] + in.Hp[15 * c + r]);
-    eig_apply(A, 0, S);
-    for (int i = 0; i < 225; ++i) s.Hc[i] = (float)S[i];
+  if (joint)  // the symmetrised prior
+    for (int e = threadIdx.x; e < 225; e += kThreads) {
+      const int r = e / 15, c = e % 15;
+      s.E[e] = 0.5 * ((double)in.Hp[15 * r + c] + in.Hp[15 * c + r]);
+    }
+  __syncthreads();
+  if (threadIdx.x == 32) info_sqrt_blk<9>(s.pk + 61, 0, s.Lr);
+  if (threadIdx.x == 64) info_sqrt_blk<6>(s.pk + 61, 9, s.Lb);
+  if (joint) {
+    eig_apply(s, 0);
+    __syncthreads();
+    for (int e = threadIdx.x; e < 225; e += kThreads) s.Hc[e] = (float)s.S[e];
   }
   __syncthreads();
+  K22_STAMP(kSetup);
   for (int rnd = 0; rnd < n_rounds; ++rnd) {
     const bool huber = rnd < n_rounds - 1;
     for (int it = 0; it < n_iters; ++it) {
-      visual_sums(s, pts, uv, isig, active, N, huber, cam);
-      inertial_terms<joint>(s);
-      __syncthreads();
+      linearize<joint>(s, q, N, huber, cam);
       assemble<joint>(s, true);
       __syncthreads();
-      solve_warp<n>(s);
+      K22_STAMP(kAssemble);
+      solve<n>(s);
       __syncthreads();
-      if (threadIdx.x == 0) {
-        if (joint) apply_to(s.prev, s.d);
-        apply_to(s.cur, s.d + (joint ? 15 : 0));
-      }
+      K22_STAMP(kBack);
+      if (joint && threadIdx.x == 32) apply_to(s.prev, s.d);
+      if (threadIdx.x == 0) apply_to(s.cur, s.d + (joint ? 15 : 0));
       __syncthreads();
+      K22_STAMP(kApply);
     }
     // re-classify on the raw points
     for (int i = threadIdx.x; i < N; i += kThreads) {
       float r[2];
-      vis_rj(s.cur, s.cur + 9, pts + 3 * i, uv + 2 * i, s.Rcb, s.tcb, cam, r, nullptr,
+      vis_rj(s.cur, s.cur + 9, q.p + 3 * i, q.uv + 2 * i, s.Rcb, s.tcb, cam, r, nullptr,
              nullptr);
-      active[i] = valid[i] && (r[0] * r[0] + r[1] * r[1]) * isig[i] <= kChi2;
+      q.act[i] = valid[i] && (r[0] * r[0] + r[1] * r[1]) * q.is[i] <= kChi2;
     }
     __syncthreads();
+    K22_STAMP(kClassify);
   }
-  if (threadIdx.x == 0) {
-    orthonormalize3(s.cur);
-    if (joint) orthonormalize3(s.prev);
-  }
+  if (threadIdx.x == 0) orthonormalize3(s.cur);
+  if (joint && threadIdx.x == 32) orthonormalize3(s.prev);
   __syncthreads();
   // the final Hessian: visual weights isig (no Huber) on the inliers
-  visual_sums(s, pts, uv, isig, active, N, false, cam);
-  inertial_terms<joint>(s);
-  __syncthreads();
+  linearize<joint>(s, q, N, false, cam);
   assemble<joint>(s, false);
-  {
-    float c = 0.f;
-    for (int i = threadIdx.x; i < N; i += kThreads) c += active[i] ? 1.f : 0.f;
-    float cc[1] = {c};
-    block_sum_fixed<1>(cc, s.red);
-    if (threadIdx.x == 0) *n_inl = (int)cc[0];
+  if (threadIdx.x < kVis) {  // the inlier count
+    float c[1] = {0.f};
+    for (int i = threadIdx.x; i < N; i += kVis) c[0] += q.act[i] ? 1.f : 0.f;
+    vis_sum<1>(c, s.red, s.d);
+  }
+  if (staged)
+    for (int i = threadIdx.x; i < N; i += kThreads) active[i] = q.act[i];
+  __syncthreads();
+  if (threadIdx.x == 0) *n_inl = (int)s.d[0];
+  if (threadIdx.x < 21) out[threadIdx.x] = s.cur[threadIdx.x];
+  float* H = out + 21;
+  constexpr int m = n + 1;
+  K22_STAMP(kFinal);
+  if (!joint) {
+    for (int e = threadIdx.x; e < 225; e += kThreads) H[e] = s.A[m * (e / 15) + e % 15];
+    return;
+  }
+  // H_cc - H_cp pinv(H_pp) H_pc, pinv by eigh (|lambda| > 1e-6)
+  for (int e = threadIdx.x; e < 225; e += kThreads) s.E[e] = s.A[m * (e / 15) + e % 15];
+  __syncthreads();
+  eig_apply(s, 1);   // s.S = pinv(H_pp)
+  __syncthreads();
+  for (int e = threadIdx.x; e < 225; e += kThreads) {   // T = pinv(H_pp) H_pc, into s.E
+    const int r = e / 15, c = e % 15;
+    double acc = 0.0;
+    for (int k = 0; k < 15; ++k) acc += s.S[15 * r + k] * s.A[m * k + 15 + c];
+    s.E[e] = acc;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 21; ++i) out[i] = s.cur[i];
-    float* H = out + 21;
-    constexpr int m = n + 1;
-    if (!joint) {
-      for (int r = 0; r < 15; ++r)
-        for (int c = 0; c < 15; ++c) H[15 * r + c] = s.A[m * r + c];
-    } else {
-      // H_cc - H_cp pinv(H_pp) H_pc, pinv by eigh (|lambda| > 1e-6)
-      double Hpp[225], Pi[225], T[225];
-      for (int r = 0; r < 15; ++r)
-        for (int c = 0; c < 15; ++c) Hpp[15 * r + c] = s.A[m * r + c];
-      eig_apply(Hpp, 1, Pi);
-      for (int r = 0; r < 15; ++r)      // T = pinv(H_pp) H_pc
-        for (int c = 0; c < 15; ++c) {
-          double acc = 0.0;
-          for (int k = 0; k < 15; ++k) acc += Pi[15 * r + k] * s.A[m * k + 15 + c];
-          T[15 * r + c] = acc;
-        }
-      double M[225];
-      for (int r = 0; r < 15; ++r)
-        for (int c = 0; c < 15; ++c) {
-          double acc = 0.0;
-          for (int k = 0; k < 15; ++k) acc += (double)s.A[m * (15 + r) + k] * T[15 * k + c];
-          M[15 * r + c] = (double)s.A[m * (15 + r) + 15 + c] - acc;
-        }
-      for (int r = 0; r < 15; ++r)
-        for (int c = 0; c < 15; ++c) H[15 * r + c] = (float)(0.5 * (M[15 * r + c] + M[15 * c + r]));
-    }
+  for (int e = threadIdx.x; e < 225; e += kThreads) {   // M = H_cc - H_cp T, into s.V
+    const int r = e / 15, c = e % 15;
+    double acc = 0.0;
+    for (int k = 0; k < 15; ++k) acc += (double)s.A[m * (15 + r) + k] * s.E[15 * k + c];
+    s.V[e] = (double)s.A[m * (15 + r) + 15 + c] - acc;
   }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 225; e += kThreads) {
+    const int r = e / 15, c = e % 15;
+    H[e] = (float)(0.5 * (s.V[15 * r + c] + s.V[15 * c + r]));
+  }
+  K22_STAMP(kMarg);
+}
+
+// the most points of a problem that pose_inertial_kernel<joint, C> stages in
+// shared memory on the current device, or -1 on an error; asked of the CUDA
+// runtime once per device, which also raises the kernel's dynamic shared
+// memory limit to that size
+template <bool joint, class C>
+int max_n() {
+  static int cached[kMaxDevices] = {};   // the answer + 1, 0 before the first call
+  int dev, optin;
+  cudaFuncAttributes fa;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return -1;
+  if (cached[dev] > 0) return cached[dev] - 1;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&fa, pose_inertial_kernel<joint, C>) != cudaSuccess)
+    return -1;
+  const int n = (optin - (int)fa.sharedSizeBytes) / Vis::kBytes / 16 * 16;
+  if (cudaFuncSetAttribute(pose_inertial_kernel<joint, C>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           n * Vis::kBytes) != cudaSuccess)
+    return -1;
+  cached[dev] = n + 1;
+  return n;
 }
 
 template <bool joint, class C>
 int launch(const void* state, const void* pts, const void* uv, const void* isig,
            const void* valid, int N, const C& cam, int n_rounds, int n_iters, void* out,
            void* inliers, void* n_inl, cudaStream_t st) {
-  pose_inertial_kernel<joint, C><<<1, kThreads, 0, st>>>(
+  const int limit = max_n<joint, C>();
+  if (limit < 0) return (int)cudaErrorInvalidValue;
+  const bool staged = N <= limit;
+  pose_inertial_kernel<joint, C><<<1, kThreads, staged ? N * Vis::kBytes : 0, st>>>(
       (const float*)state, (const float*)pts, (const float*)uv, (const float*)isig,
-      (const bool*)valid, N, cam, n_rounds, n_iters, (float*)out, (bool*)inliers, (int*)n_inl);
+      (const bool*)valid, N, cam, n_rounds, n_iters, staged, (float*)out, (bool*)inliers,
+      (int*)n_inl);
   return (int)cudaGetLastError();
 }
 
@@ -427,6 +602,14 @@ int launch(bool joint, const void* state, const void* pts, const void* uv, const
 }
 
 }  // namespace
+
+// the most points of a problem that K22 stages in shared memory (joint: the
+// joint variant; kb8: through the KB8 camera) on the current device, -1 on
+// an error; a larger problem is read from global memory
+extern "C" int pose_inertial_max_n(int joint, int kb8) {
+  if (kb8) return joint ? max_n<true, CamKB8>() : max_n<false, CamKB8>();
+  return joint ? max_n<true, Cam>() : max_n<false, Cam>();
+}
 
 // state: the packed problem (592 floats: cur 21, prev 21, prior H 225, prior
 // state 21, preintegration 292, Rcb 9, tcb 3); pts (N,3), uv (N,2), isig (N,),

@@ -27,7 +27,11 @@
 // in the same thread and the same order as a linearisation at the step's
 // start would take, so the result is the same as relinearising every step:
 // 1 + n_rounds n_iters + n_rounds passes a call.  A problem larger than a
-// CTA's shared memory holds is refused (pose_lm_max_n).
+// CTA's shared memory holds (pose_lm_max_n) takes the global route: the
+// same kernel (kGlobal) stages it in the problem's slice of a workspace in
+// device memory instead (pose_lm_global_bytes an observation block), and
+// every pass reads it from there (L1 and L2 keep most of it); its values
+// are the staged route's, bit for bit.
 //
 // Stereo (obs_ur not null): an observation with ur >= 0 gets the third row
 // ur - (u - bf / z) (reference EdgeStereoSE3ProjectXYZOnlyPose), Huber delta
@@ -328,24 +332,33 @@ __device__ void pass(const Stage<kStereo>& st, int N, const float* R, const floa
   }
 }
 
-template <bool kStereo, class C>
+// the bytes of one problem's stage in the global route's workspace
+template <bool kStereo>
+__host__ __device__ size_t global_stride(int N) {
+  return ((size_t)N * Stage<kStereo>::kBytes + 15) / 16 * 16;
+}
+
+// kGlobal: the problem is staged in ws (global_stride bytes a problem), else
+// in dynamic shared memory
+template <bool kStereo, class C, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
                const float* __restrict__ pts_w, const float* __restrict__ obs,
                const float* __restrict__ obs_ur, const float* __restrict__ isig,
                const bool* __restrict__ valid, int N, const C cam, float bf, int n_rounds,
                int n_iters, float* __restrict__ R_out, float* __restrict__ t_out,
-               bool* __restrict__ inl_out, int* __restrict__ n_inl_out) {
+               bool* __restrict__ inl_out, int* __restrict__ n_inl_out, uint8_t* ws) {
   __shared__ float s_R[9], s_t[3], s_Rn[9], s_tn[3];
   __shared__ float s_red[kWarps * kSums];
   __shared__ float s_sum[kSums];
   __shared__ float s_acc[kSums];    // the held system, as acc
   __shared__ float s_Ab[6][8];      // the step's [A | rhs]
   extern __shared__ float4 s_raw[];
-  const Stage<kStereo> st(s_raw, N);
+  const int bi = blockIdx.x;
+  const Stage<kStereo> st(kGlobal ? static_cast<void*>(ws + bi * global_stride<kStereo>(N))
+                                  : static_cast<void*>(s_raw), N);
   K4_STAMP(kPhases);  // the start
 
-  const int bi = blockIdx.x;
   {
     const float* P = pts_w + (size_t)bi * N * 3;
     const float* O = obs + (size_t)bi * N * 2;
@@ -463,7 +476,7 @@ pose_lm_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
   K4_STAMP(kPhases);
 }
 
-// the largest N a CTA of pose_lm_kernel<kStereo, C> can stage on the
+// the largest N a CTA of pose_lm_kernel<kStereo, C, false> can stage on the
 // current device, or -1 on an error; asked of the CUDA runtime once per device,
 // which also raises the kernel's dynamic shared memory limit to that N's
 template <bool kStereo, class C>
@@ -475,45 +488,47 @@ int max_n() {
   if (cached[dev] > 0) return cached[dev] - 1;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
           cudaSuccess ||
-      cudaFuncGetAttributes(&fa, pose_lm_kernel<kStereo, C>) != cudaSuccess)
+      cudaFuncGetAttributes(&fa, pose_lm_kernel<kStereo, C, false>) != cudaSuccess)
     return -1;
   const int n = (optin - (int)fa.sharedSizeBytes) / Stage<kStereo>::kBytes;
-  if (cudaFuncSetAttribute(pose_lm_kernel<kStereo, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(pose_lm_kernel<kStereo, C, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                            n * Stage<kStereo>::kBytes) != cudaSuccess)
     return -1;
   cached[dev] = n + 1;
   return n;
 }
 
+// the staged route where N fits a CTA's shared memory and `global` is
+// false, else the global route on ws (B global_stride bytes; null: refused)
 template <bool kStereo, class C>
 int launch(const void* R0, const void* t0, const void* pts, const void* obs, const void* obs_ur,
            const void* isig, const void* valid, int B, int N, C cam, float bf, int n_rounds,
-           int n_iters, void* R, void* t, void* inliers, void* n_inliers, cudaStream_t stream) {
-  if (N > max_n<kStereo, C>()) return (int)cudaErrorInvalidValue;
-  const int smem = N * Stage<kStereo>::kBytes;
-  pose_lm_kernel<kStereo, C><<<B, kThreads, smem, stream>>>(
-      (const float*)R0, (const float*)t0, (const float*)pts, (const float*)obs,
-      (const float*)obs_ur, (const float*)isig, (const bool*)valid, N, cam, bf, n_rounds,
-      n_iters, (float*)R, (float*)t, (bool*)inliers, (int*)n_inliers);
+           int n_iters, void* R, void* t, void* inliers, void* n_inliers, void* ws, bool global,
+           cudaStream_t stream) {
+  const int limit = max_n<kStereo, C>();
+  if (limit < 0) return (int)cudaErrorInvalidValue;
+  if (!global && N <= limit) {
+    const int smem = N * Stage<kStereo>::kBytes;
+    pose_lm_kernel<kStereo, C, false><<<B, kThreads, smem, stream>>>(
+        (const float*)R0, (const float*)t0, (const float*)pts, (const float*)obs,
+        (const float*)obs_ur, (const float*)isig, (const bool*)valid, N, cam, bf, n_rounds,
+        n_iters, (float*)R, (float*)t, (bool*)inliers, (int*)n_inliers, nullptr);
+  } else {
+    if (ws == nullptr) return (int)cudaErrorInvalidValue;
+    pose_lm_kernel<kStereo, C, true><<<B, kThreads, 0, stream>>>(
+        (const float*)R0, (const float*)t0, (const float*)pts, (const float*)obs,
+        (const float*)obs_ur, (const float*)isig, (const bool*)valid, N, cam, bf, n_rounds,
+        n_iters, (float*)R, (float*)t, (bool*)inliers, (int*)n_inliers, (uint8_t*)ws);
+  }
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// the largest N of one problem that a launch takes (stereo: with obs_ur),
-// on the current device; -1 on an error
-extern "C" int pose_lm_max_n(int stereo) {
-  return stereo ? max_n<true, Cam>() : max_n<false, CamKB8>();
-}
-
-// obs_ur null: mono problems; else (B, N) right-image u per observation (< 0: mono edge).
-// kb8 null: the pinhole camera; else a host array k1..k4 of the KB8 camera (mono only).
-// An N over pose_lm_max_n is refused (cudaErrorInvalidValue).
-extern "C" int pose_lm_launch(const void* R0, const void* t0, const void* pts,
-                              const void* obs, const void* obs_ur, const void* isig,
-                              const void* valid, int B, int N, float fx, float fy, float cx,
-                              float cy, const float* kb8, float bf, int n_rounds, int n_iters,
-                              void* R, void* t, void* inliers, void* n_inliers, void* stream) {
+int launch_any(const void* R0, const void* t0, const void* pts, const void* obs,
+               const void* obs_ur, const void* isig, const void* valid, int B, int N, float fx,
+               float fy, float cx, float cy, const float* kb8, float bf, int n_rounds,
+               int n_iters, void* R, void* t, void* inliers, void* n_inliers, void* ws,
+               bool global, void* stream) {
   if (B < 0 || N < 0) return (int)cudaErrorInvalidValue;
   if (kb8 != nullptr && obs_ur != nullptr) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
@@ -522,10 +537,52 @@ extern "C" int pose_lm_launch(const void* R0, const void* t0, const void* pts,
   if (kb8 != nullptr)
     return launch<false>(R0, t0, pts, obs, obs_ur, isig, valid, B, N,
                          CamKB8{fx, fy, cx, cy, kb8[0], kb8[1], kb8[2], kb8[3]}, bf, n_rounds,
-                         n_iters, R, t, inliers, n_inliers, s);
+                         n_iters, R, t, inliers, n_inliers, ws, global, s);
   if (obs_ur == nullptr)
     return launch<false>(R0, t0, pts, obs, obs_ur, isig, valid, B, N, cam, bf, n_rounds, n_iters,
-                         R, t, inliers, n_inliers, s);
+                         R, t, inliers, n_inliers, ws, global, s);
   return launch<true>(R0, t0, pts, obs, obs_ur, isig, valid, B, N, cam, bf, n_rounds, n_iters, R,
-                      t, inliers, n_inliers, s);
+                      t, inliers, n_inliers, ws, global, s);
+}
+
+}  // namespace
+
+// the largest N of one problem that a launch stages in a CTA's shared memory
+// (stereo: with obs_ur) on the current device; -1 on an error
+extern "C" int pose_lm_max_n(int stereo) {
+  if (stereo) return max_n<true, Cam>();
+  const int a = max_n<false, Cam>(), b = max_n<false, CamKB8>();
+  return a < b ? a : b;
+}
+
+// the workspace bytes of B problems of N observations on the global route
+// (stereo: with obs_ur)
+extern "C" long long pose_lm_global_bytes(int B, int N, int stereo) {
+  return (long long)B * (long long)(stereo ? global_stride<true>(N) : global_stride<false>(N));
+}
+
+// obs_ur null: mono problems; else (B, N) right-image u per observation (< 0: mono edge).
+// kb8 null: the pinhole camera; else a host array k1..k4 of the KB8 camera (mono only).
+// An N over pose_lm_max_n takes the global route on ws (pose_lm_global_bytes; null:
+// refused with cudaErrorInvalidValue); ws is not read otherwise.
+extern "C" int pose_lm_launch(const void* R0, const void* t0, const void* pts,
+                              const void* obs, const void* obs_ur, const void* isig,
+                              const void* valid, int B, int N, float fx, float fy, float cx,
+                              float cy, const float* kb8, float bf, int n_rounds, int n_iters,
+                              void* R, void* t, void* inliers, void* n_inliers, void* ws,
+                              void* stream) {
+  return launch_any(R0, t0, pts, obs, obs_ur, isig, valid, B, N, fx, fy, cx, cy, kb8, bf,
+                    n_rounds, n_iters, R, t, inliers, n_inliers, ws, false, stream);
+}
+
+// pose_lm_launch on the global route at any N (a test's check of the route
+// against the staged one)
+extern "C" int pose_lm_global_launch(const void* R0, const void* t0, const void* pts,
+                                     const void* obs, const void* obs_ur, const void* isig,
+                                     const void* valid, int B, int N, float fx, float fy,
+                                     float cx, float cy, const float* kb8, float bf,
+                                     int n_rounds, int n_iters, void* R, void* t,
+                                     void* inliers, void* n_inliers, void* ws, void* stream) {
+  return launch_any(R0, t0, pts, obs, obs_ur, isig, valid, B, N, fx, fy, cx, cy, kb8, bf,
+                    n_rounds, n_iters, R, t, inliers, n_inliers, ws, true, stream);
 }

@@ -1,6 +1,7 @@
 // Small dense float64 algebra shared by K5 (two_view.cu) and K10
 // (pnp_ransac.cu): one thread runs each routine on matrices in registers or
-// local memory.  Each file includes it inside its own anonymous namespace.
+// local memory; jacobi_eig_warp is jacobi_eig on a warp (K22).  Each file
+// includes it inside its own anonymous namespace.
 #pragma once
 
 #include <math.h>
@@ -39,6 +40,52 @@ __device__ void jacobi_eig(double* A, double* V) {
           V[k * n + p] = c * vkp - s * vkq;
           V[k * n + q] = s * vkp + c * vkq;
         }
+      }
+    }
+  }
+}
+
+// jacobi_eig<n> by one warp on A and V in shared memory (n <= 32): the
+// same cyclic (p, q) order and the same rotation in every lane, and each
+// rotation's column, row and V updates a lane per k, with the column update
+// finished before the row update reads it.  Every value takes the
+// one-thread routine's operations in its order, so the two give the same
+// bits (K22).  All 32 lanes of the warp call it.
+template <int n>
+__device__ void jacobi_eig_warp(double* A, double* V, int lane) {
+  static_assert(n <= 32, "one lane per row");
+  for (int i = lane; i < n * n; i += 32) V[i] = (i % (n + 1) == 0) ? 1.0 : 0.0;
+  __syncwarp();
+  for (int sweep = 0; sweep < 30; ++sweep) {
+    double off = 0.0, diag = 0.0;  // every lane, in the one-thread order
+    for (int p = 0; p < n; ++p) {
+      diag += A[p * n + p] * A[p * n + p];
+      for (int q = p + 1; q < n; ++q) off += A[p * n + q] * A[p * n + q];
+    }
+    if (off <= 1e-30 * diag || off == 0.0) break;
+    for (int p = 0; p < n - 1; ++p) {
+      for (int q = p + 1; q < n; ++q) {
+        const double apq = A[p * n + q];
+        if (apq == 0.0) continue;
+        const double theta = (A[q * n + q] - A[p * n + p]) / (2.0 * apq);
+        const double t = (theta >= 0.0 ? 1.0 : -1.0) / (fabs(theta) + sqrt(theta * theta + 1.0));
+        const double c = 1.0 / sqrt(t * t + 1.0), s = t * c;
+        __syncwarp();  // every lane has read the pivot block
+        if (lane < n) {  // column k = lane of p, q
+          const double akp = A[lane * n + p], akq = A[lane * n + q];
+          A[lane * n + p] = c * akp - s * akq;
+          A[lane * n + q] = s * akp + c * akq;
+        }
+        __syncwarp();
+        if (lane < n) {  // row k = lane of p, q, and V's column k
+          const double apk = A[p * n + lane], aqk = A[q * n + lane];
+          A[p * n + lane] = c * apk - s * aqk;
+          A[q * n + lane] = s * apk + c * aqk;
+          const double vkp = V[lane * n + p], vkq = V[lane * n + q];
+          V[lane * n + p] = c * vkp - s * vkq;
+          V[lane * n + q] = s * vkp + c * vkq;
+        }
+        __syncwarp();
       }
     }
   }

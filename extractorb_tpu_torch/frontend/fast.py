@@ -237,18 +237,67 @@ def fast_detect(pyr: Pyramid, plan: FastPlan, ini_th: int = 20, min_th: int = 7
 class CollectPlan:
     """Static launch table of K16 for one pyramid shape: per level (int32)
     the plane offset in K1's outputs, inner W and H, the candidate count
-    k and the level's first slot in the concatenated outputs."""
+    k, the level's first slot in the concatenated outputs and the bounds
+    of its G bands (``bands``), one a CTA of the level's cluster."""
 
     def __init__(self, fast_plan: FastPlan, k_levels):
         self.k_levels = [int(k) for k in k_levels]
         self.slot_offsets = np.concatenate([[0], np.cumsum(self.k_levels)[:-1]]).astype(int)
         self.total = int(sum(self.k_levels))
         self.plane_offsets = fast_plan.plane_offsets
-        sort_n = 1 << (max(self.k_levels) - 1).bit_length()
-        rows = [[off, W, H, k, o] for off, (H, W), k, o in
-                zip(fast_plan.plane_offsets, fast_plan.inner, self.k_levels, self.slot_offsets)]
-        self.table = np.ascontiguousarray(
-            np.concatenate([[len(rows), sort_n], np.asarray(rows).reshape(-1)]).astype(np.int32))
+        self.inner = fast_plan.inner
+        self.flat_total = int(fast_plan.total)
+        # ints of a key list in a CTA's shared memory: every level's k, in int4s
+        self.list_n = -(-max(self.k_levels) // 4) * 4
+        self._tables: dict = {}
+
+    def bands(self, G: int):
+        """(n_levels, G + 1) flat pixel bounds: level l's band r is
+        [bands[l, r], bands[l, r + 1]), in row-major order, the inner
+        bounds on 16-pixel segments of the flat arrays (K16 reads a segment
+        with vector loads) and as even as that allows."""
+        out = np.zeros((len(self.inner), G + 1), np.int64)
+        for l, ((H, W), off) in enumerate(zip(self.inner, self.plane_offsets)):
+            n = H * W
+            x = off + (n * np.arange(G + 1)) // G
+            x = np.clip((x + COLLECT_SEGMENT - 1) // COLLECT_SEGMENT * COLLECT_SEGMENT, off,
+                        off + n)
+            x[0], x[-1] = off, off + n
+            out[l] = x
+        return out
+
+    def table(self, G: int) -> np.ndarray:
+        """K16's launch table for clusters of G CTAs (int32): n_levels, G,
+        list_n, the flat arrays' length, then per level plane_off, W, H, k,
+        out_off and its G + 1 band bounds."""
+        if G not in self._tables:
+            rows = [np.concatenate([[off, W, H, k, o], bd]) for off, (H, W), k, o, bd in
+                    zip(self.plane_offsets, self.inner, self.k_levels, self.slot_offsets,
+                        self.bands(G))]
+            self._tables[G] = np.ascontiguousarray(np.concatenate(
+                [[len(rows), G, self.list_n, self.flat_total], np.concatenate(rows)]
+            ).astype(np.int32))
+        return self._tables[G]
+
+
+# pixels of a K16 segment: a 16-byte load of keep, two of score
+COLLECT_SEGMENT = 16
+_CLUSTER: dict = {}
+
+
+def collect_cluster(plan: CollectPlan, device: torch.device):
+    """(G, clusters of G CTAs the card holds at once, of 16) of K16 on
+    ``device`` for ``plan``, asked of the library once a device and plan
+    shape."""
+    key = (device.index, len(plan.k_levels), plan.list_n)
+    if key not in _CLUSTER:
+        out = np.zeros(3, np.int32)
+        with torch.cuda.device(device):
+            err = kernels.lib().kp_collect_cluster(len(plan.k_levels), plan.list_n,
+                                                   out.ctypes.data)
+        kernels.check(err, "kp_collect (cluster size)")
+        _CLUSTER[key] = tuple(int(v) for v in out)
+    return _CLUSTER[key]
 
 
 def collect_levels_plain(keeps, scores, plan: CollectPlan):
@@ -275,11 +324,14 @@ def collect_levels(keeps: List[torch.Tensor], scores: List[torch.Tensor], plan: 
         if k.dtype != torch.bool or s.dtype != torch.int16 or \
                 k.data_ptr() != k0 + off or s.data_ptr() != s0 + 2 * off:
             raise ValueError("kp_collect: keep/score must be fast_detect's level views")
+    if k0 % 16 or s0 % 16:
+        raise ValueError("kp_collect: K1's flat outputs must be 16-byte aligned")
     dev = keeps[0].device
+    table = plan.table(collect_cluster(plan, dev)[0])
     xy = torch.empty(plan.total, 2, dtype=torch.int32, device=dev)
     resp = torch.empty(plan.total, dtype=torch.int32, device=dev)
     valid = torch.empty(plan.total, dtype=torch.bool, device=dev)
-    err = kernels.lib().kp_collect_launch(k0, s0, plan.table.ctypes.data, xy.data_ptr(),
+    err = kernels.lib().kp_collect_launch(k0, s0, table.ctypes.data, xy.data_ptr(),
                                           resp.data_ptr(), valid.data_ptr(), kernels.stream())
     kernels.check(err, "kp_collect")
     kernels.LAUNCHES["kp_collect"] += 1

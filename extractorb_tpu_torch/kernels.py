@@ -62,9 +62,14 @@ _SIGNATURES = {
                              _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P),
     # R0, t0, pts, obs, obs_ur (null: mono), isig, valid, B, N, fx, fy, cx, cy,
     # kb8 (host float32 k1..k4; null: pinhole), bf, n_rounds, n_iters, R, t, inliers,
-    # n_inliers, stream
+    # n_inliers, ws (the global route's; null where N fits shared memory), stream
     "pose_lm_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _F,
-                       _I, _I, _P, _P, _P, _P, _P),
+                       _I, _I, _P, _P, _P, _P, _P, _P),
+    # the same on the global route at any N
+    "pose_lm_global_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _F,
+                              _I, _I, _P, _P, _P, _P, _P, _P),
+    # B, N, stereo: the global route's workspace bytes
+    "pose_lm_global_bytes": (_I, _I, _I),
     # stereo (1: with obs_ur); the largest N of a problem on the current device
     "pose_lm_max_n": (_I,),
     # xn1, xn2, x1, x2, valid, sets, mats, S, N, fx, fy, cx, cy, ws,
@@ -144,8 +149,11 @@ _SIGNATURES = {
     "kf_match_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # img, flat, tables, tab(host ptr), stream
     "pyramid_launch": (_P, _P, _P, _P, _P),
-    # keep, score, tab(host ptr), xy, resp, valid, stream
+    # keep, score (K1's flat outputs), tab(host ptr), xy, resp, valid, stream
     "kp_collect_launch": (_P, _P, _P, _P, _P, _P, _P),
+    # n_levels, list_n, out (host int32 x3: the cluster size, its clusters the card
+    # holds at once, those of 16)
+    "kp_collect_cluster": (_I, _I, _P),
     # cand xy, resp, valid, tables, tab(host ptr), level xy, resp, valid, depth, ws,
     # xy, octave, valid, xy_f, response, size, stream
     "octree_select_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -173,6 +181,8 @@ _SIGNATURES = {
     # pinhole), joint, n_rounds, n_iters, out, inliers, n_inliers, stream
     "pose_inertial_launch": (_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P, _I, _I, _I, _P, _P,
                              _P, _P),
+    # joint, kb8: the most points K22 stages in shared memory on the current device
+    "pose_inertial_max_n": (_I, _I),
     # desc_l, lap_l, NL, desc_r, lap_r, NR, th_orb, ratio, best_idx, best, second, cand, stream
     "stereo_fisheye_match_launch": (_P, _P, _I, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P),
     # uv_l, uv_r, idx, cand, oct_l, oct_r, N, prm (host float32), n_lvl, p3d, depth, valid,
@@ -209,8 +219,8 @@ _SIGNATURES = {
     "marginal_workspace_bytes": (_I,),
 }
 # return types other than the launch status (an int cudaError_t)
-_RESTYPES = {"two_view_workspace_bytes": _L, "ba_workspace_bytes": _L,
-             "ba_schur_dense_workspace_bytes": _L,
+_RESTYPES = {"two_view_workspace_bytes": _L, "pose_lm_global_bytes": _L,
+             "ba_workspace_bytes": _L, "ba_schur_dense_workspace_bytes": _L,
              "pose_graph_workspace_bytes": _L, "pose_graph_4dof_workspace_bytes": _L,
              "ba_schur_workspace_bytes": _L, "ba_schur_gather_bytes": _L,
              "pose_graph_gather_bytes": _L,

@@ -756,11 +756,24 @@ def optimize_pose_inertial_last_frame_plain(Rwb0, twb0, v0, bg0, ba0, prev_state
                               n_inliers=torch.sum(active.to(torch.int32)), H=H_marg)
 
 
-def _pose_inertial_launch(joint: bool, Rwb0, twb0, v0, bg0, ba0, prev_state, preint, pts_w,
-                          obs_uv, inv_sigma2, valid, Rcb, tcb, cam: Camera, n_rounds, n_iters,
-                          prior=None) -> PoseInertialResult:
-    """Launch K22 (``<joint>``) on one problem; every input stays on the
-    card (no host synchronisation)."""
+_K22_MAX_N: dict = {}
+
+
+def pose_inertial_max_n(joint: bool, kb8: bool, device: torch.device) -> int:
+    """The most points of a problem that K22 stages in its CTA's shared
+    memory on ``device`` (a card); a larger problem is read from global
+    memory by the same kernel."""
+    key = (bool(joint), bool(kb8), device.index)
+    if key not in _K22_MAX_N:
+        with torch.cuda.device(device):
+            _K22_MAX_N[key] = int(kernels.lib().pose_inertial_max_n(int(joint), int(kb8)))
+    return _K22_MAX_N[key]
+
+
+def pose_inertial_inputs(joint: bool, Rwb0, twb0, v0, bg0, ba0, prev_state, preint, pts_w,
+                         obs_uv, inv_sigma2, valid, Rcb, tcb, prior=None):
+    """K22's inputs of one problem, on the problem's device: the packed
+    state (592 floats) and [pts, uv, isig, valid]."""
     dev = twb0.device
     f32 = lambda a: a.to(dtype=torch.float32).reshape(-1)
     cur = torch.cat([f32(Rwb0), f32(twb0), f32(v0), f32(bg0), f32(ba0)])
@@ -775,9 +788,20 @@ def _pose_inertial_launch(joint: bool, Rwb0, twb0, v0, bg0, ba0, prev_state, pre
     pk = pack_preint(preint, dev)
     ext = torch.cat([f32(Rcb), f32(tcb)])
     state = torch.cat([cur, prev, pri, pk, ext]).contiguous()
-    N = pts_w.shape[0]
     obs = [pts_w.to(torch.float32).contiguous(), obs_uv.to(torch.float32).contiguous(),
            inv_sigma2.to(torch.float32).contiguous(), valid.to(torch.bool).contiguous()]
+    return state, obs
+
+
+def _pose_inertial_launch(joint: bool, Rwb0, twb0, v0, bg0, ba0, prev_state, preint, pts_w,
+                          obs_uv, inv_sigma2, valid, Rcb, tcb, cam: Camera, n_rounds, n_iters,
+                          prior=None) -> PoseInertialResult:
+    """Launch K22 (``<joint>``) on one problem; every input stays on the
+    card (no host synchronisation)."""
+    dev = twb0.device
+    state, obs = pose_inertial_inputs(joint, Rwb0, twb0, v0, bg0, ba0, prev_state, preint,
+                                      pts_w, obs_uv, inv_sigma2, valid, Rcb, tcb, prior)
+    N = pts_w.shape[0]
     kernels.require_cuda("pose_inertial", state, *obs)
     out = torch.empty(21 + 225, dtype=torch.float32, device=dev)
     inl = torch.empty(N, dtype=torch.bool, device=dev)

@@ -15,7 +15,9 @@ step solves its motion and reference-keyframe branches in one call).
 On CUDA tensors it launches kernel K4 (``csrc/pose_lm.cu``, one CTA per
 problem), with the stereo residual's third row where ``obs_ur`` is given
 (pinhole only) and the KB8 projection for a ``KannalaBrandt8`` camera;
-on the CPU it runs ``optimize_pose_plain``.
+on the CPU it runs ``optimize_pose_plain``.  K4 stages a problem in its
+CTA's shared memory up to ``pose_lm_max_n`` observations and in a
+workspace in device memory above that (the global route, bit-equal).
 """
 
 from __future__ import annotations
@@ -130,7 +132,8 @@ LARGEST_N = {False: 0, True: 0}
 
 def pose_lm_max_n(stereo: bool, device: torch.device) -> int:
     """The most observations of one problem that K4 stages in a CTA's shared
-    memory on ``device`` (a card), with the stereo u or without."""
+    memory on ``device`` (a card), with the stereo u or without; a larger
+    problem takes K4's global route."""
     key = (bool(stereo), device.index)
     if key not in _MAX_N:
         with torch.cuda.device(device):
@@ -152,6 +155,25 @@ def optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Camera,
     Huber delta and chi2; pinhole only).  ``cam`` is a ``Pinhole`` or a
     ``KannalaBrandt8``.  On CUDA tensors this launches K4 once for the
     batch."""
+    return _optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam, n_rounds, n_iters,
+                          obs_ur, bf, False)
+
+
+def optimize_pose_global(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Camera,
+                         n_rounds: int = 4, n_iters: int = 10,
+                         obs_ur: Optional[torch.Tensor] = None, bf: float = 0.0
+                         ) -> PoseOptResult:
+    """``optimize_pose`` through K4's global route at any N (CUDA tensors
+    only): the check of that route against the staged one at a small N."""
+    if not R0.is_cuda:
+        raise ValueError("optimize_pose_global: K4's global route runs on a card")
+    return _optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam, n_rounds, n_iters,
+                          obs_ur, bf, True)
+
+
+def _optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Camera, n_rounds, n_iters,
+                   obs_ur, bf, force_global: bool) -> PoseOptResult:
+    """``optimize_pose``, on the global route at any N where force_global."""
     if obs_ur is not None and not isinstance(cam, Pinhole):
         raise ValueError("optimize_pose: the stereo residual takes a pinhole camera")
     if not R0.is_cuda:
@@ -165,11 +187,12 @@ def optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Camera,
             raise ValueError(f"pose_lm: obs_ur is {tuple(obs_ur.shape)}, expected {(B, N)}")
         args.append(f32(obs_ur))
     kernels.require_cuda("pose_lm", *args)
-    limit = pose_lm_max_n(obs_ur is not None, R0.device)
-    LARGEST_N[obs_ur is not None] = max(LARGEST_N[obs_ur is not None], N)
-    if N > limit:
-        raise ValueError(f"pose_lm: {N} observations a problem, more than the {limit} a CTA "
-                         "stages in shared memory")
+    stereo = obs_ur is not None
+    LARGEST_N[stereo] = max(LARGEST_N[stereo], N)
+    ws = None
+    if force_global or N > pose_lm_max_n(stereo, R0.device):
+        ws = torch.empty(int(kernels.entry("pose_lm_global_bytes")(B, N, int(stereo))),
+                         dtype=torch.uint8, device=R0.device)
     R = torch.empty(B, 3, 3, dtype=torch.float32, device=R0.device)
     t = torch.empty(B, 3, dtype=torch.float32, device=R0.device)
     inl = torch.empty(B, N, dtype=torch.bool, device=R0.device)
@@ -177,13 +200,17 @@ def optimize_pose(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam: Camera,
     p = [a.data_ptr() for a in args]
     ur_ptr = p[6] if obs_ur is not None else None
     kb8 = cam.kernel_params()
-    err = kernels.lib().pose_lm_launch(
+    launch = kernels.lib().pose_lm_global_launch if force_global else kernels.lib().pose_lm_launch
+    err = launch(
         p[0], p[1], p[2], p[3], ur_ptr, p[4], p[5], B, N, cam.fx, cam.fy, cam.cx, cam.cy,
         None if kb8 is None else kb8.ctypes.data, float(bf), n_rounds, n_iters, R.data_ptr(),
-        t.data_ptr(), inl.data_ptr(), n_inl.data_ptr(), kernels.stream(),
+        t.data_ptr(), inl.data_ptr(), n_inl.data_ptr(), None if ws is None else ws.data_ptr(),
+        kernels.stream(),
     )
     kernels.check(err, "pose_lm")
     kernels.LAUNCHES["pose_lm"] += 1
+    if ws is not None:
+        kernels.LAUNCHES["pose_lm_global"] += 1   # of those, on the global route
     if kb8 is not None:
         kernels.LAUNCHES["pose_lm_kb8"] += 1     # of those, through the KB8 camera
     if obs_ur is not None:

@@ -262,15 +262,40 @@ def test_extractor_edge_frames_bit_equal(frame):
 # --------------------------------------------------------------- on a card
 
 
+@pytest.mark.parametrize("shape,n_features", [((480, 640), 1000), ((512, 512), 1500)])
+@pytest.mark.parametrize("G", [8, 16])
+def test_collect_plan_bands_cover_each_plane(shape, n_features, G):
+    """K16's host plan: the G bands of every level, in rank order, cover
+    its plane's flat pixels exactly once in row-major order, their inner
+    bounds on 16-pixel segments; the launch table carries them."""
+    plan = ORBExtractor(ORBConfig(n_features=n_features), shape, "cpu").collect_plan
+    assert len(plan.k_levels) == 8
+    bands = plan.bands(G)
+    table = plan.table(G)
+    assert list(table[:4]) == [8, G, plan.list_n, plan.flat_total]
+    assert plan.list_n % 4 == 0 and plan.list_n >= max(plan.k_levels)
+    rows = table[4:].reshape(8, 6 + G)
+    for l, ((H, W), off) in enumerate(zip(plan.inner, plan.plane_offsets)):
+        b = bands[l]
+        pixels = np.concatenate([np.arange(b[r], b[r + 1]) for r in range(G)])
+        np.testing.assert_array_equal(pixels, np.arange(off, off + H * W))
+        assert all(x % fast.COLLECT_SEGMENT == 0 for x in b[1:-1])
+        np.testing.assert_array_equal(rows[l], np.concatenate(
+            [[off, W, H, plan.k_levels[l], plan.slot_offsets[l]], b]))
+        # no band is more than a segment a rank above an even share
+        assert np.diff(b).max() <= -(-H * W // G) + fast.COLLECT_SEGMENT
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(240, 320), (480, 640)])
-def test_glue_kernels_match_plain(shape, cuda_device):
+@pytest.mark.parametrize("shape,n_features", [((240, 320), 1000), ((480, 640), 1000),
+                                              ((512, 512), 1500)])
+def test_glue_kernels_match_plain(shape, n_features, cuda_device):
     """K15, K16 and K17 bit-equal to their plain versions on a rendered,
     a noise and a black frame; K18 on both claim rules."""
     H, W = shape
     rng = np.random.default_rng(9)
     imgs, _, _ = pf.render_sequence(pf.procedural_texture(), 1, width=W, height=H)
-    ex = ORBExtractor(ORBConfig(n_features=1000), shape, cuda_device)
+    ex = ORBExtractor(ORBConfig(n_features=n_features), shape, cuda_device)
     for im in (imgs[0], rng.integers(0, 256, shape).astype(np.uint8), np.zeros(shape, np.uint8)):
         img = T(im).to(cuda_device)
         pk = pyramid.compute_pyramid(img, ex.pyr_plan)

@@ -153,9 +153,8 @@ def test_vi_ba_matches_jax(perturb, n_iters, cg_iters, fixed):
 # ------------------------------------------------------------ pose inertial
 
 
-def pose_case(seed, joint):
+def pose_case(seed, joint, n_pts=150):
     rng = np.random.default_rng(seed)
-    n_pts = 150
     kf_states, segments = simulate(n_kf=2)
     preint = preintegrate_segments(segments)[0]
     R1, p1, v1 = [x.astype(np.float32) for x in map(np.asarray, kf_states[0])]
@@ -328,11 +327,20 @@ def test_vi_ba_kernel_matches_plain(cuda_device, case):
     check_vi_ba_kernel(*engine_vi_problem(cuda_device, case), cuda_device)
 
 
+# more points than K22 stages in its CTA's shared memory (about 8600 on an H100)
+K22_ABOVE_LIMIT = 9600
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("joint,with_prior", [(False, False), (True, True)])
-def test_pose_inertial_kernel_matches_plain(cuda_device, joint, with_prior):
-    args, prior = pose_case(7, joint)
+@pytest.mark.parametrize("joint,with_prior,n_pts", [(False, False, 150), (True, True, 150),
+                                                     (False, False, K22_ABOVE_LIMIT),
+                                                     (True, True, K22_ABOVE_LIMIT)])
+def test_pose_inertial_kernel_matches_plain(cuda_device, joint, with_prior, n_pts):
+    """K22 against its plain version, with the points staged in shared
+    memory and, above its staging limit, read from global memory."""
+    args, prior = pose_case(7, joint, n_pts)
     prior = prior if with_prior else None
+    assert (n_pts > vi.pose_inertial_max_n(joint, False, cuda_device)) == (n_pts > 150)
     k = run_pose(args, prior, joint, dev=cuda_device)
     T = lambda a: t(a, cuda_device)
     R0, t0, v0, bg0, ba0, prev, preint, pts, uv, isig, valid, Rcb, tcb = args

@@ -91,10 +91,10 @@ def test_vi_ba_kb8_matches_jax(perturb, n_iters, cg_iters, fixed):
     assert p.inliers[-len(prob.Rwb):].all()   # the axis point's observations
 
 
-def kb8_pose_case(seed, joint):
+def kb8_pose_case(seed, joint, n_pts=150):
     """``pose_case`` in KB8 pixels (the 20 outliers moved 0.1 fx), with a
     point on the true current camera's axis."""
-    args, prior = pose_case(seed, joint)
+    args, prior = pose_case(seed, joint, n_pts)
     R0, t0, v0, bg0, ba0, prev, preint, pts, uv, isig, valid, Rcb, tcb = args
     R2, p2 = true_current_state()
     pts = np.concatenate([pts, (p2 + R2 @ AXIS)[None]]).astype(np.float32)
@@ -165,10 +165,14 @@ def test_vi_ba_kb8_kernel_matches_plain(cuda_device, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("joint,with_prior", [(False, False), (True, True)])
-def test_pose_inertial_kb8_kernel_matches_plain(cuda_device, joint, with_prior):
-    args, prior = kb8_pose_case(7, joint)
+@pytest.mark.parametrize("joint,with_prior,n_pts", [(False, False, 150), (True, True, 150),
+                                                     (False, False, 9600), (True, True, 9600)])
+def test_pose_inertial_kb8_kernel_matches_plain(cuda_device, joint, with_prior, n_pts):
+    """K22<KB8> against its plain version, staged and (9600 points) above
+    the staging limit."""
+    args, prior = kb8_pose_case(7, joint, n_pts)
     prior = prior if with_prior else None
+    assert (n_pts > vi.pose_inertial_max_n(joint, True, cuda_device)) == (n_pts > 150)
     k = run_pose_kb8(args, prior, joint, dev=cuda_device)
     p = run_pose_kb8(args, prior, joint, dev=cuda_device, plain=True)
     torch.cuda.synchronize()

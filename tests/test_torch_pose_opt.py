@@ -166,22 +166,48 @@ def test_pose_lm_kernel_matches_plain(cuda_device, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("stereo", [False, True])
-def test_pose_lm_refuses_an_unstaged_problem(cuda_device, stereo):
-    """K4 stages a problem in one CTA's shared memory: one observation more
-    than fits raises, and the most that fit run."""
+def test_pose_lm_global_route_above_the_limit(cuda_device, stereo):
+    """Above the most observations K4 stages in a CTA's shared memory it
+    takes its global route (the problem staged in device memory): within
+    1e-4 of the plain version, inliers equal, 5 calls bit-identical; at
+    the limit itself the staged route runs."""
     limit = pose_opt.pose_lm_max_n(stereo, cuda_device)
     assert limit > 2048
-    for n, ok in ((limit, True), (limit + 1, False)):
+    for n, route in ((limit, False), (limit + 500, True)):
         probs = pf.synthetic_pose_problems(np.random.default_rng(6), 1, n, FX, FX, CX, CY)
         args = [torch.from_numpy(a).to(cuda_device) for a in probs[:6]]
         kw = {}
         if stereo:
             kw = dict(obs_ur=torch.from_numpy(_stereo_ur(*probs[:4], seed=8)).to(cuda_device),
                       bf=40.0)
-        if ok:
-            r = pose_opt.optimize_pose(*args, CAM, **kw)
-            torch.cuda.synchronize()
-            assert bool(torch.isfinite(r.R).all())
-        else:
-            with pytest.raises(ValueError, match="shared memory"):
-                pose_opt.optimize_pose(*args, CAM, **kw)
+        before = kernels.LAUNCHES["pose_lm_global"]
+        got = pose_opt.optimize_pose(*args, CAM, **kw)
+        assert kernels.LAUNCHES["pose_lm_global"] == before + int(route)
+        want = pose_opt.optimize_pose_plain(*args, CAM, **kw)
+        assert float((got.R - want.R).abs().max()) <= 1e-4
+        assert float((got.t - want.t).abs().max()) <= 1e-4
+        assert torch.equal(got.inliers, want.inliers)
+        for _ in range(5):
+            again = pose_opt.optimize_pose(*args, CAM, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mono", "stereo", "kb8"])
+def test_pose_lm_global_route_matches_staged(cuda_device, case):
+    """K4's global route bit-equal to its staged route at an N both take."""
+    from extractorb_tpu_torch.core.camera import KannalaBrandt8
+
+    cam, kw = CAM, {}
+    if case == "kb8":
+        cam = KannalaBrandt8(*KB8)
+        probs = pf.synthetic_pose_problems(np.random.default_rng(4), 2, 1128, *KB8[:4], kb8=KB8)
+    else:
+        probs = _problems(3, B=3)
+    args = [torch.from_numpy(a).to(cuda_device) for a in probs[:6]]
+    if case == "stereo":
+        kw = dict(obs_ur=torch.from_numpy(_stereo_ur(*probs[:4], seed=9)).to(cuda_device),
+                  bf=40.0)
+    staged = pose_opt.optimize_pose(*args, cam, **kw)
+    glob = pose_opt.optimize_pose_global(*args, cam, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(staged, glob))
