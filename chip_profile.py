@@ -31,6 +31,9 @@ while its step still runs: the median host time of an ordinary track call,
 the time per frame over the span from frame 5 to the end of the flush,
 and the idle share of that span, 1 - the union of its device events (a
 profiled run) / the unprofiled span's host time.
+Then [pipelined-vi]: [vi] at depth 3, the fused inertial frames' track
+call host ms without a synchronise a frame and their device ms from a
+profiled run that synchronises after each frame.
 Last, the loop event of [loop] and [loop-kb8] and the merge frame of
 [merge] and [merge-kb8] (``chip_smoke.py``'s constructed loop and merge
 sweep, pinhole and through TUM-VI's KB8 camera): host ms unprofiled,
@@ -38,8 +41,8 @@ device ms profiled, idle share.
 Prints one summary line per run and, with ``--out``, writes the per-frame
 times and the largest kernels there as JSON.  ``--runs`` names the sensor
 runs to make (default all nine, then the pipelined and event runs; with
-the option only those, both ways: a short comparison of two trees in one
-call).  Needs a card; fails without one.
+the option only those, both ways, and ``pipelined-vi`` among them the
+[pipelined-vi] run: a short comparison of two trees in one call).  Needs a card; fails without one.
 """
 
 from __future__ import annotations
@@ -164,6 +167,35 @@ def pipeline_runs(frames, rights, depths, dev) -> dict:
                   f"{span_ms:.1f} ms, {r['span_ms_per_frame']:.2f} ms per frame, device "
                   f"{busy:.1f} ms, idle {r['span_idle']:.4f}", flush=True)
     return out
+
+
+def pipelined_vi_run(frames, dev) -> dict:
+    """[pipelined-vi]: [vi]'s 40 frames at depth 3.  The fused inertial
+    frames' track-call host ms from a run without a synchronise a frame
+    (a pipelined call returns while its step runs), and their device ms
+    from a profiled run that synchronises after each frame (so each
+    frame's device work starts inside its range)."""
+    cfg = dataclasses.replace(cs.vi_config(), tracking=dataclasses.replace(
+        cs.vi_config().tracking, pipeline_depth=cs.PIPE_DEPTH))
+    plain = track_all(cfg, frames, None, dev, sync=False)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        synced = track_all(cfg, frames, None, dev, mark=True)
+    device, _, n_ev = device_ms_per_frame(prof, len(frames))
+    del prof
+    fused = [k for k, (_, kf, f, _) in enumerate(plain) if f and not kf]
+    fused_s = [k for k, (_, kf, f, _) in enumerate(synced) if f and not kf]
+    med = lambda v: statistics.median(v) if v else float("nan")
+    r = dict(host_ms_fused_call=med([plain[k][0] for k in fused]),
+             device_ms_fused=med([device[k] for k in fused_s]),
+             host_ms_fused_synced=med([synced[k][0] for k in fused_s]), n_fused=len(fused),
+             n_fused_synced=len(fused_s), host_ms=[h for h, *_ in plain], device_ms=device,
+             n_device_events=n_ev)
+    print(f"[pipelined-vi depth {cs.PIPE_DEPTH}] fused inertial frames: track call host "
+          f"{r['host_ms_fused_call']:.2f} ms (median, {len(fused)} frames, no synchronise); "
+          f"device {r['device_ms_fused']:.3f} ms, host {r['host_ms_fused_synced']:.2f} ms "
+          f"with a synchronise a frame ({len(fused_s)} frames)", flush=True)
+    return r
 
 
 def merge_track(cfg, frames, voc, dev, mark=None):
@@ -339,8 +371,9 @@ def main() -> int:
             "stereo-kb8": (cs.kb8_rig_config(), rig_l, rig_r),
             "vi-stereo-kb8": (cs.kb8_rig_config("imu-stereo"), vk_l, vk_r),
             "vi-kb8": (cs.vi_kb8_config(), vk_l, None)}
+    extra = ("pipelined-vi",)   # not a sensor run: made after them
     if args.runs:
-        unknown = set(args.runs.split(",")) - set(runs)
+        unknown = set(args.runs.split(",")) - set(runs) - set(extra)
         if unknown:
             raise ValueError(f"chip_profile.py: no run {sorted(unknown)}; the runs: {list(runs)}")
         runs = {k: v for k, v in runs.items() if k in args.runs.split(",")}
@@ -379,6 +412,9 @@ def main() -> int:
         del prof
     if not args.runs:
         result["pipelined"] = pipeline_runs(frames, rights, depths, dev)
+    if not args.runs or "pipelined-vi" in args.runs.split(","):
+        result["pipelined-vi"] = pipelined_vi_run(vi_frames, dev)
+    if not args.runs:
         result["events"] = event_runs(dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -23,10 +23,13 @@ a constructed out-and-back map through ``LoopCloser.process_keyframe``,
 [system-vocab] repeats [system] with a vocabulary.  Then the
 monocular-inertial path: [vi] runs ``System.track_monocular(img, ts,
 imu=...)`` over 40 frames of tests/test_vi_e2e.py's analytic trajectory
-with 100 Hz IMU samples (IMU initialisation, fused inertial frames, local
-inertial BAs), K19-K22 are held to their plain versions on that run's own
-inputs, and [vi-reference] repeats its frames through the IMU
-initialisation on the CPU plain path.  Then the stereo-inertial path and
+with 100 Hz IMU samples (IMU initialisation, fused inertial frames, each
+one replay of the inertial step's CUDA graph with the frame's K19 window
+inside it, local inertial BAs), [graph-vi] runs the same sequence through
+that graph and through the eager launches (every step's outputs
+bit-equal, both timed), K19-K22 are held to their plain versions on the
+eager run's own inputs, and [vi-reference] repeats its frames through the
+IMU initialisation on the CPU plain path.  Then the stereo-inertial path and
 inertial loop closing: [vi-stereo] runs ``System.track_stereo(l, r, ts,
 imu=...)`` over the same scene seen by a rectified rig (the IMU
 initialised with a fixed scale, every later frame through the legacy
@@ -54,7 +57,8 @@ triangulation) to its plain version on the rig's frames and on a rig turned
 0.8 degrees, [stereo-kb8] runs ``System.track_stereo`` on the rig,
 [stereo-kb8-reference] repeats its first frames on the CPU plain path, and
 [vi-stereo-kb8] / [vi-kb8] run [vi]'s trajectory through KB8 on the rig
-(imu-stereo) and monocular (imu-monocular), holding K20 and K22's KB8
+(imu-stereo) and monocular (imu-monocular; [graph-vi] holds its inertial
+step graph to the eager launches), holding K20 and K22's KB8
 instantiations to their plain versions at their first calls.  Last, loop
 closing through the KB8 camera: [loop-kb8] runs [loop] on the constructed
 map with its keypoints in TUM-VI's 512x512 KB8 image (every K12 and K14
@@ -103,7 +107,9 @@ Output: one line per phase, the card's name and power limit, a JSON line
 ``{"kernels": [...]}`` with each kernel's launches on the main paths, its
 largest deviation from the plain version, its time, the plain version's,
 its bound and a library call's time where one computes the same function,
-then the last line ``{"ok": true, "device": {...}}``.
+then the last line ``{"ok": true, "device": {...}}``.  Before them
+[graph-bounds] gives each step graph's bound (the sum of its kernels')
+beside its replay's time.
 """
 
 from __future__ import annotations
@@ -1039,13 +1045,46 @@ def phase_graph_vs_eager(frames, depths, poses, dev) -> dict:
     med = lambda v: statistics.median(v[2:])
     out = dict(ms=med(evg), plain_ms=med(eve), host_ms=med(hg), plain_host_ms=med(he),
                kernel_nodes=g.kernel_nodes, nodes=g.nodes, replays=g.n_replays,
-               wrapper_launches=sum(g.launches.values()))
+               wrapper_launches=dict(g.launches))
     print(f"[graph] TrackStep as one CUDA graph ({g.kernel_nodes} kernel nodes of {g.nodes}, "
-          f"{out['wrapper_launches']} kernel-wrapper launches captured): all outputs of "
+          f"{sum(g.launches.values())} kernel-wrapper launches captured): all outputs of "
           f"{len(rg)} steps bit-equal to the eager step's; median of frames 3-{len(rg)}: "
           f"{out['ms']:.3f} ms events / {out['host_ms']:.3f} ms host per replay, eager "
           f"{out['plain_ms']:.3f} / {out['plain_host_ms']:.3f} ms", flush=True)
     print("[graph] " + json.dumps(out), flush=True)
+    return out
+
+
+def _variant(name: str) -> bool:
+    """A wrapper counter that counts some of another counter's launches
+    (K4's stereo or KB8 problems, K22's joint or KB8 ones)."""
+    return name.endswith(("_kb8", "_stereo")) or name == "pose_inertial_joint"
+
+
+def phase_graph_bounds(stats, graphs) -> dict:
+    """Each step graph's bound: the sum, over the kernels one replay
+    launches, of their bounds at [parity]'s shapes (K19 at the fused
+    frame's window, K22 its joint variant; K4 and K22 through KB8 for a KB8
+    graph), beside its replay's CUDA-event ms and the eager step's.
+    ``graphs``: {tag: ([graph] / [graph-vi]'s numbers, kb8)}."""
+    out = {}
+    for tag, (g, kb8) in graphs.items():
+        parts = {}
+        for name, n in g["wrapper_launches"].items():
+            if _variant(name):
+                continue
+            key = "pose_inertial_joint" if name == "pose_inertial" else name
+            if kb8 and f"{key}_kb8" in stats:
+                key = f"{key}_kb8"
+            b = (stats["preint"]["frame_window"]["bound_ms"] if name == "preint"
+                 else stats[key]["bound_ms"])
+            parts[key] = n * b
+        out[tag] = dict(bound_ms=sum(parts.values()), ms=g["ms"], plain_ms=g["plain_ms"],
+                        kernel_nodes=g["kernel_nodes"], parts=parts)
+        print(f"[graph-bounds] {tag}: bound {out[tag]['bound_ms']:.5f} ms (the sum of its "
+              f"kernels' bounds), replay {g['ms']:.3f} ms, eager {g['plain_ms']:.3f} ms",
+              flush=True)
+    print("[graph-bounds] " + json.dumps(out), flush=True)
     return out
 
 
@@ -3020,8 +3059,9 @@ def phase_vi(frames, dev):
     """[vi]: ``System.track_monocular(img, ts, imu=...)`` over the 40-frame
     visual-inertial sequence at 640x480 / 1000 features from a cold map.
     The IMU initialises, the last 4 frames are OK, the metric scale and the
-    ATE stay inside test_vi_e2e's bounds, and the K19-K22 launches equal the
-    tracker's own counts."""
+    ATE stay inside test_vi_e2e's bounds, the K19-K22 launches equal the
+    tracker's own counts, and every fused inertial frame but its step key's
+    first two is one replay of the inertial step's CUDA graph."""
     host_ms, kf_ids, inited = [], [], []
 
     def on_frame(k, st, dt, sys_):
@@ -3030,11 +3070,12 @@ def phase_vi(frames, dev):
         inited.append(sys_.tracker.atlas.current.imu_initialized)
 
     kernels.LAUNCHES.clear()
-    with _InertialRecorder() as rec:
-        torch.cuda.synchronize()
-        sys_, states = run_vi(frames, dev, on_frame=on_frame)
-        sys_.flush()
-        torch.cuda.synchronize()
+    kernels.GRAPH_LAUNCHES.clear()
+    before = graph_counts(cached_graph(vi_config(), dev))
+    torch.cuda.synchronize()
+    sys_, states = run_vi(frames, dev, on_frame=on_frame)
+    sys_.flush()
+    torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     tr = sys_.tracker
     st = tr.stats
@@ -3053,6 +3094,7 @@ def phase_vi(frames, dev):
         raise AssertionError(f"[vi] states {[s.name for s in states]}, IMU init at {init_at}, "
                              f"scale {scale:.4f}, ATE {ate:.4f} m, fused {tr.n_fused_frames}, "
                              f"launches vs tracker {bad}, never launched {missing}")
+    graph = inertial_graph_counts("[vi]", sys_, before)
     kf_set = {k for k in range(1, len(kf_ids)) if kf_ids[k] and kf_ids[k][-1] == k}
     for k, (s_, ms) in enumerate(zip(states, host_ms)):
         tag = ("  keyframe event" if k in kf_set else "") + ("  IMU initialised" if k == init_at
@@ -3066,8 +3108,77 @@ def phase_vi(frames, dev):
           f"(< {VI_MAX_ATE}); fused-frame median "
           f"{statistics.median(steady) if steady else float('nan'):.2f} ms host clock",
           flush=True)
+    print(f"[vi] inertial step graph: {graph['eager']} eager, {graph['captures']} capture(s), "
+          f"{graph['replays']} replays for {graph['fused']} fused frames", flush=True)
     print(f"[vi] launches {launches}; tracker counts {own}", flush=True)
-    return launches, rec, states, init_at, kf_ids, [e for e in tr.trajectory]
+    return launches, states, init_at, kf_ids, [e for e in tr.trajectory]
+
+
+def phase_graph_vi(tag: str, frames, cfg, dev):
+    """[graph-vi]: ``tag``'s sequence (``run_vi`` with ``cfg``) through the
+    inertial step's CUDA graph and through ``graph=False`` from a cold map:
+    every step's outputs bit-equal (v, bg, ba and H15 with them) and the
+    same trajectory.  Prints the graph's kernel nodes and replays, and the
+    medians over the replayed fused inertial steps of their CUDA-event ms
+    and host ms against the same steps' eager launches, with the fused
+    frames' track-call host ms.  The eager run keeps K19-K22's arguments
+    (``_InertialRecorder``: the graph's would be its static buffers, and a
+    replay calls no wrapper), which [parity] holds the kernels to.  Returns
+    (that recorder, the numbers)."""
+    runs = {}
+    for graph in (None, False):
+        frame_ms, fused_frames, seen = [], [], [0]
+        kernels.GRAPH_LAUNCHES.clear()
+        before = graph_counts(cached_graph(cfg, dev))
+        with contextlib.ExitStack() as stack:
+            outs = stack.enter_context(_StepOutputs())
+            rec = stack.enter_context(_InertialRecorder()) if graph is False else None
+
+            def on_frame(k, st, dt, s_):
+                frame_ms.append(dt * 1e3)
+                if len(outs.calls) > seen[0] and outs.calls[-1]["inertial"]:
+                    fused_frames.append(k)
+                seen[0] = len(outs.calls)
+
+            sys_ = System(cfg, device=dev)
+            sys_.tracker.step_graph = graph
+            torch.cuda.synchronize()
+            run_vi(frames, dev, cfg=cfg, on_frame=on_frame, sys_=sys_)
+            sys_.flush()
+            torch.cuda.synchronize()
+        gc = inertial_graph_counts(f"[graph-vi] {tag}", sys_, before) if graph is None else None
+        runs[graph] = (sys_, outs.calls, rec, frame_ms, fused_frames, gc)
+    (sg, cg, _, fg, kg, gc), (se, ce, rec_e, fe, ke, _) = runs[None], runs[False]
+    if len(cg) != len(ce) or kg != ke or not any(c["inertial"] for c in cg):
+        raise AssertionError(f"{tag} graph run: {len(cg)} steps, fused inertial frames {kg}; "
+                             f"eager run: {len(ce)}, {ke}")
+    for k, (a, b) in enumerate(zip(cg, ce)):
+        diff = _differing(a, b)
+        if diff:
+            raise AssertionError(f"{tag} step {k}: {diff} differ between the graph and the "
+                                 "eager launches")
+    tg, te = sg.tracker.trajectory, se.tracker.trajectory
+    if len(tg) != len(te) or not all(np.array_equal(x[1], y[1]) and np.array_equal(x[2], y[2])
+                                     for x, y in zip(tg, te)):
+        raise AssertionError(f"{tag} graph and eager trajectories differ")
+    rep = [k for k, c in enumerate(cg) if c["inertial"] and c["replay"]]
+    med = lambda v: statistics.median(v) if v else float("nan")
+    ev = lambda calls: med([calls[k]["events"][0].elapsed_time(calls[k]["events"][1])
+                            for k in rep])
+    hs = lambda calls: med([calls[k]["host_ms"] for k in rep])
+    out = dict(gc, ms=ev(cg), plain_ms=ev(ce), step_host_ms=hs(cg), plain_step_host_ms=hs(ce),
+               frame_host_ms=med([fg[k] for k in kg]), plain_frame_host_ms=med([fe[k] for k in ke]))
+    print(f"[graph-vi] {tag}: the inertial step as one CUDA graph ({gc['kernel_nodes']} kernel "
+          f"nodes of {gc['nodes']}, {sum(gc['wrapper_launches'].values())} kernel-wrapper "
+          f"launches captured: {gc['wrapper_launches']}); all outputs of {len(cg)} steps "
+          f"({len(kg)} fused inertial, {gc['replays']} replays, {gc['eager']} eager, "
+          f"{gc['captures']} capture(s)) bit-equal to graph=False's, trajectories equal; median "
+          f"over the replayed steps: {out['ms']:.3f} ms events / {out['step_host_ms']:.3f} ms "
+          f"host per replay, eager {out['plain_ms']:.3f} / {out['plain_step_host_ms']:.3f} ms; "
+          f"fused frames' track call {out['frame_host_ms']:.2f} ms host (eager "
+          f"{out['plain_frame_host_ms']:.2f})", flush=True)
+    print(f"[graph-vi] {tag} " + json.dumps(out), flush=True)
+    return rec_e, out
 
 
 def _largest(calls, size):
@@ -3149,9 +3260,12 @@ def phase_parity_inertial(rec, dev) -> dict:
     calls = sorted(rec.calls["preint"], key=lambda c: int(c[0][3].sum()))
     args, _ = calls[len(calls) // 2]
     B, T, nv = args[1].shape[0], args[1].shape[1], int(args[3].sum())
+    fw = record(0.0, cuda_ms(lambda: preint_mod.integrate_batch(*args)),
+                cuda_ms(lambda: preint_mod.integrate_batch_plain(*args), reps=3),
+                B * T * 29 + B * 24 + B * 286 * 4, nv * 4700)
     stats["preint"].update(frame_window=dict(
-        B=B, T=T, samples=nv, calls=len(calls), ms=cuda_ms(lambda: preint_mod.integrate_batch(*args)),
-        plain_ms=cuda_ms(lambda: preint_mod.integrate_batch_plain(*args), reps=3)))
+        B=B, T=T, samples=nv, calls=len(calls), ms=fw["ms"], plain_ms=fw["plain_ms"],
+        bound_ms=fw["bound_ms"], bound_by=fw["bound_by"]))
     print(f"[parity] preint at the median window of the run's {len(calls)} calls: B={B} T={T} "
           f"({nv} samples) {stats['preint']['frame_window']['ms']:.4f} ms", flush=True)
 
@@ -3673,9 +3787,11 @@ def fr1_frames(n: int = SYS_FRAMES, width: int = WIDTH, height: int = HEIGHT):
     return frames, poses
 
 
-class _StepRecorder:
-    """Wraps TrackStep.__call__ to keep every step's pose and associations
-    (copies) and whether the step ran as a graph."""
+class _StepOutputs:
+    """Wraps TrackStep.__call__ to keep every step's outputs (clones, by
+    field name), whether it was an inertial step, whether its step has a
+    graph and whether the call was a replay, its host-clock ms and a
+    CUDA-event pair around it (on a card)."""
 
     def __init__(self):
         self.calls = []
@@ -3685,15 +3801,37 @@ class _StepRecorder:
         orig = self._orig
 
         def rec(step, *args, **kw):
+            cuda = step.device.type == "cuda"
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+            n_rep = step.graph.n_replays if step.graph is not None else 0
+            t0 = time.perf_counter()
+            if cuda:
+                ev[0].record()
             out = orig(step, *args, **kw)
-            self.calls.append((out.R.clone(), out.t.clone(), out.kp_mp.clone(),
-                               step.graph is not None))
+            if cuda:
+                ev[1].record()
+            host = (time.perf_counter() - t0) * 1e3
+            replay = step.graph is not None and step.graph.n_replays > n_rep
+            c = {f"feats.{f.name}": getattr(out.feats, f.name).clone()
+                 for f in dataclasses.fields(out.feats)}
+            c.update({n: v.clone() for n, v in out._asdict().items()
+                      if n != "feats" and v is not None})
+            c.update(inertial=step.inertial, graph=step.graph is not None, replay=replay,
+                     host_ms=host, events=ev)
+            self.calls.append(c)
             return out
         TrackStep.__call__ = rec
         return self
 
     def __exit__(self, *exc):
         TrackStep.__call__ = self._orig
+
+
+def _differing(a: dict, b: dict) -> list:
+    """The output fields of two ``_StepOutputs`` calls that are not
+    bit-equal (or that only one of them has)."""
+    return [n for n in a.keys() | b.keys() if n not in a or n not in b
+            or torch.is_tensor(a[n]) and not torch.equal(a[n], b[n])]
 
 
 def run_pipelined(frames, dev, cfg, graph=None, second=None, imu: bool = False):
@@ -3726,16 +3864,43 @@ def run_pipelined(frames, dev, cfg, graph=None, second=None, imu: bool = False):
     return sys_, states, host_ms, time.perf_counter() - t_start
 
 
-def _step_graph(sys_):
-    """The captured StepGraph of a system's visual step (its tracker's
-    cached TrackStep with a graph)."""
-    tr = sys_.tracker
+def _step_graph(sys_, inertial: bool = False):
+    """The captured StepGraph of a system's visual (or inertial) step."""
+    g = cached_graph(sys_.tracker.cfg, sys_.tracker.device, inertial)
+    if g is None or g.cuda_graph is None:
+        raise AssertionError(f"no captured {'inertial ' if inertial else ''}tracking-step graph")
+    return g
+
+
+def graph_counts(g) -> tuple:
+    return (g.n_warm, g.n_captures, g.n_replays) if g is not None else (0, 0, 0)
+
+
+def inertial_graph_counts(tag: str, sys_, before: tuple) -> dict:
+    """The inertial step graph's eager calls, captures and replays in a run
+    (``before``: its counts when the run started, from
+    ``graph_counts(cached_graph(...))``): every fused inertial frame but each
+    key's first two is a replay, and the replays agree with
+    ``kernels.GRAPH_LAUNCHES``; no visual step replayed."""
+    g = _step_graph(sys_, inertial=True)
+    warm, cap, rep = (a - b for a, b in zip(graph_counts(g), before))
+    n = sys_.tracker.n_fused_frames
+    if (warm + rep != n or rep < 1 or rep < n - 2 * max(1, cap)
+            or rep != kernels.GRAPH_LAUNCHES["track_step_inertial"]
+            or kernels.GRAPH_LAUNCHES["track_step"]):
+        raise AssertionError(f"{tag} {n} fused inertial frames: {warm} eager, {cap} captures, "
+                             f"{rep} replays; graph launches {dict(kernels.GRAPH_LAUNCHES)}")
+    return dict(fused=n, eager=warm, captures=cap, replays=rep, kernel_nodes=g.kernel_nodes,
+                nodes=g.nodes, wrapper_launches=dict(g.launches))
+
+
+def cached_graph(cfg, dev, inertial: bool = True):
+    """The StepGraph of the cached TrackStep that a System(cfg) on dev
+    takes for its inertial (or visual) step, or None before there is one."""
     graphs = [st.graph for key, st in track_device._STEP_CACHE.items()
-              if st.graph is not None and st.graph.cuda_graph is not None
-              and key[0] == tr.cfg.camera and key[5] == str(tr.device)]
-    if not graphs:
-        raise AssertionError("no captured tracking-step graph")
-    return graphs[-1]
+              if st.graph is not None and key[0] == cfg.camera and key[5] == str(dev)
+              and key[7] == inertial]
+    return graphs[-1] if graphs else None
 
 
 def phase_parity_undistort(frames, dev) -> dict:
@@ -3770,7 +3935,7 @@ def phase_pipelined(frames, poses, dev):
     associations bit-equal to the graph's) and at depth 0 (ATE; host ms)."""
     kernels.LAUNCHES.clear()
     kernels.GRAPH_LAUNCHES.clear()
-    with _StepRecorder() as rec_g:
+    with _StepOutputs() as rec_g:
         sys_, states, host_ms, wall = run_pipelined(frames, dev, fr1_config(PIPE_DEPTH))
     launches = dict(kernels.LAUNCHES)
     replays = kernels.GRAPH_LAUNCHES["track_step"]
@@ -3795,15 +3960,16 @@ def phase_pipelined(frames, poses, dev):
         raise AssertionError(f"[pipelined] launches {launches} against {bad}, never launched "
                              f"{missing}, {replays} graph replays")
     # the same sequence with the eager step: bit-equal poses and associations
-    with _StepRecorder() as rec_e:
+    with _StepOutputs() as rec_e:
         sys_e, _, host_e, wall_e = run_pipelined(frames, dev, fr1_config(PIPE_DEPTH), graph=False)
-    if len(rec_e.calls) != len(rec_g.calls) or any(c[3] for c in rec_e.calls):
+    if len(rec_e.calls) != len(rec_g.calls) or any(c["graph"] for c in rec_e.calls):
         raise AssertionError(f"[pipelined] eager run: {len(rec_e.calls)} steps against "
                              f"{len(rec_g.calls)}")
     for k, (g, e) in enumerate(zip(rec_g.calls, rec_e.calls)):
-        if not all(torch.equal(a, b) for a, b in zip(g[:3], e[:3])):
-            raise AssertionError(f"[pipelined] step {k}: the graph's pose or associations "
-                                 f"differ from the eager step's")
+        diff = _differing(g, e)
+        if diff:
+            raise AssertionError(f"[pipelined] step {k}: the graph's {diff} differ from the "
+                                 "eager step's")
     same_traj = all(np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
                     for a, b in zip(tr.trajectory, sys_e.tracker.trajectory))
     if not same_traj or len(tr.trajectory) != len(sys_e.tracker.trajectory):
@@ -3827,7 +3993,7 @@ def phase_pipelined(frames, poses, dev):
           f"launch per ordinary frame, {graph.kernel_nodes} kernel nodes of {graph.nodes} nodes "
           f"({sum(graph.launches.values())} kernel-wrapper launches: {dict(graph.launches)})",
           flush=True)
-    print(f"[pipelined] graph vs eager step: all {len(rec_g.calls)} steps' poses and kp_mp "
+    print(f"[pipelined] graph vs eager step: all outputs of the {len(rec_g.calls)} steps "
           f"bit-equal, trajectories equal", flush=True)
     print(f"[pipelined] ordinary-frame host ms (median of the track calls): depth "
           f"{PIPE_DEPTH} graph {med(ordinary(kf3, host_ms)):.2f}, depth {PIPE_DEPTH} eager "
@@ -3879,13 +4045,14 @@ def phase_pipelined_depth(sensor: str, frames, second, poses, dev):
 def phase_pipelined_vi(frames, dev):
     """[pipelined-vi]: imu-monocular at depth 3 (tests/test_vi_e2e.py:197):
     the last frame OK, the IMU initialised, at least 8 fused inertial
-    frames, |s - 1| < 0.35 and ATE < 0.25 m; the inertial step is not
-    captured."""
+    frames, |s - 1| < 0.35 and ATE < 0.25 m; every fused frame but its
+    step key's first two a replay of the inertial step's CUDA graph."""
     cfg = vi_config()
     cfg = dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking,
                                                                  pipeline_depth=PIPE_DEPTH))
     kernels.LAUNCHES.clear()
     kernels.GRAPH_LAUNCHES.clear()
+    before = graph_counts(cached_graph(cfg, dev))
     sys_, states, host_ms, wall = run_pipelined(frames, dev, cfg, imu=True)
     launches = dict(kernels.LAUNCHES)
     tr = sys_.tracker
@@ -3893,13 +4060,15 @@ def phase_pipelined_vi(frames, dev):
     missing = [k for k in INERTIAL_KERNELS if launches.get(k, 0) == 0]
     if (states[-1] != TrackState.OK or not tr.atlas.current.imu_initialized
             or tr.n_fused_frames < PIPE_VI_MIN_FUSED or not abs(scale - 1) < VI_MAX_SCALE_ERR
-            or not ate < VI_MAX_ATE or missing or kernels.GRAPH_LAUNCHES["track_step"]):
+            or not ate < VI_MAX_ATE or missing):
         raise AssertionError(f"[pipelined-vi] states {[st.name for st in states]}, IMU "
                              f"{tr.atlas.current.imu_initialized}, fused {tr.n_fused_frames}, "
                              f"scale {scale:.4f}, ATE {ate:.4f} m, never launched {missing}")
+    graph = inertial_graph_counts("[pipelined-vi]", sys_, before)
     print(f"[pipelined-vi] depth {PIPE_DEPTH}: IMU initialised, {tr.n_fused_frames} fused "
-          f"inertial frames, {sys_.n_keyframes()} keyframes, scale {scale:.4f}, ATE {ate:.4f} m; "
-          f"sequence with flush {wall * 1e3:.1f} ms", flush=True)
+          f"inertial frames ({graph['replays']} graph replays, {graph['eager']} eager, "
+          f"{graph['captures']} capture(s)), {sys_.n_keyframes()} keyframes, scale {scale:.4f}, "
+          f"ATE {ate:.4f} m; sequence with flush {wall * 1e3:.1f} ms", flush=True)
     print(f"[pipelined-vi] launches {launches}", flush=True)
     return launches
 
@@ -5003,8 +5172,10 @@ def phase_vi_kb8(tag, left, right, dev, stats):
     (rig) or < 0.35 (mono), ATE < 0.25 m, every frame OK (rig) or the last
     4 (mono); every K20 and K22 launch through KB8 and equal to the
     tracker's counts, K26 once per rig frame, fused inertial frames (mono)
-    or none (rig); K20<KB8> and K22<KB8> held to their plain versions at
-    their first calls."""
+    or none (rig), every fused frame but its step key's first two a replay
+    of the inertial step's graph (mono); on the rig K20<KB8> and K22<KB8>
+    held to their plain versions at their first calls (the mono run's are
+    held on [graph-vi]'s eager run)."""
     host_ms, inited = [], []
     cfg = kb8_rig_config("imu-stereo") if right is not None else vi_kb8_config()
 
@@ -5013,7 +5184,9 @@ def phase_vi_kb8(tag, left, right, dev, stats):
         inited.append(sys_.tracker.atlas.current.imu_initialized)
 
     kernels.LAUNCHES.clear()
-    with _InertialRecorder() as rec:
+    kernels.GRAPH_LAUNCHES.clear()
+    before = graph_counts(cached_graph(cfg, dev))
+    with (_InertialRecorder() if right is not None else contextlib.nullcontext()) as rec:
         torch.cuda.synchronize()
         sys_, states = run_vi(left, dev, cfg=cfg, on_frame=on_frame, rights=right)
         sys_.flush()
@@ -5046,7 +5219,13 @@ def phase_vi_kb8(tag, left, right, dev, stats):
           f"{tr.n_fused_frames} fused inertial frames, scale {scale:.4f} (|s - 1| < {bound}), "
           f"ATE {ate:.4f} m (< {VI_MAX_ATE})", flush=True)
     print(f"{tag} launches {launches}", flush=True)
-    _parity_inertial_kb8(tag, rec, stats)
+    if rig:
+        _parity_inertial_kb8(tag, rec, stats)
+    else:
+        graph = inertial_graph_counts(tag, sys_, before)
+        print(f"{tag} inertial step graph: {graph['eager']} eager, {graph['captures']} "
+              f"capture(s), {graph['replays']} replays for {graph['fused']} fused frames",
+              flush=True)
     return launches
 
 
@@ -5070,7 +5249,7 @@ def main() -> int:
     paths = {}
     results, paths["track"] = phase_main_path(step, frames, depths, poses, dev)
     phase_reference(step, results, frames, depths, poses)
-    phase_graph_vs_eager(frames, depths, poses, dev)
+    graph_visual = phase_graph_vs_eager(frames, depths, poses, dev)
     paths["system"], inits, card_sys, sys_states, sys_kf_ms = phase_system(sys_frames, sys_poses,
                                                                            dev)
     phase_system_reference(sys_frames, inits, card_sys)
@@ -5086,7 +5265,8 @@ def main() -> int:
     paths["system_vocab"] = phase_system_vocab(sys_frames, sys_poses, dev, sys_states,
                                                card_sys.n_keyframes(), sys_kf_ms)
     frames_vi, _ = vi_frames()
-    paths["vi"], vi_rec, vi_states, vi_init, vi_kfs, vi_traj = phase_vi(frames_vi, dev)
+    paths["vi"], vi_states, vi_init, vi_kfs, vi_traj = phase_vi(frames_vi, dev)
+    vi_rec, graph_vi = phase_graph_vi("[vi]", frames_vi, vi_config(), dev)
     stats.update(phase_parity_inertial(vi_rec, dev))
     phase_vi_reference(frames_vi, vi_states, vi_init, vi_kfs, vi_traj)
     vs_left, vs_right = vi_stereo_frames()
@@ -5123,6 +5303,8 @@ def main() -> int:
     vi_l, vi_r, _ = vi_rig_frames()
     paths["vi_stereo_kb8"] = phase_vi_kb8("[vi-stereo-kb8]", vi_l, vi_r, dev, stats)
     paths["vi_kb8"] = phase_vi_kb8("[vi-kb8]", vi_l, None, dev, stats)
+    vi_kb8_rec, graph_vi_kb8 = phase_graph_vi("[vi-kb8]", vi_l, vi_kb8_config(), dev)
+    _parity_inertial_kb8("[vi-kb8]", vi_kb8_rec, stats)
     loop_rec = _LoopRecorder()
     paths["loop_kb8"] = phase_loop(dev, kb8=True, rec=loop_rec)
     stats.update(phase_parity_loop_kb8(loop_rec, dev))
@@ -5159,6 +5341,9 @@ def main() -> int:
     if not all(0 < largest[st] for st in (False, True)):
         raise AssertionError(f"pose_lm: the largest N {largest}: a kind was never launched")
     k4_global = phase_pose_lm_global(dev)
+    phase_graph_bounds(stats, {"[graph]": (graph_visual, False),
+                               "[graph-vi] [vi]": (graph_vi, False),
+                               "[graph-vi] [vi-kb8]": (graph_vi_kb8, True)})
     count = lambda n: {p: l.get(n, 0) for p, l in paths.items()}
     rows = []
     for n, (src, rep) in KERNELS.items():

@@ -29,13 +29,17 @@ motion and reference pose problems share one K4 launch.
 Per frame, on the card: K1 x1, K2 x1, K3 x5, K4 x2 (mono and RGB-D);
 stereo adds K1 x1, K2 x1 and K9 x1.
 
-The inertial step (``inertial=True``, monocular-inertial) predicts the
-pose through the preintegrated IMU delta (PredictStateIMU, plain torch on
-the card, no host synchronisation) instead of the velocity model, and
-replaces the second pose solve by the joint last-frame solve against the
-previous frame's state and prior (K22 ``<joint=true>``), which also gives
-the frame's velocity, biases and the next prior's information; per frame
-that is K4 x1 and K22 x1, plus the K19 launch of the frame's window.
+The inertial step (``inertial=True``, monocular-inertial) takes the
+frame's raw IMU window (``imu_record``: one host record, one copy to the
+card) and integrates it in the step (K19, as the JAX package's
+``_integrate_jit`` before its step), predicts the pose through the
+preintegrated delta (PredictStateIMU, plain torch on the card, no host
+synchronisation) instead of the velocity model, and replaces the second
+pose solve by the joint last-frame solve against the previous frame's
+state and prior (K22 ``<joint=true>``), which also gives the frame's
+velocity, biases and the next prior's information; per frame that is K19
+x1, K4 x1 and K22 x1.  On a card the visual and the inertial step each
+run as one CUDA graph (``StepGraph``).
 
 ``MapMirror`` keeps the device copy of the map's point positions and
 validity that the step reads; it updates only the rows that changed
@@ -63,6 +67,7 @@ from ..frontend import matcher as fm
 from ..frontend import stereo as fstereo
 from ..frontend.extractor import Features, ORBExtractor, scale_factors
 from ..imu import preintegration as pre
+from . import imu_frontend
 from ..solver import inertial as sin
 from ..solver import pose_opt as spo
 
@@ -129,6 +134,58 @@ class LocalBlock(NamedTuple):
     ids_host: Optional[np.ndarray] = None  # (M,) int32 ids on the host
 
 
+# The inertial step's per-frame record (float32, one host-to-device copy): a
+# head of the integration bias (6), the previous state v, bg, ba (9), Rcb (9)
+# and tcb (3), padded to REC_HEAD floats, then the raw window at its bucketed
+# length T (``imu_frontend._bucket``, 32 at least): gyro (T,3), acc (T,3),
+# dt (T,) and valid (T,) as 1 / 0.  Padding steps keep the preintegration's
+# state, so the window integrates as ``imu_frontend.integrate_raw`` does.
+REC_HEAD = 32
+_REC_STATE = slice(6, 15)
+
+
+def imu_record(win, bias, v, bg, ba, Rcb, tcb, pin: bool = False) -> torch.Tensor:
+    """The record of one raw (gyro, acc, dt) window (``ImuQueue.raw_window``)
+    with the integration bias (bg, ba), the previous state and the
+    camera-from-body extrinsics; ``pin``: in page-locked memory (for a
+    copy to a card that does not block)."""
+    gyro, acc, dt = win
+    n = len(dt)
+    T = imu_frontend._bucket(n)
+    rec = torch.zeros(REC_HEAD + 8 * T, dtype=torch.float32, pin_memory=pin)
+    a = rec.numpy()
+    for o, x in ((0, bias), (6, v), (9, bg), (12, ba), (15, Rcb), (24, tcb)):
+        x = np.asarray(x, np.float32).reshape(-1)
+        a[o:o + len(x)] = x
+    o = REC_HEAD
+    a[o:o + 3 * n] = np.asarray(gyro, np.float32).reshape(-1)
+    a[o + 3 * T:o + 3 * T + 3 * n] = np.asarray(acc, np.float32).reshape(-1)
+    a[o + 6 * T:o + 6 * T + n] = dt
+    a[o + 7 * T:o + 7 * T + n] = 1.0
+    return rec
+
+
+def imu_record_views(rec: torch.Tensor):
+    """(gyro, acc, dt, valid, bias, v, bg, ba, Rcb, tcb) of a record, views
+    on its device (valid as a bool tensor)."""
+    T = (rec.shape[0] - REC_HEAD) // 8
+    o = REC_HEAD
+    return (rec[o:o + 3 * T].view(T, 3), rec[o + 3 * T:o + 6 * T].view(T, 3),
+            rec[o + 6 * T:o + 7 * T], rec[o + 7 * T:o + 8 * T] > 0, rec[0:6], rec[6:9],
+            rec[9:12], rec[12:15], rec[15:24].view(3, 3), rec[24:27])
+
+
+class StepImu(NamedTuple):
+    """The inertial step's inputs: ``record`` (``imu_record``, on the host),
+    ``prior_H`` the previous frame's (15,15) prior information on the step's
+    device, and ``prev``: None, or the previous state (v, bg, ba) as tensors
+    on the step's device (the outputs of a step still in flight) that take
+    the record's place."""
+    record: torch.Tensor
+    prior_H: torch.Tensor
+    prev: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+
+
 def rgbd_right_coords(xy, xy_un, valid, depthmap, bf: float):
     """The RGB-D stereo channels (reference ComputeStereoFromRGBD,
     Frame.cc:994): depth sampled at the rounded raw keypoint coordinates,
@@ -168,7 +225,8 @@ class TrackStep:
 
     def __init__(self, cam_cfg: CameraConfig, orb_cfg: ORBConfig, img_shape: Tuple[int, int],
                  map_cap: int, local_cap: int, device, depth_mode: str = "none",
-                 inertial: bool = False, graph: Optional[bool] = None):
+                 inertial: bool = False, graph: Optional[bool] = None,
+                 imu_noise: Optional[Tuple[float, float, float, float]] = None):
         if cam_cfg.model == "KannalaBrandt8" and depth_mode != "none":
             raise NotImplementedError("TrackStep: the KB8 camera takes the monocular steps "
                                       "only; the JAX tracker never fuses a fisheye rig frame "
@@ -180,7 +238,11 @@ class TrackStep:
         if inertial and depth_mode != "none":
             raise NotImplementedError("TrackStep: the inertial step is monocular only; the JAX "
                                       "package never builds a stereo or RGB-D inertial step")
+        if inertial and imu_noise is None:
+            raise ValueError("TrackStep: the inertial step needs imu_noise (ImuCalib's "
+                             "noise_gyro, noise_acc, walk_gyro, walk_acc)")
         self.inertial = inertial
+        self.imu_noise = None if imu_noise is None else tuple(float(x) for x in imu_noise)
         self.depth_mode = depth_mode
         self.stereo = depth_mode != "none"
         # reference Camera.bf and mThDepth = bf * ThDepth / fx
@@ -204,12 +266,14 @@ class TrackStep:
         self.inv_sigma2 = torch.as_tensor(
             [1.0 / float(s * s) for s in scales], dtype=torch.float32, device=self.device)
         self.img_wh = (float(cam_cfg.width), float(cam_cfg.height))
-        # the visual step on the card runs as one CUDA graph (``graph=False``
-        # keeps the eager launches, which the graph is held against)
+        self.gravity = torch.tensor([0.0, 0.0, -sin.GRAVITY], dtype=torch.float32,
+                                    device=self.device)
+        # the step on the card runs as one CUDA graph (``graph=False`` keeps
+        # the eager launches, which the graph is held against)
         if graph is None:
-            graph = self.device.type == "cuda" and not inertial
-        if graph and (self.device.type != "cuda" or inertial):
-            raise ValueError("TrackStep: the CUDA graph captures the visual step on a card")
+            graph = self.device.type == "cuda"
+        if graph and self.device.type != "cuda":
+            raise ValueError("TrackStep: the CUDA graph captures the step on a card")
         self.graph = StepGraph(self) if graph else None
 
     def __call__(
@@ -224,23 +288,50 @@ class TrackStep:
         R_last, t_last,                   # previous frame pose
         R_prev, t_prev,                   # the frame before (for the velocity)
         img_r=None,                       # right image (stereo) or depth map (rgbd)
-        imu=None,                         # inertial inputs (see below)
+        imu: Optional[StepImu] = None,    # inertial inputs
     ) -> FusedOut:
-        """One frame.  On the card the visual step is a replay of its CUDA
-        graph (``StepGraph``); the inertial step and the CPU run ``_step``."""
+        """One frame.  On the card the step is a replay of its CUDA graph
+        (``StepGraph``); with ``graph=False`` and on the CPU it runs
+        ``_step``."""
         args = (img, last_xy_un, last_desc, last_oct, last_ang, last_kp_mp, map_pos, map_valid,
                 lm_ids, lm_pos, lm_desc, lm_norm, lm_maxd, lm_val, ref_desc, ref_valid,
                 ref_kp_mp, R_last, t_last, R_prev, t_prev)
+        if self.inertial != (imu is not None):
+            raise ValueError("TrackStep: an inertial step takes imu inputs, a visual one none")
         if self.graph is not None:
-            return self.graph(args, img_r)
-        return self._step(*args, img_r=img_r, imu=imu)
+            return self.graph(args, img_r, imu)
+        return self._step(*args, img_r=img_r, imu=self._stage(imu))
 
-    def _step(
+    def _stage(self, imu: Optional[StepImu]):
+        """``_step``'s inertial inputs: the record copied to the step's
+        device, a chained previous state in its place, and the prior."""
+        if imu is None:
+            return None
+        rec = imu.record.to(self.device, non_blocking=True)
+        if imu.prev is not None:
+            torch.cat(imu.prev, out=rec[_REC_STATE])
+        return rec, imu.prior_H
+
+    def _step(self, *args, img_r=None, imu=None) -> FusedOut:
+        """The step as eager launches: the arguments of ``__call__``, and
+        for the inertial step ``imu`` = (the record on the step's device,
+        prior_H).  Integrates the record's window (K19) and runs
+        ``_track``."""
+        if not self.inertial:
+            return self._track(*args, img_r=img_r)
+        rec, prior_H = imu
+        gyro, acc, dt, valid, bias, v, bg, ba, Rcb, tcb = imu_record_views(rec)
+        preint = pre.index(pre.integrate_batch(gyro[None], acc[None], dt[None], valid[None],
+                                               bias[None], *self.imu_noise), 0)
+        return self._track(*args, imu=(preint, v, bg, ba, prior_H, Rcb, tcb))
+
+    def _track(
         self, img, last_xy_un, last_desc, last_oct, last_ang, last_kp_mp, map_pos, map_valid,
         lm_ids, lm_pos, lm_desc, lm_norm, lm_maxd, lm_val, ref_desc, ref_valid, ref_kp_mp,
         R_last, t_last, R_prev, t_prev, img_r=None, imu=None,
     ) -> FusedOut:
-        """The step as eager launches (the arguments of ``__call__``)."""
+        """The step after the integration: ``imu`` is the JAX step's tuple
+        (preint, v_last, bg_last, ba_last, prior_H, Rcb, tcb)."""
         N, CAP = self.capacity, self.map_cap
         cam = self.cam
 
@@ -248,7 +339,7 @@ class TrackStep:
             # PredictStateIMU (reference Tracking.cc:1230) from the previous
             # state through the frame's preintegration (no re-orthonormalisation)
             preint, v_last, bg_last, ba_last, prior_H, Rcb, tcb = imu
-            g = torch.tensor([0.0, 0.0, -sin.GRAVITY], dtype=torch.float32, device=self.device)
+            g = self.gravity
             Rwb1 = R_last.T @ Rcb
             twb1 = R_last.T @ (tcb - t_last)
             b = torch.cat([bg_last, ba_last])
@@ -379,30 +470,36 @@ class TrackStep:
 
 
 class StepGraph:
-    """A visual ``TrackStep`` as one CUDA graph on the card (the JAX step
-    is one XLA program per frame, ``extractorb_tpu/slam/track_device.py
-    :173``): K15, K1, K16, K17, K2, K24 (with distortion), K9 (stereo),
-    K3 x5, K18 x3, K4 x2 and the torch glue between them, replayed by one
-    graph launch a frame.  Both branches of the JAX step's ``lax.cond``s
-    stay decided on the device (``torch.where``), as in ``_step``.
+    """A ``TrackStep`` as one CUDA graph on the card (the JAX step is one
+    XLA program per frame, ``extractorb_tpu/slam/track_device.py:169``):
+    the visual step's K15, K1, K16, K17, K2, K24 (with distortion), K9
+    (stereo), K3 x5, K18 x3, K4 x2, or the inertial step's K19, K15, K1,
+    K16, K17, K2, K3 x5, K18 x3, K4 x1 and K22 ``<joint=true>``, and the
+    torch glue between them (the inertial step's PredictStateIMU too),
+    replayed by one graph launch a frame.  Both branches of the JAX step's
+    ``lax.cond``s stay decided on the device (``torch.where``), as in
+    ``_step``.
 
     A call with a new key runs ``_step`` eagerly: the warm-up that
-    initialises what a capture may not (cuBLAS, kernel attributes, cached
-    tables).  When the key repeats the graph is captured, and that call and
-    every later one copy their inputs into the graph's static buffers and
-    replay it (a key seen once, such as the first frame after
-    initialisation chaining from the 5x init extractor, is never
-    captured).  The key is
+    initialises what a capture may not (cuBLAS, kernel attributes such as
+    K4's and K22's shared-memory limits, cached tables).  When the key
+    repeats the graph is captured, and that call and every later one copy
+    their inputs into the graph's static buffers and replay it (a key seen
+    once, such as the first frame after initialisation chaining from the 5x
+    init extractor, or an IMU window of another bucket after a gap in the
+    stream, runs eagerly and leaves the captured graph in place).  The key is
     everything the graph bakes in: the camera (its model and intrinsics
-    select K4's instantiation and the projection's constants), every
-    input's shape and type, and the addresses of the map mirror's
-    tensors, which the graph reads in place (so ``MapMirror`` growth or a
-    new mirror recaptures).  The host values
-    the wrappers pass to their kernels (tables, counts, capacities) follow
-    from the step's configuration and those shapes.  The local and
-    reference blocks are copied only when the caller passes other tensors
-    (they are never changed in place); the previous frame's tensors, the
-    images and the poses at every call.
+    select K4's and K22's instantiations and the projection's constants),
+    every input's shape and type (the IMU record's length is its window's
+    bucket), and the addresses of the map mirror's tensors, which the graph
+    reads in place (so ``MapMirror`` growth or a new mirror recaptures).
+    The host values the wrappers pass to their kernels (tables, counts,
+    capacities, the IMU noise) follow from the step's configuration and
+    those shapes.  The local and reference blocks are copied only when the
+    caller passes other tensors (they are never changed in place); the
+    previous frame's tensors, the images, the poses, the IMU record (one
+    copy from the host) and the prior at every call, and a chained previous
+    state (``StepImu.prev``) into the record's place.
 
     A replay overwrites the graph's outputs, so every replay's outputs are
     packed in the graph into one flat buffer, which one device copy after
@@ -412,15 +509,18 @@ class StepGraph:
     ``kernels.LAUNCHES`` counts launches where a wrapper launches its
     kernel: a replay adds the launches counted while capturing (which
     themselves are taken back: a capture launches nothing), and
-    ``kernels.GRAPH_LAUNCHES["track_step"]`` counts the replays.  A failed
-    capture raises."""
+    ``kernels.GRAPH_LAUNCHES["track_step"]`` (the visual step) or
+    ``["track_step_inertial"]`` counts the replays.  A failed capture
+    raises."""
 
     _MIRROR = (6, 7)                     # map_pos, map_valid: read in place
     _BLOCKS = tuple(range(8, 17))        # local block, reference block
     _PER_FRAME = (0, 1, 2, 3, 4, 5, 17, 18, 19, 20)
+    _N_ARGS = 21
 
     def __init__(self, step: "TrackStep"):
         self.step = step
+        self.name = "track_step_inertial" if step is not None and step.inertial else "track_step"
         self.key = None
         self._warm = None      # the key of the last eager call
         self.cuda_graph = None
@@ -436,30 +536,58 @@ class StepGraph:
         self.n_replays = 0
         self.n_warm = 0        # eager calls (a key's first)
 
-    def __call__(self, args, img_r=None) -> FusedOut:
-        inputs = list(args) + ([] if img_r is None else [img_r])
-        key = (self.step.cam,) + tuple((tuple(t.shape), t.dtype) for t in inputs) + tuple(
-            args[i].data_ptr() for i in self._MIRROR)
+    @staticmethod
+    def inputs(args, img_r=None, imu: Optional[StepImu] = None) -> list:
+        """The step's tensors in the graph's static order: the 21
+        arguments, then the right image or depth map, or the IMU record and
+        the prior."""
+        extra = [] if img_r is None else [img_r]
+        if imu is not None:
+            extra += [imu.record, imu.prior_H]
+        return list(args) + extra
+
+    def split(self, inputs):
+        """``_step``'s (args, img_r, imu) from a list in ``inputs``' order
+        (imu as (record, prior_H))."""
+        args, rest = inputs[:self._N_ARGS], inputs[self._N_ARGS:]
+        if self.step.inertial:
+            return args, None, (rest[0], rest[1])
+        return args, (rest[0] if rest else None), None
+
+    def key_of(self, inputs) -> tuple:
+        return (self.step.cam,) + tuple((tuple(t.shape), t.dtype) for t in inputs) + tuple(
+            inputs[i].data_ptr() for i in self._MIRROR)
+
+    def __call__(self, args, img_r=None, imu: Optional[StepImu] = None) -> FusedOut:
+        inputs = self.inputs(args, img_r, imu)
+        prev = None if imu is None else imu.prev
+        key = self.key_of(inputs)
         if key != self.key:
             if key != self._warm:
                 self._warm = key
                 self.n_warm += 1
-                return self.step._step(*args, img_r=img_r)
-            self._capture(key, inputs)
+                return self.step._step(*args, img_r=img_r, imu=self.step._stage(imu))
+            self._capture(key, inputs, prev)
         else:
-            for i in self._PER_FRAME + tuple(range(21, len(inputs))):
-                self.static[i].copy_(inputs[i])
+            for i in self._PER_FRAME + tuple(range(self._N_ARGS, len(inputs))):
+                self.static[i].copy_(inputs[i], non_blocking=True)
             for i in self._BLOCKS:
                 if inputs[i] is not self.sources[i]:
                     self.static[i].copy_(inputs[i])
                     self.sources[i] = inputs[i]
+            self._chain(prev)
         self.cuda_graph.replay()
         kernels.LAUNCHES.update(self.launches)
-        kernels.GRAPH_LAUNCHES["track_step"] += 1
+        kernels.GRAPH_LAUNCHES[self.name] += 1
         self.n_replays += 1
         return self._unpack(self.flat.clone())
 
-    def _capture(self, key, inputs):
+    def _chain(self, prev):
+        """A chained previous state into the static IMU record's place."""
+        if prev is not None:
+            torch.cat(prev, out=self.static[self._N_ARGS][_REC_STATE])
+
+    def _capture(self, key, inputs, prev):
         dev = self.step.device
         self.key = self.cuda_graph = self.flat = None
         static = [t if i in self._MIRROR else torch.empty(t.shape, dtype=t.dtype, device=dev)
@@ -467,11 +595,14 @@ class StepGraph:
         for i, t in enumerate(inputs):
             if i not in self._MIRROR:
                 static[i].copy_(t)
+        self.static = static
+        self._chain(prev)
         before = collections.Counter(kernels.LAUNCHES)
         g = torch.cuda.CUDAGraph(keep_graph=True)
         try:
             with torch.cuda.graph(g):
-                out = self.step._step(*static[:21], img_r=static[21] if len(static) > 21 else None)
+                a, r, i = self.split(static)
+                out = self.step._step(*a, img_r=r, imu=i)
                 flat = self._pack(out)
         finally:
             self.launches = kernels.LAUNCHES - before
@@ -484,7 +615,7 @@ class StepGraph:
         self.nodes = total.value
         if self.kernel_nodes < 0:
             raise RuntimeError("TrackStep graph: its nodes cannot be read")
-        self.static, self.sources = static, list(inputs)
+        self.sources = list(inputs)
         self.cuda_graph, self.flat, self.key = g, flat, key
         self.n_captures += 1
 
@@ -533,15 +664,17 @@ _STEP_CACHE: dict = {}
 
 def get_track_step(cam_cfg: CameraConfig, orb_cfg: ORBConfig, img_shape, map_cap: int,
                    local_cap: int, device, depth_mode: str = "none",
-                   inertial: bool = False, graph: Optional[bool] = None) -> TrackStep:
+                   inertial: bool = False, graph: Optional[bool] = None,
+                   imu_noise: Optional[Tuple[float, float, float, float]] = None) -> TrackStep:
     """The cached ``TrackStep`` of a configuration; ``graph`` as
-    ``TrackStep``'s (None: the CUDA graph for a visual step on a card)."""
+    ``TrackStep``'s (None: the CUDA graph on a card)."""
     key = (cam_cfg, orb_cfg, tuple(img_shape), map_cap, local_cap, str(torch.device(device)),
-           depth_mode, inertial, graph)
+           depth_mode, inertial, graph, imu_noise)
     step = _STEP_CACHE.get(key)
     if step is None:
         step = TrackStep(cam_cfg, orb_cfg, tuple(img_shape), map_cap, local_cap, device,
-                         depth_mode=depth_mode, inertial=inertial, graph=graph)
+                         depth_mode=depth_mode, inertial=inertial, graph=graph,
+                         imu_noise=imu_noise)
         _STEP_CACHE[key] = step
     return step
 

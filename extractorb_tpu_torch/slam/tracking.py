@@ -353,6 +353,7 @@ class Tracker:
         # (frame_id, (mid, version), (H15, state)): the ConstraintPoseImu of the
         # last inertially solved frame (reference mpcpi)
         self._marg_prior = None
+        self._eye_prior = None    # the fused step's prior without one: 1e4 I on the device
         self._vi_stage_fired = False
         if self.inertial:
             self.imu_calib = ImuCalib.from_config(cfg.imu)
@@ -600,25 +601,26 @@ class Tracker:
                 return None
             self._fused_local = (key, blk)
         blk = self._fused_local[1]
-        imu_in = None
+        imu_in = noise = None
         last = self.last_frame   # the pipe's tail while frames are in flight
         f32 = lambda a: self._t(np.asarray(a, np.float32))
         if self.inertial:
-            # preintegrate (last frame, this frame] with the current bias on
-            # the card (no fetch); the previous state and its prior ride in,
-            # from the pipe tail's outputs while chaining
+            # the window (last frame, this frame], integrated in the step with
+            # the current bias, rides in one host record with the previous
+            # state (from the pipe tail's outputs while chaining) and the
+            # extrinsics; the prior is on the device
             win = self.imu_queue.raw_window(last.timestamp, ts)
             if win is None:
                 return None  # no IMU coverage: legacy path
-            preint = imu_frontend.integrate_raw(win, self.cur_bias, self.imu_calib, self.device,
-                                                self.stats)
+            calib = self.imu_calib
             if self._pipe:
                 tail = self._pipe[-1].out
-                v_in, bg_in, ba_in, H_in = tail.v, tail.bg, tail.ba, tail.H15
+                prev, H_in = (tail.v, tail.bg, tail.ba), tail.H15
+                state = (np.zeros(3, np.float32),) * 3
             else:
-                v_in = f32(last.v)
-                bg_in = f32(last.bg if last.bg is not None else self.cur_bias[:3])
-                ba_in = f32(last.ba if last.ba is not None else self.cur_bias[3:])
+                prev = None
+                state = (last.v, last.bg if last.bg is not None else self.cur_bias[:3],
+                         last.ba if last.ba is not None else self.cur_bias[3:])
                 mh = self._marg_prior
                 # the JAX package reuses the prior after checking the frame
                 # id only, not the map version (ROADMAP C, matched reference
@@ -627,13 +629,21 @@ class Tracker:
                     H_in = mh[2][0]
                     self.stats["fused_prior"] += 1
                 else:
-                    H_in = torch.eye(15, dtype=torch.float32, device=self.device) * 1e4
-            imu_in = (preint, v_in, bg_in, ba_in, H_in,
-                      f32(self.imu_calib.Rcb), f32(self.imu_calib.tcb))
+                    if self._eye_prior is None:
+                        self._eye_prior = torch.eye(15, dtype=torch.float32,
+                                                    device=self.device) * 1e4
+                    H_in = self._eye_prior
+            rec = td.imu_record(win, self.cur_bias, *state, calib.Rcb, calib.tcb,
+                                pin=self.device.type == "cuda")
+            imu_in = td.StepImu(rec, H_in, prev)
+            # the step's K19 launch, and its joint solve (K22)
+            self.stats["preint"] += 1
             self.stats["fused_inertial"] += 1
+            noise = (calib.noise_gyro, calib.noise_acc, calib.walk_gyro, calib.walk_acc)
         step = td.get_track_step(self.cfg.camera, self.cfg.orb, img.shape, self._mirror.cap,
                                  self._fused_local_cap, self.device, depth_mode=depth_mode,
-                                 inertial=self.inertial, graph=self.step_graph)
+                                 inertial=self.inertial, graph=self.step_graph,
+                                 imu_noise=noise)
         ref_desc, ref_valid, ref_kp = self._ref_block(mp)
         if self._pipe:
             # chaining: the pose inputs are the in-flight steps' outputs

@@ -186,7 +186,7 @@ def test_discard_drops_the_deferred_results_and_notifies():
     assert not lm.has_pending_tf() and lm.pending_tf_handles() == [] and fired == [1]
 
 
-def _fused_out(rng, stereo: bool) -> td.FusedOut:
+def _fused_out(rng, kind: str) -> td.FusedOut:
     N, M = 37, 53
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     xy = t(rng.uniform(0, 320, (N, 2)).astype(np.float32))
@@ -201,20 +201,24 @@ def _fused_out(rng, stereo: bool) -> td.FusedOut:
                       kp_mp=t(rng.integers(-1, 99, N, np.int32)), n_match_motion=torch.tensor(41),
                       n_inl_motion=n[0], n_inl_final=torch.tensor(33), lm_searched=t(
                           rng.random(M) > 0.5), used_ref=torch.tensor(True), n_pre=n[1])
-    if stereo:
+    if kind == "stereo":
         out = out._replace(ur=t(rng.random(N, np.float32)), depth=t(rng.random(N, np.float32)),
                            n_close_tracked=torch.tensor(3, dtype=torch.int32),
                            n_close_untracked=torch.tensor(4, dtype=torch.int32))
+    if kind == "inertial":   # the joint solve's outputs: views of one buffer, as K22 gives them
+        sol = t(rng.random(21 + 225, np.float32))
+        out = out._replace(v=sol[12:15], bg=sol[15:18], ba=sol[18:21],
+                           H15=sol[21:].reshape(15, 15))
     return out
 
 
-@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
-def test_graph_output_snapshot_layout(stereo):
+@pytest.mark.parametrize("kind", ["mono", "stereo", "inertial"])
+def test_graph_output_snapshot_layout(kind):
     """The graph packs a step's outputs into one buffer that a replay's
     snapshot copies: unpacking gives every field back, with its type and
     shape, a tensor that was two fields (xy_un = feats.xy without
     distortion) as one, and None where the step has no such output."""
-    out = _fused_out(np.random.default_rng(int(stereo)), stereo)
+    out = _fused_out(np.random.default_rng(("mono", "stereo", "inertial").index(kind)), kind)
     g = td.StepGraph(None)
     back = g._unpack(g._pack(out).clone())
     assert back.xy_un is back.feats.xy
@@ -229,9 +233,70 @@ def test_graph_output_snapshot_layout(stereo):
         else:
             assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), name
     assert all(o % 16 == 0 for o, _, _, _ in g.pieces)
+    assert (back.H15 is None) == (kind != "inertial")
 
 
-def test_graph_is_for_a_visual_step_on_a_card():
+def _imu_step(graph=None):
+    cfg = chip_smoke.vi_config(W, H, NF)
+    return td.TrackStep(cfg.camera, cfg.orb, (H, W), 32768, 4096, "cpu", inertial=True,
+                        graph=graph, imu_noise=(1e-3, 1e-2, 1e-6, 1e-5))
+
+
+def _window(n: int, rng):
+    return (rng.standard_normal((n, 3)).astype(np.float32),
+            rng.standard_normal((n, 3)).astype(np.float32), np.full(n, 0.01, np.float32))
+
+
+@pytest.mark.parametrize("kind", ["mono", "inertial"])
+def test_graph_key_and_static_inputs(kind):
+    """The graph's key and its static-input order.  The 21 step arguments
+    come first (the mirror's addresses in the key); an inertial step adds
+    the IMU record and the prior, which round-trip through the list: a
+    window of 10 or 32 samples is one key (the bucket of 32), one of 33 a
+    new one, as is another mirror."""
+    rng = np.random.default_rng(7)
+    step = _imu_step() if kind == "inertial" else td.TrackStep(
+        configs(DEPTH)[0].camera, configs(DEPTH)[0].orb, (H, W), 32768, 4096, "cpu")
+    g = td.StepGraph(step)
+    assert g.name == ("track_step_inertial" if kind == "inertial" else "track_step")
+    args = [torch.zeros(i + 1) for i in range(21)]
+    prior = torch.eye(15)
+
+    def inputs(n, mirror=None):
+        a = list(args)
+        if mirror is not None:
+            a[6] = mirror
+        if kind == "mono":
+            return g.inputs(a)
+        rec = td.imu_record(_window(n, rng), np.zeros(6), np.zeros(3), np.zeros(3),
+                            np.zeros(3), np.eye(3), np.zeros(3))
+        return g.inputs(a, imu=td.StepImu(rec, prior))
+
+    k10, k32, k33 = (g.key_of(inputs(n)) for n in (10, 32, 33))
+    assert k10 == k32 and g.key_of(inputs(10, torch.zeros(7))) != k10
+    assert (k33 != k32) == (kind == "inertial")
+    lst = inputs(12)
+    a, img_r, imu = g.split(lst)
+    assert img_r is None and len(a) == 21 and all(x is y for x, y in zip(a, args))
+    if kind == "mono":
+        assert imu is None and len(lst) == 21
+    else:
+        assert len(lst) == 23 and imu[0] is lst[21] and imu[1] is prior
+        assert lst[21].shape == (td.REC_HEAD + 8 * 32,) and lst[21].dtype == torch.float32
+
+
+@pytest.mark.parametrize("kind", ["visual", "inertial"])
+def test_graph_is_for_a_visual_step_on_a_card(kind):
+    """The step's CUDA graph is the default on a card only: on the CPU a
+    step has none, and asking for one raises (visual and inertial)."""
+    if kind == "inertial":
+        assert _imu_step().graph is None
+        with pytest.raises(ValueError, match="CUDA graph"):
+            _imu_step(graph=True)
+        with pytest.raises(ValueError, match="imu_noise"):
+            cfg = chip_smoke.vi_config(W, H, NF)
+            td.TrackStep(cfg.camera, cfg.orb, (H, W), 32768, 4096, "cpu", inertial=True)
+        return
     cfg = configs(DEPTH)[0]
     step = td.TrackStep(cfg.camera, cfg.orb, (H, W), 32768, 4096, "cpu")
     assert step.graph is None
@@ -242,13 +307,13 @@ def test_graph_is_for_a_visual_step_on_a_card():
 @pytest.mark.gpu
 def test_graph_matches_the_eager_step_on_the_card(cuda_device, scene):  # noqa: F811
     """Depth 3 on the card with the step's CUDA graph and with the eager
-    step: every step's pose and associations bit-equal, and the same
-    trajectory; the graph replays once per ordinary frame."""
+    step: every step's outputs bit-equal, and the same trajectory; the
+    graph replays once per ordinary frame."""
     frames, _ = scene
     calls, traj, replays = {}, {}, {}
     for graph in (None, False):
         kernels.GRAPH_LAUNCHES.clear()
-        with chip_smoke._StepRecorder() as rec:
+        with chip_smoke._StepOutputs() as rec:
             sys_, _ = run_port(frames, device=cuda_device, graph=graph)
         calls[graph], traj[graph] = rec.calls, sys_.tracker.trajectory
         replays[graph] = kernels.GRAPH_LAUNCHES["track_step"]
@@ -256,10 +321,9 @@ def test_graph_matches_the_eager_step_on_the_card(cuda_device, scene):  # noqa: 
     assert len(calls[None]) == len(calls[False]) >= N_FRAMES - 3
     # every fused frame but a step key's first (eager) call is one replay
     assert len(calls[None]) - 3 <= replays[None] < len(calls[None]) and replays[False] == 0
-    assert any(c[3] for c in calls[None]) and not any(c[3] for c in calls[False])
+    assert any(c["graph"] for c in calls[None]) and not any(c["graph"] for c in calls[False])
     for k, (g, e) in enumerate(zip(calls[None], calls[False])):
-        for a, b in zip(g[:3], e[:3]):
-            assert torch.equal(a, b), k
+        assert not chip_smoke._differing(g, e), k
     assert len(traj_g) == len(traj_e) == N_FRAMES
     for (_, Rg, tg), (_, Re, te) in zip(traj_g, traj_e):
         assert np.array_equal(Rg, Re) and np.array_equal(tg, te)
