@@ -1,8 +1,22 @@
-"""Where the time of K22's pose-inertial solves, K16's keypoint collection,
-K4's pose LM, K20's and K6's cluster solves, K8's map update, K29's query
-and K35's dense solve goes, on the card.
+"""Where the time of K3's Hamming search, K17's quadtree selection, K22's
+pose-inertial solves, K16's keypoint collection, K4's pose LM, K20's and
+K6's cluster solves, K8's map update, K29's query and K35's dense solve
+goes, on the card.
 
-    python3 chip_anatomy.py [k22,k16,k4,k20,k6,k8,k29,k35]
+    python3 chip_anatomy.py [k3,k17,k22,k16,k4,k20,k6,k8,k29,k35]
+
+K3 and K17 against the parent commit's kernels (from ``build/parent/``,
+built with the current ones into ``build/k3_k17/``, the current ones
+stamping ``clock64()`` per phase).  K3 on the five calls of [system]'s
+last ordinary frame, recorded by a spy on ``matcher.hamming_best2`` in an
+eager run (a child process; ``build/k3_sites.pt``), and [parity]'s word
+gate: bit-equal to the parent and to the plain version, the CUDA-event ms
+of a launch in turns, the device ms from a profiler trace and in a
+captured graph of 20 launches, and CTA 0's cycles per phase of the box
+route (bounding box, count and scan, scatter, rows).  K17 on K16's output
+for a rendered, a noise and a black frame at 640x480 / 1000 features and
+512x512 / 1500: bit-equal, the times as K3's, and each level's CTA's
+cycles per phase.
 
 K22, K16, K4 and K20 against the parent commit's kernels: their sources
 from ``build/parent/`` (``git archive <parent> extractorb_tpu_torch/csrc``
@@ -820,6 +834,318 @@ def k16_anatomy(dev, parent, new, new1024) -> None:
                   f"CTA 0 thread 0 cycles {total}: {ph}", flush=True)
 
 
+K3_PHASES = ("bounding box", "count and scan", "scatter + descriptors", "rows")
+K3_STAMP_DEF = r"""
+__device__ long long* g_k3;   // [0, 8) cycles, [8, 16) counts per phase kind, [20] the last clock
+#define K3_STAMP(k) do { if (blockIdx.x == 0 && threadIdx.x == 0) { const long long now_ = \
+  clock64(); g_k3[(k)] += now_ - g_k3[20]; g_k3[8 + (k)] += 1; g_k3[20] = now_; } } while (0)
+#include "hamming_best2.cu"
+extern "C" int k3_set_stamps(long long* p) { return (int)cudaMemcpyToSymbol(g_k3, &p, sizeof(p)); }
+"""
+K17_PHASES = ("path codes + bitmap", "count per depth", "argmax per cell", "histogram + lists",
+              "place", "pack + cluster barriers")
+K17_STAMP_DEF = r"""
+__device__ long long* g_k17;   // CTA b: [32 b, 32 b + 8) cycles, [32 b + 8, 32 b + 16) counts, 32 b + 20 the last clock
+#define K17_STAMP(k) do { if (threadIdx.x == 0) { long long* g_ = g_k17 + 32 * blockIdx.x; \
+  const long long now_ = clock64(); g_[(k)] += now_ - g_[20]; g_[8 + (k)] += 1; g_[20] = now_; \
+  } } while (0)
+#include "octree_select.cu"
+extern "C" int k17_set_stamps(long long* p) { return (int)cudaMemcpyToSymbol(g_k17, &p, sizeof(p)); }
+"""
+K3K17_OUT = Path(__file__).resolve().parent / "build" / "k3_k17"
+
+
+
+def build_k3_k17():
+    """The parent's K3 and K17 (from ``build/parent/``) and this tree's,
+    stamping their phases; all built at once.  Returns (parent K3, K3,
+    parent K17, K17)."""
+    if not (PARENT_CSRC / "hamming_best2.cu").exists():
+        raise RuntimeError(f"chip_anatomy: no parent sources in {PARENT_CSRC}")
+    K3K17_OUT.mkdir(parents=True, exist_ok=True)
+    jobs = [(PARENT_CSRC / "hamming_best2.cu", K3K17_OUT / "k3_parent.so", PARENT_CSRC)]
+    src = K3K17_OUT / "k3_new.cu"
+    src.write_text(K3_STAMP_DEF)
+    jobs.append((src, src.with_suffix(".so"), kernels.CSRC))
+    jobs.append((PARENT_CSRC / "octree_select.cu", K3K17_OUT / "k17_parent.so", PARENT_CSRC))
+    src = K3K17_OUT / "k17_new.cu"
+    src.write_text(K17_STAMP_DEF)
+    jobs.append((src, src.with_suffix(".so"), kernels.CSRC))
+    libs = _nvcc_all(jobs)
+    for lib in libs[:2]:
+        lib.hamming_best2_launch.argtypes = list(kernels._SIGNATURES["hamming_best2_launch"])
+    for lib in libs[2:]:
+        lib.octree_select_launch.argtypes = list(kernels._SIGNATURES["octree_select_launch"])
+    libs[1].k3_set_stamps.argtypes = [ctypes.c_void_p]
+    libs[3].k17_set_stamps.argtypes = [ctypes.c_void_p]
+    return tuple(libs)
+
+
+def graph_ms(launch, n: int = 20, reps: int = 20) -> float:
+    """Device ms a launch of ``launch`` as the step's graph runs it: n
+    launches captured in one CUDA graph, the replay's CUDA-event time over
+    n (median of reps)."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        launch()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            launch()
+    return cs.cuda_ms(g.replay, reps=reps) / n
+
+
+def device_ms(launch) -> tuple:
+    """(device ms, kernels) of one launch from a profiler trace."""
+    k = _device_kernels(launch)
+    return sum(v[0] for v in k.values()), sum(v[1] for v in k.values())
+
+
+def k3_call(lib, q, row_ok, c, col_ok, gate=None, words=None, parent=False):
+    """K3's launch through ``lib`` as ``matcher.hamming_best2`` makes it;
+    the parent's kernel reads the open gate's tensors, this one takes null
+    box arguments.  Returns (a function that launches it, its (4, M) output)."""
+    from extractorb_tpu_torch.frontend import matcher
+    M, N = q.shape[0], c.shape[0]
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    if gate is None and words is None and parent:
+        gate = matcher.open_gate(M, N, q.device)
+    wp = [None, None] if words is None else [i32(words[0]), i32(words[1])]
+    box = [None] * 5 if gate is None or words is not None else \
+        [f32(gate.u), f32(gate.v), f32(gate.r), i32(gate.lo), i32(gate.hi)]
+    cbox = [None] * 3 if gate is None or words is not None else \
+        [f32(gate.x), f32(gate.y), i32(gate.octave)]
+    keep = [*wp, q.contiguous(), *box, row_ok.contiguous(), c.contiguous(), *cbox,
+            col_ok.contiguous()]
+    ptr = [None if a is None else a.data_ptr() for a in keep]
+    out = torch.empty(4, M, dtype=torch.int32, device=q.device)
+
+    def launch():
+        err = lib.hamming_best2_launch(*ptr[:9], M, *ptr[9:], N, *(o.data_ptr() for o in out),
+                                       kernels.stream())
+        if err:
+            raise RuntimeError(f"chip_anatomy: K3 did not launch ({err})")
+    launch.keep = keep
+    return launch, out
+
+
+def _clone(a):
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, tuple):
+        return type(a)(*map(_clone, a)) if hasattr(a, "_fields") else tuple(map(_clone, a))
+    return a
+
+
+K3_CACHE = Path(__file__).resolve().parent / "build" / "k3_sites.pt"
+
+
+def k3_sites(dev):
+    """(site, args, kw) of K3's five calls on the last frame of an eager
+    [system] run (the step's graph off; a spy on ``matcher.hamming_best2``
+    records every call with its caller), and [parity]'s word gate: frame 0
+    against frame 4 with the words of the trained k=8, L=3 tree.  Saved to
+    ``build/k3_sites.pt``, and read from there by later calls: a process
+    whose profiler has traced the System's run traces few kernels after
+    it, so ``chip_anatomy.py k3`` records them in a child process."""
+    if K3_CACHE.exists():
+        return torch.load(K3_CACHE, map_location=dev, weights_only=False)
+    from extractorb_tpu_torch.frontend import matcher
+    frames = cs.pf.render_stereo_sequence(cs.pf.procedural_texture(), cs.SYS_FRAMES,
+                                          cs.SYS_SPEED, cs.WIDTH, cs.HEIGHT,
+                                          cs.STEREO_BASELINE)[0]
+    calls, real = [], matcher.hamming_best2
+
+    def spy(*args, **kw):
+        caller = sys._getframe(1)
+        site = caller.f_code.co_name
+        if site == "search_by_projection_last_frame":
+            site += f" th {caller.f_locals['th']:g}"
+        calls.append((site, _clone(args), _clone(kw)))
+        return real(*args, **kw)
+    sys_ = cs.System(cs.system_config(), device=dev)
+    sys_.tracker.step_graph = False
+    matcher.hamming_best2 = spy
+    try:
+        for k, img in enumerate(frames):
+            sys_.track_monocular(img, k / 30.0)
+    finally:
+        matcher.hamming_best2 = real
+    torch.cuda.synchronize()
+    out = []
+    for site in ("search_by_projection_last_frame th 15", "search_by_projection_last_frame th 30",
+                 "mutual_best_match", "search_by_projection_local_map"):
+        found = [c for c in calls if c[0] == site]
+        for j, (name, args, kw) in enumerate(found[-2:] if site == "mutual_best_match" else
+                                             found[-1:]):
+            out.append((name + (f" ({'r12' if j == 0 else 'r21'})" if site ==
+                                "mutual_best_match" else ""), args, kw))
+    voc = cs.train_vocab(frames, dev)
+    ext = cs.ORBExtractor(cs.ORBConfig(n_features=cs.SYS_FEATURES), frames[0].shape, dev)
+    f1, f2 = ext(torch.from_numpy(frames[0]).to(dev)), ext(torch.from_numpy(frames[4]).to(dev))
+    w1 = torch.where(f1.valid, voc.transform_words_device(f1.desc), -1)
+    w2 = torch.where(f2.valid, voc.transform_words_device(f2.desc), -1)
+    out.append(("[parity] word gate", (f1.desc, f1.valid, f2.desc, f2.valid),
+                dict(words=(w1, w2))))
+    out = (out, len(calls))
+    K3_CACHE.parent.mkdir(exist_ok=True)
+    torch.save(out, K3_CACHE)
+    return out
+
+
+def k3_anatomy(dev, parent, new) -> None:
+    """K3, the parent's and this one's, on each call site of [system]'s
+    ordinary frame and [parity]'s word gate: bit-equal to the parent and to
+    the plain version, the CUDA-event ms of a launch in turns, the device
+    ms from a profiler trace and in a captured graph of 20 launches, and
+    CTA 0's cycles per phase of the box route."""
+    from extractorb_tpu_torch.frontend import matcher
+    stamps = torch.zeros(32, dtype=torch.int64, device=dev)
+    if new.k3_set_stamps(stamps.data_ptr()):
+        raise RuntimeError("chip_anatomy: cudaMemcpyToSymbol failed")
+    if not K3_CACHE.exists():
+        subprocess.run([sys.executable, __file__, "k3-record"], check=True)
+    sites, n_calls = k3_sites(dev)
+    print(f"K3: {n_calls} calls recorded in the eager [system] run; the last frame's sites:",
+          flush=True)
+    for name, args, kw in sites:
+        q, row_ok, c, col_ok = args[:4]
+        gate = args[4] if len(args) > 4 else kw.get("gate")
+        words = kw.get("words")
+        kind = "word" if words is not None else "open" if gate is None else "box"
+        plain = matcher.hamming_best2_plain(q, row_ok, c, col_ok, gate, words)
+        lp, rp = k3_call(parent, q, row_ok, c, col_ok, gate, words, parent=True)
+        ln, rn = k3_call(new, q, row_ok, c, col_ok, gate, words)
+        lp()
+        stamps.zero_()
+        ln()
+        torch.cuda.synchronize()
+        t = stamps.cpu().numpy()
+        same = all(torch.equal(a, b) for a, b in zip(rn, plain)) and torch.equal(rn, rp)
+        ms_p, ms_n = cs.paired_ms(lp, ln, reps=100)
+        dp, kp = device_ms(lp)
+        dn, kn = device_ms(ln)
+        n_in = int((plain.best < matcher.INF).sum())
+        print(f"K3 {name} {q.shape[0]}x{c.shape[0]} ({kind} gate, {n_in} rows with a match): "
+              f"parent bit-equal to plain {all(torch.equal(a, b) for a, b in zip(rp, plain))}; "
+              f"new bit-equal to plain and parent {same}; CUDA events a launch in turns parent "
+              f"{ms_p:.4f} ms, new {ms_n:.4f} ms; device ms (profiler) parent {dp:.4f} "
+              f"({kp} kernels), new {dn:.4f} ({kn}); in a graph of 20 launches parent "
+              f"{graph_ms(lp):.4f}, new {graph_ms(ln):.4f}", flush=True)
+        if kind == "box":
+            total = int(t[:len(K3_PHASES)].sum())
+            print(f"  new CTA 0 thread 0 cycles {total}: " + ", ".join(
+                f"{k} {int(t[i])}" for i, k in enumerate(K3_PHASES)), flush=True)
+
+
+def k17_parent_table(ex):
+    """The parent K17's static inputs: its tables buffer (per level the
+    depth-7 edges, the path-bit tables) and launch table (n_levels, sort_n,
+    n_out, then per level k, k_off, cap, cap_off, budget, min_x, min_y,
+    nxe, nye, five table offsets and the scale's bits)."""
+    parts, rows, pos, k_off, cap_off = [], [], 0, 0, 0
+    for (k, cap, tree), budget, scale in zip(ex.levels, ex.budgets, ex.scales):
+        tabs = [tree.x_inner[-1], tree.y_inner[-1], tree.bx, tree.by, tree.topx]
+        offs = []
+        for t in tabs:
+            offs.append(pos)
+            parts.append(t.cpu().numpy().astype(np.int32))
+            pos += t.numel()
+        rows.append([k, k_off, cap, cap_off, budget, tree.min_x, tree.min_y, tabs[0].numel(),
+                     tabs[1].numel(), *offs, int(np.float32(scale).view(np.int32))])
+        k_off += k
+        cap_off += cap
+    sort_n = 1 << (max(k for k, _, _ in ex.levels) - 1).bit_length()
+    table = np.ascontiguousarray(np.concatenate(
+        [[len(rows), sort_n, ex.select_plan.n_out], np.asarray(rows, np.int64).reshape(-1)]
+    ).astype(np.int32))
+    return torch.as_tensor(np.concatenate(parts), device=ex.device), table
+
+
+def k17_call(lib, cand, ex, parent=None):
+    """K17's launch through ``lib`` on K16's output ``cand``; ``parent`` =
+    k17_parent_table(ex) for the parent's kernel.  Returns (a function that
+    launches it, its Selected outputs)."""
+    from extractorb_tpu_torch.frontend.extractor import Selected
+    plan, dev = ex.select_plan, ex.device
+    L, S, n = plan.n_levels, plan.n_lvl_slots, plan.n_out
+    i32 = lambda *shape: torch.empty(*shape, dtype=torch.int32, device=dev)
+    f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)
+    b8 = lambda *shape: torch.empty(*shape, dtype=torch.bool, device=dev)
+    out = Selected(i32(n, 2), i32(n), b8(n), f32(n, 2), f32(n), f32(n), i32(L),
+                   i32(S, 2), i32(S), b8(S))
+    ws = i32(max(plan.ws_ints, L))
+    xy, resp, valid = cand
+    p = [a.data_ptr() for a in out]
+
+    def launch():
+        if parent is None:
+            err = lib.octree_select_launch(
+                xy.data_ptr(), resp.data_ptr(), valid.data_ptr(), plan.tables.data_ptr(),
+                plan.table.ctypes.data, ws.data_ptr() if plan.ws_ints else None, p[7], p[8],
+                p[9], p[6], *p[:6], kernels.stream())
+        else:
+            err = lib.octree_select_launch(
+                xy.data_ptr(), resp.data_ptr(), valid.data_ptr(), parent[0].data_ptr(),
+                parent[1].ctypes.data, p[7], p[8], p[9], p[6], ws.data_ptr(), *p[:6],
+                kernels.stream())
+        if err:
+            raise RuntimeError(f"chip_anatomy: K17 did not launch ({err})")
+    return launch, out
+
+
+def k17_anatomy(dev, parent, new) -> None:
+    """K17, the parent's and this one's, on K16's output for a rendered, a
+    noise and a black frame at 640x480 / 1000 features and 512x512 / 1500:
+    bit-equal to each other and to the plain version; on the rendered and
+    the noise frame the CUDA-event ms in turns, the device ms from a
+    profiler trace, each level's depth and each CTA's cycles per phase."""
+    from extractorb_tpu_torch.frontend import fast
+    from extractorb_tpu_torch.frontend.extractor import ORBExtractor, select_keypoints_plain
+    from extractorb_tpu_torch.frontend.pyramid import compute_pyramid
+    stamps = torch.zeros(32 * 16, dtype=torch.int64, device=dev)
+    if new.k17_set_stamps(stamps.data_ptr()):
+        raise RuntimeError("chip_anatomy: cudaMemcpyToSymbol failed")
+    rng = np.random.default_rng(5)
+    for (W, H), cfg in (((cs.WIDTH, cs.HEIGHT), cs.system_config()),
+                        ((cs.KB8_SIZE, cs.KB8_SIZE), cs.kb8_config())):
+        ex = ORBExtractor(cfg.orb, (H, W), dev)
+        ptab = k17_parent_table(ex)
+        frame = cs.pf.render_sequence(cs.pf.procedural_texture(), 1, width=W, height=H)[0][0]
+        images = {"rendered": frame, "noise": rng.integers(0, 256, (H, W)).astype(np.uint8),
+                  "black": np.zeros((H, W), np.uint8)}
+        for name, im in images.items():
+            pyr = compute_pyramid(torch.from_numpy(im).to(dev), ex.pyr_plan)
+            cand = fast.collect_levels(*fast.fast_detect(pyr, ex.fast_plan), ex.collect_plan)
+            plain = select_keypoints_plain(*cand, ex)
+            (lp, rp), (ln, rn) = k17_call(parent, cand, ex, ptab), k17_call(new, cand, ex)
+            lp()
+            stamps.zero_()
+            ln()
+            torch.cuda.synchronize()
+            t = stamps.cpu().numpy().reshape(16, 32)
+            eq = lambda r, w: all(torch.equal(a, b) for a, b in zip(r, w))
+            print(f"K17 {W}x{H} {name} ({int(plain.valid.sum())} of {plain.valid.numel()} slots, "
+                  f"depths {plain.depth.tolist()}): parent bit-equal to plain {eq(rp, plain)}, "
+                  f"new {eq(rn, plain)}, new to parent {eq(rn, rp)}", flush=True)
+            if name == "black":
+                continue
+            ms_p, ms_n = cs.paired_ms(lp, ln, reps=100)
+            (dp, kp), (dn, kn) = device_ms(lp), device_ms(ln)
+            print(f"K17 {W}x{H} {name}: CUDA events a launch in turns parent {ms_p:.4f} ms, new "
+                  f"{ms_n:.4f} ms; device ms (profiler) parent {dp:.4f} ({kp} kernels), new "
+                  f"{dn:.4f} ({kn}); in a graph of 20 launches parent {graph_ms(lp):.4f}, new "
+                  f"{graph_ms(ln):.4f}", flush=True)
+            for lvl in range(ex.select_plan.n_levels):
+                row = t[lvl]
+                print(f"  new CTA {lvl} (K {ex.levels[lvl][0]}) cycles "
+                      f"{int(row[:len(K17_PHASES)].sum())}: " + ", ".join(
+                          f"{k} {int(row[i])}" for i, k in enumerate(K17_PHASES)), flush=True)
+
+
 def k8_anatomy(dev) -> None:
     """K8's map update of 256 rows (200 in range) into a 32768-row mirror."""
     rng = np.random.default_rng(2)
@@ -939,7 +1265,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kernels.lib()
     parts = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else {
-        "k22", "k16", "k20", "k4", "k6", "k8", "k29", "k35"}
+        "k3", "k17", "k22", "k16", "k20", "k4", "k6", "k8", "k29", "k35"}
+    if parts == {"k3-record"}:   # the child process of k3_anatomy
+        k3_sites(dev)
+        return 0
+    if parts & {"k3", "k17"}:
+        k3_parent, k3_new, k17_parent, k17_new = build_k3_k17()
+        if "k3" in parts:
+            k3_anatomy(dev, k3_parent, k3_new)
+        if "k17" in parts:
+            k17_anatomy(dev, k17_parent, k17_new)
     if parts & {"k22", "k16"}:
         k22_parent, k22_new, k16_parent, k16_new, k16_1024 = build_k22_k16()
         if "k16" in parts:

@@ -785,7 +785,9 @@ def phase_kernel_parity(step: TrackStep, frame: np.ndarray, dev) -> dict:
     stats.update(parity_extract_glue(ex, frame, dev))
 
     # K3: the local-map search shape (4096 map points x 1128 keypoints)
-    # with windows and level ranges, and the open-gate mutual-match shape
+    # with windows and level ranges (the box route's grid), the same with
+    # the grid's edge cases, the last-frame search at th 30 (windows up to
+    # 108 px), and the open-gate mutual-match shape (the dense route)
     M, N = LOCAL_CAP, step.capacity
     t = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)
     q = t(rng.integers(0, 256, (M, 32)), torch.uint8)
@@ -800,25 +802,50 @@ def phase_kernel_parity(step: TrackStep, frame: np.ndarray, dev) -> dict:
                         t(rng.integers(0, 8, N), torch.int32))
     row_ok = t(rng.random(M) < 0.9, torch.bool)
     col_ok = t(rng.random(N) < 0.95, torch.bool)
-    cases = [(q, row_ok, c, col_ok, gate), (c, col_ok, c.flip(0).contiguous(), col_ok, None)]
+    edge = gate._replace(u=gate.u.clone(), r=gate.r.clone(), lo=gate.lo.clone(),
+                         hi=gate.hi.clone(), x=gate.x.clone(), y=gate.y.clone())
+    nan, inf = float("nan"), float("inf")
+    edge.x[:4] = t([nan, inf, -inf, 1e4], torch.float32)   # columns that never pass / far out
+    edge.y[4:6] = t([nan, -inf], torch.float32)
+    edge.r[:8] = t([0.0, inf, inf, nan, -1.0, inf, 0.0, inf], torch.float32)
+    edge.u[8:10] = nan
+    edge.lo[:8], edge.hi[:8] = -1, 9
+    # windows whose right edge lies on a column, or an ulp inside or outside
+    j = torch.arange(16, 16 + 64, device=dev)
+    ex = edge.u[16:80] + edge.r[16:80]
+    edge.x[j] = torch.where(j % 3 == 0, ex, torch.nextafter(ex, torch.where(
+        j % 3 == 1, torch.full_like(ex, -inf), torch.full_like(ex, inf))))
+    edge.y[j] = gate.v[16:80]
+    th30 = matcher.Gate(gate.u[:N], gate.v[:N], 30.0 * t(np.float32(1.2) ** rng.integers(
+        0, 4, N).astype(np.float32), torch.float32), lo[:N] - 1, lo[:N] + 1, gate.x, gate.y,
+        gate.octave)
+    cases = [("local-map", (q, row_ok, c, col_ok, gate)),
+             ("local-map edge cases", (q, row_ok, c, col_ok, edge)),
+             ("last-frame th 30", (q[:N], row_ok[:N], c, col_ok, th30)),
+             ("open gate", (c, col_ok, c.flip(0).contiguous(), col_ok, None))]
     err = 0.0
-    for qd, rk, cd, ck, g in cases:
+    for case, (qd, rk, cd, ck, g) in cases:
         rk_ = matcher.hamming_best2(qd, rk, cd, ck, g)
-        g_ = g if g is not None else matcher.open_gate(qd.shape[0], cd.shape[0], dev)
-        rp_ = matcher.hamming_best2_plain(qd, rk, cd, ck, g_)
+        rp_ = matcher.hamming_best2_plain(qd, rk, cd, ck, g)
         for name, a, b in zip(rk_._fields, rk_, rp_):
             err = max(err, float((a - b).abs().max()))
             if not torch.equal(a, b):
-                raise AssertionError(f"hamming_best2: {name} differs from the plain version")
-    # work: ~10 ops of gate test per pair, XOR + popcount + top-2 insert
-    # (~20 ops) per pair inside the gate
+                raise AssertionError(f"hamming_best2 ({case}): {name} differs from the plain "
+                                     "version")
+    # work the box route needs: the grid over the columns once (bounding
+    # box, cell, count and place, ~30 ops a column), a row's window's cells
+    # (~20 ops a row), and XOR + popcount + top-2 insert (~20 ops) per pair
+    # inside the gate; the gate tests of the pairs it does not admit depend
+    # on the grid and are not counted
     n_gate = int(matcher._gate_mask(gate, row_ok, col_ok).sum())
     stats["hamming_best2"] = record(
         err, cuda_ms(lambda: matcher.hamming_best2(q, row_ok, c, col_ok, gate)),
         cuda_ms(lambda: matcher.hamming_best2_plain(q, row_ok, c, col_ok, gate)),
-        M * (32 + 21) + N * (32 + 13) + 4 * M * 4, 10 * M * N + 20 * n_gate)
-    print(f"[parity] hamming_best2 ({M}x{N} gated, {N}x{N} open): all outputs bit-equal",
-          flush=True)
+        M * (32 + 21) + N * (32 + 13) + 4 * M * 4, 30 * N + 20 * M + 20 * n_gate)
+    dense_ms = cuda_ms(lambda: matcher.hamming_best2(*cases[-1][1]))
+    print(f"[parity] hamming_best2 ({', '.join(k for k, _ in cases)}): all outputs bit-equal; "
+          f"{stats['hamming_best2']['ms']:.4f} ms at {M}x{N} (box route), {dense_ms:.4f} ms at "
+          f"{N}x{N} (dense route)", flush=True)
 
     # K4: two mono problems of 1128 observations, 20% gross outliers
     B = 2
@@ -2046,12 +2073,13 @@ def phase_parity_loop(frames, voc, dev) -> dict:
             raise AssertionError(f"hamming_best2_words: {name} differs from the plain version")
     n_same = int(matcher._word_mask(w1, w2, f1.valid, f2.valid).sum())
     M2, N2 = f1.desc.shape[0], f2.desc.shape[0]
-    # work: a word compare per pair (2 ops), XOR + popcount + top-2 (~20)
-    # per same-word pair; in: descriptors, words, flags; out: 4 rows
+    # work the function needs: the keypoints joined by word (~10 ops each),
+    # XOR + popcount + top-2 (~20) per same-word pair; in: descriptors,
+    # words, flags; out: 4 rows
     stats["hamming_best2_words"] = record(
         0.0, cuda_ms(lambda: matcher.hamming_best2(*args, words=(w1, w2))),
         cuda_ms(lambda: matcher.hamming_best2_plain(*args, words=(w1, w2))),
-        (M2 + N2) * 37 + 16 * M2, 2 * M2 * N2 + 20 * n_same)
+        (M2 + N2) * 37 + 16 * M2, 10 * (M2 + N2) + 20 * n_same)
     print(f"[parity] hamming_best2 word gate {M2}x{N2} ({n_same} same-word pairs): all outputs "
           f"bit-equal", flush=True)
 

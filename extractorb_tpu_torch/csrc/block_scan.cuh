@@ -1,7 +1,8 @@
 // Block-wide exclusive prefix sum of one int per thread, for the selection
-// kernels (K16, K17).  Every thread of the block must call it; it returns
-// the sum of the values of the threads with a lower index and writes the
-// block's total to *total.  `scratch` holds 33 ints of shared memory.
+// kernels K16 and K17 and K3's grid.  Every thread of the block must call
+// it; it returns the sum of the values of the threads with a lower index
+// and writes the block's total to *total.  `scratch` holds 33 ints of
+// shared memory.
 
 #pragma once
 
@@ -35,29 +36,6 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* scratch, int* to
   *total = scratch[32];
   __syncthreads();  // scratch may be reused by the next call
   return out;
-}
-
-// Bitonic sort of n (a power of two) keys in shared memory; descending when
-// `descending`.  Every thread of the block must call it.
-template <typename T>
-__device__ void block_bitonic_sort(T* keys, int n, bool descending) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        // the segment's direction: the final pass (size == n) sorts the
-        // whole array in the requested order
-        const bool dir = ((lo & size) == 0) == descending;
-        const T a = keys[lo], b = keys[hi];
-        if ((a < b) == dir) {
-          keys[lo] = b;
-          keys[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
 }
 
 }  // namespace

@@ -26,7 +26,7 @@ from .. import kernels
 from ..config import ORBConfig
 from . import fast as ffast
 from .brief import DescribePlan, orb_describe
-from .octree import OctreePlan, distribute_device
+from .octree import D_MAX, OctreePlan, distribute_device, path_code_tables
 from .pyramid import Pyramid, PyramidPlan, compute_pyramid
 
 
@@ -111,33 +111,44 @@ class Selected(NamedTuple):
     lvl_valid: torch.Tensor  # (sum cap_l,) bool
 
 
+# cell-table ints K17 keeps in shared memory (octree_select.cu kTabCap): a
+# level whose n_ini * 4^7 depth-7 cells pass it has its table in the workspace
+SELECT_TAB_CAP = 16384
+
+
 class SelectPlan:
     """Static inputs of K17 for one extractor: per level the candidate
     count and offset (K16's layout), cap_l and its offset, the budget, the
-    quadtree's origin, its depth-7 edges and path-bit tables (one int32
-    buffer on the device) and the level's scale factor."""
+    quadtree's origin and box, its per-axis path-code tables
+    (``octree.path_code_tables``, one int32 buffer on the device), its
+    top-level cell count n_ini, the offset of its cell table in the
+    workspace (-1 where it fits in shared memory) and the level's scale
+    factor."""
 
     def __init__(self, levels, budgets, scales, capacity: int, min_b: int, device):
-        parts, rows, pos, k_off, cap_off = [], [], 0, 0, 0
+        parts, rows, pos, k_off, cap_off, ws = [], [], 0, 0, 0, 0
         for (k, cap, octree), budget, scale in zip(levels, budgets, scales):
-            tabs = [octree.x_inner[-1], octree.y_inner[-1], octree.bx, octree.by, octree.topx]
-            offs = []
-            for t in tabs:
-                offs.append(pos)
-                parts.append(t.cpu().numpy().astype(np.int32))
-                pos += t.numel()
-            rows.append([k, k_off, cap, cap_off, budget, min_b, min_b, tabs[0].numel(),
-                         tabs[1].numel(), *offs,
+            px, py = path_code_tables(octree)
+            parts += [px.numpy(), py.numpy()]
+            n_ini = octree.n_cx[0]
+            ws_off = -1
+            if n_ini * 4 ** D_MAX > SELECT_TAB_CAP:
+                ws_off, ws = ws, ws + n_ini * 4 ** D_MAX
+            rows.append([k, k_off, cap, cap_off, budget, min_b, min_b, octree.width,
+                         octree.height, pos, pos + px.numel(), n_ini, ws_off,
                          int(np.float32(scale).view(np.int32))])
+            pos += px.numel() + py.numel()
             k_off += k
             cap_off += cap
         self.n_cand, self.n_lvl_slots = k_off, cap_off
         self.n_out = min(capacity, cap_off)
         self.n_levels = len(rows)
-        sort_n = 1 << (max(k for k, _, _ in levels) - 1).bit_length()
+        self.ws_ints = ws
+        words = 512 * max(r[11] for r in rows)
+        list_n = max(k for k, _, _ in levels)
         self.tables = torch.as_tensor(np.concatenate(parts), device=device)
         self.table = np.ascontiguousarray(np.concatenate(
-            [[len(rows), sort_n, self.n_out], np.asarray(rows, np.int64).reshape(-1)]
+            [[len(rows), self.n_out, words, list_n], np.asarray(rows, np.int64).reshape(-1)]
         ).astype(np.int32))
 
 
@@ -172,8 +183,9 @@ def select_keypoints(xy, resp, valid, ex: "ORBExtractor") -> Selected:
 
     Replaces ``extractorb_tpu/frontend/octree.py:distribute_device``,
     ``extractor.py:_compact`` and ``_truncate`` (with the level-0 scaling
-    of ``_merge``).  On CUDA tensors this launches K17 (one call: a CTA per
-    level, then the pack); on the CPU it runs ``select_keypoints_plain``."""
+    of ``_merge``).  On CUDA tensors this launches K17 (one launch: a
+    cluster with a CTA per level, the pack after its barrier); on the CPU
+    it runs ``select_keypoints_plain``."""
     if not xy.is_cuda:
         return select_keypoints_plain(xy, resp, valid, ex)
     plan = ex.select_plan
@@ -189,13 +201,13 @@ def select_keypoints(xy, resp, valid, ex: "ORBExtractor") -> Selected:
     b8 = lambda *shape: torch.empty(*shape, dtype=torch.bool, device=dev)
     out = Selected(i32(n, 2), i32(n), b8(n), f32(n, 2), f32(n), f32(n), i32(L),
                    i32(S, 2), i32(S), b8(S))
-    ws = i32(L)
+    ws = i32(plan.ws_ints) if plan.ws_ints else None
     err = kernels.lib().octree_select_launch(
         xy.data_ptr(), resp.data_ptr(), valid.data_ptr(), plan.tables.data_ptr(),
-        plan.table.ctypes.data, out.lvl_xy.data_ptr(), out.lvl_resp.data_ptr(),
-        out.lvl_valid.data_ptr(), out.depth.data_ptr(), ws.data_ptr(), out.xy.data_ptr(),
-        out.octave.data_ptr(), out.valid.data_ptr(), out.xy_f.data_ptr(),
-        out.response.data_ptr(), out.size.data_ptr(), kernels.stream())
+        plan.table.ctypes.data, None if ws is None else ws.data_ptr(),
+        out.lvl_xy.data_ptr(), out.lvl_resp.data_ptr(), out.lvl_valid.data_ptr(),
+        out.depth.data_ptr(), out.xy.data_ptr(), out.octave.data_ptr(), out.valid.data_ptr(),
+        out.xy_f.data_ptr(), out.response.data_ptr(), out.size.data_ptr(), kernels.stream())
     kernels.check(err, "octree_select")
     kernels.LAUNCHES["octree_select"] += 1
     return out

@@ -100,8 +100,10 @@ def _word_mask(q_word, c_word, row_ok, col_ok):
 def hamming_best2_plain(q_desc, row_ok, c_desc, col_ok, gate: Optional[Gate] = None,
                         words=None) -> Best2:
     """Plain version of ``hamming_best2``; ``words`` = (q_word, c_word)
-    takes the word gate in place of ``gate``."""
+    takes the word gate in place of ``gate``, and neither the open gate."""
     M, N = q_desc.shape[0], c_desc.shape[0]
+    if gate is None and words is None:
+        gate = open_gate(M, N, q_desc.device)
     mask = (_word_mask(words[0], words[1], row_ok, col_ok) if words is not None
             else _gate_mask(gate, row_ok, col_ok))
     d = torch.where(mask, hamming_matrix(q_desc, c_desc), INF)
@@ -117,6 +119,64 @@ def hamming_best2_plain(q_desc, row_ok, c_desc, col_ok, gate: Optional[Gate] = N
     return Best2(i32(best), i32(second), i32(best_idx), i32(second_idx))
 
 
+# the box route's bucket grid (hamming_best2.cu kColsPerCell, kMaxCells)
+BOX_COLS_PER_CELL = 2
+BOX_MAX_CELLS = 2048
+
+
+class BucketGrid(NamedTuple):
+    """K3's box-route grid over the columns: origin, cells per pixel and
+    cell counts of each axis; ``cells`` (N,) the row-major cell of each
+    column in the grid, -1 for a column left out."""
+    x0: torch.Tensor
+    y0: torch.Tensor
+    sx: torch.Tensor
+    sy: torch.Tensor
+    gx: int
+    gy: int
+    cells: torch.Tensor
+
+
+def grid_cell(c: torch.Tensor, c0: torch.Tensor, s: torch.Tensor, g: int) -> torch.Tensor:
+    """floor((c - c0) * s) clamped to [0, g - 1], NaN to 0, in float32: the
+    kernel's cell of a coordinate, monotone in c."""
+    f = torch.floor((c - c0) * s)
+    return torch.nan_to_num(f, nan=0.0).clamp(0.0, float(g - 1)).to(torch.int32)
+
+
+def bucket_grid(x: torch.Tensor, y: torch.Tensor, col_ok: torch.Tensor) -> BucketGrid:
+    """The plain mirror of the grid each CTA of K3's box route builds: the
+    bounding box of the valid columns with finite x and y, about
+    BOX_COLS_PER_CELL of them a cell (at most BOX_MAX_CELLS cells), the
+    same float32 arithmetic as the kernel."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    inside = col_ok & torch.isfinite(x) & torch.isfinite(y)
+    n_in = int(inside.sum())
+    big = f32(float("inf"))
+    xmin = torch.where(inside, x, big).amin() if x.numel() else big
+    xmax = torch.where(inside, x, -big).amax() if x.numel() else -big
+    ymin = torch.where(inside, y, big).amin() if y.numel() else big
+    ymax = torch.where(inside, y, -big).amax() if y.numel() else -big
+    cells = min(max(n_in // BOX_COLS_PER_CELL, 1), BOX_MAX_CELLS)
+    gw, gh = torch.clamp(xmax - xmin, min=1.0), torch.clamp(ymax - ymin, min=1.0)
+    q = torch.sqrt(f32(cells) * gw / gh)
+    gx = int(torch.clamp(torch.nan_to_num(q, nan=float(cells)), max=float(cells)).clamp(min=1.0))
+    gy = max(cells // gx, 1)
+    sx, sy = f32(gx) / gw, f32(gy) / gh
+    cell = grid_cell(y, ymin, sy, gy) * gx + grid_cell(x, xmin, sx, gx)
+    return BucketGrid(xmin, ymin, sx, sy, gx, gy, torch.where(inside, cell, -1))
+
+
+def row_cells(grid: BucketGrid, u, v, r):
+    """The cells a row of K3's box route walks: (cx0, cx1, cy0, cy1), the
+    cells of u - r, u + r, v - r and v + r widened by one a side."""
+    cx0 = (grid_cell(u - r, grid.x0, grid.sx, grid.gx) - 1).clamp(min=0)
+    cx1 = (grid_cell(u + r, grid.x0, grid.sx, grid.gx) + 1).clamp(max=grid.gx - 1)
+    cy0 = (grid_cell(v - r, grid.y0, grid.sy, grid.gy) - 1).clamp(min=0)
+    cy1 = (grid_cell(v + r, grid.y0, grid.sy, grid.gy) + 1).clamp(max=grid.gy - 1)
+    return cx0, cx1, cy0, cy1
+
+
 # ------------------------------------------------------------- kernel K3
 
 
@@ -128,38 +188,36 @@ def hamming_best2(q_desc: torch.Tensor, row_ok: torch.Tensor, c_desc: torch.Tens
     searches.  q_desc (M,32) u8 with row_ok (M,); c_desc (N,32) u8 with
     col_ok (N,).  ``words`` = (q_word (M,), c_word (N,)) int32 takes the
     word gate of ``search_by_bow`` (equal words, both >= 0) in place of
-    ``gate``.  On CUDA tensors this launches K3 (its launches are counted
-    as "hamming_best2_words" with the word gate); on the CPU it runs the
-    dense plain version."""
+    ``gate``; with neither, every pair is open.  On CUDA tensors this
+    launches K3, the grid route under a box gate and the dense route
+    otherwise (its launches are counted as "hamming_best2_words" with the
+    word gate); on the CPU it runs the dense plain version."""
     M, N = q_desc.shape[0], c_desc.shape[0]
-    if gate is None and words is None:
-        gate = open_gate(M, N, q_desc.device)
     if not q_desc.is_cuda:
         return hamming_best2_plain(q_desc, row_ok, c_desc, col_ok, gate, words)
     f32 = lambda t: t.to(torch.float32).contiguous()
     i32 = lambda t: t.to(torch.int32).contiguous()
     name = "hamming_best2"
+    word_args = [None, None]
     if words is not None:
         name = "hamming_best2_words"
-        wq, wc = i32(words[0]), i32(words[1])
-        kernels.require_cuda(name, q_desc, row_ok, c_desc, col_ok, wq, wc)
-        words_p = [wq.data_ptr(), wc.data_ptr()]
-        # the box and level arguments are not read under the word gate
+        word_args = [i32(words[0]), i32(words[1])]
+    if gate is None or words is not None:
+        # the word gate or the open gate: the box and level arguments are not read
         args = [q_desc.contiguous(), None, None, None, None, None, row_ok.contiguous(),
                 c_desc.contiguous(), None, None, None, col_ok.contiguous()]
     else:
-        words_p = [None, None]
         args = [q_desc.contiguous(), f32(gate.u), f32(gate.v), f32(gate.r), i32(gate.lo),
                 i32(gate.hi), row_ok.contiguous(), c_desc.contiguous(), f32(gate.x),
                 f32(gate.y), i32(gate.octave), col_ok.contiguous()]
-        kernels.require_cuda(name, *args)
+    kernels.require_cuda(name, *(a for a in args + word_args if a is not None))
     if args[0].data_ptr() % 16 or args[7].data_ptr() % 16:
         # the kernel reads descriptors as 16-byte words: fresh allocations are aligned
         args[0], args[7] = args[0].clone(), args[7].clone()
     out = torch.empty(4, M, dtype=torch.int32, device=q_desc.device)
-    p = [None if a is None else a.data_ptr() for a in args]
+    p = [None if a is None else a.data_ptr() for a in word_args + args]
     err = kernels.lib().hamming_best2_launch(
-        *words_p, *p[:7], M, *p[7:], N, out[0].data_ptr(), out[1].data_ptr(),
+        *p[:9], M, *p[9:], N, out[0].data_ptr(), out[1].data_ptr(),
         out[2].data_ptr(), out[3].data_ptr(), kernels.stream(),
     )
     kernels.check(err, name)

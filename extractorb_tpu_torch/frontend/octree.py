@@ -73,6 +73,7 @@ class OctreePlan:
             assert (len(x_edges[d]) - 1) * (len(y_edges[d]) - 1) < (1 << 22), \
                 "cell id must fit the packed int32 key"
         t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+        self.width, self.height = width, height
         self.min_x, self.min_y = min_x, min_y
         self.x_inner = [t(e[1:-1]) for e in x_edges]
         self.y_inner = [t(e[1:-1]) for e in y_edges]
@@ -85,6 +86,40 @@ class OctreePlan:
 def _cell_index(coord: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
     # number of inner edges <= coord: the interval index
     return torch.searchsorted(inner, coord, right=True).to(torch.int32)
+
+
+def _interleave(kx: torch.Tensor, ky: torch.Tensor) -> torch.Tensor:
+    # one (by, bx) child-bit pair per depth, depth 1 in the high pair
+    morton = torch.zeros_like(kx)
+    for i in range(D_MAX):
+        morton |= (((kx >> i) & 1) | (((ky >> i) & 1) << 1)) << (2 * i)
+    return morton
+
+
+def path_code(x: torch.Tensor, y: torch.Tensor, plan: OctreePlan) -> torch.Tensor:
+    """The quadtree path code of each point (coords relative to the
+    plan's origin): the top-level x cell, then one (by, bx) child-bit pair
+    per depth, depth 1 in the high pair; every depth-d cell is the code's
+    prefix ``code >> 2 (D_MAX - d)``."""
+    cx_f = _cell_index(x, plan.x_inner[D_MAX]).long()
+    cy_f = _cell_index(y, plan.y_inner[D_MAX]).long()
+    return (plan.topx[cx_f] << (2 * D_MAX)) | _interleave(plan.bx[cx_f], plan.by[cy_f])
+
+
+def path_code_tables(plan: OctreePlan):
+    """Per pixel column x in [0, width) and row y in [0, height) of the
+    plan's box, the parts of ``path_code`` each axis gives: (px (width,),
+    py (height,)) int32 on the host with path_code = px[x] | py[y].
+    Coordinates outside the box take the edge pixel's part (the first or
+    the last interval, as ``_cell_index``)."""
+    cx = _cell_index(torch.arange(plan.width, dtype=torch.int32),
+                     plan.x_inner[D_MAX].cpu()).long()
+    cy = _cell_index(torch.arange(plan.height, dtype=torch.int32),
+                     plan.y_inner[D_MAX].cpu()).long()
+    kx, topx, ky = plan.bx.cpu()[cx], plan.topx.cpu()[cx], plan.by.cpu()[cy]
+    px = (topx << (2 * D_MAX)) | _interleave(kx, torch.zeros_like(kx))
+    py = _interleave(torch.zeros_like(ky), ky)
+    return px.to(torch.int32), py.to(torch.int32)
 
 
 def distribute_device(xy: torch.Tensor, resp: torch.Tensor, valid: torch.Tensor,
@@ -107,15 +142,7 @@ def distribute_device(xy: torch.Tensor, resp: torch.Tensor, valid: torch.Tensor,
         for d in range(D_MAX + 1)
     ])  # (D+1, K) cell id per depth, in input order
 
-    # quadtree path code: top-level x cell, then one (by, bx) child-bit
-    # pair per depth; every depth-d cell is a prefix of the code
-    cx_f = _cell_index(x, plan.x_inner[D_MAX]).long()
-    cy_f = _cell_index(y, plan.y_inner[D_MAX]).long()
-    kx, ky, topx = plan.bx[cx_f], plan.by[cy_f], plan.topx[cx_f]
-    morton = torch.zeros_like(kx)
-    for i in range(D_MAX):
-        morton |= (((kx >> i) & 1) | (((ky >> i) & 1) << 1)) << (2 * i)
-    path = torch.where(valid, (topx << (2 * D_MAX)) | morton, SENT)
+    path = torch.where(valid, path_code(x, y, plan), SENT)
 
     p1 = torch.sort(path).values
     counts = []

@@ -56,7 +56,8 @@ _SIGNATURES = {
     "fast_detect_launch": (_P, _P, _P, _P, _I, _I, _P),
     # pyr, xy, level, valid, K, pattern, umax, tab(host ptr), angle, desc, stream
     "orb_describe_launch": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
-    # q_word, c_word (null: box gate), q_desc, q_u, q_v, q_r, q_lo, q_hi, q_ok, M,
+    # q_word, c_word (null: no word gate), q_desc, q_u, q_v, q_r, q_lo, q_hi (q_u
+    # null: the open gate), q_ok, M,
     # c_desc, c_x, c_y, c_oct, c_ok, N, best, second, best_idx, second_idx, stream
     "hamming_best2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P),
@@ -154,8 +155,9 @@ _SIGNATURES = {
     # n_levels, list_n, out (host int32 x3: the cluster size, its clusters the card
     # holds at once, those of 16)
     "kp_collect_cluster": (_I, _I, _P),
-    # cand xy, resp, valid, tables, tab(host ptr), level xy, resp, valid, depth, ws,
-    # xy, octave, valid, xy_f, response, size, stream
+    # cand xy, resp, valid, tables, tab(host ptr), ws (null: every cell table in
+    # shared memory), level xy, resp, valid, depth, xy, octave, valid, xy_f,
+    # response, size, stream
     "octree_select_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P),
     # best, best_idx, accept, M, N, by_distance, angle1, angle2 (null: no

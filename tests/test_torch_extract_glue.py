@@ -286,6 +286,109 @@ def test_collect_plan_bands_cover_each_plane(shape, n_features, G):
         assert np.diff(b).max() <= -(-H * W // G) + fast.COLLECT_SEGMENT
 
 
+@pytest.mark.parametrize("shape,n_features", [((480, 640), 1000), ((512, 512), 1500),
+                                              ((240, 960), 1000)])
+def test_select_plan_tables(shape, n_features):
+    """K17's host plan: per level the launch table's row, and the per-axis
+    path-code tables, whose px[x] | py[y] is the quadtree path code of
+    every pixel of the level's box (coordinates outside it clamped, as the
+    kernel clamps them); the cell tables of the levels with more depth-7
+    cells than the shared table holds get disjoint workspace ranges."""
+    ex = ORBExtractor(ORBConfig(n_features=n_features), shape, "cpu")
+    plan = ex.select_plan
+    L = len(ex.levels)
+    table = plan.table
+    assert list(table[:2]) == [L, plan.n_out]
+    rows = table[4:].reshape(L, 14)
+    assert table[2] == 512 * max(r[11] for r in rows) and table[3] >= max(k for k, _, _ in
+                                                                           ex.levels)
+    ws_end = 0
+    for lvl, ((k, cap, tree), row) in enumerate(zip(ex.levels, rows)):
+        assert list(row[:9]) == [k, sum(x[0] for x in ex.levels[:lvl]), cap,
+                                 sum(x[1] for x in ex.levels[:lvl]), ex.budgets[lvl],
+                                 fast.MIN_BORDER, fast.MIN_BORDER, tree.width, tree.height]
+        assert row[11] == tree.n_cx[0]
+        assert np.float32(ex.scales[lvl]).view(np.int32) == row[13]
+        big = tree.n_cx[0] * 4 ** octree.D_MAX > fext.SELECT_TAB_CAP
+        assert (row[12] >= 0) == big
+        if big:
+            assert row[12] == ws_end
+            ws_end += tree.n_cx[0] * 4 ** octree.D_MAX
+        px = plan.tables[row[9]:row[9] + tree.width]
+        py = plan.tables[row[10]:row[10] + tree.height]
+        xs = torch.arange(-3, tree.width + 3, dtype=torch.int32)
+        ys = torch.arange(-3, tree.height + 3, dtype=torch.int32)
+        gx, gy = torch.meshgrid(xs, ys, indexing="ij")
+        want = octree.path_code(gx.reshape(-1), gy.reshape(-1), tree)
+        got = px[gx.reshape(-1).clamp(0, tree.width - 1).long()] | \
+            py[gy.reshape(-1).clamp(0, tree.height - 1).long()]
+        assert torch.equal(got, want)
+        assert int(want.max()) < tree.n_cx[0] * 4 ** octree.D_MAX
+    assert plan.ws_ints == ws_end
+    assert (ws_end > 0) == (shape == (240, 960))
+
+
+def _select_case(case: str, dev):
+    """(extractor, candidates) for K17 at its edges: budgets of 1 (depth 0
+    on every level) or 10^6 (depth 7), forty candidates of every level on
+    a 3-pixel square with one response, no valid candidate, a noise
+    frame's candidates (every level's far above its capacity) at 640x480
+    and at 512x512 / 1500, and a 240x960 frame at depth 7, whose level 0
+    keeps its cell table in the workspace."""
+    rng = np.random.default_rng(12)
+    shape, n_features = {"noise_512": ((512, 512), 1500), "wide_depth_7": ((240, 960), 1000)
+                         }.get(case, ((480, 640), 1000))
+    ex = ORBExtractor(ORBConfig(n_features=n_features), shape, dev)
+    budgets = {"depth_0": 1, "depth_7": 10 ** 6, "wide_depth_7": 10 ** 6}.get(case)
+    if budgets is not None:
+        ex.budgets = [budgets] * len(ex.levels)
+        ex.select_plan = fext.SelectPlan(ex.levels, ex.budgets, ex.scales, ex.capacity,
+                                         fast.MIN_BORDER, dev)
+    if case.startswith("noise"):
+        img = T(rng.integers(0, 256, shape).astype(np.uint8)).to(dev)
+        pk = pyramid.compute_pyramid(img, ex.pyr_plan)
+        return ex, fast.collect_levels(*fast.fast_detect(pk, ex.fast_plan), ex.collect_plan)
+    xys, resps, valids = [], [], []
+    for k, _, tree in ex.levels:
+        x = rng.integers(MIN_B, MIN_B + tree.width, k)
+        y = rng.integers(MIN_B, MIN_B + tree.height, k)
+        resp = rng.integers(7, 255, k)
+        valid = rng.random(k) < 0.9
+        if case == "equal_resp_one_cell":
+            x[:40], y[:40] = MIN_B + 30 + rng.integers(0, 3, 40), MIN_B + 20 + rng.integers(0, 3, 40)
+            resp[:40], valid[:40] = 50, True
+        elif case == "no_valid":
+            valid[:] = False
+        xys.append(np.stack([x, y], -1))
+        resps.append(resp)
+        valids.append(valid)
+    cat = lambda a, dt: T(np.concatenate(a).astype(dt)).to(dev)
+    return ex, (cat(xys, np.int32), cat(resps, np.int32), cat(valids, bool))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["depth_0", "depth_7", "equal_resp_one_cell", "no_valid",
+                                  "noise_640", "noise_512", "wide_depth_7"])
+def test_select_kernel_cases(case, cuda_device):
+    """K17 bit-equal to its plain version (held to JAX by the CPU cases
+    above) at its edges, in one launch."""
+    from extractorb_tpu_torch import kernels
+    ex, cand = _select_case(case, cuda_device)
+    before = kernels.LAUNCHES["octree_select"]
+    got = fext.select_keypoints(*cand, ex)
+    assert kernels.LAUNCHES["octree_select"] == before + 1
+    want = fext.select_keypoints_plain(*cand, ex)
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), name
+    depth = want.depth.cpu().numpy()
+    if case in ("depth_0", "depth_7", "wide_depth_7"):
+        assert (depth == {"depth_0": 0}.get(case, 7)).all()
+    if case == "no_valid":
+        assert not bool(want.valid.any())
+    if case.startswith("noise"):
+        assert int(want.valid.sum()) > 0.9 * ex.cfg.n_features
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,n_features", [((240, 320), 1000), ((480, 640), 1000),
                                               ((512, 512), 1500)])

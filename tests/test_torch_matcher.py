@@ -288,15 +288,30 @@ def test_best2_edge_cases(device):
     row_ok[2] = False     # a row without candidates
     col_ok = rng.random(N) < 0.9
     col_ok[[3, 5, 10, 20, 40]] = True
-    gate = fm.Gate(*(torch.from_numpy(a) for a in (
-        rng.uniform(0, 100, M).astype(np.float32), rng.uniform(0, 100, M).astype(np.float32),
-        rng.uniform(5, 60, M).astype(np.float32), np.full(M, 1, np.int32),
-        np.full(M, 3, np.int32), rng.uniform(0, 100, N).astype(np.float32),
-        rng.uniform(0, 100, N).astype(np.float32), rng.integers(0, 5, N).astype(np.int32))))
-    gate = gate._replace(r=torch.where(torch.arange(M) < 2, float("inf"), gate.r),
-                         lo=torch.where(torch.arange(M) < 2, -1, gate.lo),
-                         hi=torch.where(torch.arange(M) < 2, 9, gate.hi))
-    gate = gate._replace(r=torch.where(torch.arange(M) == 7, 0.0, gate.r))  # empty window
+    u, v = rng.uniform(0, 100, M).astype(np.float32), rng.uniform(0, 100, M).astype(np.float32)
+    r = rng.uniform(5, 60, M).astype(np.float32)
+    lo, hi = np.full(M, 1, np.int32), np.full(M, 3, np.int32)
+    x, y = rng.uniform(0, 100, N).astype(np.float32), rng.uniform(0, 100, N).astype(np.float32)
+    octv = rng.integers(0, 5, N).astype(np.int32)
+    r[:2], lo[:2], hi[:2] = np.inf, -1, 9      # rows 0, 1: every finite column
+    r[7] = 0.0                                 # an empty window
+    # K3's grid edges: columns that never pass (a NaN or infinite x or y),
+    # one far outside every finite window; row 8 at (50, 50) with r = 10
+    # against a column on each edge of its window and one an ulp inside
+    # each; a row with a NaN centre, one with a NaN and one with a
+    # negative half-width
+    x[[50, 51]], y[[52, 53]] = np.nan, [np.inf, -np.inf]
+    x[54], y[54] = 1e4, -1e4
+    u[8], v[8], r[8] = 50.0, 50.0, 10.0
+    edge = np.float32(60.0)
+    x[55:59] = [edge, np.nextafter(edge, np.float32(0)), np.float32(40.0),
+                np.nextafter(np.float32(40.0), np.float32(100))]
+    y[55:59] = 50.0
+    x[59], y[59] = 50.0, np.nextafter(edge, np.float32(0))
+    octv[54:60] = 2
+    col_ok[50:60] = True
+    u[9], r[10], r[11] = np.nan, np.nan, -5.0
+    gate = fm.Gate(*(torch.from_numpy(a) for a in (u, v, r, lo, hi, x, y, octv)))
     D = lambda a: T(a).to(device)
     got = fm.hamming_best2(D(q), D(row_ok), D(c), D(col_ok),
                            fm.Gate(*(g.to(device) for g in gate)))
@@ -308,8 +323,127 @@ def test_best2_edge_cases(device):
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
     assert got.best[0] == 0 and got.best_idx[0] == 3 and got.second_idx[0] == 10
     assert got.best_idx[1] == 5 and got.second_idx[1] == 40
-    for row in (2, 7):
+    for row in (2, 7, 9, 10, 11):
         assert got.best[row] == fm.INF and got.best_idx[row] == 0 and got.second_idx[row] == 0
+    assert not mask[:, 50:54].any() and mask[:2, 54].all()
+    assert list(np.flatnonzero(mask[8, 55:60]) + 55) == [56, 58, 59]
+
+
+def _grid_case(case: str, rng):
+    """(q, row_ok, c, col_ok, gate) of K3's box route at its grid's edges:
+    every column on one point, one column, all descriptors equal (each
+    row's best and second are its two lowest admitted columns), columns
+    spread so wide that the grid's width overflows float32."""
+    M, N = 48, {"one_column": 1}.get(case, 200)
+    q = rng.integers(0, 256, (M, 32)).astype(np.uint8)
+    c = rng.integers(0, 256, (N, 32)).astype(np.uint8)
+    x, y = rng.uniform(0, 640, N).astype(np.float32), rng.uniform(0, 480, N).astype(np.float32)
+    u, v = rng.uniform(0, 640, M).astype(np.float32), rng.uniform(0, 480, M).astype(np.float32)
+    r = rng.uniform(5, 120, M).astype(np.float32)
+    if case == "one_cell":
+        x[:], y[:] = 300.0, 200.0
+        u[: M // 2], v[: M // 2] = 300.0 + rng.uniform(-20, 20, M // 2), 200.0
+    elif case == "one_column":
+        u[: M // 2], v[: M // 2] = x[0], y[0]
+    elif case == "ties":
+        c[:] = c[0]
+        q[::2] = c[0]
+    elif case == "overflow":
+        x[::3], y[1::3] = -3e38, 3e38
+        r[::4] = np.inf
+    octv = rng.integers(0, 8, N).astype(np.int32)
+    lo = rng.integers(-1, 7, M).astype(np.int32)
+    gate = fm.Gate(*(T(a) for a in (u, v, r, lo, lo + 2, x, y, octv)))
+    return T(q), T(rng.random(M) < 0.9), T(c), T(rng.random(N) < 0.9), gate
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+@pytest.mark.parametrize("case", ["one_cell", "one_column", "ties", "overflow"])
+def test_best2_grid_cases(case, device):
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, row_ok, c, col_ok, gate = _grid_case(case, np.random.default_rng(4))
+    D = lambda a: a.to(device)
+    got = fm.hamming_best2(D(q), D(row_ok), D(c), D(col_ok), fm.Gate(*(D(g) for g in gate)))
+    dist = np.unpackbits(q.numpy()[:, None, :] ^ c.numpy()[None, :, :], axis=-1).sum(-1)
+    mask = fm._gate_mask(gate, row_ok, col_ok).numpy()
+    want = _best2_reference(dist, mask)
+    for name, g, w in zip(got._fields, got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w, err_msg=name)
+    assert mask.any()
+
+
+def _adversarial_gate(rng, spread: str, M: int = 300, N: int = 400):
+    """Box-gate inputs at the float32 edges of K3's grid: windows whose
+    edges lie on a column or an ulp either side of one, NaN and infinite
+    centres, half-widths and coordinates, columns outside every window,
+    r = 0 and r = inf; with ``spread`` "far" some columns a million pixels
+    out, with "overflow" some at +-3e38 (the grid's width overflows)."""
+    f = np.float32
+    x, y = rng.uniform(0, 640, N).astype(f), rng.uniform(0, 480, N).astype(f)
+    if spread == "far":
+        x[:20], y[20:40] = rng.uniform(-1e6, 1e6, 20), rng.uniform(-1e6, 1e6, 20)
+    elif spread == "overflow":
+        x[:20], y[20:40] = rng.choice([-3e38, 3e38], 20), rng.choice([-3e38, 3e38], 20)
+    x[40:43], y[43:46] = [np.nan, np.inf, -np.inf], [np.nan, np.inf, -np.inf]
+    u, v = rng.uniform(0, 640, M).astype(f), rng.uniform(0, 480, M).astype(f)
+    r = rng.uniform(0.5, 60, M).astype(f)
+    # rows whose window edge is a column's coordinate, or an ulp either side
+    j = rng.integers(50, N, M)
+    side = rng.choice([-1.0, 1.0], M).astype(f)
+    nudge = rng.integers(-1, 2, M)
+    for i in range(0, M, 2):
+        ex = np.float32(u[i] + side[i] * r[i])
+        ex = ex if nudge[i] == 0 else np.nextafter(ex, f(np.inf) if nudge[i] > 0 else f(-np.inf))
+        x[j[i]], y[j[i]] = ex, v[i]
+    u[[1, 3]], v[5], r[[7, 9, 11, 13]] = np.nan, np.inf, [np.nan, 0.0, np.inf, -1.0]
+    octv = rng.integers(0, 8, N).astype(np.int32)
+    gate = fm.Gate(*(T(a) for a in (u, v, r, np.full(M, -1, np.int32), np.full(M, 9, np.int32),
+                                      x, y, octv)))
+    return gate, T(rng.random(M) < 0.95), T(rng.random(N) < 0.95)
+
+
+def test_bucket_grid_constants_match_the_kernel():
+    """The plain grid mirror sizes its cells with the kernel's own
+    constants (kColsPerCell, kMaxCells in hamming_best2.cu)."""
+    import re
+    from extractorb_tpu_torch import kernels
+    src = (kernels.CSRC / "hamming_best2.cu").read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("kColsPerCell") == fm.BOX_COLS_PER_CELL
+    assert const("kMaxCells") == fm.BOX_MAX_CELLS
+
+
+@pytest.mark.parametrize("spread", ["image", "far", "overflow"])
+def test_bucket_grid_visits_every_admitted_pair(spread):
+    """K3's box route visits only the cells a row's window overlaps
+    (widened by one a side): on adversarial inputs every pair the gate
+    admits has its column in a visited cell, also without the widening
+    (the cell function is monotone), and the columns left out of the grid
+    are those that can pass no gate."""
+    gate, row_ok, col_ok = _adversarial_gate(np.random.default_rng(5), spread)
+    grid = fm.bucket_grid(gate.x, gate.y, col_ok)
+    admitted = fm._gate_mask(gate, row_ok, col_ok)
+    rows, cols = torch.nonzero(admitted, as_tuple=True)
+    assert rows.numel() > 100
+    cell = grid.cells[cols]
+    assert (cell >= 0).all()
+    cx, cy = cell % grid.gx, cell // grid.gx
+    cx0, cx1, cy0, cy1 = (a[rows] for a in fm.row_cells(grid, gate.u, gate.v, gate.r))
+    assert ((cx >= cx0) & (cx <= cx1) & (cy >= cy0) & (cy <= cy1)).all()
+    u, v, r = gate.u[rows], gate.v[rows], gate.r[rows]
+    g = fm.grid_cell
+    assert ((cx >= g(u - r, grid.x0, grid.sx, grid.gx)) & (cx <= g(u + r, grid.x0, grid.sx, grid.gx))
+            & (cy >= g(v - r, grid.y0, grid.sy, grid.gy))
+            & (cy <= g(v + r, grid.y0, grid.sy, grid.gy))).all()
+    out = grid.cells < 0
+    assert torch.equal(out, ~(col_ok & torch.isfinite(gate.x) & torch.isfinite(gate.y)))
+    assert 1 <= grid.gx * grid.gy <= fm.BOX_MAX_CELLS
+    assert int(grid.cells.max()) < grid.gx * grid.gy
+    if spread == "image":  # a real grid: the windows walk a small part of it
+        assert grid.gx * grid.gy > 100
+        assert float(((cx1 - cx0 + 1) * (cy1 - cy0 + 1)).float().median()) < 0.2 * (
+            grid.gx * grid.gy)
 
 
 @pytest.mark.parametrize("counts", [
@@ -370,3 +504,52 @@ def test_hamming_best2_word_gate_kernel_matches_plain(cuda_device):
     want = fm.hamming_best2_plain(*args, words=(f(wq), f(wc)))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _site_inputs(site: str, rng, dev):
+    """K3's inputs at the shapes of the tracking step's five calls on a
+    640x480 / 1000-feature frame (1128 keypoints, 4096 local-map points):
+    the last-frame search at th 15 and 30 (windows th x scale of the map
+    point's level, levels lo - 1 .. lo + 1), the open gate of the mutual
+    match, the local-map search (2.5 or 4 x scale, levels pred - 1 ..
+    pred); and the box gate at the grid's shared-memory limit (N = 4266)
+    and above it (every pair tested)."""
+    M, N = {"local_map": (4096, 1128), "box_limit": (96, 4266), "dense_limit": (96, 4267),
+            "dense_box": (96, 13000)}.get(site, (1128, 1128))
+    f = lambda a, dt=None: torch.from_numpy(np.asarray(a, dt)).to(dev)
+    q = rng.integers(0, 256, (M, 32)).astype(np.uint8)
+    c = rng.integers(0, 256, (N, 32)).astype(np.uint8)
+    src = rng.integers(0, N, M)
+    near = rng.random(M) < 0.6
+    q[near] = _flip_bits(rng, c[src[near]], 20)
+    x, y = rng.uniform(0, 640, N).astype(np.float32), rng.uniform(0, 480, N).astype(np.float32)
+    octv = rng.integers(0, 8, N).astype(np.int32)
+    u = np.where(near, x[src] + rng.normal(0, 3, M), rng.uniform(0, 640, M)).astype(np.float32)
+    v = np.where(near, y[src] + rng.normal(0, 3, M), rng.uniform(0, 480, M)).astype(np.float32)
+    lvl = np.clip(np.where(near, octv[src], rng.integers(0, 8, M)), 0, 7).astype(np.int32)
+    scale = np.asarray(SCALES, np.float32)[lvl]
+    if site.startswith("last_frame"):
+        th = float(site.rsplit("_", 1)[1])
+        r, lo, hi = np.float32(th) * scale, lvl - 1, lvl + 1
+    else:
+        r, lo, hi = np.where(rng.random(M) < 0.3, 2.5, 4.0).astype(np.float32) * scale, lvl - 1, lvl
+    gate = None if site == "mutual" else fm.Gate(
+        f(u), f(v), f(r, np.float32), f(lo, np.int32), f(hi, np.int32), f(x), f(y), f(octv))
+    return f(q), f(rng.random(M) < 0.9), f(c), f(rng.random(N) < 0.95), gate
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", ["last_frame_15", "last_frame_30", "mutual", "local_map",
+                                  "box_limit", "dense_limit", "dense_box"])
+def test_hamming_best2_sites_match_plain(site, cuda_device):
+    """K3 bit-equal to the plain version at each call site's shape, and
+    one launch a call."""
+    from extractorb_tpu_torch import kernels
+    args = _site_inputs(site, np.random.default_rng(11), cuda_device)
+    before = kernels.LAUNCHES["hamming_best2"]
+    got = fm.hamming_best2(*args)
+    assert kernels.LAUNCHES["hamming_best2"] == before + 1
+    want = fm.hamming_best2_plain(*args)
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+    assert int((want.best < fm.INF).sum()) > args[0].shape[0] // 4
